@@ -5,7 +5,8 @@ Gemma int4 decode step runs: constant loading, the DEQUANTIZE alias,
 `prepare_serving_weights`, `_run_signature` / `_eval_op` /
 `_dequant_view` / `_store_outputs`, the int8 DYNAMIC_UPDATE_SLICE fast
 path, the packed int4 DRQ FC, and three fusions with their dispatch:
-stale-cache attention with the cache write outside the kernel, the GeGLU
+int8-cache attention (the stale-cache kernel with the cache write outside
+it, the lengths kernel at decode, the flash kernel at prefill), the GeGLU
 MLP and the greedy head. The block, norm, QKV, attention-epilogue and
 MoE fusions, capture mode, the calibration runners and the SRQ integer
 paths are not ported yet.
@@ -63,6 +64,25 @@ def _unported(kernel: str):
   return NotImplementedError(
       f'The Pallas kernel {kernel} is not ported to CUDA yet; this op '
       'would run it on the card.')
+
+
+def _prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
+  """Visible-prefix length of each row of a prefix-form decode mask
+  [B, 1, rows, S] (0 visible, -1e9 hidden), int32 [B]."""
+  return torch.sum((mask[:, 0, 0, :] > -1e8).to(torch.int32), dim=-1,
+                   dtype=torch.int32)
+
+
+def attention_route(h: int, s: int, rows: int, attn_lengths: bool) -> str:
+  """Which attention an unfolded int8-cache chain runs, on either device:
+  'flash', 'lengths', 'masked' or 'twin' (the JAX executor's dispatch,
+  executor.py `_eval_fused_attention`: Pallas only for H and S multiples
+  of 128, prefill-shaped from 32 grouped query rows)."""
+  if h % 128 or s % 128:
+    return 'twin'
+  if rows >= 32:
+    return 'flash'
+  return 'lengths' if attn_lengths else 'masked'
 
 
 def _to_device(value, device) -> torch.Tensor:
@@ -862,7 +882,25 @@ class GraphExecutor:
 
   def _eval_fused_attention(self, sg_idx: int, sg: ir.Subgraph,
                             fusion: dict, env: dict) -> None:
-    """One fused int8-cache attention call for a matched chain."""
+    """One fused int8-cache attention call for a matched chain.
+
+    Dispatch (the JAX executor's `_eval_fused_attention`), the same on
+    both devices:
+      * decode-shaped (< 32 grouped query rows) with the cache write
+        folded in and `attn_lengths`: the stale kernel (`attn_writeback`
+        'stale'); 'splice' raises on CUDA (its kernel is not ported);
+      * head dim H or cache length S not a multiple of 128 (the JAX
+        executor's Mosaic gate): the plain twin, as the JAX executor runs
+        its XLA twin there;
+      * otherwise prefill-shaped (>= 32 rows): `flash_attention_int8_masked`;
+      * otherwise decode-shaped with `attn_lengths`:
+        `decode_attention_int8_lengths`;
+      * otherwise (decode-shaped without `attn_lengths`): raises on CUDA
+        (`decode_attention_int8_masked` is not ported), the plain twin on
+        the CPU.
+    A shape that passes the gate but that a CUDA kernel does not take
+    raises in its wrapper; nothing falls back to the twin on the card.
+    """
     q_val = self._dequant_view(sg, fusion['q'], env)
     mask = self._dequant_view(sg, fusion['mask'], env)
     k_info = sg.tensors[fusion['k']].quantization
@@ -881,11 +919,10 @@ class GraphExecutor:
         # Stale-cache mode: attention reads the pre-write cache plus the
         # new row as an inline softmax column; the cache write runs
         # outside the kernel, consumed only by the signature outputs.
-        lengths = torch.sum((mask[:, 0, 0, :] > -1e8).to(torch.int32),
-                            dim=-1, dtype=torch.int32)
         ctx = attention.decode_attention_int8_lengths_stale(
             q_val.contiguous(), env[wb['k']['operand']],
-            env[wb['v']['operand']], k_scale, v_scale, lengths,
+            env[wb['v']['operand']], k_scale, v_scale,
+            _prefix_lengths(mask),
             env[wb['k']['update']].to(torch.int8).contiguous(),
             env[wb['v']['update']].to(torch.int8).contiguous(),
             k_zero_point=zp_k, v_zero_point=zp_v, compute='f32',
@@ -902,22 +939,35 @@ class GraphExecutor:
       self._write_caches(wb, env)
     k_q = env[fusion['k']]
     v_q = env[fusion['v']]
-    if on_cuda:
-      # The JAX executor sends every other shape of this chain to a
-      # Pallas kernel on its accelerator.
-      if not decode_shaped:
-        raise _unported('pallas_attention.flash_attention_int8_masked')
-      if self.attn_lengths:
-        raise _unported('pallas_attention.decode_attention_int8_lengths')
+    h_dim = q_val.shape[-1]
+    route = attention_route(h_dim, k_q.shape[2], q_val.shape[2],
+                            self.attn_lengths)
+    if route == 'flash':
+      # Prefill-shaped (R = G * T rows): S-blocked online softmax, so the
+      # [R, S] score matrix never materializes.
+      ctx = attention.flash_attention_int8_masked(
+          q_val, k_q, v_q, k_scale, v_scale, mask,
+          k_zero_point=zp_k, v_zero_point=zp_v)
+    elif route == 'lengths':
+      # Prefix-visibility serving mode: the mask is prefix-form by the
+      # serving contract, so per-row lengths replace it.
+      ctx = attention.decode_attention_int8_lengths(
+          q_val, k_q, v_q, k_scale, v_scale, _prefix_lengths(mask),
+          k_zero_point=zp_k, v_zero_point=zp_v, compute='f32',
+          out_dtype=self._act_dtype)
+    elif route == 'masked' and on_cuda:
       raise _unported('pallas_attention.decode_attention_int8_masked')
-    # Plain twin with the same numerics (zp corrections in closed form).
-    qf = q_val.to(torch.float32)
-    scores = torch.matmul(qf, k_q.to(torch.float32).transpose(-1, -2))
-    scores = scores - zp_k * torch.sum(qf, dim=-1, keepdim=True)
-    scores = scores * (k_scale / (q_val.shape[-1] ** 0.5))
-    scores = scores + mask.to(torch.float32)
-    probs = torch.softmax(scores, dim=-1)
-    ctx = (torch.matmul(probs, v_q.to(torch.float32)) - zp_v) * v_scale
+    else:
+      # Plain twin with the same numerics (zp corrections in closed form):
+      # the JAX executor's XLA twin, for the shapes its gate keeps off
+      # Mosaic (and, on the CPU, the masked decode mode).
+      qf = q_val.to(torch.float32)
+      scores = torch.matmul(qf, k_q.to(torch.float32).transpose(-1, -2))
+      scores = scores - zp_k * torch.sum(qf, dim=-1, keepdim=True)
+      scores = scores * (k_scale / (h_dim ** 0.5))
+      scores = scores + mask.to(torch.float32)
+      probs = torch.softmax(scores, dim=-1)
+      ctx = (torch.matmul(probs, v_q.to(torch.float32)) - zp_v) * v_scale
     out_op = ir.Op(opcode='BATCH_MATMUL', inputs=[], outputs=[fusion['out']])
     self._store_outputs(sg, out_op, (ctx,), env)
 

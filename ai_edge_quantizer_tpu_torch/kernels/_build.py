@@ -29,7 +29,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / '_build'
 SOURCES = ('qmatmul_int4_drq', 'attention_stale', 'mlp_int4_drq',
-           'head_argmax')
+           'head_argmax', 'attention_lengths', 'flash_attention_int8')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
@@ -108,8 +108,17 @@ def entry(lib: str, fn: str, argtypes, restype=ctypes.c_int):
   return f
 
 
-def check(status: int, kernel: str) -> None:
-  """Raise if a C entry point reported a CUDA error (refused launch)."""
+# A C entry point's status for a shape its kernel does not take
+# (`aeqt::kShapeRefused` in csrc/drq_common.cuh); it launched nothing.
+SHAPE_REFUSED = -1
+
+
+def check(status: int, kernel: str, shape: str = '') -> None:
+  """Raise if a C entry point refused the shape (ValueError; the limits
+  stand beside the entry point in its source) or reported a CUDA error."""
+  if status == SHAPE_REFUSED:
+    raise ValueError(f'{kernel}: the CUDA kernel does not take {shape} '
+                     f'(see csrc/ for its limits)')
   if status != 0:
     raise RuntimeError(f'{kernel}: CUDA error {status} at launch')
 

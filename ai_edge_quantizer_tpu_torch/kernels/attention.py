@@ -1,17 +1,25 @@
-"""Stale-cache int8 decode attention (PyTorch + CUDA).
+"""Int8-cache attention kernels (PyTorch + CUDA).
 
-Port of `decode_attention_int8_lengths_stale` in
-`ai_edge_quantizer_tpu/kernels/pallas_attention.py` (body
-`_ctx_prefix_len_cur`): attention of the G grouped query rows of each
-(batch, kv-head) over the pre-write int8 cache rows [0, lengths-1) plus
-the new token's quantized k/v row as one inline softmax column. The
-executor writes the new row into the cache outside this function.
+Ports of three Pallas kernels of
+`ai_edge_quantizer_tpu/kernels/pallas_attention.py`, each with a plain
+PyTorch version beside its CUDA kernel (`csrc/`):
 
-The CUDA kernel (`csrc/attention_stale.cu`) computes in f32
-(`compute='f32'`, the executor's default). The plain version also covers
-the `bf16` and `int8` compute modes; on a CUDA tensor those raise, as
-their kernels are not ported yet. The other Pallas attention kernels of
-that file are not ported yet (see ROADMAP.md).
+  * `decode_attention_int8_lengths_stale` (body `_ctx_prefix_len_cur`):
+    attention of the G grouped query rows of each (batch, kv-head) over the
+    pre-write int8 cache rows [0, lengths-1) plus the new token's quantized
+    k/v row as one inline softmax column; the executor writes the new row
+    into the cache outside this function (`csrc/attention_stale.cu`).
+  * `decode_attention_int8_lengths` (body `_ctx_prefix_len`): decode
+    attention over the cache rows [0, lengths) (`csrc/attention_lengths.cu`).
+  * `flash_attention_int8_masked` (`_flash_attn_kernel`): prefill-shaped
+    attention of R = G * T query rows with an additive mask, as an online
+    softmax over S blocks (`csrc/flash_attention_int8.cu`).
+
+The CUDA decode kernels compute in f32 (`compute='f32'`, the executor's
+default). The plain versions also cover the `bf16` and `int8` compute
+modes; on a CUDA tensor those raise, as their kernels are not ported yet.
+The other Pallas attention kernels of that file are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -135,13 +143,8 @@ def decode_attention_int8_lengths_stale(
   s = k_cache_stale.shape[2]
   r = b * nk
   q2 = q.to(torch.float32).reshape(r, g, h).contiguous()
-  _build.require(h % 16 == 0 and 1024 % h == 0, name,
-                 f'H={h} must be a multiple of 16 dividing 1024')
   _build.require(out_dtype in (torch.float32, torch.bfloat16), name,
                  f'out_dtype {out_dtype} must be f32 or bf16')
-  smem = 4 * (g * h + g * s + 2 * g + 4 * 256 * 8)  # attention_stale.cu
-  _build.require(smem <= _build.MAX_SMEM, name,
-                 f'G={g}, S={s}, H={h} exceed the shared-memory budget')
   for t, nm, shape in ((k_cache_stale, 'k_cache', (b, nk, s, h)),
                        (v_cache_stale, 'v_cache', (b, nk, s, h)),
                        (k_new_q, 'k_new', (b, nk, 1, h)),
@@ -161,10 +164,213 @@ def decode_attention_int8_lengths_stale(
               int(out_dtype == torch.bfloat16), r, nk, g, s, h,
               score_scale(k_scale, h), float(v_scale), float(k_zero_point),
               float(v_zero_point), _build.stream_ptr(q.device))
-  _build.check(status, name)
+  _build.check(status, name, f'G={g}, S={s}, H={h}')
   decode_attention_int8_lengths_stale.launches += 1
   return out.reshape(b, nk, g, h)
 
 
 decode_attention_int8_lengths_stale.launches = 0
 decode_attention_int8_lengths_stale.plain_calls = 0
+
+
+# -- lengths-masked decode attention ----------------------------------------
+
+
+def decode_attention_int8_lengths_plain(
+    q, k_cache, v_cache, k_scale, v_scale, lengths, k_zero_point=0.0,
+    v_zero_point=0.0, compute='f32', out_dtype=torch.float32):
+  """`_ctx_prefix_len` in plain PyTorch (any device)."""
+  b, nk, g, h = q.shape
+  s = k_cache.shape[2]
+  qf = q.to(torch.float32)
+  ks = score_scale(k_scale, h)
+  zp_k, zp_v = float(k_zero_point), float(v_zero_point)
+  v_scale = float(np.float32(v_scale))
+  pos = torch.arange(s, device=q.device, dtype=torch.int32)
+  live = pos.reshape(1, 1, 1, s) < lengths.to(torch.int32).reshape(b, 1, 1, 1)
+  kf = k_cache.to(torch.float32)
+  vf = v_cache.to(torch.float32)
+  if compute == 'int8':
+    q_absmax = torch.amax(torch.abs(qf), dim=-1, keepdim=True)
+    q_scale = torch.clamp_min(q_absmax, 1e-9) * (1.0 / 127.0)
+    q_q = torch.round(qf / q_scale).to(torch.int8)
+    qqf = q_q.to(torch.float32)
+    scores = _qdot(qqf, kf) * q_scale
+    scores = scores - zp_k * torch.sum(qqf * q_scale, dim=-1, keepdim=True)
+  elif compute in ('f32', 'bf16'):
+    if compute == 'bf16':
+      qd = qf.to(torch.bfloat16).to(torch.float32)
+      kd = kf.to(torch.bfloat16).to(torch.float32)
+    else:
+      qd, kd = qf, kf
+    scores = _qdot(qd, kd) - zp_k * torch.sum(qf, dim=-1, keepdim=True)
+  else:
+    raise ValueError(f'unknown attention compute mode {compute!r}')
+  scores = torch.where(live, scores * ks, _NEG)
+  scores = scores - torch.amax(scores, dim=-1, keepdim=True)
+  probs = torch.exp(scores)
+  probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+  if compute == 'int8':
+    p_q = torch.round(probs * 127.0).to(torch.int8).to(torch.float32)
+    p_sum = torch.clamp_min(torch.sum(p_q, dim=-1, keepdim=True), 1.0)
+    ctx = torch.matmul(p_q, vf) / p_sum
+  elif compute == 'bf16':
+    ctx = torch.matmul(probs.to(torch.bfloat16).to(torch.float32),
+                       vf.to(torch.bfloat16).to(torch.float32))
+  else:
+    ctx = torch.matmul(probs, vf)
+  return ((ctx - zp_v) * v_scale).to(out_dtype)
+
+
+def decode_attention_int8_lengths(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_scale: float,
+    v_scale: float,
+    lengths: torch.Tensor,
+    k_zero_point: float = 0.0,
+    v_zero_point: float = 0.0,
+    compute: str = 'f32',
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+  """Decode attention over the int8 cache rows [0, lengths).
+
+  q [B, NK, G, H] float; caches int8 [B, NK, S, H]; lengths int32 [B];
+  per-tensor scales and zero points as Python floats. A length of 0 gives
+  every one of the S rows the weight 1/S, as the TPU kernel does. Returns
+  [B, NK, G, H] in out_dtype.
+  """
+  args = (q, k_cache, v_cache, k_scale, v_scale, lengths, k_zero_point,
+          v_zero_point, compute, out_dtype)
+  if _build.device_kind(q) == 'cpu':
+    decode_attention_int8_lengths.plain_calls += 1
+    return decode_attention_int8_lengths_plain(*args)
+  name = 'decode_attention_int8_lengths'
+  if compute != 'f32':
+    raise NotImplementedError(
+        f'{name}: compute={compute!r} has no CUDA kernel yet (f32 only).')
+  b, nk, g, h = q.shape
+  s = k_cache.shape[2]
+  r = b * nk
+  _build.require(out_dtype in (torch.float32, torch.bfloat16), name,
+                 f'out_dtype {out_dtype} must be f32 or bf16')
+  q2 = q.to(torch.float32).reshape(r, g, h).contiguous()
+  for t, nm in ((k_cache, 'k_cache'), (v_cache, 'v_cache')):
+    _build.require(tuple(t.shape) == (b, nk, s, h), name,
+                   f'{nm} shape {t.shape}')
+    _build.require_cuda_tensor(t, name, nm, (torch.int8,), 16)
+  lens = lengths.to(torch.int32).contiguous()
+  _build.require_cuda_tensor(lens, name, 'lengths', (torch.int32,))
+  _build.require(lens.numel() == b, name, 'lengths must have B entries')
+  out = torch.empty((r, g, h), dtype=out_dtype, device=q.device)
+  fn = _build.entry(
+      'attention_lengths', 'aeqt_attention_lengths',
+      [_build.P] * 5 + [_build.I] * 6 + [_build.F] * 4 + [_build.P])
+  status = fn(q2.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+              lens.data_ptr(), out.data_ptr(),
+              int(out_dtype == torch.bfloat16), r, nk, g, s, h,
+              score_scale(k_scale, h), float(v_scale), float(k_zero_point),
+              float(v_zero_point), _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}')
+  decode_attention_int8_lengths.launches += 1
+  return out.reshape(b, nk, g, h)
+
+
+decode_attention_int8_lengths.launches = 0
+decode_attention_int8_lengths.plain_calls = 0
+
+
+# -- flash attention (prefill) ----------------------------------------------
+
+
+def flash_block_s(s: int, block_s: int = 512) -> int:
+  """The TPU kernel's S block: min(block_s, S), halved until it divides S."""
+  bs = min(block_s, s)
+  while s % bs:
+    bs //= 2
+  return bs
+
+
+def flash_attention_int8_masked_plain(
+    q, k_cache, v_cache, k_scale, v_scale, mask, k_zero_point=0.0,
+    v_zero_point=0.0, block_s=512):
+  """`_flash_attn_kernel` in plain PyTorch (any device), over the same S
+  blocks as the TPU kernel. Returns [B, NK, R, H] f32."""
+  b, nk, r, h = q.shape
+  s = k_cache.shape[2]
+  bs = flash_block_s(s, block_s)
+  qf = q.to(torch.float32)
+  ks = score_scale(k_scale, h)
+  zp_k, zp_v = float(k_zero_point), float(v_zero_point)
+  v_scale = float(np.float32(v_scale))
+  q_sum = torch.sum(qf, dim=-1, keepdim=True)
+  maskf = mask.to(torch.float32)
+  m = torch.full((b, nk, r, 1), _NEG, device=q.device)
+  l = torch.zeros((b, nk, r, 1), device=q.device)
+  acc = torch.zeros((b, nk, r, h), device=q.device)
+  for s0 in range(0, s, bs):
+    kb = k_cache[:, :, s0:s0 + bs].to(torch.float32)
+    vb = v_cache[:, :, s0:s0 + bs].to(torch.float32)
+    scores = (_qdot(qf, kb) - zp_k * q_sum) * ks + maskf[..., s0:s0 + bs]
+    m_new = torch.maximum(m, torch.amax(scores, dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new)
+    l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+    m = m_new
+    acc = acc * alpha + torch.matmul(p, vb)
+  return (acc / torch.clamp_min(l, 1e-30) - zp_v) * v_scale
+
+
+def flash_attention_int8_masked(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_scale: float,
+    v_scale: float,
+    mask: torch.Tensor,
+    k_zero_point: float = 0.0,
+    v_zero_point: float = 0.0,
+) -> torch.Tensor:
+  """Prefill-shaped attention over an int8 cache with an additive mask.
+
+  q [B, NK, R, H] float with R = G * T grouped query rows; caches int8
+  [B, NK, S, H]; mask [B, 1, R, S] (broadcast over the kv heads) or
+  [B, NK, R, S], any float dtype (read as f32). Returns [B, NK, R, H] f32.
+  """
+  args = (q, k_cache, v_cache, k_scale, v_scale, mask, k_zero_point,
+          v_zero_point)
+  if _build.device_kind(q) == 'cpu':
+    flash_attention_int8_masked.plain_calls += 1
+    return flash_attention_int8_masked_plain(*args)
+  name = 'flash_attention_int8_masked'
+  b, nk, r, h = q.shape
+  s = k_cache.shape[2]
+  for t, nm in ((k_cache, 'k_cache'), (v_cache, 'v_cache')):
+    _build.require(tuple(t.shape) == (b, nk, s, h), name,
+                   f'{nm} shape {t.shape}')
+    _build.require_cuda_tensor(t, name, nm, (torch.int8,), 16)
+  _build.require(mask.dim() == 4 and mask.shape[0] == b
+                 and mask.shape[1] in (1, nk)
+                 and tuple(mask.shape[2:]) == (r, s), name,
+                 f'mask shape {tuple(mask.shape)}')
+  q2 = q.to(torch.float32).contiguous()
+  m2 = mask.to(torch.float32).contiguous()
+  _build.require_cuda_tensor(q2, name, 'q', (torch.float32,), 16)
+  _build.require_cuda_tensor(m2, name, 'mask', (torch.float32,))
+  out = torch.empty((b, nk, r, h), dtype=torch.float32, device=q.device)
+  fn = _build.entry(
+      'flash_attention_int8', 'aeqt_flash_attention_int8',
+      [_build.P] * 5 + [_build.I] * 6 + [_build.F] * 4 + [_build.P])
+  status = fn(q2.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+              m2.data_ptr(), out.data_ptr(), b * nk, nk, r, s, h,
+              int(m2.shape[1]), score_scale(k_scale, h), float(v_scale),
+              float(k_zero_point), float(v_zero_point),
+              _build.stream_ptr(q.device))
+  _build.check(status, name, f'H={h}')
+  flash_attention_int8_masked.launches += 1
+  return out
+
+
+flash_attention_int8_masked.launches = 0
+flash_attention_int8_masked.plain_calls = 0

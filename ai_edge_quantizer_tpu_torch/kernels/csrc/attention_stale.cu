@@ -28,49 +28,13 @@
 //   rows of every group are in flight together; the partial sums meet in shared
 //   memory and are added in row-group order, so the result does not depend
 //   on timing. The new row's column is added last.
-#include "drq_common.cuh"
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kGC = 8;  // query rows a thread keeps in registers at once
-// Context partials: [RG][kGC][H] floats with RG * H = 4 * kThreads.
-constexpr int kRedFloats = 4 * kThreads * kGC;
-
-// acc[i] += q[g0 + i][h, h + 16) . k[h, h + 16) for this pass's query rows.
-__device__ __forceinline__ void dot16(const float* qs, int H, int G, int g0,
-                                      int h, int4 kv, float (&acc)[kGC]) {
-  const int words[4] = {kv.x, kv.y, kv.z, kv.w};
-  float kf[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e)
-    kf[e] = (float)(int8_t)(words[e >> 2] >> (8 * (e & 3)));
-#pragma unroll
-  for (int i = 0; i < kGC; ++i) {
-    if (g0 + i < G) {
-      const float* qq = qs + (g0 + i) * H + h;
-      float a = acc[i];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) a = a + qq[e] * kf[e];
-      acc[i] = a;
-    }
-  }
-}
-
-// acc[i][e] += p[g0 + i][j] * v[j][4c + e] for this pass's query rows.
-__device__ __forceinline__ void add_row(const float* sc, int S, int G, int g0,
-                                        int j, char4 vv,
-                                        float (&acc)[kGC][4]) {
-  const float vf[4] = {(float)vv.x, (float)vv.y, (float)vv.z, (float)vv.w};
-#pragma unroll
-  for (int i = 0; i < kGC; ++i) {
-    if (g0 + i < G) {
-      const float p = sc[(size_t)(g0 + i) * S + j];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = acc[i][e] + p * vf[e];
-    }
-  }
-}
+using aeqt::kGC;
+using aeqt::kRedFloats;
+constexpr int kThreads = aeqt::kAttnThreads;
 
 template <typename TOut>
 __global__ void __launch_bounds__(kThreads)
@@ -123,19 +87,7 @@ stale_attention_kernel(const float* __restrict__ q,
     const int8_t* krow = kr + (size_t)j * H;
     for (int g0 = 0; g0 < G; g0 += kGC) {
       float acc[kGC];
-#pragma unroll
-      for (int i = 0; i < kGC; ++i) acc[i] = 0.0f;
-      // Four 16-byte chunks of the row in flight at once.
-      for (int h0 = 0; h0 < H; h0 += 64) {
-        int4 kv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (h0 + 16 * u < H)
-            kv[u] = __ldg(reinterpret_cast<const int4*>(krow + h0 + 16 * u));
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (h0 + 16 * u < H) dot16(qs, H, G, g0, h0 + 16 * u, kv[u], acc);
-      }
+      aeqt::dot_row(qs, H, G, g0, krow, acc);
 #pragma unroll
       for (int i = 0; i < kGC; ++i) {
         const int g = g0 + i;
@@ -175,25 +127,7 @@ stale_attention_kernel(const float* __restrict__ q,
   const int c = threadIdx.x % chunks, rg = threadIdx.x / chunks;
   for (int g0 = 0; g0 < G; g0 += kGC) {
     float acc[kGC][4];
-#pragma unroll
-    for (int i = 0; i < kGC; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-    // Four rows' loads in flight at once, rows added in increasing order.
-    int j = rg;
-    for (; j + 3 * RG < L; j += 4 * RG) {
-      char4 vv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        vv[u] = __ldg(reinterpret_cast<const char4*>(
-            vr + (size_t)(j + u * RG) * H + 4 * c));
-#pragma unroll
-      for (int u = 0; u < 4; ++u) add_row(sc, S, G, g0, j + u * RG, vv[u], acc);
-    }
-    for (; j < L; j += RG)
-      add_row(sc, S, G, g0, j,
-              __ldg(reinterpret_cast<const char4*>(vr + (size_t)j * H + 4 * c)),
-              acc);
+    aeqt::context_rows(sc, S, G, g0, vr, H, L, rg, RG, c, acc);
     __syncthreads();  // the previous pass has read `red`
 #pragma unroll
     for (int i = 0; i < kGC; ++i)
@@ -219,6 +153,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_new,
            float zp_v, cudaStream_t stream) {
   const size_t smem =
       ((size_t)G * H + (size_t)G * S + 2 * G + kRedFloats) * sizeof(float);
+  if (!aeqt::head_dim_fits(H) || !aeqt::smem_fits(smem))
+    return aeqt::kShapeRefused;
   auto* kernel = stale_attention_kernel<TOut>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -235,7 +171,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_new,
 
 // q f32 [R, G, H] with R = B * NK; k, v int8 [R, S, H]; k_new, v_new int8
 // [R, H]; lengths int32 [B] (counting the new token); out [R, G, H] f32 or
-// bf16 (out_bf16). H % 16 == 0 and 1024 % H == 0.
+// bf16 (out_bf16). Returns aeqt::kShapeRefused unless H % 16 == 0,
+// 1024 % H == 0 and the G x S scores fit in shared memory.
 extern "C" int aeqt_attention_stale(const void* q, const void* k,
                                     const void* v, const void* k_new,
                                     const void* v_new, const void* lengths,

@@ -16,6 +16,20 @@ namespace aeqt {
 
 constexpr float kInv127 = (float)(1.0 / 127.0);  // jnp: f32(1.0 / 127.0)
 
+// Returned by a C entry point, before any launch, for a shape its kernel
+// does not take (never a cudaError_t value). The Python wrapper raises.
+constexpr int kShapeRefused = -1;
+
+// Whether `bytes` of dynamic shared memory fit one block on this device.
+inline bool smem_fits(size_t bytes) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  return bytes <= (size_t)optin;
+}
+
 __device__ __forceinline__ float load_f(const float* p, size_t i) {
   return p[i];
 }

@@ -2,7 +2,8 @@
 
 Port of `ai_edge_quantizer_tpu/models/gemma.py`. The graph builders
 (`DecoderConfig` and its configs, `_WeightStore`, `_build_signature`,
-`build_decoder`, `stamp_int8_kv_cache`) are copied: they are numpy only.
+`build_decoder`, `build_serving_decoder`, `stamp_int8_kv_cache`) are
+copied: they are numpy only.
 `device_materialize_quantized` and `make_inputs` make torch tensors on
 the chosen device; `save_materialized` / `load_materialized` read and
 write the same npz files as the JAX package, and `weights_from_numpy`
@@ -24,6 +25,7 @@ import zlib
 import numpy as np
 import torch
 
+from ai_edge_quantizer_tpu_torch.execution import quant_arith
 from ai_edge_quantizer_tpu_torch.graph import builder as builder_lib
 from ai_edge_quantizer_tpu_torch.graph import ir
 
@@ -631,6 +633,104 @@ def build_decoder(
   return graph
 
 
+def build_serving_decoder(
+    cfg: DecoderConfig,
+    batch_slots: int,
+    prefill_len: int = 16,
+    seed: int = 0,
+    materialize_weights: bool = True,
+    device_masks: bool = False,
+    cache_buckets=None,
+    fused_projections: bool = False,
+    greedy_head: bool = False,
+    prefill_batch: int = 1,
+    prefill_device_masks: bool = False,
+    prefill_greedy: bool = False,
+    prefill_head_cols: bool = False,
+    kv_int4_group: int = 0,
+    prefill_tail_len: int = 0,
+) -> ir.Graph:
+  """Serving-shaped graph: prefill at batch=prefill_batch (admission) +
+  decode at batch=batch_slots with per-slot one-hot cache updates, one
+  shared weight store (a copy of the JAX package's builder).
+
+  cache_buckets: optional ascending context-length buckets (e.g.
+  (128, 256, 1024)); one decode signature is built PER bucket, with KV
+  caches sized to that bucket, and the server runs the smallest program
+  covering the longest active sequence. Buckets must not exceed
+  cfg.max_seq_len; the last bucket is forced to cfg.max_seq_len.
+
+  greedy_head: decode signatures emit `next_tokens` in-graph (FC +
+  ARG_MAX fuse into the head kernel) instead of `logits`.
+  prefill_batch: batch dimension of the prefill signature (admission
+  prefills up to prefill_batch queued requests in one pass).
+  prefill_device_masks: derive the prefill causal mask in-graph from
+  `positions`. prefill_greedy: prefill also emits `next_tokens`.
+  prefill_head_cols: the prefill head runs on one gathered row per batch
+  element. prefill_tail_len: a short 'prefill_tail' program for a
+  prompt's final partial chunk. kv_int4_group: int4-group KV decode
+  caches (the server of this package refuses it: its attention kernel is
+  not ported).
+  """
+  graph = ir.Graph()
+  store = _WeightStore(cfg, seed=seed, materialize=materialize_weights)
+  b = builder_lib.GraphBuilder('prefill', graph=graph)
+  _build_signature(b, store, 'prefill', prefill_batch, prefill_len,
+                   cache_update='dus',
+                   fused_projections=fused_projections,
+                   device_masks=prefill_device_masks,
+                   greedy_head=prefill_greedy,
+                   head_cols=prefill_head_cols)
+  b.finalize(signature_key='prefill')
+  if prefill_tail_len:
+    if prefill_tail_len >= prefill_len:
+      raise ValueError('prefill_tail_len must be < prefill_len')
+    b = builder_lib.GraphBuilder('prefill_tail', graph=graph)
+    _build_signature(b, store, 'prefill_tail', prefill_batch,
+                     prefill_tail_len, cache_update='dus',
+                     fused_projections=fused_projections,
+                     device_masks=prefill_device_masks,
+                     greedy_head=prefill_greedy,
+                     head_cols=prefill_head_cols)
+    b.finalize(signature_key='prefill_tail')
+    graph.metadata['prefill_tail_len'] = int(prefill_tail_len)
+  if cache_buckets:
+    buckets = sorted({min(int(s), cfg.max_seq_len) for s in cache_buckets}
+                     | {cfg.max_seq_len})
+    if buckets[0] < prefill_len:
+      raise ValueError(
+          f'smallest cache bucket {buckets[0]} < prefill_len {prefill_len}')
+    for s in buckets:
+      cfg_s = dataclasses.replace(cfg, max_seq_len=s)
+      store.cfg = cfg_s
+      b = builder_lib.GraphBuilder(f'decode_{s}', graph=graph)
+      _build_signature(b, store, f'decode_{s}', batch_slots, 1,
+                       cache_update='onehot', device_masks=device_masks,
+                       fused_projections=fused_projections,
+                       greedy_head=greedy_head,
+                       kv_int4_group=kv_int4_group)
+      b.finalize(signature_key=f'decode_{s}')
+    store.cfg = cfg
+    graph.metadata['decode_buckets'] = buckets
+  else:
+    b = builder_lib.GraphBuilder('decode', graph=graph)
+    _build_signature(b, store, 'decode', batch_slots, 1,
+                     cache_update='onehot', device_masks=device_masks,
+                     fused_projections=fused_projections,
+                     greedy_head=greedy_head,
+                     kv_int4_group=kv_int4_group)
+    b.finalize(signature_key='decode')
+  graph.metadata['weight_init_specs'] = store.init_specs
+  if device_masks:
+    graph.metadata['decode_device_masks'] = True
+  if prefill_device_masks:
+    graph.metadata['prefill_device_masks'] = True
+  if prefill_head_cols:
+    graph.metadata['prefill_head_cols'] = True
+  if kv_int4_group:
+    graph.metadata['kv_int4_group'] = int(kv_int4_group)
+  return graph
+
 
 def stamp_int8_kv_cache(graph: ir.Graph, cache_scale: float = 0.06) -> None:
   """Mark all KV-cache tensors int8 with one shared per-tensor scale.
@@ -716,10 +816,28 @@ def device_materialize_quantized(
   element index); its per-weight phase hashes the weight's name with
   zlib.crc32, so a run repeats from process to process. The weights are
   not the JAX package's (the JAX package hashes with `hash`): parity
-  tests carry the JAX weights across with `weights_from_numpy`.
+  tests hand this function's weights to both sides.
+
+  Graph constants (buffers that hold data and are no weight of the
+  store: the embedding and score scales, the device masks' iotas and
+  constants) keep their values, as the executor loads them. The JAX
+  package's materializer draws them as weights too (see ROADMAP.md,
+  Queue 3).
   """
   device = torch.device(device)
   plan, buffer_users = _plan_weights(graph, fc_bits, embedding_bits)
+  specs = graph.metadata.get('weight_init_specs', {})
+  constants: dict = {}
+  for buf_id in list(plan):
+    data = graph.buffers[buf_id].data
+    if data is not None and plan[buf_id][0] not in specs:
+      del plan[buf_id]
+      for sg_idx, tid in buffer_users[buf_id]:
+        t = graph.subgraphs[sg_idx].tensors[tid]
+        dtype = quant_arith.storage_dtype_of(t)
+        constants[(sg_idx, tid)] = torch.as_tensor(
+            np.asarray(data).reshape(t.shape), device=device).to(
+                torch.int32 if dtype == torch.int64 else dtype)
 
   def fast_init(key: str, shape, init_scale: float) -> torch.Tensor:
     n = 1
@@ -756,7 +874,7 @@ def device_materialize_quantized(
       scales_np[b] = flat[offset:offset + n]
       offset += n
 
-  weights: dict = {}
+  weights: dict = dict(constants)
   for buf_id, (arr, _) in generated.items():
     bits = plan[buf_id][3]
     for (sg_idx, tid) in buffer_users[buf_id]:

@@ -33,7 +33,9 @@ def _clean_env():
 
 def test_port_imports_no_jax():
   modules = _port_modules()
-  assert 'ai_edge_quantizer_tpu_torch.execution.executor' in modules
+  for name in ('execution.executor', 'parallel.batching', 'models.gemma',
+               'kernels.attention', 'kernels._build'):
+    assert f'ai_edge_quantizer_tpu_torch.{name}' in modules
   code = (
       'import importlib, sys\n'
       f'for m in {modules!r}:\n'

@@ -1,15 +1,19 @@
 """The port's Gemma decode slice against the JAX package, on the CPU.
 
-The JAX side builds the graph, materializes int4/int8 weights and runs
-its executor with the bench's serving options (int4 DRQ, lengths
+The JAX side builds the graph and runs its executor with the bench's serving options (int4 DRQ, lengths
 attention with the stale cache writeback, MLP and head fusions), its
 Pallas kernels in interpret mode. The port builds the same graph with its
-own builder, takes the JAX weights across (`weights_from_numpy`) and runs
-its executor on the CPU, where every kernel wrapper runs its plain
-version. Eight greedy decode steps feed the tokens back.
+own builder; both take one weight draw (`shared_weights`: the port's
+materializer, which is the same in every process) and the port runs its
+executor on the CPU, where every kernel wrapper runs its plain version.
+Eight greedy decode steps feed the tokens back.
 """
 
 import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ import jax.numpy as jnp
 import torch
 
 from ai_edge_quantizer_tpu.execution import executor as jax_executor
+from ai_edge_quantizer_tpu.graph import ir as jax_ir
 from ai_edge_quantizer_tpu.models import gemma as jax_gemma
 from ai_edge_quantizer_tpu_torch.execution import executor
 from ai_edge_quantizer_tpu_torch.kernels import attention, head, mlp
@@ -40,6 +45,40 @@ KERNELS = (packed_qmatmul.qmatmul_int4_packed_drq,
            mlp.mlp_int4_packed, head.head_argmax)
 
 
+def shared_weights(jgraph, tgraph, device='cpu'):
+  """One weight draw for both sides, the same in every process.
+
+  The port's `device_materialize_quantized` seeds each weight with
+  zlib.crc32 of its name (the JAX one with `hash`, which Python salts per
+  process). Its int weights and scales are stamped onto the JAX graph as
+  the JAX materializer stamps them, and the same arrays go to both sides.
+  Returns (JAX weight dict, port weight dict).
+  """
+  tweights = gemma.device_materialize_quantized(tgraph, fc_bits=4,
+                                                embedding_bits=8,
+                                                device=device)
+  jweights, shared = {}, {}
+  for (sg_idx, tid), arr in tweights.items():
+    if id(arr) not in shared:
+      shared[id(arr)] = jnp.asarray(arr.cpu().numpy())
+    jweights[(sg_idx, tid)] = shared[id(arr)]
+    tq = tgraph.subgraphs[sg_idx].tensors[tid].quantization
+    if tq is not None:
+      jt = jgraph.subgraphs[sg_idx].tensors[tid]
+      scale32 = np.asarray(tq.scale, np.float32)
+      jt.quantization = jax_ir.QuantizationInfo(
+          scale=scale32, zero_point=np.zeros_like(scale32, np.int8),
+          quantized_dimension=0, num_bits=tq.num_bits)
+      jt.dtype = jax_ir.dtype_for_bits(tq.num_bits)
+  return jweights, tweights
+
+
+JAX_SERVING_ENV = (('AEQT_INT4_DRQ', '1'), ('AEQT_ATTN_WRITEBACK_MODE', 'stale'),
+                   ('AEQT_ATTN_LENGTHS', '1'), ('AEQT_MLP_BF', '128'),
+                   ('AEQT_MLP_FUSION', '1'), ('AEQT_HEAD_FUSION', '1'),
+                   ('AEQT_DECODE_BLOCK', '0'))
+
+
 def _serving_pair(name, greedy, monkeypatch, writeback=True,
                   signatures=('decode',), fused=True):
   jcfg, tcfg = CONFIGS[name]
@@ -47,34 +86,21 @@ def _serving_pair(name, greedy, monkeypatch, writeback=True,
             fused_projections=fused, greedy_head=greedy)
   jgraph = jax_gemma.build_decoder(jcfg, **kw)
   jax_gemma.stamp_int8_kv_cache(jgraph)
-  weights = jax_gemma.device_materialize_quantized(jgraph, fc_bits=4,
-                                                   embedding_bits=8)
-  for var, val in (('AEQT_INT4_DRQ', '1'),
-                   ('AEQT_ATTN_WRITEBACK', '1' if writeback else '0'),
-                   ('AEQT_ATTN_WRITEBACK_MODE', 'stale'),
-                   ('AEQT_ATTN_LENGTHS', '1'), ('AEQT_MLP_BF', '128'),
-                   ('AEQT_MLP_FUSION', '1'), ('AEQT_HEAD_FUSION', '1'),
-                   ('AEQT_DECODE_BLOCK', '0')):
-    monkeypatch.setenv(var, val)
-  jex = jax_executor.GraphExecutor(jgraph, activation_dtype='float32')
-  jex._weights = dict(weights)
-  jex.prepare_serving_weights(min_weight_params=0)
-
-  weights_np = {key: np.asarray(arr) for key, arr in weights.items()}
-  stamps = {}
-  for (sg_idx, tid) in weights:
-    q = jgraph.subgraphs[sg_idx].tensors[tid].quantization
-    if q is not None:
-      stamps[(sg_idx, tid)] = (np.asarray(q.scale), q.num_bits)
   tgraph = gemma.build_decoder(tcfg, **kw)
   gemma.stamp_int8_kv_cache(tgraph)
+  jweights, tweights = shared_weights(jgraph, tgraph)
+  for var, val in JAX_SERVING_ENV + (
+      ('AEQT_ATTN_WRITEBACK', '1' if writeback else '0'),):
+    monkeypatch.setenv(var, val)
+  jex = jax_executor.GraphExecutor(jgraph, activation_dtype='float32')
+  jex._weights = dict(jweights)
+  jex.prepare_serving_weights(min_weight_params=0)
   tex = executor.GraphExecutor(tgraph, device='cpu',
                                activation_dtype='float32', int4_drq=True,
                                attn_lengths=True,
                                attn_writeback='stale' if writeback else None,
                                mlp_fusion=True, mlp_bf=128, head_fusion=True)
-  tex.load_weights(gemma.weights_from_numpy(tgraph, weights_np, stamps,
-                                            device='cpu'))
+  tex.load_weights(tweights)
   tex.prepare_serving_weights(min_weight_params=0)
   return jcfg, jgraph, jex, tex
 
@@ -88,8 +114,13 @@ def _step_inputs(cfg, pos, tokens):
           'mask': mask, 'cache_pos': np.array([0, 0, pos, 0], np.int32)}
 
 
-def _decode_both(name, greedy, monkeypatch, writeback=True, fused=True):
-  """Run STEPS decode steps on both sides; yields per-step outputs."""
+def _decode_both(name, greedy, monkeypatch, writeback=True, fused=True,
+                 shared_caches=False):
+  """Run STEPS decode steps on both sides; yields per-step outputs.
+
+  With shared_caches, both sides take the JAX side's output caches as the
+  next step's input caches, so each step's difference is its own (an int8
+  KV code that rounds the other way does not compound)."""
   cfg, jgraph, jex, tex = _serving_pair(name, greedy, monkeypatch,
                                         writeback, fused=fused)
   sig = jgraph.signature_by_key('decode')
@@ -107,8 +138,10 @@ def _decode_both(name, greedy, monkeypatch, writeback=True, fused=True):
       tokens = np.argmax(np.asarray(jout['logits'])[:, -1], axis=-1)
     for li in range(cfg.num_layers):
       for kind in ('k', 'v'):
-        jin[f'layer_{li}_{kind}_cache_in'] = jout[f'layer_{li}_{kind}_cache']
-        tin[f'layer_{li}_{kind}_cache_in'] = tout[f'layer_{li}_{kind}_cache']
+        key = f'layer_{li}_{kind}_cache'
+        jin[f'{key}_in'] = jout[key]
+        tin[f'{key}_in'] = (torch.from_numpy(np.array(jout[key]))
+                            if shared_caches else tout[key])
     for k, v in _step_inputs(cfg, step + 1, tokens).items():
       jin[k] = jnp.asarray(v)
       tin[k] = torch.from_numpy(v)
@@ -152,7 +185,8 @@ def test_fusion_counts_match_jax(name, monkeypatch):
 
 @pytest.mark.parametrize('name', ['toy', 'mqa'])
 def test_logits_decode_matches_jax(name, monkeypatch):
-  for step, jout, tout in _decode_both(name, False, monkeypatch):
+  for step, jout, tout in _decode_both(name, False, monkeypatch,
+                                       shared_caches=True):
     np.testing.assert_allclose(tout['logits'].numpy(),
                                np.asarray(jout['logits']), rtol=1e-4,
                                atol=1e-4, err_msg=f'{name} step {step}')
@@ -311,3 +345,30 @@ def test_make_inputs_matches_jax(start_pos):
   assert sorted(got) == sorted(want)
   for key, arr in want.items():
     np.testing.assert_array_equal(got[key].numpy(), arr, err_msg=key)
+
+
+def test_shared_weights_do_not_depend_on_the_hash_seed():
+  """The parity tests' weights (and their scales) are the same in every
+  process, whatever PYTHONHASHSEED salts `hash` with."""
+  code = (
+      'import hashlib\n'
+      'import numpy as np\n'
+      'from ai_edge_quantizer_tpu_torch.models import gemma\n'
+      f'cfg = gemma.DecoderConfig(**{MQA!r})\n'
+      'g = gemma.build_decoder(cfg, batch=4, signatures=("decode",), '
+      'materialize_weights=False, fused_projections=True, greedy_head=True)\n'
+      'w = gemma.device_materialize_quantized(g, device="cpu")\n'
+      'h = hashlib.sha256()\n'
+      'for (sg, tid) in sorted(w):\n'
+      '  h.update(w[(sg, tid)].numpy().tobytes())\n'
+      '  q = g.subgraphs[sg].tensors[tid].quantization\n'
+      '  if q is not None:\n'
+      '    h.update(np.asarray(q.scale, np.float32).tobytes())\n'
+      'print(h.hexdigest())\n')
+  root = pathlib.Path(__file__).resolve().parent.parent
+  outs = [subprocess.run([sys.executable, '-c', code], cwd=root,
+                         env=dict(os.environ, PYTHONHASHSEED=seed),
+                         capture_output=True, text=True, timeout=120)
+          for seed in ('1', '2')]
+  assert outs[0].returncode == 0, outs[0].stderr
+  assert outs[0].stdout == outs[1].stdout
