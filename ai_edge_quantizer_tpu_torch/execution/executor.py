@@ -4,10 +4,11 @@ Port of `ai_edge_quantizer_tpu/execution/executor.py`, the parts the
 Gemma int4 decode step runs: constant loading, the DEQUANTIZE alias,
 `prepare_serving_weights`, `_run_signature` / `_eval_op` /
 `_dequant_view` / `_store_outputs`, the int8 DYNAMIC_UPDATE_SLICE fast
-path, the packed int4 DRQ FC, and three fusions with their dispatch:
+path, the packed int4 DRQ FC, and four fusions with their dispatch:
 int8-cache attention (the stale-cache kernel with the cache write outside
 it, the lengths kernel at decode, the flash kernel at prefill), the GeGLU
-MLP and the greedy head. The block, norm, QKV, attention-epilogue and
+MLP, the greedy head and the decode block (MLP(l-1) + norms + QKV(l) +
+RoPE + attention(l) in one kernel). The norm, QKV, attention-epilogue and
 MoE fusions, capture mode, the calibration runners and the SRQ integer
 paths are not ported yet.
 
@@ -16,8 +17,9 @@ Differences from the JAX executor:
     the same meanings: `int4_drq` (AEQT_INT4_DRQ), `attn_lengths`
     (AEQT_ATTN_LENGTHS), `attn_writeback` (AEQT_ATTN_WRITEBACK=1 with
     AEQT_ATTN_WRITEBACK_MODE; None turns it off), `mlp_fusion` and `mlp_bf`
-    (AEQT_MLP_FUSION, AEQT_MLP_BF), `head_fusion` (AEQT_HEAD_FUSION).
-    Defaults are the values bench.py sets, with the decode block off.
+    (AEQT_MLP_FUSION, AEQT_MLP_BF), `head_fusion` (AEQT_HEAD_FUSION),
+    `decode_block` (AEQT_DECODE_BLOCK). Defaults are the values bench.py
+    sets.
   * PyTorch runs eagerly: there is no jit, and a step makes no host sync
     (scales that are IR constants stay Python floats).
   * Where the JAX executor asks "is the backend a TPU" before a Pallas
@@ -41,6 +43,7 @@ import torch
 from ai_edge_quantizer_tpu_torch.execution import quant_arith
 from ai_edge_quantizer_tpu_torch.graph import ir
 from ai_edge_quantizer_tpu_torch.kernels import attention
+from ai_edge_quantizer_tpu_torch.kernels import block as block_lib
 from ai_edge_quantizer_tpu_torch.kernels import head as head_lib
 from ai_edge_quantizer_tpu_torch.kernels import mlp as mlp_lib
 from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul
@@ -102,10 +105,13 @@ class GraphExecutor:
                attn_writeback: Optional[str] = 'stale',
                mlp_fusion: bool = True,
                mlp_bf: int = 2048,
-               head_fusion: bool = True):
+               head_fusion: bool = True,
+               decode_block: bool = True):
     """activation_dtype: 'bfloat16' (serving mode, the bench's setting) or
     'float32' (bit-faithful to the offline pipeline). attn_writeback:
-    'stale', 'splice' or None."""
+    'stale', 'splice' or None. decode_block: fuse each matched
+    MLP(l-1)+QKV(l)+attention(l) unit into one kernel (needs
+    attn_writeback)."""
     self.device = torch.device(device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(
@@ -121,6 +127,7 @@ class GraphExecutor:
     self.mlp_fusion = mlp_fusion
     self.mlp_bf = mlp_bf
     self.head_fusion = head_fusion
+    self.decode_block = decode_block
     self._act_dtype = quant_arith.STORAGE_TORCH_DTYPES[activation_dtype]
     # Constant tensors, keyed (subgraph_idx, tensor_id), in storage dtype.
     self._weights: dict = {}
@@ -143,6 +150,9 @@ class GraphExecutor:
     self._mlp_skip: set = set()
     self._head_fusions: dict = {}
     self._head_skip: set = set()
+    # Decode-block units (_find_block_fusions): (sg, first op idx) -> info.
+    self._block_fusions: dict = {}
+    self._block_skip: set = set()
     # Weight-only fusion: FC consuming the DEQUANTIZE of a constant integer
     # weight reads the integer tensor directly.
     self._dequant_alias: dict = {}
@@ -386,6 +396,7 @@ class GraphExecutor:
               self._packed_block_size.get(key, 0))
     self._find_mlp_fusions()
     self._find_head_fusions()
+    self._find_block_fusions()
 
   def _sig_out_tids(self) -> set:
     return {(s.subgraph_index, tid)
@@ -668,6 +679,157 @@ class GraphExecutor:
         self._head_fusions[(sg_idx, fc_idx)] = info
         self._head_skip.add((sg_idx, am_idx))
 
+  def _find_block_fusions(self) -> None:
+    """Merge MLP(l-1)+norms+QKV(l)+RoPE+attention(l) units into one
+    `block.fused_mlp_qkv_attention` call per layer (the JAX executor's
+    `_find_block_fusions`, the same units on the same conditions).
+
+    A unit is an attention fusion with its cache writes folded in
+    (attn_writeback) and one KV head, whose q, k and v chains lead back to
+    one packed QKV FC behind an RMS_NORM, whose input is the ADD of a
+    residual and an unsplit MLP fusion's output, that MLP's input being an
+    RMS_NORM of the same residual; all four cache tensors carry
+    quantization params. Runs after the MLP and head finders; the absorbed
+    MLP and attention fusions are removed.
+    """
+    self._block_fusions = {}
+    self._block_skip = set()
+    if not self.decode_block:
+      return
+    for (sg_idx, bmm2_idx), attn in list(self._attn_fusions.items()):
+      wb = attn.get('writeback')
+      if wb is None:  # (the port has no attention epilogues)
+        continue
+      sg = self.graph.subgraphs[sg_idx]
+      ops = sg.ops
+      q_tid = attn['q']
+      if sg.tensors[q_tid].shape[1] != 1:  # NK == 1 only
+        continue
+
+      def producer(tid, sg=sg, ops=ops):
+        p = ir.tensor_producer(sg, tid)
+        return (p, ops[p]) if p >= 0 else (None, None)
+
+      def walk(tid, opcodes, producer=producer):
+        """Walk producers back through `opcodes`; returns (ops, final)."""
+        seen = []
+        for code in opcodes:
+          p, op = producer(tid)
+          if op is None or op.opcode != code:
+            return None, None
+          seen.append(p)
+          tid = op.inputs[0]
+        return seen, tid
+
+      # q chain: q_grouped <- RESHAPE <- TRANSPOSE <- ROPE <- RESHAPE <-
+      # SLICE(qkv) <- FC(xn2, wqkv).
+      q_ops, q4_tid = walk(q_tid, ('RESHAPE', 'TRANSPOSE'))
+      if q_ops is None:
+        continue
+      rope_idx, rope_op = producer(q4_tid)
+      if rope_op is None or rope_op.opcode != 'ROPE':
+        continue
+      positions_tid = rope_op.inputs[1]
+      rope_base = float((rope_op.attrs or {}).get('rope_base', 10000.0))
+      slice_ops, qkv_tid = walk(rope_op.inputs[0], ('RESHAPE', 'SLICE'))
+      if slice_ops is None:
+        continue
+      fc_idx, fc_op = producer(qkv_tid)
+      if fc_op is None or fc_op.opcode != 'FULLY_CONNECTED':
+        continue
+      wqkv_key = (sg_idx, fc_op.inputs[1])
+      if wqkv_key not in self._packed_int4_keys:
+        continue
+      norm_idx, norm_op = producer(fc_op.inputs[0])
+      if norm_op is None or norm_op.opcode != 'RMS_NORM':
+        continue
+      g2_tid = norm_op.inputs[1]
+      x_ffn_tid = norm_op.inputs[0]
+
+      # k chain: wb update <- TRANSPOSE <- ROPE <- RESHAPE <- SLICE(qkv)
+      k_ops, k4_tid = walk(wb['k']['update'], ('TRANSPOSE',))
+      if k_ops is None:
+        continue
+      krope_idx, krope_op = producer(k4_tid)
+      if krope_op is None or krope_op.opcode != 'ROPE':
+        continue
+      kslice_ops, k_src = walk(krope_op.inputs[0], ('RESHAPE', 'SLICE'))
+      if kslice_ops is None or k_src != qkv_tid:
+        continue
+      # v chain: TRANSPOSE <- RESHAPE <- SLICE(qkv)
+      v_ops, v_src = walk(wb['v']['update'],
+                          ('TRANSPOSE', 'RESHAPE', 'SLICE'))
+      if v_ops is None or v_src != qkv_tid:
+        continue
+
+      # The FFN residual of l-1: x_ffn = ADD(x_res, mlp_down_out).
+      add_idx, add_op = producer(x_ffn_tid)
+      if add_op is None or add_op.opcode != 'ADD':
+        continue
+      mlp = mlp_key = x_res_tid = None
+      for cand_res, cand_down in (add_op.inputs[:2],
+                                  add_op.inputs[:2][::-1]):
+        for key, info in self._mlp_fusions.items():
+          if key[0] == sg_idx and info['out'] == cand_down:
+            mlp, mlp_key, x_res_tid = info, key, cand_res
+            break
+        if mlp is not None:
+          break
+      if mlp is None or mlp.get('wgu_split') is not None:
+        continue
+      # mlp['x'] is the pre-FFN-norm output; fold the norm in.
+      n1_idx, n1_op = producer(mlp['x'])
+      if (n1_op is None or n1_op.opcode != 'RMS_NORM'
+          or n1_op.inputs[0] != x_res_tid):
+        continue
+
+      k_info = sg.tensors[attn['k']].quantization
+      v_info = sg.tensors[attn['v']].quantization
+      ku_info = sg.tensors[wb['k']['update']].quantization
+      vu_info = sg.tensors[wb['v']['update']].quantization
+      if any(i is None for i in (k_info, v_info, ku_info, vu_info)):
+        continue
+
+      def scalar(values):
+        return float(np.asarray(values).reshape(()))
+
+      first_idx = min(n1_idx, mlp_key[1])
+      self._block_fusions[(sg_idx, first_idx)] = {
+          'x_res': x_res_tid,
+          'g1': n1_op.inputs[1],
+          'eps': float((n1_op.attrs or {}).get('epsilon', 1e-6)),
+          'mlp': mlp,
+          'g2': g2_tid,
+          'wqkv_key': wqkv_key,
+          'positions': positions_tid,
+          'rope_base': rope_base,
+          'nq': sg.tensors[q_tid].shape[2],
+          'head_dim': sg.tensors[q_tid].shape[3],
+          'x_ffn_out': x_ffn_tid,
+          'ctx_out': attn['out'],
+          'mask': attn['mask'],
+          'wb': wb,
+          'k_scale_eff': scalar(k_info.scale) * attn['k_scale_factor'],
+          'v_scale': scalar(v_info.scale),
+          'zp_k': scalar(k_info.zero_point),
+          'zp_v': scalar(v_info.zero_point),
+          'kq_scale': scalar(ku_info.scale),
+          'vq_scale': scalar(vu_info.scale),
+      }
+      # Ops absorbed into the unit. The attention chain's own ops are in
+      # _attn_skip already and the MLP's interior ops stay in _mlp_skip;
+      # the MLP fusion's key op (its gate/up FC) is skipped here. (The JAX
+      # executor also drops the folded norms from its norm fusions; the
+      # port has none.)
+      unit_ops = ([n1_idx, add_idx, norm_idx, fc_idx, rope_idx, krope_idx,
+                   bmm2_idx]
+                  + q_ops + slice_ops + k_ops + kslice_ops + v_ops)
+      for oi in unit_ops:
+        self._block_skip.add((sg_idx, oi))
+      self._block_skip.add(mlp_key)
+      del self._mlp_fusions[mlp_key]
+      del self._attn_fusions[(sg_idx, bmm2_idx)]
+
   # -- public API -----------------------------------------------------------
 
   def __call__(self, inputs: dict,
@@ -705,6 +867,12 @@ class GraphExecutor:
 
     for op_idx, op in enumerate(sg.ops):
       key = (sg_idx, op_idx)
+      block = self._block_fusions.get(key)
+      if block is not None:
+        self._eval_fused_block(sg, block, env)
+        continue
+      if key in self._block_skip:
+        continue  # folded into a decode-block unit
       fusion = self._attn_fusions.get(key)
       if fusion is not None:
         self._eval_fused_attention(sg_idx, sg, fusion, env)
@@ -970,6 +1138,53 @@ class GraphExecutor:
       ctx = (torch.matmul(probs, v_q.to(torch.float32)) - zp_v) * v_scale
     out_op = ir.Op(opcode='BATCH_MATMUL', inputs=[], outputs=[fusion['out']])
     self._store_outputs(sg, out_op, (ctx,), env)
+
+  def _eval_fused_block(self, sg: ir.Subgraph, fusion: dict,
+                        env: dict) -> None:
+    """One fused MLP+QKV+attention call for a matched unit (the JAX
+    executor's `_eval_fused_block`). Lengths come from the prefix-form
+    mask, cos and sin of the rows' positions are formed on the device, and
+    the write position is the cache update's start on the sequence axis
+    (its other starts are 0 in the decode graph). The kernel writes the new
+    rows into copies of the pools, so the step's inputs stay unchanged."""
+    x_res = self._dequant_view(sg, fusion['x_res'], env)
+    b = x_res.shape[0]
+    h = fusion['head_dim']
+    mask = self._dequant_view(sg, fusion['mask'], env)
+    freqs = ops_impl.rope_freqs(fusion['rope_base'], h // 2, self.device)
+    ang = env[fusion['positions']][:, 0, None].to(torch.float32) * freqs
+    mlp = fusion['mlp']
+    wb = fusion['wb']
+    k_pool = env[wb['k']['operand']].clone()
+    v_pool = env[wb['v']['operand']].clone()
+    s = k_pool.shape[2]
+    ctx, x_ffn, _, _ = block_lib.fused_mlp_qkv_attention(
+        x_res.reshape(b, -1).to(torch.float32),
+        self._dequant_view(sg, fusion['g1'], env).reshape(-1),
+        env[mlp['wgu_key'][1]],
+        self._packed_scale[mlp['wgu_key']],
+        env[mlp['wd_grouped_tid']],
+        self._packed_scale[mlp['wd_key']],
+        self._dequant_view(sg, fusion['g2'], env).reshape(-1),
+        env[fusion['wqkv_key'][1]],
+        self._packed_scale[fusion['wqkv_key']],
+        torch.cos(ang), torch.sin(ang),
+        k_pool.view(b, s, h), v_pool.view(b, s, h), _prefix_lengths(mask),
+        env[wb['k']['starts']][2],
+        fusion['k_scale_eff'], fusion['v_scale'],
+        fusion['kq_scale'], fusion['vq_scale'], fusion['nq'],
+        k_zero_point=fusion['zp_k'], v_zero_point=fusion['zp_v'],
+        act=mlp['act'], eps=fusion['eps'], bf=mlp['bf'])
+    # The unit's four graph tensors, stored as the outputs of one op: the
+    # residual stream (f32, cast to the activation dtype), the attention
+    # context and the two pools (int8 codes, stored as they are).
+    outs = (fusion['x_ffn_out'], fusion['ctx_out'], wb['k']['out'],
+            wb['v']['out'])
+    values = (x_ffn, ctx, k_pool, v_pool)
+    self._store_outputs(
+        sg, ir.Op(opcode='FUSED_BLOCK', inputs=[], outputs=list(outs)),
+        tuple(v.reshape(sg.tensors[t].shape) for t, v in zip(outs, values)),
+        env)
 
   def _eval_fused_mlp(self, sg_idx: int, sg: ir.Subgraph,
                       fusion: dict, env: dict) -> None:

@@ -103,4 +103,117 @@ __device__ __forceinline__ void context_rows(const float* sc, int S, int G,
             acc);
 }
 
+// Floats of shared memory that stale_attention_row takes.
+inline size_t stale_smem_floats(int G, int S, int H) {
+  return (size_t)G * H + (size_t)G * S + 2 * G + kRedFloats;
+}
+
+// Stale-cache attention of one (batch, kv-head) row, one block of
+// kAttnThreads threads (body of pallas_attention._ctx_prefix_len_cur, f32):
+//   s[g, j]  = (q[g] . k[j] - zp_k * sum(q[g])) * k_scale_eff, j < L
+//   s_cur[g] = (q[g] . k_new - zp_k * sum(q[g])) * k_scale_eff
+//   p = softmax over [s[g, :L], s_cur[g]]
+//   ctx[g]   = ((sum_j p[g, j] v[j] + p_cur[g] v_new) - zp_v) * v_scale
+// sm holds stale_smem_floats(G, S, H) floats, the G query rows first
+// (qs [G][H], written by the caller before a __syncthreads). kr, vr: the
+// row's S x H int8 cache; knr, vnr: its new k and v rows (H int8 each);
+// out: its G x H context. Scores: one thread per live cache row (four
+// 16-byte chunks in flight, kGC query rows' dot products in registers);
+// softmax: one warp per query row; context: 4 head columns and one row
+// group per thread, partials added in row-group order, the new row's
+// column last. Rows at index >= L are not read.
+template <typename TOut>
+__device__ void stale_attention_row(float* sm, int G, int S, int H, int L,
+                                    const int8_t* __restrict__ kr,
+                                    const int8_t* __restrict__ vr,
+                                    const int8_t* knr, const int8_t* vnr,
+                                    TOut* out, float k_scale_eff,
+                                    float v_scale, float zp_k, float zp_v) {
+  float* qs = sm;                          // [G][H]
+  float* sc = qs + (size_t)G * H;          // [G][S] scores, then probs
+  float* qsum = sc + (size_t)G * S;        // [G]
+  float* pcur = qsum + G;                  // [G] s_cur, then p_cur / denom
+  float* red = pcur + G;                   // [RG][kGC][H] context partials
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+
+  // sum(q[g]) and the current column's score: one warp per query row.
+  for (int g = warp; g < G; g += nwarps) {
+    float s = 0.0f, d = 0.0f;
+    for (int h = lane; h < H; h += 32) {
+      const float qv = qs[g * H + h];
+      s = s + qv;
+      d = d + qv * (float)knr[h];
+    }
+    s = warp_sum(s);
+    d = warp_sum(d);
+    if (lane == 0) {
+      qsum[g] = s;
+      pcur[g] = (d - zp_k * s) * k_scale_eff;
+    }
+  }
+  __syncthreads();
+
+  // Stale scores: one thread per live cache row.
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    const int8_t* krow = kr + (size_t)j * H;
+    for (int g0 = 0; g0 < G; g0 += kGC) {
+      float acc[kGC];
+      dot_row(qs, H, G, g0, krow, acc);
+#pragma unroll
+      for (int i = 0; i < kGC; ++i) {
+        const int g = g0 + i;
+        if (g < G) sc[(size_t)g * S + j] = (acc[i] - zp_k * qsum[g]) * k_scale_eff;
+      }
+    }
+  }
+  __syncthreads();
+
+  // Softmax over [stale scores, current column]: one warp per query row.
+  for (int g = warp; g < G; g += nwarps) {
+    float* srow = sc + (size_t)g * S;
+    const float s_cur = pcur[g];
+    float m = s_cur;
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
+    m = warp_max(m);
+    float sum = 0.0f;
+    for (int j = lane; j < L; j += 32) {
+      const float p = expf(srow[j] - m);
+      srow[j] = p;
+      sum = sum + p;
+    }
+    sum = warp_sum(sum);
+    const float p_cur = expf(s_cur - m);
+    const float denom = sum + p_cur;
+    for (int j = lane; j < L; j += 32) srow[j] = srow[j] / denom;
+    __syncwarp();
+    if (lane == 0) pcur[g] = p_cur / denom;
+  }
+  __syncthreads();
+
+  // Context: 4 head columns and one row group per thread.
+  const int chunks = H / 4;
+  const int RG = blockDim.x / chunks;
+  const int c = threadIdx.x % chunks, rg = threadIdx.x / chunks;
+  for (int g0 = 0; g0 < G; g0 += kGC) {
+    float acc[kGC][4];
+    context_rows(sc, S, G, g0, vr, H, L, rg, RG, c, acc);
+    __syncthreads();  // the previous pass has read `red`
+#pragma unroll
+    for (int i = 0; i < kGC; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[((size_t)rg * kGC + i) * H + 4 * c + e] = acc[i][e];
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kGC * H; idx += blockDim.x) {
+      const int i = idx / H, h = idx % H, g = g0 + i;
+      if (g >= G) continue;
+      float ctx = 0.0f;
+      for (int r = 0; r < RG; ++r) ctx = ctx + red[((size_t)r * kGC + i) * H + h];
+      ctx = ctx + pcur[g] * (float)vnr[h];
+      store_f(out, (size_t)g * H + h, (ctx - zp_v) * v_scale);
+    }
+  }
+}
+
 }  // namespace aeqt

@@ -27,13 +27,13 @@
 //   ...), so a warp reads contiguous 128-byte pieces of a V row and four
 //   rows of every group are in flight together; the partial sums meet in shared
 //   memory and are added in row-group order, so the result does not depend
-//   on timing. The new row's column is added last.
+//   on timing. The new row's column is added last. The body is
+//   aeqt::stale_attention_row (attention_common.cuh), which the fused
+//   decode block (fused_block.cu) runs too.
 #include "attention_common.cuh"
 
 namespace {
 
-using aeqt::kGC;
-using aeqt::kRedFloats;
 constexpr int kThreads = aeqt::kAttnThreads;
 
 template <typename TOut>
@@ -48,102 +48,16 @@ stale_attention_kernel(const float* __restrict__ q,
                        float k_scale_eff, float v_scale, float zp_k,
                        float zp_v) {
   extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                          // [G][H]
-  float* sc = qs + (size_t)G * H;          // [G][S] scores, then probs
-  float* qsum = sc + (size_t)G * S;        // [G]
-  float* pcur = qsum + G;                  // [G] s_cur, then p_cur / denom
-  float* red = pcur + G;                   // [RG][kGC][H] context partials
   const int row = blockIdx.x;
   const int b = row / NK;
   const int L = min(max(lengths[b] - 1, 0), S);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-
   const float* qr = q + (size_t)row * G * H;
-  for (int i = threadIdx.x; i < G * H; i += blockDim.x) qs[i] = qr[i];
+  for (int i = threadIdx.x; i < G * H; i += blockDim.x) sm[i] = qr[i];
   __syncthreads();
-
-  // sum(q[g]) and the current column's score: one warp per query row.
-  const int8_t* knr = k_new + (size_t)row * H;
-  for (int g = warp; g < G; g += nwarps) {
-    float s = 0.0f, d = 0.0f;
-    for (int h = lane; h < H; h += 32) {
-      const float qv = qs[g * H + h];
-      s = s + qv;
-      d = d + qv * (float)knr[h];
-    }
-    s = aeqt::warp_sum(s);
-    d = aeqt::warp_sum(d);
-    if (lane == 0) {
-      qsum[g] = s;
-      pcur[g] = (d - zp_k * s) * k_scale_eff;
-    }
-  }
-  __syncthreads();
-
-  // Stale scores: one thread per live cache row.
-  const int8_t* kr = k + (size_t)row * S * H;
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    const int8_t* krow = kr + (size_t)j * H;
-    for (int g0 = 0; g0 < G; g0 += kGC) {
-      float acc[kGC];
-      aeqt::dot_row(qs, H, G, g0, krow, acc);
-#pragma unroll
-      for (int i = 0; i < kGC; ++i) {
-        const int g = g0 + i;
-        if (g < G) sc[(size_t)g * S + j] = (acc[i] - zp_k * qsum[g]) * k_scale_eff;
-      }
-    }
-  }
-  __syncthreads();
-
-  // Softmax over [stale scores, current column]: one warp per query row.
-  for (int g = warp; g < G; g += nwarps) {
-    float* srow = sc + (size_t)g * S;
-    const float s_cur = pcur[g];
-    float m = s_cur;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-    m = aeqt::warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float p = expf(srow[j] - m);
-      srow[j] = p;
-      sum = sum + p;
-    }
-    sum = aeqt::warp_sum(sum);
-    const float p_cur = expf(s_cur - m);
-    const float denom = sum + p_cur;
-    for (int j = lane; j < L; j += 32) srow[j] = srow[j] / denom;
-    __syncwarp();
-    if (lane == 0) pcur[g] = p_cur / denom;
-  }
-  __syncthreads();
-
-  // Context: 4 head columns and one row group per thread.
-  const int8_t* vr = v + (size_t)row * S * H;
-  const int8_t* vnr = v_new + (size_t)row * H;
-  const int chunks = H / 4;
-  const int RG = blockDim.x / chunks;
-  const int c = threadIdx.x % chunks, rg = threadIdx.x / chunks;
-  for (int g0 = 0; g0 < G; g0 += kGC) {
-    float acc[kGC][4];
-    aeqt::context_rows(sc, S, G, g0, vr, H, L, rg, RG, c, acc);
-    __syncthreads();  // the previous pass has read `red`
-#pragma unroll
-    for (int i = 0; i < kGC; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[((size_t)rg * kGC + i) * H + 4 * c + e] = acc[i][e];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kGC * H; idx += blockDim.x) {
-      const int i = idx / H, h = idx % H, g = g0 + i;
-      if (g >= G) continue;
-      float ctx = 0.0f;
-      for (int r = 0; r < RG; ++r) ctx = ctx + red[((size_t)r * kGC + i) * H + h];
-      ctx = ctx + pcur[g] * (float)vnr[h];
-      aeqt::store_f(out, ((size_t)row * G + g) * H + h, (ctx - zp_v) * v_scale);
-    }
-  }
+  aeqt::stale_attention_row(sm, G, S, H, L, k + (size_t)row * S * H,
+                            v + (size_t)row * S * H, k_new + (size_t)row * H,
+                            v_new + (size_t)row * H, out + (size_t)row * G * H,
+                            k_scale_eff, v_scale, zp_k, zp_v);
 }
 
 template <typename TOut>
@@ -151,8 +65,7 @@ int launch(const void* q, const void* k, const void* v, const void* k_new,
            const void* v_new, const void* lengths, void* out, int R, int NK,
            int G, int S, int H, float k_scale_eff, float v_scale, float zp_k,
            float zp_v, cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)G * H + (size_t)G * S + 2 * G + kRedFloats) * sizeof(float);
+  const size_t smem = aeqt::stale_smem_floats(G, S, H) * sizeof(float);
   if (!aeqt::head_dim_fits(H) || !aeqt::smem_fits(smem))
     return aeqt::kShapeRefused;
   auto* kernel = stale_attention_kernel<TOut>;

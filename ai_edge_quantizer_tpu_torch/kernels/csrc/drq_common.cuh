@@ -62,6 +62,60 @@ __device__ __forceinline__ int warp_sum_int(int v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum_double(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// pallas_mlp._gelu_tanh, term by term: 0.5 * x * (1 + tanh(c * (x +
+// 0.044715 * x * x * x))), every product rounded (the library is built
+// with --fmad=false).
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float c = 0.7978845608028654f;
+  float cube = 0.044715f * x;
+  cube = cube * x;
+  cube = cube * x;
+  const float t = tanhf(c * (x + cube));
+  return (0.5f * x) * (1.0f + t);
+}
+
+__device__ __forceinline__ float silu(float x) {
+  return x * (1.0f / (1.0f + expf(-x)));
+}
+
+// RMS norm of one row of K values fused with its per-row DRQ (one warp):
+//   var = mean(x^2), xn = (x * (1 / sqrt(var + eps))) * gamma,
+//   xs  = max(absmax(xn), 1e-9) * (1/127), xq = rint(xn * (1 / xs)).
+// The sum of squares is taken in f64 (each square is exact there) and
+// rounded to f32 once, which makes a difference between orders of the sum
+// very unlikely, though not impossible: the plain PyTorch versions
+// (ops/impl.py RMS_NORM, kernels/block.py) sum in f64 in another order
+// and, in every check so far, get the same f32.
+// x may have been written earlier in the same launch (plain loads only).
+template <typename T>
+__device__ void rmsnorm_quant_row(const T* x, const float* gamma, int K,
+                                  float eps, int8_t* xq, float* xs,
+                                  int lane) {
+  double ss = 0.0;
+  for (int k = lane; k < K; k += 32) {
+    const double v = (double)load_f(x, k);
+    ss += v * v;
+  }
+  ss = warp_sum_double(ss);
+  const float var = (float)(ss / (double)K);
+  const float r = 1.0f / sqrtf(var + eps);
+  float amax = 0.0f;
+  for (int k = lane; k < K; k += 32)
+    amax = fmaxf(amax, fabsf((load_f(x, k) * r) * gamma[k]));
+  amax = warp_max(amax);
+  const float s = fmaxf(amax, 1e-9f) * kInv127;
+  const float inv = 1.0f / s;
+  for (int k = lane; k < K; k += 32)
+    xq[k] = (int8_t)__float2int_rn(((load_f(x, k) * r) * gamma[k]) * inv);
+  if (lane == 0) *xs = s;
+}
+
 // Per-row DRQ of rows [m0, m0 + bm) of x [M, K] into shared memory:
 // xq [bm][K] int8 and xs [bm] f32. One warp per row. Rows past M are 0.
 template <typename T>

@@ -36,22 +36,6 @@ constexpr int kDownWarps = 8;
 constexpr int kDownColsPerWarp = 8;
 constexpr int kDownBN = kDownWarps * kDownColsPerWarp;
 
-// pallas_mlp._gelu_tanh, term by term: 0.5 * x * (1 + tanh(c * (x +
-// 0.044715 * x * x * x))), every product rounded (the library is built
-// with --fmad=false).
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;
-  float cube = 0.044715f * x;
-  cube = cube * x;
-  cube = cube * x;
-  const float t = tanhf(c * (x + cube));
-  return (0.5f * x) * (1.0f + t);
-}
-
-__device__ __forceinline__ float silu(float x) {
-  return x * (1.0f / (1.0f + expf(-x)));
-}
-
 // gu [M, 2F] f32 -> hq [M, F] int8, hs [M, F / bf] f32.
 // grid (M, F / bf); h for the group is staged in shared memory.
 __global__ void __launch_bounds__(kActThreads)
@@ -65,7 +49,7 @@ act_quant_kernel(const float* __restrict__ gu, int8_t* __restrict__ hq,
   float amax = 0.0f;
   for (int j = threadIdx.x; j < bf; j += blockDim.x) {
     const float g = gate[j];
-    const float a = act_silu ? silu(g) : gelu_tanh(g);
+    const float a = act_silu ? aeqt::silu(g) : aeqt::gelu_tanh(g);
     const float h = a * up[j];
     hbuf[j] = h;
     amax = fmaxf(amax, fabsf(h));

@@ -60,7 +60,7 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
   return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
 
 
-def _act(kind: str):
+def activation(kind: str):
   if kind == 'gelu':
     return gelu_tanh
   if kind == 'silu':
@@ -75,7 +75,7 @@ def mlp_int4_packed_plain(x, wgu_packed, s_gu, wd_grouped, s_d, act='gelu',
   d, f = 2 * d2, two_f // 2
   if f % bf:
     raise ValueError(f'bf={bf} must divide F={f}.')
-  act_f = _act(act)
+  act_f = activation(act)
   lead = x.shape[:-1]
   compute = compute_dtype(x)
   x2 = x.reshape(-1, d).to(compute)

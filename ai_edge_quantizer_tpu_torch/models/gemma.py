@@ -916,6 +916,19 @@ def make_inputs(cfg: DecoderConfig, sig: str, batch: int, seq_len: int,
   return inputs
 
 
+def zero_caches(graph: ir.Graph, signature: str = 'decode',
+                device='cuda') -> dict:
+  """Zero cache pools for a signature's `*_cache_in` inputs, made on the
+  device in each tensor's storage dtype (int8 once the caches are stamped),
+  as bench.py allocates them: no host copy of the pools."""
+  sig = graph.signature_by_key(signature)
+  tensors = graph.subgraphs[sig.subgraph_index].tensors
+  return {name: torch.zeros(tuple(tensors[tid].shape),
+                            dtype=quant_arith.storage_dtype_of(tensors[tid]),
+                            device=device)
+          for name, tid in sig.inputs.items() if name.endswith('_cache_in')}
+
+
 def weights_from_numpy(graph: ir.Graph, weights_np: dict,
                        stamps: Optional[dict] = None,
                        device='cuda') -> dict:

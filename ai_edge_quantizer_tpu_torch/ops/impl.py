@@ -228,18 +228,37 @@ def reduce_min(ctx: OpContext, x, axis=None):
 # -- transformer ops --------------------------------------------------------
 
 
+def rms_inverse(xf: torch.Tensor, eps: float) -> torch.Tensor:
+  """1 / sqrt(mean(x^2) + eps) over the last dim of f32 x, [..., 1] f32.
+
+  The sum of squares is taken in f64 (each square is exact there) and
+  rounded to f32 once, which makes a difference between orders of the sum
+  very unlikely, though not impossible: the CUDA kernels that fuse the
+  norm (kernels/csrc/drq_common.cuh `rmsnorm_quant_row`) sum in another
+  order and, in every check so far, get the same f32. 1 / sqrt is two IEEE
+  roundings on every device, which `torch.rsqrt` does not promise. The JAX
+  op takes an f32 mean and rsqrt; at D 2048 its var differs from this one
+  by an ulp in about half the rows, as an f32 mean in PyTorch does, and a
+  few DRQ codes in a million flip by one
+  (tests/test_torch_port_block.py, `test_norm_codes_match_jax_at_gemma_width`).
+  """
+  d = xf.shape[-1]
+  var = (torch.sum(torch.square(xf.to(torch.float64)), dim=-1, keepdim=True)
+         / d).to(torch.float32)
+  return torch.reciprocal(torch.sqrt(var + eps))
+
+
 @register('RMS_NORM')
 def rms_norm(ctx: OpContext, x, gamma=None):
   eps = float(ctx.attrs.get('epsilon', 1e-6))
-  var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
-  y = x * torch.rsqrt(var + eps).to(x.dtype)
+  y = x * rms_inverse(x.to(torch.float32), eps).to(x.dtype)
   if gamma is not None:
     y = torch.mul(*_promote(y, gamma))
   return y
 
 
 @functools.lru_cache(maxsize=32)
-def _rope_freqs(base: float, half: int, device: torch.device) -> torch.Tensor:
+def rope_freqs(base: float, half: int, device: torch.device) -> torch.Tensor:
   # Computed in numpy exactly as the JAX op does, copied once per device.
   freqs = base ** (-np.arange(0, half, dtype=np.float32) / half)
   return torch.as_tensor(freqs, device=device)
@@ -250,7 +269,7 @@ def rope(ctx: OpContext, x, positions):
   """Rotary position embedding over the last dim (half-split convention)."""
   base = float(ctx.attrs.get('rope_base', 10000.0))
   half = x.shape[-1] // 2
-  freqs = _rope_freqs(base, half, x.device)
+  freqs = rope_freqs(base, half, x.device)
   angles = positions[..., None].to(torch.float32) * freqs  # [..., half]
   sin = torch.sin(angles)[..., None, :]
   cos = torch.cos(angles)[..., None, :]

@@ -136,7 +136,9 @@ class DecodeServer:
     admit_budget_groups: cap admissions per tick to this many prefill
     groups; the rest stay queued. None admits everything.
     device: 'cuda' (the default) or 'cpu' (the kernels' plain versions).
-    The executor takes the serving options of bench.py (its defaults).
+    The executor takes the serving options of bench.py (its defaults). The
+    serving graph's one-hot pool update leaves no cache DUS to fold, so the
+    executor's decode block finds no unit in it.
     """
     if mesh is not None:
       raise NotImplementedError(

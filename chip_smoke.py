@@ -7,18 +7,25 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
 
   1. facts: torch.version.cuda, nvcc --version, the card's name and power
      limit (nvidia-smi) and the kernels' build time;
-  2. kernels: each of the six kernels against its plain PyTorch version on
-     the card at the main paths' shapes (Gemma-2B; decode at batch 64 and
-     cache 1024, prefill at 8 x 128 tokens; bf16 activations), with the
-     stated tolerances; CUDA-event medians of the kernel, the plain version
-     and, where one PyTorch call computes the same contraction or
-     attention, that call (`library_ms`, never used by the port); the
+  2. kernels: each of the seven kernels against its plain PyTorch version
+     on the card at the main paths' shapes (Gemma-2B; decode at batch 64
+     and cache 1024, bench.py's decode at batch 256 with 897 live cache
+     rows, prefill at 8 x 128 tokens; bf16 activations), with the stated
+     tolerances; CUDA-event medians of the kernel, the plain version and,
+     where one PyTorch call computes the same contraction or attention,
+     that call (`library_ms`, never used by the port), and for the fused
+     decode block the composition of the unfused kernels it replaces; the
      bound from bytes over 3.35 TB/s or operations over the peak rate; two
      attention shapes the CUDA kernels do not take must raise;
   3. decode loop: the Gemma-2B int4 greedy decode graph at batch 64 with an
      int8 KV cache answers 64 requests (8 prompt tokens fed through the
-     decode step, then 16 greedy tokens); launch counts per kernel are
-     checked against 36 / 18 / 18 / 1 per step;
+     decode step, then 16 greedy tokens), the decode block off; launch
+     counts per kernel are checked against 36 / 18 / 18 / 1 per step;
+  3b. bench decode: bench.py's decode step (batch 256, cache 1024,
+     start_pos 896, zero int8 pools, full vocabulary) through the executor,
+     3 warm-up and 8 timed steps, with the decode block on (launches per
+     step: block 17, stale attention 1, MLP 1, head 1, packed matmul 19)
+     and off on the same weights; ms/step, tokens/s, device idle share;
   4. server: the port's DecodeServer at bench.py's server settings serves
      128 requests (prompt lengths cycling 32..512, 48 new tokens each) by
      step_chunk(8); every request must end done with 48 ids in range, and
@@ -26,12 +33,15 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      versions never run on the card); tokens/s, TTFT p50/p99, ms per
      prefill pass and per chunk of 8 ticks, and the device's idle share
      (torch.profiler) are printed;
-  5. card against CPU: the decode step at batch 8, and the server's first
-     prefill pass and decode tick at 2 layers, f32 activations, run op by
-     op on the card from the CPU's values; every op must agree within a
-     few f32 ulps (the fused MLP of the prefill pass within 1e-3) and the
-     card's ids must equal the port's CPU ids, except rows whose CPU top-2
-     logit margin is below 1e-3 relative (see OpByOp).
+  5. card against CPU: the decode step at batch 8 with the decode block
+     off and on (the block is one op), and the server's first prefill pass
+     and decode tick at 2 layers, f32 activations, run op by op on the
+     card from the CPU's values; every op must agree within a few f32 ulps
+     (the fused MLP of the prefill pass within 1e-3), int8 codes within one
+     step, and the card's ids must equal the port's CPU ids, except rows
+     whose CPU top-2 logit margin is below 1e-3 relative (see OpByOp);
+     then the block on against off on the card at f32 (4 layers, batch 8,
+     4 steps from start_pos 896), ids and caches compared.
 
 Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
@@ -55,6 +65,9 @@ F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 B, S = 64, 1024                # main-path batch and cache length
 PROMPT, GENERATE = 8, 16
+# bench.py's decode (bench.py:477-591): batch 256, start_pos S - 128.
+BENCH_B, BENCH_START = 256, 896
+BENCH_WARMUP, BENCH_STEPS = 3, 8
 # The server phase: bench.py's bench_server settings.
 PREFILL_LEN, PREFILL_BATCH, PREFILL_TAIL = 128, 8, 64
 PREFILL_ROWS = PREFILL_BATCH * PREFILL_LEN   # rows of a prefill pass
@@ -75,9 +88,13 @@ def run_text(cmd):
                         check=True).stdout.strip()
 
 
-def bound(nbytes, ops, ops_rate):
+def bound(nbytes, *work):
+  """(ms, 'bytes' or 'operations'): the largest of nbytes over the memory
+  rate and each unit's operations over its peak rate; work is (operations,
+  peak rate) pairs. Work on separate units (int8 tensor cores, f32 SIMT)
+  can overlap, so their times do not add."""
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-  t_ops = ops / ops_rate * 1e3
+  t_ops = max(ops / rate for ops, rate in zip(work[::2], work[1::2])) * 1e3
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -141,9 +158,11 @@ def kernel_phase(torch, port, cfg, dev, timer):
   results = []
 
   # 1. int4 DRQ matmul: the fused QKV and the out-projection of a layer, at
-  # a decode step's rows (B) and a prefill pass's rows (Bp * T).
+  # a decode step's rows (B), bench.py's decode rows (BENCH_B) and a prefill
+  # pass's rows (Bp * T).
   by_shape = []
-  for phase, m in (('decode', B), ('prefill', PREFILL_ROWS)):
+  for phase, m in (('decode', B), ('bench', BENCH_B),
+                   ('prefill', PREFILL_ROWS)):
     for label, n in (('qkv', (NQ + 2 * NK) * H), ('out_proj', D)):
       x = randn(m, 1, D)
       w_q = randint(-8, 8, n, D)
@@ -195,6 +214,8 @@ def kernel_phase(torch, port, cfg, dev, timer):
                  'only)',
       'prefill': {key: mean(key, 'prefill') for key in
                   ('ms', 'plain_ms', 'bound_ms', 'library_ms')},
+      'bench': {key: mean(key, 'bench') for key in
+                ('ms', 'plain_ms', 'bound_ms', 'library_ms')},
       'by_shape': by_shape})
   log(f'kernel qmatmul_int4_packed_drq ok: {by_shape}')
 
@@ -247,7 +268,8 @@ def kernel_phase(torch, port, cfg, dev, timer):
       'bound_ms': b_ms, 'bound_by': b_by,
       'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
       'library': 'scaled_dot_product_attention over a dequantized bf16 cache',
-      'live_rows': live})
+      'live_rows': live,
+      'bench': stale_bench(torch, att, cfg, dev, timer, gen)})
   log(f'kernel decode_attention_int8_lengths_stale ok: err {err32}')
 
   # 3. MLP, DRQ branch, bf = 2048 (the bench's AEQT_MLP_BF), at a decode
@@ -258,7 +280,8 @@ def kernel_phase(torch, port, cfg, dev, timer):
   wd = mlp.pack_int4_split_grouped(randint(-8, 8, D, F), bf)
   sd = scales(D)
   mlp_rows = {}
-  for phase, m in (('decode', B), ('prefill', PREFILL_ROWS)):
+  for phase, m in (('decode', B), ('bench', BENCH_B),
+                   ('prefill', PREFILL_ROWS)):
     x = randn(m, 1, D)
     margs = (x, wgu, sgu, wd, sd)
     got = mlp.mlp_int4_packed(*margs, bf=bf)
@@ -289,7 +312,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
       'max_abs_y': dec['max_abs_y'], 'ms': dec['ms'],
       'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
       'bound_by': dec['bound_by'], 'library_ms': None,
-      'prefill': mlp_rows['prefill']})
+      'prefill': mlp_rows['prefill'], 'bench': mlp_rows['bench']})
   err = max(r['max_abs_err'] for r in mlp_rows.values())
   ymax = dec['max_abs_y']
   log(f'kernel mlp_int4_packed ok: err {err} (max |y| {ymax})')
@@ -312,6 +335,15 @@ def kernel_phase(torch, port, cfg, dev, timer):
       raise AssertionError(f'head: {mism} ids differ from plain')
   nbytes = B * D * 2 + V * D + V * 4 + B * 4
   b_ms, b_by = bound(nbytes, 2 * B * V * D, INT8_OPS_PER_S)
+  xb = randn(BENCH_B, 1, D)
+  hb_ms, hb_by = bound(BENCH_B * D * 2 + V * D + V * 4 + BENCH_B * 4,
+                       2 * BENCH_B * V * D, INT8_OPS_PER_S)
+  head_bench = {
+      'M': BENCH_B,
+      'ms': timer(lambda: head.head_argmax(xb, w_q, s, packed=False)),
+      'plain_ms': timer(lambda: head.head_argmax_plain(xb, w_q, s,
+                                                       packed=False)),
+      'bound_ms': hb_ms, 'bound_by': hb_by, 'library_ms': None}
   results.append({
       'name': 'head_argmax', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/head_argmax.cu',
@@ -321,12 +353,224 @@ def kernel_phase(torch, port, cfg, dev, timer):
       'ms': timer(lambda: head.head_argmax(*hargs, packed=False)),
       'plain_ms': timer(lambda: head.head_argmax_plain(*hargs,
                                                         packed=False)),
-      'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
+      'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+      'bench': head_bench})
   log('kernel head_argmax ok: ids identical (planted tie included)')
   results.append(lengths_kernel(torch, att, cfg, dev, timer, gen))
   results.append(flash_kernel(torch, att, cfg, dev, timer, gen))
+  results.append(block_kernel(torch, port, cfg, dev, timer, gen))
   refused_shapes(torch, att, dev)
   return results
+
+
+def stale_bench(torch, att, cfg, dev, timer, gen):
+  """Stale attention at bench.py's decode: BENCH_B rows, every one
+  BENCH_START + 1 long (BENCH_START live cache rows), f32 compute, bf16
+  output; checked against the plain version as in the kernel phase."""
+  NK, H = cfg.num_kv_heads, cfg.head_dim
+  G = cfg.num_query_heads // NK
+  S = cfg.max_seq_len
+  bf16 = torch.bfloat16
+  q = torch.randn((BENCH_B, NK, G, H), generator=gen, device=dev).to(bf16)
+  kc, vc = (torch.randint(-127, 128, (BENCH_B, NK, S, H), generator=gen,
+                          device=dev).to(torch.int8) for _ in range(2))
+  kn, vn = (torch.randint(-127, 128, (BENCH_B, NK, 1, H), generator=gen,
+                          device=dev).to(torch.int8) for _ in range(2))
+  lengths = torch.full((BENCH_B,), BENCH_START + 1, dtype=torch.int32,
+                       device=dev)
+  args = (q, kc, vc, 0.06, 0.06, lengths, kn, vn)
+  got = att.decode_attention_int8_lengths_stale(*args)
+  want = att.decode_attention_int8_lengths_stale_plain(*args)
+  sync()
+  # f32 sums over 896 rows in another order than the plain version's
+  # matmul; values up to 127 * 0.06.
+  err = float(torch.max(torch.abs(got - want)))
+  ymax = float(torch.max(torch.abs(want)))
+  if err > 1e-5 * max(ymax, 1.0):
+    raise AssertionError(f'stale attention at the bench shape: err {err}, '
+                         f'max |y| {ymax}')
+  live = NK * BENCH_B * BENCH_START
+  nbytes = (q.numel() * 2 + 2 * live * H + kn.numel() + vn.numel()
+            + lengths.numel() * 4 + q.numel() * 2)
+  b_ms, b_by = bound(nbytes, 4 * G * H * (live + BENCH_B * NK),
+                     F32_OPS_PER_S)
+  kw = dict(out_dtype=bf16)
+  kd = (kc.float() * 0.06).to(bf16)
+  vd = (vc.float() * 0.06).to(bf16)
+  amask = torch.where(
+      torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
+      float('-inf')).to(bf16).reshape(BENCH_B, 1, 1, S)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  return {
+      'B': BENCH_B, 'live_rows': live, 'max_abs_err': err, 'max_abs_y': ymax,
+      'ms': timer(lambda: att.decode_attention_int8_lengths_stale(*args,
+                                                                  **kw)),
+      'plain_ms': timer(
+          lambda: att.decode_attention_int8_lengths_stale_plain(*args, **kw)),
+      'bound_ms': b_ms, 'bound_by': b_by,
+      'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask))}
+
+
+def block_kernel(torch, port, cfg, dev, timer, gen):
+  """The fused decode block against its plain version at bench.py's shape:
+  GEMMA_2B widths, BENCH_B rows, S = 1024, bf = 2048, random pools.
+
+  Cases: bf16 x_res with random lengths 1..S at pos 0, 31, 32 and S - 1;
+  then bench.py's step (every row BENCH_START + 1 long, pos BENCH_START)
+  with bf16 and with f32 x_res (the executor passes f32). k_new, v_new and
+  both pools must equal the plain version's bit for bit. x_ffn is held to
+  one bf16 ulp (bf16 x_res) or 1e-6 relative (f32), ctx to 5e-5 of its
+  largest magnitude: f32 sums in another order, scores of order 10, whose
+  rounding exp amplifies. The bench step is timed beside the plain version
+  and the composition it replaces (RMS norm, the MLP kernel, residual,
+  norm, the QKV matmul kernel, RoPE, quantize, the stale kernel and the
+  pools' row write), which at f32 must give the same x_ffn and ctx."""
+  blk, pq, mlp = port['block'], port['packed_qmatmul'], port['mlp']
+  att, impl = port['attention'], port['ops_impl']
+  D, F, V = cfg.embed_dim, cfg.ffn_dim, cfg.vocab_size
+  NQ, H, S = cfg.num_query_heads, cfg.head_dim, cfg.max_seq_len
+  N = (NQ + 2) * H
+  bf = 2048
+  eps = cfg.norm_eps
+  Bb = BENCH_B
+  f32 = torch.float32
+
+  def randint(lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev).to(
+        torch.int8)
+
+  def scales(n):
+    return torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
+
+  x32 = torch.randn((Bb, D), generator=gen, device=dev)
+  x16 = x32.to(torch.bfloat16)
+  x32 = x16.float()
+  g1 = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+  g2 = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+  wgu = pq.pack_int4_split(randint(-8, 8, 2 * F, D))
+  sgu = scales(2 * F)
+  wd = mlp.pack_int4_split_grouped(randint(-8, 8, D, F), bf)
+  sd = scales(D)
+  wqkv = pq.pack_int4_split(randint(-8, 8, N, D))
+  sqkv = scales(N)
+  kc, vc = randint(-127, 128, Bb, S, H), randint(-127, 128, Bb, S, H)
+  scale = 0.06  # the stamped KV scale; the graph's score factor is 1
+  freqs = impl.rope_freqs(10000.0, H // 2, dev)
+
+  def inputs(x, pos, lengths):
+    ang = (float(pos) * freqs).reshape(1, H // 2).expand(Bb, H // 2)
+    return ([x, g1, wgu, sgu, wd, sd, g2, wqkv, sqkv,
+             torch.cos(ang).contiguous(), torch.sin(ang).contiguous(),
+             kc.clone(), vc.clone(), lengths, pos]
+            + [scale] * 4 + [NQ])
+
+  def check(x, pos, lengths, label):
+    a = inputs(x, pos, lengths)
+    b = list(a)
+    b[11], b[12] = kc.clone(), vc.clone()
+    got = blk.fused_mlp_qkv_attention(*a, eps=eps, bf=bf)
+    want = blk.fused_mlp_qkv_attention_plain(*b, eps=eps, bf=bf)
+    sync()
+    codes = {name: int(torch.sum(g != w)) for name, g, w in (
+        ('k_new', got[2], want[2]), ('v_new', got[3], want[3]),
+        ('k_pool', a[11], b[11]), ('v_pool', a[12], b[12]))}
+    ctx_err = float(torch.max(torch.abs(got[0] - want[0])))
+    ctx_max = float(torch.max(torch.abs(want[0])))
+    if x.dtype == torch.bfloat16:
+      x_err = bf16_ulps(torch, got[1], want[1])
+      x_ok = x_err <= 1.0
+    else:
+      x_err = float(torch.max(torch.abs(got[1] - want[1]))
+                    / torch.max(torch.abs(want[1])))
+      x_ok = x_err <= 1e-6
+    if any(codes.values()) or not x_ok or ctx_err > 5e-5 * ctx_max:
+      raise AssertionError(f'fused block {label}: codes that differ '
+                           f'{codes}, x_ffn err {x_err}, ctx err {ctx_err} '
+                           f'(max |ctx| {ctx_max})')
+    log(f'kernel fused_mlp_qkv_attention {label} ok: int8 codes equal, '
+        f'x_ffn err {x_err:.3g}, ctx err {ctx_err:.3g} (max |ctx| '
+        f'{ctx_max:.3g})')
+    return {'case': label, 'x_ffn_err': x_err, 'ctx_max_abs_err': ctx_err,
+            'ctx_max_abs': ctx_max}
+
+  cases = []
+  for pos in (0, 31, 32, S - 1):
+    lengths = torch.randint(1, S + 1, (Bb,), generator=gen, device=dev).to(
+        torch.int32)
+    lengths[0], lengths[-1] = 1, S
+    cases.append(check(x16, pos, lengths, f'bf16 pos {pos}'))
+  lengths = torch.full((Bb,), BENCH_START + 1, dtype=torch.int32, device=dev)
+  for x, name in ((x16, 'bf16'), (x32, 'f32')):
+    cases.append(check(x, BENCH_START, lengths, f'{name} bench step'))
+
+  a = inputs(x32, BENCH_START, lengths)
+  cos, sin = a[9], a[10]
+  rope = blk.rope_rotate
+
+  def composition():
+    xn = x32 * impl.rms_inverse(x32, eps) * g1
+    x_ffn = x32 + mlp.mlp_int4_packed(xn, wgu, sgu, wd, sd, bf=bf)
+    xn2 = x_ffn * impl.rms_inverse(x_ffn, eps) * g2
+    qkv = pq.qmatmul_int4_packed_drq(xn2, wqkv, sqkv)
+    q = rope(qkv[:, :NQ * H].reshape(Bb, NQ, H), cos[:, None], sin[:, None])
+    k = rope(qkv[:, NQ * H:(NQ + 1) * H], cos, sin)
+    k_new, v_new = (torch.clamp(torch.round(t / scale), -127, 127).to(
+        torch.int8) for t in (k, qkv[:, (NQ + 1) * H:]))
+    ctx = att.decode_attention_int8_lengths_stale(
+        q[:, None], kc[:, None], vc[:, None], scale, scale, lengths,
+        k_new[:, None, None], v_new[:, None, None])
+    k_pool, v_pool = kc.clone(), vc.clone()
+    k_pool[:, BENCH_START] = k_new
+    v_pool[:, BENCH_START] = v_new
+    return ctx.reshape(Bb, NQ, H), x_ffn, k_new, v_new
+
+  got = blk.fused_mlp_qkv_attention(*a, eps=eps, bf=bf)
+  comp = composition()
+  sync()
+  comp_x = float(torch.max(torch.abs(got[1] - comp[1])))
+  comp_ctx = float(torch.max(torch.abs(got[0] - comp[0])))
+  comp_codes = int(torch.sum(got[2] != comp[2]) + torch.sum(got[3] != comp[3]))
+  log(f'fused block against the unfused kernels at f32: x_ffn err {comp_x}, '
+      f'ctx err {comp_ctx:.3g}, new-row codes that differ {comp_codes} (the '
+      'unfused quantize divides by the scale, the block multiplies by its '
+      'f32 inverse)')
+  if comp_x != 0.0 or comp_ctx > 5e-5 * cases[-1]['ctx_max_abs']:
+    raise AssertionError('the fused block and the unfused kernels disagree')
+
+  live = Bb * BENCH_START
+  nbytes = (2 * F * D // 2 + D * F // 2 + N * D // 2
+            + (2 * F + N + 3 * D) * 4          # scales and gammas
+            + Bb * D * 2 + Bb * H * 4 + Bb * 4  # x (bf16), cos, sin, lengths
+            + 2 * live * H                      # the live K and V rows
+            + Bb * NQ * H * 4 + Bb * D * 2      # ctx, x_ffn
+            + 4 * Bb * H)                       # k_new, v_new, pool rows
+  int8_ops = 2 * Bb * (3 * D * F + N * D)
+  f32_ops = 4 * NQ * H * (live + Bb)
+  b_ms, b_by = bound(nbytes, int8_ops, INT8_OPS_PER_S, f32_ops,
+                     F32_OPS_PER_S)
+  a16 = inputs(x16, BENCH_START, lengths)
+  ms = timer(lambda: blk.fused_mlp_qkv_attention(*a16, eps=eps, bf=bf))
+  plain_ms = timer(lambda: blk.fused_mlp_qkv_attention_plain(
+      *a16, eps=eps, bf=bf), reps=5)
+  comp_ms = timer(composition)
+  log(f'kernel fused_mlp_qkv_attention: {ms:.3f} ms (plain {plain_ms:.3f}, '
+      f'unfused kernels {comp_ms:.3f}, bound {b_ms:.4f} by {b_by})')
+  return {
+      'name': 'fused_mlp_qkv_attention', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/fused_block.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_block.py:233',
+      'jax': 'pallas_block.fused_mlp_qkv_attention (f32 attention)',
+      'wrapper': blk.fused_mlp_qkv_attention, 'per_step': 0,
+      'per_bench_step': cfg.num_layers - 1,
+      'max_abs_err': max(c['ctx_max_abs_err'] for c in cases),
+      'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+      'library_ms': None, 'composition_ms': comp_ms,
+      'composition': 'RMS norm, mlp_int4_packed, residual, RMS norm, '
+                     'qmatmul_int4_packed_drq, RoPE, quantize, '
+                     'decode_attention_int8_lengths_stale, row write',
+      'composition_vs_block': {'x_ffn_err': comp_x, 'ctx_err': comp_ctx,
+                               'new_row_codes_differ': comp_codes},
+      'B': Bb, 'live_rows': live, 'cases': cases}
 
 
 def refused_shapes(torch, att, dev):
@@ -499,18 +743,16 @@ def flash_kernel(torch, att, cfg, dev, timer, gen):
 
 
 def serve_phase(torch, port, kernels, cfg, dev):
-  """64 requests through the decode step of the Gemma-2B int4 graph."""
+  """64 requests through the decode step of the Gemma-2B int4 graph at
+  batch 64, the decode block off."""
   gemma, executor = port['gemma'], port['executor']
-  S = cfg.max_seq_len
   t0 = time.monotonic()
-  graph = gemma.build_decoder(cfg, batch=B, signatures=('decode',),
-                              materialize_weights=False,
-                              fused_projections=True, greedy_head=True)
-  gemma.stamp_int8_kv_cache(graph)
+  graph = decode_graph(gemma, cfg, B)
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, device=dev)
   ex = executor.GraphExecutor(graph, device=dev,
-                              activation_dtype='bfloat16')
+                              activation_dtype='bfloat16',
+                              decode_block=False)
   ex.load_weights(weights)
   ex.prepare_serving_weights(min_weight_params=0)
   del weights
@@ -522,14 +764,9 @@ def serve_phase(torch, port, kernels, cfg, dev):
   prompts = torch.as_tensor(
       rng.integers(0, cfg.vocab_size, size=(B, PROMPT)), dtype=torch.int32,
       device=dev)
-  G = cfg.num_query_heads // cfg.num_kv_heads
-  cache_shape = (B, cfg.num_kv_heads, S, cfg.head_dim)
-  feed = {}
-  for li in range(cfg.num_layers):
-    for kind in ('k', 'v'):
-      feed[f'layer_{li}_{kind}_cache_in'] = torch.zeros(
-          cache_shape, dtype=torch.int8, device=dev)
-  iota = torch.arange(S, device=dev)
+  step = decode_stepper(torch, ex, cfg, B,
+                        gemma.zero_caches(graph, 'decode', dev), dev)
+  positions = torch.arange(cfg.max_seq_len, dtype=torch.int32, device=dev)
   steps = PROMPT + GENERATE - 1
   generated = []
   tokens = prompts[:, :1]
@@ -537,26 +774,11 @@ def serve_phase(torch, port, kernels, cfg, dev):
     k['wrapper'].launches = 0
     k['wrapper'].plain_calls = 0
 
-  def step(pos, tokens):
-    """One decode step at `pos`; the caches carry over in `feed`."""
-    feed['tokens'] = tokens
-    feed['positions'] = torch.full((B, 1), pos, dtype=torch.int32,
-                                   device=dev)
-    feed['mask'] = torch.where(iota <= pos, 0.0, -1e9).reshape(
-        1, 1, 1, S).expand(B, 1, G, S)
-    feed['cache_pos'] = torch.tensor([0, 0, pos, 0], dtype=torch.int32,
-                                     device=dev)
-    out = ex(feed, 'decode')
-    for li in range(cfg.num_layers):
-      for kind in ('k', 'v'):
-        feed[f'layer_{li}_{kind}_cache_in'] = out[f'layer_{li}_{kind}_cache']
-    return out['next_tokens'].reshape(B, 1)
-
   step_ms = []
   t_start = time.monotonic()
   for pos in range(steps):
     t_step = time.monotonic()
-    nxt = step(pos, tokens)
+    nxt = step(positions[pos], tokens)
     if pos + 1 < PROMPT:
       tokens = prompts[:, pos + 1:pos + 2]
     else:
@@ -593,8 +815,8 @@ def serve_phase(torch, port, kernels, cfg, dev):
   result = {'ms_per_step': steady, 'tokens_per_s': B / steady * 1e3,
             'ms_per_step_all': wall * 1e3 / steps}
   if dev == 'cuda':
-    result.update(profile_steps(torch, lambda pos: step(pos, tokens), steps,
-                                steady))
+    result.update(profile_steps(torch, lambda i: step(positions[i], tokens),
+                                steps, steady))
   return result
 
 
@@ -626,6 +848,136 @@ def profile_steps(torch, step, pos0, steady_ms, n=3):
   return {'device_busy_ms_per_step': busy,
           'device_idle_share': 1 - busy / steady_ms,
           'device_ms_per_step_by_kernel': dict(top)}
+
+
+def decode_graph(gemma, cfg, batch):
+  """bench.py's decode graph (bench.py:517-529): one `decode` signature,
+  fused projections, greedy head, int8 KV caches."""
+  graph = gemma.build_decoder(cfg, batch=batch, prefill_len=8,
+                              signatures=('decode',),
+                              materialize_weights=False,
+                              fused_projections=True, greedy_head=True)
+  gemma.stamp_int8_kv_cache(graph)
+  return graph
+
+
+def decode_stepper(torch, ex, cfg, batch, feed, dev):
+  """step(pos_t, tokens) -> next tokens: one decode step whose inputs are
+  made on the device from the int32 device scalar pos_t, as bench.py's
+  one_step makes them (bench.py:593-621); the caches carry over in feed.
+  No host sync."""
+  S = cfg.max_seq_len
+  G = cfg.num_query_heads // cfg.num_kv_heads
+  iota = torch.arange(S, device=dev, dtype=torch.int32)
+  zero = torch.zeros((), dtype=torch.int32, device=dev)
+  cache_keys = [k for k in feed if k.endswith('_cache_in')]
+
+  def step(pos_t, tokens):
+    feed['tokens'] = tokens
+    feed['positions'] = pos_t.reshape(1, 1).expand(batch, 1)
+    feed['mask'] = torch.where(iota <= pos_t, 0.0, -1e9).reshape(
+        1, 1, 1, S).expand(batch, 1, G, S)
+    feed['cache_pos'] = torch.stack([zero, zero, pos_t, zero])
+    out = ex(feed, 'decode')
+    for key in cache_keys:
+      feed[key] = out[key[:-len('_in')]]
+    return out['next_tokens'].reshape(batch, 1).to(torch.int32)
+
+  return step
+
+
+def bench_decode_phase(torch, port, kernels, cfg, dev):
+  """bench.py's decode through the port's GraphExecutor: GEMMA_2B with the
+  full vocabulary, int4 packed FCs, int8 embedding and tied head, int8 KV
+  with the stamped scales in zero pools made on the device, greedy head,
+  bf16 activations, batch BENCH_B, cache 1024, start_pos BENCH_START;
+  BENCH_WARMUP warm-up steps, then BENCH_STEPS timed steps (host clock
+  around synchronised steps) and 3 profiled ones, with the decode block on
+  and then off on the same weights. The launches per step are checked
+  (the plain versions never run on the card)."""
+  gemma, executor = port['gemma'], port['executor']
+  t0 = time.monotonic()
+  graph = decode_graph(gemma, cfg, BENCH_B)
+  weights = gemma.device_materialize_quantized(graph, fc_bits=4,
+                                               embedding_bits=8, device=dev)
+  tokens0 = torch.as_tensor(
+      np.random.default_rng(2).integers(0, cfg.vocab_size, (BENCH_B, 1)),
+      dtype=torch.int32, device=dev)
+  layers = cfg.num_layers
+  per_step = {
+      True: {'fused_mlp_qkv_attention': layers - 1,
+             'decode_attention_int8_lengths_stale': 1, 'mlp_int4_packed': 1,
+             'head_argmax': 1, 'qmatmul_int4_packed_drq': layers + 1},
+      False: {'fused_mlp_qkv_attention': 0,
+              'decode_attention_int8_lengths_stale': layers,
+              'mlp_int4_packed': layers, 'head_argmax': 1,
+              'qmatmul_int4_packed_drq': 2 * layers}}
+  results, ids = {}, {}
+  for block_on in (True, False):
+    ex = executor.GraphExecutor(graph, device=dev,
+                                activation_dtype='bfloat16',
+                                decode_block=block_on)
+    ex.load_weights(weights)
+    ex.prepare_serving_weights(min_weight_params=0)
+    feed = gemma.zero_caches(graph, 'decode', device=dev)
+    step = decode_stepper(torch, ex, cfg, BENCH_B, feed, dev)
+    pos = torch.tensor(BENCH_START, dtype=torch.int32, device=dev)
+    tokens = tokens0
+    sync()
+    label = 'block on' if block_on else 'block off'
+    log(f'bench decode {label}: set-up {time.monotonic() - t0:.1f}s; units '
+        f'block {len(ex._block_fusions)} attention {len(ex._attn_fusions)} '
+        f'mlp {len(ex._mlp_fusions)} head {len(ex._head_fusions)}')
+    for _ in range(BENCH_WARMUP):
+      tokens = step(pos, tokens)
+      pos = pos + 1
+    sync()
+    for k in kernels:
+      k['wrapper'].launches = 0
+      k['wrapper'].plain_calls = 0
+    step_ms, out_ids = [], []
+    for _ in range(BENCH_STEPS):
+      t1 = time.monotonic()
+      tokens = step(pos, tokens)
+      pos = pos + 1
+      sync()
+      step_ms.append((time.monotonic() - t1) * 1e3)
+      out_ids.append(tokens)
+    # On the card only launches count; a CPU rehearsal counts plain runs.
+    on_card = dev == 'cuda'
+    launches = {k['name']: getattr(k['wrapper'], 'launches' if on_card
+                                   else 'plain_calls') for k in kernels}
+    plain = {k['name']: getattr(k['wrapper'], 'plain_calls' if on_card
+                                else 'launches') for k in kernels}
+    want = {name: n * BENCH_STEPS for name, n in per_step[block_on].items()}
+    if ({n: launches.get(n, 0) for n in want} != want
+        or any(v for n, v in launches.items() if n not in want)
+        or any(plain.values())):
+      raise AssertionError(f'bench decode {label}: launches {launches}, want '
+                           f'{want}; plain runs on the card {plain}')
+    for k in kernels:
+      k.setdefault('launches_bench_decode', {})[label] = launches[k['name']]
+    ids[block_on] = torch.cat(out_ids, dim=1)
+    lo, hi = int(ids[block_on].min()), int(ids[block_on].max())
+    if lo < 0 or hi >= cfg.vocab_size:
+      raise AssertionError(f'bench decode {label}: ids out of range')
+    med = statistics.median(step_ms)
+    log(f'bench decode {label}: {med:.3f} ms/step (median of '
+        f'{[round(t, 3) for t in step_ms]}), {BENCH_B / med * 1e3:.1f} '
+        f'tokens/s at batch {BENCH_B}; launches per step '
+        f'{ {n: v // BENCH_STEPS for n, v in launches.items() if v} }')
+    prof = profile_steps(torch, lambda i, pos=pos: step(pos + i, tokens), 0,
+                         med)
+    results[label] = {'ms_per_step': med, 'step_ms': step_ms,
+                      'tokens_per_s': BENCH_B / med * 1e3,
+                      'launches_per_step': per_step[block_on], **prof}
+    del ex, feed, step
+    torch.cuda.empty_cache()
+  same = float(torch.mean((ids[True] == ids[False]).float()))
+  log(f'bench decode: block on and off (bf16 activations) agree on '
+      f'{same:.4f} of the {BENCH_B} x {BENCH_STEPS} ids')
+  results['ids_equal_share'] = same
+  return results
 
 
 def serving_graph(gemma, cfg, slots):
@@ -763,7 +1115,8 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
           'head_argmax': ticks + passes,
           'decode_attention_int8_lengths': layers * ticks,
           'flash_attention_int8_masked': layers * passes,
-          'decode_attention_int8_lengths_stale': 0}
+          'decode_attention_int8_lengths_stale': 0,
+          'fused_mlp_qkv_attention': 0}
   if launches != want or any(plain.values()):
     raise AssertionError(f'server launches {launches}, want {want}; plain '
                          f'runs on the card {plain}')
@@ -856,14 +1209,16 @@ class OpByOp:
   in `id_diffs` for the caller to judge by the logit margin. The fused
   MLP's output in a call of a signature listed in `mlp_rtol` is held to
   that tolerance instead. `worst` keeps the largest relative error by
-  signature and opcode ('MLP' for the fused MLP).
+  signature and opcode ('MLP' for the fused MLP, FUSED_BLOCK for a decode
+  block unit, one op with four outputs), `flips` the int8 codes that
+  differ by one step.
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None):
     self.torch, self.ex, self.want = torch, ex, want
     self.mlp_rtol = dict(mlp_rtol or {})
     self.mlp_outs = {f['out'] for f in ex._mlp_fusions.values()}
-    self.seen, self.worst, self.id_diffs = [], {}, []
+    self.seen, self.worst, self.id_diffs, self.flips = [], {}, [], {}
     store = ex._store_outputs
     call = ex.__call__
 
@@ -901,9 +1256,14 @@ class OpByOp:
         if rel > (self.mlp_rtol.get(sig, 1e-5) if is_mlp else 1e-5):
           raise AssertionError(f'{sg.tensors[tid].name}: rel err {rel}')
       else:
-        err = int(torch.max(torch.abs(got.long() - want.long())))
+        diff = torch.abs(got.long() - want.long())
+        err = int(torch.max(diff))
         if err > (1 if got.dtype == torch.int8 else 0):
           raise AssertionError(f'{sg.tensors[tid].name}: int err {err}')
+        if err:
+          kind = f'{self.seen[i]["sig"]}/{op.opcode}'
+          self.flips[kind] = self.flips.get(kind, 0) + int(
+              torch.count_nonzero(diff))
       env[tid] = want.to(self.ex.device)
 
 
@@ -985,7 +1345,7 @@ def server_cpu_phase(torch, port, cfg, dev):
           'id_diffs': len(card_watch.id_diffs)}
 
 
-def cpu_phase(torch, port, cfg, dev):
+def cpu_phase(torch, port, cfg, dev, decode_block=False):
   """Same weights, same first step at batch 8, f32: the card against the
   port on the CPU.
 
@@ -995,25 +1355,38 @@ def cpu_phase(torch, port, cfg, dev):
   magnitude (CPU and card differ by a few f32 ulps in libm and summation
   order), int8 codes to one step (the float before the rounding may differ
   by an ulp), and the ids exactly, except rows whose CPU top-2 logit
-  margin is below 1e-3 relative. A free run of the card follows, reported
-  only: there an ulp of one RMS_NORM flips int8 KV codes (per-tensor scale
-  0.06) and the flips compound over 18 layers, so its ids may differ.
+  margin is below 1e-3 relative.
+
+  decode_block=False: start_pos 0 over zero caches. A free
+  run of the card follows, reported only: there an ulp of one RMS_NORM
+  flips int8 KV codes (per-tensor scale 0.06) and the flips compound over
+  18 layers, so its ids may differ. decode_block=True runs the step with
+  the 17 decode-block units, each one op with four outputs held to the
+  same tolerances (x_ffn and ctx 1e-5, the new K/V rows in the pools one
+  code: the block forms cos and sin on its own device, and an ulp of cos
+  can round a K code the other way), at start_pos BENCH_START over random
+  int8 caches so that the attention reads 896 rows.
   """
   gemma, executor, head = port['gemma'], port['executor'], port['head']
   b8 = 8
-  graph = gemma.build_decoder(cfg, batch=b8, signatures=('decode',),
-                              materialize_weights=False,
-                              fused_projections=True, greedy_head=True)
-  gemma.stamp_int8_kv_cache(graph)
+  graph = decode_graph(gemma, cfg, b8)
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, seed=3,
                                                device=dev)
-  inputs = gemma.make_inputs(cfg, 'decode', b8, 1, start_pos=0, seed=3,
+  start = BENCH_START if decode_block else 0
+  inputs = gemma.make_inputs(cfg, 'decode', b8, 1, start_pos=start, seed=3,
                              device='cpu')
+  if decode_block:
+    rng = np.random.default_rng(3)
+    for key in [k for k in inputs if k.endswith('_cache_in')]:
+      inputs[key] = torch.from_numpy(rng.integers(
+          -127, 128, tuple(inputs[key].shape)).astype(np.int8))
+  label = 'card-vs-cpu' + (' (decode block)' if decode_block else '')
 
   def watched(device, want=None):
     ex = executor.GraphExecutor(graph, device=device,
-                                activation_dtype='float32')
+                                activation_dtype='float32',
+                                decode_block=decode_block)
     ex.load_weights(weights)
     ex.prepare_serving_weights(min_weight_params=0)
     return OpByOp(torch, ex, want=want)
@@ -1021,18 +1394,28 @@ def cpu_phase(torch, port, cfg, dev):
   t0 = time.monotonic()
   cpu = watched('cpu')
   cpu_ids = cpu.call(inputs, 'decode')['next_tokens'].reshape(-1)
-  log(f'card-vs-cpu: cpu step {time.monotonic() - t0:.1f}s ids '
+  log(f'{label}: cpu step {time.monotonic() - t0:.1f}s ids '
       f'{cpu_ids.tolist()}')
   head_tid = next(iter(cpu.ex._head_fusions.values()))['out']
   margin = top2_margins(torch, head, cpu, 0, head_tid)
   card = watched(dev, want=cpu.seen)
   card.call(inputs, 'decode')
+  units = len(card.ex._block_fusions)
+  if units != (cfg.num_layers - 1 if decode_block else 0) or (
+      decode_block and 'decode/FUSED_BLOCK' not in card.worst):
+    raise AssertionError(f'{label}: {units} decode-block units')
   worst = {k: f'{v:.2e}' for k, v in sorted(card.worst.items())}
-  log(f'card-vs-cpu op by op: largest relative error by opcode {worst}')
-  judge_ids(torch, head, cpu, card, 'card-vs-cpu')
-  log(f'card-vs-cpu ok: the card\'s ids equal the cpu ids in '
+  log(f'{label} op by op: largest relative error by opcode {worst}; int8 '
+      f'codes one step apart by opcode {card.flips}')
+  judge_ids(torch, head, cpu, card, label)
+  log(f'{label} ok: the card\'s ids equal the cpu ids in '
       f'{b8 - len(card.id_diffs)} of {b8} rows, cpu top-2 margins '
       f'{[f"{float(m):.2e}" for m in margin]}')
+  result = {'worst_rel_err_by_opcode': card.worst,
+            'int8_flips_by_opcode': card.flips,
+            'id_diffs': len(card.id_diffs), 'block_units': units}
+  if decode_block:
+    return result
   free = watched(dev)
   free_ids = free.call(inputs, 'decode')['next_tokens'].reshape(-1).cpu()
   tids = {t.name: tid for tid, t in enumerate(
@@ -1049,6 +1432,62 @@ def cpu_phase(torch, port, cfg, dev):
       'relative difference '
       f'{drift("decode/layer_0/attn_residual"):.2e} in layer 0\'s attention '
       f'residual, {drift("decode/final_norm/out"):.2e} at the final norm')
+  return result
+
+
+def block_on_off_phase(torch, port, cfg, dev, layers=4, batch=8, steps=4):
+  """The decode block on against off on the card at f32 activations
+  (`tests/test_block_fusion_executor.py`'s contract): GEMMA_2B widths cut
+  to `layers` layers, `batch` rows, `steps` greedy steps from start_pos
+  BENCH_START over random int8 caches. Reported: ids and cache codes that
+  differ. Where they differ, the cause is the new row's quantization: the
+  unfused path divides by the scale (quant_arith.quantize), the block
+  multiplies by its f32 inverse as the TPU kernel does, and the two round
+  a code the other way about once in a million."""
+  gemma, executor = port['gemma'], port['executor']
+  cfg_l = dataclasses.replace(cfg, num_layers=layers)
+  graph = decode_graph(gemma, cfg_l, batch)
+  weights = gemma.device_materialize_quantized(graph, fc_bits=4,
+                                               embedding_bits=8, seed=7,
+                                               device=dev)
+  gen = torch.Generator(device=dev).manual_seed(7)
+  caches = {k: torch.randint(-127, 128, tuple(v.shape), generator=gen,
+                             device=dev).to(torch.int8)
+            for k, v in gemma.zero_caches(graph, 'decode', dev).items()}
+  tokens0 = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                          device=dev).to(torch.int32)
+  runs = {}
+  for block_on in (True, False):
+    ex = executor.GraphExecutor(graph, device=dev, activation_dtype='float32',
+                                decode_block=block_on)
+    ex.load_weights(weights)
+    ex.prepare_serving_weights(min_weight_params=0)
+    feed = {k: v.clone() for k, v in caches.items()}
+    step = decode_stepper(torch, ex, cfg_l, batch, feed, dev)
+    pos = torch.tensor(BENCH_START, dtype=torch.int32, device=dev)
+    tokens, ids = tokens0, []
+    for _ in range(steps):
+      tokens = step(pos, tokens)
+      pos = pos + 1
+      ids.append(tokens)
+    runs[block_on] = (len(ex._block_fusions), torch.cat(ids, dim=1), feed)
+  units, ids_on, caches_on = runs[True]
+  _, ids_off, caches_off = runs[False]
+  if units != layers - 1:
+    raise AssertionError(f'block on/off: {units} units')
+  id_diffs = int(torch.sum(ids_on != ids_off))
+  code_diffs = sum(int(torch.sum(caches_on[k] != caches_off[k]))
+                   for k in caches_on)
+  max_diff = max(int(torch.max(torch.abs(caches_on[k].int()
+                                         - caches_off[k].int())))
+                 for k in caches_on)
+  log(f'block on against off on the card, f32, {layers} layers, batch '
+      f'{batch}, {steps} steps from {BENCH_START}: ids that differ '
+      f'{id_diffs} of {ids_on.numel()}, cache codes that differ {code_diffs} '
+      f'(largest difference {max_diff})')
+  return {'layers': layers, 'batch': batch, 'steps': steps,
+          'id_diffs': id_diffs, 'cache_code_diffs': code_diffs,
+          'cache_max_code_diff': max_diff}
 
 
 def main():
@@ -1067,15 +1506,17 @@ def main():
   sys.path.insert(0, str(root))
   from ai_edge_quantizer_tpu_torch.execution import executor
   from ai_edge_quantizer_tpu_torch.kernels import _build
-  from ai_edge_quantizer_tpu_torch.kernels import attention, head, mlp
-  from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul
+  from ai_edge_quantizer_tpu_torch.kernels import attention, block, head
+  from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul
   from ai_edge_quantizer_tpu_torch.models import gemma
+  from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
   from ai_edge_quantizer_tpu_torch.parallel import batching
   if any(m == 'jax' or m.startswith(('jax.', 'ai_edge_quantizer_tpu.'))
          or m == 'ai_edge_quantizer_tpu' for m in sys.modules):
     raise AssertionError('the port imported jax or the JAX package')
-  port = dict(executor=executor, attention=attention, head=head, mlp=mlp,
-              packed_qmatmul=packed_qmatmul, gemma=gemma, batching=batching)
+  port = dict(executor=executor, attention=attention, block=block, head=head,
+              mlp=mlp, packed_qmatmul=packed_qmatmul, gemma=gemma,
+              batching=batching, ops_impl=ops_impl)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -1101,25 +1542,41 @@ def main():
   log(f'e2e on {smi}: {e2e["ms_per_step"]:.3f} ms/step (median), '
       f'{e2e["tokens_per_s"]:.1f} tokens/s at batch {B}')
   log(f'phase decode loop done at {time.monotonic() - t_start:.1f}s')
+  bench = bench_decode_phase(torch, port, kernels, cfg, 'cuda')
+  for mode in ('block on', 'block off'):
+    r = bench[mode]
+    log(f'bench decode on {smi}, {mode}: {r["ms_per_step"]:.3f} ms/step '
+        f'(median), {r["tokens_per_s"]:.1f} tokens/s at batch {BENCH_B}, '
+        f'device idle share {r["device_idle_share"]:.3f}')
+  log(f'phase bench decode done at {time.monotonic() - t_start:.1f}s')
   server = server_phase(torch, port, kernels, cfg, 'cuda')
   log(f'server on {smi}: {server["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
       f'{server["ttft_p50_ms"]:.1f} ms p99 {server["ttft_p99_ms"]:.1f} ms')
   log(f'phase server done at {time.monotonic() - t_start:.1f}s')
   if not args.skip_cpu:
-    cpu_phase(torch, port, cfg, 'cuda')
+    e2e['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda')
+    bench['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda',
+                                     decode_block=True)
     server['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda')
+    bench['block_on_vs_off_f32'] = block_on_off_phase(torch, port, cfg,
+                                                      'cuda')
     log(f'phase card-vs-cpu done at {time.monotonic() - t_start:.1f}s')
   line = []
   for k in kernels:
     entry = {key: v for key, v in k.items() if key != 'wrapper'}
+    bench_launches = entry.pop('launches_bench_decode')
     entry['launches_by_path'] = {
         'decode_loop': entry.pop('launches_decode_loop'),
-        'server': server['launches'][k['name']]}
+        'server': server['launches'][k['name']],
+        'bench_decode_block_on': bench_launches['block on'],
+        'bench_decode_block_off': bench_launches['block off']}
     # The count of the path that runs the kernel (the stale kernel runs
-    # only in the decode loop: the server's one-hot cache update leaves
-    # no row write to fold into attention).
+    # only in the decode loops: the server's one-hot cache update leaves
+    # no row write to fold into attention; the fused block only in the
+    # bench decode with the block on).
     entry['launches'] = (entry['launches_by_path']['server']
-                         or entry['launches_by_path']['decode_loop'])
+                         or entry['launches_by_path']['decode_loop']
+                         or entry['launches_by_path']['bench_decode_block_on'])
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)
@@ -1127,8 +1584,8 @@ def main():
   if missing:
     raise AssertionError(f'kernels never launched on the main paths: '
                          f'{missing}')
-  print(json.dumps({'kernels': line, 'e2e': e2e, 'server': server,
-                    'card': smi}), flush=True)
+  print(json.dumps({'kernels': line, 'e2e': e2e, 'bench_decode': bench,
+                    'server': server, 'card': smi}), flush=True)
   print(smi, flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

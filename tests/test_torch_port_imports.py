@@ -34,7 +34,7 @@ def _clean_env():
 def test_port_imports_no_jax():
   modules = _port_modules()
   for name in ('execution.executor', 'parallel.batching', 'models.gemma',
-               'kernels.attention', 'kernels._build'):
+               'kernels.attention', 'kernels.block', 'kernels._build'):
     assert f'ai_edge_quantizer_tpu_torch.{name}' in modules
   code = (
       'import importlib, sys\n'

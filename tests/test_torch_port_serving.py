@@ -7,7 +7,16 @@ the bench's serving options: packed int4 DRQ FCs, the fused MLP and head,
 int8 KV caches, lengths attention at decode and flash attention at
 prefill. The JAX server jits its programs and runs its Pallas kernels in
 interpret mode; the port runs eagerly on the CPU, where every kernel
-wrapper runs its plain version.
+wrapper runs its plain version. The JAX server's decode block is off
+(AEQT_DECODE_BLOCK=0) except where a test says so; the port's server keeps
+its executor's default (on), which finds no unit on the serving graph
+(`test_server_finds_the_block_units_jax_finds`).
+
+Starvation aging is off on both servers (`starvation_age_s=None`) wherever
+they must make the same admission choices: it reads the wall clock, and a
+request can age past the limit on one server and not on the other (the JAX
+server compiles inside the timed trace). `test_starvation_aging_matches_jax`
+holds aging itself, both servers on one fake clock.
 """
 
 import numpy as np
@@ -56,8 +65,9 @@ def serving_env():
 
 def _servers(server_kw=None, samplers=None, with_jax=True, **graph_kw):
   """(JAX server or None, port server, port config) over one graph
-  structure and one weight draw. samplers: (JAX sample_fn, port
-  sample_fn). Needs the `serving_env` fixture."""
+  structure and one weight draw, starvation aging off unless server_kw
+  sets it. samplers: (JAX sample_fn, port sample_fn). Needs the
+  `serving_env` fixture."""
   jcfg = jax_gemma.DecoderConfig(**SERVE_CFG)
   tcfg = gemma.DecoderConfig(**SERVE_CFG)
   kw = dict(BENCH_KW, **graph_kw)
@@ -68,7 +78,7 @@ def _servers(server_kw=None, samplers=None, with_jax=True, **graph_kw):
   for g, mod in ((jgraph, jax_gemma), (tgraph, gemma)):
     mod.stamp_int8_kv_cache(g)
   jweights, tweights = shared_weights(jgraph, tgraph)
-  server_kw = dict(server_kw or {})
+  server_kw = dict(dict(starvation_age_s=None), **(server_kw or {}))
   jkw, tkw = dict(server_kw), dict(server_kw)
   if samplers is not None:
     jkw['sample_fn'], tkw['sample_fn'] = samplers
@@ -176,6 +186,85 @@ def test_server_tokens_match_jax(chunk, bench_servers):
   assert ran[3] == added['decode_ticks'] * layers  # lengths
   assert ran[4] % layers == 0 and ran[4] >= (
       added['prefill_groups'] * layers)  # flash, every pass
+
+
+class _Clock:
+  """A monotonic clock that moves only when the test moves it."""
+
+  def __init__(self):
+    self.now = 0.0
+
+  def monotonic(self):
+    return self.now
+
+
+def _aging_run(server, clock, head_trace, late_trace, monkeypatch):
+  """Serve head_trace, then queue late_trace behind it, the clock 0.5 s
+  per tick. Returns (prefill groups as indices into the requests in submit
+  order, finished requests, metrics)."""
+  groups = []
+  prefill_group = server._prefill_group
+
+  def recorded(slot_reqs, *args, **kwargs):
+    groups.append([req.request_id for _, req in slot_reqs])
+    return prefill_group(slot_reqs, *args, **kwargs)
+
+  monkeypatch.setattr(server, '_prefill_group', recorded)
+  since = _metrics(server)
+  clock.now = 0.0
+  ids = [server.submit(p, max_new_tokens=n) for p, n in head_trace]
+  server.step()
+  clock.now += 0.5
+  ids += [server.submit(p, max_new_tokens=n) for p, n in late_trace]
+  while server.has_work():
+    server.step()
+    clock.now += 0.5
+  pos = {rid: i for i, rid in enumerate(ids)}
+  return ([[pos[r] for r in g] for g in groups], list(
+      _finished(server, ids).values()), _metrics(server, since))
+
+
+def test_starvation_aging_matches_jax(bench_servers, monkeypatch):
+  """Starvation aging on both servers, driven by one fake clock: a late
+  tail-plan request waits past the limit (0.25 s) while a full group of
+  its successors could go first; both servers admit it first at the same
+  tick, and without aging both admit the full group first."""
+  jserver, tserver, cfg = bench_servers
+  clock = _Clock()
+  monkeypatch.setattr(jax_batching, 'time', clock)
+  monkeypatch.setattr(batching, 'time', clock)
+  rng = np.random.default_rng(6)
+  head_trace = [(rng.integers(1, cfg.vocab_size, 16).astype(np.int32), n)
+                for n in (3, 3, 12, 12)]
+  late_trace = [(rng.integers(1, cfg.vocab_size, p).astype(np.int32), 4)
+                for p in (5, 16, 16)]
+  runs = {}
+  for age in (0.25, None):
+    for name, server in (('jax', jserver), ('port', tserver)):
+      monkeypatch.setattr(server, '_starvation_age_s', age)
+      runs[name, age] = _aging_run(server, clock, head_trace, late_trace,
+                                   monkeypatch)
+  assert runs['port', 0.25] == runs['jax', 0.25]
+  assert runs['port', None] == runs['jax', None]
+  # Two slots free up at the third tick, when request 4 has waited 0.5 s:
+  # aged, it goes first (with 5 in the remaining slot); without aging the
+  # full group (5, 6) goes first.
+  assert runs['port', 0.25][0] == [[0, 1], [2, 3], [4], [5], [6]]
+  assert runs['port', None][0] == [[0, 1], [2, 3], [5, 6], [4]]
+
+
+def test_server_finds_the_block_units_jax_finds(serving_env, monkeypatch):
+  """With the decode block on both sides (the port's executor default),
+  the servers' executors find the same units on the serving graph: none,
+  since its one-hot pool update leaves no cache DUS to fold into the
+  attention."""
+  monkeypatch.setenv('AEQT_DECODE_BLOCK', '1')
+  jserver, tserver, _ = _servers()
+  assert tserver._executor.decode_block
+  assert len(tserver._executor._block_fusions) == len(
+      jserver._executor._block_fusions) == 0
+  assert len(tserver._executor._attn_fusions) == len(
+      jserver._executor._attn_fusions) > 0
 
 
 def test_server_host_masks_and_host_sampler_match_jax(serving_env):

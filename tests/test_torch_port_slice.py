@@ -2,7 +2,9 @@
 
 The JAX side builds the graph and runs its executor with the bench's serving options (int4 DRQ, lengths
 attention with the stale cache writeback, MLP and head fusions), its
-Pallas kernels in interpret mode. The port builds the same graph with its
+Pallas kernels in interpret mode, with the decode block off on both sides
+(AEQT_DECODE_BLOCK=0, `decode_block=False`; tests/test_torch_port_block.py
+holds the block). The port builds the same graph with its
 own builder; both take one weight draw (`shared_weights`: the port's
 materializer, which is the same in every process) and the port runs its
 executor on the CPU, where every kernel wrapper runs its plain version.
@@ -99,7 +101,8 @@ def _serving_pair(name, greedy, monkeypatch, writeback=True,
                                activation_dtype='float32', int4_drq=True,
                                attn_lengths=True,
                                attn_writeback='stale' if writeback else None,
-                               mlp_fusion=True, mlp_bf=128, head_fusion=True)
+                               mlp_fusion=True, mlp_bf=128, head_fusion=True,
+                               decode_block=False)
   tex.load_weights(tweights)
   tex.prepare_serving_weights(min_weight_params=0)
   return jcfg, jgraph, jex, tex
