@@ -8,9 +8,13 @@ path, the packed int4 DRQ FC, and four fusions with their dispatch:
 int8-cache attention (the stale-cache kernel with the cache write outside
 it, the lengths kernel at decode, the flash kernel at prefill), the GeGLU
 MLP, the greedy head and the decode block (MLP(l-1) + norms + QKV(l) +
-RoPE + attention(l) in one kernel). The norm, QKV, attention-epilogue and
-MoE fusions, capture mode, the calibration runners and the SRQ integer
-paths are not ported yet.
+RoPE + attention(l) in one kernel). The int4-group KV cache needs no
+fusion: its INT4G_ATTENTION ops run through `_eval_op` (ops/impl.py),
+whose uint8 pools and bf16 sidecar pass `_run_signature` and
+`_store_outputs` uncast, as in the JAX executor; no attention or block
+unit matches such a graph. The norm, QKV, attention-epilogue and MoE
+fusions, capture mode, the calibration runners and the SRQ integer paths
+are not ported yet.
 
 Differences from the JAX executor:
   * Options are constructor arguments, not environment variables, with

@@ -1,6 +1,6 @@
-"""Int8-cache attention kernels (PyTorch + CUDA).
+"""Quantized-cache attention kernels (PyTorch + CUDA).
 
-Ports of three Pallas kernels of
+Ports of four Pallas kernels of
 `ai_edge_quantizer_tpu/kernels/pallas_attention.py`, each with a plain
 PyTorch version beside its CUDA kernel (`csrc/`):
 
@@ -14,12 +14,18 @@ PyTorch version beside its CUDA kernel (`csrc/`):
   * `flash_attention_int8_masked` (`_flash_attn_kernel`): prefill-shaped
     attention of R = G * T query rows with an additive mask, as an online
     softmax over S blocks (`csrc/flash_attention_int8.cu`).
+  * `decode_attention_int4_group_lengths` (body
+    `_ctx_prefix_len_int4_group`): decode attention over int4 K/V pools
+    with per-group scales in a bf16 sidecar (asymmetric K, symmetric V),
+    masked by lengths (`csrc/attention_int4_group.cu`). Its row
+    quantizers and sidecar builder are plain PyTorch here as they are
+    plain jnp in the reference, bit for bit the same.
 
-The CUDA decode kernels compute in f32 (`compute='f32'`, the executor's
-default). The plain versions also cover the `bf16` and `int8` compute
-modes; on a CUDA tensor those raise, as their kernels are not ported yet.
-The other Pallas attention kernels of that file are not ported yet (see
-ROADMAP.md).
+The int8 CUDA decode kernels compute in f32 (`compute='f32'`, the
+executor's default). The plain versions also cover the `bf16` and `int8`
+compute modes; on a CUDA tensor those raise, as their kernels are not
+ported yet. The other Pallas attention kernels of that file are not
+ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -374,3 +380,175 @@ def flash_attention_int8_masked(
 
 flash_attention_int8_masked.launches = 0
 flash_attention_int8_masked.plain_calls = 0
+
+
+# -- int4-per-group KV cache ------------------------------------------------
+#
+# Pools [B, NK, S, H/2] uint8, split-half along H: byte i holds column i in
+# its low nibble and column H/2 + i in its high nibble. K codes are
+# unsigned in [0, 15] (asymmetric: K = code * scale + min), V codes signed
+# in [-8, 7] (symmetric: V = code * scale). Per-group statistics of each
+# row sit in the sidecar [B, NK, 3 * NG, S] bf16, NG = H / group, S minor:
+# rows [0, NG) K scales, [NG, 2 NG) K mins, [2 NG, 3 NG) V scales.
+
+
+def _f32(value: float, device) -> torch.Tensor:
+  """value rounded to an f32 device scalar, as jnp rounds a Python
+  constant before it multiplies an f32 array."""
+  return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def pack_int4_rows(x_q: torch.Tensor) -> torch.Tensor:
+  """int4-valued integers [..., H] -> uint8 [..., H/2] (split-half on H)."""
+  h = x_q.shape[-1]
+  x = x_q.to(torch.int32)
+  lo = x[..., :h // 2] & 0xF
+  hi = x[..., h // 2:] & 0xF
+  return (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack_int4_rows(packed: torch.Tensor) -> torch.Tensor:
+  """Inverse of pack_int4_rows: uint8 [..., H/2] -> int8 [..., H]."""
+  w = packed.to(torch.int32)
+  lo = ((w & 0xF) ^ 8) - 8
+  hi = ((w >> 4) ^ 8) - 8
+  return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+def quantize_k_rows_int4_asym(x: torch.Tensor, group: int = 16):
+  """Per-group asymmetric int4 quantization of K rows.
+
+  x [..., H] float -> (packed uint8 [..., H/2] of codes in [0, 15],
+  scale f32 [..., H/group], min f32 [..., H/group]). The scale is
+  max(max - min, 1e-9) times f32(1/15) (a multiply), the codes
+  round((x - min) / scale) (a divide), half to even.
+  """
+  h = x.shape[-1]
+  xg = x.to(torch.float32).reshape(*x.shape[:-1], h // group, group)
+  mn = torch.amin(xg, dim=-1)
+  mx = torch.amax(xg, dim=-1)
+  scale = torch.clamp_min(mx - mn, 1e-9) * _f32(1.0 / 15.0, x.device)
+  codes = torch.clamp(torch.round((xg - mn[..., None]) / scale[..., None]),
+                      0, 15).to(torch.int32).reshape(x.shape)
+  return pack_int4_rows(codes), scale, mn
+
+
+def quantize_v_rows_int4_group(x: torch.Tensor, group: int = 16):
+  """Per-group symmetric int4 quantization of V rows.
+
+  x [..., H] float -> (packed uint8 [..., H/2] of codes in [-8, 7],
+  scale f32 [..., H/group]): max(absmax, 1e-9) times f32(1/7), codes
+  round(x / scale).
+  """
+  h = x.shape[-1]
+  xg = x.to(torch.float32).reshape(*x.shape[:-1], h // group, group)
+  absmax = torch.amax(torch.abs(xg), dim=-1)
+  scale = torch.clamp_min(absmax, 1e-9) * _f32(1.0 / 7.0, x.device)
+  codes = torch.clamp(torch.round(xg / scale[..., None]), -8, 7).to(
+      torch.int32).reshape(x.shape)
+  return pack_int4_rows(codes), scale
+
+
+def build_kv_sidecar_group(k_scale, k_min, v_scale) -> torch.Tensor:
+  """Stack per-group statistics [..., S, NG] f32 into the sidecar
+  [..., 3 * NG, S] bf16 (rounded to nearest even)."""
+  stats = torch.cat([k_scale, k_min, v_scale], dim=-1)
+  return stats.transpose(-1, -2).to(torch.bfloat16).contiguous()
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+  return t.to(torch.bfloat16).to(torch.float32)
+
+
+def decode_attention_int4_group_lengths_plain(
+    q, k_packed, v_packed, sidecar, lengths, group=16,
+    out_dtype=torch.float32):
+  """`_ctx_prefix_len_int4_group` in plain PyTorch (any device).
+
+  q is rounded to bf16; the K operand is bf16(kcode * kscale) and the V
+  operand bf16(vcode * vscale), each product rounded once; scores are
+  q . K in f32 plus the f32 dot of the per-group sums of q with the K
+  mins, times f32(1 / sqrt(H)); rows at or past a row's length score
+  -1e30; probs are rounded to bf16 before the f32 context sum.
+  """
+  b, nk, g, h = q.shape
+  s = k_packed.shape[2]
+  ng = h // group
+  qb = _bf16_round(q.to(torch.float32))
+  grp = torch.arange(h, device=q.device) // group   # column -> group
+  sc = sidecar.to(torch.float32)
+  k32 = k_packed.to(torch.int32)
+  kcodes = torch.cat([k32 & 0xF, k32 >> 4], dim=-1).to(torch.float32)
+  kscale_cols = sc[:, :, :ng, :].transpose(-1, -2)[..., grp]  # [B,NK,S,H]
+  kd = _bf16_round(kcodes * kscale_cols)
+  scores = _qdot(qb, kd)                                       # [B,NK,G,S]
+  qsums = torch.sum(qb.reshape(b, nk, g, ng, group), dim=-1)   # [B,NK,G,NG]
+  scores = scores + torch.matmul(qsums, sc[:, :, ng:2 * ng, :])
+  scores = scores * _f32(1.0 / (h ** 0.5), q.device)
+  pos = torch.arange(s, device=q.device, dtype=torch.int32)
+  live = pos.reshape(1, 1, 1, s) < lengths.to(torch.int32).reshape(b, 1, 1, 1)
+  scores = torch.where(live, scores, _NEG)
+  scores = scores - torch.amax(scores, dim=-1, keepdim=True)
+  probs = torch.exp(scores)
+  probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+  vcodes = unpack_int4_rows(v_packed).to(torch.float32)
+  vscale_cols = sc[:, :, 2 * ng:, :].transpose(-1, -2)[..., grp]
+  vd = _bf16_round(vcodes * vscale_cols)
+  return torch.matmul(_bf16_round(probs), vd).to(out_dtype)
+
+
+def decode_attention_int4_group_lengths(
+    q: torch.Tensor,
+    k_packed: torch.Tensor,
+    v_packed: torch.Tensor,
+    sidecar: torch.Tensor,
+    lengths: torch.Tensor,
+    group: int = 16,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+  """Decode attention over per-group asym-K / sym-V int4 KV pools.
+
+  q [B, NK, G, H] float; k_packed / v_packed [B, NK, S, H/2] uint8;
+  sidecar [B, NK, 3 * (H / group), S] bf16 (build_kv_sidecar_group);
+  lengths int32 [B]. A length of 0 gives every one of the S rows the
+  weight 1/S, as the TPU kernel does. The TPU kernel's batch_block (its
+  grid blocking) has no counterpart here. Returns [B, NK, G, H] in
+  out_dtype.
+  """
+  args = (q, k_packed, v_packed, sidecar, lengths, group, out_dtype)
+  if _build.device_kind(q) == 'cpu':
+    decode_attention_int4_group_lengths.plain_calls += 1
+    return decode_attention_int4_group_lengths_plain(*args)
+  name = 'decode_attention_int4_group_lengths'
+  b, nk, g, h = q.shape
+  s = k_packed.shape[2]
+  r = b * nk
+  _build.require(out_dtype in (torch.float32, torch.bfloat16), name,
+                 f'out_dtype {out_dtype} must be f32 or bf16')
+  q2 = q.to(torch.float32).reshape(r, g, h).contiguous()
+  for t, nm in ((k_packed, 'k_packed'), (v_packed, 'v_packed')):
+    _build.require(tuple(t.shape) == (b, nk, s, h // 2), name,
+                   f'{nm} shape {tuple(t.shape)}')
+    _build.require_cuda_tensor(t, name, nm, (torch.uint8,), 16)
+  _build.require(tuple(sidecar.shape) == (b, nk, 3 * (h // group), s), name,
+                 f'sidecar shape {tuple(sidecar.shape)}')
+  _build.require_cuda_tensor(sidecar, name, 'sidecar', (torch.bfloat16,))
+  lens = lengths.to(torch.int32).contiguous()
+  _build.require_cuda_tensor(lens, name, 'lengths', (torch.int32,))
+  _build.require(lens.numel() == b, name, 'lengths must have B entries')
+  out = torch.empty((r, g, h), dtype=out_dtype, device=q.device)
+  fn = _build.entry(
+      'attention_int4_group', 'aeqt_attention_int4_group',
+      [_build.P] * 6 + [_build.I] * 7 + [_build.F, _build.P])
+  status = fn(q2.data_ptr(), k_packed.data_ptr(), v_packed.data_ptr(),
+              sidecar.data_ptr(), lens.data_ptr(), out.data_ptr(),
+              int(out_dtype == torch.bfloat16), r, nk, g, s, h, group,
+              float(np.float32(1.0 / (h ** 0.5))),
+              _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}, group={group}')
+  decode_attention_int4_group_lengths.launches += 1
+  return out.reshape(b, nk, g, h)
+
+
+decode_attention_int4_group_lengths.launches = 0
+decode_attention_int4_group_lengths.plain_calls = 0

@@ -669,8 +669,7 @@ def build_serving_decoder(
   prefill_head_cols: the prefill head runs on one gathered row per batch
   element. prefill_tail_len: a short 'prefill_tail' program for a
   prompt's final partial chunk. kv_int4_group: int4-group KV decode
-  caches (the server of this package refuses it: its attention kernel is
-  not ported).
+  pools (INT4G_ATTENTION_SCATTER; the prefill caches stay float).
   """
   graph = ir.Graph()
   store = _WeightStore(cfg, seed=seed, materialize=materialize_weights)

@@ -1,8 +1,9 @@
 """PyTorch implementations of the graph ops on the Gemma decode path.
 
 Port of `ai_edge_quantizer_tpu/ops/impl.py`, same `register` pattern. Only
-the opcodes that the Gemma `decode` graph uses are here; the executor
-raises NotImplementedError for any other opcode.
+the opcodes that the Gemma decode and serving graphs use are here (with
+the int4-group KV cache's INT4G_ATTENTION and INT4G_ATTENTION_SCATTER);
+the executor raises NotImplementedError for any other opcode.
 
 Type promotion follows JAX, not torch: a binary op over two tensors
 promotes both to their common dtype even when one of them is 0-d (torch
@@ -20,6 +21,7 @@ import torch
 
 from ai_edge_quantizer_tpu_torch.execution import quant_arith
 from ai_edge_quantizer_tpu_torch.graph import ir
+from ai_edge_quantizer_tpu_torch.kernels import attention
 
 
 @dataclasses.dataclass
@@ -276,3 +278,72 @@ def rope(ctx: OpContext, x, positions):
   x1, x2 = x[..., :half], x[..., half:]
   return torch.cat(
       [x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# -- int4-per-group KV cache (serving custom ops) ---------------------------
+
+
+def _int4g_new_rows(k_rows, v_rows, group: int):
+  """This step's K/V rows [B, NK, 1, H] quantized: packed K and V rows and
+  the bf16 sidecar column [B, NK, 3 * NG, 1]."""
+  kp_new, ks, km = attention.quantize_k_rows_int4_asym(k_rows, group)
+  vp_new, vs = attention.quantize_v_rows_int4_group(v_rows, group)
+  return kp_new, vp_new, attention.build_kv_sidecar_group(ks, km, vs)
+
+
+@register('INT4G_ATTENTION')
+def int4g_attention(ctx: OpContext, q, k_rows, v_rows, k_cache, v_cache,
+                    sidecar, cache_pos):
+  """Quantize this step's K/V rows, write them at the shared position
+  cache_pos[2] (the packed rows into both pools, the statistics as a
+  sidecar column: S is the sidecar's last axis), then attend over
+  lengths = pos + 1 with `attention.decode_attention_int4_group_lengths`.
+
+  q [B, NK, G, H]; k_rows, v_rows [B, NK, 1, H]; pools [B, NK, S, H/2]
+  uint8; sidecar [B, NK, 3 * H / group, S] bf16; cache_pos [4] int32.
+  Returns (ctx in q's dtype, k_cache', v_cache', sidecar'): new tensors,
+  the inputs are not written (the executor's functional contract).
+  """
+  group = int(ctx.attrs.get('group', 16))
+  b = q.shape[0]
+  if k_rows.shape[2] != 1:
+    raise ValueError('INT4G_ATTENTION is decode-shaped (T = 1).')
+  kp_new, vp_new, col = _int4g_new_rows(k_rows, v_rows, group)
+  pos = cache_pos[2].to(torch.int32)
+  zero = torch.zeros_like(pos)
+  rows_at = torch.stack([zero, zero, pos, zero])
+  k_cache2 = dynamic_update_slice(k_cache, kp_new, rows_at)
+  v_cache2 = dynamic_update_slice(v_cache, vp_new, rows_at)
+  sidecar2 = dynamic_update_slice(sidecar, col,
+                                  torch.stack([zero, zero, zero, pos]))
+  lengths = (pos + 1).expand(b)
+  out = attention.decode_attention_int4_group_lengths(
+      q.to(torch.float32), k_cache2, v_cache2, sidecar2, lengths,
+      group=group, out_dtype=q.dtype)
+  return out, k_cache2, v_cache2, sidecar2
+
+
+@register('INT4G_ATTENTION_SCATTER')
+def int4g_attention_scatter(ctx: OpContext, q, k_rows, v_rows, k_cache,
+                            v_cache, sidecar, positions):
+  """INT4G_ATTENTION with a position per row (continuous batching): row b
+  writes its new K/V row and sidecar column at positions[b] (no write for
+  a position outside [0, S), as the reference's one-hot select) and
+  attends over lengths = positions + 1."""
+  group = int(ctx.attrs.get('group', 16))
+  b = q.shape[0]
+  s = k_cache.shape[2]
+  if k_rows.shape[2] != 1:
+    raise ValueError('INT4G_ATTENTION_SCATTER is decode-shaped (T = 1).')
+  kp_new, vp_new, col = _int4g_new_rows(k_rows, v_rows, group)
+  pos = positions.reshape(b).to(torch.int32)
+  iota = torch.arange(s, device=pos.device, dtype=torch.int32)
+  hit = iota[None, :] == pos[:, None]                            # [B, S]
+  hit_rows = hit[:, None, :, None]
+  k_cache2 = torch.where(hit_rows, kp_new.to(k_cache.dtype), k_cache)
+  v_cache2 = torch.where(hit_rows, vp_new.to(v_cache.dtype), v_cache)
+  sidecar2 = torch.where(hit[:, None, None, :], col, sidecar)
+  out = attention.decode_attention_int4_group_lengths(
+      q.to(torch.float32), k_cache2, v_cache2, sidecar2, pos + 1,
+      group=group, out_dtype=q.dtype)
+  return out, k_cache2, v_cache2, sidecar2

@@ -19,8 +19,7 @@ Differences from the JAX server:
   * One `.cpu()` of a stacked tensor per admission wave or chunk stands in
     for `jax.device_get`.
   * The samplers take an explicit `np.random.Generator`.
-  * `mesh` and int4-group KV pools (`kv_int4_group` graphs) are not ported
-    and raise NotImplementedError.
+  * `mesh` is not ported and raises NotImplementedError.
   * A prompt longer than the pool's current cache bucket grows the pool
     before its rows are written (the reference writes first and cuts the
     rows past the bucket; see ROADMAP.md, Queue 3).
@@ -38,6 +37,7 @@ import torch
 
 from ai_edge_quantizer_tpu_torch.execution import executor as executor_lib
 from ai_edge_quantizer_tpu_torch.graph import ir
+from ai_edge_quantizer_tpu_torch.kernels import attention
 from ai_edge_quantizer_tpu_torch.models import gemma
 
 
@@ -139,17 +139,17 @@ class DecodeServer:
     The executor takes the serving options of bench.py (its defaults). The
     serving graph's one-hot pool update leaves no cache DUS to fold, so the
     executor's decode block finds no unit in it.
+
+    A graph built with kv_int4_group (int4-per-group KV pools) keeps three
+    pools per layer, 'k' and 'v' [B, NK, S, H/2] uint8 and the sidecar 's'
+    [B, NK, 3 * H / group, S] bf16; its prefill stays float and the slot
+    writer quantizes the prefilled rows into the pools.
     """
     if mesh is not None:
       raise NotImplementedError(
           'DecodeServer(mesh=...): the multi-device server is not ported '
           'yet (ROADMAP.md Queue 1 item 11).')
     self._kv_group = int(graph.metadata.get('kv_int4_group', 0))
-    if self._kv_group:
-      raise NotImplementedError(
-          'DecodeServer: kv_int4_group graphs need the Pallas kernel '
-          'pallas_attention.decode_attention_int4_group_lengths and its '
-          'int4 sidecar helpers, which are not ported yet.')
     self.cfg = cfg
     self.batch_slots = batch_slots
     self.graph = graph
@@ -240,8 +240,9 @@ class DecodeServer:
 
     dec_sg = graph.subgraphs[dec_sig.subgraph_index]
     self._cache_dtypes = {}
+    kinds = ('k', 'v', 's') if self._kv_group else ('k', 'v')
     for li in range(cfg.num_layers):
-      for kind in ('k', 'v'):
+      for kind in kinds:
         key = f'layer_{li}_{kind}_cache_in'
         t = dec_sg.tensors[dec_sig.inputs[key]]
         self._cache_dtypes[key] = _CACHE_DTYPES.get(t.dtype, torch.float32)
@@ -258,17 +259,28 @@ class DecodeServer:
     cache[slot_ids] = where(valid, rows, cache[slot_ids]). slot_ids is
     always prefill_batch long; a partial group is padded with distinct
     spare slots whose `valid` is False, which write back their own
-    content."""
+    content. With int4-group pools the float rows (all S of them, as the
+    reference) are quantized first: packed K and V codes and the bf16
+    sidecar."""
+    group = self._kv_group
+    bp = slot_ids.shape[0]
     for li in range(self.cfg.num_layers):
+      rows = {}
       for kind in ('k', 'v'):
         key = f'layer_{li}_{kind}_cache_in'
+        sp = self._caches[key].shape[2]
+        rows[key] = new_rows[key][:bp, :, :sp, :]
+      if group:
+        k_key, v_key = f'layer_{li}_k_cache_in', f'layer_{li}_v_cache_in'
+        kp, ks, km = attention.quantize_k_rows_int4_asym(rows[k_key], group)
+        vp, vs = attention.quantize_v_rows_int4_group(rows[v_key], group)
+        rows = {k_key: kp, v_key: vp, f'layer_{li}_s_cache_in':
+                attention.build_kv_sidecar_group(ks, km, vs)}
+      for key, new in rows.items():
         cache = self._caches[key]
-        rows = new_rows[key][:slot_ids.shape[0]]
-        if rows.shape[2] > cache.shape[2]:
-          rows = rows[:, :, :cache.shape[2], :]
         cur = cache[slot_ids]
         cache[slot_ids] = torch.where(valid[:, None, None, None],
-                                      rows.to(cache.dtype), cur)
+                                      new.to(cache.dtype), cur)
 
   def _prefill_inputs(self, tok_mat: torch.Tensor, cols: np.ndarray,
                       start: int, span: int) -> dict:
@@ -326,9 +338,18 @@ class DecodeServer:
     return out[out_key][rows_idx, torch.as_tensor(cols, device=self.device)
                         .to(torch.int64)]
 
-  def _cache_shape(self, bucket: int):
+  def _is_sidecar(self, key: str) -> bool:
+    return bool(self._kv_group) and key.split('_')[2] == 's'
+
+  def _cache_shape(self, key: str, bucket: int):
+    """A pool's shape: [B, NK, S, H], or with int4-group pools [B, NK, S,
+    H/2] and the sidecar [B, NK, 3 * H / group, S] (S last)."""
     cfg = self.cfg
-    return (self.batch_slots, cfg.num_kv_heads, bucket, cfg.head_dim)
+    if self._is_sidecar(key):
+      return (self.batch_slots, cfg.num_kv_heads,
+              3 * (cfg.head_dim // self._kv_group), bucket)
+    h = cfg.head_dim // 2 if self._kv_group else cfg.head_dim
+    return (self.batch_slots, cfg.num_kv_heads, bucket, h)
 
   def prefill_zero_caches(self) -> dict:
     """Zero cache inputs shaped and typed from the PREFILL signature's
@@ -348,7 +369,7 @@ class DecodeServer:
 
   def _alloc_caches(self, bucket: int) -> None:
     self._caches = {
-        key: torch.zeros(self._cache_shape(bucket), dtype=dtype,
+        key: torch.zeros(self._cache_shape(key, bucket), dtype=dtype,
                          device=self.device)
         for key, dtype in self._cache_dtypes.items()
     }
@@ -362,8 +383,10 @@ class DecodeServer:
                   self._buckets[-1])
     if target > self._bucket:
       pad = target - self._bucket
+      # S is the pools' third axis and the sidecar's last.
       self._caches = {
-          key: torch.nn.functional.pad(v, (0, 0, 0, pad))
+          key: torch.nn.functional.pad(
+              v, (0, pad) if self._is_sidecar(key) else (0, 0, 0, pad))
           for key, v in self._caches.items()}
       self._bucket = target
       self.metrics['bucket_switches'] += 1

@@ -7,7 +7,7 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
 
   1. facts: torch.version.cuda, nvcc --version, the card's name and power
      limit (nvidia-smi) and the kernels' build time;
-  2. kernels: each of the seven kernels against its plain PyTorch version
+  2. kernels: each of the eight kernels against its plain PyTorch version
      on the card at the main paths' shapes (Gemma-2B; decode at batch 64
      and cache 1024, bench.py's decode at batch 256 with 897 live cache
      rows, prefill at 8 x 128 tokens; bf16 activations), with the stated
@@ -15,8 +15,11 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      where one PyTorch call computes the same contraction or attention,
      that call (`library_ms`, never used by the port), and for the fused
      decode block the composition of the unfused kernels it replaces; the
-     bound from bytes over 3.35 TB/s or operations over the peak rate; two
-     attention shapes the CUDA kernels do not take must raise;
+     bound from bytes over 3.35 TB/s or operations over the peak rate; the
+     int4-group attention at pos 0/31/32/896/1023 and the server's mixed
+     lengths, with INT4G_ATTENTION_SCATTER's pools and sidecar equal to
+     its CPU run bit for bit; three attention shapes the CUDA kernels do
+     not take must raise;
   3. decode loop: the Gemma-2B int4 greedy decode graph at batch 64 with an
      int8 KV cache answers 64 requests (8 prompt tokens fed through the
      decode step, then 16 greedy tokens), the decode block off; launch
@@ -26,20 +29,28 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      3 warm-up and 8 timed steps, with the decode block on (launches per
      step: block 17, stale attention 1, MLP 1, head 1, packed matmul 19)
      and off on the same weights; ms/step, tokens/s, device idle share;
+     then bench.py's int4g decode (AEQT_BENCH_KV=int4g: zero uint8 pools
+     and bf16 sidecars, no decode-block unit; launches per step: int4g
+     attention 18, MLP 18, head 1, packed matmul 36);
   4. server: the port's DecodeServer at bench.py's server settings serves
      128 requests (prompt lengths cycling 32..512, 48 new tokens each) by
      step_chunk(8); every request must end done with 48 ids in range, and
      each kernel's launches must match the executor calls (the plain
      versions never run on the card); tokens/s, TTFT p50/p99, ms per
      prefill pass and per chunk of 8 ticks, and the device's idle share
-     (torch.profiler) are printed;
+     (torch.profiler) are printed; then the same with int4-group pools
+     (AEQT_BENCH_SERVER_KV=int4g: int4g attention 18 per tick, no flash
+     or lengths launch);
   5. card against CPU: the decode step at batch 8 with the decode block
-     off and on (the block is one op), and the server's first prefill pass
-     and decode tick at 2 layers, f32 activations, run op by op on the
-     card from the CPU's values; every op must agree within a few f32 ulps
-     (the fused MLP of the prefill pass within 1e-3), int8 codes within one
-     step, and the card's ids must equal the port's CPU ids, except rows
-     whose CPU top-2 logit margin is below 1e-3 relative (see OpByOp);
+     off (18 layers) and on (4 layers; the block is one op) and the int4g
+     step (4 layers), and the server's first prefill pass and decode tick
+     at 2 layers with int8 and with int4-group pools, f32 activations, run
+     op by op on the card from the CPU's values; every op must agree
+     within a few f32 ulps (the fused MLP of the prefill pass within 1e-3,
+     the int4g context as the kernel phase holds it: int4g_ctx_ok), int8
+     codes within one step, the int4g pools and sidecars bit for bit, and
+     the card's ids must equal the port's CPU ids, except rows whose CPU
+     top-2 logit margin is below 1e-3 relative (see OpByOp);
      then the block on against off on the card at f32 (4 layers, batch 8,
      4 steps from start_pos 896), ids and caches compared.
 
@@ -359,6 +370,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
   results.append(lengths_kernel(torch, att, cfg, dev, timer, gen))
   results.append(flash_kernel(torch, att, cfg, dev, timer, gen))
   results.append(block_kernel(torch, port, cfg, dev, timer, gen))
+  results.append(int4g_kernel(torch, port, cfg, dev, timer, gen))
   refused_shapes(torch, att, dev)
   return results
 
@@ -573,12 +585,225 @@ def block_kernel(torch, port, cfg, dev, timer, gen):
       'B': Bb, 'live_rows': live, 'cases': cases}
 
 
+INT4G_GROUP = 16   # bench.py's kv_int4_group
+# The int4-group attention's context against its plain version, relative
+# to its largest magnitude: a probability whose f32 value differs in the
+# last place can round to the neighbouring bf16 value (2^-8 of it) before
+# the context sum; 3.5e-4 was read at 33 live rows on an H100 80GB HBM3.
+# Such flips touch few rows, so at most INT4G_FINE_SHARE of the elements
+# may differ by more than INT4G_FINE_RTOL of that magnitude (1.35 % was
+# read); a kernel that leaves out one bf16 rounding of q, of the K or V
+# operand or of the probabilities moves most elements (int4g_kernel holds
+# that, see plain_without_rounding).
+INT4G_CTX_RTOL = 1e-3
+INT4G_FINE_RTOL, INT4G_FINE_SHARE = 1e-5, 0.1
+
+
+def int4g_ctx_diff(torch, got, want):
+  """(largest |got - want| over max |want|, share of the elements that
+  differ by more than INT4G_FINE_RTOL of max |want|)."""
+  d = torch.abs(got.double() - want.double())
+  ymax = max(float(torch.max(torch.abs(want.double()))), 1e-30)
+  return (float(torch.max(d)) / ymax,
+          float(torch.mean((d > INT4G_FINE_RTOL * ymax).double())))
+
+
+def int4g_ctx_ok(rel, share):
+  return rel <= INT4G_CTX_RTOL and share <= INT4G_FINE_SHARE
+
+
+def plain_without_rounding(att, which, *args):
+  """The plain int4-group attention with its `which`-th bf16 rounding left
+  out (1 q, 2 the K operand, 3 the V operand, 4 the probabilities, the
+  order of its calls to _bf16_round): what a kernel that dropped that
+  rounding would give."""
+  real, calls = att._bf16_round, []
+
+  def patched(t):
+    calls.append(t)
+    return t if len(calls) == which else real(t)
+
+  att._bf16_round = patched
+  try:
+    out = att.decode_attention_int4_group_lengths_plain(*args)
+  finally:
+    att._bf16_round = real
+  if len(calls) != 4:
+    raise AssertionError(f'the plain version rounds {len(calls)} times, '
+                         'not 4: plain_without_rounding needs its new order')
+  return out
+
+
+def int4g_pools(torch, att, b, nk, s, h, gen, dev):
+  """int4-group pools and sidecar quantized from random float rows on
+  `dev` (K off centre, the regime asymmetric K exists for; V centred)."""
+  k = torch.randn((b, nk, s, h), generator=gen, device=dev) * 0.5 + 0.8
+  v = torch.randn((b, nk, s, h), generator=gen, device=dev)
+  kp, ks, km = att.quantize_k_rows_int4_asym(k, INT4G_GROUP)
+  vp, vs = att.quantize_v_rows_int4_group(v, INT4G_GROUP)
+  return kp, vp, att.build_kv_sidecar_group(ks, km, vs)
+
+
+def int4g_kernel(torch, port, cfg, dev, timer, gen):
+  """The int4-group decode attention against its plain version on the card.
+
+  Shapes: bench.py's int4g decode (BENCH_B rows, every row pos + 1 long,
+  pos 0, 31, 32, BENCH_START and S - 1) and the server's tick (B slots,
+  random lengths 1..S, one row 0 long), GEMMA_2B widths, group 16, pools
+  quantized from random rows. ctx at f32 is held to INT4G_CTX_RTOL of its
+  largest magnitude, with at most INT4G_FINE_SHARE of its elements beyond
+  INT4G_FINE_RTOL of it, and at bf16 to one bf16 ulp beyond INT4G_CTX_RTOL:
+  the kernel sums in another order than the plain version, and a
+  probability whose f32 value differs in the last place can round to the
+  neighbouring bf16 value (2^-8 relative) before the context sum. The
+  same check must refuse the plain version with any one of its four bf16
+  roundings left out, at the server's shape with f32 q. Then
+  INT4G_ATTENTION_SCATTER at the server's shape on the card and on the CPU
+  from the same inputs: the pools and the sidecar it writes must be equal
+  bit for bit, the context held as the kernel's. Timed at
+  bench.py's step (pos BENCH_START) beside the plain version and SDPA over
+  the pools dequantized to bf16."""
+  att, impl, ir = port['attention'], port['ops_impl'], port['ir']
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  NG = H // INT4G_GROUP
+  bf16, i32 = torch.bfloat16, torch.int32
+  kern = att.decode_attention_int4_group_lengths
+  plain = att.decode_attention_int4_group_lengths_plain
+
+  def check(q, kp, vp, sc, lengths, label):
+    args = (q, kp, vp, sc, lengths, INT4G_GROUP)
+    got32, want32 = kern(*args), plain(*args)
+    got = kern(*args, out_dtype=bf16)
+    want = plain(*args, out_dtype=bf16)
+    sync()
+    ymax = float(torch.max(torch.abs(want32)))
+    err = float(torch.max(torch.abs(got32 - want32)))
+    rel, share = int4g_ctx_diff(torch, got32, want32)
+    ulps = bf16_ulps(torch, got, want, atol=INT4G_CTX_RTOL * ymax)
+    log(f'kernel decode_attention_int4_group_lengths {label}: f32 err '
+        f'{err:.3g} (max |ctx| {ymax:.3g}), share beyond {INT4G_FINE_RTOL:g} '
+        f'{share:.4g}, bf16 {ulps} ulps beyond it')
+    if not (int4g_ctx_ok(rel, share) and ulps <= 1.0):
+      raise AssertionError(f'int4g attention {label}: f32 err {err} '
+                           f'(max |ctx| {ymax}), share {share}, {ulps} bf16 '
+                           'ulps')
+    return {'case': label, 'max_abs_err': err, 'max_abs_ctx': ymax,
+            'share_beyond_fine': share, 'bf16_ulps_beyond_tol': ulps}
+
+  def randn(*shape):
+    return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+  cases = []
+  q = randn(BENCH_B, NK, G, H)
+  kp, vp, sc = int4g_pools(torch, att, BENCH_B, NK, S, H, gen, dev)
+  for pos in (0, 31, 32, BENCH_START, S - 1):
+    lengths = torch.full((BENCH_B,), pos + 1, dtype=i32, device=dev)
+    cases.append(check(q, kp, vp, sc, lengths, f'bench pos {pos}'))
+  qs = randn(B, NK, G, H)
+  kps, vps, scs = int4g_pools(torch, att, B, NK, S, H, gen, dev)
+  lens_s = torch.randint(1, S + 1, (B,), generator=gen, device=dev).to(i32)
+  lens_s[0], lens_s[1], lens_s[2] = 1, S, 0
+  cases.append(check(qs, kps, vps, scs, lens_s, 'server tick'))
+
+  # The check can see a dropped rounding (f32 q, so that q's counts).
+  args_f = (torch.randn((B, NK, G, H), generator=gen, device=dev), kps, vps,
+            scs, lens_s, INT4G_GROUP)
+  want_f = plain(*args_f)
+  dropped = {}
+  for which, what in enumerate(('q', 'K operand', 'V operand', 'probs'), 1):
+    rel, share = int4g_ctx_diff(
+        torch, plain_without_rounding(att, which, *args_f), want_f)
+    dropped[what] = {'max_rel_err': rel, 'share_beyond_fine': share}
+    if int4g_ctx_ok(rel, share):
+      raise AssertionError(f'int4g check: passes a plain version without '
+                           f'the {what} rounding ({rel}, share {share})')
+  log(f'int4g check refuses the plain version without each rounding: '
+      f'{dropped}')
+
+  # The op: quantize the new rows, write them, attend; card against CPU.
+  op = ir.Op(opcode='INT4G_ATTENTION_SCATTER', inputs=[], outputs=[],
+             attrs={'group': INT4G_GROUP})
+  ctx_op = impl.OpContext(op=op, subgraph=None, graph=None)
+  k_rows = torch.randn((B, NK, 1, H), generator=gen, device=dev) + 0.8
+  v_rows = torch.randn((B, NK, 1, H), generator=gen, device=dev)
+  positions = (lens_s - 1).clamp_min(0).reshape(B, 1)
+  op_in = (qs, k_rows, v_rows, kps, vps, scs, positions)
+  on_card = impl.OPS['INT4G_ATTENTION_SCATTER'](ctx_op, *op_in)
+  on_cpu = impl.OPS['INT4G_ATTENTION_SCATTER'](
+      ctx_op, *(t.cpu() for t in op_in))
+  sync()
+  op_diff = {name: int(torch.sum(a.cpu().view(torch.int16 if a.dtype == bf16
+                                             else a.dtype)
+                                 != b.view(torch.int16 if b.dtype == bf16
+                                           else b.dtype)))
+             for name, a, b in zip(('k_pool', 'v_pool', 'sidecar'),
+                                   on_card[1:], on_cpu[1:])}
+  op_err = float(torch.max(torch.abs(on_card[0].float().cpu()
+                                     - on_cpu[0].float())))
+  op_rel, op_share = int4g_ctx_diff(torch, on_card[0].cpu(), on_cpu[0])
+  log(f'INT4G_ATTENTION_SCATTER card against CPU: values that differ '
+      f'{op_diff}, ctx err {op_err:.3g} ({op_rel:.3g} relative, share '
+      f'beyond {INT4G_FINE_RTOL:g} {op_share:.4g})')
+  if any(op_diff.values()):
+    raise AssertionError(f'INT4G_ATTENTION_SCATTER: pools or sidecar differ '
+                         f'from the CPU: {op_diff}')
+  if not int4g_ctx_ok(op_rel, op_share):
+    raise AssertionError(f'INT4G_ATTENTION_SCATTER: ctx {op_rel} relative, '
+                         f'share {op_share}')
+
+  # Timing at bench.py's step; SDPA over the dequantized bf16 pools.
+  lengths = torch.full((BENCH_B,), BENCH_START + 1, dtype=i32, device=dev)
+  args = (q, kp, vp, sc, lengths, INT4G_GROUP)
+  kw = dict(out_dtype=bf16)
+  scf = sc.float()
+  grp = torch.arange(H, device=dev) // INT4G_GROUP
+  k32 = kp.to(torch.int32)
+  kcodes = torch.cat([k32 & 0xF, k32 >> 4], dim=-1).float()
+  kd = (kcodes * scf[:, :, :NG].transpose(-1, -2)[..., grp]
+        + scf[:, :, NG:2 * NG].transpose(-1, -2)[..., grp]).to(bf16)
+  vd = (att.unpack_int4_rows(vp).float()
+        * scf[:, :, 2 * NG:].transpose(-1, -2)[..., grp]).to(bf16)
+  del k32, kcodes, scf
+  amask = torch.where(
+      torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
+      float('-inf')).to(bf16).reshape(BENCH_B, 1, 1, S)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  live = NK * BENCH_B * (BENCH_START + 1)
+  nbytes = (q.numel() * 2 + live * (H + 6 * NG) + lengths.numel() * 4
+            + q.numel() * 2)
+  b_ms, b_by = bound(nbytes, 4 * G * H * live, BF16_OPS_PER_S)
+  ms = timer(lambda: kern(*args, **kw))
+  plain_ms = timer(lambda: plain(*args, **kw))
+  lib_ms = timer(lambda: sdpa(q, kd, vd, attn_mask=amask))
+  log(f'kernel decode_attention_int4_group_lengths: {ms:.4f} ms at the bench '
+      f'step (plain {plain_ms:.4f}, SDPA on bf16 pools {lib_ms:.4f}, bound '
+      f'{b_ms:.4f} by {b_by}; {nbytes / 1e6:.1f} MB, {live} live rows)')
+  return {
+      'name': 'decode_attention_int4_group_lengths', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'attention_int4_group.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:1677',
+      'jax': 'pallas_attention.decode_attention_int4_group_lengths',
+      'wrapper': kern, 'per_step': 0, 'per_bench_step_int4g': cfg.num_layers,
+      'per_tick_int4g': cfg.num_layers,
+      'max_abs_err': max(c['max_abs_err'] for c in cases),
+      'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+      'library_ms': lib_ms,
+      'library': 'scaled_dot_product_attention over the pools dequantized '
+                 'to bf16',
+      'B': BENCH_B, 'live_rows': live, 'bytes': nbytes, 'cases': cases,
+      'dropped_rounding_refused': dropped,
+      'op_card_vs_cpu': {'values_differ': op_diff, 'ctx_max_abs_err': op_err,
+                         'ctx_share_beyond_fine': op_share}}
+
+
 def refused_shapes(torch, att, dev):
   """Shapes that the JAX executor's gate sends to its Pallas kernels but
   that the CUDA kernels do not take: the wrapper raises ValueError on the
   card and launches nothing (the executor has no fallback for them)."""
-  def i8(*shape):
-    return torch.zeros(shape, dtype=torch.int8, device=dev)
+  def i8(*shape, dtype=torch.int8):
+    return torch.zeros(shape, dtype=dtype, device=dev)
 
   cases = (
       ('lengths attention, G = 8 x S = 8192 scores',
@@ -591,7 +816,15 @@ def refused_shapes(torch, att, dev):
        lambda: att.flash_attention_int8_masked(
            torch.zeros((1, 1, 32, 384), device=dev), i8(1, 1, 128, 384),
            i8(1, 1, 128, 384), 1.0, 1.0,
-           torch.zeros((1, 1, 32, 128), device=dev))))
+           torch.zeros((1, 1, 32, 128), device=dev))),
+      ('int4-group attention, G = 8 x S = 8192 scores',
+       att.decode_attention_int4_group_lengths,
+       lambda: att.decode_attention_int4_group_lengths(
+           torch.zeros((1, 1, 8, 256), device=dev),
+           i8(1, 1, 8192, 128, dtype=torch.uint8),
+           i8(1, 1, 8192, 128, dtype=torch.uint8),
+           i8(1, 1, 48, 8192, dtype=torch.bfloat16),
+           torch.ones(1, dtype=torch.int32, device=dev))))
   for what, wrapper, call in cases:
     before = (wrapper.launches, wrapper.plain_calls)
     try:
@@ -850,14 +1083,17 @@ def profile_steps(torch, step, pos0, steady_ms, n=3):
           'device_ms_per_step_by_kernel': dict(top)}
 
 
-def decode_graph(gemma, cfg, batch):
+def decode_graph(gemma, cfg, batch, kv_int4_group=0):
   """bench.py's decode graph (bench.py:517-529): one `decode` signature,
-  fused projections, greedy head, int8 KV caches."""
+  fused projections, greedy head, int8 KV caches (AEQT_BENCH_KV=int8) or,
+  with kv_int4_group, int4-group pools (AEQT_BENCH_KV=int4g)."""
   graph = gemma.build_decoder(cfg, batch=batch, prefill_len=8,
                               signatures=('decode',),
                               materialize_weights=False,
-                              fused_projections=True, greedy_head=True)
-  gemma.stamp_int8_kv_cache(graph)
+                              fused_projections=True, greedy_head=True,
+                              kv_int4_group=kv_int4_group)
+  if not kv_int4_group:
+    gemma.stamp_int8_kv_cache(graph)
   return graph
 
 
@@ -886,23 +1122,81 @@ def decode_stepper(torch, ex, cfg, batch, feed, dev):
   return step
 
 
+def bench_steps(torch, gemma, ex, graph, cfg, kernels, per_step, label,
+                tokens0, dev):
+  """bench.py's step loop on one executor: zero pools made on the device in
+  the signature's dtypes, BENCH_WARMUP warm-up steps from BENCH_START, then
+  BENCH_STEPS timed steps (host clock around synchronised steps) whose
+  launches must be per_step's for each kernel (the plain versions never
+  run on the card), then 3 profiled steps. Returns (result, the timed
+  steps' ids [BENCH_B, BENCH_STEPS])."""
+  feed = gemma.zero_caches(graph, 'decode', device=dev)
+  step = decode_stepper(torch, ex, cfg, BENCH_B, feed, dev)
+  pos = torch.tensor(BENCH_START, dtype=torch.int32, device=dev)
+  tokens = tokens0
+  for _ in range(BENCH_WARMUP):
+    tokens = step(pos, tokens)
+    pos = pos + 1
+  sync()
+  for k in kernels:
+    k['wrapper'].launches = 0
+    k['wrapper'].plain_calls = 0
+  step_ms, out_ids = [], []
+  for _ in range(BENCH_STEPS):
+    t1 = time.monotonic()
+    tokens = step(pos, tokens)
+    pos = pos + 1
+    sync()
+    step_ms.append((time.monotonic() - t1) * 1e3)
+    out_ids.append(tokens)
+  # On the card only launches count; a CPU rehearsal counts plain runs.
+  on_card = dev == 'cuda'
+  launches = {k['name']: getattr(k['wrapper'], 'launches' if on_card
+                                 else 'plain_calls') for k in kernels}
+  plain = {k['name']: getattr(k['wrapper'], 'plain_calls' if on_card
+                              else 'launches') for k in kernels}
+  want = {name: n * BENCH_STEPS for name, n in per_step.items()}
+  if ({n: launches.get(n, 0) for n in want} != want
+      or any(v for n, v in launches.items() if n not in want)
+      or any(plain.values())):
+    raise AssertionError(f'bench decode {label}: launches {launches}, want '
+                         f'{want}; plain runs on the card {plain}')
+  for k in kernels:
+    k.setdefault('launches_bench_decode', {})[label] = launches[k['name']]
+  ids = torch.cat(out_ids, dim=1)
+  lo, hi = int(ids.min()), int(ids.max())
+  if lo < 0 or hi >= cfg.vocab_size:
+    raise AssertionError(f'bench decode {label}: ids out of range')
+  med = statistics.median(step_ms)
+  log(f'bench decode {label}: {med:.3f} ms/step (median of '
+      f'{[round(t, 3) for t in step_ms]}), {BENCH_B / med * 1e3:.1f} '
+      f'tokens/s at batch {BENCH_B}; launches per step '
+      f'{ {n: v // BENCH_STEPS for n, v in launches.items() if v} }')
+  prof = profile_steps(torch, lambda i, pos=pos: step(pos + i, tokens), 0,
+                       med)
+  return {'ms_per_step': med, 'step_ms': step_ms,
+          'tokens_per_s': BENCH_B / med * 1e3,
+          'launches_per_step': per_step, **prof}, ids
+
+
+def bench_tokens(torch, cfg, dev):
+  return torch.as_tensor(
+      np.random.default_rng(2).integers(0, cfg.vocab_size, (BENCH_B, 1)),
+      dtype=torch.int32, device=dev)
+
+
 def bench_decode_phase(torch, port, kernels, cfg, dev):
   """bench.py's decode through the port's GraphExecutor: GEMMA_2B with the
   full vocabulary, int4 packed FCs, int8 embedding and tied head, int8 KV
   with the stamped scales in zero pools made on the device, greedy head,
   bf16 activations, batch BENCH_B, cache 1024, start_pos BENCH_START;
-  BENCH_WARMUP warm-up steps, then BENCH_STEPS timed steps (host clock
-  around synchronised steps) and 3 profiled ones, with the decode block on
-  and then off on the same weights. The launches per step are checked
-  (the plain versions never run on the card)."""
+  `bench_steps` with the decode block on and then off on the same
+  weights."""
   gemma, executor = port['gemma'], port['executor']
   t0 = time.monotonic()
   graph = decode_graph(gemma, cfg, BENCH_B)
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, device=dev)
-  tokens0 = torch.as_tensor(
-      np.random.default_rng(2).integers(0, cfg.vocab_size, (BENCH_B, 1)),
-      dtype=torch.int32, device=dev)
   layers = cfg.num_layers
   per_step = {
       True: {'fused_mlp_qkv_attention': layers - 1,
@@ -919,59 +1213,15 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
                                 decode_block=block_on)
     ex.load_weights(weights)
     ex.prepare_serving_weights(min_weight_params=0)
-    feed = gemma.zero_caches(graph, 'decode', device=dev)
-    step = decode_stepper(torch, ex, cfg, BENCH_B, feed, dev)
-    pos = torch.tensor(BENCH_START, dtype=torch.int32, device=dev)
-    tokens = tokens0
     sync()
     label = 'block on' if block_on else 'block off'
     log(f'bench decode {label}: set-up {time.monotonic() - t0:.1f}s; units '
         f'block {len(ex._block_fusions)} attention {len(ex._attn_fusions)} '
         f'mlp {len(ex._mlp_fusions)} head {len(ex._head_fusions)}')
-    for _ in range(BENCH_WARMUP):
-      tokens = step(pos, tokens)
-      pos = pos + 1
-    sync()
-    for k in kernels:
-      k['wrapper'].launches = 0
-      k['wrapper'].plain_calls = 0
-    step_ms, out_ids = [], []
-    for _ in range(BENCH_STEPS):
-      t1 = time.monotonic()
-      tokens = step(pos, tokens)
-      pos = pos + 1
-      sync()
-      step_ms.append((time.monotonic() - t1) * 1e3)
-      out_ids.append(tokens)
-    # On the card only launches count; a CPU rehearsal counts plain runs.
-    on_card = dev == 'cuda'
-    launches = {k['name']: getattr(k['wrapper'], 'launches' if on_card
-                                   else 'plain_calls') for k in kernels}
-    plain = {k['name']: getattr(k['wrapper'], 'plain_calls' if on_card
-                                else 'launches') for k in kernels}
-    want = {name: n * BENCH_STEPS for name, n in per_step[block_on].items()}
-    if ({n: launches.get(n, 0) for n in want} != want
-        or any(v for n, v in launches.items() if n not in want)
-        or any(plain.values())):
-      raise AssertionError(f'bench decode {label}: launches {launches}, want '
-                           f'{want}; plain runs on the card {plain}')
-    for k in kernels:
-      k.setdefault('launches_bench_decode', {})[label] = launches[k['name']]
-    ids[block_on] = torch.cat(out_ids, dim=1)
-    lo, hi = int(ids[block_on].min()), int(ids[block_on].max())
-    if lo < 0 or hi >= cfg.vocab_size:
-      raise AssertionError(f'bench decode {label}: ids out of range')
-    med = statistics.median(step_ms)
-    log(f'bench decode {label}: {med:.3f} ms/step (median of '
-        f'{[round(t, 3) for t in step_ms]}), {BENCH_B / med * 1e3:.1f} '
-        f'tokens/s at batch {BENCH_B}; launches per step '
-        f'{ {n: v // BENCH_STEPS for n, v in launches.items() if v} }')
-    prof = profile_steps(torch, lambda i, pos=pos: step(pos + i, tokens), 0,
-                         med)
-    results[label] = {'ms_per_step': med, 'step_ms': step_ms,
-                      'tokens_per_s': BENCH_B / med * 1e3,
-                      'launches_per_step': per_step[block_on], **prof}
-    del ex, feed, step
+    results[label], ids[block_on] = bench_steps(
+        torch, gemma, ex, graph, cfg, kernels, per_step[block_on], label,
+        bench_tokens(torch, cfg, dev), dev)
+    del ex
     torch.cuda.empty_cache()
   same = float(torch.mean((ids[True] == ids[False]).float()))
   log(f'bench decode: block on and off (bf16 activations) agree on '
@@ -980,16 +1230,57 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
   return results
 
 
-def serving_graph(gemma, cfg, slots):
+def bench_decode_int4g_phase(torch, port, kernels, cfg, dev):
+  """bench.py's decode with AEQT_BENCH_KV=int4g (bench.py:516-529 and
+  :642-650): the graph built with kv_int4_group=16 and not stamped, one
+  INT4G_ATTENTION op per layer over uint8 pools and a bf16 sidecar made
+  as zeros on the device; otherwise as bench_decode_phase. The executor
+  keeps its defaults (decode block on), and finds no attention unit, so
+  no block unit: the step runs unfused, its pool writes into copies of
+  the pools (the executor's functional contract)."""
+  gemma, executor = port['gemma'], port['executor']
+  t0 = time.monotonic()
+  graph = decode_graph(gemma, cfg, BENCH_B, kv_int4_group=INT4G_GROUP)
+  weights = gemma.device_materialize_quantized(graph, fc_bits=4,
+                                               embedding_bits=8, device=dev)
+  ex = executor.GraphExecutor(graph, device=dev, activation_dtype='bfloat16')
+  ex.load_weights(weights)
+  ex.prepare_serving_weights(min_weight_params=0)
+  del weights
+  sync()
+  units = {'block': len(ex._block_fusions),
+           'attention': len(ex._attn_fusions),
+           'mlp': len(ex._mlp_fusions), 'head': len(ex._head_fusions)}
+  log(f'bench decode int4g: set-up {time.monotonic() - t0:.1f}s; units '
+      f'{units} (decode block on, no unit: unfused)')
+  if units['block'] or units['attention']:
+    raise AssertionError(f'bench decode int4g: units {units}')
+  layers = cfg.num_layers
+  per_step = {'decode_attention_int4_group_lengths': layers,
+              'mlp_int4_packed': layers, 'head_argmax': 1,
+              'qmatmul_int4_packed_drq': 2 * layers}
+  result, _ = bench_steps(torch, gemma, ex, graph, cfg, kernels, per_step,
+                          'int4g', bench_tokens(torch, cfg, dev), dev)
+  result.update(units=units, block='on; no unit matches, so unfused')
+  del ex
+  torch.cuda.empty_cache()
+  return result
+
+
+def serving_graph(gemma, cfg, slots, kv_int4_group=0):
   """bench.py's serving graph: prefill groups of 8 x 128 tokens with a
-  64-token tail program, greedy heads, device masks, int8 KV caches."""
+  64-token tail program, greedy heads, device masks, int8 KV caches
+  (AEQT_BENCH_SERVER_KV=int8) or, with kv_int4_group, int4-group decode
+  pools and float prefill caches (AEQT_BENCH_SERVER_KV=int4g; bench.py
+  stamps int8 only without it, bench.py:192-203)."""
   graph = gemma.build_serving_decoder(
       cfg, batch_slots=slots, prefill_len=PREFILL_LEN,
       prefill_batch=PREFILL_BATCH, prefill_tail_len=PREFILL_TAIL,
       materialize_weights=False, device_masks=True, fused_projections=True,
       greedy_head=True, prefill_device_masks=True, prefill_greedy=True,
-      prefill_head_cols=True)
-  gemma.stamp_int8_kv_cache(graph)
+      prefill_head_cols=True, kv_int4_group=kv_int4_group)
+  if not kv_int4_group:
+    gemma.stamp_int8_kv_cache(graph)
   return graph
 
 
@@ -1029,13 +1320,17 @@ def device_busy(torch, fn):
 
 
 def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
-                 slots=B):
+                 slots=B, kv_int4_group=0):
   """The port's DecodeServer under bench.py's mixed-length load: a warm-up
   request per prompt length, then n_requests requests (prompt lengths
-  cycling 32..512, 48 new tokens each) served by step_chunk(8)."""
+  cycling 32..512, 48 new tokens each) served by step_chunk(8). With
+  kv_int4_group, bench.py's AEQT_BENCH_SERVER_KV=int4g server: each tick
+  runs INT4G_ATTENTION_SCATTER per layer, and the prefill's float
+  attention chain is graph ops (no int8 cache, so no attention unit)."""
   gemma, batching = port['gemma'], port['batching']
+  name = 'server int4g' if kv_int4_group else 'server'
   t0 = time.monotonic()
-  graph = serving_graph(gemma, cfg, slots)
+  graph = serving_graph(gemma, cfg, slots, kv_int4_group)
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, device=dev)
   server = batching.DecodeServer(graph, cfg, slots, weights=weights,
@@ -1043,7 +1338,7 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
                                  activation_dtype='bfloat16', device=dev)
   del weights
   sync()
-  log(f'server set-up (graph, weights, packing): '
+  log(f'{name} set-up (graph, weights, packing): '
       f'{time.monotonic() - t0:.1f}s; fusions attention '
       f'{len(server._executor._attn_fusions)} mlp '
       f'{len(server._executor._mlp_fusions)} head '
@@ -1069,7 +1364,7 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   submit(len(lens))
   drain()
   sync()
-  log(f'server warm-up ({len(lens)} requests, one per prompt length): '
+  log(f'{name} warm-up ({len(lens)} requests, one per prompt length): '
       f'{time.monotonic() - t0:.1f}s')
 
   counting = CountingExecutor(server._executor)
@@ -1110,24 +1405,26 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   if ticks != m['decode_ticks']:
     raise AssertionError(f'{ticks} decode calls, {m["decode_ticks"]} ticks')
   layers = cfg.num_layers
-  want = {'qmatmul_int4_packed_drq': 2 * layers * (ticks + passes),
-          'mlp_int4_packed': layers * (ticks + passes),
-          'head_argmax': ticks + passes,
-          'decode_attention_int8_lengths': layers * ticks,
-          'flash_attention_int8_masked': layers * passes,
-          'decode_attention_int8_lengths_stale': 0,
-          'fused_mlp_qkv_attention': 0}
+  want = {n: 0 for n in launches}
+  want.update({'qmatmul_int4_packed_drq': 2 * layers * (ticks + passes),
+               'mlp_int4_packed': layers * (ticks + passes),
+               'head_argmax': ticks + passes})
+  if kv_int4_group:
+    want['decode_attention_int4_group_lengths'] = layers * ticks
+  else:
+    want['decode_attention_int8_lengths'] = layers * ticks
+    want['flash_attention_int8_masked'] = layers * passes
   if launches != want or any(plain.values()):
-    raise AssertionError(f'server launches {launches}, want {want}; plain '
+    raise AssertionError(f'{name} launches {launches}, want {want}; plain '
                          f'runs on the card {plain}')
   tokens = m['tokens_generated']
   p50, p99 = (float(v) for v in np.percentile(ttfts, [50, 99]))
-  log(f'server served {n_requests} requests ({SERVE_NEW} new tokens each, '
+  log(f'{name} served {n_requests} requests ({SERVE_NEW} new tokens each, '
       f'prompts {lens}) in {wall:.3f}s: {tokens / wall:.1f} tokens/s, '
       f'TTFT p50 {p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms; decode ticks '
       f'{m["decode_ticks"]}, prefill groups {m["prefill_groups"]}, pad rows '
       f'{m["prefill_pad_rows"]}, executor calls {calls}')
-  log(f'server launches {launches}; plain runs on the card {plain}')
+  log(f'{name} launches {launches}; plain runs on the card {plain}')
   result = {'requests': n_requests, 'wall_s': wall,
             'tokens_per_s': tokens / wall, 'ttft_p50_ms': p50 * 1e3,
             'ttft_p99_ms': p99 * 1e3, 'decode_ticks': m['decode_ticks'],
@@ -1171,20 +1468,20 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   drain()
   pass_med, chunk_med = statistics.median(pass_ms), statistics.median(
       chunk_ms)
-  log(f'server prefill pass (8 x 128 tokens): {pass_med:.3f} ms (median '
+  log(f'{name} prefill pass (8 x 128 tokens): {pass_med:.3f} ms (median '
       f'of {[round(t, 3) for t in pass_ms]}); device busy {pf_busy:.3f} ms '
       f'under the profiler ({pf_wall:.3f} ms wall), idle share '
       f'{1 - pf_busy / pass_med:.3f}')
   for name, ms in pf_top:
     log(f'  {ms:8.3f} ms/pass  {name}')
-  log(f'server chunk of {SERVE_CHUNK} decode ticks (64 slots busy): '
+  log(f'{name} chunk of {SERVE_CHUNK} decode ticks (64 slots busy): '
       f'{chunk_med:.3f} ms (median of {[round(t, 3) for t in chunk_ms]}); '
       f'device busy {ch_busy:.3f} ms under the profiler ({ch_wall:.3f} ms '
       f'wall), idle share {1 - ch_busy / chunk_med:.3f}')
   for name, ms in ch_top:
     log(f'  {ms:8.3f} ms/chunk  {name}')
   device_s = (passes * pf_busy + ticks * ch_busy / SERVE_CHUNK) / 1e3
-  log(f'server time split (estimate from the two profiles): prefill passes '
+  log(f'{name} time split (estimate from the two profiles): prefill passes '
       f'{passes} x {pf_busy:.3f} ms + decode ticks {ticks} x '
       f'{ch_busy / SERVE_CHUNK:.3f} ms = {device_s:.3f}s of device work in '
       f'the {wall:.3f}s run; host and idle {wall - device_s:.3f}s')
@@ -1208,10 +1505,13 @@ class OpByOp:
   the run goes on from the wanted value; ARG_MAX ids that differ are kept
   in `id_diffs` for the caller to judge by the logit margin. The fused
   MLP's output in a call of a signature listed in `mlp_rtol` is held to
-  that tolerance instead. `worst` keeps the largest relative error by
-  signature and opcode ('MLP' for the fused MLP, FUSED_BLOCK for a decode
-  block unit, one op with four outputs), `flips` the int8 codes that
-  differ by one step.
+  that tolerance instead. An INT4G_ATTENTION op's pools and sidecar must
+  equal the CPU's bit for bit, its context is held as the kernel phase
+  holds the kernel (int4g_ctx_ok; `fine_share` keeps the largest share of
+  elements beyond INT4G_FINE_RTOL). `worst` keeps the largest relative
+  error by signature and opcode ('MLP' for the fused MLP, FUSED_BLOCK for
+  a decode block unit, one op with four outputs), `flips` the int8 codes
+  that differ by one step.
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None):
@@ -1219,6 +1519,7 @@ class OpByOp:
     self.mlp_rtol = dict(mlp_rtol or {})
     self.mlp_outs = {f['out'] for f in ex._mlp_fusions.values()}
     self.seen, self.worst, self.id_diffs, self.flips = [], {}, [], {}
+    self.fine_share = 0.0
     store = ex._store_outputs
     call = ex.__call__
 
@@ -1236,6 +1537,7 @@ class OpByOp:
   def _check(self, sg, op, env):
     torch = self.torch
     i = len(self.seen) - 1
+    int4g = op.opcode.startswith('INT4G_ATTENTION')
     for tid in op.outputs:
       if self.want is None:
         self.seen[i][tid] = env[tid].cpu()
@@ -1246,6 +1548,11 @@ class OpByOp:
       if op.opcode == 'ARG_MAX':
         for r in torch.nonzero(got.reshape(-1) != want.reshape(-1)).flatten():
           self.id_diffs.append((i, tid, int(r)))
+      elif int4g and tid != op.outputs[0]:
+        # The int4 pools (uint8) and the bf16 sidecar: bit for bit.
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+          raise AssertionError(f'{sg.tensors[tid].name}: differs from the '
+                               'CPU')
       elif got.is_floating_point():
         err = float(torch.max(torch.abs(got.double() - want.double())))
         rel = err / max(float(torch.max(torch.abs(want.double()))), 1e-30)
@@ -1253,7 +1560,13 @@ class OpByOp:
         is_mlp = tid in self.mlp_outs
         kind = f'{sig}/{"MLP" if is_mlp else op.opcode}'
         self.worst[kind] = max(self.worst.get(kind, 0.0), rel)
-        if rel > (self.mlp_rtol.get(sig, 1e-5) if is_mlp else 1e-5):
+        if int4g:
+          rel, share = int4g_ctx_diff(torch, got, want)
+          self.fine_share = max(self.fine_share, share)
+          if not int4g_ctx_ok(rel, share):
+            raise AssertionError(f'{sg.tensors[tid].name}: rel err {rel}, '
+                                 f'share {share}')
+        elif rel > (self.mlp_rtol.get(sig, 1e-5) if is_mlp else 1e-5):
           raise AssertionError(f'{sg.tensors[tid].name}: rel err {rel}')
       else:
         diff = torch.abs(got.long() - want.long())
@@ -1297,11 +1610,14 @@ def judge_ids(torch, head, cpu_watch, card_watch, label):
                            'clear margin')
 
 
-def server_cpu_phase(torch, port, cfg, dev):
+def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0):
   """The server's first prefill pass and first decode tick, the card
   against the port on the CPU, op by op (as cpu_phase holds the decode
   step): GEMMA_2B widths at 2 layers, f32 activations, 8 requests of 128
-  prompt tokens (one full group, one pass).
+  prompt tokens (one full group, one pass). With kv_int4_group the
+  server's int4-group pools: the slot writer quantizes the prefilled rows
+  (the CPU's values, held op by op) on each device, and the tick's
+  INT4G_ATTENTION_SCATTER ops must write the CPU's pools and sidecars.
 
   The fused MLP of the prefill pass is held to 1e-3, the kernel phase's
   tolerance: CPU and card tanh differ by an ulp here and there, and with
@@ -1310,7 +1626,8 @@ def server_cpu_phase(torch, port, cfg, dev):
   read on an H100 80GB HBM3). The decode tick's MLP keeps 1e-5."""
   gemma, batching, head = port['gemma'], port['batching'], port['head']
   cfg2 = dataclasses.replace(cfg, num_layers=2)
-  graph = serving_graph(gemma, cfg2, B)
+  graph = serving_graph(gemma, cfg2, B, kv_int4_group)
+  label = 'server card-vs-cpu' + (' (int4g)' if kv_int4_group else '')
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, seed=5,
                                                device='cpu')
@@ -1330,24 +1647,29 @@ def server_cpu_phase(torch, port, cfg, dev):
       server.submit(p, max_new_tokens=4)
     server.step()  # the admission's prefill pass, then one decode tick
     watches.append(watch)
-    log(f'server card-vs-cpu: {device} prefill pass + decode tick '
+    log(f'{label}: {device} prefill pass + decode tick '
         f'{time.monotonic() - t0:.1f}s, calls '
         f'{[c["sig"] for c in watch.seen]}')
   cpu_watch, card_watch = watches
   if [c['sig'] for c in card_watch.seen] != ['prefill', 'decode']:
     raise AssertionError(f'calls {[c["sig"] for c in card_watch.seen]}')
-  judge_ids(torch, head, cpu_watch, card_watch, 'server card-vs-cpu')
+  if kv_int4_group and 'decode/INT4G_ATTENTION_SCATTER' not in card_watch.worst:
+    raise AssertionError(f'{label}: no INT4G_ATTENTION_SCATTER op held')
+  judge_ids(torch, head, cpu_watch, card_watch, label)
   worst = {k: f'{v:.2e}' for k, v in sorted(card_watch.worst.items())}
-  log(f'server card-vs-cpu ok: first prefill pass and decode tick op by op, '
+  log(f'{label} ok: first prefill pass and decode tick op by op, '
       f'largest relative error by opcode {worst}; ids that differ '
-      f'{len(card_watch.id_diffs)}')
+      f'{len(card_watch.id_diffs)}; int4g ctx share beyond '
+      f'{INT4G_FINE_RTOL:g} {card_watch.fine_share:.4g}')
   return {'worst_rel_err_by_opcode': card_watch.worst,
-          'id_diffs': len(card_watch.id_diffs)}
+          'id_diffs': len(card_watch.id_diffs),
+          'int4g_ctx_share_beyond_fine': card_watch.fine_share}
 
 
-def cpu_phase(torch, port, cfg, dev, decode_block=False):
+def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
+              layers=None):
   """Same weights, same first step at batch 8, f32: the card against the
-  port on the CPU.
+  port on the CPU, at `layers` layers (default: all of cfg's).
 
   The CPU run keeps every op's output. The card then runs the step op by
   op from those values: each op's inputs are the CPU's, so each op's
@@ -1361,19 +1683,24 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False):
   run of the card follows, reported only: there an ulp of one RMS_NORM
   flips int8 KV codes (per-tensor scale 0.06) and the flips compound over
   18 layers, so its ids may differ. decode_block=True runs the step with
-  the 17 decode-block units, each one op with four outputs held to the
+  a decode-block unit in each layer but the first, each one op with four
+  outputs held to the
   same tolerances (x_ffn and ctx 1e-5, the new K/V rows in the pools one
   code: the block forms cos and sin on its own device, and an ulp of cos
   can round a K code the other way), at start_pos BENCH_START over random
-  int8 caches so that the attention reads 896 rows.
+  int8 caches so that the attention reads 896 rows. kv_int4_group: the
+  int4g step (executor defaults, no unit) at start_pos BENCH_START over
+  int4-group pools quantized from random rows; each INT4G_ATTENTION op
+  must write the CPU's pools and sidecar bit for bit (OpByOp).
   """
   gemma, executor, head = port['gemma'], port['executor'], port['head']
+  cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
   b8 = 8
-  graph = decode_graph(gemma, cfg, b8)
+  graph = decode_graph(gemma, cfg, b8, kv_int4_group)
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, seed=3,
                                                device=dev)
-  start = BENCH_START if decode_block else 0
+  start = BENCH_START if decode_block or kv_int4_group else 0
   inputs = gemma.make_inputs(cfg, 'decode', b8, 1, start_pos=start, seed=3,
                              device='cpu')
   if decode_block:
@@ -1381,12 +1708,21 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False):
     for key in [k for k in inputs if k.endswith('_cache_in')]:
       inputs[key] = torch.from_numpy(rng.integers(
           -127, 128, tuple(inputs[key].shape)).astype(np.int8))
-  label = 'card-vs-cpu' + (' (decode block)' if decode_block else '')
+  if kv_int4_group:
+    gen = torch.Generator().manual_seed(3)
+    for li in range(cfg.num_layers):
+      inputs.update(zip(
+          (f'layer_{li}_{kind}_cache_in' for kind in 'kvs'),
+          int4g_pools(torch, port['attention'], b8, cfg.num_kv_heads,
+                      cfg.max_seq_len, cfg.head_dim, gen, 'cpu')))
+  label = 'card-vs-cpu' + (' (decode block)' if decode_block else '') + (
+      ' (int4g)' if kv_int4_group else '')
 
   def watched(device, want=None):
     ex = executor.GraphExecutor(graph, device=device,
                                 activation_dtype='float32',
-                                decode_block=decode_block)
+                                decode_block=decode_block
+                                or bool(kv_int4_group))
     ex.load_weights(weights)
     ex.prepare_serving_weights(min_weight_params=0)
     return OpByOp(torch, ex, want=want)
@@ -1402,19 +1738,23 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False):
   card.call(inputs, 'decode')
   units = len(card.ex._block_fusions)
   if units != (cfg.num_layers - 1 if decode_block else 0) or (
-      decode_block and 'decode/FUSED_BLOCK' not in card.worst):
-    raise AssertionError(f'{label}: {units} decode-block units')
+      decode_block and 'decode/FUSED_BLOCK' not in card.worst) or (
+          kv_int4_group and 'decode/INT4G_ATTENTION' not in card.worst):
+    raise AssertionError(f'{label}: {units} decode-block units, ops held '
+                         f'{sorted(card.worst)}')
   worst = {k: f'{v:.2e}' for k, v in sorted(card.worst.items())}
   log(f'{label} op by op: largest relative error by opcode {worst}; int8 '
-      f'codes one step apart by opcode {card.flips}')
+      f'codes one step apart by opcode {card.flips}; int4g ctx share beyond '
+      f'{INT4G_FINE_RTOL:g} {card.fine_share:.4g}')
   judge_ids(torch, head, cpu, card, label)
   log(f'{label} ok: the card\'s ids equal the cpu ids in '
       f'{b8 - len(card.id_diffs)} of {b8} rows, cpu top-2 margins '
       f'{[f"{float(m):.2e}" for m in margin]}')
   result = {'worst_rel_err_by_opcode': card.worst,
             'int8_flips_by_opcode': card.flips,
-            'id_diffs': len(card.id_diffs), 'block_units': units}
-  if decode_block:
+            'id_diffs': len(card.id_diffs), 'block_units': units,
+            'int4g_ctx_share_beyond_fine': card.fine_share}
+  if decode_block or kv_int4_group:
     return result
   free = watched(dev)
   free_ids = free.call(inputs, 'decode')['next_tokens'].reshape(-1).cpu()
@@ -1505,6 +1845,7 @@ def main():
     return 2
   sys.path.insert(0, str(root))
   from ai_edge_quantizer_tpu_torch.execution import executor
+  from ai_edge_quantizer_tpu_torch.graph import ir
   from ai_edge_quantizer_tpu_torch.kernels import _build
   from ai_edge_quantizer_tpu_torch.kernels import attention, block, head
   from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul
@@ -1516,7 +1857,7 @@ def main():
     raise AssertionError('the port imported jax or the JAX package')
   port = dict(executor=executor, attention=attention, block=block, head=head,
               mlp=mlp, packed_qmatmul=packed_qmatmul, gemma=gemma,
-              batching=batching, ops_impl=ops_impl)
+              batching=batching, ops_impl=ops_impl, ir=ir)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -1548,16 +1889,30 @@ def main():
     log(f'bench decode on {smi}, {mode}: {r["ms_per_step"]:.3f} ms/step '
         f'(median), {r["tokens_per_s"]:.1f} tokens/s at batch {BENCH_B}, '
         f'device idle share {r["device_idle_share"]:.3f}')
+  bench4 = bench_decode_int4g_phase(torch, port, kernels, cfg, 'cuda')
+  log(f'bench decode int4g on {smi}: {bench4["ms_per_step"]:.3f} ms/step '
+      f'(median), {bench4["tokens_per_s"]:.1f} tokens/s at batch {BENCH_B}, '
+      f'device idle share {bench4["device_idle_share"]:.3f}')
   log(f'phase bench decode done at {time.monotonic() - t_start:.1f}s')
   server = server_phase(torch, port, kernels, cfg, 'cuda')
   log(f'server on {smi}: {server["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
       f'{server["ttft_p50_ms"]:.1f} ms p99 {server["ttft_p99_ms"]:.1f} ms')
+  server4 = server_phase(torch, port, kernels, cfg, 'cuda',
+                         kv_int4_group=INT4G_GROUP)
+  log(f'server int4g on {smi}: {server4["tokens_per_s"]:.1f} tokens/s, TTFT '
+      f'p50 {server4["ttft_p50_ms"]:.1f} ms p99 {server4["ttft_p99_ms"]:.1f} '
+      f'ms, chunk of {SERVE_CHUNK} ticks {server4["chunk_ms"]:.3f} ms (idle '
+      f'{server4["chunk_idle_share"]:.3f})')
   log(f'phase server done at {time.monotonic() - t_start:.1f}s')
   if not args.skip_cpu:
     e2e['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda')
     bench['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda',
-                                     decode_block=True)
+                                     decode_block=True, layers=4)
+    bench4['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda',
+                                      kv_int4_group=INT4G_GROUP, layers=4)
     server['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda')
+    server4['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda',
+                                              kv_int4_group=INT4G_GROUP)
     bench['block_on_vs_off_f32'] = block_on_off_phase(torch, port, cfg,
                                                       'cuda')
     log(f'phase card-vs-cpu done at {time.monotonic() - t_start:.1f}s')
@@ -1569,14 +1924,19 @@ def main():
         'decode_loop': entry.pop('launches_decode_loop'),
         'server': server['launches'][k['name']],
         'bench_decode_block_on': bench_launches['block on'],
-        'bench_decode_block_off': bench_launches['block off']}
+        'bench_decode_block_off': bench_launches['block off'],
+        'bench_decode_int4g': bench_launches['int4g'],
+        'server_int4g': server4['launches'][k['name']]}
     # The count of the path that runs the kernel (the stale kernel runs
     # only in the decode loops: the server's one-hot cache update leaves
     # no row write to fold into attention; the fused block only in the
-    # bench decode with the block on).
-    entry['launches'] = (entry['launches_by_path']['server']
-                         or entry['launches_by_path']['decode_loop']
-                         or entry['launches_by_path']['bench_decode_block_on'])
+    # bench decode with the block on; the int4-group attention only on
+    # the int4g paths).
+    by_path = entry['launches_by_path']
+    entry['launches'] = (by_path['server'] or by_path['decode_loop']
+                         or by_path['bench_decode_block_on']
+                         or by_path['server_int4g']
+                         or by_path['bench_decode_int4g'])
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)
@@ -1585,7 +1945,8 @@ def main():
     raise AssertionError(f'kernels never launched on the main paths: '
                          f'{missing}')
   print(json.dumps({'kernels': line, 'e2e': e2e, 'bench_decode': bench,
-                    'server': server, 'card': smi}), flush=True)
+                    'bench_decode_int4g': bench4, 'server': server,
+                    'server_int4g': server4, 'card': smi}), flush=True)
   print(smi, flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -375,11 +375,6 @@ def test_server_refuses_what_is_not_ported():
   graph = gemma.build_serving_decoder(cfg, batch_slots=2, **BENCH_KW)
   with pytest.raises(NotImplementedError, match='mesh'):
     batching.DecodeServer(graph, cfg, 2, device='cpu', mesh=object())
-  g4 = gemma.build_serving_decoder(cfg, batch_slots=2, kv_int4_group=16,
-                                   **BENCH_KW)
-  with pytest.raises(NotImplementedError,
-                     match='decode_attention_int4_group_lengths'):
-    batching.DecodeServer(g4, cfg, 2, device='cpu')
   with pytest.raises(ValueError, match='batch_slots'):
     batching.DecodeServer(graph, cfg, 3, device='cpu')
   if not torch.cuda.is_available():
