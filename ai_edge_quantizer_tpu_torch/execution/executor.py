@@ -4,7 +4,9 @@ Port of `ai_edge_quantizer_tpu/execution/executor.py`, the parts the
 Gemma int4 decode step runs: constant loading, the DEQUANTIZE alias,
 `prepare_serving_weights`, `_run_signature` / `_eval_op` /
 `_dequant_view` / `_store_outputs`, the int8 DYNAMIC_UPDATE_SLICE fast
-path, the packed int4 DRQ FC, and four fusions with their dispatch:
+path, the packed int4 DRQ FC, the unpacked integer FCs (the JAX
+dispatchers `drq_matmul` and `qmatmul`, kernels/qmatmul.py, with their
+Pallas gates), and four fusions with their dispatch:
 int8-cache attention (the stale-cache kernel with the cache write outside
 it, the lengths kernel at decode, the flash kernel at prefill), the GeGLU
 MLP, the greedy head and the decode block (MLP(l-1) + norms + QKV(l) +
@@ -93,9 +95,16 @@ def attention_route(h: int, s: int, rows: int, attn_lengths: bool) -> str:
 
 
 def _to_device(value, device) -> torch.Tensor:
+  """A tensor on `device`. A read-only array (a buffer that
+  `serialize.load_graph` maps from its file) is copied into memory of its
+  own first: torch would otherwise share it, warn, and could write into
+  the map."""
   if isinstance(value, torch.Tensor):
     return value.to(device)
-  return torch.as_tensor(np.asarray(value), device=device)
+  arr = np.asarray(value)
+  if not arr.flags.writeable:
+    arr = np.array(arr)
+  return torch.as_tensor(arr, device=device)
 
 
 class GraphExecutor:
@@ -133,17 +142,22 @@ class GraphExecutor:
     self.head_fusion = head_fusion
     self.decode_block = decode_block
     self._act_dtype = quant_arith.STORAGE_TORCH_DTYPES[activation_dtype]
-    # Constant tensors, keyed (subgraph_idx, tensor_id), in storage dtype.
+    # Constant tensors, keyed (subgraph_idx, tensor_id), in storage dtype;
+    # the tensors that alias one buffer (the signatures of a multi-
+    # signature model) share one device copy.
     self._weights: dict = {}
+    loaded: dict = {}
     for sg_idx, sg in enumerate(graph.subgraphs):
       for tid, t in enumerate(sg.tensors):
         if t.buffer >= 0 and graph.buffers[t.buffer].data is not None:
-          data = np.asarray(graph.buffers[t.buffer].data).reshape(t.shape)
           dtype = quant_arith.storage_dtype_of(t)
           if dtype == torch.int64:
             dtype = torch.int32  # as the JAX executor without x64
-          self._weights[(sg_idx, tid)] = torch.as_tensor(
-              data, device=self.device).to(dtype)
+          key = (t.buffer, t.shape, dtype)
+          if key not in loaded:
+            data = np.asarray(graph.buffers[t.buffer].data).reshape(t.shape)
+            loaded[key] = _to_device(data, self.device).to(dtype)
+          self._weights[(sg_idx, tid)] = loaded[key]
     # Keys of FC weights converted to packed-int4 serving layout
     # (uint8 [N, K//2], split-half; see kernels/packed_qmatmul.py).
     self._packed_int4_keys: set = set()
@@ -995,6 +1009,18 @@ class GraphExecutor:
       result = (result,)
     self._store_outputs(sg, op, result, env)
 
+  def _fc_params(self, sg_idx: int, w_tid: int, q) -> tuple:
+    """(scale, zero point or None if symmetric) of an FC weight as device
+    tensors, made once: a blockwise zero point has N * K / bs entries (16M
+    for the Gemma head), too many to test for zeros at every call."""
+    key = ('fc_params', sg_idx, w_tid)
+    if key not in self._const_cache:
+      zp = np.asarray(q.zero_point)
+      self._const_cache[key] = (
+          torch.tensor(np.asarray(q.scale, np.float32), device=self.device),
+          None if not np.any(zp) else torch.tensor(zp, device=self.device))
+    return self._const_cache[key]
+
   def _const(self, key, array: np.ndarray) -> torch.Tensor:
     """A constant derived from IR params, copied to the device once."""
     if key not in self._const_cache:
@@ -1242,8 +1268,6 @@ class GraphExecutor:
     bias = None
     if b_tid >= 0:
       bias = self._dequant_view(sg, b_tid, env)
-    on_cuda = self.device.type == 'cuda'
-
     key = (sg_idx, op.inputs[1])
     if key in self._packed_int4_keys:
       true_n = self._packed_pad_n.get(key)
@@ -1270,31 +1294,23 @@ class GraphExecutor:
       return
 
     x_val = env[op.inputs[0]]
-    symmetric = bool(np.all(np.asarray(q.zero_point) == 0))
-    n, k = w_q.shape[0], w_q.shape[-1]
-    scale = self._const(('fc_scale', sg_idx, op.inputs[1]),
-                        np.asarray(q.scale, np.float32))
-    zero_point = None if symmetric else self._const(
-        ('fc_zp', sg_idx, op.inputs[1]), np.asarray(q.zero_point))
+    scale, zero_point = self._fc_params(sg_idx, op.inputs[1], q)
+    symmetric = zero_point is None
     if x_t.quantization is not None:
       raise NotImplementedError(
           'Static-range (integer activation) FULLY_CONNECTED is not ported '
           'yet.')
-    # The JAX package's Pallas gates (kernels/qmatmul.py): on its
-    # accelerator these shapes reach a kernel that is not ported yet.
-    aligned = k % 256 == 0 and n % 128 == 0
     if weight_only:
+      # Float math against the dequantized weights, never a kernel (the
+      # JAX executor's prefer_pallas=False).
       y = qmm.qmatmul_ref(x_val, w_q, scale, zero_point=zero_point,
                           bias=bias, block_size=q.block_size)
     elif symmetric and q.block_size == 0:
-      if on_cuda and aligned and w_q.dtype == torch.int8:
-        raise _unported('pallas_qmatmul.qmatmul_pallas_int8_drq')
-      y = qmm.drq_matmul_ref(x_val, w_q, scale, bias=bias)
+      # DRQ: the activation quantized per row on the device.
+      y = qmm.drq_matmul(x_val, w_q, scale, bias=bias)
     else:
-      if on_cuda and aligned and zero_point is None:
-        raise _unported('pallas_qmatmul.qmatmul_pallas')
-      y = qmm.qmatmul_ref(x_val, w_q, scale, zero_point=zero_point,
-                          bias=bias, block_size=q.block_size)
+      y = qmm.qmatmul(x_val, w_q, scale, zero_point=zero_point, bias=bias,
+                      block_size=q.block_size)
     y = ops_impl.fused_activation(
         y, op.attrs.get('fused_activation', 'NONE'))
     self._store_outputs(sg, op, (y,), env)

@@ -30,7 +30,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / '_build'
 SOURCES = ('qmatmul_int4_drq', 'attention_stale', 'mlp_int4_drq',
            'head_argmax', 'attention_lengths', 'flash_attention_int8',
-           'fused_block', 'attention_int4_group')
+           'fused_block', 'attention_int4_group', 'qmatmul_int8_drq',
+           'qmatmul_int_weights')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')

@@ -1,9 +1,15 @@
-"""Plain PyTorch twins of the fused dequant + matmul kernels.
+"""Fused dequant + matmul for integer weights: dispatchers and plain twins.
 
-Port of `ai_edge_quantizer_tpu/kernels/qmatmul.py:27-104`
-(`qmatmul_ref`, `dynamic_quantize_activation`, `drq_matmul_ref`). These
-are the XLA references of the JAX package, which runs them wherever no
-Pallas kernel applies; the port runs them in the same places.
+Port of `ai_edge_quantizer_tpu/kernels/qmatmul.py`: the XLA references
+(`qmatmul_ref`, `dynamic_quantize_activation`, `drq_matmul_ref`), which the
+JAX package runs wherever no Pallas kernel applies, and the dispatchers
+`drq_matmul` and `qmatmul` with the JAX package's gates. Where a gate
+passes, the dispatcher calls the port of the Pallas kernel
+(`kernels/int_qmatmul.py`), which launches its CUDA kernel for a CUDA
+tensor and runs its plain version for a CPU tensor; where it fails, the
+reference runs on either device, as the JAX executor runs it off its
+accelerator. There is no fallback on error: a kernel that does not build
+or launch raises.
 
 Integer contractions run as float32 matmuls over K-chunks of 1024: every
 product and partial sum of int8 x int8 values within a chunk is an
@@ -106,3 +112,49 @@ def drq_matmul_ref(
   if bias is not None:
     y = y + bias.to(torch.float32)
   return y.to(x.dtype)
+
+
+def drq_matmul(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    act_num_bits: int = 8,
+) -> torch.Tensor:
+  """DRQ dispatch (the JAX package's `drq_matmul` gate): the int8 DRQ
+  kernel for int8 storage (int4 values in int8 containers too), 8-bit
+  activations, K % 256 == 0, N % 128 == 0 and a per-channel scale of N
+  entries (the Pallas wrapper reshapes it to [1, N], which a per-tensor
+  scale fails, and the JAX dispatcher then runs the reference); else
+  `drq_matmul_ref`."""
+  # Imported here: int_qmatmul imports this module's exact int matmul.
+  from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
+  n, k = w_q.shape
+  if (act_num_bits == 8 and w_q.dtype == torch.int8
+      and k % 256 == 0 and n % 128 == 0 and w_scale.numel() == n):
+    return int_qmatmul.qmatmul_int8_drq(x, w_q, w_scale, bias=bias)
+  return drq_matmul_ref(x, w_q, w_scale, bias=bias,
+                        act_num_bits=act_num_bits)
+
+
+def qmatmul(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    scale: torch.Tensor,
+    zero_point: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    block_size: int = 0,
+) -> torch.Tensor:
+  """Weight-only dispatch (the JAX package's `qmatmul` gate): the
+  integer-weight kernel for symmetric weights (no zero point), K % 256 ==
+  0, N % 128 == 0 and a scale of N (channelwise) or N * K / block_size
+  (blockwise) entries, as the Pallas wrapper reshapes it; else
+  `qmatmul_ref`."""
+  from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
+  n, k = w_q.shape
+  blocks = k // block_size if block_size > 0 else 1
+  if (zero_point is None and k % 256 == 0 and n % 128 == 0
+      and scale.numel() == n * blocks):
+    return int_qmatmul.qmatmul_int_weights(x, w_q, scale, bias=bias,
+                                           block_size=block_size)
+  return qmatmul_ref(x, w_q, scale, zero_point, bias, block_size)

@@ -7,7 +7,7 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
 
   1. facts: torch.version.cuda, nvcc --version, the card's name and power
      limit (nvidia-smi) and the kernels' build time;
-  2. kernels: each of the eight kernels against its plain PyTorch version
+  2. kernels: each of the ten kernels against its plain PyTorch version
      on the card at the main paths' shapes (Gemma-2B; decode at batch 64
      and cache 1024, bench.py's decode at batch 256 with 897 live cache
      rows, prefill at 8 x 128 tokens; bf16 activations), with the stated
@@ -18,8 +18,11 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      bound from bytes over 3.35 TB/s or operations over the peak rate; the
      int4-group attention at pos 0/31/32/896/1023 and the server's mixed
      lengths, with INT4G_ATTENTION_SCATTER's pools and sidecar equal to
-     its CPU run bit for bit; three attention shapes the CUDA kernels do
-     not take must raise;
+     its CPU run bit for bit; the int8 DRQ matmul (bit for bit) and the
+     weight-only matmul (blockwise 32 and channelwise, within
+     int_qmatmul.int_weights_tolerance) at the quantized serving graph's
+     shapes; three attention shapes the CUDA kernels do not take must
+     raise;
   3. decode loop: the Gemma-2B int4 greedy decode graph at batch 64 with an
      int8 KV cache answers 64 requests (8 prompt tokens fed through the
      decode step, then 16 greedy tokens), the decode block off; launch
@@ -41,6 +44,16 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      (torch.profiler) are printed; then the same with int4-group pools
      (AEQT_BENCH_SERVER_KV=int4g: int4g attention 18 per tick, no flash
      or lengths launch);
+  4b. quantizer: examples/serve_gemma.py's flow at full width through the
+     port's own entry points: the float serving graph (weights drawn on
+     the host, int8 KV stamped) built once, then for gemma_mixed48 and
+     gemma_mixed48_b32: Quantizer(graph, recipe).quantize(), export_model
+     to a temporary .aeqg, serialize.load_graph (every buffer and
+     parameter equal), DecodeServer(loaded, pack_weights=True) serving the
+     server's 128 requests; build, quantize, export and load times, file
+     size, peak host memory, tokens/s, TTFT and the launches by kernel
+     (gemma_mixed48: int8 DRQ 36 a tick or pass, MLP 18, head 1; _b32:
+     int8 DRQ 36, weight-only 37);
   5. card against CPU: the decode step at batch 8 with the decode block
      off (18 layers) and on (4 layers; the block is one op) and the int4g
      step (4 layers), and the server's first prefill pass and decode tick
@@ -52,7 +65,10 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      the card's ids must equal the port's CPU ids, except rows whose CPU
      top-2 logit margin is below 1e-3 relative (see OpByOp);
      then the block on against off on the card at f32 (4 layers, batch 8,
-     4 steps from start_pos 896), ids and caches compared.
+     4 steps from start_pos 896), ids and caches compared; then a 4-layer
+     float serving graph quantized with each recipe, its server's first
+     prefill pass and decode tick held op by op (the int8 DRQ FCs bit for
+     bit, the blockwise FCs within their tolerance).
 
 Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
@@ -61,12 +77,16 @@ Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 
 import argparse
 import dataclasses
+import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import tracemalloc
 
 import numpy as np
 
@@ -371,6 +391,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
   results.append(flash_kernel(torch, att, cfg, dev, timer, gen))
   results.append(block_kernel(torch, port, cfg, dev, timer, gen))
   results.append(int4g_kernel(torch, port, cfg, dev, timer, gen))
+  results.extend(int_weight_kernels(torch, port, cfg, dev, timer, gen))
   refused_shapes(torch, att, dev)
   return results
 
@@ -796,6 +817,159 @@ def int4g_kernel(torch, port, cfg, dev, timer, gen):
       'dropped_rounding_refused': dropped,
       'op_card_vs_cpu': {'values_differ': op_diff, 'ctx_max_abs_err': op_err,
                          'ctx_share_beyond_fine': op_share}}
+
+QUANT_BLOCK = 32   # gemma_mixed48_b32's block size
+
+
+def int_weight_kernels(torch, port, cfg, dev, timer, gen):
+  """The int8 DRQ kernel and the weight-only kernel against their plain
+  versions on the card, at the shapes the quantized serving graph gives
+  them (GEMMA_2B, fused projections), decode rows (B) and a prefill
+  pass's rows (PREFILL_ROWS; the prefill head reads PREFILL_BATCH rows).
+
+  int8 DRQ (the attention FCs of gemma_mixed48 and _b32): QKV N 2560 and
+  out-projection N 2048 at K 2048, bf16 x as the server runs it, and f32
+  x with and without a bias: every output bit for bit (the row codes and
+  the int32 sums are exact; the epilogue rounds as the plain version).
+  Weight-only (the blockwise-32 FFN and head FCs of _b32): gate/up N 32768
+  at K 2048, down N 2048 at K 16384, head N 256128 at K 2048, checked at
+  bf16 x widened to f32 and at full-mantissa f32 x within
+  int_qmatmul.int_weights_tolerance of max |y|, and its channelwise branch
+  (no entry point reaches it) at N 2048, K 2048. Timed with bf16 x beside
+  the plain versions and, where one PyTorch call computes the same
+  contraction, that call; each kernel's headline times are the means of
+  its decode shapes, as for the other matmuls."""
+  iq, pq = port['int_qmatmul'], port['packed_qmatmul']
+  D, F, V = cfg.embed_dim, cfg.ffn_dim, cfg.vocab_size
+  NQ, NK, H = cfg.num_query_heads, cfg.num_kv_heads, cfg.head_dim
+  bf16 = torch.bfloat16
+
+  def randn(*shape):
+    return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+  def randint(lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev).to(
+        torch.int8)
+
+  def scales(*shape):
+    return torch.rand(shape, generator=gen, device=dev) * 0.01 + 0.005
+
+  def bits_differ(a, b):
+    view = torch.int16 if a.dtype == bf16 else torch.int32
+    return int(torch.sum(a.view(view) != b.view(view)))
+
+  drq_rows = []
+  for phase, m in (('decode', B), ('prefill', PREFILL_ROWS)):
+    for label, n, k in (('qkv', (NQ + 2 * NK) * H, D), ('out_proj', D, NQ * H)):
+      x, w, s = randn(m, k), randint(-127, 128, n, k), scales(n)
+      bias = torch.randn((n,), generator=gen, device=dev)
+      cases = ((x, None), (x.float(), None), (x.float(), bias))
+      differ = [bits_differ(iq.qmatmul_int8_drq(xi, w, s, bi),
+                            iq.qmatmul_int8_drq_plain(xi, w, s, bi))
+                for xi, bi in cases]
+      sync()
+      if any(differ):
+        raise AssertionError(f'int8 DRQ {phase} {label}: {differ} outputs '
+                             'differ from the plain version (bf16, f32, '
+                             'f32 with bias)')
+      xq = pq.quantize_rows_drq(x.float())[0]
+      w_t = w.t()
+      nbytes = m * k * 2 + n * k + n * 4 + m * n * 2
+      b_ms, b_by = bound(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
+      plain_reps = 25 if phase == 'decode' else 5
+      drq_rows.append({
+          'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': k,
+          'outputs_differ': differ,
+          'ms': timer(lambda: iq.qmatmul_int8_drq(x, w, s)),
+          'plain_ms': timer(lambda: iq.qmatmul_int8_drq_plain(x, w, s),
+                            reps=plain_reps),
+          'library_ms': timer(lambda: torch._int_mm(xq, w_t)),
+          'bound_ms': b_ms, 'bound_by': b_by})
+  log(f'kernel qmatmul_int8_drq ok: bit for bit; {drq_rows}')
+
+  wo_rows = []
+  shapes = [('decode', B, 'gate_up', 2 * F, D), ('decode', B, 'down', D, F),
+            ('decode', B, 'head', V, D),
+            ('prefill', PREFILL_ROWS, 'gate_up', 2 * F, D),
+            ('prefill', PREFILL_ROWS, 'down', D, F),
+            ('prefill', PREFILL_BATCH, 'head', V, D),
+            ('channelwise', B, 'out_proj', D, D)]
+  for phase, m, label, n, k in shapes:
+    bs = 0 if phase == 'channelwise' else QUANT_BLOCK
+    x, w = randn(m, k), randint(-8, 8, n, k)
+    s = scales(n, k // bs) if bs else scales(n)
+    # bf16 values widened to f32 (every product exact) and f32 values with
+    # a full mantissa (a kernel that rounded x would fail these).
+    checks = {}
+    for key, xi in (('bf16_x', x.float()),
+                    ('f32_x', torch.randn((m, k), generator=gen, device=dev))):
+      got = iq.qmatmul_int_weights(xi, w, s, block_size=bs)
+      want = iq.qmatmul_int_weights_plain(xi, w, s, block_size=bs)
+      sync()
+      err = float(torch.max(torch.abs(got - want)))
+      ymax = float(torch.max(torch.abs(want)))
+      tol = iq.int_weights_tolerance(k, bs, ymax)
+      if not err <= tol:
+        raise AssertionError(f'weight-only {phase} {label} {key}: err {err} '
+                             f'> {tol} (max |y| {ymax})')
+      checks[key] = {'max_abs_err': err, 'max_abs_y': ymax, 'tolerance': tol}
+      del got, want, xi
+    # Both operands are exact in bf16 (int8 codes, bf16 x), so bf16 tensor
+    # cores with f32 sums compute this function: their peak bounds it.
+    nbytes = m * k * 2 + n * k + s.numel() * 4 + m * n * 2
+    b_ms, b_by = bound(nbytes, 2 * m * n * k, BF16_OPS_PER_S)
+    row = {'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': k,
+           'block_size': bs,
+           'max_abs_err': max(c['max_abs_err'] for c in checks.values()),
+           'checks': checks,
+           'ms': timer(lambda: iq.qmatmul_int_weights(x, w, s,
+                                                      block_size=bs)),
+           'plain_ms': timer(lambda: iq.qmatmul_int_weights_plain(
+               x, w, s, block_size=bs),
+                             reps=25 if m <= B else 3, warmup=1),
+           'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+    if not bs:
+      wf, x32 = w.float(), x.float()
+      row['library_ms'] = timer(lambda: torch.matmul(x32, wf.T))
+    wo_rows.append(row)
+  log(f'kernel qmatmul_int_weights ok: {wo_rows}')
+
+  def mean(rows, key, phase):
+    vals = [r[key] for r in rows if r['phase'] == phase]
+    return sum(vals) / len(vals)
+
+  def summary(rows, phase, keys):
+    return {key: mean(rows, key, phase) for key in keys}
+
+  timing = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
+  blockwise = [r for r in wo_rows if r['block_size']]
+  return [{
+      'name': 'qmatmul_int8_drq', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/qmatmul_int8_drq.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:553',
+      'jax': 'pallas_qmatmul.qmatmul_pallas_int8_drq',
+      'wrapper': iq.qmatmul_int8_drq, 'per_step': 0,
+      'per_tick_quantized': 2 * cfg.num_layers, 'max_abs_err': 0.0,
+      **summary(drq_rows, 'decode', timing),
+      'bound_by': drq_rows[0]['bound_by'],
+      'library': 'torch._int_mm on the codes (contraction only)',
+      'prefill': summary(drq_rows, 'prefill', timing), 'by_shape': drq_rows},
+      {
+      'name': 'qmatmul_int_weights', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'qmatmul_int_weights.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:753',
+      'jax': 'pallas_qmatmul.qmatmul_pallas (blockwise and channelwise)',
+      'wrapper': iq.qmatmul_int_weights, 'per_step': 0,
+      'per_tick_quantized_b32': 2 * cfg.num_layers + 1,
+      'max_abs_err': max(r['max_abs_err'] for r in blockwise),
+      **summary(blockwise, 'decode', ('ms', 'plain_ms', 'bound_ms')),
+      'bound_by': wo_rows[0]['bound_by'], 'library_ms': None,
+      'prefill': summary(blockwise, 'prefill', ('ms', 'plain_ms',
+                                                'bound_ms')),
+      'library': 'none for the blockwise branch; torch.matmul on f32 '
+                 'weights for the channelwise one (by_shape)',
+      'by_shape': wo_rows}]
 
 
 def refused_shapes(torch, att, dev):
@@ -1267,16 +1441,18 @@ def bench_decode_int4g_phase(torch, port, kernels, cfg, dev):
   return result
 
 
-def serving_graph(gemma, cfg, slots, kv_int4_group=0):
+def serving_graph(gemma, cfg, slots, kv_int4_group=0, materialize=False):
   """bench.py's serving graph: prefill groups of 8 x 128 tokens with a
   64-token tail program, greedy heads, device masks, int8 KV caches
   (AEQT_BENCH_SERVER_KV=int8) or, with kv_int4_group, int4-group decode
   pools and float prefill caches (AEQT_BENCH_SERVER_KV=int4g; bench.py
-  stamps int8 only without it, bench.py:192-203)."""
+  stamps int8 only without it, bench.py:192-203). materialize: float
+  weights drawn on the host (the Quantizer's input), else empty buffers."""
   graph = gemma.build_serving_decoder(
       cfg, batch_slots=slots, prefill_len=PREFILL_LEN,
       prefill_batch=PREFILL_BATCH, prefill_tail_len=PREFILL_TAIL,
-      materialize_weights=False, device_masks=True, fused_projections=True,
+      materialize_weights=materialize, device_masks=True,
+      fused_projections=True,
       greedy_head=True, prefill_device_masks=True, prefill_greedy=True,
       prefill_head_cols=True, kv_int4_group=kv_int4_group)
   if not kv_int4_group:
@@ -1343,6 +1519,33 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       f'{len(server._executor._attn_fusions)} mlp '
       f'{len(server._executor._mlp_fusions)} head '
       f'{len(server._executor._head_fusions)}')
+  layers = cfg.num_layers
+
+  def want(ticks, passes):
+    counts = {'qmatmul_int4_packed_drq': 2 * layers * (ticks + passes),
+              'mlp_int4_packed': layers * (ticks + passes),
+              'head_argmax': ticks + passes}
+    if kv_int4_group:
+      counts['decode_attention_int4_group_lengths'] = layers * ticks
+    else:
+      counts['decode_attention_int8_lengths'] = layers * ticks
+      counts['flash_attention_int8_masked'] = layers * passes
+    return counts
+
+  return serve_load(torch, server, kernels, cfg, dev, name, want,
+                    n_requests, slots)
+
+
+def serve_load(torch, server, kernels, cfg, dev, name, want_fn,
+               n_requests=SERVE_REQUESTS, slots=B):
+  """bench.py's mixed-length load through `server`: a warm-up request per
+  prompt length, then n_requests requests (prompt lengths cycling
+  32..512, SERVE_NEW new tokens each) served by step_chunk(SERVE_CHUNK).
+  Every request must end done with SERVE_NEW ids in range, and each
+  kernel's launches must equal want_fn(decode ticks, prefill passes) (0
+  for a kernel it leaves out; the plain versions never run on the card).
+  Then one full prefill pass and one chunk of SERVE_CHUNK ticks with all
+  slots busy, alone and under torch.profiler."""
   rng = np.random.default_rng(0)
   max_p = min(server.max_prompt_len(), cfg.max_seq_len - SERVE_NEW)
   lens = [p for p in SERVE_PROMPTS if p <= max_p]
@@ -1404,16 +1607,8 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   passes = calls.get('prefill', 0) + calls.get('prefill_tail', 0)
   if ticks != m['decode_ticks']:
     raise AssertionError(f'{ticks} decode calls, {m["decode_ticks"]} ticks')
-  layers = cfg.num_layers
   want = {n: 0 for n in launches}
-  want.update({'qmatmul_int4_packed_drq': 2 * layers * (ticks + passes),
-               'mlp_int4_packed': layers * (ticks + passes),
-               'head_argmax': ticks + passes})
-  if kv_int4_group:
-    want['decode_attention_int4_group_lengths'] = layers * ticks
-  else:
-    want['decode_attention_int8_lengths'] = layers * ticks
-    want['flash_attention_int8_masked'] = layers * passes
+  want.update(want_fn(ticks, passes))
   if launches != want or any(plain.values()):
     raise AssertionError(f'{name} launches {launches}, want {want}; plain '
                          f'runs on the card {plain}')
@@ -1472,14 +1667,14 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       f'of {[round(t, 3) for t in pass_ms]}); device busy {pf_busy:.3f} ms '
       f'under the profiler ({pf_wall:.3f} ms wall), idle share '
       f'{1 - pf_busy / pass_med:.3f}')
-  for name, ms in pf_top:
-    log(f'  {ms:8.3f} ms/pass  {name}')
+  for kname, ms in pf_top:
+    log(f'  {ms:8.3f} ms/pass  {kname}')
   log(f'{name} chunk of {SERVE_CHUNK} decode ticks (64 slots busy): '
       f'{chunk_med:.3f} ms (median of {[round(t, 3) for t in chunk_ms]}); '
       f'device busy {ch_busy:.3f} ms under the profiler ({ch_wall:.3f} ms '
       f'wall), idle share {1 - ch_busy / chunk_med:.3f}')
-  for name, ms in ch_top:
-    log(f'  {ms:8.3f} ms/chunk  {name}')
+  for kname, ms in ch_top:
+    log(f'  {ms:8.3f} ms/chunk  {kname}')
   device_s = (passes * pf_busy + ticks * ch_busy / SERVE_CHUNK) / 1e3
   log(f'{name} time split (estimate from the two profiles): prefill passes '
       f'{passes} x {pf_busy:.3f} ms + decode ticks {ticks} x '
@@ -1493,6 +1688,168 @@ def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       'device_work_s_estimate': device_s,
       'prefill_pass_top': dict(pf_top), 'chunk_top': dict(ch_top)})
   return result
+
+
+QUANT_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32')
+
+
+def quantized_launches(recipe, layers):
+  """serve_load's want_fn for a server over a graph that the Quantizer
+  made with `recipe` (fused projections: two attention FCs and two FFN
+  FCs a layer, then the tied head; int8 KV stamped). gemma_mixed48: int8
+  attention FCs through the int8 DRQ kernel, int4 FFN and head packed and
+  fused (MLP and head kernels); _b32: the blockwise-32 FFN and head FCs
+  through the weight-only kernel, the head's ARG_MAX a graph op."""
+  def want(ticks, passes):
+    calls = ticks + passes
+    counts = {'qmatmul_int8_drq': 2 * layers * calls,
+              'decode_attention_int8_lengths': layers * ticks,
+              'flash_attention_int8_masked': layers * passes}
+    if recipe == 'gemma_mixed48':
+      counts.update(mlp_int4_packed=layers * calls, head_argmax=calls)
+    else:
+      counts['qmatmul_int_weights'] = (2 * layers + 1) * calls
+    return counts
+  return want
+
+
+def same_graph_data(quantized, loaded):
+  """Names of the buffers and tensors whose data or quantization differ
+  between a quantized graph and its .aeqg load (the format keeps a 0-d
+  array as shape (1,), so arrays compare flattened, dtypes exactly)."""
+  def same(a, b):
+    if a is None or b is None:
+      return a is None and b is None
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and np.array_equal(a.reshape(-1),
+                                                 b.reshape(-1))
+  bad = [f'buffer {i}' for i, (a, b) in enumerate(zip(quantized.buffers,
+                                                       loaded.buffers))
+         if not same(a.data, b.data)]
+  if len(quantized.buffers) != len(loaded.buffers):
+    bad.append('buffer count')
+  for sq, sl in zip(quantized.subgraphs, loaded.subgraphs):
+    for tq, tl in zip(sq.tensors, sl.tensors):
+      qq, ql = tq.quantization, tl.quantization
+      if (tq.name, tq.shape, tq.dtype, tq.buffer) != (
+          tl.name, tl.shape, tl.dtype, tl.buffer) or (qq is None) != (
+              ql is None) or (qq is not None and not (
+                  same(np.asarray(qq.scale, np.float32), ql.scale)
+                  and same(qq.zero_point, ql.zero_point)
+                  and qq.block_size == ql.block_size)):
+        bad.append(tq.name)
+  return bad
+
+
+def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
+                    slots=B):
+  """examples/serve_gemma.py's flow at GEMMA_2B's full width, through the
+  port's entry points: the float serving graph (server_phase's settings,
+  weights drawn on the host, int8 KV stamped) built once; then for each of
+  QUANT_RECIPES: `Quantizer(graph, recipe).quantize()`, `export_model` to
+  a temporary .aeqg, `serialize.load_graph` (mmap) with every buffer,
+  tensor and quantization parameter equal to the quantized graph's, and
+  `DecodeServer(loaded, cfg, slots, pack_weights=True)` serving
+  serve_load's requests, with each kernel's launches as
+  quantized_launches has them. Host time and peak host memory (numpy
+  allocations, tracemalloc) of the build and of each quantization."""
+  gemma, batching = port['gemma'], port['batching']
+  serialize, progress = port['serialize'], port['progress_utils']
+  tracemalloc.start()
+  t0 = time.monotonic()
+  graph = serving_graph(gemma, cfg, slots, materialize=True)
+  build_s = time.monotonic() - t0
+  build_peak = tracemalloc.get_traced_memory()[1]
+  tracemalloc.stop()
+  float_bytes = graph.total_constant_bits() // 8
+  log(f'quantizer: float serving graph built in {build_s:.1f}s, '
+      f'{float_bytes / 2**30:.2f} GiB of f32 constants, peak host memory '
+      f'{build_peak / 2**30:.2f} GiB')
+  results = {'float_graph': {'build_s': build_s,
+                             'peak_host_bytes': build_peak,
+                             'constant_bytes': float_bytes}}
+  with tempfile.TemporaryDirectory() as tmp:
+    for recipe in QUANT_RECIPES:
+      report = progress.ProgressReport()
+      report.start(graph)
+      t0 = time.monotonic()
+      result = port['Quantizer'](graph, recipe).quantize()
+      quantize_s = time.monotonic() - t0
+      stats = report.finish(result.quantized_model)
+      path = os.path.join(tmp, f'{recipe}.aeqg')
+      t0 = time.monotonic()
+      result.export_model(path)
+      export_s = time.monotonic() - t0
+      t0 = time.monotonic()
+      loaded = serialize.load_graph(path)
+      load_s = time.monotonic() - t0
+      bad = same_graph_data(result.quantized_model, loaded)
+      if bad:
+        raise AssertionError(f'quantizer {recipe}: the .aeqg load differs '
+                             f'from the quantized graph: {bad[:8]}')
+      size = os.path.getsize(path)
+      log(f'quantizer {recipe}: quantize {quantize_s:.1f}s (peak host '
+          f'memory {stats["peak_host_memory_bytes"] / 2**30:.2f} GiB, '
+          f'constants {stats["model_size_before_bytes"] / 2**30:.2f} -> '
+          f'{stats["model_size_after_bytes"] / 2**30:.2f} GiB), export '
+          f'{export_s:.1f}s, {size} bytes, load {load_s:.2f}s, '
+          f'{len(loaded.buffers)} buffers equal')
+      del result
+      gc.collect()
+      t0 = time.monotonic()
+      server = batching.DecodeServer(loaded, cfg, slots, pack_weights=True,
+                                     activation_dtype='bfloat16', device=dev)
+      sync()
+      ex = server._executor
+      units = {'attention': len(ex._attn_fusions),
+               'mlp': len(ex._mlp_fusions), 'head': len(ex._head_fusions),
+               'block': len(ex._block_fusions),
+               'packed': len(ex._packed_int4_keys)}
+      setup_s = time.monotonic() - t0
+      log(f'quantizer {recipe}: server set-up (weights to the card, '
+          f'packing) {setup_s:.1f}s; units {units}')
+      served = serve_load(torch, server, kernels, cfg, dev,
+                          f'quantized {recipe}',
+                          quantized_launches(recipe, cfg.num_layers),
+                          n_requests, slots)
+      served.update(quantize_s=quantize_s,
+                    quantize_peak_host_bytes=stats['peak_host_memory_bytes'],
+                    quantized_constant_bytes=stats['model_size_after_bytes'],
+                    export_s=export_s, aeqg_bytes=size, load_s=load_s,
+                    server_setup_s=setup_s, units=units)
+      results[recipe] = served
+      del server, ex, loaded
+      gc.collect()
+      torch.cuda.empty_cache()
+  return results
+
+
+def quantizer_cpu_phase(torch, port, cfg, dev, layers=4):
+  """The card against the port on the CPU, op by op, on graphs the
+  Quantizer made: GEMMA_2B widths at `layers` layers, one float serving
+  graph quantized with each of QUANT_RECIPES, each served on both devices
+  (f32 activations) through the first prefill pass (8 requests of 128
+  tokens) and decode tick, as server_cpu_phase holds the server. The int8
+  DRQ FCs must equal the CPU's bit for bit, the blockwise FCs agree to
+  int_qmatmul.int_weights_tolerance, int8 codes within one step."""
+  cfg_l = dataclasses.replace(cfg, num_layers=layers)
+  t0 = time.monotonic()
+  graph = serving_graph(port['gemma'], cfg_l, B, materialize=True)
+  out = {}
+  for recipe in QUANT_RECIPES:
+    quantized = port['Quantizer'](graph, recipe).quantize().quantized_model
+    log(f'quantizer card-vs-cpu {recipe}: {layers}-layer graph quantized, '
+        f'{time.monotonic() - t0:.1f}s')
+    out[recipe] = server_cpu_phase(torch, port, cfg_l, dev, graph=quantized,
+                                   label=f'quantized {recipe} card-vs-cpu')
+    kinds = {k.split('/')[1] for k in out[recipe]['worst_rel_err_by_opcode']}
+    need = {'FC int8 DRQ'} | ({'FC blockwise'} if recipe.endswith('_b32')
+                              else set())
+    if not need <= kinds:
+      raise AssertionError(f'{recipe}: no {need - kinds} op held')
+    del quantized
+    gc.collect()
+  return out
 
 
 class OpByOp:
@@ -1511,11 +1868,16 @@ class OpByOp:
   elements beyond INT4G_FINE_RTOL). `worst` keeps the largest relative
   error by signature and opcode ('MLP' for the fused MLP, FUSED_BLOCK for
   a decode block unit, one op with four outputs), `flips` the int8 codes
-  that differ by one step.
+  that differ by one step. An unpacked integer FULLY_CONNECTED (a
+  quantized graph's) is held by its kernel's rule: a DRQ one ('FC int8
+  DRQ') bit for bit, a blockwise one ('FC blockwise') to
+  int_qmatmul.int_weights_tolerance of its largest magnitude.
   """
 
-  def __init__(self, torch, ex, want=None, mlp_rtol=None):
+  def __init__(self, torch, ex, want=None, mlp_rtol=None,
+               int_qmatmul=None):
     self.torch, self.ex, self.want = torch, ex, want
+    self.int_qmatmul = int_qmatmul
     self.mlp_rtol = dict(mlp_rtol or {})
     self.mlp_outs = {f['out'] for f in ex._mlp_fusions.values()}
     self.seen, self.worst, self.id_diffs, self.flips = [], {}, [], {}
@@ -1534,10 +1896,29 @@ class OpByOp:
     ex._store_outputs = watched_store
     self.call = watched_call  # the server's executor while watched
 
+  def _fc_rule(self, sg, op):
+    """'FC int8 DRQ' or ('FC blockwise', rel tol) for an unpacked integer
+    FC, else None."""
+    if op.opcode != 'FULLY_CONNECTED' or len(op.inputs) < 2:
+      return None
+    w = sg.tensors[op.inputs[1]]
+    q = w.quantization
+    sg_idx = next(i for i, s in enumerate(self.ex.graph.subgraphs)
+                  if s is sg)
+    if (q is None or w.dtype not in ('int2', 'int4', 'int8')
+        or (sg_idx, op.inputs[1]) in self.ex._packed_int4_keys):
+      return None
+    if q.block_size:
+      k = w.shape[-1]
+      return ('FC blockwise',
+              self.int_qmatmul.int_weights_tolerance(k, q.block_size, 1.0))
+    return 'FC int8 DRQ'
+
   def _check(self, sg, op, env):
     torch = self.torch
     i = len(self.seen) - 1
     int4g = op.opcode.startswith('INT4G_ATTENTION')
+    fc_rule = self._fc_rule(sg, op) if self.want is not None else None
     for tid in op.outputs:
       if self.want is None:
         self.seen[i][tid] = env[tid].cpu()
@@ -1559,8 +1940,18 @@ class OpByOp:
         sig = self.seen[i]['sig']
         is_mlp = tid in self.mlp_outs
         kind = f'{sig}/{"MLP" if is_mlp else op.opcode}'
+        if fc_rule is not None:
+          kind = f'{sig}/{fc_rule if isinstance(fc_rule, str) else fc_rule[0]}'
         self.worst[kind] = max(self.worst.get(kind, 0.0), rel)
-        if int4g:
+        if fc_rule == 'FC int8 DRQ':
+          if err != 0.0:
+            raise AssertionError(f'{sg.tensors[tid].name}: int8 DRQ output '
+                                 f'differs from the CPU (rel err {rel})')
+        elif fc_rule is not None:
+          if rel > fc_rule[1]:
+            raise AssertionError(f'{sg.tensors[tid].name}: blockwise rel err '
+                                 f'{rel} > {fc_rule[1]}')
+        elif int4g:
           rel, share = int4g_ctx_diff(torch, got, want)
           self.fine_share = max(self.fine_share, share)
           if not int4g_ctx_ok(rel, share):
@@ -1586,8 +1977,17 @@ def top2_margins(torch, head, watch, call, tid):
   call `call`."""
   ex = watch.ex
   sg_idx = ex.graph.signature_by_key(watch.seen[call]['sig']).subgraph_index
-  fusion = next(f for key, f in ex._head_fusions.items()
-                if key[0] == sg_idx and f['out'] == tid)
+  fusion = next((f for key, f in ex._head_fusions.items()
+                 if key[0] == sg_idx and f['out'] == tid), None)
+  if fusion is None:  # an unfused head: the ARG_MAX op's recorded input
+    sg = ex.graph.subgraphs[sg_idx]
+    am = next(o for o in sg.ops if o.opcode == 'ARG_MAX'
+              and tid in o.outputs)
+    logits = watch.seen[call][am.inputs[0]].float()
+    logits = logits.reshape(-1, logits.shape[-1])
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) / torch.clamp_min(
+        torch.abs(top2[:, 0]), 1e-30)
   x = watch.seen[call][fusion['x']]
   logits = head.head_logits_plain(
       x.reshape(-1, x.shape[-1]), ex._weights[(sg_idx, fusion['w_tid'])],
@@ -1610,7 +2010,8 @@ def judge_ids(torch, head, cpu_watch, card_watch, label):
                            'clear margin')
 
 
-def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0):
+def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0, graph=None,
+                     label=None):
   """The server's first prefill pass and first decode tick, the card
   against the port on the CPU, op by op (as cpu_phase holds the decode
   step): GEMMA_2B widths at 2 layers, f32 activations, 8 requests of 128
@@ -1623,14 +2024,21 @@ def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0):
   tolerance: CPU and card tanh differ by an ulp here and there, and with
   M = 1024 rows (16M hidden values) one such ulp rounds an int8 hidden
   code the other way (one step of its group scale; 1.96e-4 relative was
-  read on an H100 80GB HBM3). The decode tick's MLP keeps 1e-5."""
+  read on an H100 80GB HBM3). The decode tick's MLP keeps 1e-5.
+
+  graph: a graph the Quantizer made (at cfg's depth) instead, whose
+  weights are its own buffers (quantizer_cpu_phase)."""
   gemma, batching, head = port['gemma'], port['batching'], port['head']
-  cfg2 = dataclasses.replace(cfg, num_layers=2)
-  graph = serving_graph(gemma, cfg2, B, kv_int4_group)
-  label = 'server card-vs-cpu' + (' (int4g)' if kv_int4_group else '')
-  weights = gemma.device_materialize_quantized(graph, fc_bits=4,
-                                               embedding_bits=8, seed=5,
-                                               device='cpu')
+  if graph is None:
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    graph = serving_graph(gemma, cfg2, B, kv_int4_group)
+    weights = gemma.device_materialize_quantized(graph, fc_bits=4,
+                                                 embedding_bits=8, seed=5,
+                                                 device='cpu')
+  else:  # a quantized graph: its weights are its buffers
+    cfg2, weights = cfg, None
+  label = label or 'server card-vs-cpu' + (' (int4g)' if kv_int4_group
+                                           else '')
   prompts = np.random.default_rng(5).integers(
       0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN)).astype(np.int32)
   watches = []
@@ -1641,7 +2049,8 @@ def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0):
                                    activation_dtype='float32', device=device)
     watch = OpByOp(torch, server._executor,
                    want=watches[0].seen if watches else None,
-                   mlp_rtol={'prefill': 1e-3})
+                   mlp_rtol={'prefill': 1e-3},
+                   int_qmatmul=port['int_qmatmul'])
     server._executor = watch.call
     for p in prompts:
       server.submit(p, max_new_tokens=4)
@@ -1844,20 +2253,25 @@ def main():
           file=sys.stderr)
     return 2
   sys.path.insert(0, str(root))
+  from ai_edge_quantizer_tpu_torch import Quantizer
   from ai_edge_quantizer_tpu_torch.execution import executor
-  from ai_edge_quantizer_tpu_torch.graph import ir
+  from ai_edge_quantizer_tpu_torch.graph import ir, serialize
   from ai_edge_quantizer_tpu_torch.kernels import _build
   from ai_edge_quantizer_tpu_torch.kernels import attention, block, head
+  from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
   from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul
   from ai_edge_quantizer_tpu_torch.models import gemma
   from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
   from ai_edge_quantizer_tpu_torch.parallel import batching
+  from ai_edge_quantizer_tpu_torch.utils import progress_utils
   if any(m == 'jax' or m.startswith(('jax.', 'ai_edge_quantizer_tpu.'))
          or m == 'ai_edge_quantizer_tpu' for m in sys.modules):
     raise AssertionError('the port imported jax or the JAX package')
   port = dict(executor=executor, attention=attention, block=block, head=head,
               mlp=mlp, packed_qmatmul=packed_qmatmul, gemma=gemma,
-              batching=batching, ops_impl=ops_impl, ir=ir)
+              batching=batching, ops_impl=ops_impl, ir=ir,
+              int_qmatmul=int_qmatmul, serialize=serialize,
+              Quantizer=Quantizer, progress_utils=progress_utils)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -1904,6 +2318,14 @@ def main():
       f'ms, chunk of {SERVE_CHUNK} ticks {server4["chunk_ms"]:.3f} ms (idle '
       f'{server4["chunk_idle_share"]:.3f})')
   log(f'phase server done at {time.monotonic() - t_start:.1f}s')
+  quant = quantizer_phase(torch, port, kernels, cfg, 'cuda')
+  for recipe in QUANT_RECIPES:
+    r = quant[recipe]
+    log(f'quantized {recipe} server on {smi}: {r["tokens_per_s"]:.1f} '
+        f'tokens/s, TTFT p50 {r["ttft_p50_ms"]:.1f} ms p99 '
+        f'{r["ttft_p99_ms"]:.1f} ms; quantize {r["quantize_s"]:.1f}s, '
+        f'.aeqg {r["aeqg_bytes"]} bytes')
+  log(f'phase quantizer done at {time.monotonic() - t_start:.1f}s')
   if not args.skip_cpu:
     e2e['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda')
     bench['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda',
@@ -1915,6 +2337,7 @@ def main():
                                               kv_int4_group=INT4G_GROUP)
     bench['block_on_vs_off_f32'] = block_on_off_phase(torch, port, cfg,
                                                       'cuda')
+    quant['card_vs_cpu'] = quantizer_cpu_phase(torch, port, cfg, 'cuda')
     log(f'phase card-vs-cpu done at {time.monotonic() - t_start:.1f}s')
   line = []
   for k in kernels:
@@ -1926,17 +2349,22 @@ def main():
         'bench_decode_block_on': bench_launches['block on'],
         'bench_decode_block_off': bench_launches['block off'],
         'bench_decode_int4g': bench_launches['int4g'],
-        'server_int4g': server4['launches'][k['name']]}
+        'server_int4g': server4['launches'][k['name']],
+        **{f'server_{recipe}': quant[recipe]['launches'][k['name']]
+           for recipe in QUANT_RECIPES}}
     # The count of the path that runs the kernel (the stale kernel runs
     # only in the decode loops: the server's one-hot cache update leaves
     # no row write to fold into attention; the fused block only in the
     # bench decode with the block on; the int4-group attention only on
-    # the int4g paths).
+    # the int4g paths; the int8 DRQ and weight-only kernels only on the
+    # quantized graphs' servers).
     by_path = entry['launches_by_path']
     entry['launches'] = (by_path['server'] or by_path['decode_loop']
                          or by_path['bench_decode_block_on']
                          or by_path['server_int4g']
-                         or by_path['bench_decode_int4g'])
+                         or by_path['bench_decode_int4g']
+                         or by_path['server_gemma_mixed48']
+                         or by_path['server_gemma_mixed48_b32'])
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)
@@ -1946,7 +2374,8 @@ def main():
                          f'{missing}')
   print(json.dumps({'kernels': line, 'e2e': e2e, 'bench_decode': bench,
                     'bench_decode_int4g': bench4, 'server': server,
-                    'server_int4g': server4, 'card': smi}), flush=True)
+                    'server_int4g': server4, 'quantizer': quant,
+                    'card': smi}), flush=True)
   print(smi, flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

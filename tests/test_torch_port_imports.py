@@ -34,7 +34,12 @@ def _clean_env():
 def test_port_imports_no_jax():
   modules = _port_modules()
   for name in ('execution.executor', 'parallel.batching', 'models.gemma',
-               'kernels.attention', 'kernels.block', 'kernels._build'):
+               'kernels.attention', 'kernels.block', 'kernels._build',
+               'kernels.int_qmatmul', 'quantizer', 'qtyping',
+               'graph.serialize', 'algorithms.manager',
+               'algorithms.uniform.quant_numerics', 'recipe.recipe_utils',
+               'pipeline.params_generator', 'pipeline.model_modifier',
+               'utils.progress_utils'):
     assert f'ai_edge_quantizer_tpu_torch.{name}' in modules
   code = (
       'import importlib, sys\n'
