@@ -7,9 +7,9 @@ functions re-export the registry API for the recipe/pipeline layers.
 Parity: reference `algorithm_manager.py` (import-time registration of the 8
 algorithm keys over their op sets).
 
-A copy of `ai_edge_quantizer_tpu/algorithms/manager.py` that registers
-MIN_MAX_UNIFORM_QUANT only. The other algorithms' modules are not ported
-yet (UNPORTED_ALGORITHMS): a recipe entry that names one raises
+A copy of `ai_edge_quantizer_tpu/algorithms/manager.py` that registers every
+algorithm but GPTQ, whose Hessians need the calibrator, not ported yet
+(UNPORTED_ALGORITHMS): a recipe entry that names it raises
 NotImplementedError naming the module, at the config check or at
 materialization, and is never quantized with another algorithm.
 """
@@ -92,17 +92,98 @@ REGISTRY.register_config_check_policy(
     default_policy.DEFAULT_CONFIG_CHECK_POLICY,
 )
 
+# --- OCTAV: same op coverage + policy as min-max ---------------------------
+from ai_edge_quantizer_tpu_torch.algorithms.uniform import octav  # noqa: E402
+
+_register_min_max_style_algorithm(
+    AlgorithmName.OCTAV, octav.get_tensor_quant_params
+)
+REGISTRY.register_config_check(
+    AlgorithmName.OCTAV, _min_max_family_config_check
+)
+REGISTRY.register_config_check_policy(
+    AlgorithmName.OCTAV, default_policy.DEFAULT_CONFIG_CHECK_POLICY
+)
+
+# --- MSE: weight ops only, symmetric, no blockwise -------------------------
+from ai_edge_quantizer_tpu_torch.algorithms.uniform import mse  # noqa: E402
+
+_MSE_OPS = [
+    qtyping.OpName.FULLY_CONNECTED, qtyping.OpName.CONV_2D,
+    qtyping.OpName.DEPTHWISE_CONV_2D, qtyping.OpName.CONV_2D_TRANSPOSE,
+    qtyping.OpName.EMBEDDING_LOOKUP,
+]
+_register_min_max_style_algorithm(
+    AlgorithmName.MSE, mse.get_tensor_quant_params, _MSE_OPS
+)
+
+
+def _mse_config_check(op_name, op_quant_config, policy) -> None:
+  w = op_quant_config.weight_tensor_config
+  if w is not None and qtyping.is_blockwise_granularity(w.granularity):
+    raise ValueError('Blockwise quantization is not supported for MSE.')
+  if w is not None and not w.symmetric:
+    raise ValueError('MSE supports symmetric weights only.')
+  _min_max_family_config_check(op_name, op_quant_config, policy)
+
+
+REGISTRY.register_config_check(AlgorithmName.MSE, _mse_config_check)
+REGISTRY.register_config_check_policy(
+    AlgorithmName.MSE, default_policy.DEFAULT_CONFIG_CHECK_POLICY
+)
+
+# --- DEQUANTIZED_WEIGHT_RECOVERY: QAT-exported float models ----------------
+from ai_edge_quantizer_tpu_torch.algorithms.uniform import dequant_recovery  # noqa: E402
+
+_RECOVERY_OPS = [
+    qtyping.OpName.FULLY_CONNECTED, qtyping.OpName.CONV_2D,
+    qtyping.OpName.EMBEDDING_LOOKUP,
+]
+_register_min_max_style_algorithm(
+    AlgorithmName.DEQUANTIZED_WEIGHT_RECOVERY,
+    dequant_recovery.get_tensor_quant_params, _RECOVERY_OPS
+)
+REGISTRY.register_config_check(
+    AlgorithmName.DEQUANTIZED_WEIGHT_RECOVERY, _min_max_family_config_check
+)
+REGISTRY.register_config_check_policy(
+    AlgorithmName.DEQUANTIZED_WEIGHT_RECOVERY,
+    default_policy.DEFAULT_CONFIG_CHECK_POLICY,
+)
+
+# --- HADAMARD_ROTATION (fused kernel) & DECOMPOSED variant -----------------
+from ai_edge_quantizer_tpu_torch.algorithms.uniform import hadamard  # noqa: E402
+
+for _key, _decomposed in (
+    (AlgorithmName.HADAMARD_ROTATION, False),
+    (AlgorithmName.DECOMPOSED_HADAMARD_ROTATION, True),
+):
+  for _op, _mat_fn in hadamard.make_materialize_fns(_decomposed).items():
+    REGISTRY.register_op(
+        _key, _op,
+        init_qsv_fn=min_max.init_qsvs,
+        calibration_fn=functools.partial(min_max.min_max_calibrate),
+        materialize_fn=_mat_fn,
+        update_qsv_fn=qsv_utils.moving_average_update,
+    )
+  REGISTRY.register_config_check(_key, hadamard.check_config)
+
+# --- FLOAT_CASTING (fp16) --------------------------------------------------
+from ai_edge_quantizer_tpu_torch.algorithms.nonlinear import float_casting  # noqa: E402
+
+_register_min_max_style_algorithm(
+    AlgorithmName.FLOAT_CASTING,
+    float_casting.get_tensor_quant_params,
+    list(float_casting.SUPPORTED_OPS),
+)
+REGISTRY.register_config_check(
+    AlgorithmName.FLOAT_CASTING, float_casting.check_config
+)
+
+
 # --- Algorithms whose modules are not ported yet ---------------------------
 UNPORTED_ALGORITHMS = {
-    AlgorithmName.OCTAV: 'algorithms/uniform/octav.py',
-    AlgorithmName.MSE: 'algorithms/uniform/mse.py',
-    AlgorithmName.DEQUANTIZED_WEIGHT_RECOVERY:
-        'algorithms/uniform/dequant_recovery.py',
     AlgorithmName.GPTQ: 'algorithms/uniform/gptq.py',
-    AlgorithmName.HADAMARD_ROTATION: 'algorithms/uniform/hadamard.py',
-    AlgorithmName.DECOMPOSED_HADAMARD_ROTATION:
-        'algorithms/uniform/hadamard.py',
-    AlgorithmName.FLOAT_CASTING: 'algorithms/nonlinear/float_casting.py',
 }
 
 

@@ -4,7 +4,9 @@ Port of `ai_edge_quantizer_tpu/execution/executor.py`, the parts the
 Gemma int4 decode step runs: constant loading, the DEQUANTIZE alias,
 `prepare_serving_weights`, `_run_signature` / `_eval_op` /
 `_dequant_view` / `_store_outputs`, the int8 DYNAMIC_UPDATE_SLICE fast
-path, the packed int4 DRQ FC, the unpacked integer FCs (the JAX
+path, the packed int4 FCs (DRQ, K-blocked DRQ, and the blockwise and
+weight-only ones, whose wrappers run plain versions on the CPU and raise
+on CUDA), the unpacked integer FCs (the JAX
 dispatchers `drq_matmul` and `qmatmul`, kernels/qmatmul.py, with their
 Pallas gates), and four fusions with their dispatch:
 int8-cache attention (the stale-cache kernel with the cache write outside
@@ -48,6 +50,7 @@ import torch
 
 from ai_edge_quantizer_tpu_torch.execution import quant_arith
 from ai_edge_quantizer_tpu_torch.graph import ir
+from ai_edge_quantizer_tpu_torch.kernels import _build
 from ai_edge_quantizer_tpu_torch.kernels import attention
 from ai_edge_quantizer_tpu_torch.kernels import block as block_lib
 from ai_edge_quantizer_tpu_torch.kernels import head as head_lib
@@ -67,12 +70,6 @@ _STRUCTURAL_OPERANDS = {
     'SUM': (1,),
     'REDUCE_MIN': (1,),
 }
-
-
-def _unported(kernel: str):
-  return NotImplementedError(
-      f'The Pallas kernel {kernel} is not ported to CUDA yet; this op '
-      'would run it on the card.')
 
 
 def _prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
@@ -1131,8 +1128,8 @@ class GraphExecutor:
         self._store_outputs(sg, out_op, (ctx,), env)
         return
       if on_cuda and wb_common and self.attn_writeback == 'splice':
-        raise _unported('pallas_attention.decode_attention_int8_lengths_'
-                        'writeback')
+        raise _build.unported(
+            'pallas_attention.decode_attention_int8_lengths_writeback')
       # Fallback: materialize the skipped cache DUS, then proceed unfused.
       self._write_caches(wb, env)
     k_q = env[fusion['k']]
@@ -1154,7 +1151,7 @@ class GraphExecutor:
           k_zero_point=zp_k, v_zero_point=zp_v, compute='f32',
           out_dtype=self._act_dtype)
     elif route == 'masked' and on_cuda:
-      raise _unported('pallas_attention.decode_attention_int8_masked')
+      raise _build.unported('pallas_attention.decode_attention_int8_masked')
     else:
       # Plain twin with the same numerics (zp corrections in closed form):
       # the JAX executor's XLA twin, for the shapes its gate keeps off
@@ -1272,18 +1269,19 @@ class GraphExecutor:
     if key in self._packed_int4_keys:
       true_n = self._packed_pad_n.get(key)
       x_f = self._dequant_view(sg, op.inputs[0], env)
+      # The JAX executor's route: blockwise, then DRQ with K <= 8192, then
+      # DRQ K-blocked, then weight-only. The blockwise and weight-only
+      # wrappers run their plain versions on the CPU and raise on CUDA.
       if self._packed_block_size.get(key, 0):
-        raise _unported('pallas_qmatmul.qmatmul_pallas_int4_packed_'
-                        'blockwise')
-      if self.int4_drq and w_q.shape[1] * 2 <= 8192:
-        y = packed_qmatmul.qmatmul_int4_packed_drq(
-            x_f, w_q, self._packed_scale[key],
-            bias=None if true_n is not None else bias)
+        fn = packed_qmatmul.qmatmul_int4_packed_blockwise
+      elif self.int4_drq and w_q.shape[1] * 2 <= 8192:
+        fn = packed_qmatmul.qmatmul_int4_packed_drq
       elif self.int4_drq:
-        raise _unported('pallas_qmatmul.qmatmul_pallas_int4_packed_drq_'
-                        'kblock')
+        fn = packed_qmatmul.qmatmul_int4_packed_drq_kblock
       else:
-        raise _unported('pallas_qmatmul.qmatmul_pallas_int4_packed')
+        fn = packed_qmatmul.qmatmul_int4_packed
+      y = fn(x_f, w_q, self._packed_scale[key],
+             bias=None if true_n is not None else bias)
       if true_n is not None:
         y = y[..., :true_n]
         if bias is not None:

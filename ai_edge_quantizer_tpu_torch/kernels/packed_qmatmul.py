@@ -1,14 +1,24 @@
-"""Packed int4 weights and the int4 DRQ matmul (PyTorch + CUDA).
+"""Packed int4 weights and the packed int4 matmuls (PyTorch + CUDA).
 
 Port of `ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py`: the split-half
-int4 layout (`pack_int4_split`, `unpack_int4_split`) and
-`qmatmul_pallas_int4_packed_drq`, whose CUDA kernel is
-`csrc/qmatmul_int4_drq.cu(h)`. The other Pallas kernels of that file are
-not ported yet (see ROADMAP.md).
+int4 layout (`pack_int4_split`, `unpack_int4_split`) and four of its
+Pallas kernels over packed weights:
 
-`qmatmul_int4_packed_drq` has two cases: a CUDA tensor launches the
-kernel (or raises), a CPU tensor runs `qmatmul_int4_packed_drq_plain`,
-which repeats the kernel's arithmetic in plain PyTorch.
+  * `qmatmul_pallas_int4_packed_drq` as `qmatmul_int4_packed_drq`, CUDA
+    kernel `csrc/qmatmul_int4_drq.cu(h)` (K <= 8192 on the executor's
+    route);
+  * `qmatmul_pallas_int4_packed_drq_kblock` as
+    `qmatmul_int4_packed_drq_kblock`, CUDA kernel
+    `csrc/qmatmul_int4_drq_kblock.cu` (DRQ with K > 8192);
+  * `qmatmul_pallas_int4_packed` (weight-only) as `qmatmul_int4_packed`
+    and `qmatmul_pallas_int4_packed_blockwise` as
+    `qmatmul_int4_packed_blockwise`: plain versions only. Their CUDA
+    kernels are not written yet (ROADMAP.md): on a CUDA tensor they raise
+    NotImplementedError.
+
+Each wrapper has two cases: a CUDA tensor launches the kernel (or raises),
+a CPU tensor runs the `..._plain` function, which repeats the kernel's
+arithmetic in plain PyTorch. Each counts its launches and its plain runs.
 """
 
 from __future__ import annotations
@@ -118,3 +128,147 @@ def qmatmul_int4_packed_drq(
 
 qmatmul_int4_packed_drq.launches = 0
 qmatmul_int4_packed_drq.plain_calls = 0
+
+
+def quantize_rows_drq_div(x2f: torch.Tensor):
+  """The K-blocked kernel's DRQ of f32 rows, which the JAX function runs
+  outside its Pallas kernel: xs = max(absmax, 1e-9) * (1/127), then
+  rint(x / xs) -- a division, where quantize_rows_drq multiplies by the
+  reciprocal (pallas_qmatmul.py:830-834). Returns (xq int8, xs)."""
+  absmax = torch.amax(torch.abs(x2f), dim=-1, keepdim=True)
+  xs = torch.clamp_min(absmax, 1e-9) * _INV127
+  xq = torch.round(x2f / xs).to(torch.int8)
+  return xq, xs
+
+
+def qmatmul_int4_packed_drq_kblock_plain(x, w_packed, scale, bias=None):
+  """The K-blocked kernel's arithmetic in plain PyTorch (any device)."""
+  n, k2 = w_packed.shape
+  lead = x.shape[:-1]
+  x2 = x.reshape(-1, 2 * k2).to(torch.float32)
+  xq, xs = quantize_rows_drq_div(x2)
+  acc = int_matmul_exact(xq, unpack_int4_split(w_packed))
+  y = acc.to(torch.float32) * xs * scale.to(torch.float32).reshape(1, n)
+  if bias is not None:
+    y = y + bias.to(torch.float32).reshape(1, n)
+  return y.to(compute_dtype(x)).to(x.dtype).reshape(lead + (n,))
+
+
+def qmatmul_int4_packed_drq_kblock(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+  """DRQ x [..., K] . packed int4 [N, K//2] -> [..., N] in x.dtype, for
+  any K the kernel takes (the executor sends it K > 8192).
+
+  Each row of x is quantized once to int8 (xs = max(absmax, 1e-9)/127,
+  codes rint(x / xs)), contracted against the sign-extended nibbles in
+  int32 over K-blocks, and scaled as (acc * xs) * scale (+ bias).
+  """
+  if _build.device_kind(x) == 'cpu':
+    qmatmul_int4_packed_drq_kblock.plain_calls += 1
+    return qmatmul_int4_packed_drq_kblock_plain(x, w_packed, scale, bias)
+  name = 'qmatmul_int4_packed_drq_kblock'
+  n, k2 = w_packed.shape
+  k = 2 * k2
+  lead = x.shape[:-1]
+  x2 = x.reshape(-1, k).to(compute_dtype(x)).contiguous()
+  m = x2.shape[0]
+  _build.require_cuda_tensor(w_packed, name, 'w_packed', (torch.uint8,), 16)
+  _build.require_cuda_tensor(scale, name, 'scale', (torch.float32,))
+  _build.require(scale.numel() == n, name, 'scale must have N entries')
+  if bias is not None:
+    bias = bias.to(torch.float32).contiguous()
+    _build.require_cuda_tensor(bias, name, 'bias', (torch.float32,))
+    _build.require(bias.numel() == n, name, 'bias must have N entries')
+  out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+  xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+  xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
+  fn = _build.entry('qmatmul_int4_drq_kblock', 'aeqt_qmatmul_int4_drq_kblock',
+                    [_build.P, _build.I, _build.P, _build.P, _build.P,
+                     _build.P, _build.P, _build.P, _build.I, _build.I,
+                     _build.I, _build.P])
+  status = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16),
+              w_packed.data_ptr(), scale.data_ptr(),
+              None if bias is None else bias.data_ptr(), out.data_ptr(),
+              xq.data_ptr(), xs.data_ptr(), m, n, k,
+              _build.stream_ptr(x2.device))
+  _build.check(status, name, f'M={m}, N={n}, K={k}')
+  qmatmul_int4_packed_drq_kblock.launches += 1
+  return out.to(x.dtype).reshape(lead + (n,))
+
+
+qmatmul_int4_packed_drq_kblock.launches = 0
+qmatmul_int4_packed_drq_kblock.plain_calls = 0
+
+
+def qmatmul_int4_packed_plain(x, w_packed, scale, bias=None):
+  """Weight-only x [..., K] . packed int4 [N, K//2] -> [..., N], the
+  arithmetic of pallas_qmatmul._int4_channelwise_kernel: x in the compute
+  dtype (bf16 for bf16 x, else f32; bf16 products are exact in f32), the
+  low and high halves contracted in f32 and added, y = acc * s (+ b),
+  stored in the compute dtype, then cast to x's dtype."""
+  n, k2 = w_packed.shape
+  lead = x.shape[:-1]
+  x2 = x.reshape(-1, 2 * k2).to(compute_dtype(x)).to(torch.float32)
+  w = unpack_int4_split(w_packed).to(torch.float32)
+  acc = (torch.matmul(x2[:, :k2], w[:, :k2].T)
+         + torch.matmul(x2[:, k2:], w[:, k2:].T))
+  y = acc * scale.to(torch.float32).reshape(1, n)
+  if bias is not None:
+    y = y + bias.to(torch.float32).reshape(1, n)
+  return y.to(compute_dtype(x)).to(x.dtype).reshape(lead + (n,))
+
+
+def qmatmul_int4_packed(x, w_packed, scale, bias=None):
+  """Weight-only packed int4 matmul (pallas_qmatmul.qmatmul_pallas_int4_
+  packed): the plain version on the CPU; its CUDA kernel is not written
+  yet, so a CUDA tensor raises NotImplementedError."""
+  if _build.device_kind(x) == 'cpu':
+    qmatmul_int4_packed.plain_calls += 1
+    return qmatmul_int4_packed_plain(x, w_packed, scale, bias)
+  raise _build.unported('pallas_qmatmul.qmatmul_pallas_int4_packed')
+
+
+qmatmul_int4_packed.plain_calls = 0
+
+
+def qmatmul_int4_packed_blockwise_plain(x, w_packed, scale, bias=None):
+  """Blockwise x [..., K] . packed int4 [N, K//2] -> [..., N] with scale
+  [N, K // bs], the arithmetic of pallas_qmatmul._int4_blockwise_2d_kernel:
+  x in the compute dtype, an f32 output; for each byte block j in order,
+  the low-nibble block (scale column j) and the high-nibble block (column
+  nb/2 + j) contract in f32 and y += p_lo * s_lo + p_hi * s_hi; the bias
+  comes after the last block; the result is cast to x's dtype."""
+  n, k2 = w_packed.shape
+  nb2 = scale.shape[-1] // 2
+  bs = k2 // nb2
+  lead = x.shape[:-1]
+  x2 = x.reshape(-1, 2 * k2).to(compute_dtype(x)).to(torch.float32)
+  w = unpack_int4_split(w_packed).to(torch.float32)
+  s = scale.to(torch.float32).reshape(n, 2 * nb2)
+  y = torch.zeros((x2.shape[0], n), dtype=torch.float32, device=x.device)
+  for j in range(nb2):
+    lo = slice(j * bs, (j + 1) * bs)            # low nibbles, block j
+    hi = slice(k2 + j * bs, k2 + (j + 1) * bs)  # high nibbles, block nb2 + j
+    p_lo = torch.matmul(x2[:, lo], w[:, lo].T)
+    p_hi = torch.matmul(x2[:, hi], w[:, hi].T)
+    y = y + (p_lo * s[:, j] + p_hi * s[:, nb2 + j])
+  if bias is not None:
+    y = y + bias.to(torch.float32).reshape(1, n)
+  return y.to(x.dtype).reshape(lead + (n,))
+
+
+def qmatmul_int4_packed_blockwise(x, w_packed, scale, bias=None):
+  """Blockwise packed int4 matmul (pallas_qmatmul.qmatmul_pallas_int4_
+  packed_blockwise): the plain version on the CPU; its CUDA kernel is not
+  written yet, so a CUDA tensor raises NotImplementedError."""
+  if _build.device_kind(x) == 'cpu':
+    qmatmul_int4_packed_blockwise.plain_calls += 1
+    return qmatmul_int4_packed_blockwise_plain(x, w_packed, scale, bias)
+  raise _build.unported('pallas_qmatmul.qmatmul_pallas_int4_packed_blockwise')
+
+
+qmatmul_int4_packed_blockwise.plain_calls = 0

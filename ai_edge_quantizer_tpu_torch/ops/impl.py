@@ -2,8 +2,9 @@
 
 Port of `ai_edge_quantizer_tpu/ops/impl.py`, same `register` pattern. Only
 the opcodes that the Gemma decode and serving graphs use are here (with
-the int4-group KV cache's INT4G_ATTENTION and INT4G_ATTENTION_SCATTER);
-the executor raises NotImplementedError for any other opcode.
+the int4-group KV cache's INT4G_ATTENTION and INT4G_ATTENTION_SCATTER,
+and the HADAMARD_ROTATION op that the `*_hadamard` recipes insert); the
+executor raises NotImplementedError for any other opcode.
 
 Type promotion follows JAX, not torch: a binary op over two tensors
 promotes both to their common dtype even when one of them is 0-d (torch
@@ -278,6 +279,28 @@ def rope(ctx: OpContext, x, positions):
   x1, x2 = x[..., :half], x[..., half:]
   return torch.cat(
       [x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def normalized_hadamard(size: int, device: torch.device) -> torch.Tensor:
+  # Built in numpy exactly as the JAX op does, copied once per device.
+  h = np.array([[1.0]], dtype=np.float32)
+  while h.shape[0] < size:
+    h = np.block([[h, h], [h, -h]])
+  return torch.as_tensor((h / np.sqrt(size)).astype(np.float32),
+                         device=device)
+
+
+@register('HADAMARD_ROTATION')
+def hadamard_rotation(ctx: OpContext, x):
+  """Block-diagonal normalized Hadamard rotation of the last dimension: a
+  plain product (no Pallas kernel in the JAX package either), f32 sums,
+  cast back to x's dtype."""
+  hsize = int(ctx.attrs['hadamard_size'])
+  h = normalized_hadamard(hsize, x.device)
+  shape = x.shape
+  xr = x.reshape(shape[:-1] + (shape[-1] // hsize, hsize))
+  return torch.matmul(xr.to(torch.float32), h).to(x.dtype).reshape(shape)
 
 
 # -- int4-per-group KV cache (serving custom ops) ---------------------------

@@ -7,7 +7,7 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
 
   1. facts: torch.version.cuda, nvcc --version, the card's name and power
      limit (nvidia-smi) and the kernels' build time;
-  2. kernels: each of the ten kernels against its plain PyTorch version
+  2. kernels: each of the eleven kernels against its plain PyTorch version
      on the card at the main paths' shapes (Gemma-2B; decode at batch 64
      and cache 1024, bench.py's decode at batch 256 with 897 live cache
      rows, prefill at 8 x 128 tokens; bf16 activations), with the stated
@@ -21,8 +21,12 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      its CPU run bit for bit; the int8 DRQ matmul (bit for bit) and the
      weight-only matmul (blockwise 32 and channelwise, within
      int_qmatmul.int_weights_tolerance) at the quantized serving graph's
-     shapes; three attention shapes the CUDA kernels do not take must
-     raise;
+     shapes; the K-blocked int4 DRQ matmul bit for bit at the down
+     projection's shapes (N 2048, K 16384, decode and prefill rows), M = 1,
+     an odd M and two small K, bf16 and f32 x, with and without a bias,
+     timed beside torch._int_mm; the weight-only and blockwise packed
+     matmuls (no CUDA kernel yet) must raise on the card; three attention
+     shapes the CUDA kernels do not take must raise;
   3. decode loop: the Gemma-2B int4 greedy decode graph at batch 64 with an
      int8 KV cache answers 64 requests (8 prompt tokens fed through the
      decode step, then 16 greedy tokens), the decode block off; launch
@@ -46,14 +50,17 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      or lengths launch);
   4b. quantizer: examples/serve_gemma.py's flow at full width through the
      port's own entry points: the float serving graph (weights drawn on
-     the host, int8 KV stamped) built once, then for gemma_mixed48 and
-     gemma_mixed48_b32: Quantizer(graph, recipe).quantize(), export_model
+     the host, int8 KV stamped) built once, then for gemma_mixed48,
+     gemma_mixed48_b32 (at 4 layers, QUANT_LAYERS) and gemma_mixed48_hr (a
+     Hadamard rotation before each int4 FC, OCTAV clipping):
+     Quantizer(graph, recipe).quantize(), export_model
      to a temporary .aeqg, serialize.load_graph (every buffer and
      parameter equal), DecodeServer(loaded, pack_weights=True) serving the
      server's 128 requests; build, quantize, export and load times, file
      size, peak host memory, tokens/s, TTFT and the launches by kernel
-     (gemma_mixed48: int8 DRQ 36 a tick or pass, MLP 18, head 1; _b32:
-     int8 DRQ 36, weight-only 37);
+     (gemma_mixed48: int8 DRQ 36 a tick or pass, MLP 18, head 1; _b32 at 4
+     layers: int8 DRQ 8, weight-only 9; _hr: int8 DRQ 36, int4 DRQ 18,
+     K-blocked int4 DRQ 18, head 1);
   5. card against CPU: the decode step at batch 8 with the decode block
      off (18 layers) and on (4 layers; the block is one op) and the int4g
      step (4 layers), and the server's first prefill pass and decode tick
@@ -65,10 +72,12 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      the card's ids must equal the port's CPU ids, except rows whose CPU
      top-2 logit margin is below 1e-3 relative (see OpByOp);
      then the block on against off on the card at f32 (4 layers, batch 8,
-     4 steps from start_pos 896), ids and caches compared; then a 4-layer
-     float serving graph quantized with each recipe, its server's first
-     prefill pass and decode tick held op by op (the int8 DRQ FCs bit for
-     bit, the blockwise FCs within their tolerance).
+     4 steps from start_pos 896), ids and caches compared; then a float
+     serving graph quantized with each recipe (2 layers, 4 for _hr), its
+     server's first prefill pass and decode tick held op by op (the int8
+     DRQ and the
+     K-blocked int4 DRQ FCs bit for bit, the blockwise FCs within their
+     tolerance).
 
 Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
@@ -392,6 +401,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
   results.append(block_kernel(torch, port, cfg, dev, timer, gen))
   results.append(int4g_kernel(torch, port, cfg, dev, timer, gen))
   results.extend(int_weight_kernels(torch, port, cfg, dev, timer, gen))
+  results.append(kblock_kernel(torch, port, cfg, dev, timer, gen))
   refused_shapes(torch, att, dev)
   return results
 
@@ -961,7 +971,7 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:753',
       'jax': 'pallas_qmatmul.qmatmul_pallas (blockwise and channelwise)',
       'wrapper': iq.qmatmul_int_weights, 'per_step': 0,
-      'per_tick_quantized_b32': 2 * cfg.num_layers + 1,
+      'per_tick_quantized_b32': 2 * QUANT_LAYERS['gemma_mixed48_b32'] + 1,
       'max_abs_err': max(r['max_abs_err'] for r in blockwise),
       **summary(blockwise, 'decode', ('ms', 'plain_ms', 'bound_ms')),
       'bound_by': wo_rows[0]['bound_by'], 'library_ms': None,
@@ -970,6 +980,110 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
       'library': 'none for the blockwise branch; torch.matmul on f32 '
                  'weights for the channelwise one (by_shape)',
       'by_shape': wo_rows}]
+
+
+# The K-blocked kernel's checks: (label, M, N, K). The server's down
+# projection at decode and prefill rows, then M = 1, an odd M, one ragged K
+# step (K/2 = 528 bytes) and two full steps with a ragged third (2080).
+KBLOCK_SHAPES = (('decode', B, None, None), ('prefill', PREFILL_ROWS, None,
+                                             None),
+                 ('m1', 1, 256, None), ('odd_m', 37, 256, None),
+                 ('small_k', 37, 256, 1056), ('ragged_k', 64, 256, 4160))
+
+
+def kblock_kernel(torch, port, cfg, dev, timer, gen):
+  """The K-blocked int4 DRQ kernel against its plain version on the card,
+  at KBLOCK_SHAPES (N = D and K = F, gemma_mixed48_hr's down projection,
+  where a shape leaves them None); bf16 and f32 x, with and without a
+  bias, every output bit for bit (the codes divide as the plain version
+  does, the int32 sums are exact, the epilogue rounds in the same order).
+  Timed at decode and prefill with bf16 x and no bias (the server's down
+  FC) beside the plain version and torch._int_mm on the codes (the
+  contraction only; it needs M > 16). A K the kernel does not take must be
+  refused, and the weight-only and blockwise packed matmuls, whose CUDA
+  kernels are not written yet, must raise NotImplementedError naming their
+  Pallas kernels on the card."""
+  pq = port['packed_qmatmul']
+  bf16 = torch.bfloat16
+
+  def bits_differ(a, b):
+    view = torch.int16 if a.dtype == bf16 else torch.int32
+    return int(torch.sum(a.view(view) != b.view(view)))
+
+  rows = []
+  for phase, m, n, k in KBLOCK_SHAPES:
+    n, k = n or cfg.embed_dim, k or cfg.ffn_dim
+    x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+    w = pq.pack_int4_split(torch.randint(-8, 8, (n, k), generator=gen,
+                                         device=dev).to(torch.int8))
+    s = torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
+    bias = torch.randn((n,), generator=gen, device=dev)
+    cases = ((x, None), (x, bias), (x.float(), None), (x.float(), bias))
+    differ = [bits_differ(pq.qmatmul_int4_packed_drq_kblock(xi, w, s, bi),
+                          pq.qmatmul_int4_packed_drq_kblock_plain(xi, w, s,
+                                                                  bi))
+              for xi, bi in cases]
+    sync()
+    if any(differ):
+      raise AssertionError(f'K-blocked int4 DRQ {phase} (M {m}, N {n}, K '
+                           f'{k}): {differ} outputs differ from the plain '
+                           'version (bf16, bf16 with bias, f32, f32 with '
+                           'bias)')
+    row = {'phase': phase, 'M': m, 'N': n, 'K': k, 'outputs_differ': differ}
+    if phase in ('decode', 'prefill'):
+      xq = pq.quantize_rows_drq_div(x.float())[0]
+      w_t = pq.unpack_int4_split(w).t()
+      nbytes = m * k * 2 + n * k // 2 + n * 4 + m * n * 2
+      b_ms, b_by = bound(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
+      row.update(
+          ms=timer(lambda: pq.qmatmul_int4_packed_drq_kblock(x, w, s)),
+          plain_ms=timer(lambda: pq.qmatmul_int4_packed_drq_kblock_plain(
+              x, w, s), reps=25 if phase == 'decode' else 5),
+          library_ms=timer(lambda: torch._int_mm(xq, w_t)),
+          bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+  log(f'kernel qmatmul_int4_packed_drq_kblock ok: bit for bit; {rows}')
+
+  x = torch.randn((4, 48), device=dev)
+  w = torch.zeros((256, 24), dtype=torch.uint8, device=dev)
+  s = torch.ones((256,), device=dev)
+  try:
+    pq.qmatmul_int4_packed_drq_kblock(x, w, s)
+  except ValueError as e:
+    log(f'K-blocked kernel refuses K 48: {e}')
+  else:
+    raise AssertionError('the K-blocked kernel took K = 48')
+  for fn, kernel, scale in (
+      (pq.qmatmul_int4_packed, 'qmatmul_pallas_int4_packed', s),
+      (pq.qmatmul_int4_packed_blockwise,
+       'qmatmul_pallas_int4_packed_blockwise', torch.ones((256, 2),
+                                                          device=dev))):
+    try:
+      fn(x, w, scale)
+    except NotImplementedError as e:
+      if kernel not in str(e):
+        raise
+    else:
+      raise AssertionError(f'{kernel} ran on the card')
+  log('weight-only and blockwise packed matmuls raise on the card (CUDA '
+      'kernels not written yet)')
+
+  def at(phase):
+    r = next(r for r in rows if r['phase'] == phase)
+    return {key: r[key] for key in ('ms', 'plain_ms', 'bound_ms',
+                                    'library_ms')}
+
+  return {
+      'name': 'qmatmul_int4_packed_drq_kblock', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'qmatmul_int4_drq_kblock.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:882',
+      'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed_drq_kblock',
+      'wrapper': pq.qmatmul_int4_packed_drq_kblock, 'per_step': 0,
+      'per_tick_quantized_hr': cfg.num_layers, 'max_abs_err': 0.0,
+      **at('decode'), 'bound_by': rows[0]['bound_by'],
+      'library': 'torch._int_mm on the codes (contraction only)',
+      'prefill': at('prefill'), 'by_shape': rows}
 
 
 def refused_shapes(torch, att, dev):
@@ -1690,16 +1804,29 @@ def serve_load(torch, server, kernels, cfg, dev, name, want_fn,
   return result
 
 
-QUANT_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32')
+QUANT_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32', 'gemma_mixed48_hr')
+# Depths cut to keep the script's time down (the model's widths never
+# are): quantizer_phase serves _b32 at 4 layers (its weight-only kernel is
+# checked at full size by int_weight_kernels), every other recipe at the
+# model's depth; quantizer_cpu_phase holds each recipe's graph op by op at
+# QUANT_CPU_LAYERS layers. gemma_mixed48_hr's quantization (a 512-wide
+# rotation and OCTAV in numpy over every 4-bit weight) takes most of both.
+QUANT_LAYERS = {'gemma_mixed48_b32': 4}
+QUANT_CPU_LAYERS = {'gemma_mixed48': 2, 'gemma_mixed48_b32': 2,
+                    'gemma_mixed48_hr': 4}
 
 
 def quantized_launches(recipe, layers):
   """serve_load's want_fn for a server over a graph that the Quantizer
   made with `recipe` (fused projections: two attention FCs and two FFN
-  FCs a layer, then the tied head; int8 KV stamped). gemma_mixed48: int8
-  attention FCs through the int8 DRQ kernel, int4 FFN and head packed and
-  fused (MLP and head kernels); _b32: the blockwise-32 FFN and head FCs
-  through the weight-only kernel, the head's ARG_MAX a graph op."""
+  FCs a layer, then the tied head; int8 KV stamped). Every recipe: int8
+  attention FCs through the int8 DRQ kernel. gemma_mixed48: int4 FFN and
+  head packed and fused (MLP and head kernels); _b32: the blockwise-32 FFN
+  and head FCs through the weight-only kernel, the head's ARG_MAX a graph
+  op; _hr: a Hadamard rotation before each int4 FC, so the MLP does not
+  fuse: the gate/up FC (K = D) through the int4 DRQ kernel, the down FC
+  (K = F > 8192) through the K-blocked one, and the head, rotated x -> FC
+  -> ARG_MAX, fused."""
   def want(ticks, passes):
     calls = ticks + passes
     counts = {'qmatmul_int8_drq': 2 * layers * calls,
@@ -1707,6 +1834,10 @@ def quantized_launches(recipe, layers):
               'flash_attention_int8_masked': layers * passes}
     if recipe == 'gemma_mixed48':
       counts.update(mlp_int4_packed=layers * calls, head_argmax=calls)
+    elif recipe == 'gemma_mixed48_hr':
+      counts.update(qmatmul_int4_packed_drq=layers * calls,
+                    qmatmul_int4_packed_drq_kblock=layers * calls,
+                    head_argmax=calls)
     else:
       counts['qmatmul_int_weights'] = (2 * layers + 1) * calls
     return counts
@@ -1745,7 +1876,8 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
                     slots=B):
   """examples/serve_gemma.py's flow at GEMMA_2B's full width, through the
   port's entry points: the float serving graph (server_phase's settings,
-  weights drawn on the host, int8 KV stamped) built once; then for each of
+  weights drawn on the host, int8 KV stamped) built once at each depth
+  QUANT_LAYERS asks for; then for each of
   QUANT_RECIPES: `Quantizer(graph, recipe).quantize()`, `export_model` to
   a temporary .aeqg, `serialize.load_graph` (mmap) with every buffer,
   tensor and quantization parameter equal to the quantized graph's, and
@@ -1755,21 +1887,37 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   allocations, tracemalloc) of the build and of each quantization."""
   gemma, batching = port['gemma'], port['batching']
   serialize, progress = port['serialize'], port['progress_utils']
-  tracemalloc.start()
-  t0 = time.monotonic()
-  graph = serving_graph(gemma, cfg, slots, materialize=True)
-  build_s = time.monotonic() - t0
-  build_peak = tracemalloc.get_traced_memory()[1]
-  tracemalloc.stop()
-  float_bytes = graph.total_constant_bits() // 8
-  log(f'quantizer: float serving graph built in {build_s:.1f}s, '
-      f'{float_bytes / 2**30:.2f} GiB of f32 constants, peak host memory '
-      f'{build_peak / 2**30:.2f} GiB')
-  results = {'float_graph': {'build_s': build_s,
-                             'peak_host_bytes': build_peak,
-                             'constant_bytes': float_bytes}}
+  results, graphs = {}, {}
+
+  def float_graph(layers):
+    if layers in graphs:
+      return graphs[layers]
+    graphs.clear()  # one float graph at a time on the host
+    gc.collect()
+    tracemalloc.start()
+    t0 = time.monotonic()
+    graph = serving_graph(gemma, dataclasses.replace(cfg, num_layers=layers),
+                          slots, materialize=True)
+    build_s = time.monotonic() - t0
+    build_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    float_bytes = graph.total_constant_bits() // 8
+    log(f'quantizer: float serving graph ({layers} layers) built in '
+        f'{build_s:.1f}s, {float_bytes / 2**30:.2f} GiB of f32 constants, '
+        f'peak host memory {build_peak / 2**30:.2f} GiB')
+    results.setdefault('float_graph', {})[layers] = {
+        'build_s': build_s, 'peak_host_bytes': build_peak,
+        'constant_bytes': float_bytes}
+    graphs[layers] = graph
+    return graph
+
+  # The recipes at the model's depth first: its float graph is built once.
+  order = sorted(QUANT_RECIPES, key=lambda r: r in QUANT_LAYERS)
   with tempfile.TemporaryDirectory() as tmp:
-    for recipe in QUANT_RECIPES:
+    for recipe in order:
+      cfg_r = dataclasses.replace(
+          cfg, num_layers=QUANT_LAYERS.get(recipe, cfg.num_layers))
+      graph = float_graph(cfg_r.num_layers)
       report = progress.ProgressReport()
       report.start(graph)
       t0 = time.monotonic()
@@ -1797,7 +1945,7 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       del result
       gc.collect()
       t0 = time.monotonic()
-      server = batching.DecodeServer(loaded, cfg, slots, pack_weights=True,
+      server = batching.DecodeServer(loaded, cfg_r, slots, pack_weights=True,
                                      activation_dtype='bfloat16', device=dev)
       sync()
       ex = server._executor
@@ -1808,11 +1956,11 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       setup_s = time.monotonic() - t0
       log(f'quantizer {recipe}: server set-up (weights to the card, '
           f'packing) {setup_s:.1f}s; units {units}')
-      served = serve_load(torch, server, kernels, cfg, dev,
+      served = serve_load(torch, server, kernels, cfg_r, dev,
                           f'quantized {recipe}',
-                          quantized_launches(recipe, cfg.num_layers),
+                          quantized_launches(recipe, cfg_r.num_layers),
                           n_requests, slots)
-      served.update(quantize_s=quantize_s,
+      served.update(layers=cfg_r.num_layers, quantize_s=quantize_s,
                     quantize_peak_host_bytes=stats['peak_host_memory_bytes'],
                     quantized_constant_bytes=stats['model_size_after_bytes'],
                     export_s=export_s, aeqg_bytes=size, load_s=load_s,
@@ -1824,27 +1972,37 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   return results
 
 
-def quantizer_cpu_phase(torch, port, cfg, dev, layers=4):
+def quantizer_cpu_phase(torch, port, cfg, dev):
   """The card against the port on the CPU, op by op, on graphs the
-  Quantizer made: GEMMA_2B widths at `layers` layers, one float serving
-  graph quantized with each of QUANT_RECIPES, each served on both devices
-  (f32 activations) through the first prefill pass (8 requests of 128
-  tokens) and decode tick, as server_cpu_phase holds the server. The int8
-  DRQ FCs must equal the CPU's bit for bit, the blockwise FCs agree to
-  int_qmatmul.int_weights_tolerance, int8 codes within one step."""
-  cfg_l = dataclasses.replace(cfg, num_layers=layers)
+  Quantizer made: GEMMA_2B widths at QUANT_CPU_LAYERS layers, one float
+  serving graph at each depth, quantized with each of QUANT_RECIPES and
+  served on both devices (f32 activations) through the first prefill pass
+  (8 requests of 128 tokens) and decode tick, as server_cpu_phase holds
+  the server. The int8 DRQ FCs and the K-blocked packed FCs
+  (gemma_mixed48_hr's down projections) must equal the CPU's bit for bit,
+  the blockwise FCs agree to int_qmatmul.int_weights_tolerance, int8 codes
+  within one step."""
   t0 = time.monotonic()
-  graph = serving_graph(port['gemma'], cfg_l, B, materialize=True)
-  out = {}
-  for recipe in QUANT_RECIPES:
-    quantized = port['Quantizer'](graph, recipe).quantize().quantized_model
+  graphs, out = {}, {}
+  for recipe in sorted(QUANT_RECIPES, key=QUANT_CPU_LAYERS.get):
+    layers = QUANT_CPU_LAYERS[recipe]
+    cfg_l = dataclasses.replace(cfg, num_layers=layers)
+    if layers not in graphs:
+      graphs.clear()
+      gc.collect()
+      graphs[layers] = serving_graph(port['gemma'], cfg_l, B,
+                                     materialize=True)
+    quantized = port['Quantizer'](graphs[layers],
+                                  recipe).quantize().quantized_model
     log(f'quantizer card-vs-cpu {recipe}: {layers}-layer graph quantized, '
         f'{time.monotonic() - t0:.1f}s')
     out[recipe] = server_cpu_phase(torch, port, cfg_l, dev, graph=quantized,
                                    label=f'quantized {recipe} card-vs-cpu')
     kinds = {k.split('/')[1] for k in out[recipe]['worst_rel_err_by_opcode']}
     need = {'FC int8 DRQ'} | ({'FC blockwise'} if recipe.endswith('_b32')
-                              else set())
+                              else set()) | (
+                                  {'FC int4 DRQ K-blocked'}
+                                  if recipe.endswith('_hr') else set())
     if not need <= kinds:
       raise AssertionError(f'{recipe}: no {need - kinds} op held')
     del quantized
@@ -1871,7 +2029,8 @@ class OpByOp:
   that differ by one step. An unpacked integer FULLY_CONNECTED (a
   quantized graph's) is held by its kernel's rule: a DRQ one ('FC int8
   DRQ') bit for bit, a blockwise one ('FC blockwise') to
-  int_qmatmul.int_weights_tolerance of its largest magnitude.
+  int_qmatmul.int_weights_tolerance of its largest magnitude; so is a
+  packed one on the K-blocked route ('FC int4 DRQ K-blocked'): bit for bit.
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None,
@@ -1898,16 +2057,21 @@ class OpByOp:
 
   def _fc_rule(self, sg, op):
     """'FC int8 DRQ' or ('FC blockwise', rel tol) for an unpacked integer
-    FC, else None."""
+    FC, 'FC int4 DRQ K-blocked' for a packed one on the K-blocked kernel's
+    route, else None."""
     if op.opcode != 'FULLY_CONNECTED' or len(op.inputs) < 2:
       return None
     w = sg.tensors[op.inputs[1]]
     q = w.quantization
     sg_idx = next(i for i, s in enumerate(self.ex.graph.subgraphs)
                   if s is sg)
-    if (q is None or w.dtype not in ('int2', 'int4', 'int8')
-        or (sg_idx, op.inputs[1]) in self.ex._packed_int4_keys):
+    if q is None or w.dtype not in ('int2', 'int4', 'int8'):
       return None
+    key = (sg_idx, op.inputs[1])
+    if key in self.ex._packed_int4_keys:
+      kblocked = (self.ex.int4_drq and w.shape[-1] > 8192
+                  and key not in self.ex._packed_block_size)
+      return 'FC int4 DRQ K-blocked' if kblocked else None
     if q.block_size:
       k = w.shape[-1]
       return ('FC blockwise',
@@ -1943,9 +2107,9 @@ class OpByOp:
         if fc_rule is not None:
           kind = f'{sig}/{fc_rule if isinstance(fc_rule, str) else fc_rule[0]}'
         self.worst[kind] = max(self.worst.get(kind, 0.0), rel)
-        if fc_rule == 'FC int8 DRQ':
+        if fc_rule in ('FC int8 DRQ', 'FC int4 DRQ K-blocked'):
           if err != 0.0:
-            raise AssertionError(f'{sg.tensors[tid].name}: int8 DRQ output '
+            raise AssertionError(f'{sg.tensors[tid].name}: {fc_rule} output '
                                  f'differs from the CPU (rel err {rel})')
         elif fc_rule is not None:
           if rel > fc_rule[1]:
@@ -2321,22 +2485,30 @@ def main():
   quant = quantizer_phase(torch, port, kernels, cfg, 'cuda')
   for recipe in QUANT_RECIPES:
     r = quant[recipe]
-    log(f'quantized {recipe} server on {smi}: {r["tokens_per_s"]:.1f} '
-        f'tokens/s, TTFT p50 {r["ttft_p50_ms"]:.1f} ms p99 '
-        f'{r["ttft_p99_ms"]:.1f} ms; quantize {r["quantize_s"]:.1f}s, '
+    log(f'quantized {recipe} server ({r["layers"]} layers) on {smi}: '
+        f'{r["tokens_per_s"]:.1f} tokens/s, TTFT p50 {r["ttft_p50_ms"]:.1f} '
+        f'ms p99 {r["ttft_p99_ms"]:.1f} ms; quantize {r["quantize_s"]:.1f}s, '
         f'.aeqg {r["aeqg_bytes"]} bytes')
   log(f'phase quantizer done at {time.monotonic() - t_start:.1f}s')
   if not args.skip_cpu:
+    def done(label):
+      log(f'card-vs-cpu {label} done at {time.monotonic() - t_start:.1f}s')
     e2e['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda')
+    done('decode step')
     bench['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda',
                                      decode_block=True, layers=4)
+    done('block step')
     bench4['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda',
                                       kv_int4_group=INT4G_GROUP, layers=4)
+    done('int4g step')
     server['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda')
+    done('server')
     server4['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda',
                                               kv_int4_group=INT4G_GROUP)
+    done('int4g server')
     bench['block_on_vs_off_f32'] = block_on_off_phase(torch, port, cfg,
                                                       'cuda')
+    done('block on/off')
     quant['card_vs_cpu'] = quantizer_cpu_phase(torch, port, cfg, 'cuda')
     log(f'phase card-vs-cpu done at {time.monotonic() - t_start:.1f}s')
   line = []
@@ -2364,7 +2536,8 @@ def main():
                          or by_path['server_int4g']
                          or by_path['bench_decode_int4g']
                          or by_path['server_gemma_mixed48']
-                         or by_path['server_gemma_mixed48_b32'])
+                         or by_path['server_gemma_mixed48_b32']
+                         or by_path['server_gemma_mixed48_hr'])
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)

@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
                'kernels.attention', 'kernels.block', 'kernels._build',
                'kernels.int_qmatmul', 'quantizer', 'qtyping',
                'graph.serialize', 'algorithms.manager',
-               'algorithms.uniform.quant_numerics', 'recipe.recipe_utils',
+               'algorithms.uniform.quant_numerics',
+               'algorithms.uniform.octav', 'algorithms.uniform.hadamard',
+               'algorithms.nonlinear.float_casting', 'recipe.recipe_utils',
                'pipeline.params_generator', 'pipeline.model_modifier',
                'utils.progress_utils'):
     assert f'ai_edge_quantizer_tpu_torch.{name}' in modules

@@ -61,6 +61,10 @@ CASES = {
     'DYNAMIC_UPDATE_SLICE': ([_i(-9, 9, 2, 1, 6, 4), _i(-9, 9, 2, 1, 1, 4),
                               np.array([0, 0, 9, 0], np.int32)], {},
                              (2, 1, 6, 4), 'int32', True),  # start clamps
+    # Inserted by the *_hadamard recipes (tests/test_torch_port_hadamard.py
+    # holds it at bf16 too).
+    'HADAMARD_ROTATION': ([_f(2, 3, 32)], {'hadamard_size': 8}, (2, 3, 32),
+                          'float32', False),
 }
 
 

@@ -40,7 +40,10 @@ RECIPES = ('dynamic_wi8_afp32', 'dynamic_legacy_wi8_afp32',
            'dynamic_wi4_afp32', 'dynamic_wi4_afp32_b32',
            'dynamic_wi4_afp32_b64', 'dynamic_wi2_afp32',
            'default_af32w8float', 'default_af32w4float', 'gemma_mixed48',
-           'gemma_mixed48_b32', 'gemma_mixed48_b64')
+           'gemma_mixed48_b32', 'gemma_mixed48_b64', 'gemma_mixed48_hr',
+           'dynamic_wi4_afp32_hadamard', 'dynamic_wi8_afp32_hadamard',
+           'dynamic_wi4_afp32_decomposed_hadamard',
+           'dynamic_wi8_afp32_decomposed_hadamard', 'default_fp16')
 FIXTURES = ('two_layer_mlp', 'single_fc', 'conv_fc_mnist',
             'shared_weight_two_fc', 'shared_buffer_two_tensors')
 
@@ -210,9 +213,6 @@ def test_static_recipe_needs_calibration(recipe):
 
 
 @pytest.mark.parametrize('recipe,module', [
-    ('dynamic_wi4_afp32_hadamard', 'hadamard.py'),
-    ('dynamic_wi4_afp32_decomposed_hadamard', 'hadamard.py'),
-    ('default_fp16', 'float_casting.py'),
     ('dynamic_wi4_afp32_gptq_octav', 'gptq.py|octav.py')])
 def test_unported_algorithms_raise(recipe, module):
   """A recipe naming an algorithm whose module is not ported raises
