@@ -4,13 +4,14 @@ Port of `ai_edge_quantizer_tpu/execution/executor.py`, the parts the
 Gemma int4 decode step runs: constant loading, the DEQUANTIZE alias,
 `prepare_serving_weights`, `_run_signature` / `_eval_op` /
 `_dequant_view` / `_store_outputs`, the int8 DYNAMIC_UPDATE_SLICE fast
-path, the packed int4 FCs (DRQ, K-blocked DRQ, and the blockwise and
-weight-only ones, whose wrappers run plain versions on the CPU and raise
+path, the packed int4 FCs (DRQ, K-blocked DRQ, weight-only, and the
+blockwise ones, whose wrapper runs its plain version on the CPU and raises
 on CUDA), the unpacked integer FCs (the JAX
 dispatchers `drq_matmul` and `qmatmul`, kernels/qmatmul.py, with their
 Pallas gates), and four fusions with their dispatch:
 int8-cache attention (the stale-cache kernel with the cache write outside
-it, the lengths kernel at decode, the flash kernel at prefill), the GeGLU
+it, the lengths or the additive-mask kernel at decode, the flash kernel at
+prefill), the GeGLU
 MLP, the greedy head and the decode block (MLP(l-1) + norms + QKV(l) +
 RoPE + attention(l) in one kernel). The int4-group KV cache needs no
 fusion: its INT4G_ATTENTION ops run through `_eval_op` (ops/impl.py),
@@ -27,7 +28,9 @@ Differences from the JAX executor:
     AEQT_ATTN_WRITEBACK_MODE; None turns it off), `mlp_fusion` and `mlp_bf`
     (AEQT_MLP_FUSION, AEQT_MLP_BF), `head_fusion` (AEQT_HEAD_FUSION),
     `decode_block` (AEQT_DECODE_BLOCK). Defaults are the values bench.py
-    sets.
+    sets; `JAX_DEFAULT_OPTIONS` holds the JAX executor's own defaults
+    (every AEQT_* variable unset), the mode examples/serve_gemma.py
+    serves in.
   * PyTorch runs eagerly: there is no jit, and a step makes no host sync
     (scales that are IR constants stay Python floats).
   * Where the JAX executor asks "is the backend a TPU" before a Pallas
@@ -77,6 +80,19 @@ def _prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
   [B, 1, rows, S] (0 visible, -1e9 hidden), int32 [B]."""
   return torch.sum((mask[:, 0, 0, :] > -1e8).to(torch.int32), dim=-1,
                    dtype=torch.int32)
+
+
+# The JAX executor's options when no AEQT_* variable is set (its default
+# serving mode), as GraphExecutor keyword arguments; the other options'
+# defaults are the JAX executor's already (mlp_fusion AEQT_MLP_FUSION=1,
+# executor.py:768; head_fusion AEQT_HEAD_FUSION=1, :1013).
+JAX_DEFAULT_OPTIONS = dict(
+    int4_drq=False,        # AEQT_INT4_DRQ=0: executor.py:2120, 2137, 2234
+    attn_lengths=False,    # AEQT_ATTN_LENGTHS=0: executor.py:2056
+    attn_writeback=None,   # AEQT_ATTN_WRITEBACK=0: executor.py:276
+    mlp_bf=512,            # AEQT_MLP_BF=512: executor.py:771
+    decode_block=False,    # AEQT_DECODE_BLOCK=0: executor.py:391
+)
 
 
 def attention_route(h: int, s: int, rows: int, attn_lengths: bool) -> str:
@@ -1090,9 +1106,8 @@ class GraphExecutor:
       * otherwise prefill-shaped (>= 32 rows): `flash_attention_int8_masked`;
       * otherwise decode-shaped with `attn_lengths`:
         `decode_attention_int8_lengths`;
-      * otherwise (decode-shaped without `attn_lengths`): raises on CUDA
-        (`decode_attention_int8_masked` is not ported), the plain twin on
-        the CPU.
+      * otherwise (decode-shaped without `attn_lengths`, the JAX
+        executor's default): `decode_attention_int8_masked`.
     A shape that passes the gate but that a CUDA kernel does not take
     raises in its wrapper; nothing falls back to the twin on the card.
     """
@@ -1150,12 +1165,15 @@ class GraphExecutor:
           q_val, k_q, v_q, k_scale, v_scale, _prefix_lengths(mask),
           k_zero_point=zp_k, v_zero_point=zp_v, compute='f32',
           out_dtype=self._act_dtype)
-    elif route == 'masked' and on_cuda:
-      raise _build.unported('pallas_attention.decode_attention_int8_masked')
+    elif route == 'masked':
+      # The additive mask as the graph gives it (no prefix assumed).
+      ctx = attention.decode_attention_int8_masked(
+          q_val, k_q, v_q, k_scale, v_scale, mask,
+          k_zero_point=zp_k, v_zero_point=zp_v, compute='f32')
     else:
       # Plain twin with the same numerics (zp corrections in closed form):
       # the JAX executor's XLA twin, for the shapes its gate keeps off
-      # Mosaic (and, on the CPU, the masked decode mode).
+      # Mosaic.
       qf = q_val.to(torch.float32)
       scores = torch.matmul(qf, k_q.to(torch.float32).transpose(-1, -2))
       scores = scores - zp_k * torch.sum(qf, dim=-1, keepdim=True)
@@ -1233,17 +1251,20 @@ class GraphExecutor:
     """One matmul+argmax call for a matched greedy-head chain."""
     x = self._dequant_view(sg, fusion['x'], env)
     w = env[fusion['w_tid']]
-    if fusion['packed']:
-      scale = self._packed_scale[(sg_idx, fusion['w_tid'])]
-      # The unfused packed FC's compute mode, so greedy tokens agree.
-      drq = self.int4_drq and w.shape[1] * 2 <= 8192
-    else:
-      scale = fusion['scale']
-      drq = True  # int8 DRQ semantics
+    scale, drq = self.head_mode(sg_idx, fusion, w)
     ids = head_lib.head_argmax(x, w, scale, packed=fusion['packed'],
                                true_n=fusion['true_n'], drq=drq)
     out_op = ir.Op(opcode='ARG_MAX', inputs=[], outputs=[fusion['out']])
     self._store_outputs(sg, out_op, (ids,), env)
+
+  def head_mode(self, sg_idx: int, fusion: dict, w) -> tuple:
+    """(scale, drq) of a fused greedy head over its weight w: a packed
+    head takes the unfused packed FC's compute mode, so greedy tokens
+    agree; an int8 one has DRQ semantics."""
+    if fusion['packed']:
+      return (self._packed_scale[(sg_idx, fusion['w_tid'])],
+              self.int4_drq and w.shape[1] * 2 <= 8192)
+    return fusion['scale'], True
 
   # -- quantized FULLY_CONNECTED fast paths ---------------------------------
 
@@ -1270,8 +1291,8 @@ class GraphExecutor:
       true_n = self._packed_pad_n.get(key)
       x_f = self._dequant_view(sg, op.inputs[0], env)
       # The JAX executor's route: blockwise, then DRQ with K <= 8192, then
-      # DRQ K-blocked, then weight-only. The blockwise and weight-only
-      # wrappers run their plain versions on the CPU and raise on CUDA.
+      # DRQ K-blocked, then weight-only. The blockwise wrapper runs its
+      # plain version on the CPU and raises on CUDA.
       if self._packed_block_size.get(key, 0):
         fn = packed_qmatmul.qmatmul_int4_packed_blockwise
       elif self.int4_drq and w_q.shape[1] * 2 <= 8192:

@@ -31,7 +31,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / '_build'
 SOURCES = ('qmatmul_int4_drq', 'attention_stale', 'mlp_int4_drq',
            'head_argmax', 'attention_lengths', 'flash_attention_int8',
            'fused_block', 'attention_int4_group', 'qmatmul_int8_drq',
-           'qmatmul_int_weights', 'qmatmul_int4_drq_kblock')
+           'qmatmul_int_weights', 'qmatmul_int4_drq_kblock',
+           'qmatmul_int4_weight_only', 'mlp_int4_bf16', 'attention_masked')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')

@@ -1,6 +1,6 @@
 """Quantized-cache attention kernels (PyTorch + CUDA).
 
-Ports of four Pallas kernels of
+Ports of five Pallas kernels of
 `ai_edge_quantizer_tpu/kernels/pallas_attention.py`, each with a plain
 PyTorch version beside its CUDA kernel (`csrc/`):
 
@@ -14,6 +14,10 @@ PyTorch version beside its CUDA kernel (`csrc/`):
   * `flash_attention_int8_masked` (`_flash_attn_kernel`): prefill-shaped
     attention of R = G * T query rows with an additive mask, as an online
     softmax over S blocks (`csrc/flash_attention_int8.cu`).
+  * `decode_attention_int8_masked` (`_decode_attn_mask_kernel`, f32):
+    decode attention over all S int8 cache rows with an additive mask
+    that broadcasts to [B, NK, G, S], the JAX executor's default decode
+    attention (`csrc/attention_masked.cu`).
   * `decode_attention_int4_group_lengths` (body
     `_ctx_prefix_len_int4_group`): decode attention over int4 K/V pools
     with per-group scales in a bf16 sidecar (asymmetric K, symmetric V),
@@ -22,13 +26,16 @@ PyTorch version beside its CUDA kernel (`csrc/`):
     plain jnp in the reference, bit for bit the same.
 
 The int8 CUDA decode kernels compute in f32 (`compute='f32'`, the
-executor's default). The plain versions also cover the `bf16` and `int8`
-compute modes; on a CUDA tensor those raise, as their kernels are not
-ported yet. The other Pallas attention kernels of that file are not
-ported yet (see ROADMAP.md).
+executor's default). The plain versions of the lengths kernels also cover
+the `bf16` and `int8` compute modes; on a CUDA tensor those raise, as
+their kernels are not ported yet. The masked kernel has the f32 mode
+only, on both devices. The other Pallas attention kernels of that file
+are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -285,6 +292,97 @@ def decode_attention_int8_lengths(
 
 decode_attention_int8_lengths.launches = 0
 decode_attention_int8_lengths.plain_calls = 0
+
+
+# -- additive-mask decode attention -------------------------------------------
+
+
+def decode_attention_int8_masked_plain(
+    q, k_cache_q, v_cache_q, k_scale, v_scale, mask, k_zero_point=0.0,
+    v_zero_point=0.0):
+  """`_decode_attn_mask_kernel` in plain PyTorch (any device), step by step
+  in its order: the scores in f32, minus zp_k * sum(q), times
+  k_scale / sqrt(H), plus the mask; the row max subtracted, exp, divided
+  by the row sum before the PV product; then (ctx - zp_v) * v_scale.
+  Returns [B, NK, G, H] f32."""
+  b, nk, g, h = q.shape
+  s = k_cache_q.shape[2]
+  qf = q.to(torch.float32)
+  ks = score_scale(k_scale, h)
+  zp_k, zp_v = float(k_zero_point), float(v_zero_point)
+  v_scale = float(np.float32(v_scale))
+  maskf = torch.broadcast_to(mask.to(torch.float32), (b, nk, g, s))
+  scores = _qdot(qf, k_cache_q.to(torch.float32))
+  scores = scores - zp_k * torch.sum(qf, dim=-1, keepdim=True)
+  scores = scores * ks
+  scores = scores + maskf
+  scores = scores - torch.amax(scores, dim=-1, keepdim=True)
+  probs = torch.exp(scores)
+  probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+  ctx = torch.matmul(probs, v_cache_q.to(torch.float32))
+  return (ctx - zp_v) * v_scale
+
+
+def decode_attention_int8_masked(
+    q: torch.Tensor,
+    k_cache_q: torch.Tensor,
+    v_cache_q: torch.Tensor,
+    k_scale: float,
+    v_scale: float,
+    mask: torch.Tensor,
+    k_zero_point: float = 0.0,
+    v_zero_point: float = 0.0,
+    compute: str = 'f32',
+) -> torch.Tensor:
+  """Decode attention over an int8 cache with an additive mask.
+
+  q [B, NK, G, H] float; caches int8 [B, NK, S, H] with per-tensor scales
+  and zero points as Python floats; mask additive (0 visible), any float
+  dtype (read as f32), of a shape that broadcasts to [B, NK, G, S], as
+  the TPU wrapper broadcasts it. Only compute='f32' is ported (the
+  executor's default); the TPU kernel's 'bf16' and 'int8' modes raise on
+  both devices. The TPU kernel's batch_block (its grid blocking) has no
+  counterpart here. Returns [B, NK, G, H] f32.
+  """
+  name = 'decode_attention_int8_masked'
+  if compute != 'f32':
+    raise NotImplementedError(
+        f'{name}: compute={compute!r} is not ported (f32 only).')
+  args = (q, k_cache_q, v_cache_q, k_scale, v_scale, mask, k_zero_point,
+          v_zero_point)
+  if _build.device_kind(q) == 'cpu':
+    decode_attention_int8_masked.plain_calls += 1
+    return decode_attention_int8_masked_plain(*args)
+  b, nk, g, h = q.shape
+  s = k_cache_q.shape[2]
+  r = b * nk
+  q2 = q.to(torch.float32).reshape(r, g, h).contiguous()
+  for t, nm in ((k_cache_q, 'k_cache'), (v_cache_q, 'v_cache')):
+    _build.require(tuple(t.shape) == (b, nk, s, h), name,
+                   f'{nm} shape {tuple(t.shape)}')
+    _build.require_cuda_tensor(t, name, nm, (torch.int8,), 16)
+  # The broadcast view: stride 0 on every axis the mask does not carry.
+  m4 = torch.broadcast_to(mask.to(torch.float32), (b, nk, g, s))
+  if m4.stride(-1) != 1:
+    m4 = m4.contiguous()
+  _build.require(m4.is_cuda, name, 'mask must be a CUDA tensor')
+  out = torch.empty((r, g, h), dtype=torch.float32, device=q.device)
+  fn = _build.entry(
+      'attention_masked', 'aeqt_attention_masked',
+      [_build.P] * 5 + [_build.I] * 5 + [ctypes.c_longlong] * 3
+      + [_build.F] * 4 + [_build.P])
+  status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
+              m4.data_ptr(), out.data_ptr(), r, nk, g, s, h, m4.stride(0),
+              m4.stride(1), m4.stride(2), score_scale(k_scale, h),
+              float(v_scale), float(k_zero_point), float(v_zero_point),
+              _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}')
+  decode_attention_int8_masked.launches += 1
+  return out.reshape(b, nk, g, h)
+
+
+decode_attention_int8_masked.launches = 0
+decode_attention_int8_masked.plain_calls = 0
 
 
 # -- flash attention (prefill) ----------------------------------------------

@@ -20,9 +20,25 @@
 //   2. One block per row reduces the per-block pairs: the larger value
 //      wins, and among equal values the smaller index, so ties go to the
 //      first index across tiles as jnp.argmax does.
+//
+// The weight-only (bf16) branches, drq=False (the JAX executor's default,
+//   AEQT_INT4_DRQ=0, for the packed int4 head; int8 weights by direct call):
+//   x is rounded to bf16 whatever its dtype (by the caller), the weights
+//   are taken as bf16 values (int4 and int8 values are exact there), and
+//   the products sum in f32: a packed row's low-nibble and high-nibble
+//   halves each in f32, then added (pallas_head.py:77-91). Each logit is
+//   acc * s, rounded to the activation dtype, and compared as above.
+//   Bound: the weight stream again (the packed head, 256128 x 1024 bytes =
+//   262 MB, about 78 us; the bf16 work of M = 64 rows, 2*M*N*K = 67 GFLOP,
+//   68 us at the bf16 tensor-core peak).
+//   Design: a warp takes 16 rows x 64 vocab columns on tensor cores, the
+//   weight-only matmul's tile (aeqt::wo_mma_tile, mma.sync with f32 sums,
+//   qmatmul_int4_weight_only.cuh), rounds its logits, and reduces each
+//   row's 64 to one (max, first index) pair by shuffles; then the
+//   reduction launch of the DRQ branch.
 #include <limits.h>
 
-#include "drq_common.cuh"
+#include "qmatmul_int4_weight_only.cuh"
 
 namespace {
 
@@ -31,6 +47,7 @@ constexpr int kWarps = 8;
 constexpr int kColsPerWarp = 8;
 constexpr int kBN = kWarps * kColsPerWarp;
 constexpr float kNegInf = -3.4e38f;  // pallas_head._NEG_INF
+static_assert(kBN == aeqt::kMmaBN, "one pmax column a tile in both branches");
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
@@ -98,6 +115,60 @@ head_tiles_kernel(const T* __restrict__ x, const void* __restrict__ w,
     }
     pmax[(size_t)(m0 + r) * gridDim.y + blockIdx.y] = bv;
     pidx[(size_t)(m0 + r) * gridDim.y + blockIdx.y] = bi;
+  }
+}
+
+// The weight-only branch's tiles: warp `tile` of the grid takes vocab
+// columns [64 * tile, +64) of rows [16 * blockIdx.x, +16) and writes each
+// row's best (logit, first index) to pmax/pidx [M, tiles].
+template <bool kPacked>
+__global__ void __launch_bounds__(aeqt::kMmaWarps * 32)
+head_tiles_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                       const uint8_t* __restrict__ w,
+                       const float* __restrict__ scale,
+                       float* __restrict__ pmax, int* __restrict__ pidx,
+                       int M, int N, int K, int true_n, int cast_bf16,
+                       int tiles) {
+  const int tile = blockIdx.y * aeqt::kMmaWarps + (threadIdx.x >> 5);
+  const int n0 = tile * aeqt::kMmaBN;
+  if (n0 >= N) return;  // warp-uniform; no block-wide barrier below
+  const int m0 = blockIdx.x * aeqt::kMmaBM;
+  float y[aeqt::kMmaNT][4];
+  aeqt::wo_mma_tile<kPacked>(x, w, M, N, K, K, m0, n0, 0,
+                             kPacked ? K / 2 : K, y);
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {  // rows gid and gid + 8
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int nt = 0; nt < aeqt::kMmaNT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // columns rise with (nt, c)
+        const int n = n0 + 8 * nt + 2 * tig + c;
+        if (n >= N) continue;
+        float v = y[nt][2 * half + c] * scale[n];
+        if (cast_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+        if (n >= true_n) v = kNegInf;
+        if (better(v, n, bv, bi)) {
+          bv = v;
+          bi = n;
+        }
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {  // the row's four lanes
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (better(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    const int m = m0 + gid + 8 * half;
+    if (tig == 0 && m < M) {
+      pmax[(size_t)m * tiles + tile] = bv;
+      pidx[(size_t)m * tiles + tile] = bi;
+    }
   }
 }
 
@@ -178,6 +249,36 @@ extern "C" int aeqt_head_argmax(const void* x, int x_bf16, const void* w,
   const int nblk = (N + kBN - 1) / kBN;
   head_reduce_kernel<<<M, 256, 0, s>>>(static_cast<const float*>(pmax),
                                        static_cast<const int*>(pidx), nblk,
+                                       static_cast<int*>(ids));
+  return (int)cudaGetLastError();
+}
+
+// The weight-only branch (drq=False): x [M, K] bf16 (rounded by the
+// caller); w, scale, pmax, pidx, ids as above; cast_bf16 rounds each logit
+// to bf16. Takes K % 128 == 0 (packed) or K % 64 == 0 (int8), else
+// kShapeRefused (nothing launched).
+extern "C" int aeqt_head_argmax_bf16(const void* x, const void* w, int packed,
+                                     const void* scale, void* pmax,
+                                     void* pidx, void* ids, int M, int N,
+                                     int K, int true_n, int cast_bf16,
+                                     void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 ||
+      K % (packed ? 2 * aeqt::kMmaChunk : aeqt::kMmaChunk) != 0)
+    return aeqt::kShapeRefused;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (N + kBN - 1) / kBN;  // kBN == aeqt::kMmaBN
+  const dim3 grid((M + aeqt::kMmaBM - 1) / aeqt::kMmaBM,
+                  (tiles + aeqt::kMmaWarps - 1) / aeqt::kMmaWarps);
+  auto* kernel = packed ? head_tiles_bf16_kernel<true>
+                        : head_tiles_bf16_kernel<false>;
+  kernel<<<grid, aeqt::kMmaWarps * 32, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(scale), static_cast<float*>(pmax),
+      static_cast<int*>(pidx), M, N, K, true_n, cast_bf16, tiles);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  head_reduce_kernel<<<M, 256, 0, s>>>(static_cast<const float*>(pmax),
+                                       static_cast<const int*>(pidx), tiles,
                                        static_cast<int*>(ids));
   return (int)cudaGetLastError();
 }

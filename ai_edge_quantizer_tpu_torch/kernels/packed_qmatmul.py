@@ -10,10 +10,12 @@ Pallas kernels over packed weights:
   * `qmatmul_pallas_int4_packed_drq_kblock` as
     `qmatmul_int4_packed_drq_kblock`, CUDA kernel
     `csrc/qmatmul_int4_drq_kblock.cu` (DRQ with K > 8192);
-  * `qmatmul_pallas_int4_packed` (weight-only) as `qmatmul_int4_packed`
-    and `qmatmul_pallas_int4_packed_blockwise` as
-    `qmatmul_int4_packed_blockwise`: plain versions only. Their CUDA
-    kernels are not written yet (ROADMAP.md): on a CUDA tensor they raise
+  * `qmatmul_pallas_int4_packed` (weight-only, the JAX executor's default
+    for packed FCs) as `qmatmul_int4_packed`, CUDA kernel
+    `csrc/qmatmul_int4_weight_only.cu(h)`;
+  * `qmatmul_pallas_int4_packed_blockwise` as
+    `qmatmul_int4_packed_blockwise`: plain version only. Its CUDA kernel
+    is not written yet (ROADMAP.md): on a CUDA tensor it raises
     NotImplementedError.
 
 Each wrapper has two cases: a CUDA tensor launches the kernel (or raises),
@@ -222,16 +224,47 @@ def qmatmul_int4_packed_plain(x, w_packed, scale, bias=None):
   return y.to(compute_dtype(x)).to(x.dtype).reshape(lead + (n,))
 
 
-def qmatmul_int4_packed(x, w_packed, scale, bias=None):
-  """Weight-only packed int4 matmul (pallas_qmatmul.qmatmul_pallas_int4_
-  packed): the plain version on the CPU; its CUDA kernel is not written
-  yet, so a CUDA tensor raises NotImplementedError."""
+def qmatmul_int4_packed(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+  """Weight-only x [..., K] . packed int4 [N, K//2] -> [..., N] in x.dtype
+  (pallas_qmatmul.qmatmul_pallas_int4_packed): x in the compute dtype, the
+  two halves contracted in f32 and added, y = acc * s (+ b) stored in the
+  compute dtype (qmatmul_int4_packed_plain has the arithmetic)."""
   if _build.device_kind(x) == 'cpu':
     qmatmul_int4_packed.plain_calls += 1
     return qmatmul_int4_packed_plain(x, w_packed, scale, bias)
-  raise _build.unported('pallas_qmatmul.qmatmul_pallas_int4_packed')
+  name = 'qmatmul_int4_packed'
+  n, k2 = w_packed.shape
+  k = 2 * k2
+  lead = x.shape[:-1]
+  x2 = x.reshape(-1, k).to(compute_dtype(x)).contiguous()
+  m = x2.shape[0]
+  _build.require_cuda_tensor(w_packed, name, 'w_packed', (torch.uint8,), 16)
+  _build.require_cuda_tensor(scale, name, 'scale', (torch.float32,))
+  _build.require(scale.numel() == n, name, 'scale must have N entries')
+  if bias is not None:
+    bias = bias.to(torch.float32).contiguous()
+    _build.require_cuda_tensor(bias, name, 'bias', (torch.float32,))
+    _build.require(bias.numel() == n, name, 'bias must have N entries')
+  out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+  fn = _build.entry('qmatmul_int4_weight_only',
+                    'aeqt_qmatmul_int4_weight_only',
+                    [_build.P, _build.I, _build.P, _build.P, _build.P,
+                     _build.P, _build.I, _build.I, _build.I, _build.P])
+  status = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16),
+              w_packed.data_ptr(), scale.data_ptr(),
+              None if bias is None else bias.data_ptr(), out.data_ptr(),
+              m, n, k, _build.stream_ptr(x2.device))
+  _build.check(status, name, f'M={m}, N={n}, K={k}')
+  qmatmul_int4_packed.launches += 1
+  return out.to(x.dtype).reshape(lead + (n,))
 
 
+qmatmul_int4_packed.launches = 0
 qmatmul_int4_packed.plain_calls = 0
 
 

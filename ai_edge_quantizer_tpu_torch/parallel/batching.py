@@ -124,6 +124,7 @@ class DecodeServer:
       admit_budget_groups: Optional[int] = None,
       starvation_age_s: float = 2.0,
       device='cuda',
+      executor_options: Optional[dict] = None,
   ):
     """graph must have 'decode' (or 'decode_<bucket>'; batch=batch_slots,
     onehot cache update) and 'prefill' signatures
@@ -136,8 +137,12 @@ class DecodeServer:
     admit_budget_groups: cap admissions per tick to this many prefill
     groups; the rest stay queued. None admits everything.
     device: 'cuda' (the default) or 'cpu' (the kernels' plain versions).
-    The executor takes the serving options of bench.py (its defaults). The
-    serving graph's one-hot pool update leaves no cache DUS to fold, so the
+    executor_options: keyword arguments of the GraphExecutor (the port's
+    form of the JAX server's AEQT_* environment); None keeps its defaults,
+    the serving options of bench.py, and
+    `executor.JAX_DEFAULT_OPTIONS` gives the JAX executor's default mode
+    (weight-only int4, additive-mask decode attention). The serving
+    graph's one-hot pool update leaves no cache DUS to fold, so the
     executor's decode block finds no unit in it.
 
     A graph built with kv_int4_group (int4-per-group KV pools) keeps three
@@ -154,7 +159,8 @@ class DecodeServer:
     self.batch_slots = batch_slots
     self.graph = graph
     self._executor = executor_lib.GraphExecutor(
-        graph, device=device, activation_dtype=activation_dtype)
+        graph, device=device, activation_dtype=activation_dtype,
+        **(executor_options or {}))
     self.device = self._executor.device
     if weights is not None:
       self._executor.load_weights(weights)

@@ -7,7 +7,7 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
 
   1. facts: torch.version.cuda, nvcc --version, the card's name and power
      limit (nvidia-smi) and the kernels' build time;
-  2. kernels: each of the eleven kernels against its plain PyTorch version
+  2. kernels: each of the fifteen kernels against its plain PyTorch version
      on the card at the main paths' shapes (Gemma-2B; decode at batch 64
      and cache 1024, bench.py's decode at batch 256 with 897 live cache
      rows, prefill at 8 x 128 tokens; bf16 activations), with the stated
@@ -24,9 +24,15 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      shapes; the K-blocked int4 DRQ matmul bit for bit at the down
      projection's shapes (N 2048, K 16384, decode and prefill rows), M = 1,
      an odd M and two small K, bf16 and f32 x, with and without a bias,
-     timed beside torch._int_mm; the weight-only and blockwise packed
-     matmuls (no CUDA kernel yet) must raise on the card; three attention
-     shapes the CUDA kernels do not take must raise;
+     timed beside torch._int_mm; the blockwise packed matmul (no CUDA
+     kernel yet) must raise on the card; the kernels of the JAX executor's
+     default mode (default_mode_kernels): the weight-only packed matmul at
+     the QKV and out-projection shapes (decode, prefill and an odd M; bf16
+     and f32 x, with and without a bias), the additive-mask decode
+     attention (B 64 and 256, S 1024, prefix and non-prefix masks), the
+     MLP's and the head's weight-only branches (bf 512; the head packed
+     and int8 at N 256128, ids judged by the plain top-2 margins); four
+     attention shapes the CUDA kernels do not take must raise;
   3. decode loop: the Gemma-2B int4 greedy decode graph at batch 64 with an
      int8 KV cache answers 64 requests (8 prompt tokens fed through the
      decode step, then 16 greedy tokens), the decode block off; launch
@@ -51,16 +57,21 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
   4b. quantizer: examples/serve_gemma.py's flow at full width through the
      port's own entry points: the float serving graph (weights drawn on
      the host, int8 KV stamped) built once, then for gemma_mixed48,
-     gemma_mixed48_b32 (at 4 layers, QUANT_LAYERS) and gemma_mixed48_hr (a
-     Hadamard rotation before each int4 FC, OCTAV clipping):
+     gemma_mixed48_b32 and gemma_mixed48_hr (a Hadamard rotation before
+     each int4 FC, OCTAV clipping; both at 4 layers, QUANT_LAYERS) and
+     serve_gemma's own quantization (DEFAULT_MODE: add_dynamic_config
+     with every FC int4, served with executor.JAX_DEFAULT_OPTIONS, the JAX
+     executor's default mode):
      Quantizer(graph, recipe).quantize(), export_model
      to a temporary .aeqg, serialize.load_graph (every buffer and
      parameter equal), DecodeServer(loaded, pack_weights=True) serving the
      server's 128 requests; build, quantize, export and load times, file
      size, peak host memory, tokens/s, TTFT and the launches by kernel
      (gemma_mixed48: int8 DRQ 36 a tick or pass, MLP 18, head 1; _b32 at 4
-     layers: int8 DRQ 8, weight-only 9; _hr: int8 DRQ 36, int4 DRQ 18,
-     K-blocked int4 DRQ 18, head 1);
+     layers: int8 DRQ 8, weight-only 9; _hr at 4 layers: int8 DRQ 8, int4
+     DRQ 4, K-blocked int4 DRQ 4, head 1; DEFAULT_MODE: weight-only packed 36,
+     MLP and head in their weight-only branches 18 and 1, masked
+     attention 18 a tick, flash 18 a pass, no DRQ kernel);
   5. card against CPU: the decode step at batch 8 with the decode block
      off (18 layers) and on (4 layers; the block is one op) and the int4g
      step (4 layers), and the server's first prefill pass and decode tick
@@ -73,11 +84,10 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      top-2 logit margin is below 1e-3 relative (see OpByOp);
      then the block on against off on the card at f32 (4 layers, batch 8,
      4 steps from start_pos 896), ids and caches compared; then a float
-     serving graph quantized with each recipe (2 layers, 4 for _hr), its
+     serving graph quantized with each recipe (2 layers), its
      server's first prefill pass and decode tick held op by op (the int8
-     DRQ and the
-     K-blocked int4 DRQ FCs bit for bit, the blockwise FCs within their
-     tolerance).
+     DRQ and the K-blocked int4 DRQ FCs bit for bit, the blockwise and the
+     default mode's weight-only packed FCs within their tolerance).
 
 Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
@@ -402,6 +412,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
   results.append(int4g_kernel(torch, port, cfg, dev, timer, gen))
   results.extend(int_weight_kernels(torch, port, cfg, dev, timer, gen))
   results.append(kblock_kernel(torch, port, cfg, dev, timer, gen))
+  results.extend(default_mode_kernels(torch, port, cfg, dev, timer, gen))
   refused_shapes(torch, att, dev)
   return results
 
@@ -1000,9 +1011,9 @@ def kblock_kernel(torch, port, cfg, dev, timer, gen):
   Timed at decode and prefill with bf16 x and no bias (the server's down
   FC) beside the plain version and torch._int_mm on the codes (the
   contraction only; it needs M > 16). A K the kernel does not take must be
-  refused, and the weight-only and blockwise packed matmuls, whose CUDA
-  kernels are not written yet, must raise NotImplementedError naming their
-  Pallas kernels on the card."""
+  refused, and the blockwise packed matmul, whose CUDA kernel is not
+  written yet, must raise NotImplementedError naming its Pallas kernel on
+  the card."""
   pq = port['packed_qmatmul']
   bf16 = torch.bfloat16
 
@@ -1053,20 +1064,16 @@ def kblock_kernel(torch, port, cfg, dev, timer, gen):
     log(f'K-blocked kernel refuses K 48: {e}')
   else:
     raise AssertionError('the K-blocked kernel took K = 48')
-  for fn, kernel, scale in (
-      (pq.qmatmul_int4_packed, 'qmatmul_pallas_int4_packed', s),
-      (pq.qmatmul_int4_packed_blockwise,
-       'qmatmul_pallas_int4_packed_blockwise', torch.ones((256, 2),
-                                                          device=dev))):
-    try:
-      fn(x, w, scale)
-    except NotImplementedError as e:
-      if kernel not in str(e):
-        raise
-    else:
-      raise AssertionError(f'{kernel} ran on the card')
-  log('weight-only and blockwise packed matmuls raise on the card (CUDA '
-      'kernels not written yet)')
+  kernel = 'qmatmul_pallas_int4_packed_blockwise'
+  try:
+    pq.qmatmul_int4_packed_blockwise(x, w, torch.ones((256, 2), device=dev))
+  except NotImplementedError as e:
+    if kernel not in str(e):
+      raise
+  else:
+    raise AssertionError(f'{kernel} ran on the card')
+  log('the blockwise packed matmul raises on the card (CUDA kernel not '
+      'written yet)')
 
   def at(phase):
     r = next(r for r in rows if r['phase'] == phase)
@@ -1080,11 +1087,329 @@ def kblock_kernel(torch, port, cfg, dev, timer, gen):
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:882',
       'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed_drq_kblock',
       'wrapper': pq.qmatmul_int4_packed_drq_kblock, 'per_step': 0,
-      'per_tick_quantized_hr': cfg.num_layers, 'max_abs_err': 0.0,
+      'per_tick_quantized_hr': QUANT_LAYERS['gemma_mixed48_hr'],
+      'max_abs_err': 0.0,
       **at('decode'), 'bound_by': rows[0]['bound_by'],
       'library': 'torch._int_mm on the codes (contraction only)',
       'prefill': at('prefill'), 'by_shape': rows}
 
+
+def default_mode_kernels(torch, port, cfg, dev, timer, gen):
+  """The kernels of the JAX executor's default mode (AEQT_INT4_DRQ=0,
+  AEQT_ATTN_LENGTHS=0) against their plain versions on the card, at the
+  shapes the default-mode server gives them (GEMMA_2B, bf16 activations as
+  the server runs them, f32 as the op-by-op phase does):
+
+  * the weight-only packed matmul (QKV N 2560 and out-projection N 2048 at
+    K 2048; decode rows B, a prefill pass's rows and an odd M; bf16 and
+    full-mantissa f32 x, with and without a bias): f32 outputs within
+    int_qmatmul.int_weights_tolerance of max |y| (f32 sums in another
+    order), bf16 outputs within one bf16 ulp beyond it; timed beside
+    torch.matmul on the weight dequantized to bf16;
+  * the additive-mask decode attention (B 64 and 256, S 1024, zero points
+    3 and -2; the graph's [B, 1, 1, S] prefix mask, the same broadcast to
+    [B, 1, G, S], and a non-prefix [B, 1, G, S] mask with one row hidden
+    everywhere): within 1e-5 of max(max |y|, 1) (f32 sums in another
+    order); timed beside scaled_dot_product_attention over the pools
+    dequantized to bf16 with the mask;
+  * the MLP's weight-only branch (bf 512, gelu; decode and prefill rows):
+    bf16 x within one bf16 ulp beyond 1e-3 of max |y| (a sum in another
+    order can round a bf16 hidden value the other way), f32 x within 1e-5
+    of max |y|;
+  * the head's weight-only branch (packed int4 and int8 weights, N 256128,
+    M B and BENCH_B): with a planted winner (two equal rows of the largest
+    code in different vocab tiles, scaled to win, and positive x) every id
+    is the first of the two; without
+    it, an id may differ from the plain version's only where the plain
+    top-2 logit margin is within the kernel's logit error
+    (int_weights_tolerance of the largest |logit| plus one bf16 ulp of the
+    winner, the cast_dt rounding)."""
+  pq, att, mlp, head = (port['packed_qmatmul'], port['attention'],
+                        port['mlp'], port['head'])
+  iq = port['int_qmatmul']
+  D, F, V = cfg.embed_dim, cfg.ffn_dim, cfg.vocab_size
+  NQ, NK, H = cfg.num_query_heads, cfg.num_kv_heads, cfg.head_dim
+  S = cfg.max_seq_len
+  G = NQ // NK
+  L = cfg.num_layers
+  bf16 = torch.bfloat16
+
+  def randn(*shape, dtype=bf16):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+  def randint(lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev).to(
+        torch.int8)
+
+  def scales(n):
+    return torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
+
+  def mean(rows, key, phase):
+    vals = [r[key] for r in rows if r['phase'] == phase]
+    return sum(vals) / len(vals)
+
+  timing = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
+  results = []
+
+  # 1. Weight-only packed int4 matmul (#12).
+  wo_rows = []
+  for phase, m in (('decode', B), ('prefill', PREFILL_ROWS), ('odd_m', 37)):
+    for label, n, k in (('qkv', (NQ + 2 * NK) * H, D),
+                        ('out_proj', D, NQ * H)):
+      w = pq.pack_int4_split(randint(-8, 8, n, k))
+      s = scales(n)
+      bias = torch.randn((n,), generator=gen, device=dev)
+      x = randn(m, k)
+      x32 = torch.randn((m, k), generator=gen, device=dev)
+      checks = []
+      for xi, bi in ((x, None), (x, bias), (x32, None), (x32, bias)):
+        got = pq.qmatmul_int4_packed(xi, w, s, bi)
+        want = pq.qmatmul_int4_packed_plain(xi, w, s, bi)
+        sync()
+        ymax = float(torch.max(torch.abs(want.float())))
+        tol = iq.int_weights_tolerance(k, 0, ymax)
+        err = float(torch.max(torch.abs(got.float() - want.float())))
+        ulps = bf16_ulps(torch, got, want, atol=tol) if xi.dtype == bf16 \
+            else None
+        if (ulps is not None and ulps > 1.0) or (ulps is None
+                                                 and not err <= tol):
+          raise AssertionError(
+              f'weight-only packed {phase} {label} ({xi.dtype}, bias '
+              f'{bi is not None}): err {err}, tolerance {tol}, bf16 ulps '
+              f'beyond it {ulps}')
+        checks.append({'x': str(xi.dtype).split('.')[-1],
+                       'bias': bi is not None, 'max_abs_err': err,
+                       'max_abs_y': ymax, 'tolerance': tol,
+                       'bf16_ulps_beyond': ulps})
+      row = {'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': k,
+             'max_abs_err': max(c['max_abs_err'] for c in checks),
+             'checks': checks}
+      if phase != 'odd_m':
+        wdq = (pq.unpack_int4_split(w).float() * s[:, None]).to(bf16)
+        nbytes = m * k * 2 + n * k // 2 + n * 4 + m * n * 2
+        b_ms, b_by = bound(nbytes, 2 * m * n * k, BF16_OPS_PER_S)
+        row.update(
+            ms=timer(lambda: pq.qmatmul_int4_packed(x, w, s)),
+            plain_ms=timer(lambda: pq.qmatmul_int4_packed_plain(x, w, s),
+                           reps=25 if phase == 'decode' else 5),
+            library_ms=timer(lambda: torch.matmul(x, wdq.T)),
+            bound_ms=b_ms, bound_by=b_by)
+      wo_rows.append(row)
+  log(f'kernel qmatmul_int4_packed ok: {wo_rows}')
+  results.append({
+      'name': 'qmatmul_int4_packed', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'qmatmul_int4_weight_only.cuh',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:199',
+      'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed',
+      'wrapper': pq.qmatmul_int4_packed, 'per_step': 0,
+      'per_tick_default_mode': 2 * L,
+      'max_abs_err': max(r['max_abs_err'] for r in wo_rows),
+      **{key: mean(wo_rows, key, 'decode') for key in timing},
+      'bound_by': next(r['bound_by'] for r in wo_rows
+                       if r['phase'] == 'decode'),
+      'library': 'torch.matmul on the weight dequantized to bf16',
+      'prefill': {key: mean(wo_rows, key, 'prefill') for key in timing},
+      'by_shape': wo_rows})
+
+  # 2. Additive-mask decode attention (#17).
+  k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  att_rows = []
+  for b in (B, BENCH_B):
+    q = randn(b, NK, G, H)
+    kc, vc = randint(-127, 128, b, NK, S, H), randint(-127, 128, b, NK, S, H)
+    lengths = torch.randint(1, S + 1, (b,), generator=gen, device=dev)
+    lengths[0], lengths[-1] = 1, S
+    prefix = torch.where(torch.arange(S, device=dev)[None, :]
+                         < lengths[:, None], 0.0, -1e9).reshape(b, 1, 1, S)
+    holes = torch.where(torch.rand((b, 1, G, S), generator=gen, device=dev)
+                        < 0.4, -1e9, 0.0)
+    holes[0, 0, 1] = -1e9  # one query row hidden everywhere: uniform
+    masks = {'prefix_row': prefix,
+             'prefix_g': prefix.expand(b, 1, G, S).contiguous(),
+             'nonprefix': holes}
+    kd = ((kc.float() - zp_k) * k_scale).to(bf16)
+    vd = ((vc.float() - zp_v) * v_scale).to(bf16)
+    for mname, mask in masks.items():
+      args = (q, kc, vc, k_scale, v_scale, mask)
+      kw = dict(k_zero_point=zp_k, v_zero_point=zp_v)
+      got = att.decode_attention_int8_masked(*args, **kw)
+      want = att.decode_attention_int8_masked_plain(*args, **kw)
+      sync()
+      err = float(torch.max(torch.abs(got - want)))
+      ymax = float(torch.max(torch.abs(want)))
+      if not err <= 1e-5 * max(ymax, 1.0):
+        raise AssertionError(f'masked attention B {b} {mname}: err {err}, '
+                             f'max |y| {ymax}')
+      row = {'phase': 'decode' if b == B else 'bench', 'B': b, 'mask': mname,
+             'mask_shape': list(mask.shape), 'max_abs_err': err,
+             'max_abs_y': ymax}
+      if mname != 'prefix_g':
+        nbytes = (q.numel() * 2 + kc.numel() + vc.numel()
+                  + mask.numel() * 4 + got.numel() * 4)
+        b_ms, b_by = bound(nbytes, 4 * b * NK * G * S * H, F32_OPS_PER_S)
+        mask_bf16 = mask.to(bf16)
+        row.update(
+            ms=timer(lambda: att.decode_attention_int8_masked(*args, **kw)),
+            plain_ms=timer(
+                lambda: att.decode_attention_int8_masked_plain(*args, **kw)),
+            library_ms=timer(lambda: sdpa(q, kd, vd, attn_mask=mask_bf16)),
+            bound_ms=b_ms, bound_by=b_by)
+      att_rows.append(row)
+  log(f'kernel decode_attention_int8_masked ok: {att_rows}')
+
+  def att_at(b, mname):
+    r = next(r for r in att_rows if r['B'] == b and r['mask'] == mname)
+    return {key: r[key] for key in timing}
+
+  results.append({
+      'name': 'decode_attention_int8_masked', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_masked.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:1085',
+      'jax': 'pallas_attention.decode_attention_int8_masked (f32 compute)',
+      'wrapper': att.decode_attention_int8_masked, 'per_step': 0,
+      'per_tick_default_mode': L,
+      'max_abs_err': max(r['max_abs_err'] for r in att_rows),
+      **att_at(B, 'prefix_row'),
+      'bound_by': next(r['bound_by'] for r in att_rows if 'bound_by' in r),
+      'library': 'scaled_dot_product_attention with the mask over the pools '
+                 'dequantized to bf16',
+      'bench': att_at(BENCH_B, 'prefix_row'),
+      'nonprefix': att_at(B, 'nonprefix'), 'by_shape': att_rows})
+
+  # 3. The MLP's weight-only branch (#3, drq=False), bf 512.
+  bf = 512
+  wgu = pq.pack_int4_split(randint(-8, 8, 2 * F, D))
+  sgu = scales(2 * F)
+  wd = mlp.pack_int4_split_grouped(randint(-8, 8, D, F), bf)
+  sd = scales(D)
+  mlp_rows = {}
+  for phase, m in (('decode', B), ('prefill', PREFILL_ROWS)):
+    x = randn(m, 1, D)
+    margs = (x, wgu, sgu, wd, sd)
+    checks = {}
+    for key, xi in (('bf16_x', x), ('f32_x', torch.randn(
+        (m, 1, D), generator=gen, device=dev))):
+      got = mlp.mlp_int4_packed_bf16(xi, *margs[1:], bf=bf)
+      want = mlp.mlp_int4_packed_plain(xi, *margs[1:], drq=False, bf=bf)
+      sync()
+      err = float(torch.max(torch.abs(got.float() - want.float())))
+      ymax = float(torch.max(torch.abs(want.float())))
+      if key == 'bf16_x':
+        ulps = bf16_ulps(torch, got, want, atol=1e-3 * ymax)
+        bad = ulps > 1.0
+      else:
+        ulps, bad = None, not err <= 1e-5 * ymax
+      if bad:
+        raise AssertionError(f'mlp bf16 branch {phase} {key}: err {err}, '
+                             f'max |y| {ymax}, bf16 ulps beyond 1e-3 of it '
+                             f'{ulps}')
+      checks[key] = {'max_abs_err': err, 'max_abs_y': ymax,
+                     'bf16_ulps_beyond': ulps}
+      del got, want
+    nbytes = (m * D * 2 + 2 * F * D // 2 + 2 * F * 4 + D * F // 2 + D * 4
+              + m * D * 2)
+    b_ms, b_by = bound(nbytes, 3 * 2 * m * F * D, BF16_OPS_PER_S)
+    mlp_rows[phase] = {
+        'M': m, 'max_abs_err': max(c['max_abs_err'] for c in checks.values()),
+        'checks': checks,
+        'ms': timer(lambda: mlp.mlp_int4_packed_bf16(*margs, bf=bf)),
+        'plain_ms': timer(
+            lambda: mlp.mlp_int4_packed_plain(*margs, drq=False, bf=bf),
+            reps=25 if phase == 'decode' else 5),
+        'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+  log(f'kernel mlp_int4_packed_bf16 ok: {mlp_rows}')
+  dec = mlp_rows['decode']
+  results.append({
+      'name': 'mlp_int4_packed_bf16', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/mlp_int4_bf16.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_mlp.py:268',
+      'jax': 'pallas_mlp.mlp_pallas_int4_packed (drq=False)',
+      'wrapper': mlp.mlp_int4_packed_bf16, 'per_step': 0,
+      'per_tick_default_mode': L, 'max_abs_err': dec['max_abs_err'],
+      **{key: dec[key] for key in timing}, 'bound_by': dec['bound_by'],
+      'prefill': mlp_rows['prefill']})
+
+  # 4. The head's weight-only branch (#4, drq=False), N = V.
+  head_rows = []
+  for packed in (True, False):
+    w_q = randint(-8, 8, V, D) if packed else randint(-127, 128, V, D)
+    w = pq.pack_int4_split(w_q) if packed else w_q
+    del w_q
+    top = 0x77 if packed else 127  # every value of a row 7 or 127
+    for m in (B, BENCH_B):
+      for planted in (True, False):
+        x = randn(m, 1, D)
+        s = scales(V)
+        if planted:
+          # Rows 100 and V - 100 equal, every value the largest code, and
+          # scaled to win: with positive x they win every row, tied.
+          x = torch.abs(x) + 0.1
+          w[100] = w[V - 100] = top
+          s[100] = s[V - 100] = 1.0
+        hkw = dict(packed=packed, true_n=V - 64)
+        got = head.head_argmax_bf16(x, w, s, **hkw)
+        want = head.head_argmax_plain(x, w, s, drq=False, **hkw)
+        logits = head.head_logits_plain(x.reshape(m, D), w, s, drq=False,
+                                        **hkw)
+        sync()
+        top2 = torch.topk(logits, 2, dim=-1).values
+        lmax = float(torch.max(torch.abs(top2[:, 0])))
+        tol = iq.int_weights_tolerance(D, 0, lmax)
+        ulp = torch.exp2(torch.floor(torch.log2(torch.abs(top2[:, 0]))) - 7)
+        margin = top2[:, 0] - top2[:, 1]
+        differ = (got.reshape(-1) != want.reshape(-1))
+        unclear = differ & (margin > tol + ulp)
+        if int(torch.sum(unclear)) or (planted and not bool(
+            torch.all(got == 100))):
+          raise AssertionError(
+              f'head bf16 branch packed {packed} M {m} planted {planted}: '
+              f'{int(torch.sum(differ))} ids differ, {int(torch.sum(unclear))}'
+              f' with a clear margin; ids {got.reshape(-1)[:8].tolist()}')
+        # The plain logit the kernel's id gave up: 0 where the ids agree.
+        rows_d = torch.nonzero(differ).flatten()
+        gap = float(torch.max(
+            logits[rows_d, want.reshape(-1)[rows_d].long()]
+            - logits[rows_d, got.reshape(-1)[rows_d].long()])) if len(
+                rows_d) else 0.0
+        row = {'packed': packed, 'M': m, 'planted': planted,
+               'ids_differ': int(torch.sum(differ)), 'winner_logit_gap': gap,
+               'smallest_margin': float(torch.min(margin)),
+               'logit_tolerance': tol}
+        if planted:
+          kb = D // 2 if packed else D
+          nbytes = m * D * 2 + V * kb + V * 4 + m * 4
+          b_ms, b_by = bound(nbytes, 2 * m * V * D, BF16_OPS_PER_S)
+          row.update(
+              ms=timer(lambda: head.head_argmax_bf16(x, w, s, **hkw)),
+              plain_ms=timer(lambda: head.head_argmax_plain(
+                  x, w, s, drq=False, **hkw), reps=5, warmup=1),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        head_rows.append(row)
+        del logits, top2
+    del w
+    torch.cuda.empty_cache()
+  log(f'kernel head_argmax_bf16 ok: {head_rows}')
+
+  def head_at(packed, m):
+    r = next(r for r in head_rows if r['packed'] == packed and r['M'] == m
+             and r['planted'])
+    return {key: r[key] for key in timing}
+
+  results.append({
+      'name': 'head_argmax_bf16', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/head_argmax.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_head.py:169',
+      'jax': 'pallas_head.head_argmax_pallas (packed int4 and int8, '
+             'drq=False)',
+      'wrapper': head.head_argmax_bf16, 'per_step': 0,
+      'per_tick_default_mode': 1,
+      'max_abs_err': max(r['winner_logit_gap'] for r in head_rows),
+      **head_at(True, B), 'bound_by': head_rows[0]['bound_by'],
+      'int8': head_at(False, B), 'bench': head_at(True, BENCH_B),
+      'by_shape': head_rows})
+  return results
 
 def refused_shapes(torch, att, dev):
   """Shapes that the JAX executor's gate sends to its Pallas kernels but
@@ -1112,7 +1437,13 @@ def refused_shapes(torch, att, dev):
            i8(1, 1, 8192, 128, dtype=torch.uint8),
            i8(1, 1, 8192, 128, dtype=torch.uint8),
            i8(1, 1, 48, 8192, dtype=torch.bfloat16),
-           torch.ones(1, dtype=torch.int32, device=dev))))
+           torch.ones(1, dtype=torch.int32, device=dev))),
+      ('masked decode attention, G = 8 x S = 8192 scores',
+       att.decode_attention_int8_masked,
+       lambda: att.decode_attention_int8_masked(
+           torch.zeros((1, 1, 8, 256), device=dev), i8(1, 1, 8192, 256),
+           i8(1, 1, 8192, 256), 1.0, 1.0,
+           torch.zeros((1, 1, 1, 8192), device=dev))))
   for what, wrapper, call in cases:
     before = (wrapper.launches, wrapper.plain_calls)
     try:
@@ -1804,16 +2135,41 @@ def serve_load(torch, server, kernels, cfg, dev, name, want_fn,
   return result
 
 
-QUANT_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32', 'gemma_mixed48_hr')
+# examples/serve_gemma.py's quantization (every FC int4 channelwise, the
+# dynamic-range entry of add_dynamic_config), served in the JAX executor's
+# default mode (executor.JAX_DEFAULT_OPTIONS: weight-only int4 FCs, MLP and
+# head, additive-mask decode attention).
+DEFAULT_MODE = 'serve_gemma_default_mode'
+QUANT_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32', 'gemma_mixed48_hr',
+                 DEFAULT_MODE)
 # Depths cut to keep the script's time down (the model's widths never
-# are): quantizer_phase serves _b32 at 4 layers (its weight-only kernel is
-# checked at full size by int_weight_kernels), every other recipe at the
-# model's depth; quantizer_cpu_phase holds each recipe's graph op by op at
-# QUANT_CPU_LAYERS layers. gemma_mixed48_hr's quantization (a 512-wide
-# rotation and OCTAV in numpy over every 4-bit weight) takes most of both.
-QUANT_LAYERS = {'gemma_mixed48_b32': 4}
-QUANT_CPU_LAYERS = {'gemma_mixed48': 2, 'gemma_mixed48_b32': 2,
-                    'gemma_mixed48_hr': 4}
+# are): quantizer_phase serves _b32 and _hr at 4 layers (their weight-only
+# and K-blocked kernels are checked at full size by int_weight_kernels and
+# kblock_kernel), gemma_mixed48 and DEFAULT_MODE at the model's depth;
+# quantizer_cpu_phase holds each recipe's graph op by op at
+# QUANT_CPU_LAYERS layers, all four on one 2-layer float graph.
+# gemma_mixed48_hr's quantization (a 512-wide rotation and OCTAV in numpy
+# over every 4-bit weight, the tied head's first) takes most of both.
+QUANT_LAYERS = {'gemma_mixed48_b32': 4, 'gemma_mixed48_hr': 4}
+QUANT_CPU_LAYERS = dict.fromkeys(QUANT_RECIPES, 2)
+
+
+def quantize(port, graph, recipe):
+  """The Quantizer's result for `recipe` (a named recipe, or DEFAULT_MODE:
+  serve_gemma's `add_dynamic_config('.*', 'FULLY_CONNECTED', 4)`)."""
+  if recipe == DEFAULT_MODE:
+    qt = port['Quantizer'](graph)
+    qt.add_dynamic_config('.*', 'FULLY_CONNECTED', 4)
+    return qt.quantize()
+  return port['Quantizer'](graph, recipe).quantize()
+
+
+def server_options(port, recipe):
+  """DecodeServer keyword arguments of `recipe`'s server: the JAX
+  executor's defaults for DEFAULT_MODE, the port's (bench.py's) else."""
+  if recipe == DEFAULT_MODE:
+    return {'executor_options': port['executor'].JAX_DEFAULT_OPTIONS}
+  return {}
 
 
 def quantized_launches(recipe, layers):
@@ -1826,9 +2182,18 @@ def quantized_launches(recipe, layers):
   op; _hr: a Hadamard rotation before each int4 FC, so the MLP does not
   fuse: the gate/up FC (K = D) through the int4 DRQ kernel, the down FC
   (K = F > 8192) through the K-blocked one, and the head, rotated x -> FC
-  -> ARG_MAX, fused."""
+  -> ARG_MAX, fused. DEFAULT_MODE: every FC int4 packed, weight-only:
+  the QKV and out-projection FCs through the weight-only packed kernel, the
+  MLP and the head fused in their weight-only branches, the additive-mask
+  attention at each tick; nothing of the DRQ kernels."""
   def want(ticks, passes):
     calls = ticks + passes
+    if recipe == DEFAULT_MODE:
+      return {'qmatmul_int4_packed': 2 * layers * calls,
+              'mlp_int4_packed_bf16': layers * calls,
+              'head_argmax_bf16': calls,
+              'decode_attention_int8_masked': layers * ticks,
+              'flash_attention_int8_masked': layers * passes}
     counts = {'qmatmul_int8_drq': 2 * layers * calls,
               'decode_attention_int8_lengths': layers * ticks,
               'flash_attention_int8_masked': layers * passes}
@@ -1921,7 +2286,7 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       report = progress.ProgressReport()
       report.start(graph)
       t0 = time.monotonic()
-      result = port['Quantizer'](graph, recipe).quantize()
+      result = quantize(port, graph, recipe)
       quantize_s = time.monotonic() - t0
       stats = report.finish(result.quantized_model)
       path = os.path.join(tmp, f'{recipe}.aeqg')
@@ -1946,7 +2311,8 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       gc.collect()
       t0 = time.monotonic()
       server = batching.DecodeServer(loaded, cfg_r, slots, pack_weights=True,
-                                     activation_dtype='bfloat16', device=dev)
+                                     activation_dtype='bfloat16', device=dev,
+                                     **server_options(port, recipe))
       sync()
       ex = server._executor
       units = {'attention': len(ex._attn_fusions),
@@ -1980,8 +2346,8 @@ def quantizer_cpu_phase(torch, port, cfg, dev):
   (8 requests of 128 tokens) and decode tick, as server_cpu_phase holds
   the server. The int8 DRQ FCs and the K-blocked packed FCs
   (gemma_mixed48_hr's down projections) must equal the CPU's bit for bit,
-  the blockwise FCs agree to int_qmatmul.int_weights_tolerance, int8 codes
-  within one step."""
+  the blockwise FCs and DEFAULT_MODE's weight-only packed FCs agree to
+  int_qmatmul.int_weights_tolerance, int8 codes within one step."""
   t0 = time.monotonic()
   graphs, out = {}, {}
   for recipe in sorted(QUANT_RECIPES, key=QUANT_CPU_LAYERS.get):
@@ -1992,17 +2358,20 @@ def quantizer_cpu_phase(torch, port, cfg, dev):
       gc.collect()
       graphs[layers] = serving_graph(port['gemma'], cfg_l, B,
                                      materialize=True)
-    quantized = port['Quantizer'](graphs[layers],
-                                  recipe).quantize().quantized_model
+    quantized = quantize(port, graphs[layers], recipe).quantized_model
     log(f'quantizer card-vs-cpu {recipe}: {layers}-layer graph quantized, '
         f'{time.monotonic() - t0:.1f}s')
     out[recipe] = server_cpu_phase(torch, port, cfg_l, dev, graph=quantized,
-                                   label=f'quantized {recipe} card-vs-cpu')
+                                   label=f'quantized {recipe} card-vs-cpu',
+                                   **server_options(port, recipe))
     kinds = {k.split('/')[1] for k in out[recipe]['worst_rel_err_by_opcode']}
-    need = {'FC int8 DRQ'} | ({'FC blockwise'} if recipe.endswith('_b32')
-                              else set()) | (
-                                  {'FC int4 DRQ K-blocked'}
-                                  if recipe.endswith('_hr') else set())
+    if recipe == DEFAULT_MODE:
+      need = {'FC int4 weight-only', 'MLP'}
+    else:
+      need = {'FC int8 DRQ'} | ({'FC blockwise'} if recipe.endswith('_b32')
+                                else set()) | (
+                                    {'FC int4 DRQ K-blocked'}
+                                    if recipe.endswith('_hr') else set())
     if not need <= kinds:
       raise AssertionError(f'{recipe}: no {need - kinds} op held')
     del quantized
@@ -2030,7 +2399,9 @@ class OpByOp:
   quantized graph's) is held by its kernel's rule: a DRQ one ('FC int8
   DRQ') bit for bit, a blockwise one ('FC blockwise') to
   int_qmatmul.int_weights_tolerance of its largest magnitude; so is a
-  packed one on the K-blocked route ('FC int4 DRQ K-blocked'): bit for bit.
+  packed one on the K-blocked route ('FC int4 DRQ K-blocked'): bit for bit;
+  and a packed one on the weight-only route of the JAX executor's default
+  mode ('FC int4 weight-only'): to int_weights_tolerance.
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None,
@@ -2058,7 +2429,8 @@ class OpByOp:
   def _fc_rule(self, sg, op):
     """'FC int8 DRQ' or ('FC blockwise', rel tol) for an unpacked integer
     FC, 'FC int4 DRQ K-blocked' for a packed one on the K-blocked kernel's
-    route, else None."""
+    route, ('FC int4 weight-only', rel tol) for a packed channelwise one
+    with DRQ off, else None."""
     if op.opcode != 'FULLY_CONNECTED' or len(op.inputs) < 2:
       return None
     w = sg.tensors[op.inputs[1]]
@@ -2069,9 +2441,12 @@ class OpByOp:
       return None
     key = (sg_idx, op.inputs[1])
     if key in self.ex._packed_int4_keys:
-      kblocked = (self.ex.int4_drq and w.shape[-1] > 8192
-                  and key not in self.ex._packed_block_size)
-      return 'FC int4 DRQ K-blocked' if kblocked else None
+      if key in self.ex._packed_block_size:
+        return None
+      if not self.ex.int4_drq:
+        return ('FC int4 weight-only', self.int_qmatmul.int_weights_tolerance(
+            w.shape[-1], 0, 1.0))
+      return 'FC int4 DRQ K-blocked' if w.shape[-1] > 8192 else None
     if q.block_size:
       k = w.shape[-1]
       return ('FC blockwise',
@@ -2113,8 +2488,8 @@ class OpByOp:
                                  f'differs from the CPU (rel err {rel})')
         elif fc_rule is not None:
           if rel > fc_rule[1]:
-            raise AssertionError(f'{sg.tensors[tid].name}: blockwise rel err '
-                                 f'{rel} > {fc_rule[1]}')
+            raise AssertionError(f'{sg.tensors[tid].name}: {fc_rule[0]} rel '
+                                 f'err {rel} > {fc_rule[1]}')
         elif int4g:
           rel, share = int4g_ctx_diff(torch, got, want)
           self.fine_share = max(self.fine_share, share)
@@ -2153,9 +2528,11 @@ def top2_margins(torch, head, watch, call, tid):
     return (top2[:, 0] - top2[:, 1]) / torch.clamp_min(
         torch.abs(top2[:, 0]), 1e-30)
   x = watch.seen[call][fusion['x']]
+  w = ex._weights[(sg_idx, fusion['w_tid'])]
+  scale, drq = ex.head_mode(sg_idx, fusion, w)
   logits = head.head_logits_plain(
-      x.reshape(-1, x.shape[-1]), ex._weights[(sg_idx, fusion['w_tid'])],
-      fusion['scale'], packed=fusion['packed'], true_n=fusion['true_n'])
+      x.reshape(-1, x.shape[-1]), w, scale, packed=fusion['packed'],
+      true_n=fusion['true_n'], drq=drq)
   top2 = torch.topk(logits, 2, dim=-1).values
   return (top2[:, 0] - top2[:, 1]) / torch.clamp_min(torch.abs(top2[:, 0]),
                                                      1e-30)
@@ -2175,7 +2552,7 @@ def judge_ids(torch, head, cpu_watch, card_watch, label):
 
 
 def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0, graph=None,
-                     label=None):
+                     label=None, executor_options=None):
   """The server's first prefill pass and first decode tick, the card
   against the port on the CPU, op by op (as cpu_phase holds the decode
   step): GEMMA_2B widths at 2 layers, f32 activations, 8 requests of 128
@@ -2191,7 +2568,8 @@ def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0, graph=None,
   read on an H100 80GB HBM3). The decode tick's MLP keeps 1e-5.
 
   graph: a graph the Quantizer made (at cfg's depth) instead, whose
-  weights are its own buffers (quantizer_cpu_phase)."""
+  weights are its own buffers (quantizer_cpu_phase). executor_options: the
+  servers' (DecodeServer's argument)."""
   gemma, batching, head = port['gemma'], port['batching'], port['head']
   if graph is None:
     cfg2 = dataclasses.replace(cfg, num_layers=2)
@@ -2210,7 +2588,8 @@ def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0, graph=None,
   for device in ('cpu', dev):
     server = batching.DecodeServer(graph, cfg2, B, weights=weights,
                                    pack_weights=True,
-                                   activation_dtype='float32', device=device)
+                                   activation_dtype='float32', device=device,
+                                   executor_options=executor_options)
     watch = OpByOp(torch, server._executor,
                    want=watches[0].seen if watches else None,
                    mlp_rtol={'prefill': 1e-3},
@@ -2487,8 +2866,11 @@ def main():
     r = quant[recipe]
     log(f'quantized {recipe} server ({r["layers"]} layers) on {smi}: '
         f'{r["tokens_per_s"]:.1f} tokens/s, TTFT p50 {r["ttft_p50_ms"]:.1f} '
-        f'ms p99 {r["ttft_p99_ms"]:.1f} ms; quantize {r["quantize_s"]:.1f}s, '
-        f'.aeqg {r["aeqg_bytes"]} bytes')
+        f'ms p99 {r["ttft_p99_ms"]:.1f} ms; prefill pass '
+        f'{r["prefill_pass_ms"]:.3f} ms, chunk of {SERVE_CHUNK} ticks '
+        f'{r["chunk_ms"]:.3f} ms (idle {r["chunk_idle_share"]:.3f}); quantize '
+        f'{r["quantize_s"]:.1f}s, export {r["export_s"]:.1f}s, load '
+        f'{r["load_s"]:.1f}s, .aeqg {r["aeqg_bytes"]} bytes')
   log(f'phase quantizer done at {time.monotonic() - t_start:.1f}s')
   if not args.skip_cpu:
     def done(label):
@@ -2537,7 +2919,8 @@ def main():
                          or by_path['bench_decode_int4g']
                          or by_path['server_gemma_mixed48']
                          or by_path['server_gemma_mixed48_b32']
-                         or by_path['server_gemma_mixed48_hr'])
+                         or by_path['server_gemma_mixed48_hr']
+                         or by_path[f'server_{DEFAULT_MODE}'])
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)

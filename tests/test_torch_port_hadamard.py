@@ -4,9 +4,8 @@ on the CPU.
 Kernels: inputs made with numpy from a seed go through the Pallas kernels in
 interpret mode and through the port's wrappers on CPU tensors, which run the
 plain versions: the K-blocked int4 DRQ matmul (pallas_qmatmul.py:882) bit
-for bit; the weight-only (:199) and blockwise (:461) packed matmuls, whose
-CUDA kernels are still to be written, within `int_weights_tolerance` (f32
-sums in another order).
+for bit; the weight-only (:199) and blockwise (:461) packed matmuls
+within `int_weights_tolerance` (f32 sums in another order).
 
 Executor: one packed int4 FC of each kind (blockwise, DRQ with K > 8192,
 weight-only) run by both executors on the CPU, where the port used to raise.

@@ -180,7 +180,7 @@ def test_attention_route_is_the_jax_gate(h, s, rows, attn_lengths, want):
     (64, 128, 'prefill', True, None),        # H = 64: the plain twin
     (128, 64, 'prefill', True, None),        # S = 64: the plain twin
     (128, 128, 'decode', True, 'lengths'),   # decode rows, lengths mode
-    (128, 128, 'decode', False, None),       # masked mode: the twin on CPU
+    (128, 128, 'decode', False, None),       # masked mode: neither kernel
     (256, 8192, 'decode', True, 'lengths'),  # refused by the CUDA kernel
 ])
 def test_executor_dispatch_follows_the_kernel_gates(head_dim, seq, sig,
