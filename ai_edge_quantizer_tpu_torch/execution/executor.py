@@ -4,13 +4,13 @@ Port of `ai_edge_quantizer_tpu/execution/executor.py`, the parts the
 Gemma int4 decode step runs: constant loading, the DEQUANTIZE alias,
 `prepare_serving_weights`, `_run_signature` / `_eval_op` /
 `_dequant_view` / `_store_outputs`, the int8 DYNAMIC_UPDATE_SLICE fast
-path, the packed int4 FCs (DRQ, K-blocked DRQ, weight-only, and the
-blockwise ones, whose wrapper runs its plain version on the CPU and raises
-on CUDA), the unpacked integer FCs (the JAX
+path (with the opt-in in-place row write), the packed int4 FCs (DRQ,
+K-blocked DRQ, weight-only, blockwise), the unpacked integer FCs (the JAX
 dispatchers `drq_matmul` and `qmatmul`, kernels/qmatmul.py, with their
 Pallas gates), and four fusions with their dispatch:
 int8-cache attention (the stale-cache kernel with the cache write outside
-it, the lengths or the additive-mask kernel at decode, the flash kernel at
+it, or the splice kernel with the write inside it; the lengths, the
+live-prefix or the additive-mask kernel at decode; the flash kernel at
 prefill), the GeGLU
 MLP, the greedy head and the decode block (MLP(l-1) + norms + QKV(l) +
 RoPE + attention(l) in one kernel). The int4-group KV cache needs no
@@ -27,10 +27,19 @@ Differences from the JAX executor:
     (AEQT_ATTN_LENGTHS), `attn_writeback` (AEQT_ATTN_WRITEBACK=1 with
     AEQT_ATTN_WRITEBACK_MODE; None turns it off), `mlp_fusion` and `mlp_bf`
     (AEQT_MLP_FUSION, AEQT_MLP_BF), `head_fusion` (AEQT_HEAD_FUSION),
-    `decode_block` (AEQT_DECODE_BLOCK). Defaults are the values bench.py
-    sets; `JAX_DEFAULT_OPTIONS` holds the JAX executor's own defaults
-    (every AEQT_* variable unset), the mode examples/serve_gemma.py
-    serves in.
+    `decode_block` (AEQT_DECODE_BLOCK), `attn_dynlen` (AEQT_ATTN_DYNLEN),
+    `cache_write_inplace` (AEQT_CACHE_WRITE_PALLAS). Defaults are the
+    values bench.py sets (the last two off, as bench.py leaves them);
+    `JAX_DEFAULT_OPTIONS` holds the JAX executor's own defaults (every
+    AEQT_* variable unset), the mode examples/serve_gemma.py serves in.
+  * Donation. The JAX executor donates the cache pools to the kernels that
+    alias them (bench.py and DecodeServer donate their pools). Here the
+    splice attention (`attn_writeback='splice'`) and the in-place row
+    write (`cache_write_inplace`) write the new rows into the step's input
+    pool tensors, and the signature's output pools are those same tensors:
+    a caller that needs the inputs unchanged passes copies. With both off
+    no input is written (the decode block writes into copies of the pools
+    and every other cache write is functional).
   * PyTorch runs eagerly: there is no jit, and a step makes no host sync
     (scales that are IR constants stay Python floats).
   * Where the JAX executor asks "is the backend a TPU" before a Pallas
@@ -39,9 +48,10 @@ Differences from the JAX executor:
     tensor, so the CPU tests run the same dispatch as the card. The
     Mosaic tiling gates (head dim and cache length multiples of 128) are
     replaced by what each CUDA kernel takes.
-  * On CUDA, an op whose JAX path would reach a Pallas kernel that is not
-    ported yet raises NotImplementedError naming that kernel; it never
-    runs as plain torch on the card.
+  * The JAX executor's options whose kernels are not ported yet (the norm
+    fusion, the QKV prologue and the attention epilogue, the attention's
+    bf16 and int8 compute modes) have no keyword here; no plain version
+    runs on the card in their place.
 """
 
 from __future__ import annotations
@@ -53,9 +63,9 @@ import torch
 
 from ai_edge_quantizer_tpu_torch.execution import quant_arith
 from ai_edge_quantizer_tpu_torch.graph import ir
-from ai_edge_quantizer_tpu_torch.kernels import _build
 from ai_edge_quantizer_tpu_torch.kernels import attention
 from ai_edge_quantizer_tpu_torch.kernels import block as block_lib
+from ai_edge_quantizer_tpu_torch.kernels import cache as cache_lib
 from ai_edge_quantizer_tpu_torch.kernels import head as head_lib
 from ai_edge_quantizer_tpu_torch.kernels import mlp as mlp_lib
 from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul
@@ -95,16 +105,20 @@ JAX_DEFAULT_OPTIONS = dict(
 )
 
 
-def attention_route(h: int, s: int, rows: int, attn_lengths: bool) -> str:
+def attention_route(h: int, s: int, rows: int, attn_lengths: bool,
+                    attn_dynlen: bool = False) -> str:
   """Which attention an unfolded int8-cache chain runs, on either device:
-  'flash', 'lengths', 'masked' or 'twin' (the JAX executor's dispatch,
-  executor.py `_eval_fused_attention`: Pallas only for H and S multiples
-  of 128, prefill-shaped from 32 grouped query rows)."""
+  'flash', 'lengths', 'dynlen', 'masked' or 'twin' (the JAX executor's
+  dispatch, executor.py `_eval_fused_attention`: Pallas only for H and S
+  multiples of 128, prefill-shaped from 32 grouped query rows; at decode
+  AEQT_ATTN_LENGTHS first, then AEQT_ATTN_DYNLEN, :2056-2083)."""
   if h % 128 or s % 128:
     return 'twin'
   if rows >= 32:
     return 'flash'
-  return 'lengths' if attn_lengths else 'masked'
+  if attn_lengths:
+    return 'lengths'
+  return 'dynlen' if attn_dynlen else 'masked'
 
 
 def _to_device(value, device) -> torch.Tensor:
@@ -132,12 +146,18 @@ class GraphExecutor:
                mlp_fusion: bool = True,
                mlp_bf: int = 2048,
                head_fusion: bool = True,
-               decode_block: bool = True):
+               decode_block: bool = True,
+               attn_dynlen: bool = False,
+               cache_write_inplace: bool = False):
     """activation_dtype: 'bfloat16' (serving mode, the bench's setting) or
     'float32' (bit-faithful to the offline pipeline). attn_writeback:
     'stale', 'splice' or None. decode_block: fuse each matched
     MLP(l-1)+QKV(l)+attention(l) unit into one kernel (needs
-    attn_writeback)."""
+    attn_writeback). attn_dynlen: decode attention reads only the live
+    prefix (with attn_lengths off). cache_write_inplace: an int8 cache
+    row write whose input nothing else reads goes into that input's
+    storage. The splice attention and cache_write_inplace write into the
+    step's input pools (see Donation above)."""
     self.device = torch.device(device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(
@@ -154,6 +174,8 @@ class GraphExecutor:
     self.mlp_bf = mlp_bf
     self.head_fusion = head_fusion
     self.decode_block = decode_block
+    self.attn_dynlen = attn_dynlen
+    self.cache_write_inplace = cache_write_inplace
     self._act_dtype = quant_arith.STORAGE_TORCH_DTYPES[activation_dtype]
     # Constant tensors, keyed (subgraph_idx, tensor_id), in storage dtype;
     # the tensors that alias one buffer (the signatures of a multi-
@@ -998,8 +1020,22 @@ class GraphExecutor:
     ):
       # int8 cache update: splice integers directly, no dequant/requant.
       operand = env[op.inputs[0]]
+      update = env[op.inputs[1]]
+      if (
+          self.cache_write_inplace
+          and update.dim() == operand.dim()
+          and cache_lib.supports(tuple(operand.shape), tuple(update.shape),
+                                 operand.dtype)
+          and self._sole_consumer(sg, op.inputs[0], op)
+      ):
+        # AEQT_CACHE_WRITE_PALLAS: the row goes into the operand's own
+        # storage; nothing else reads the pre-update value, so the input
+        # pool is donated and becomes the output.
+        env[op.outputs[0]] = cache_lib.dus_row_inplace(
+            operand, update, env[op.inputs[2]])
+        return
       env[op.outputs[0]] = ops_impl.dynamic_update_slice(
-          operand, env[op.inputs[1]], env[op.inputs[2]])
+          operand, update, env[op.inputs[2]])
       return
 
     impl_fn = ops_impl.OPS.get(opcode)
@@ -1099,13 +1135,16 @@ class GraphExecutor:
     both devices:
       * decode-shaped (< 32 grouped query rows) with the cache write
         folded in and `attn_lengths`: the stale kernel (`attn_writeback`
-        'stale'); 'splice' raises on CUDA (its kernel is not ported);
+        'stale'), or with 'splice' and S % 32 == 0 the splice kernel,
+        which writes the new rows into the input pools and returns them;
       * head dim H or cache length S not a multiple of 128 (the JAX
         executor's Mosaic gate): the plain twin, as the JAX executor runs
         its XLA twin there;
       * otherwise prefill-shaped (>= 32 rows): `flash_attention_int8_masked`;
       * otherwise decode-shaped with `attn_lengths`:
         `decode_attention_int8_lengths`;
+      * otherwise decode-shaped with `attn_dynlen`:
+        `decode_attention_int8_dynlen`;
       * otherwise (decode-shaped without `attn_lengths`, the JAX
         executor's default): `decode_attention_int8_masked`.
     A shape that passes the gate but that a CUDA kernel does not take
@@ -1120,7 +1159,6 @@ class GraphExecutor:
     v_scale = float(np.asarray(v_info.scale).reshape(()))
     zp_k = float(np.asarray(k_info.zero_point).reshape(()))
     zp_v = float(np.asarray(v_info.zero_point).reshape(()))
-    on_cuda = self.device.type == 'cuda'
     decode_shaped = q_val.shape[2] < 32
     wb = fusion.get('writeback')
     if wb is not None:
@@ -1142,16 +1180,33 @@ class GraphExecutor:
                        outputs=[fusion['out']])
         self._store_outputs(sg, out_op, (ctx,), env)
         return
-      if on_cuda and wb_common and self.attn_writeback == 'splice':
-        raise _build.unported(
-            'pallas_attention.decode_attention_int8_lengths_writeback')
+      s_wb = env[wb['k']['operand']].shape[2]
+      if (wb_common and self.attn_writeback == 'splice'
+          and s_wb % attention.WRITEBACK_TILE == 0):
+        # Splice mode: the kernel attends over the caches with row pos
+        # replaced by the new rows and writes them in (the JAX executor's
+        # donated, aliased caches): the step's input pools are its outputs.
+        ctx, k_out, v_out = attention.decode_attention_int8_lengths_writeback(
+            q_val.contiguous(), env[wb['k']['operand']],
+            env[wb['v']['operand']], k_scale, v_scale,
+            _prefix_lengths(mask),
+            env[wb['k']['update']].to(torch.int8).contiguous(),
+            env[wb['v']['update']].to(torch.int8).contiguous(),
+            env[wb['k']['starts']][2], k_zero_point=zp_k, v_zero_point=zp_v,
+            compute='f32', out_dtype=self._act_dtype)
+        env[wb['k']['out']] = k_out
+        env[wb['v']['out']] = v_out
+        out_op = ir.Op(opcode='BATCH_MATMUL', inputs=[],
+                       outputs=[fusion['out']])
+        self._store_outputs(sg, out_op, (ctx,), env)
+        return
       # Fallback: materialize the skipped cache DUS, then proceed unfused.
       self._write_caches(wb, env)
     k_q = env[fusion['k']]
     v_q = env[fusion['v']]
     h_dim = q_val.shape[-1]
     route = attention_route(h_dim, k_q.shape[2], q_val.shape[2],
-                            self.attn_lengths)
+                            self.attn_lengths, self.attn_dynlen)
     if route == 'flash':
       # Prefill-shaped (R = G * T rows): S-blocked online softmax, so the
       # [R, S] score matrix never materializes.
@@ -1165,6 +1220,12 @@ class GraphExecutor:
           q_val, k_q, v_q, k_scale, v_scale, _prefix_lengths(mask),
           k_zero_point=zp_k, v_zero_point=zp_v, compute='f32',
           out_dtype=self._act_dtype)
+    elif route == 'dynlen':
+      # Live-prefix reads: lengths from the prefix-form mask, the kernel
+      # stops each row block at its longest row.
+      ctx = attention.decode_attention_int8_dynlen(
+          q_val, k_q, v_q, k_scale, v_scale, _prefix_lengths(mask),
+          k_zero_point=zp_k, v_zero_point=zp_v)
     elif route == 'masked':
       # The additive mask as the graph gives it (no prefix assumed).
       ctx = attention.decode_attention_int8_masked(
@@ -1291,8 +1352,7 @@ class GraphExecutor:
       true_n = self._packed_pad_n.get(key)
       x_f = self._dequant_view(sg, op.inputs[0], env)
       # The JAX executor's route: blockwise, then DRQ with K <= 8192, then
-      # DRQ K-blocked, then weight-only. The blockwise wrapper runs its
-      # plain version on the CPU and raises on CUDA.
+      # DRQ K-blocked, then weight-only.
       if self._packed_block_size.get(key, 0):
         fn = packed_qmatmul.qmatmul_int4_packed_blockwise
       elif self.int4_drq and w_q.shape[1] * 2 <= 8192:

@@ -32,7 +32,9 @@ SOURCES = ('qmatmul_int4_drq', 'attention_stale', 'mlp_int4_drq',
            'head_argmax', 'attention_lengths', 'flash_attention_int8',
            'fused_block', 'attention_int4_group', 'qmatmul_int8_drq',
            'qmatmul_int_weights', 'qmatmul_int4_drq_kblock',
-           'qmatmul_int4_weight_only', 'mlp_int4_bf16', 'attention_masked')
+           'qmatmul_int4_weight_only', 'mlp_int4_bf16', 'attention_masked',
+           'qmatmul_int4_blockwise', 'cache_row_write', 'attention_writeback',
+           'attention_dynlen')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')
@@ -144,15 +146,6 @@ def require_cuda_tensor(t, kernel: str, name: str, dtypes,
   require(t.is_contiguous(), kernel, f'{name} must be contiguous')
   require(t.data_ptr() % align == 0, kernel,
           f'{name} must be {align}-byte aligned')
-
-
-def unported(kernel: str) -> NotImplementedError:
-  """The error for a CUDA tensor that would reach a Pallas kernel whose
-  CUDA kernel is not written yet (it never runs as plain torch on the
-  card)."""
-  return NotImplementedError(
-      f'The Pallas kernel {kernel} is not ported to CUDA yet; this op '
-      'would run it on the card.')
 
 
 def device_kind(t) -> str:

@@ -1,6 +1,6 @@
 """Quantized-cache attention kernels (PyTorch + CUDA).
 
-Ports of five Pallas kernels of
+Ports of seven Pallas kernels of
 `ai_edge_quantizer_tpu/kernels/pallas_attention.py`, each with a plain
 PyTorch version beside its CUDA kernel (`csrc/`):
 
@@ -24,6 +24,15 @@ PyTorch version beside its CUDA kernel (`csrc/`):
     masked by lengths (`csrc/attention_int4_group.cu`). Its row
     quantizers and sidecar builder are plain PyTorch here as they are
     plain jnp in the reference, bit for bit the same.
+
+  * `decode_attention_int8_lengths_writeback`: the lengths attention over
+    the cache with row `pos` replaced by the new token's K/V rows, which
+    it also writes into the caches, in place: the caches it is given are
+    the ones it returns (the TPU kernel aliases them;
+    `csrc/attention_writeback.cu`).
+  * `decode_attention_int8_dynlen`: decode attention that reads only the
+    live prefix, in chunks with an online softmax, f32
+    (`csrc/attention_dynlen.cu`).
 
 The int8 CUDA decode kernels compute in f32 (`compute='f32'`, the
 executor's default). The plain versions of the lengths kernels also cover
@@ -292,6 +301,238 @@ def decode_attention_int8_lengths(
 
 decode_attention_int8_lengths.launches = 0
 decode_attention_int8_lengths.plain_calls = 0
+
+
+# -- lengths attention with the new row written in (splice) -----------------
+
+# The TPU kernel writes back whole 32-row tiles of the int8 caches, so it
+# takes S % 32 == 0 only; the port keeps the rule so that the routes agree.
+WRITEBACK_TILE = 32
+
+
+def _clipped_pos(pos, s: int, device) -> torch.Tensor:
+  """pos as an int64 [1] tensor on `device`, clipped to [0, S - 1] as the
+  TPU wrapper clips it (on the device: no host sync)."""
+  p = torch.as_tensor(pos, device=device).reshape(1).to(torch.int64)
+  return torch.clamp(p, 0, s - 1)
+
+
+def decode_attention_int8_lengths_writeback_plain(
+    q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_new_q, v_new_q,
+    pos, k_zero_point=0.0, v_zero_point=0.0, compute='f32',
+    out_dtype=torch.float32):
+  """The TPU kernel in plain PyTorch (any device): the new rows written
+  into the caches in place at clip(pos, 0, S - 1), then `_ctx_prefix_len`
+  over them. Returns (ctx, k_cache_q, v_cache_q)."""
+  s = k_cache_q.shape[2]
+  if s % WRITEBACK_TILE:
+    raise ValueError(f'cache length {s} must be a multiple of '
+                     f'{WRITEBACK_TILE}.')
+  p = _clipped_pos(pos, s, k_cache_q.device)
+  k_cache_q.index_copy_(2, p, k_new_q.to(k_cache_q.dtype))
+  v_cache_q.index_copy_(2, p, v_new_q.to(v_cache_q.dtype))
+  ctx = decode_attention_int8_lengths_plain(
+      q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_zero_point,
+      v_zero_point, compute, out_dtype)
+  return ctx, k_cache_q, v_cache_q
+
+
+def decode_attention_int8_lengths_writeback(
+    q: torch.Tensor,
+    k_cache_q: torch.Tensor,
+    v_cache_q: torch.Tensor,
+    k_scale: float,
+    v_scale: float,
+    lengths: torch.Tensor,
+    k_new_q: torch.Tensor,
+    v_new_q: torch.Tensor,
+    pos,
+    k_zero_point: float = 0.0,
+    v_zero_point: float = 0.0,
+    compute: str = 'f32',
+    out_dtype=torch.float32,
+):
+  """Lengths attention over the caches with row pos replaced by the new
+  token's rows, which are written into the caches in place.
+
+  q [B, NK, G, H] float; caches int8 [B, NK, S, H] with S % 32 == 0;
+  k/v new int8 [B, NK, 1, H] (quantized at the cache scale); lengths int32
+  [B] counting the new row; pos one int (a Python int or a one-element
+  tensor on q's device; the same row for every batch row), clipped to
+  [0, S - 1]. The caches' own storage is written: the JAX executor donates
+  them to this call, and the caches returned are the tensors given.
+  Returns (ctx [B, NK, G, H] in out_dtype, k_cache_q, v_cache_q).
+  """
+  args = (q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_new_q,
+          v_new_q, pos, k_zero_point, v_zero_point, compute, out_dtype)
+  if _build.device_kind(q) == 'cpu':
+    decode_attention_int8_lengths_writeback.plain_calls += 1
+    return decode_attention_int8_lengths_writeback_plain(*args)
+  name = 'decode_attention_int8_lengths_writeback'
+  if compute != 'f32':
+    raise NotImplementedError(
+        f'{name}: compute={compute!r} has no CUDA kernel yet (f32 only).')
+  b, nk, g, h = q.shape
+  s = k_cache_q.shape[2]
+  r = b * nk
+  _build.require(s % WRITEBACK_TILE == 0, name,
+                 f'cache length {s} must be a multiple of {WRITEBACK_TILE}')
+  _build.require(out_dtype in (torch.float32, torch.bfloat16), name,
+                 f'out_dtype {out_dtype} must be f32 or bf16')
+  q2 = q.to(torch.float32).reshape(r, g, h).contiguous()
+  for t, nm, shape in ((k_cache_q, 'k_cache', (b, nk, s, h)),
+                       (v_cache_q, 'v_cache', (b, nk, s, h)),
+                       (k_new_q, 'k_new', (b, nk, 1, h)),
+                       (v_new_q, 'v_new', (b, nk, 1, h))):
+    _build.require(tuple(t.shape) == shape, name, f'{nm} shape {t.shape}')
+    _build.require_cuda_tensor(t, name, nm, (torch.int8,), 16)
+  lens = lengths.to(torch.int32).contiguous()
+  _build.require_cuda_tensor(lens, name, 'lengths', (torch.int32,))
+  _build.require(lens.numel() == b, name, 'lengths must have B entries')
+  pos_t = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(
+      1).contiguous()
+  out = torch.empty((r, g, h), dtype=out_dtype, device=q.device)
+  fn = _build.entry(
+      'attention_writeback', 'aeqt_attention_writeback',
+      [_build.P] * 8 + [_build.I] * 6 + [_build.F] * 4 + [_build.P])
+  status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
+              k_new_q.data_ptr(), v_new_q.data_ptr(), lens.data_ptr(),
+              pos_t.data_ptr(), out.data_ptr(),
+              int(out_dtype == torch.bfloat16), r, nk, g, s, h,
+              score_scale(k_scale, h), float(v_scale), float(k_zero_point),
+              float(v_zero_point), _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}')
+  decode_attention_int8_lengths_writeback.launches += 1
+  return out.reshape(b, nk, g, h), k_cache_q, v_cache_q
+
+
+decode_attention_int8_lengths_writeback.launches = 0
+decode_attention_int8_lengths_writeback.plain_calls = 0
+
+
+# -- live-prefix decode attention (dynlen) -----------------------------------
+
+
+def dynlen_blocking(n_rows: int, s: int, h: int, chunk: int = 256,
+                    row_block: int = 8) -> tuple:
+  """(c, rb) as the TPU wrapper forms them: c = min(chunk, S) halved until
+  it divides S; rb = min(row_block, rows) halved until it divides the
+  rows, then while its VMEM scratch (4 * rb * c * H bytes) passes 8 MiB.
+  rb sets how many rows share one chunk count, so it is part of the
+  function: a zero-length row's context depends on it."""
+  c = min(chunk, s)
+  while s % c:
+    c //= 2
+  rb = max(1, min(row_block, n_rows))
+  while n_rows % rb:
+    rb //= 2
+  while rb > 1 and 4 * rb * c * h > 8 * 2**20:
+    rb //= 2
+  return c, rb
+
+
+def decode_attention_int8_dynlen_plain(
+    q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_zero_point=0.0,
+    v_zero_point=0.0, chunk=256, row_block=8):
+  """The TPU kernel in plain PyTorch (any device), chunk by chunk in its
+  order: per row block, n_chunks = clip(ceil(longest length / c), 1,
+  S / c); per chunk the scores minus zp_k * sum(q), times k_scale /
+  sqrt(H), -1e30 at or past the row's length, then m, l and acc updated
+  online; last (acc / max(l, 1e-30) - zp_v) * v_scale. A row's state stops
+  changing after its block's n_chunks. Returns [B, NK, G, H] f32."""
+  b, nk, g, h = q.shape
+  s = k_cache_q.shape[2]
+  r = b * nk
+  c, rb = dynlen_blocking(r, s, h, chunk, row_block)
+  q2 = q.to(torch.float32).reshape(r, g, h)
+  k2 = k_cache_q.reshape(r, s, h)
+  v2 = v_cache_q.reshape(r, s, h)
+  lens = torch.repeat_interleave(lengths.to(torch.int32), nk)
+  blk_len = torch.amax(lens.reshape(r // rb, rb), dim=1)
+  n_chunks = torch.clamp(torch.div(blk_len + (c - 1), c,
+                                   rounding_mode='floor'), 1, s // c)
+  n_chunks = torch.repeat_interleave(n_chunks, rb).reshape(r, 1, 1)
+  ks = score_scale(k_scale, h)
+  zp_k, zp_v = float(k_zero_point), float(v_zero_point)
+  v_scale = float(np.float32(v_scale))
+  q_sum = torch.sum(q2, dim=-1, keepdim=True)
+  m = torch.full((r, g, 1), _NEG, device=q.device)
+  l = torch.zeros((r, g, 1), device=q.device)
+  acc = torch.zeros((r, g, h), device=q.device)
+  iota = torch.arange(c, device=q.device, dtype=torch.int32)
+  for ci in range(s // c):
+    kc = k2[:, ci * c:(ci + 1) * c].to(torch.float32)
+    vc = v2[:, ci * c:(ci + 1) * c].to(torch.float32)
+    scores = (_qdot(q2, kc) - zp_k * q_sum) * ks
+    live = (ci * c + iota).reshape(1, 1, c) < lens.reshape(r, 1, 1)
+    scores = torch.where(live, scores, _NEG)
+    m_new = torch.maximum(m, torch.amax(scores, dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new)
+    l_new = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+    acc_new = acc * alpha + torch.matmul(p, vc)
+    on = ci < n_chunks
+    m = torch.where(on, m_new, m)
+    l = torch.where(on, l_new, l)
+    acc = torch.where(on, acc_new, acc)
+  out = (acc / torch.clamp_min(l, 1e-30) - zp_v) * v_scale
+  return out.reshape(b, nk, g, h)
+
+
+def decode_attention_int8_dynlen(
+    q: torch.Tensor,
+    k_cache_q: torch.Tensor,
+    v_cache_q: torch.Tensor,
+    k_scale: float,
+    v_scale: float,
+    lengths: torch.Tensor,
+    k_zero_point: float = 0.0,
+    v_zero_point: float = 0.0,
+    chunk: int = 256,
+    row_block: int = 8,
+) -> torch.Tensor:
+  """Decode attention reading only each row's live prefix, chunk by
+  chunk with an online softmax.
+
+  q [B, NK, G, H] float; caches int8 [B, NK, S, H]; lengths int32 [B];
+  per-tensor scales and zero points as Python floats; chunk and row_block
+  the TPU kernel's (dynlen_blocking). A row of length 0 gets the mean of
+  its block's n_chunks * c V rows, as on the TPU. Returns [B, NK, G, H]
+  f32.
+  """
+  args = (q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_zero_point,
+          v_zero_point, chunk, row_block)
+  if _build.device_kind(q) == 'cpu':
+    decode_attention_int8_dynlen.plain_calls += 1
+    return decode_attention_int8_dynlen_plain(*args)
+  name = 'decode_attention_int8_dynlen'
+  b, nk, g, h = q.shape
+  s = k_cache_q.shape[2]
+  r = b * nk
+  c, rb = dynlen_blocking(r, s, h, chunk, row_block)
+  q2 = q.to(torch.float32).reshape(r, g, h).contiguous()
+  for t, nm in ((k_cache_q, 'k_cache'), (v_cache_q, 'v_cache')):
+    _build.require(tuple(t.shape) == (b, nk, s, h), name,
+                   f'{nm} shape {tuple(t.shape)}')
+    _build.require_cuda_tensor(t, name, nm, (torch.int8,), 16)
+  lens = lengths.to(torch.int32).contiguous()
+  _build.require_cuda_tensor(lens, name, 'lengths', (torch.int32,))
+  _build.require(lens.numel() == b, name, 'lengths must have B entries')
+  out = torch.empty((r, g, h), dtype=torch.float32, device=q.device)
+  fn = _build.entry(
+      'attention_dynlen', 'aeqt_attention_dynlen',
+      [_build.P] * 5 + [_build.I] * 7 + [_build.F] * 4 + [_build.P])
+  status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
+              lens.data_ptr(), out.data_ptr(), r, nk, g, s, h, c, rb,
+              score_scale(k_scale, h), float(v_scale), float(k_zero_point),
+              float(v_zero_point), _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}, chunk {c}')
+  decode_attention_int8_dynlen.launches += 1
+  return out.reshape(b, nk, g, h)
+
+
+decode_attention_int8_dynlen.launches = 0
+decode_attention_int8_dynlen.plain_calls = 0
 
 
 # -- additive-mask decode attention -------------------------------------------

@@ -13,10 +13,9 @@ Pallas kernels over packed weights:
   * `qmatmul_pallas_int4_packed` (weight-only, the JAX executor's default
     for packed FCs) as `qmatmul_int4_packed`, CUDA kernel
     `csrc/qmatmul_int4_weight_only.cu(h)`;
-  * `qmatmul_pallas_int4_packed_blockwise` as
-    `qmatmul_int4_packed_blockwise`: plain version only. Its CUDA kernel
-    is not written yet (ROADMAP.md): on a CUDA tensor it raises
-    NotImplementedError.
+  * `qmatmul_pallas_int4_packed_blockwise` (one scale per block of bs
+    K-columns, bs % 128 == 0) as `qmatmul_int4_packed_blockwise`, CUDA
+    kernel `csrc/qmatmul_int4_blockwise.cu`.
 
 Each wrapper has two cases: a CUDA tensor launches the kernel (or raises),
 a CPU tensor runs the `..._plain` function, which repeats the kernel's
@@ -25,6 +24,7 @@ arithmetic in plain PyTorch. Each counts its launches and its plain runs.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -294,14 +294,59 @@ def qmatmul_int4_packed_blockwise_plain(x, w_packed, scale, bias=None):
   return y.to(x.dtype).reshape(lead + (n,))
 
 
-def qmatmul_int4_packed_blockwise(x, w_packed, scale, bias=None):
-  """Blockwise packed int4 matmul (pallas_qmatmul.qmatmul_pallas_int4_
-  packed_blockwise): the plain version on the CPU; its CUDA kernel is not
-  written yet, so a CUDA tensor raises NotImplementedError."""
+def qmatmul_int4_packed_blockwise(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+  """Blockwise x [..., K] . packed int4 [N, K//2] -> [..., N] in x.dtype,
+  scale [N, K // bs] (pallas_qmatmul.qmatmul_pallas_int4_packed_blockwise):
+  x in the compute dtype, each byte block's two partials scaled and added
+  in block order in f32, the bias last
+  (qmatmul_int4_packed_blockwise_plain has the arithmetic)."""
   if _build.device_kind(x) == 'cpu':
     qmatmul_int4_packed_blockwise.plain_calls += 1
     return qmatmul_int4_packed_blockwise_plain(x, w_packed, scale, bias)
-  raise _build.unported('pallas_qmatmul.qmatmul_pallas_int4_packed_blockwise')
+  name = 'qmatmul_int4_packed_blockwise'
+  n, k2 = w_packed.shape
+  k = 2 * k2
+  lead = x.shape[:-1]
+  x2 = x.reshape(-1, k).to(compute_dtype(x)).contiguous()
+  m = x2.shape[0]
+  _build.require(scale.dim() == 2 and scale.shape[0] == n, name,
+                 f'scale shape {tuple(scale.shape)} must be [N, K/bs]')
+  nb = scale.shape[1]
+  _build.require(nb > 0 and k % nb == 0, name, f'K={k} over {nb} blocks')
+  bs = k // nb
+  _build.require_cuda_tensor(w_packed, name, 'w_packed', (torch.uint8,), 16)
+  scale = scale.to(torch.float32).contiguous()
+  _build.require_cuda_tensor(scale, name, 'scale', (torch.float32,))
+  if bias is not None:
+    bias = bias.to(torch.float32).contiguous()
+    _build.require_cuda_tensor(bias, name, 'bias', (torch.float32,))
+    _build.require(bias.numel() == n, name, 'bias must have N entries')
+  out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+  part = None
+  if x2.dtype == torch.bfloat16:
+    floats = _build.entry('qmatmul_int4_blockwise',
+                          'aeqt_qmatmul_int4_blockwise_scratch',
+                          [_build.I] * 4, ctypes.c_longlong)(m, n, k, bs)
+    if floats:
+      part = torch.empty((floats,), dtype=torch.float32, device=x2.device)
+  fn = _build.entry('qmatmul_int4_blockwise', 'aeqt_qmatmul_int4_blockwise',
+                    [_build.P, _build.I, _build.P, _build.P, _build.P,
+                     _build.P, _build.P, _build.I, _build.I, _build.I,
+                     _build.I, _build.P])
+  status = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16),
+              w_packed.data_ptr(), scale.data_ptr(),
+              None if bias is None else bias.data_ptr(), out.data_ptr(),
+              None if part is None else part.data_ptr(), m, n, k, bs,
+              _build.stream_ptr(x2.device))
+  _build.check(status, name, f'M={m}, N={n}, K={k}, block size {bs}')
+  qmatmul_int4_packed_blockwise.launches += 1
+  return out.to(x.dtype).reshape(lead + (n,))
 
 
+qmatmul_int4_packed_blockwise.launches = 0
 qmatmul_int4_packed_blockwise.plain_calls = 0

@@ -7,7 +7,7 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
 
   1. facts: torch.version.cuda, nvcc --version, the card's name and power
      limit (nvidia-smi) and the kernels' build time;
-  2. kernels: each of the fifteen kernels against its plain PyTorch version
+  2. kernels: each of the nineteen kernels against its plain PyTorch version
      on the card at the main paths' shapes (Gemma-2B; decode at batch 64
      and cache 1024, bench.py's decode at batch 256 with 897 live cache
      rows, prefill at 8 x 128 tokens; bf16 activations), with the stated
@@ -24,14 +24,20 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      shapes; the K-blocked int4 DRQ matmul bit for bit at the down
      projection's shapes (N 2048, K 16384, decode and prefill rows), M = 1,
      an odd M and two small K, bf16 and f32 x, with and without a bias,
-     timed beside torch._int_mm; the blockwise packed matmul (no CUDA
-     kernel yet) must raise on the card; the kernels of the JAX executor's
+     timed beside torch._int_mm; the kernels of the JAX executor's
      default mode (default_mode_kernels): the weight-only packed matmul at
      the QKV and out-projection shapes (decode, prefill and an odd M; bf16
      and f32 x, with and without a bias), the additive-mask decode
      attention (B 64 and 256, S 1024, prefix and non-prefix masks), the
      MLP's and the head's weight-only branches (bf 512; the head packed
-     and int8 at N 256128, ids judged by the plain top-2 margins); four
+     and int8 at N 256128, ids judged by the plain top-2 margins); the
+     kernels of the blockwise server and the opt-in cache modes
+     (cache_mode_kernels): the blockwise packed matmul at every FC shape of
+     Gemma-2B (decode and prefill rows, block 128, and block 256 at one
+     shape; bf16 and f32 x, with and without a bias), the splice attention
+     at bench.py's shape (pos 896, 0, 31, 32, 1023; pools bit for bit),
+     the in-place row write (bit for bit, clipped starts) and the
+     live-prefix attention (B 64 and 256, zero-length rows); four
      attention shapes the CUDA kernels do not take must raise;
   3. decode loop: the Gemma-2B int4 greedy decode graph at batch 64 with an
      int8 KV cache answers 64 requests (8 prompt tokens fed through the
@@ -44,7 +50,11 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      and off on the same weights; ms/step, tokens/s, device idle share;
      then bench.py's int4g decode (AEQT_BENCH_KV=int4g: zero uint8 pools
      and bf16 sidecars, no decode-block unit; launches per step: int4g
-     attention 18, MLP 18, head 1, packed matmul 36);
+     attention 18, MLP 18, head 1, packed matmul 36); and with the block
+     off the splice writeback (splice attention 18 a step) and the in-place
+     row writes without writeback (row write 36, lengths attention 18),
+     each writing into its step's input pools, ids compared with the
+     block off's;
   4. server: the port's DecodeServer at bench.py's server settings serves
      128 requests (prompt lengths cycling 32..512, 48 new tokens each) by
      step_chunk(8); every request must end done with 48 ids in range, and
@@ -56,22 +66,26 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      or lengths launch);
   4b. quantizer: examples/serve_gemma.py's flow at full width through the
      port's own entry points: the float serving graph (weights drawn on
-     the host, int8 KV stamped) built once, then for gemma_mixed48,
-     gemma_mixed48_b32 and gemma_mixed48_hr (a Hadamard rotation before
-     each int4 FC, OCTAV clipping; both at 4 layers, QUANT_LAYERS) and
-     serve_gemma's own quantization (DEFAULT_MODE: add_dynamic_config
-     with every FC int4, served with executor.JAX_DEFAULT_OPTIONS, the JAX
-     executor's default mode):
+     the host, int8 KV stamped) built once at each depth, then for
+     gemma_mixed48, gemma_mixed48_b32 and gemma_mixed48_hr (a Hadamard
+     rotation before each int4 FC, OCTAV clipping) and serve_gemma's own
+     quantization (DEFAULT_MODE: add_dynamic_config with every FC int4,
+     served with executor.JAX_DEFAULT_OPTIONS, the JAX executor's default
+     mode), these four at 2 layers (QUANT_LAYERS), and the same in blocks
+     of 128 (BLOCKWISE_MODE, 18 layers, served with JAX_DEFAULT_OPTIONS
+     and attn_dynlen):
      Quantizer(graph, recipe).quantize(), export_model
      to a temporary .aeqg, serialize.load_graph (every buffer and
      parameter equal), DecodeServer(loaded, pack_weights=True) serving the
      server's 128 requests; build, quantize, export and load times, file
      size, peak host memory, tokens/s, TTFT and the launches by kernel
-     (gemma_mixed48: int8 DRQ 36 a tick or pass, MLP 18, head 1; _b32 at 4
-     layers: int8 DRQ 8, weight-only 9; _hr at 4 layers: int8 DRQ 8, int4
-     DRQ 4, K-blocked int4 DRQ 4, head 1; DEFAULT_MODE: weight-only packed 36,
-     MLP and head in their weight-only branches 18 and 1, masked
-     attention 18 a tick, flash 18 a pass, no DRQ kernel);
+     per layer L (gemma_mixed48: int8 DRQ 2L a tick or pass, MLP L, head
+     1; _b32: int8 DRQ 2L, weight-only 2L+1; _hr: int8 DRQ 2L, int4 DRQ L,
+     K-blocked int4 DRQ L, head 1; DEFAULT_MODE: weight-only packed 2L,
+     MLP and head in their weight-only branches L and 1, masked attention
+     L a tick, flash L a pass, no DRQ kernel; BLOCKWISE_MODE:
+     blockwise packed 73 a tick or pass, live-prefix attention 18 a tick,
+     flash 18 a pass);
   5. card against CPU: the decode step at batch 8 with the decode block
      off (18 layers) and on (4 layers; the block is one op) and the int4g
      step (4 layers), and the server's first prefill pass and decode tick
@@ -84,10 +98,12 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      top-2 logit margin is below 1e-3 relative (see OpByOp);
      then the block on against off on the card at f32 (4 layers, batch 8,
      4 steps from start_pos 896), ids and caches compared; then a float
-     serving graph quantized with each recipe (2 layers), its
+     serving graph quantized with each recipe (2 layers, the quantizer
+     phase's graphs where their depth agrees), its
      server's first prefill pass and decode tick held op by op (the int8
-     DRQ and the K-blocked int4 DRQ FCs bit for bit, the blockwise and the
-     default mode's weight-only packed FCs within their tolerance).
+     DRQ and the K-blocked int4 DRQ FCs bit for bit, the blockwise, the
+     default mode's weight-only and the packed blockwise FCs within their
+     tolerance).
 
 Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
@@ -413,6 +429,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
   results.extend(int_weight_kernels(torch, port, cfg, dev, timer, gen))
   results.append(kblock_kernel(torch, port, cfg, dev, timer, gen))
   results.extend(default_mode_kernels(torch, port, cfg, dev, timer, gen))
+  results.extend(cache_mode_kernels(torch, port, cfg, dev, timer, gen))
   refused_shapes(torch, att, dev)
   return results
 
@@ -970,7 +987,8 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:553',
       'jax': 'pallas_qmatmul.qmatmul_pallas_int8_drq',
       'wrapper': iq.qmatmul_int8_drq, 'per_step': 0,
-      'per_tick_quantized': 2 * cfg.num_layers, 'max_abs_err': 0.0,
+      'per_tick_quantized': 2 * QUANT_LAYERS['gemma_mixed48'],
+      'max_abs_err': 0.0,
       **summary(drq_rows, 'decode', timing),
       'bound_by': drq_rows[0]['bound_by'],
       'library': 'torch._int_mm on the codes (contraction only)',
@@ -1011,9 +1029,7 @@ def kblock_kernel(torch, port, cfg, dev, timer, gen):
   Timed at decode and prefill with bf16 x and no bias (the server's down
   FC) beside the plain version and torch._int_mm on the codes (the
   contraction only; it needs M > 16). A K the kernel does not take must be
-  refused, and the blockwise packed matmul, whose CUDA kernel is not
-  written yet, must raise NotImplementedError naming its Pallas kernel on
-  the card."""
+  refused."""
   pq = port['packed_qmatmul']
   bf16 = torch.bfloat16
 
@@ -1064,16 +1080,6 @@ def kblock_kernel(torch, port, cfg, dev, timer, gen):
     log(f'K-blocked kernel refuses K 48: {e}')
   else:
     raise AssertionError('the K-blocked kernel took K = 48')
-  kernel = 'qmatmul_pallas_int4_packed_blockwise'
-  try:
-    pq.qmatmul_int4_packed_blockwise(x, w, torch.ones((256, 2), device=dev))
-  except NotImplementedError as e:
-    if kernel not in str(e):
-      raise
-  else:
-    raise AssertionError(f'{kernel} ran on the card')
-  log('the blockwise packed matmul raises on the card (CUDA kernel not '
-      'written yet)')
 
   def at(phase):
     r = next(r for r in rows if r['phase'] == phase)
@@ -1131,7 +1137,7 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
   NQ, NK, H = cfg.num_query_heads, cfg.num_kv_heads, cfg.head_dim
   S = cfg.max_seq_len
   G = NQ // NK
-  L = cfg.num_layers
+  L = QUANT_LAYERS.get(DEFAULT_MODE, cfg.num_layers)  # the server's depth
   bf16 = torch.bfloat16
 
   def randn(*shape, dtype=bf16):
@@ -1410,6 +1416,331 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
       'int8': head_at(False, B), 'bench': head_at(True, BENCH_B),
       'by_shape': head_rows})
   return results
+
+# The blockwise packed matmul's checks: (phase, M, label, N, K, block size).
+# Every FC of the blockwise-128 server (Gemma-2B, fused projections, the
+# tied head) at decode and prefill rows, and block size 256 at one shape.
+def blockwise_shapes(cfg):
+  D, F, V = cfg.embed_dim, cfg.ffn_dim, cfg.vocab_size
+  NQ, NK, H = cfg.num_query_heads, cfg.num_kv_heads, cfg.head_dim
+  fcs = (('qkv', (NQ + 2 * NK) * H, D), ('out_proj', D, NQ * H),
+         ('gate_up', 2 * F, D), ('down', D, F), ('head', V, D))
+  return ([(phase, m, label, n, k, 128)
+           for phase, m in (('decode', B), ('prefill', PREFILL_ROWS))
+           for label, n, k in fcs]
+          + [('decode_bs256', B, 'qkv', (NQ + 2 * NK) * H, D, 256)])
+
+
+def blockwise_kernel(torch, port, cfg, dev, timer, gen):
+  """The blockwise packed int4 matmul (#13) against its plain version on
+  the card at blockwise_shapes: bf16 x (the server's) and full-mantissa f32
+  x, with and without a bias. f32 outputs within
+  int_qmatmul.int_weights_tolerance(K, bs) of max |y| (f32 sums in another
+  order within a block), bf16 outputs within one bf16 ulp beyond it. Timed
+  with bf16 x and no bias beside the plain version and torch.matmul on the
+  weight dequantized to bf16 (scales per block applied); the headline
+  times are the means of the decode QKV and out-projection shapes, as for
+  #12."""
+  pq, iq = port['packed_qmatmul'], port['int_qmatmul']
+  bf16 = torch.bfloat16
+  rows = []
+  for phase, m, label, n, k, bs in blockwise_shapes(cfg):
+    w = pq.pack_int4_split(torch.randint(-8, 8, (n, k), generator=gen,
+                                         device=dev).to(torch.int8))
+    s = torch.rand((n, k // bs), generator=gen, device=dev) * 0.01 + 0.005
+    bias = torch.randn((n,), generator=gen, device=dev)
+    x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+    x32 = torch.randn((m, k), generator=gen, device=dev)
+    checks = []
+    for xi, bi in ((x, None), (x, bias), (x32, None), (x32, bias)):
+      got = pq.qmatmul_int4_packed_blockwise(xi, w, s, bi)
+      want = pq.qmatmul_int4_packed_blockwise_plain(xi, w, s, bi)
+      sync()
+      ymax = float(torch.max(torch.abs(want.float())))
+      tol = iq.int_weights_tolerance(k, bs, ymax)
+      err = float(torch.max(torch.abs(got.float() - want.float())))
+      ulps = (bf16_ulps(torch, got, want, atol=tol) if xi.dtype == bf16
+              else None)
+      if (ulps is not None and ulps > 1.0) or (ulps is None
+                                               and not err <= tol):
+        raise AssertionError(
+            f'blockwise packed {phase} {label} (bs {bs}, {xi.dtype}, bias '
+            f'{bi is not None}): err {err}, tolerance {tol}, bf16 ulps '
+            f'beyond it {ulps}')
+      checks.append({'x': str(xi.dtype).split('.')[-1],
+                     'bias': bi is not None, 'max_abs_err': err,
+                     'max_abs_y': ymax, 'tolerance': tol,
+                     'bf16_ulps_beyond': ulps})
+      del got, want
+    big = n * k >= 2**28
+    wdq = (pq.unpack_int4_split(w).to(bf16).reshape(n, k // bs, bs)
+           * s[:, :, None].to(bf16)).reshape(n, k)
+    nbytes = m * k * 2 + n * k // 2 + s.numel() * 4 + m * n * 2
+    b_ms, b_by = bound(nbytes, 2 * m * n * k, BF16_OPS_PER_S)
+    rows.append({
+        'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': k,
+        'block_size': bs,
+        'max_abs_err': max(c['max_abs_err'] for c in checks),
+        'checks': checks,
+        'ms': timer(lambda: pq.qmatmul_int4_packed_blockwise(x, w, s)),
+        'plain_ms': timer(
+            lambda: pq.qmatmul_int4_packed_blockwise_plain(x, w, s),
+            reps=25 if m <= B and not big else 3, warmup=1),
+        'library_ms': timer(lambda: torch.matmul(x, wdq.T)),
+        'bound_ms': b_ms, 'bound_by': b_by})
+    del w, s, wdq, x, x32
+    torch.cuda.empty_cache()
+  log(f'kernel qmatmul_int4_packed_blockwise ok: {rows}')
+  timing = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
+
+  def mean(phase):
+    sel = [r for r in rows if r['phase'] == phase
+           and r['shape'] in ('qkv', 'out_proj')]
+    return {key: sum(r[key] for r in sel) / len(sel) for key in timing}
+
+  return {
+      'name': 'qmatmul_int4_packed_blockwise', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'qmatmul_int4_blockwise.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:461',
+      'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed_blockwise',
+      'wrapper': pq.qmatmul_int4_packed_blockwise, 'per_step': 0,
+      'per_tick_blockwise': 4 * cfg.num_layers + 1,
+      'max_abs_err': max(r['max_abs_err'] for r in rows),
+      **mean('decode'), 'bound_by': rows[0]['bound_by'],
+      'library': 'torch.matmul on the weight dequantized to bf16',
+      'prefill': mean('prefill'), 'by_shape': rows}
+
+
+def cache_row_kernel(torch, port, cfg, dev, timer, gen):
+  """The in-place row write (#11) against its plain version on the card at
+  bench.py's decode shape (a [256, 1, 1024, 256] int8 pool, one row): the
+  pool bit for bit, written in its own storage, at rows 0, 31, 32, 896 and
+  1023 and at starts that lax clips (5000 and -3 on the row axis, 7 on a
+  full-extent axis). Timed at row 896 beside one slice assignment."""
+  cache = port['cache']
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  pool = torch.randint(-127, 128, (BENCH_B, NK, S, H), generator=gen,
+                       device=dev).to(torch.int8)
+  upd = torch.randint(-127, 128, (BENCH_B, NK, 1, H), generator=gen,
+                      device=dev).to(torch.int8)
+  cases = []
+  for starts in ((0, 0, 0, 0), (0, 0, 31, 0), (0, 0, 32, 0),
+                 (0, 0, BENCH_START, 0),
+                 (0, 0, S - 1, 0), (0, 0, 5000, 0), (0, 0, -3, 0),
+                 (7, 0, 100, 0)):
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    got_pool, want_pool = pool.clone(), pool.clone()
+    got = cache.dus_row_inplace(got_pool, upd, st)
+    cache.dus_row_inplace_plain(want_pool, upd, st)
+    sync()
+    if got.data_ptr() != got_pool.data_ptr() or not torch.equal(
+        got_pool, want_pool):
+      raise AssertionError(f'row write at starts {starts}: differs from the '
+                           'plain version or not in place')
+    cases.append(list(starts))
+  st = torch.tensor((0, 0, BENCH_START, 0), dtype=torch.int32, device=dev)
+  work = pool.clone()
+
+  def assign():
+    work[:, :, BENCH_START:BENCH_START + 1] = upd
+
+  nbytes = 2 * upd.numel() + st.numel() * 4
+  b_ms, b_by = bound(nbytes, 0, F32_OPS_PER_S)
+  log(f'kernel dus_row_inplace ok: bit for bit, in place, starts {cases}')
+  return {
+      'name': 'dus_row_inplace', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/cache_row_write.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_cache.py:105',
+      'jax': 'pallas_cache.dus_row_inplace_pallas',
+      'wrapper': cache.dus_row_inplace, 'per_step': 0,
+      'per_step_bench_inplace': 2 * cfg.num_layers, 'max_abs_err': 0.0,
+      'starts_checked': cases,
+      'ms': timer(lambda: cache.dus_row_inplace(work, upd, st)),
+      'plain_ms': timer(lambda: cache.dus_row_inplace_plain(work, upd, st)),
+      'bound_ms': b_ms, 'bound_by': b_by,
+      'library_ms': timer(assign),
+      'library': 'one slice assignment pool[:, :, p:p+1] = update (host p)'}
+
+
+def attention_lengths_mask(torch, lengths, s, dtype):
+  """The additive [B, 1, 1, S] mask of prefix lengths (-inf past them) for
+  scaled_dot_product_attention; a length of 0 hides every row."""
+  return torch.where(
+      torch.arange(s, device=lengths.device)[None, :] < lengths[:, None],
+      0.0, float('-inf')).to(dtype).reshape(-1, 1, 1, s)
+
+
+def writeback_kernel(torch, att, cfg, dev, timer, gen):
+  """The splice attention (#8) against its plain version on the card at
+  bench.py's decode shape (B 256, one KV head, G 8, H 256, S 1024), pos
+  896 and 0, 31, 32, S - 1; lengths pos + 1 but for a shorter row and a
+  zero-length one: f32 context within 1e-5 of max(max |y|, 1) (f32 sums
+  in another order over up to 1024 rows), bf16 (the executor's output)
+  within one bf16 ulp beyond that, both pools bit for bit (each side on
+  its own copies) and written in place. Timed at pos 896 beside SDPA over
+  the pools dequantized to bf16 with the lengths mask."""
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  b = BENCH_B
+  bf16 = torch.bfloat16
+  q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
+  kc, vc = (torch.randint(-127, 128, (b, NK, S, H), generator=gen,
+                          device=dev).to(torch.int8) for _ in range(2))
+  kn, vn = (torch.randint(-127, 128, (b, NK, 1, H), generator=gen,
+                          device=dev).to(torch.int8) for _ in range(2))
+  k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
+  checks = []
+  for pos in (BENCH_START, 0, 31, 32, S - 1):
+    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
+    lengths[1], lengths[2] = max(pos - 20, 1), 0
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    errs = {}
+    for out_dtype in (torch.float32, bf16):
+      gk, gv, wk, wv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+      args = (k_scale, v_scale, lengths, kn, vn, p)
+      kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=out_dtype)
+      got, ko, vo = att.decode_attention_int8_lengths_writeback(
+          q, gk, gv, *args, **kw)
+      want, _, _ = att.decode_attention_int8_lengths_writeback_plain(
+          q, wk, wv, *args, **kw)
+      sync()
+      if (ko.data_ptr(), vo.data_ptr()) != (gk.data_ptr(), gv.data_ptr()) \
+          or not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+        raise AssertionError(f'splice attention pos {pos}: pools differ from '
+                             'the plain version or not in place')
+      if out_dtype == torch.float32:
+        errs['f32'] = float(torch.max(torch.abs(got - want)))
+        errs['max_abs_y'] = float(torch.max(torch.abs(want)))
+        tol = 1e-5 * max(errs['max_abs_y'], 1.0)
+      else:
+        errs['bf16_ulps'] = bf16_ulps(torch, got, want, atol=tol)
+    if errs['f32'] > tol or errs['bf16_ulps'] > 1.0:
+      raise AssertionError(f'splice attention pos {pos}: {errs}')
+    checks.append({'pos': pos, **errs})
+  lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32, device=dev)
+  p = torch.tensor([BENCH_START], dtype=torch.int32, device=dev)
+  gk, gv = kc.clone(), vc.clone()
+  args = (q, gk, gv, k_scale, v_scale, lengths, kn, vn, p)
+  kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=bf16)
+  live = NK * b * (BENCH_START + 1)
+  nbytes = q.numel() * 2 + 2 * live * H + 4 * kn.numel() + q.numel() * 2
+  b_ms, b_by = bound(nbytes, 4 * G * H * live, F32_OPS_PER_S)
+  kd = ((gk.float() - zp_k) * k_scale).to(bf16)
+  vd = ((gv.float() - zp_v) * v_scale).to(bf16)
+  amask = attention_lengths_mask(torch, lengths, S, bf16)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  log(f'kernel decode_attention_int8_lengths_writeback ok: {checks}')
+  return {
+      'name': 'decode_attention_int8_lengths_writeback', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'attention_writeback.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:850',
+      'jax': 'pallas_attention.decode_attention_int8_lengths_writeback '
+             '(f32 compute)',
+      'wrapper': att.decode_attention_int8_lengths_writeback, 'per_step': 0,
+      'per_step_bench_splice': cfg.num_layers,
+      'max_abs_err': max(c['f32'] for c in checks), 'checks': checks,
+      'ms': timer(lambda: att.decode_attention_int8_lengths_writeback(
+          *args, **kw)),
+      'plain_ms': timer(
+          lambda: att.decode_attention_int8_lengths_writeback_plain(
+              *args, **kw)),
+      'bound_ms': b_ms, 'bound_by': b_by,
+      'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
+      'library': 'scaled_dot_product_attention over the pools dequantized '
+                 'to bf16 with the lengths mask (no row write)',
+      'live_rows': live}
+
+
+def dynlen_bytes(torch, att, lengths, nk, s, h, chunk=256, row_block=8):
+  """Cache bytes the live-prefix attention must read for these lengths: K
+  and V of each row's live prefix, and for a zero-length row the V rows of
+  its row block's n_chunks * c (its context is their mean)."""
+  r = lengths.numel() * nk
+  c, rb = att.dynlen_blocking(r, s, h, chunk, row_block)
+  lens = torch.repeat_interleave(lengths.to(torch.int64).clamp(0, s), nk)
+  blk = torch.amax(lens.reshape(r // rb, rb), dim=1)
+  n_chunks = torch.clamp((blk + c - 1) // c, 1, s // c)
+  n_chunks = torch.repeat_interleave(n_chunks, rb)
+  rows_kv = int(torch.sum(lens))
+  rows_v0 = int(torch.sum(torch.where(lens == 0, n_chunks * c, 0)))
+  return (2 * rows_kv + rows_v0) * h, rows_kv
+
+
+def dynlen_kernel(torch, att, cfg, dev, timer, gen):
+  """The live-prefix attention (#18) against its plain version on the card
+  at the server's tick shapes (B 64 and 256, S 1024, G 8, H 256, chunk 256,
+  row blocks of 8): lengths spanning 1..S with zero-length rows (idle
+  slots), one in a row block beside a full row; f32 outputs within 1e-5 of
+  max(max |y|, 1) (f32 sums in another order). Timed at B 64 beside SDPA
+  over the pools dequantized to bf16 with the lengths mask (a zero-length
+  row there is all -inf: SDPA gives NaN where the kernel gives the TPU's
+  mean)."""
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  bf16 = torch.bfloat16
+  k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
+  kw = dict(k_zero_point=zp_k, v_zero_point=zp_v)
+  rows = []
+  for b in (B, BENCH_B):
+    q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
+    kc, vc = (torch.randint(-127, 128, (b, NK, S, H), generator=gen,
+                            device=dev).to(torch.int8) for _ in range(2))
+    lengths = torch.randint(1, S + 1, (b,), generator=gen, device=dev).to(
+        torch.int32)
+    lengths[0], lengths[1], lengths[2] = 0, S, 1
+    lengths[9], lengths[17] = 0, 0  # idle slots in other row blocks
+    args = (q, kc, vc, k_scale, v_scale, lengths)
+    got = att.decode_attention_int8_dynlen(*args, **kw)
+    want = att.decode_attention_int8_dynlen_plain(*args, **kw)
+    sync()
+    err = float(torch.max(torch.abs(got - want)))
+    ymax = float(torch.max(torch.abs(want)))
+    if not err <= 1e-5 * max(ymax, 1.0):
+      raise AssertionError(f'dynlen attention B {b}: err {err}, max |y| '
+                           f'{ymax}')
+    cache_bytes, live = dynlen_bytes(torch, att, lengths, NK, S, H)
+    nbytes = q.numel() * 2 + cache_bytes + lengths.numel() * 4 + q.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * G * H * live, F32_OPS_PER_S)
+    kd = ((kc.float() - zp_k) * k_scale).to(bf16)
+    vd = ((vc.float() - zp_v) * v_scale).to(bf16)
+    amask = attention_lengths_mask(torch, lengths, S, bf16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows.append({
+        'phase': 'decode' if b == B else 'bench', 'B': b,
+        'max_abs_err': err, 'max_abs_y': ymax, 'live_rows': live,
+        'cache_bytes': cache_bytes,
+        'ms': timer(lambda: att.decode_attention_int8_dynlen(*args, **kw)),
+        'plain_ms': timer(
+            lambda: att.decode_attention_int8_dynlen_plain(*args, **kw)),
+        'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
+        'bound_ms': b_ms, 'bound_by': b_by})
+    del kc, vc, kd, vd
+  log(f'kernel decode_attention_int8_dynlen ok: {rows}')
+  timing = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
+  return {
+      'name': 'decode_attention_int8_dynlen', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_dynlen.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:1018',
+      'jax': 'pallas_attention.decode_attention_int8_dynlen',
+      'wrapper': att.decode_attention_int8_dynlen, 'per_step': 0,
+      'per_tick_blockwise': cfg.num_layers,
+      'max_abs_err': max(r['max_abs_err'] for r in rows),
+      **{key: rows[0][key] for key in timing}, 'bound_by': rows[0]['bound_by'],
+      'library': 'scaled_dot_product_attention over the pools dequantized to '
+                 'bf16 with the lengths mask',
+      'bench': {key: rows[1][key] for key in timing}, 'by_shape': rows}
+
+
+def cache_mode_kernels(torch, port, cfg, dev, timer, gen):
+  """The four kernels of the blockwise server and the opt-in cache modes."""
+  att = port['attention']
+  return [blockwise_kernel(torch, port, cfg, dev, timer, gen),
+          writeback_kernel(torch, att, cfg, dev, timer, gen),
+          cache_row_kernel(torch, port, cfg, dev, timer, gen),
+          dynlen_kernel(torch, att, cfg, dev, timer, gen)]
+
 
 def refused_shapes(torch, att, dev):
   """Shapes that the JAX executor's gate sends to its Pallas kernels but
@@ -1804,48 +2135,70 @@ def bench_tokens(torch, cfg, dev):
       dtype=torch.int32, device=dev)
 
 
+# bench.py's decode settings that chip_smoke drives, as executor options:
+# the decode block on and off (the stale writeback, bench.py's own), then
+# with the block off the splice writeback (AEQT_ATTN_WRITEBACK_MODE=splice)
+# and the in-place row writes with no writeback (AEQT_ATTN_WRITEBACK=0,
+# AEQT_CACHE_WRITE_PALLAS=1).
+BENCH_SETTINGS = {
+    'block on': dict(decode_block=True),
+    'block off': dict(decode_block=False),
+    'splice': dict(decode_block=False, attn_writeback='splice'),
+    'inplace': dict(decode_block=False, attn_writeback=None,
+                    cache_write_inplace=True)}
+
+
 def bench_decode_phase(torch, port, kernels, cfg, dev):
   """bench.py's decode through the port's GraphExecutor: GEMMA_2B with the
   full vocabulary, int4 packed FCs, int8 embedding and tied head, int8 KV
   with the stamped scales in zero pools made on the device, greedy head,
   bf16 activations, batch BENCH_B, cache 1024, start_pos BENCH_START;
-  `bench_steps` with the decode block on and then off on the same
-  weights."""
+  `bench_steps` under each of BENCH_SETTINGS on the same weights. The
+  splice and in-place settings write each step's rows into its input
+  pools (the executor's donation); their ids are compared with the block
+  off's (stale writeback), the block on's likewise."""
   gemma, executor = port['gemma'], port['executor']
   t0 = time.monotonic()
   graph = decode_graph(gemma, cfg, BENCH_B)
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, device=dev)
   layers = cfg.num_layers
+  unfused = {'mlp_int4_packed': layers, 'head_argmax': 1,
+             'qmatmul_int4_packed_drq': 2 * layers}
   per_step = {
-      True: {'fused_mlp_qkv_attention': layers - 1,
-             'decode_attention_int8_lengths_stale': 1, 'mlp_int4_packed': 1,
-             'head_argmax': 1, 'qmatmul_int4_packed_drq': layers + 1},
-      False: {'fused_mlp_qkv_attention': 0,
-              'decode_attention_int8_lengths_stale': layers,
-              'mlp_int4_packed': layers, 'head_argmax': 1,
-              'qmatmul_int4_packed_drq': 2 * layers}}
+      'block on': {'fused_mlp_qkv_attention': layers - 1,
+                   'decode_attention_int8_lengths_stale': 1,
+                   'mlp_int4_packed': 1, 'head_argmax': 1,
+                   'qmatmul_int4_packed_drq': layers + 1},
+      'block off': {'decode_attention_int8_lengths_stale': layers,
+                    **unfused},
+      'splice': {'decode_attention_int8_lengths_writeback': layers,
+                 **unfused},
+      'inplace': {'dus_row_inplace': 2 * layers,
+                  'decode_attention_int8_lengths': layers, **unfused}}
   results, ids = {}, {}
-  for block_on in (True, False):
+  for label, options in BENCH_SETTINGS.items():
     ex = executor.GraphExecutor(graph, device=dev,
-                                activation_dtype='bfloat16',
-                                decode_block=block_on)
+                                activation_dtype='bfloat16', **options)
     ex.load_weights(weights)
     ex.prepare_serving_weights(min_weight_params=0)
     sync()
-    label = 'block on' if block_on else 'block off'
     log(f'bench decode {label}: set-up {time.monotonic() - t0:.1f}s; units '
         f'block {len(ex._block_fusions)} attention {len(ex._attn_fusions)} '
         f'mlp {len(ex._mlp_fusions)} head {len(ex._head_fusions)}')
-    results[label], ids[block_on] = bench_steps(
-        torch, gemma, ex, graph, cfg, kernels, per_step[block_on], label,
+    results[label], ids[label] = bench_steps(
+        torch, gemma, ex, graph, cfg, kernels, per_step[label], label,
         bench_tokens(torch, cfg, dev), dev)
+    results[label]['options'] = options
     del ex
     torch.cuda.empty_cache()
-  same = float(torch.mean((ids[True] == ids[False]).float()))
-  log(f'bench decode: block on and off (bf16 activations) agree on '
-      f'{same:.4f} of the {BENCH_B} x {BENCH_STEPS} ids')
-  results['ids_equal_share'] = same
+  same = {label: float(torch.mean((ids[label] == ids['block off']).float()))
+          for label in BENCH_SETTINGS if label != 'block off'}
+  log(f'bench decode: ids equal to the block off\'s (stale writeback, bf16 '
+      f'activations) by setting, share of the {BENCH_B} x {BENCH_STEPS}: '
+      f'{same}')
+  results['ids_equal_share'] = same.pop('block on')
+  results['ids_equal_share_vs_block_off'] = same
   return results
 
 
@@ -2140,35 +2493,52 @@ def serve_load(torch, server, kernels, cfg, dev, name, want_fn,
 # default mode (executor.JAX_DEFAULT_OPTIONS: weight-only int4 FCs, MLP and
 # head, additive-mask decode attention).
 DEFAULT_MODE = 'serve_gemma_default_mode'
+# serve_gemma's flow with every FC int4 in blocks of 128
+# (add_dynamic_config(..., granularity=BLOCKWISE_128), a granularity the
+# default policy allows, recipe/default_policy.py:51), served by the JAX
+# executor's defaults with AEQT_ATTN_DYNLEN=1: every FC, the tied head
+# included, through the blockwise packed matmul (no fusion takes a
+# blockwise weight), the live-prefix attention at every tick.
+BLOCKWISE_MODE = 'serve_gemma_blockwise128_dynlen'
 QUANT_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32', 'gemma_mixed48_hr',
-                 DEFAULT_MODE)
+                 DEFAULT_MODE, BLOCKWISE_MODE)
 # Depths cut to keep the script's time down (the model's widths never
-# are): quantizer_phase serves _b32 and _hr at 4 layers (their weight-only
-# and K-blocked kernels are checked at full size by int_weight_kernels and
-# kblock_kernel), gemma_mixed48 and DEFAULT_MODE at the model's depth;
-# quantizer_cpu_phase holds each recipe's graph op by op at
-# QUANT_CPU_LAYERS layers, all four on one 2-layer float graph.
-# gemma_mixed48_hr's quantization (a 512-wide rotation and OCTAV in numpy
-# over every 4-bit weight, the tied head's first) takes most of both.
-QUANT_LAYERS = {'gemma_mixed48_b32': 4, 'gemma_mixed48_hr': 4}
+# are): quantizer_phase serves the four EARLIER_RECIPES' quantized paths
+# at 2 layers (their kernels are checked at full size by int_weight_kernels,
+# kblock_kernel and default_mode_kernels) and BLOCKWISE_MODE at the model's
+# depth; quantizer_cpu_phase holds each recipe's graph op by op at
+# QUANT_CPU_LAYERS layers, reusing the graph quantizer_phase made where
+# the depths agree. The host's quantization dominates both (the tied
+# head's 524M weights at any depth; for gemma_mixed48_hr a 512-wide
+# rotation and OCTAV in numpy), and host speed varies by up to 1.7x from one
+# machine to another.
+EARLIER_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32', 'gemma_mixed48_hr',
+                   DEFAULT_MODE)
+QUANT_LAYERS = dict.fromkeys(EARLIER_RECIPES, 2)
 QUANT_CPU_LAYERS = dict.fromkeys(QUANT_RECIPES, 2)
 
 
 def quantize(port, graph, recipe):
   """The Quantizer's result for `recipe` (a named recipe, or DEFAULT_MODE:
-  serve_gemma's `add_dynamic_config('.*', 'FULLY_CONNECTED', 4)`)."""
-  if recipe == DEFAULT_MODE:
+  serve_gemma's `add_dynamic_config('.*', 'FULLY_CONNECTED', 4)`, or
+  BLOCKWISE_MODE: the same with granularity BLOCKWISE_128)."""
+  if recipe in (DEFAULT_MODE, BLOCKWISE_MODE):
     qt = port['Quantizer'](graph)
-    qt.add_dynamic_config('.*', 'FULLY_CONNECTED', 4)
+    kw = {'granularity': 'BLOCKWISE_128'} if recipe == BLOCKWISE_MODE else {}
+    qt.add_dynamic_config('.*', 'FULLY_CONNECTED', 4, **kw)
     return qt.quantize()
   return port['Quantizer'](graph, recipe).quantize()
 
 
 def server_options(port, recipe):
   """DecodeServer keyword arguments of `recipe`'s server: the JAX
-  executor's defaults for DEFAULT_MODE, the port's (bench.py's) else."""
+  executor's defaults for DEFAULT_MODE, with AEQT_ATTN_DYNLEN=1 for
+  BLOCKWISE_MODE, the port's (bench.py's) else."""
+  defaults = port['executor'].JAX_DEFAULT_OPTIONS
   if recipe == DEFAULT_MODE:
-    return {'executor_options': port['executor'].JAX_DEFAULT_OPTIONS}
+    return {'executor_options': defaults}
+  if recipe == BLOCKWISE_MODE:
+    return {'executor_options': {**defaults, 'attn_dynlen': True}}
   return {}
 
 
@@ -2185,9 +2555,15 @@ def quantized_launches(recipe, layers):
   -> ARG_MAX, fused. DEFAULT_MODE: every FC int4 packed, weight-only:
   the QKV and out-projection FCs through the weight-only packed kernel, the
   MLP and the head fused in their weight-only branches, the additive-mask
-  attention at each tick; nothing of the DRQ kernels."""
+  attention at each tick; nothing of the DRQ kernels. BLOCKWISE_MODE:
+  every FC (four a layer and the head) through the blockwise packed
+  matmul, the live-prefix attention at each tick."""
   def want(ticks, passes):
     calls = ticks + passes
+    if recipe == BLOCKWISE_MODE:
+      return {'qmatmul_int4_packed_blockwise': (4 * layers + 1) * calls,
+              'decode_attention_int8_dynlen': layers * ticks,
+              'flash_attention_int8_masked': layers * passes}
     if recipe == DEFAULT_MODE:
       return {'qmatmul_int4_packed': 2 * layers * calls,
               'mlp_int4_packed_bf16': layers * calls,
@@ -2238,7 +2614,7 @@ def same_graph_data(quantized, loaded):
 
 
 def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
-                    slots=B):
+                    slots=B, kept=None):
   """examples/serve_gemma.py's flow at GEMMA_2B's full width, through the
   port's entry points: the float serving graph (server_phase's settings,
   weights drawn on the host, int8 KV stamped) built once at each depth
@@ -2249,7 +2625,9 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   `DecodeServer(loaded, cfg, slots, pack_weights=True)` serving
   serve_load's requests, with each kernel's launches as
   quantized_launches has them. Host time and peak host memory (numpy
-  allocations, tracemalloc) of the build and of each quantization."""
+  allocations, tracemalloc) of the build and of each quantization. kept: a
+  dict that takes each quantized graph made at its QUANT_CPU_LAYERS depth
+  with B slots, for quantizer_cpu_phase."""
   gemma, batching = port['gemma'], port['batching']
   serialize, progress = port['serialize'], port['progress_utils']
   results, graphs = {}, {}
@@ -2307,6 +2685,9 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
           f'{stats["model_size_after_bytes"] / 2**30:.2f} GiB), export '
           f'{export_s:.1f}s, {size} bytes, load {load_s:.2f}s, '
           f'{len(loaded.buffers)} buffers equal')
+      if (kept is not None and slots == B
+          and cfg_r.num_layers == QUANT_CPU_LAYERS[recipe]):
+        kept[recipe] = result.quantized_model
       del result
       gc.collect()
       t0 = time.monotonic()
@@ -2334,14 +2715,16 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       results[recipe] = served
       del server, ex, loaded
       gc.collect()
+      os.remove(path)  # one full-depth .aeqg at a time on the disk
       torch.cuda.empty_cache()
   return results
 
 
-def quantizer_cpu_phase(torch, port, cfg, dev):
+def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
   """The card against the port on the CPU, op by op, on graphs the
-  Quantizer made: GEMMA_2B widths at QUANT_CPU_LAYERS layers, one float
-  serving graph at each depth, quantized with each of QUANT_RECIPES and
+  Quantizer made: GEMMA_2B widths at QUANT_CPU_LAYERS layers (the graphs
+  in `kept`, quantizer_phase's at that depth, else one float serving graph
+  at each depth quantized here), for each of QUANT_RECIPES
   served on both devices (f32 activations) through the first prefill pass
   (8 requests of 128 tokens) and decode tick, as server_cpu_phase holds
   the server. The int8 DRQ FCs and the K-blocked packed FCs
@@ -2349,16 +2732,19 @@ def quantizer_cpu_phase(torch, port, cfg, dev):
   the blockwise FCs and DEFAULT_MODE's weight-only packed FCs agree to
   int_qmatmul.int_weights_tolerance, int8 codes within one step."""
   t0 = time.monotonic()
+  kept = {} if kept is None else kept
   graphs, out = {}, {}
   for recipe in sorted(QUANT_RECIPES, key=QUANT_CPU_LAYERS.get):
     layers = QUANT_CPU_LAYERS[recipe]
     cfg_l = dataclasses.replace(cfg, num_layers=layers)
-    if layers not in graphs:
-      graphs.clear()
-      gc.collect()
-      graphs[layers] = serving_graph(port['gemma'], cfg_l, B,
-                                     materialize=True)
-    quantized = quantize(port, graphs[layers], recipe).quantized_model
+    quantized = kept.pop(recipe, None)
+    if quantized is None:
+      if layers not in graphs:
+        graphs.clear()
+        gc.collect()
+        graphs[layers] = serving_graph(port['gemma'], cfg_l, B,
+                                       materialize=True)
+      quantized = quantize(port, graphs[layers], recipe).quantized_model
     log(f'quantizer card-vs-cpu {recipe}: {layers}-layer graph quantized, '
         f'{time.monotonic() - t0:.1f}s')
     out[recipe] = server_cpu_phase(torch, port, cfg_l, dev, graph=quantized,
@@ -2367,6 +2753,8 @@ def quantizer_cpu_phase(torch, port, cfg, dev):
     kinds = {k.split('/')[1] for k in out[recipe]['worst_rel_err_by_opcode']}
     if recipe == DEFAULT_MODE:
       need = {'FC int4 weight-only', 'MLP'}
+    elif recipe == BLOCKWISE_MODE:
+      need = {'FC int4 blockwise'}
     else:
       need = {'FC int8 DRQ'} | ({'FC blockwise'} if recipe.endswith('_b32')
                                 else set()) | (
@@ -2400,8 +2788,9 @@ class OpByOp:
   DRQ') bit for bit, a blockwise one ('FC blockwise') to
   int_qmatmul.int_weights_tolerance of its largest magnitude; so is a
   packed one on the K-blocked route ('FC int4 DRQ K-blocked'): bit for bit;
-  and a packed one on the weight-only route of the JAX executor's default
-  mode ('FC int4 weight-only'): to int_weights_tolerance.
+  a packed one on the weight-only route of the JAX executor's default
+  mode ('FC int4 weight-only') and a packed blockwise one ('FC int4
+  blockwise'): to int_weights_tolerance.
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None,
@@ -2428,9 +2817,10 @@ class OpByOp:
 
   def _fc_rule(self, sg, op):
     """'FC int8 DRQ' or ('FC blockwise', rel tol) for an unpacked integer
-    FC, 'FC int4 DRQ K-blocked' for a packed one on the K-blocked kernel's
-    route, ('FC int4 weight-only', rel tol) for a packed channelwise one
-    with DRQ off, else None."""
+    FC, ('FC int4 blockwise', rel tol) for a packed blockwise one, 'FC int4
+    DRQ K-blocked' for a packed one on the K-blocked kernel's route, ('FC
+    int4 weight-only', rel tol) for a packed channelwise one with DRQ off,
+    else None."""
     if op.opcode != 'FULLY_CONNECTED' or len(op.inputs) < 2:
       return None
     w = sg.tensors[op.inputs[1]]
@@ -2441,8 +2831,10 @@ class OpByOp:
       return None
     key = (sg_idx, op.inputs[1])
     if key in self.ex._packed_int4_keys:
-      if key in self.ex._packed_block_size:
-        return None
+      bs = self.ex._packed_block_size.get(key)
+      if bs:
+        return ('FC int4 blockwise', self.int_qmatmul.int_weights_tolerance(
+            w.shape[-1], bs, 1.0))
       if not self.ex.int4_drq:
         return ('FC int4 weight-only', self.int_qmatmul.int_weights_tolerance(
             w.shape[-1], 0, 1.0))
@@ -2800,7 +3192,8 @@ def main():
   from ai_edge_quantizer_tpu_torch.execution import executor
   from ai_edge_quantizer_tpu_torch.graph import ir, serialize
   from ai_edge_quantizer_tpu_torch.kernels import _build
-  from ai_edge_quantizer_tpu_torch.kernels import attention, block, head
+  from ai_edge_quantizer_tpu_torch.kernels import attention, block, cache
+  from ai_edge_quantizer_tpu_torch.kernels import head
   from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
   from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul
   from ai_edge_quantizer_tpu_torch.models import gemma
@@ -2810,7 +3203,8 @@ def main():
   if any(m == 'jax' or m.startswith(('jax.', 'ai_edge_quantizer_tpu.'))
          or m == 'ai_edge_quantizer_tpu' for m in sys.modules):
     raise AssertionError('the port imported jax or the JAX package')
-  port = dict(executor=executor, attention=attention, block=block, head=head,
+  port = dict(executor=executor, attention=attention, block=block,
+              cache=cache, head=head,
               mlp=mlp, packed_qmatmul=packed_qmatmul, gemma=gemma,
               batching=batching, ops_impl=ops_impl, ir=ir,
               int_qmatmul=int_qmatmul, serialize=serialize,
@@ -2841,7 +3235,7 @@ def main():
       f'{e2e["tokens_per_s"]:.1f} tokens/s at batch {B}')
   log(f'phase decode loop done at {time.monotonic() - t_start:.1f}s')
   bench = bench_decode_phase(torch, port, kernels, cfg, 'cuda')
-  for mode in ('block on', 'block off'):
+  for mode in BENCH_SETTINGS:
     r = bench[mode]
     log(f'bench decode on {smi}, {mode}: {r["ms_per_step"]:.3f} ms/step '
         f'(median), {r["tokens_per_s"]:.1f} tokens/s at batch {BENCH_B}, '
@@ -2861,7 +3255,8 @@ def main():
       f'ms, chunk of {SERVE_CHUNK} ticks {server4["chunk_ms"]:.3f} ms (idle '
       f'{server4["chunk_idle_share"]:.3f})')
   log(f'phase server done at {time.monotonic() - t_start:.1f}s')
-  quant = quantizer_phase(torch, port, kernels, cfg, 'cuda')
+  kept = None if args.skip_cpu else {}
+  quant = quantizer_phase(torch, port, kernels, cfg, 'cuda', kept=kept)
   for recipe in QUANT_RECIPES:
     r = quant[recipe]
     log(f'quantized {recipe} server ({r["layers"]} layers) on {smi}: '
@@ -2891,7 +3286,8 @@ def main():
     bench['block_on_vs_off_f32'] = block_on_off_phase(torch, port, cfg,
                                                       'cuda')
     done('block on/off')
-    quant['card_vs_cpu'] = quantizer_cpu_phase(torch, port, cfg, 'cuda')
+    quant['card_vs_cpu'] = quantizer_cpu_phase(torch, port, cfg, 'cuda',
+                                               kept=kept)
     log(f'phase card-vs-cpu done at {time.monotonic() - t_start:.1f}s')
   line = []
   for k in kernels:
@@ -2902,6 +3298,8 @@ def main():
         'server': server['launches'][k['name']],
         'bench_decode_block_on': bench_launches['block on'],
         'bench_decode_block_off': bench_launches['block off'],
+        'bench_decode_splice': bench_launches['splice'],
+        'bench_decode_inplace': bench_launches['inplace'],
         'bench_decode_int4g': bench_launches['int4g'],
         'server_int4g': server4['launches'][k['name']],
         **{f'server_{recipe}': quant[recipe]['launches'][k['name']]
@@ -2911,7 +3309,9 @@ def main():
     # no row write to fold into attention; the fused block only in the
     # bench decode with the block on; the int4-group attention only on
     # the int4g paths; the int8 DRQ and weight-only kernels only on the
-    # quantized graphs' servers).
+    # quantized graphs' servers; the splice attention and the in-place row
+    # write only in the bench decode with those settings; the blockwise
+    # matmul and the live-prefix attention only in the blockwise server).
     by_path = entry['launches_by_path']
     entry['launches'] = (by_path['server'] or by_path['decode_loop']
                          or by_path['bench_decode_block_on']
@@ -2920,7 +3320,10 @@ def main():
                          or by_path['server_gemma_mixed48']
                          or by_path['server_gemma_mixed48_b32']
                          or by_path['server_gemma_mixed48_hr']
-                         or by_path[f'server_{DEFAULT_MODE}'])
+                         or by_path[f'server_{DEFAULT_MODE}']
+                         or by_path['bench_decode_splice']
+                         or by_path['bench_decode_inplace']
+                         or by_path[f'server_{BLOCKWISE_MODE}'])
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)
