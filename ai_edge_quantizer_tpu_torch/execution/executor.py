@@ -7,19 +7,21 @@ Gemma int4 decode step runs: constant loading, the DEQUANTIZE alias,
 path (with the opt-in in-place row write), the packed int4 FCs (DRQ,
 K-blocked DRQ, weight-only, blockwise), the unpacked integer FCs (the JAX
 dispatchers `drq_matmul` and `qmatmul`, kernels/qmatmul.py, with their
-Pallas gates), and four fusions with their dispatch:
+Pallas gates), and seven fusions with their dispatch:
 int8-cache attention (the stale-cache kernel with the cache write outside
 it, or the splice kernel with the write inside it; the lengths, the
 live-prefix or the additive-mask kernel at decode; the flash kernel at
 prefill), the GeGLU
-MLP, the greedy head and the decode block (MLP(l-1) + norms + QKV(l) +
-RoPE + attention(l) in one kernel). The int4-group KV cache needs no
+MLP, the greedy head, the decode block (MLP(l-1) + norms + QKV(l) +
+RoPE + attention(l) in one kernel), the norm fusion (an RMS_NORM folded
+into the packed FCs it feeds) and the two attention-block fusions (the
+norm + QKV + RoPE prologue, and the attention's out projection and
+residual add as its epilogue). The int4-group KV cache needs no
 fusion: its INT4G_ATTENTION ops run through `_eval_op` (ops/impl.py),
 whose uint8 pools and bf16 sidecar pass `_run_signature` and
 `_store_outputs` uncast, as in the JAX executor; no attention or block
-unit matches such a graph. The norm, QKV, attention-epilogue and MoE
-fusions, capture mode, the calibration runners and the SRQ integer paths
-are not ported yet.
+unit matches such a graph. The MoE fusion, capture mode, the calibration
+runners and the SRQ integer paths are not ported yet.
 
 Differences from the JAX executor:
   * Options are constructor arguments, not environment variables, with
@@ -28,8 +30,12 @@ Differences from the JAX executor:
     AEQT_ATTN_WRITEBACK_MODE; None turns it off), `mlp_fusion` and `mlp_bf`
     (AEQT_MLP_FUSION, AEQT_MLP_BF), `head_fusion` (AEQT_HEAD_FUSION),
     `decode_block` (AEQT_DECODE_BLOCK), `attn_dynlen` (AEQT_ATTN_DYNLEN),
-    `cache_write_inplace` (AEQT_CACHE_WRITE_PALLAS). Defaults are the
-    values bench.py sets (the last two off, as bench.py leaves them);
+    `cache_write_inplace` (AEQT_CACHE_WRITE_PALLAS), `norm_fusion`
+    (AEQT_NORM_FUSION), `attn_block` (AEQT_ATTN_BLOCK), `attn_qkv` and
+    `attn_oproj` (AEQT_ATTN_QKV, AEQT_ATTN_OPROJ: the attention block's two
+    halves, on by default as there). Defaults are the
+    values bench.py sets (attn_dynlen, cache_write_inplace, norm_fusion and
+    attn_block off, as bench.py leaves them);
     `JAX_DEFAULT_OPTIONS` holds the JAX executor's own defaults (every
     AEQT_* variable unset), the mode examples/serve_gemma.py serves in.
   * Donation. The JAX executor donates the cache pools to the kernels that
@@ -48,10 +54,9 @@ Differences from the JAX executor:
     tensor, so the CPU tests run the same dispatch as the card. The
     Mosaic tiling gates (head dim and cache length multiples of 128) are
     replaced by what each CUDA kernel takes.
-  * The JAX executor's options whose kernels are not ported yet (the norm
-    fusion, the QKV prologue and the attention epilogue, the attention's
-    bf16 and int8 compute modes) have no keyword here; no plain version
-    runs on the card in their place.
+  * The JAX executor's options whose kernels are not ported yet (the
+    attention's bf16 and int8 compute modes, AEQT_ATTN_COMPUTE) have no
+    keyword here; no plain version runs on the card in their place.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from ai_edge_quantizer_tpu_torch.kernels import cache as cache_lib
 from ai_edge_quantizer_tpu_torch.kernels import head as head_lib
 from ai_edge_quantizer_tpu_torch.kernels import mlp as mlp_lib
 from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul
+from ai_edge_quantizer_tpu_torch.kernels import qkv as qkv_lib
 from ai_edge_quantizer_tpu_torch.kernels import qmatmul as qmm
 from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
 
@@ -148,7 +154,11 @@ class GraphExecutor:
                head_fusion: bool = True,
                decode_block: bool = True,
                attn_dynlen: bool = False,
-               cache_write_inplace: bool = False):
+               cache_write_inplace: bool = False,
+               norm_fusion: bool = False,
+               attn_block: bool = False,
+               attn_qkv: bool = True,
+               attn_oproj: bool = True):
     """activation_dtype: 'bfloat16' (serving mode, the bench's setting) or
     'float32' (bit-faithful to the offline pipeline). attn_writeback:
     'stale', 'splice' or None. decode_block: fuse each matched
@@ -157,7 +167,11 @@ class GraphExecutor:
     prefix (with attn_lengths off). cache_write_inplace: an int8 cache
     row write whose input nothing else reads goes into that input's
     storage. The splice attention and cache_write_inplace write into the
-    step's input pools (see Donation above)."""
+    step's input pools (see Donation above). norm_fusion: an RMS_NORM whose
+    output feeds only packed channelwise FCs folds into each of them.
+    attn_block: the norm + QKV + RoPE prologue (with attn_qkv) and the
+    attention + out-projection + residual epilogue (with attn_oproj) each
+    run as one fused call where they match."""
     self.device = torch.device(device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(
@@ -176,6 +190,10 @@ class GraphExecutor:
     self.decode_block = decode_block
     self.attn_dynlen = attn_dynlen
     self.cache_write_inplace = cache_write_inplace
+    self.norm_fusion = norm_fusion
+    self.attn_block = attn_block
+    self.attn_qkv = attn_qkv
+    self.attn_oproj = attn_oproj
     self._act_dtype = quant_arith.STORAGE_TORCH_DTYPES[activation_dtype]
     # Constant tensors, keyed (subgraph_idx, tensor_id), in storage dtype;
     # the tensors that alias one buffer (the signatures of a multi-
@@ -199,6 +217,12 @@ class GraphExecutor:
     self._packed_pad_n: dict = {}  # key -> true N (packed weight N-padded)
     self._packed_scale: dict = {}  # key -> padded per-channel scale
     self._packed_block_size: dict = {}  # key -> block size (blockwise int4)
+    # RMS_NORM -> packed-FC fusion: (sg, norm output tid) -> info.
+    self._norm_fusions: dict = {}
+    self._norm_skip: set = set()
+    # Attention-block prologue (norm + QKV + RoPE): (sg, norm op idx) -> info.
+    self._qkv_fusions: dict = {}
+    self._qkv_skip: set = set()
     self._mlp_fusions: dict = {}
     self._mlp_skip: set = set()
     self._head_fusions: dict = {}
@@ -447,13 +471,55 @@ class GraphExecutor:
               packed, self._packed_scale[key],
               self._packed_pad_n.get(key),
               self._packed_block_size.get(key, 0))
+    self._find_norm_fusions()
     self._find_mlp_fusions()
     self._find_head_fusions()
+    self._find_qkv_fusions()
+    self._find_attn_epilogues()
     self._find_block_fusions()
 
   def _sig_out_tids(self) -> set:
     return {(s.subgraph_index, tid)
             for s in self.graph.signatures for tid in s.outputs.values()}
+
+  def _find_norm_fusions(self) -> None:
+    """RMS_NORM ops whose output feeds only packed channelwise FCs (and is
+    no subgraph or signature output), with a constant gamma, fold into
+    each consuming FC's `qmatmul_int4_packed_rmsnorm` call; the norm op is
+    skipped (the JAX executor's `_find_norm_fusions`, AEQT_NORM_FUSION)."""
+    self._norm_fusions = {}
+    self._norm_skip = set()
+    if not self.norm_fusion:
+      return
+    sig_out_tids = self._sig_out_tids()
+    for sg_idx, sg in enumerate(self.graph.subgraphs):
+      for op_idx, op in enumerate(sg.ops):
+        if op.opcode != 'RMS_NORM' or len(op.inputs) < 2 or not op.outputs:
+          continue
+        out_tid = op.outputs[0]
+        if out_tid in sg.outputs or (sg_idx, out_tid) in sig_out_tids:
+          continue
+        gamma_tid = op.inputs[1]
+        g_t = sg.tensors[gamma_tid]
+        if g_t.buffer < 0 or self.graph.buffers[g_t.buffer].data is None:
+          if (sg_idx, gamma_tid) not in self._weights:
+            continue
+        consumers = [o for o in sg.ops if out_tid in o.inputs]
+        if not consumers or not all(
+            o.opcode == 'FULLY_CONNECTED'
+            and o.inputs and o.inputs[0] == out_tid
+            and len(o.inputs) > 1
+            and (sg_idx, o.inputs[1]) in self._packed_int4_keys
+            and (sg_idx, o.inputs[1]) not in self._packed_block_size
+            for o in consumers
+        ):
+          continue
+        self._norm_fusions[(sg_idx, out_tid)] = {
+            'x': op.inputs[0],
+            'gamma': gamma_tid,
+            'eps': float(op.attrs.get('epsilon', 1e-6)),
+        }
+        self._norm_skip.add((sg_idx, op_idx))
 
   def _find_mlp_fusions(self) -> None:
     """Fuse the GeGLU FFN chain into one mlp_int4_packed call.
@@ -463,9 +529,11 @@ class GraphExecutor:
            -> GELU(gate) -> MUL(gelu, up) -> FULLY_CONNECTED(down)
       B. FULLY_CONNECTED(gate), FULLY_CONNECTED(up) on the same input
            -> GELU(gate) -> MUL(gelu, up) -> FULLY_CONNECTED(down)
-    All weights packed channelwise int4 without N padding. The down weight
-    is re-packed into the group-split layout under the synthetic tensor id
-    -1000 - tid (it replaces the canonical packed form).
+    All weights packed channelwise int4 without N padding, and the chain's
+    input no norm-fused tensor (only the packed FC re-applies a skipped
+    norm). The down weight is re-packed into the group-split layout under
+    the synthetic tensor id -1000 - tid (it replaces the canonical packed
+    form).
     """
     self._mlp_fusions = {}
     self._mlp_skip = set()
@@ -513,8 +581,13 @@ class GraphExecutor:
           self._weights[grouped_key] = grouped_cache[gk]
           del self._weights[wd_key]
 
+      def norm_fused_input(tid, sg_idx=sg_idx):
+        return (sg_idx, tid) in self._norm_fusions
+
       for gu_idx, gu_op in enumerate(sg.ops):
         if not plain_fc(gu_op) or not packed_channelwise(gu_op.inputs[1]):
+          continue
+        if norm_fused_input(gu_op.inputs[0]):
           continue
         wgu_key = (sg_idx, gu_op.inputs[1])
         wgu = self._weights.get(wgu_key)
@@ -604,6 +677,8 @@ class GraphExecutor:
             or len(cons.get(gate_tid, [])) != 1):
           continue
         gate_idx, gate_op = ge
+        if norm_fused_input(gate_op.inputs[0]):
+          continue
         gact_tid = gelu_op.outputs[0]
         mcons = cons.get(gact_tid, [])
         if len(mcons) != 1 or mcons[0][1].opcode != 'MUL':
@@ -681,7 +756,8 @@ class GraphExecutor:
   def _find_head_fusions(self) -> None:
     """Fuse FC(logits) -> ARG_MAX into one head_argmax call: a plain FC
     whose weight is channelwise packed int4 or symmetric per-channel
-    int8, consumed only by ARG_MAX over the last axis."""
+    int8, consumed only by ARG_MAX over the last axis, whose input is no
+    norm-fused tensor."""
     self._head_fusions = {}
     self._head_skip = set()
     if not self.head_fusion:
@@ -700,6 +776,8 @@ class GraphExecutor:
             or (len(fc_op.inputs) > 2 and fc_op.inputs[2] >= 0)
             or fc_op.attrs.get('fused_activation', 'NONE') != 'NONE'):
           continue
+        if (sg_idx, fc_op.inputs[0]) in self._norm_fusions:
+          continue  # only the plain FC kernel re-applies a skipped norm
         out_tid = fc_op.outputs[0]
         if out_tid in protected:
           continue
@@ -732,18 +810,230 @@ class GraphExecutor:
         self._head_fusions[(sg_idx, fc_idx)] = info
         self._head_skip.add((sg_idx, am_idx))
 
+  def _find_qkv_fusions(self) -> None:
+    """The decode layer's prologue as one `qkv.qkv_rope` call (the JAX
+    executor's `_find_qkv_fusions`, AEQT_ATTN_BLOCK with AEQT_ATTN_QKV).
+
+    Matches RMS_NORM -> FC(packed channelwise int4 fused QKV, no N padding)
+    -> SLICE x3 -> {q: RESHAPE -> ROPE -> TRANSPOSE -> RESHAPE, k: RESHAPE
+    -> ROPE -> TRANSPOSE, v: RESHAPE -> TRANSPOSE} at T = 1, each link the
+    single float consumer of an unprotected tensor. Keyed at the norm op;
+    the chain's other ops are skipped. The JAX executor's TPU gate on head
+    and byte-column widths becomes what the CUDA kernel takes (it raises
+    for any other shape).
+    """
+    self._qkv_fusions = {}
+    self._qkv_skip = set()
+    if not (self.attn_block and self.attn_qkv):
+      return
+    sig_out_tids = self._sig_out_tids()
+    for sg_idx, sg in enumerate(self.graph.subgraphs):
+      cons: dict = {}
+      for oi, o in enumerate(sg.ops):
+        for t in o.inputs:
+          cons.setdefault(t, []).append((oi, o))
+      protected = set(sg.outputs) | {
+          tid for (si, tid) in sig_out_tids if si == sg_idx}
+
+      def link(tid, opcode, sg=sg, cons=cons, protected=protected):
+        """Single unprotected float consumer of `tid` with `opcode`."""
+        users = cons.get(tid, [])
+        if (tid in protected or len(users) != 1
+            or users[0][1].opcode != opcode
+            or sg.tensors[tid].quantization is not None):
+          return None
+        return users[0]
+
+      for norm_idx, norm in enumerate(sg.ops):
+        if norm.opcode != 'RMS_NORM' or len(norm.inputs) < 2:
+          continue
+        got = link(norm.outputs[0], 'FULLY_CONNECTED')
+        if got is None:
+          continue
+        fc_idx, fc = got
+        if (fc.inputs[0] != norm.outputs[0] or len(fc.inputs) < 2
+            or fc.inputs[1] < 0
+            or (len(fc.inputs) > 2 and fc.inputs[2] >= 0)
+            or fc.attrs.get('fused_activation', 'NONE') != 'NONE'):
+          continue
+        key = (sg_idx, fc.inputs[1])
+        if (key not in self._packed_int4_keys
+            or key in self._packed_block_size
+            or key in self._packed_pad_n):
+          continue
+        qkv_tid = fc.outputs[0]
+        users = cons.get(qkv_tid, [])
+        if (qkv_tid in protected or len(users) != 3
+            or any(o.opcode != 'SLICE' for _, o in users)):
+          continue
+        by_begin = sorted(users, key=lambda u: u[1].attrs['begin'][-1])
+        (qs_idx, qs), (ks_idx, ks), (vs_idx, vs) = by_begin
+
+        got = link(qs.outputs[0], 'RESHAPE')
+        if got is None:
+          continue
+        qr_idx, qr = got
+        new_shape = qr.attrs.get('new_shape')
+        if not new_shape or len(new_shape) != 4 or new_shape[1] != 1:
+          continue
+        _, _, nq, h = new_shape
+        got = link(qr.outputs[0], 'ROPE')
+        if got is None:
+          continue
+        qrope_idx, qrope = got
+        got = link(qrope.outputs[0], 'TRANSPOSE')
+        if got is None or got[1].attrs.get('perm') != [0, 2, 1, 3]:
+          continue
+        qt_idx, qt_op = got
+        got = link(qt_op.outputs[0], 'RESHAPE')
+        if got is None:
+          continue
+        qg_idx, qg = got
+
+        got = link(ks.outputs[0], 'RESHAPE')
+        if got is None:
+          continue
+        kr_idx, kr = got
+        got = link(kr.outputs[0], 'ROPE')
+        if got is None:
+          continue
+        krope_idx, krope = got
+        if (krope.inputs[1] != qrope.inputs[1]
+            or krope.attrs.get('rope_base') != qrope.attrs.get('rope_base')):
+          continue
+        got = link(krope.outputs[0], 'TRANSPOSE')
+        if got is None or got[1].attrs.get('perm') != [0, 2, 1, 3]:
+          continue
+        kt_idx, kt_op = got
+
+        got = link(vs.outputs[0], 'RESHAPE')
+        if got is None:
+          continue
+        vr_idx, vr = got
+        got = link(vr.outputs[0], 'TRANSPOSE')
+        if got is None or got[1].attrs.get('perm') != [0, 2, 1, 3]:
+          continue
+        vt_idx, vt_op = got
+
+        qkv_n = int(sg.tensors[fc.inputs[1]].shape[0])
+        if qkv_n * h == 0 or qkv_n % h:
+          continue
+        nk = (qkv_n // h - nq) // 2
+        if nk < 1 or (nq + 2 * nk) * h != qkv_n:
+          continue
+        self._qkv_fusions[(sg_idx, norm_idx)] = {
+            'x': norm.inputs[0], 'gamma': norm.inputs[1],
+            'w_tid': fc.inputs[1], 'positions': qrope.inputs[1],
+            'rope_base': float(qrope.attrs.get('rope_base', 10000.0)),
+            'eps': float(norm.attrs.get('epsilon', 1e-6)),
+            'nq': nq, 'nk': nk, 'h': h,
+            'q_out': qg.outputs[0], 'k_out': kt_op.outputs[0],
+            'v_out': vt_op.outputs[0],
+        }
+        for oi in (fc_idx, qs_idx, ks_idx, vs_idx, qr_idx, qrope_idx,
+                   qt_idx, qg_idx, kr_idx, krope_idx, kt_idx, vr_idx,
+                   vt_idx):
+          self._qkv_skip.add((sg_idx, oi))
+
+  def _find_attn_epilogues(self) -> None:
+    """Extend matched attention fusions with the out projection and the
+    residual add, run as one `attention.decode_attention_oproj` call (the
+    JAX executor's `_find_attn_epilogues`, AEQT_ATTN_BLOCK with
+    AEQT_ATTN_OPROJ).
+
+    ctx -> RESHAPE -> TRANSPOSE(0, 2, 1, 3) -> RESHAPE -> FC(packed
+    channelwise int4, no N padding, no bias) -> ADD(residual), each link
+    the single float consumer of an unprotected tensor, on an attention
+    with one KV head. Kept from the JAX executor, so that both find the
+    same units: its VMEM-feasibility gate (two [min(8, B), S, H] int8
+    cache blocks within 13 MiB) and its even-G gate, both unconditional
+    there. Its TPU gate on H, D, G*H/2 and S becomes what the CUDA kernel
+    takes (it raises for any other shape). Like the JAX finder it does not
+    ask that T be 1: a prefill-shaped attention can match.
+    """
+    if not (self.attn_block and self.attn_oproj):
+      return
+    sig_out_tids = self._sig_out_tids()
+    for (sg_idx, bmm2_idx), fusion in list(self._attn_fusions.items()):
+      if 'epilogue' in fusion:
+        continue
+      sg = self.graph.subgraphs[sg_idx]
+      cons: dict = {}
+      for oi, o in enumerate(sg.ops):
+        for t in o.inputs:
+          cons.setdefault(t, []).append((oi, o))
+      protected = set(sg.outputs) | {
+          tid for (si, tid) in sig_out_tids if si == sg_idx}
+
+      def link(tid, opcode, sg=sg, cons=cons, protected=protected):
+        users = cons.get(tid, [])
+        if (tid in protected or len(users) != 1
+            or users[0][1].opcode != opcode
+            or sg.tensors[tid].quantization is not None):
+          return None
+        return users[0]
+
+      q_shape = sg.tensors[fusion['q']].shape
+      if len(q_shape) != 4 or q_shape[1] != 1:
+        continue  # MQA only (NK == 1)
+      b_dim, _, g, h_dim = q_shape
+      s_dim = sg.tensors[fusion['k']].shape[2]
+      if 2 * (2 * min(8, b_dim) * s_dim * h_dim) > 13 * 2**20:
+        continue
+      if g % 2:
+        continue
+      got = link(fusion['out'], 'RESHAPE')
+      if got is None:
+        continue
+      r1_idx, r1 = got
+      got = link(r1.outputs[0], 'TRANSPOSE')
+      if got is None or got[1].attrs.get('perm') != [0, 2, 1, 3]:
+        continue
+      t_idx, t_op = got
+      got = link(t_op.outputs[0], 'RESHAPE')
+      if got is None:
+        continue
+      r2_idx, r2 = got
+      got = link(r2.outputs[0], 'FULLY_CONNECTED')
+      if got is None:
+        continue
+      fc_idx, fc = got
+      if (fc.inputs[0] != r2.outputs[0] or len(fc.inputs) < 2
+          or fc.inputs[1] < 0
+          or (len(fc.inputs) > 2 and fc.inputs[2] >= 0)
+          or fc.attrs.get('fused_activation', 'NONE') != 'NONE'):
+        continue
+      key = (sg_idx, fc.inputs[1])
+      if (key not in self._packed_int4_keys
+          or key in self._packed_block_size
+          or key in self._packed_pad_n):
+        continue
+      got = link(fc.outputs[0], 'ADD')
+      if got is None:
+        continue
+      add_idx, add = got
+      others = [t for t in add.inputs if t != fc.outputs[0]]
+      if len(others) != 1:
+        continue
+      fusion['epilogue'] = {
+          'wo_tid': fc.inputs[1], 'x_res': others[0], 'y': add.outputs[0]}
+      for oi in (r1_idx, t_idx, r2_idx, fc_idx, add_idx):
+        self._attn_skip.add((sg_idx, oi))
+
   def _find_block_fusions(self) -> None:
     """Merge MLP(l-1)+norms+QKV(l)+RoPE+attention(l) units into one
     `block.fused_mlp_qkv_attention` call per layer (the JAX executor's
     `_find_block_fusions`, the same units on the same conditions).
 
     A unit is an attention fusion with its cache writes folded in
-    (attn_writeback) and one KV head, whose q, k and v chains lead back to
+    (attn_writeback), no out-projection epilogue and one KV head, whose q,
+    k and v chains lead back to
     one packed QKV FC behind an RMS_NORM, whose input is the ADD of a
     residual and an unsplit MLP fusion's output, that MLP's input being an
     RMS_NORM of the same residual; all four cache tensors carry
     quantization params. Runs after the MLP and head finders; the absorbed
-    MLP and attention fusions are removed.
+    MLP and attention fusions are removed, and so are the folded norms'
+    norm fusions.
     """
     self._block_fusions = {}
     self._block_skip = set()
@@ -751,7 +1041,7 @@ class GraphExecutor:
       return
     for (sg_idx, bmm2_idx), attn in list(self._attn_fusions.items()):
       wb = attn.get('writeback')
-      if wb is None:  # (the port has no attention epilogues)
+      if wb is None or attn.get('epilogue') is not None:
         continue
       sg = self.graph.subgraphs[sg_idx]
       ops = sg.ops
@@ -871,9 +1161,7 @@ class GraphExecutor:
       }
       # Ops absorbed into the unit. The attention chain's own ops are in
       # _attn_skip already and the MLP's interior ops stay in _mlp_skip;
-      # the MLP fusion's key op (its gate/up FC) is skipped here. (The JAX
-      # executor also drops the folded norms from its norm fusions; the
-      # port has none.)
+      # the MLP fusion's key op (its gate/up FC) is skipped here.
       unit_ops = ([n1_idx, add_idx, norm_idx, fc_idx, rope_idx, krope_idx,
                    bmm2_idx]
                   + q_ops + slice_ops + k_ops + kslice_ops + v_ops)
@@ -882,6 +1170,11 @@ class GraphExecutor:
       self._block_skip.add(mlp_key)
       del self._mlp_fusions[mlp_key]
       del self._attn_fusions[(sg_idx, bmm2_idx)]
+      # The folded norms must not re-engage their own fusions.
+      self._norm_skip.discard((sg_idx, n1_idx))
+      self._norm_skip.discard((sg_idx, norm_idx))
+      self._norm_fusions.pop((sg_idx, fc_op.inputs[0]), None)
+      self._norm_fusions.pop((sg_idx, mlp['x']), None)
 
   # -- public API -----------------------------------------------------------
 
@@ -938,8 +1231,14 @@ class GraphExecutor:
       if head is not None:
         self._eval_fused_head(sg_idx, sg, head, env)
         continue
+      # Keyed at its RMS_NORM, so it comes before the norm skip.
+      qkv = self._qkv_fusions.get(key)
+      if qkv is not None:
+        self._eval_fused_qkv(sg_idx, sg, qkv, env)
+        continue
       if (key in self._attn_skip or key in self._mlp_skip
-          or key in self._head_skip):
+          or key in self._head_skip or key in self._qkv_skip
+          or key in self._norm_skip):
         continue  # folded into a fused call
       self._eval_op(sg_idx, sg, op, env)
     return {name: env[tid] for name, tid in sig.outputs.items()}
@@ -1161,8 +1460,9 @@ class GraphExecutor:
     zp_v = float(np.asarray(v_info.zero_point).reshape(()))
     decode_shaped = q_val.shape[2] < 32
     wb = fusion.get('writeback')
+    ep = fusion.get('epilogue')
     if wb is not None:
-      wb_common = self.attn_lengths and decode_shaped
+      wb_common = self.attn_lengths and decode_shaped and ep is None
       if wb_common and self.attn_writeback == 'stale':
         # Stale-cache mode: attention reads the pre-write cache plus the
         # new row as an inline softmax column; the cache write runs
@@ -1204,6 +1504,21 @@ class GraphExecutor:
       self._write_caches(wb, env)
     k_q = env[fusion['k']]
     v_q = env[fusion['v']]
+    if ep is not None:
+      # The attention-block epilogue: its out projection and residual ops
+      # were skipped at match time, so it runs whatever the shape, over the
+      # written caches, with lengths from the prefix-form mask. DRQ on the
+      # unfused packed FC's gate, so that both agree.
+      wo = env[ep['wo_tid']]
+      y = attention.decode_attention_oproj(
+          q_val, k_q, v_q, k_scale, v_scale, _prefix_lengths(mask),
+          self._dequant_view(sg, ep['x_res'], env), wo,
+          self._packed_scale[(sg_idx, ep['wo_tid'])], k_zero_point=zp_k,
+          v_zero_point=zp_v, compute='f32',
+          drq=self.int4_drq and wo.shape[1] * 2 <= 8192)
+      out_op = ir.Op(opcode='ADD', inputs=[], outputs=[ep['y']])
+      self._store_outputs(sg, out_op, (y,), env)
+      return
     h_dim = q_val.shape[-1]
     route = attention_route(h_dim, k_q.shape[2], q_val.shape[2],
                             self.attn_lengths, self.attn_dynlen)
@@ -1292,6 +1607,27 @@ class GraphExecutor:
         tuple(v.reshape(sg.tensors[t].shape) for t, v in zip(outs, values)),
         env)
 
+  def _eval_fused_qkv(self, sg_idx: int, sg: ir.Subgraph, fusion: dict,
+                      env: dict) -> None:
+    """One norm + QKV + RoPE call for a matched prologue: cos and sin of
+    the rows' positions formed on this device, DRQ on the unfused packed
+    FC's gate; q, k and v stored under the chain's last tensors."""
+    w = env[fusion['w_tid']]
+    h = fusion['h']
+    cos, sin = qkv_lib.rope_cos_sin(env[fusion['positions']], h,
+                                    fusion['rope_base'])
+    q, k, v = qkv_lib.qkv_rope(
+        self._dequant_view(sg, fusion['x'], env),
+        self._dequant_view(sg, fusion['gamma'], env), w,
+        self._packed_scale[(sg_idx, fusion['w_tid'])], cos, sin,
+        nq=fusion['nq'], nk=fusion['nk'], h=h, eps=fusion['eps'],
+        drq=self.int4_drq and w.shape[1] * 2 <= 8192)
+    for tid, val in ((fusion['q_out'], q), (fusion['k_out'], k),
+                     (fusion['v_out'], v)):
+      out_op = ir.Op(opcode='RESHAPE', inputs=[], outputs=[tid])
+      self._store_outputs(sg, out_op, (val.reshape(sg.tensors[tid].shape),),
+                          env)
+
   def _eval_fused_mlp(self, sg_idx: int, sg: ir.Subgraph,
                       fusion: dict, env: dict) -> None:
     """One mlp_int4_packed call for a matched GeGLU chain."""
@@ -1350,19 +1686,29 @@ class GraphExecutor:
     key = (sg_idx, op.inputs[1])
     if key in self._packed_int4_keys:
       true_n = self._packed_pad_n.get(key)
-      x_f = self._dequant_view(sg, op.inputs[0], env)
-      # The JAX executor's route: blockwise, then DRQ with K <= 8192, then
-      # DRQ K-blocked, then weight-only.
-      if self._packed_block_size.get(key, 0):
-        fn = packed_qmatmul.qmatmul_int4_packed_blockwise
-      elif self.int4_drq and w_q.shape[1] * 2 <= 8192:
-        fn = packed_qmatmul.qmatmul_int4_packed_drq
-      elif self.int4_drq:
-        fn = packed_qmatmul.qmatmul_int4_packed_drq_kblock
+      norm = self._norm_fusions.get((sg_idx, op.inputs[0]))
+      # The JAX executor's route: a norm-fused input (weight-only whatever
+      # int4_drq says), then blockwise, DRQ with K <= 8192, DRQ K-blocked,
+      # weight-only.
+      bs = self._packed_block_size.get(key, 0)
+      if norm is not None and not bs:
+        y = packed_qmatmul.qmatmul_int4_packed_rmsnorm(
+            self._dequant_view(sg, norm['x'], env),
+            self._dequant_view(sg, norm['gamma'], env), w_q,
+            self._packed_scale[key],
+            bias=None if true_n is not None else bias, eps=norm['eps'])
       else:
-        fn = packed_qmatmul.qmatmul_int4_packed
-      y = fn(x_f, w_q, self._packed_scale[key],
-             bias=None if true_n is not None else bias)
+        if bs:
+          fn = packed_qmatmul.qmatmul_int4_packed_blockwise
+        elif self.int4_drq and w_q.shape[1] * 2 <= 8192:
+          fn = packed_qmatmul.qmatmul_int4_packed_drq
+        elif self.int4_drq:
+          fn = packed_qmatmul.qmatmul_int4_packed_drq_kblock
+        else:
+          fn = packed_qmatmul.qmatmul_int4_packed
+        y = fn(self._dequant_view(sg, op.inputs[0], env), w_q,
+               self._packed_scale[key],
+               bias=None if true_n is not None else bias)
       if true_n is not None:
         y = y[..., :true_n]
         if bias is not None:

@@ -34,7 +34,8 @@ SOURCES = ('qmatmul_int4_drq', 'attention_stale', 'mlp_int4_drq',
            'qmatmul_int_weights', 'qmatmul_int4_drq_kblock',
            'qmatmul_int4_weight_only', 'mlp_int4_bf16', 'attention_masked',
            'qmatmul_int4_blockwise', 'cache_row_write', 'attention_writeback',
-           'attention_dynlen')
+           'attention_dynlen', 'qmatmul_int4_rmsnorm', 'qkv_rope',
+           'attention_oproj')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')

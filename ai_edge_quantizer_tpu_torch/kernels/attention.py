@@ -1,6 +1,6 @@
 """Quantized-cache attention kernels (PyTorch + CUDA).
 
-Ports of seven Pallas kernels of
+Ports of eight Pallas kernels of
 `ai_edge_quantizer_tpu/kernels/pallas_attention.py`, each with a plain
 PyTorch version beside its CUDA kernel (`csrc/`):
 
@@ -33,12 +33,16 @@ PyTorch version beside its CUDA kernel (`csrc/`):
   * `decode_attention_int8_dynlen`: decode attention that reads only the
     live prefix, in chunks with an online softmax, f32
     (`csrc/attention_dynlen.cu`).
+  * `decode_attention_oproj_pallas` as `decode_attention_oproj`: the
+    lengths attention of one KV head followed by the packed int4 out
+    projection and the residual add, the JAX executor's AEQT_ATTN_BLOCK
+    epilogue (`csrc/attention_oproj.cu`).
 
 The int8 CUDA decode kernels compute in f32 (`compute='f32'`, the
 executor's default). The plain versions of the lengths kernels also cover
 the `bf16` and `int8` compute modes; on a CUDA tensor those raise, as
-their kernels are not ported yet. The masked kernel has the f32 mode
-only, on both devices. The other Pallas attention kernels of that file
+their kernels are not ported yet. The masked kernel and the out-projection
+epilogue have the f32 mode only, on both devices. The other Pallas attention kernels of that file
 are not ported yet (see ROADMAP.md).
 """
 
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from ai_edge_quantizer_tpu_torch.kernels import _build
+from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul
 
 _NEG = -1e30
 
@@ -301,6 +306,134 @@ def decode_attention_int8_lengths(
 
 decode_attention_int8_lengths.launches = 0
 decode_attention_int8_lengths.plain_calls = 0
+
+
+# -- lengths attention + out projection + residual (the attention epilogue) --
+
+
+def _oproj_check(q, compute):
+  """(B, G, H) of an epilogue call: MQA only and an even head count (the
+  TPU wrapper's ValueErrors), f32 compute only."""
+  name = 'decode_attention_oproj'
+  if compute != 'f32':
+    raise NotImplementedError(
+        f'{name}: compute={compute!r} is not ported (f32 only).')
+  b, nk, g, h = q.shape
+  if nk != 1:
+    raise ValueError('out-proj epilogue supports MQA (NK == 1) only.')
+  if g % 2:
+    raise ValueError('even head count required (nibble pairing).')
+  return b, g, h
+
+
+def decode_attention_oproj_plain(
+    q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, x_res, wo_packed, so,
+    k_zero_point=0.0, v_zero_point=0.0, compute='f32', drq=True):
+  """`_attn_oproj_kernel` in plain PyTorch (any device): q rounded to the
+  activation dtype (bf16 for bf16 x_res, else f32), the lengths attention
+  (`_ctx_prefix_len`, f32) staged at that dtype, the packed out projection
+  (DRQ: xs over the whole G*H row, int32 sums, (acc * xs) * so; weight-only:
+  f32 sums, pair p's low nibbles against head p and its high nibbles
+  against head p + G/2, pairs in order, then * so), cast, and added to
+  x_res at that dtype. Returns [B, D] in x_res.dtype."""
+  b, g, h = _oproj_check(q, compute)
+  cast = torch.bfloat16 if x_res.dtype == torch.bfloat16 else torch.float32
+  d = wo_packed.shape[0]
+  qf = q.to(cast).to(torch.float32)
+  ctx = decode_attention_int8_lengths_plain(
+      qf, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_zero_point,
+      v_zero_point, 'f32', cast).reshape(b, g * h)
+  so32 = so.to(torch.float32).reshape(-1)
+  if drq:
+    o = packed_qmatmul.qmatmul_int4_packed_drq_plain(ctx, wo_packed, so32)
+  else:
+    w = packed_qmatmul.unpack_int4_split(wo_packed).to(torch.float32)
+    cf = ctx.to(torch.float32)
+    pairs = g // 2
+    acc = torch.zeros((b, d), dtype=torch.float32, device=q.device)
+    for p in range(pairs):
+      for head in (p, p + pairs):
+        cols = slice(head * h, (head + 1) * h)
+        acc = acc + torch.matmul(cf[:, cols], w[:, cols].T)
+    o = (acc * so32.reshape(1, d)).to(cast)
+  y = x_res.reshape(b, d).to(cast) + o
+  return y.to(x_res.dtype).reshape(x_res.shape)
+
+
+def decode_attention_oproj(
+    q: torch.Tensor,
+    k_cache_q: torch.Tensor,
+    v_cache_q: torch.Tensor,
+    k_scale: float,
+    v_scale: float,
+    lengths: torch.Tensor,
+    x_res: torch.Tensor,
+    wo_packed: torch.Tensor,
+    so: torch.Tensor,
+    k_zero_point: float = 0.0,
+    v_zero_point: float = 0.0,
+    compute: str = 'f32',
+    drq: bool = True,
+) -> torch.Tensor:
+  """Prefix-length attention + packed int4 out projection + residual
+  (pallas_attention.decode_attention_oproj_pallas).
+
+  q [B, 1, G, H] (MQA) float, G even; caches int8 [B, 1, S, H] with
+  per-tensor scales and zero points as Python floats; lengths int32 [B];
+  x_res [B, D], the residual stream; wo_packed [D, G*H/2] uint8
+  split-half packed int4; so [D] f32. Returns x_res + W_o . attn(q, cache)
+  [B, D] in x_res.dtype (decode_attention_oproj_plain has the arithmetic).
+  Only compute='f32' is ported; 'bf16' and 'int8' raise on both devices.
+  The TPU wrapper's batch_block (its VMEM blocking) has no counterpart.
+  """
+  args = (q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, x_res,
+          wo_packed, so, k_zero_point, v_zero_point, compute, drq)
+  b, g, h = _oproj_check(q, compute)
+  if _build.device_kind(q) == 'cpu':
+    decode_attention_oproj.plain_calls += 1
+    return decode_attention_oproj_plain(*args)
+  name = 'decode_attention_oproj'
+  s = k_cache_q.shape[2]
+  d = wo_packed.shape[0]
+  cast = torch.bfloat16 if x_res.dtype == torch.bfloat16 else torch.float32
+  q2 = q.to(cast).to(torch.float32).reshape(b, g, h).contiguous()
+  for t, nm in ((k_cache_q, 'k_cache'), (v_cache_q, 'v_cache')):
+    _build.require(tuple(t.shape) == (b, 1, s, h), name,
+                   f'{nm} shape {tuple(t.shape)}')
+    _build.require_cuda_tensor(t, name, nm, (torch.int8,), 16)
+  lens = lengths.to(torch.int32).reshape(-1).contiguous()
+  _build.require_cuda_tensor(lens, name, 'lengths', (torch.int32,))
+  _build.require(lens.numel() == b, name, 'lengths must have B entries')
+  _build.require(x_res.numel() == b * d, name,
+                 f'x_res shape {tuple(x_res.shape)} must hold [B, D]')
+  x2 = x_res.reshape(b, d).to(cast).contiguous()
+  _build.require(wo_packed.shape[1] * 2 == g * h, name,
+                 f'wo_packed shape {tuple(wo_packed.shape)} must be '
+                 f'[D, G*H/2]')
+  _build.require_cuda_tensor(wo_packed, name, 'wo_packed', (torch.uint8,),
+                             16)
+  so32 = so.to(torch.float32).reshape(-1).contiguous()
+  _build.require_cuda_tensor(so32, name, 'so', (torch.float32,))
+  _build.require(so32.numel() == d, name, 'so must have D entries')
+  ctx = torch.empty((b, g * h), dtype=cast, device=q.device)
+  o = torch.empty((b, d), dtype=cast, device=q.device)
+  out = torch.empty((b, d), dtype=cast, device=q.device)
+  fn = _build.entry(
+      'attention_oproj', 'aeqt_attention_oproj',
+      [_build.P] * 10 + [_build.I] * 7 + [_build.F] * 4 + [_build.P])
+  status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
+              lens.data_ptr(), x2.data_ptr(), wo_packed.data_ptr(),
+              so32.data_ptr(), ctx.data_ptr(), o.data_ptr(), out.data_ptr(),
+              int(cast == torch.bfloat16), int(drq), b, g, s, h, d,
+              score_scale(k_scale, h), float(v_scale), float(k_zero_point),
+              float(v_zero_point), _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}, D={d}, drq={drq}')
+  decode_attention_oproj.launches += 1
+  return out.to(x_res.dtype).reshape(x_res.shape)
+
+
+decode_attention_oproj.launches = 0
+decode_attention_oproj.plain_calls = 0
 
 
 # -- lengths attention with the new row written in (splice) -----------------

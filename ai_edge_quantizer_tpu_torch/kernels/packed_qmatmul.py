@@ -1,7 +1,7 @@
 """Packed int4 weights and the packed int4 matmuls (PyTorch + CUDA).
 
 Port of `ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py`: the split-half
-int4 layout (`pack_int4_split`, `unpack_int4_split`) and four of its
+int4 layout (`pack_int4_split`, `unpack_int4_split`) and five of its
 Pallas kernels over packed weights:
 
   * `qmatmul_pallas_int4_packed_drq` as `qmatmul_int4_packed_drq`, CUDA
@@ -15,7 +15,11 @@ Pallas kernels over packed weights:
     `csrc/qmatmul_int4_weight_only.cu(h)`;
   * `qmatmul_pallas_int4_packed_blockwise` (one scale per block of bs
     K-columns, bs % 128 == 0) as `qmatmul_int4_packed_blockwise`, CUDA
-    kernel `csrc/qmatmul_int4_blockwise.cu`.
+    kernel `csrc/qmatmul_int4_blockwise.cu`;
+  * `qmatmul_pallas_int4_packed_rmsnorm` (RMS norm times gamma ahead of
+    the weight-only matmul, the JAX executor's AEQT_NORM_FUSION) as
+    `qmatmul_int4_packed_rmsnorm`, CUDA kernel
+    `csrc/qmatmul_int4_rmsnorm.cu`.
 
 Each wrapper has two cases: a CUDA tensor launches the kernel (or raises),
 a CPU tensor runs the `..._plain` function, which repeats the kernel's
@@ -31,6 +35,7 @@ import torch
 
 from ai_edge_quantizer_tpu_torch.kernels import _build
 from ai_edge_quantizer_tpu_torch.kernels.qmatmul import int_matmul_exact
+from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
 
 _INV127 = 1.0 / 127.0  # rounded once to f32 where it meets an f32 tensor
 
@@ -350,3 +355,79 @@ def qmatmul_int4_packed_blockwise(
 
 qmatmul_int4_packed_blockwise.launches = 0
 qmatmul_int4_packed_blockwise.plain_calls = 0
+
+
+def rmsnorm_gamma_plain(x, gamma, eps=1e-6):
+  """The norm of pallas_qmatmul._int4_channelwise_norm_kernel on the rows of
+  x [M, K]: xn = (xf * rsqrt(mean(xf^2) + eps)).astype(compute) *
+  gamma.astype(compute), both the cast and the product rounded in the
+  compute dtype (bf16 for bf16 x, else f32). The sum of squares is taken
+  in f64 (ops/impl.py `rms_inverse`)."""
+  cdt = compute_dtype(x)
+  xf = x.to(cdt).to(torch.float32)
+  return (xf * ops_impl.rms_inverse(xf, eps)).to(cdt) * gamma.to(cdt).reshape(1, -1)
+
+
+def qmatmul_int4_packed_rmsnorm_plain(x, gamma, w_packed, scale, bias=None,
+                                      eps=1e-6):
+  """The fused kernel's arithmetic in plain PyTorch (any device): the norm
+  (rmsnorm_gamma_plain), then the weight-only matmul's
+  (qmatmul_int4_packed_plain) on the normalized rows."""
+  k = 2 * w_packed.shape[1]
+  lead = x.shape[:-1]
+  xn = rmsnorm_gamma_plain(x.reshape(-1, k), gamma, eps)
+  y = qmatmul_int4_packed_plain(xn, w_packed, scale, bias)
+  return y.to(x.dtype).reshape(lead + (w_packed.shape[0],))
+
+
+def qmatmul_int4_packed_rmsnorm(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+  """rms_norm(x) * gamma . packed int4 [N, K//2] -> [..., N] in x.dtype
+  (pallas_qmatmul.qmatmul_pallas_int4_packed_rmsnorm): weight-only, the
+  norm rounded in the compute dtype, f32 sums, y = acc * s (+ b)
+  (qmatmul_int4_packed_rmsnorm_plain has the arithmetic). The JAX
+  wrapper's `bn` is its VMEM tiling and has no counterpart here."""
+  if _build.device_kind(x) == 'cpu':
+    qmatmul_int4_packed_rmsnorm.plain_calls += 1
+    return qmatmul_int4_packed_rmsnorm_plain(x, gamma, w_packed, scale, bias,
+                                             eps)
+  name = 'qmatmul_int4_packed_rmsnorm'
+  n, k2 = w_packed.shape
+  k = 2 * k2
+  lead = x.shape[:-1]
+  x2 = x.reshape(-1, k).to(compute_dtype(x)).contiguous()
+  m = x2.shape[0]
+  g = gamma.to(torch.float32).reshape(-1).contiguous()
+  _build.require_cuda_tensor(g, name, 'gamma', (torch.float32,))
+  _build.require(g.numel() == k, name, 'gamma must have K entries')
+  _build.require_cuda_tensor(w_packed, name, 'w_packed', (torch.uint8,), 16)
+  _build.require_cuda_tensor(scale, name, 'scale', (torch.float32,))
+  _build.require(scale.numel() == n, name, 'scale must have N entries')
+  if bias is not None:
+    bias = bias.to(torch.float32).contiguous()
+    _build.require_cuda_tensor(bias, name, 'bias', (torch.float32,))
+    _build.require(bias.numel() == n, name, 'bias must have N entries')
+  xn = torch.empty_like(x2)
+  out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+  fn = _build.entry('qmatmul_int4_rmsnorm', 'aeqt_qmatmul_int4_rmsnorm',
+                    [_build.P, _build.I, _build.P, _build.P, _build.P,
+                     _build.P, _build.P, _build.P, _build.I, _build.I,
+                     _build.I, _build.F, _build.P])
+  status = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), g.data_ptr(),
+              w_packed.data_ptr(), scale.data_ptr(),
+              None if bias is None else bias.data_ptr(), xn.data_ptr(),
+              out.data_ptr(), m, n, k, float(eps),
+              _build.stream_ptr(x2.device))
+  _build.check(status, name, f'M={m}, N={n}, K={k}')
+  qmatmul_int4_packed_rmsnorm.launches += 1
+  return out.to(x.dtype).reshape(lead + (n,))
+
+
+qmatmul_int4_packed_rmsnorm.launches = 0
+qmatmul_int4_packed_rmsnorm.plain_calls = 0

@@ -7,7 +7,7 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
 
   1. facts: torch.version.cuda, nvcc --version, the card's name and power
      limit (nvidia-smi) and the kernels' build time;
-  2. kernels: each of the nineteen kernels against its plain PyTorch version
+  2. kernels: each of the twenty-two kernels against its plain PyTorch version
      on the card at the main paths' shapes (Gemma-2B; decode at batch 64
      and cache 1024, bench.py's decode at batch 256 with 897 live cache
      rows, prefill at 8 x 128 tokens; bf16 activations), with the stated
@@ -37,8 +37,17 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      shape; bf16 and f32 x, with and without a bias), the splice attention
      at bench.py's shape (pos 896, 0, 31, 32, 1023; pools bit for bit),
      the in-place row write (bit for bit, clipped starts) and the
-     live-prefix attention (B 64 and 256, zero-length rows); four
-     attention shapes the CUDA kernels do not take must raise;
+     live-prefix attention (B 64 and 256, zero-length rows); the kernels
+     of the norm fusion and the attention block (attn_block_kernels): the
+     norm-fused weight-only matmul at the QKV and gate/up shapes (M 256
+     and 64, bf16 and f32 x, with and without a bias, N padded), the
+     norm + QKV + RoPE prologue (M 256 and 64, bf16 and f32, DRQ bit for
+     bit and weight-only) and the attention + out-projection + residual
+     epilogue (B 256 and 64, lengths 897, 0, 1 and S, bf16 and f32, DRQ bit
+     for bit given the lengths kernel's context, weight-only), each timed
+     beside the unfused kernels it replaces; four attention shapes the CUDA
+     kernels do not take must raise, and the epilogue with two KV heads
+     or an odd head count;
   3. decode loop: the Gemma-2B int4 greedy decode graph at batch 64 with an
      int8 KV cache answers 64 requests (8 prompt tokens fed through the
      decode step, then 16 greedy tokens), the decode block off; launch
@@ -54,7 +63,10 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      off the splice writeback (splice attention 18 a step) and the in-place
      row writes without writeback (row write 36, lengths attention 18),
      each writing into its step's input pools, ids compared with the
-     block off's;
+     block off's; and bench.py's settings with AEQT_ATTN_BLOCK=1
+     (launches per step: prologue 18, epilogue 18, MLP 18, head 1) and
+     with AEQT_NORM_FUSION=1 (norm-fused matmul 36, stale attention 18,
+     int4 DRQ 18, K-blocked int4 DRQ 18, head 1), ids compared likewise;
   4. server: the port's DecodeServer at bench.py's server settings serves
      128 requests (prompt lengths cycling 32..512, 48 new tokens each) by
      step_chunk(8); every request must end done with 48 ids in range, and
@@ -103,7 +115,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      server's first prefill pass and decode tick held op by op (the int8
      DRQ and the K-blocked int4 DRQ FCs bit for bit, the blockwise, the
      default mode's weight-only and the packed blockwise FCs within their
-     tolerance).
+     tolerance); and the decode step at FUSION_CPU_LAYERS layers with the
+     attention block and with the norm fusion (the norm-fused FCs within
+     int_weights_tolerance, the epilogue's rows by EPILOGUE_ROW_RTOL).
 
 Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
@@ -430,6 +444,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
   results.append(kblock_kernel(torch, port, cfg, dev, timer, gen))
   results.extend(default_mode_kernels(torch, port, cfg, dev, timer, gen))
   results.extend(cache_mode_kernels(torch, port, cfg, dev, timer, gen))
+  results.extend(attn_block_kernels(torch, port, cfg, dev, timer, gen))
   refused_shapes(torch, att, dev)
   return results
 
@@ -1742,6 +1757,347 @@ def cache_mode_kernels(torch, port, cfg, dev, timer, gen):
           dynlen_kernel(torch, att, cfg, dev, timer, gen)]
 
 
+# -- the norm fusion and the attention-block fusions (#14, #20, #19) ---------
+
+
+def rmsnorm_unfused(torch, ops_impl, x, gamma, eps=1e-6):
+  """The unfused RMS_NORM op's arithmetic (ops/impl.py), at x's dtype."""
+  y = x * ops_impl.rms_inverse(x.float(), eps).to(x.dtype)
+  return (y.float() * gamma).to(x.dtype)
+
+
+def rmsnorm_kernel(torch, port, cfg, dev, timer, gen):
+  """The norm-fused weight-only matmul (#14) against its plain version at
+  the shapes the norm fusion gives it on bench.py's decode (K = D 2048; N
+  the fused QKV 2560 and the gate/up projection 2F 32768; M BENCH_B and
+  B), bf16 and full-mantissa f32 x, with and without a bias, and with N
+  padded (the last 64 rows padding: the true N sliced off, no bias in the
+  kernel, as the executor calls it before adding the bias): f32 outputs
+  within int_qmatmul.int_weights_tolerance of max |y| (the mma.sync and
+  SIMT f32 sums run in another order), bf16 outputs within one bf16 ulp
+  beyond it.
+  Timed at BENCH_B beside the unfused route it replaces: the RMS_NORM op's
+  torch arithmetic, then the weight-only matmul (#12)."""
+  pq, iq, ops_impl = port['packed_qmatmul'], port['int_qmatmul'], \
+      port['ops_impl']
+  D, F = cfg.embed_dim, cfg.ffn_dim
+  NQ, NK, H = cfg.num_query_heads, cfg.num_kv_heads, cfg.head_dim
+  bf16 = torch.bfloat16
+  rows = []
+  for label, n in (('qkv', (NQ + 2 * NK) * H), ('gate_up', 2 * F)):
+    w = pq.pack_int4_split(torch.randint(-8, 8, (n, D), generator=gen,
+                                         device=dev).to(torch.int8))
+    s = torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
+    gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+    bias = torch.randn((n,), generator=gen, device=dev)
+    for phase, m in (('bench', BENCH_B), ('decode', B)):
+      x = (torch.randn((m, D), generator=gen, device=dev) * 3).to(bf16)
+      x32 = torch.randn((m, D), generator=gen, device=dev) * 3
+      checks = []
+      for xi, case in ((x, 'plain'), (x, 'bias'), (x32, 'plain'),
+                       (x32, 'bias'), (x, 'padded'), (x32, 'padded')):
+        true_n = n - 64 if case == 'padded' else None
+        bi = bias if case == 'bias' else None
+        got = pq.qmatmul_int4_packed_rmsnorm(xi, gamma, w, s, bi)
+        want = pq.qmatmul_int4_packed_rmsnorm_plain(xi, gamma, w, s, bi)
+        if true_n:  # the executor adds the bias after the slice (torch)
+          got, want = got[:, :true_n], want[:, :true_n]
+        sync()
+        ymax = float(torch.max(torch.abs(want.float())))
+        tol = iq.int_weights_tolerance(D, 0, ymax)
+        err = float(torch.max(torch.abs(got.float() - want.float())))
+        ulps = bf16_ulps(torch, got, want, atol=tol) \
+            if xi.dtype == bf16 else None
+        if (ulps is not None and ulps > 1.0) or (ulps is None
+                                                 and not err <= tol):
+          raise AssertionError(
+              f'norm-fused matmul {label} M {m} ({xi.dtype}, {case}): err '
+              f'{err}, tolerance {tol}, bf16 ulps beyond it {ulps}')
+        checks.append({'x': str(xi.dtype).split('.')[-1], 'case': case,
+                       'max_abs_err': err, 'max_abs_y': ymax,
+                       'tolerance': tol, 'bf16_ulps_beyond': ulps})
+      nbytes = m * D * 2 + D * 4 + n * D // 2 + n * 4 + m * n * 2
+      b_ms, b_by = bound(nbytes, 2 * m * n * D, BF16_OPS_PER_S)
+      rows.append({
+          'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': D,
+          'max_abs_err': max(c['max_abs_err'] for c in checks),
+          'checks': checks,
+          'ms': timer(lambda: pq.qmatmul_int4_packed_rmsnorm(x, gamma, w, s)),
+          'plain_ms': timer(lambda: pq.qmatmul_int4_packed_rmsnorm_plain(
+              x, gamma, w, s), reps=5),
+          'composition_ms': timer(lambda: pq.qmatmul_int4_packed(
+              rmsnorm_unfused(torch, ops_impl, x, gamma), w, s)),
+          'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
+  log(f'kernel qmatmul_int4_packed_rmsnorm ok: '
+      f'{[{k: v for k, v in r.items() if k != "checks"} for r in rows]}')
+  bench = [r for r in rows if r['phase'] == 'bench']
+  timing = ('ms', 'plain_ms', 'composition_ms', 'bound_ms')
+  return {
+      'name': 'qmatmul_int4_packed_rmsnorm', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'qmatmul_int4_rmsnorm.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:297',
+      'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed_rmsnorm',
+      'wrapper': pq.qmatmul_int4_packed_rmsnorm, 'per_step': 0,
+      'per_bench_step_norm_fusion': 2 * cfg.num_layers,
+      'max_abs_err': max(r['max_abs_err'] for r in rows),
+      # A bench step's pair: one QKV and one gate/up call.
+      **{key: sum(r[key] for r in bench) for key in timing},
+      'bound_by': 'operations', 'library_ms': None,
+      'composition': 'the RMS_NORM op (torch) + qmatmul_int4_packed (#12), '
+                     'per layer: the QKV and the gate/up call summed',
+      'by_shape': rows}
+
+
+def qkv_kernel(torch, port, cfg, dev, timer, gen):
+  """The norm + QKV + RoPE prologue (#20) against its plain version at
+  bench.py's decode shape (M BENCH_B, D 2048, 8 query heads and 1 KV head
+  of 256) and at M B, bf16 and f32 x, DRQ on and off, cos and sin of
+  positions near BENCH_START formed on the card: DRQ q, k and v bit for
+  bit (int32 sums, the norm's f64 sum and the DRQ formula repeated in
+  order), weight-only within int_qmatmul.int_weights_tolerance of max |y|
+  and one bf16 ulp beyond it at bf16 (q and k: beyond twice the tolerance
+  and 4 bf16 ulps of the head's largest output, the RoPE mixing two
+  projections that were each rounded to bf16). Timed at BENCH_B (DRQ,
+  bf16) beside
+  the unfused route: the RMS_NORM op's torch arithmetic, the int4 DRQ
+  matmul (#1) and the RoPE of q and k in torch."""
+  pq, iq, ops_impl = port['packed_qmatmul'], port['int_qmatmul'], \
+      port['ops_impl']
+  qkv, blk = port['qkv'], port['block']
+  D, NQ, NK, H = cfg.embed_dim, cfg.num_query_heads, cfg.num_kv_heads, \
+      cfg.head_dim
+  N = (NQ + 2 * NK) * H
+  bf16 = torch.bfloat16
+  w = pq.pack_int4_split(torch.randint(-8, 8, (N, D), generator=gen,
+                                       device=dev).to(torch.int8))
+  s = torch.rand((N,), generator=gen, device=dev) * 0.01 + 0.005
+  gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+  kw = dict(nq=NQ, nk=NK, h=H)
+  rows = []
+  for phase, m in (('bench', BENCH_B), ('decode', B)):
+    pos = torch.randint(BENCH_START - 64, BENCH_START + 64, (m, 1),
+                        generator=gen, device=dev)
+    cos, sin = qkv.rope_cos_sin(pos, H, 10000.0)
+    x = (torch.randn((m, D), generator=gen, device=dev) * 3).to(bf16)
+    x32 = torch.randn((m, D), generator=gen, device=dev) * 3
+    checks = []
+    for xi in (x, x32):
+      for drq in (True, False):
+        args = (xi, gamma, w, s, cos, sin)
+        got = qkv.qkv_rope(*args, drq=drq, **kw)
+        want = qkv.qkv_rope_plain(*args, drq=drq, **kw)
+        sync()
+        for part, a, b in zip('qkv', got, want):
+          err = float(torch.max(torch.abs(a.float() - b.float())))
+          ymax = float(torch.max(torch.abs(b.float())))
+          tol = 0.0 if drq else iq.int_weights_tolerance(D, 0, ymax)
+          atol = tol
+          if part != 'v' and xi.dtype == bf16:
+            # The RoPE mixes the pair (x1, x2) of the projection, each
+            # rounded to bf16 first: an ulp of either moves the output by
+            # an ulp of the pair's size (<= sqrt(2) * the head's largest
+            # output), twice, beyond the output's own rounding.
+            heads = b.float().reshape(b.shape[0], -1, H)
+            hmax = torch.amax(torch.abs(heads), dim=-1, keepdim=True)
+            ulp = torch.exp2(torch.floor(torch.log2(
+                torch.clamp_min(hmax, 2.0**-126))) - 7)
+            atol = (2 * tol + 4 * ulp).expand_as(heads).reshape(b.shape)
+          ulps = bf16_ulps(torch, a, b, atol=atol) \
+              if xi.dtype == bf16 and not drq else None
+          ok = (err == 0.0) if drq else (
+              ulps <= 1.0 if ulps is not None else err <= tol)
+          if not ok or a.dtype != xi.dtype:
+            raise AssertionError(
+                f'qkv_rope {phase} {part} ({xi.dtype}, drq {drq}): err {err}, '
+                f'tolerance {tol}, bf16 ulps beyond it {ulps}')
+          checks.append({'x': str(xi.dtype).split('.')[-1], 'drq': drq,
+                         'out': part, 'max_abs_err': err, 'max_abs_y': ymax,
+                         'bf16_ulps_beyond': ulps})
+
+    def composition(x=x, cos=cos, sin=sin, m=m):
+      xn = rmsnorm_unfused(torch, ops_impl, x, gamma)
+      heads = pq.qmatmul_int4_packed_drq(xn, w, s).reshape(m, NQ + 2 * NK, H)
+      c, sn = cos.reshape(m, 1, H // 2), sin.reshape(m, 1, H // 2)
+      return (blk.rope_rotate(heads[:, :NQ + NK].float(), c, sn).to(bf16),
+              heads[:, NQ + NK:])
+
+    nbytes = (m * D * 2 + D * 4 + N * D // 2 + N * 4 + 2 * m * H // 2 * 4
+              + m * N * 2)
+    b_ms, b_by = bound(nbytes, 2 * m * N * D, INT8_OPS_PER_S)
+    args = (x, gamma, w, s, cos, sin)
+    rows.append({
+        'phase': phase, 'M': m, 'N': N, 'K': D,
+        'max_abs_err': max(c['max_abs_err'] for c in checks),
+        'checks': checks,
+        'ms': timer(lambda: qkv.qkv_rope(*args, **kw)),
+        'plain_ms': timer(lambda: qkv.qkv_rope_plain(*args, **kw), reps=5),
+        'composition_ms': timer(composition),
+        'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
+  log(f'kernel qkv_rope ok: '
+      f'{[{k: v for k, v in r.items() if k != "checks"} for r in rows]}')
+  timing = ('ms', 'plain_ms', 'composition_ms', 'bound_ms')
+  return {
+      'name': 'qkv_rope', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/qkv_rope.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qkv.py:177',
+      'jax': 'pallas_qkv.qkv_rope_pallas',
+      'wrapper': qkv.qkv_rope, 'per_step': 0,
+      'per_bench_step_attn_block': cfg.num_layers,
+      'max_abs_err': max(r['max_abs_err'] for r in rows),
+      **{key: rows[0][key] for key in timing}, 'bound_by': rows[0]['bound_by'],
+      'library_ms': None,
+      'composition': 'the RMS_NORM op (torch) + qmatmul_int4_packed_drq (#1) '
+                     '+ RoPE of q and k (torch)',
+      'decode': {key: rows[1][key] for key in timing}, 'by_shape': rows}
+
+
+def oproj_kernel(torch, port, cfg, dev, timer, gen):
+  """The attention + out projection + residual epilogue (#19) against its
+  plain version at bench.py's decode shape (B BENCH_B, S 1024, one KV head,
+  G 8, H 256, D 2048) and at B B, lengths BENCH_START + 1 = 897 (the bench
+  step's), 0, 1 and S, bf16 and f32 x_res, DRQ on and off. The kernel's
+  attention is the lengths kernel (#7); given #7's context the projection
+  and the residual are the plain version's bit for bit (DRQ) or within
+  int_qmatmul.int_weights_tolerance over K = G*H and, at bf16, one bf16
+  ulp of the projection (rounded before the add) and one of y beyond it
+  (weight-only). End to end against the plain version (its attention
+  sums in another f32 order, so a DRQ code of the context can flip) the
+  largest error is reported and held to 1e-2 of max |y| (a wrong head,
+  pairing or scale moves it by far more). Timed at BENCH_B, lengths 897,
+  DRQ, bf16, beside the unfused route: #7, #1 and the residual ADD.
+  NK 2 and odd G raise ValueError on the card and launch nothing."""
+  pq, iq, att = port['packed_qmatmul'], port['int_qmatmul'], port['attention']
+  D, NK, H, S = cfg.embed_dim, cfg.num_kv_heads, cfg.head_dim, \
+      cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  bf16 = torch.bfloat16
+  k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
+  wo = pq.pack_int4_split(torch.randint(-8, 8, (D, G * H), generator=gen,
+                                        device=dev).to(torch.int8))
+  so = torch.rand((D,), generator=gen, device=dev) * 0.01 + 0.005
+  rows = []
+  for phase, b in (('bench', BENCH_B), ('decode', B)):
+    q = torch.randn((b, 1, G, H), generator=gen, device=dev).to(bf16)
+    kc, vc = (torch.randint(-127, 128, (b, 1, S, H), generator=gen,
+                            device=dev).to(torch.int8) for _ in range(2))
+    x = torch.randn((b, D), generator=gen, device=dev).to(bf16)
+    checks = []
+    for n_live in (BENCH_START + 1, 0, 1, S):
+      lengths = torch.full((b,), n_live, dtype=torch.int32, device=dev)
+      for xi in (x, x.float()):
+        cast = xi.dtype
+        for drq in (True, False):
+          args = (q, kc, vc, k_scale, v_scale, lengths, xi, wo, so, zp_k,
+                  zp_v, 'f32', drq)
+          got = att.decode_attention_oproj(*args)
+          want = att.decode_attention_oproj_plain(*args)
+          ctx = att.decode_attention_int8_lengths(
+              q.to(cast), kc, vc, k_scale, v_scale, lengths, zp_k, zp_v,
+              out_dtype=cast).reshape(b, G * H)
+          proj = (pq.qmatmul_int4_packed_drq_plain if drq
+                  else pq.qmatmul_int4_packed_plain)
+          o = proj(ctx, wo, so)
+          given = xi + o
+          sync()
+          ymax = float(torch.max(torch.abs(want.float())))
+          err = float(torch.max(torch.abs(got.float() - want.float())))
+          err_given = float(torch.max(torch.abs(got.float()
+                                                - given.float())))
+          tol = 0.0 if drq else iq.int_weights_tolerance(G * H, 0, ymax)
+          # At bf16 the projection is rounded before the residual add, so
+          # its own ulp (larger than y's where x_res cancels it) carries.
+          atol = tol + torch.exp2(torch.floor(torch.log2(torch.clamp_min(
+              torch.abs(o.float()), 2.0**-126))) - 7) if cast == bf16 else tol
+          ulps = bf16_ulps(torch, got, given, atol=atol) \
+              if cast == bf16 and not drq else None
+          ok_given = (err_given == 0.0) if drq else (
+              ulps <= 1.0 if ulps is not None else err_given <= tol)
+          if not ok_given or not err <= 1e-2 * ymax or got.dtype != cast:
+            raise AssertionError(
+                f'attention epilogue {phase} L {n_live} ({cast}, drq {drq}): '
+                f'err given #7\'s context {err_given} (tolerance {tol}, bf16 '
+                f'ulps beyond it {ulps}), err end to end {err}, max |y| '
+                f'{ymax}')
+          checks.append({'lengths': n_live, 'x': str(cast).split('.')[-1],
+                         'drq': drq, 'max_abs_err_given_ctx': err_given,
+                         'max_abs_err': err, 'max_abs_y': ymax,
+                         'bf16_ulps_beyond': ulps})
+    lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32,
+                         device=dev)
+    args = (q, kc, vc, k_scale, v_scale, lengths, x, wo, so, zp_k, zp_v)
+
+    def composition(b=b, args=args):
+      ctx = att.decode_attention_int8_lengths(*args[:6], zp_k, zp_v,
+                                              out_dtype=bf16)
+      return x + pq.qmatmul_int4_packed_drq(ctx.reshape(b, G * H), wo, so)
+
+    live = b * (BENCH_START + 1)
+    nbytes = (b * G * H * 2 + 2 * live * H + b * 4 + b * D * 2
+              + D * G * H // 2 + D * 4 + b * D * 2)
+    b_ms, b_by = bound(nbytes, 4 * G * H * live, F32_OPS_PER_S,
+                       2 * b * D * G * H, INT8_OPS_PER_S)
+    rows.append({
+        'phase': phase, 'B': b, 'live_rows': live,
+        'max_abs_err': max(c['max_abs_err'] for c in checks),
+        'max_abs_err_given_ctx': max(c['max_abs_err_given_ctx']
+                                     for c in checks),
+        'checks': checks,
+        'ms': timer(lambda: att.decode_attention_oproj(*args)),
+        'plain_ms': timer(lambda: att.decode_attention_oproj_plain(*args),
+                          reps=5),
+        'composition_ms': timer(composition),
+        'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
+    del kc, vc
+  log(f'kernel decode_attention_oproj ok: '
+      f'{[{k: v for k, v in r.items() if k != "checks"} for r in rows]}')
+  refused = {}
+  q = torch.zeros((4, 2, 8, H), device=dev)
+  c2 = torch.zeros((4, 2, S, H), dtype=torch.int8, device=dev)
+  lens = torch.ones(4, dtype=torch.int32, device=dev)
+  x4 = torch.zeros((4, D), device=dev)
+  for what, call in (
+      ('NK 2', lambda: att.decode_attention_oproj(
+          q, c2, c2, 1.0, 1.0, lens, x4, wo, so)),
+      ('G 7', lambda: att.decode_attention_oproj(
+          q[:, :1, :7], c2[:, :1], c2[:, :1], 1.0, 1.0, lens, x4, wo, so))):
+    before = (att.decode_attention_oproj.launches,
+              att.decode_attention_oproj.plain_calls)
+    try:
+      call()
+    except ValueError as e:
+      if (att.decode_attention_oproj.launches,
+          att.decode_attention_oproj.plain_calls) != before:
+        raise AssertionError(f'epilogue {what}: counted a run') from e
+      refused[what] = str(e)
+      log(f'refused on the card as expected: attention epilogue, {what}: {e}')
+      continue
+    raise AssertionError(f'attention epilogue took {what}')
+  timing = ('ms', 'plain_ms', 'composition_ms', 'bound_ms')
+  return {
+      'name': 'decode_attention_oproj', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_oproj.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:1268',
+      'jax': 'pallas_attention.decode_attention_oproj_pallas (f32 attention)',
+      'wrapper': att.decode_attention_oproj, 'per_step': 0,
+      'per_bench_step_attn_block': cfg.num_layers,
+      'max_abs_err': max(r['max_abs_err'] for r in rows),
+      'max_abs_err_given_ctx': max(r['max_abs_err_given_ctx'] for r in rows),
+      **{key: rows[0][key] for key in timing}, 'bound_by': rows[0]['bound_by'],
+      'library_ms': None,
+      'composition': 'decode_attention_int8_lengths (#7) + '
+                     'qmatmul_int4_packed_drq (#1) + the residual ADD',
+      'decode': {key: rows[1][key] for key in timing}, 'refused': refused,
+      'by_shape': rows}
+
+
+def attn_block_kernels(torch, port, cfg, dev, timer, gen):
+  """The kernels of the norm fusion and the attention block."""
+  return [rmsnorm_kernel(torch, port, cfg, dev, timer, gen),
+          qkv_kernel(torch, port, cfg, dev, timer, gen),
+          oproj_kernel(torch, port, cfg, dev, timer, gen)]
+
+
 def refused_shapes(torch, att, dev):
   """Shapes that the JAX executor's gate sends to its Pallas kernels but
   that the CUDA kernels do not take: the wrapper raises ValueError on the
@@ -2139,13 +2495,19 @@ def bench_tokens(torch, cfg, dev):
 # the decode block on and off (the stale writeback, bench.py's own), then
 # with the block off the splice writeback (AEQT_ATTN_WRITEBACK_MODE=splice)
 # and the in-place row writes with no writeback (AEQT_ATTN_WRITEBACK=0,
-# AEQT_CACHE_WRITE_PALLAS=1).
+# AEQT_CACHE_WRITE_PALLAS=1); then bench.py's own settings with
+# AEQT_ATTN_BLOCK=1 (the prologue and the epilogue; an attention with an
+# epilogue joins no block unit) and with AEQT_NORM_FUSION=1 (the norms
+# fold into the QKV and gate/up FCs; a norm-fed chain forms no MLP unit,
+# so no block unit either).
 BENCH_SETTINGS = {
     'block on': dict(decode_block=True),
     'block off': dict(decode_block=False),
     'splice': dict(decode_block=False, attn_writeback='splice'),
     'inplace': dict(decode_block=False, attn_writeback=None,
-                    cache_write_inplace=True)}
+                    cache_write_inplace=True),
+    'attn block': dict(attn_block=True),
+    'norm fusion': dict(norm_fusion=True)}
 
 
 def bench_decode_phase(torch, port, kernels, cfg, dev):
@@ -2155,8 +2517,11 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
   bf16 activations, batch BENCH_B, cache 1024, start_pos BENCH_START;
   `bench_steps` under each of BENCH_SETTINGS on the same weights. The
   splice and in-place settings write each step's rows into its input
-  pools (the executor's donation); their ids are compared with the block
-  off's (stale writeback), the block on's likewise."""
+  pools (the executor's donation); their ids, and those of the attention
+  block and the norm fusion, are compared with the block off's (stale
+  writeback), the block on's likewise. The norm-fused FCs are weight-only
+  where the block off's are DRQ, so the norm fusion's ids may differ from
+  the block off's in more places than the others'."""
   gemma, executor = port['gemma'], port['executor']
   t0 = time.monotonic()
   graph = decode_graph(gemma, cfg, BENCH_B)
@@ -2175,7 +2540,14 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
       'splice': {'decode_attention_int8_lengths_writeback': layers,
                  **unfused},
       'inplace': {'dus_row_inplace': 2 * layers,
-                  'decode_attention_int8_lengths': layers, **unfused}}
+                  'decode_attention_int8_lengths': layers, **unfused},
+      'attn block': {'qkv_rope': layers, 'decode_attention_oproj': layers,
+                     'mlp_int4_packed': layers, 'head_argmax': 1},
+      'norm fusion': {'qmatmul_int4_packed_rmsnorm': 2 * layers,
+                      'decode_attention_int8_lengths_stale': layers,
+                      'qmatmul_int4_packed_drq': layers,
+                      'qmatmul_int4_packed_drq_kblock': layers,
+                      'head_argmax': 1}}
   results, ids = {}, {}
   for label, options in BENCH_SETTINGS.items():
     ex = executor.GraphExecutor(graph, device=dev,
@@ -2183,13 +2555,19 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
     ex.load_weights(weights)
     ex.prepare_serving_weights(min_weight_params=0)
     sync()
+    units = {'block': len(ex._block_fusions),
+             'attention': len(ex._attn_fusions),
+             'epilogue': sum('epilogue' in f
+                             for f in ex._attn_fusions.values()),
+             'qkv': len(ex._qkv_fusions), 'norm': len(ex._norm_fusions),
+             'mlp': len(ex._mlp_fusions), 'head': len(ex._head_fusions)}
     log(f'bench decode {label}: set-up {time.monotonic() - t0:.1f}s; units '
-        f'block {len(ex._block_fusions)} attention {len(ex._attn_fusions)} '
-        f'mlp {len(ex._mlp_fusions)} head {len(ex._head_fusions)}')
+        f'{units}')
     results[label], ids[label] = bench_steps(
         torch, gemma, ex, graph, cfg, kernels, per_step[label], label,
         bench_tokens(torch, cfg, dev), dev)
     results[label]['options'] = options
+    results[label]['units'] = units
     del ex
     torch.cuda.empty_cache()
   same = {label: float(torch.mean((ids[label] == ids['block off']).float()))
@@ -2767,6 +3145,15 @@ def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
   return out
 
 
+# An attention-epilogue row whose DRQ code of the context flipped between
+# the card and the CPU: one code moves the row by at most 8 * xs * max(so)
+# (an int4 weight of 8), about 3e-4 of the row's largest output at Gemma-
+# 2B's widths; 1e-3 leaves room for three such codes in one row.
+EPILOGUE_ROW_RTOL = 1e-3
+# Depth of the op-by-op runs of the attention-block and norm-fusion steps.
+FUSION_CPU_LAYERS = 3
+
+
 class OpByOp:
   """Makes an executor keep, or hold, each op's outputs.
 
@@ -2789,8 +3176,15 @@ class OpByOp:
   int_qmatmul.int_weights_tolerance of its largest magnitude; so is a
   packed one on the K-blocked route ('FC int4 DRQ K-blocked'): bit for bit;
   a packed one on the weight-only route of the JAX executor's default
-  mode ('FC int4 weight-only') and a packed blockwise one ('FC int4
-  blockwise'): to int_weights_tolerance.
+  mode ('FC int4 weight-only'), a packed blockwise one ('FC int4
+  blockwise') and a norm-fused one ('FC int4 norm-fused', weight-only):
+  to int_weights_tolerance. The attention-block prologue's q, k and v
+  ('QKV prologue') are held as other float outputs. The epilogue's output
+  ('attention epilogue', x_res + W_o . ctx) may differ beyond 1e-5 of its
+  largest magnitude in a row where an f32 ulp of the context (its sums
+  run in another order on the card) flipped one of the row's DRQ codes:
+  such a row must stay within EPILOGUE_ROW_RTOL, and `epilogue_rows_off`
+  counts them.
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None,
@@ -2799,6 +3193,11 @@ class OpByOp:
     self.int_qmatmul = int_qmatmul
     self.mlp_rtol = dict(mlp_rtol or {})
     self.mlp_outs = {f['out'] for f in ex._mlp_fusions.values()}
+    self.epilogue_outs = {f['epilogue']['y'] for f in
+                          ex._attn_fusions.values() if 'epilogue' in f}
+    self.qkv_outs = {f[key] for f in ex._qkv_fusions.values()
+                     for key in ('q_out', 'k_out', 'v_out')}
+    self.epilogue_rows_off = 0
     self.seen, self.worst, self.id_diffs, self.flips = [], {}, [], {}
     self.fine_share = 0.0
     store = ex._store_outputs
@@ -2832,6 +3231,9 @@ class OpByOp:
     key = (sg_idx, op.inputs[1])
     if key in self.ex._packed_int4_keys:
       bs = self.ex._packed_block_size.get(key)
+      if not bs and (sg_idx, op.inputs[0]) in self.ex._norm_fusions:
+        return ('FC int4 norm-fused', self.int_qmatmul.int_weights_tolerance(
+            w.shape[-1], 0, 1.0))
       if bs:
         return ('FC int4 blockwise', self.int_qmatmul.int_weights_tolerance(
             w.shape[-1], bs, 1.0))
@@ -2871,6 +3273,10 @@ class OpByOp:
         sig = self.seen[i]['sig']
         is_mlp = tid in self.mlp_outs
         kind = f'{sig}/{"MLP" if is_mlp else op.opcode}'
+        if tid in self.qkv_outs:
+          kind = f'{sig}/QKV prologue'
+        if tid in self.epilogue_outs:
+          kind = f'{sig}/attention epilogue'
         if fc_rule is not None:
           kind = f'{sig}/{fc_rule if isinstance(fc_rule, str) else fc_rule[0]}'
         self.worst[kind] = max(self.worst.get(kind, 0.0), rel)
@@ -2882,6 +3288,15 @@ class OpByOp:
           if rel > fc_rule[1]:
             raise AssertionError(f'{sg.tensors[tid].name}: {fc_rule[0]} rel '
                                  f'err {rel} > {fc_rule[1]}')
+        elif tid in self.epilogue_outs:
+          w2 = want.double().reshape(-1, want.shape[-1])
+          row_rel = torch.amax(torch.abs(got.double().reshape(w2.shape) - w2),
+                               dim=1) / max(float(torch.max(torch.abs(w2))),
+                                            1e-30)
+          self.epilogue_rows_off += int(torch.sum(row_rel > 1e-5))
+          if float(torch.max(row_rel)) > EPILOGUE_ROW_RTOL:
+            raise AssertionError(f'{sg.tensors[tid].name}: a row rel err '
+                                 f'{float(torch.max(row_rel))}')
         elif int4g:
           rel, share = int4g_ctx_diff(torch, got, want)
           self.fine_share = max(self.fine_share, share)
@@ -3011,7 +3426,7 @@ def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0, graph=None,
 
 
 def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
-              layers=None):
+              layers=None, setting=None):
   """Same weights, same first step at batch 8, f32: the card against the
   port on the CPU, at `layers` layers (default: all of cfg's).
 
@@ -3035,7 +3450,11 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   int8 caches so that the attention reads 896 rows. kv_int4_group: the
   int4g step (executor defaults, no unit) at start_pos BENCH_START over
   int4-group pools quantized from random rows; each INT4G_ATTENTION op
-  must write the CPU's pools and sidecar bit for bit (OpByOp).
+  must write the CPU's pools and sidecar bit for bit (OpByOp). setting:
+  one of BENCH_SETTINGS ('attn block', 'norm fusion'), the executor's
+  options on top of bench.py's, at start_pos BENCH_START over random int8
+  caches: no block unit forms; each layer's prologue and epilogue, or its
+  two norm-fused FCs, must have been held (OpByOp's rules).
   """
   gemma, executor, head = port['gemma'], port['executor'], port['head']
   cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
@@ -3044,10 +3463,10 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, seed=3,
                                                device=dev)
-  start = BENCH_START if decode_block or kv_int4_group else 0
+  start = BENCH_START if decode_block or kv_int4_group or setting else 0
   inputs = gemma.make_inputs(cfg, 'decode', b8, 1, start_pos=start, seed=3,
                              device='cpu')
-  if decode_block:
+  if decode_block or setting:
     rng = np.random.default_rng(3)
     for key in [k for k in inputs if k.endswith('_cache_in')]:
       inputs[key] = torch.from_numpy(rng.integers(
@@ -3060,16 +3479,17 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
           int4g_pools(torch, port['attention'], b8, cfg.num_kv_heads,
                       cfg.max_seq_len, cfg.head_dim, gen, 'cpu')))
   label = 'card-vs-cpu' + (' (decode block)' if decode_block else '') + (
-      ' (int4g)' if kv_int4_group else '')
+      ' (int4g)' if kv_int4_group else '') + (f' ({setting})' if setting
+                                               else '')
+  options = BENCH_SETTINGS[setting] if setting else dict(
+      decode_block=decode_block or bool(kv_int4_group))
 
   def watched(device, want=None):
     ex = executor.GraphExecutor(graph, device=device,
-                                activation_dtype='float32',
-                                decode_block=decode_block
-                                or bool(kv_int4_group))
+                                activation_dtype='float32', **options)
     ex.load_weights(weights)
     ex.prepare_serving_weights(min_weight_params=0)
-    return OpByOp(torch, ex, want=want)
+    return OpByOp(torch, ex, want=want, int_qmatmul=port['int_qmatmul'])
 
   t0 = time.monotonic()
   cpu = watched('cpu')
@@ -3081,15 +3501,19 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   card = watched(dev, want=cpu.seen)
   card.call(inputs, 'decode')
   units = len(card.ex._block_fusions)
+  held = {'attn block': ('decode/QKV prologue', 'decode/attention epilogue'),
+          'norm fusion': ('decode/FC int4 norm-fused',)}.get(setting, ())
   if units != (cfg.num_layers - 1 if decode_block else 0) or (
       decode_block and 'decode/FUSED_BLOCK' not in card.worst) or (
-          kv_int4_group and 'decode/INT4G_ATTENTION' not in card.worst):
+          kv_int4_group and 'decode/INT4G_ATTENTION' not in card.worst) or (
+              any(kind not in card.worst for kind in held)):
     raise AssertionError(f'{label}: {units} decode-block units, ops held '
                          f'{sorted(card.worst)}')
   worst = {k: f'{v:.2e}' for k, v in sorted(card.worst.items())}
   log(f'{label} op by op: largest relative error by opcode {worst}; int8 '
       f'codes one step apart by opcode {card.flips}; int4g ctx share beyond '
-      f'{INT4G_FINE_RTOL:g} {card.fine_share:.4g}')
+      f'{INT4G_FINE_RTOL:g} {card.fine_share:.4g}; attention-epilogue rows '
+      f'beyond 1e-5 {card.epilogue_rows_off}')
   judge_ids(torch, head, cpu, card, label)
   log(f'{label} ok: the card\'s ids equal the cpu ids in '
       f'{b8 - len(card.id_diffs)} of {b8} rows, cpu top-2 margins '
@@ -3097,8 +3521,10 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   result = {'worst_rel_err_by_opcode': card.worst,
             'int8_flips_by_opcode': card.flips,
             'id_diffs': len(card.id_diffs), 'block_units': units,
-            'int4g_ctx_share_beyond_fine': card.fine_share}
-  if decode_block or kv_int4_group:
+            'int4g_ctx_share_beyond_fine': card.fine_share,
+            'epilogue_rows_beyond_1e-5': card.epilogue_rows_off,
+            'layers': cfg.num_layers}
+  if decode_block or kv_int4_group or setting:
     return result
   free = watched(dev)
   free_ids = free.call(inputs, 'decode')['next_tokens'].reshape(-1).cpu()
@@ -3195,7 +3621,7 @@ def main():
   from ai_edge_quantizer_tpu_torch.kernels import attention, block, cache
   from ai_edge_quantizer_tpu_torch.kernels import head
   from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
-  from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul
+  from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul, qkv
   from ai_edge_quantizer_tpu_torch.models import gemma
   from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
   from ai_edge_quantizer_tpu_torch.parallel import batching
@@ -3207,7 +3633,7 @@ def main():
               cache=cache, head=head,
               mlp=mlp, packed_qmatmul=packed_qmatmul, gemma=gemma,
               batching=batching, ops_impl=ops_impl, ir=ir,
-              int_qmatmul=int_qmatmul, serialize=serialize,
+              int_qmatmul=int_qmatmul, serialize=serialize, qkv=qkv,
               Quantizer=Quantizer, progress_utils=progress_utils)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -3278,6 +3704,10 @@ def main():
     bench4['card_vs_cpu'] = cpu_phase(torch, port, cfg, 'cuda',
                                       kv_int4_group=INT4G_GROUP, layers=4)
     done('int4g step')
+    for setting in ('attn block', 'norm fusion'):
+      bench[f'card_vs_cpu_{setting}'] = cpu_phase(
+          torch, port, cfg, 'cuda', setting=setting, layers=FUSION_CPU_LAYERS)
+      done(f'{setting} step')
     server['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda')
     done('server')
     server4['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda',
@@ -3300,6 +3730,8 @@ def main():
         'bench_decode_block_off': bench_launches['block off'],
         'bench_decode_splice': bench_launches['splice'],
         'bench_decode_inplace': bench_launches['inplace'],
+        'bench_decode_attn_block': bench_launches['attn block'],
+        'bench_decode_norm_fusion': bench_launches['norm fusion'],
         'bench_decode_int4g': bench_launches['int4g'],
         'server_int4g': server4['launches'][k['name']],
         **{f'server_{recipe}': quant[recipe]['launches'][k['name']]
@@ -3311,7 +3743,9 @@ def main():
     # the int4g paths; the int8 DRQ and weight-only kernels only on the
     # quantized graphs' servers; the splice attention and the in-place row
     # write only in the bench decode with those settings; the blockwise
-    # matmul and the live-prefix attention only in the blockwise server).
+    # matmul and the live-prefix attention only in the blockwise server;
+    # the prologue and the epilogue only in the bench decode with the
+    # attention block, the norm-fused matmul only with the norm fusion).
     by_path = entry['launches_by_path']
     entry['launches'] = (by_path['server'] or by_path['decode_loop']
                          or by_path['bench_decode_block_on']
@@ -3323,7 +3757,9 @@ def main():
                          or by_path[f'server_{DEFAULT_MODE}']
                          or by_path['bench_decode_splice']
                          or by_path['bench_decode_inplace']
-                         or by_path[f'server_{BLOCKWISE_MODE}'])
+                         or by_path[f'server_{BLOCKWISE_MODE}']
+                         or by_path['bench_decode_attn_block']
+                         or by_path['bench_decode_norm_fusion'])
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)

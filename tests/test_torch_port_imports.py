@@ -35,8 +35,8 @@ def test_port_imports_no_jax():
   modules = _port_modules()
   for name in ('execution.executor', 'parallel.batching', 'models.gemma',
                'kernels.attention', 'kernels.block', 'kernels._build',
-               'kernels.int_qmatmul', 'kernels.cache', 'quantizer', 'qtyping',
-               'graph.serialize', 'algorithms.manager',
+               'kernels.int_qmatmul', 'kernels.cache', 'kernels.qkv',
+               'quantizer', 'qtyping', 'graph.serialize', 'algorithms.manager',
                'algorithms.uniform.quant_numerics',
                'algorithms.uniform.octav', 'algorithms.uniform.hadamard',
                'algorithms.nonlinear.float_casting', 'recipe.recipe_utils',
