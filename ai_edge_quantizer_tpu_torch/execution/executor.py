@@ -33,7 +33,9 @@ Differences from the JAX executor:
     `cache_write_inplace` (AEQT_CACHE_WRITE_PALLAS), `norm_fusion`
     (AEQT_NORM_FUSION), `attn_block` (AEQT_ATTN_BLOCK), `attn_qkv` and
     `attn_oproj` (AEQT_ATTN_QKV, AEQT_ATTN_OPROJ: the attention block's two
-    halves, on by default as there). Defaults are the
+    halves, on by default as there), `attn_compute` (AEQT_ATTN_COMPUTE:
+    'f32', 'bf16' or 'int8', the decode attentions' arithmetic; see
+    below). Defaults are the
     values bench.py sets (attn_dynlen, cache_write_inplace, norm_fusion and
     attn_block off, as bench.py leaves them);
     `JAX_DEFAULT_OPTIONS` holds the JAX executor's own defaults (every
@@ -54,9 +56,18 @@ Differences from the JAX executor:
     tensor, so the CPU tests run the same dispatch as the card. The
     Mosaic tiling gates (head dim and cache length multiples of 128) are
     replaced by what each CUDA kernel takes.
-  * The JAX executor's options whose kernels are not ported yet (the
-    attention's bf16 and int8 compute modes, AEQT_ATTN_COMPUTE) have no
-    keyword here; no plain version runs on the card in their place.
+  * `attn_compute` reaches the decode attentions as AEQT_ATTN_COMPUTE
+    does there. Ported in 'bf16' and 'int8': the stale attention, the
+    lengths attention and the decode block's attention (each has a CUDA
+    body in the three modes). Not ported yet: those modes of the splice
+    (writeback), masked and out-projection-epilogue attentions, whose
+    routes raise NotImplementedError on both devices, so that no device
+    runs a mode that the card cannot; they are the next slice of the
+    port. The flash (prefill), live-prefix and twin routes take no mode,
+    as in the JAX executor. Off a TPU the JAX executor runs the stale and
+    lengths attentions on its f32 XLA twin whatever the mode, and the
+    decode block in interpret mode in the mode; the port runs every
+    route in the mode on both devices.
 """
 
 from __future__ import annotations
@@ -158,7 +169,8 @@ class GraphExecutor:
                norm_fusion: bool = False,
                attn_block: bool = False,
                attn_qkv: bool = True,
-               attn_oproj: bool = True):
+               attn_oproj: bool = True,
+               attn_compute: str = 'f32'):
     """activation_dtype: 'bfloat16' (serving mode, the bench's setting) or
     'float32' (bit-faithful to the offline pipeline). attn_writeback:
     'stale', 'splice' or None. decode_block: fuse each matched
@@ -171,7 +183,8 @@ class GraphExecutor:
     output feeds only packed channelwise FCs folds into each of them.
     attn_block: the norm + QKV + RoPE prologue (with attn_qkv) and the
     attention + out-projection + residual epilogue (with attn_oproj) each
-    run as one fused call where they match."""
+    run as one fused call where they match. attn_compute: 'f32', 'bf16' or
+    'int8', the decode attentions' compute mode."""
     self.device = torch.device(device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(
@@ -179,6 +192,8 @@ class GraphExecutor:
           "available; pass device='cpu' to run the plain versions.")
     if attn_writeback not in (None, 'stale', 'splice'):
       raise ValueError(f'attn_writeback={attn_writeback!r}')
+    if attn_compute not in attention.COMPUTE_MODES:
+      raise ValueError(f'attn_compute={attn_compute!r}')
     self.graph = graph
     self.use_fused_kernels = use_fused_kernels
     self.int4_drq = int4_drq
@@ -194,6 +209,7 @@ class GraphExecutor:
     self.attn_block = attn_block
     self.attn_qkv = attn_qkv
     self.attn_oproj = attn_oproj
+    self.attn_compute = attn_compute
     self._act_dtype = quant_arith.STORAGE_TORCH_DTYPES[activation_dtype]
     # Constant tensors, keyed (subgraph_idx, tensor_id), in storage dtype;
     # the tensors that alias one buffer (the signatures of a multi-
@@ -1448,6 +1464,9 @@ class GraphExecutor:
         executor's default): `decode_attention_int8_masked`.
     A shape that passes the gate but that a CUDA kernel does not take
     raises in its wrapper; nothing falls back to the twin on the card.
+    The stale and lengths kernels run in `attn_compute`; the splice,
+    masked and epilogue kernels' wrappers raise in a mode other than
+    'f32'.
     """
     q_val = self._dequant_view(sg, fusion['q'], env)
     mask = self._dequant_view(sg, fusion['mask'], env)
@@ -1473,8 +1492,8 @@ class GraphExecutor:
             _prefix_lengths(mask),
             env[wb['k']['update']].to(torch.int8).contiguous(),
             env[wb['v']['update']].to(torch.int8).contiguous(),
-            k_zero_point=zp_k, v_zero_point=zp_v, compute='f32',
-            out_dtype=self._act_dtype)
+            k_zero_point=zp_k, v_zero_point=zp_v,
+            compute=self.attn_compute, out_dtype=self._act_dtype)
         self._write_caches(wb, env)
         out_op = ir.Op(opcode='BATCH_MATMUL', inputs=[],
                        outputs=[fusion['out']])
@@ -1493,7 +1512,7 @@ class GraphExecutor:
             env[wb['k']['update']].to(torch.int8).contiguous(),
             env[wb['v']['update']].to(torch.int8).contiguous(),
             env[wb['k']['starts']][2], k_zero_point=zp_k, v_zero_point=zp_v,
-            compute='f32', out_dtype=self._act_dtype)
+            compute=self.attn_compute, out_dtype=self._act_dtype)
         env[wb['k']['out']] = k_out
         env[wb['v']['out']] = v_out
         out_op = ir.Op(opcode='BATCH_MATMUL', inputs=[],
@@ -1514,7 +1533,7 @@ class GraphExecutor:
           q_val, k_q, v_q, k_scale, v_scale, _prefix_lengths(mask),
           self._dequant_view(sg, ep['x_res'], env), wo,
           self._packed_scale[(sg_idx, ep['wo_tid'])], k_zero_point=zp_k,
-          v_zero_point=zp_v, compute='f32',
+          v_zero_point=zp_v, compute=self.attn_compute,
           drq=self.int4_drq and wo.shape[1] * 2 <= 8192)
       out_op = ir.Op(opcode='ADD', inputs=[], outputs=[ep['y']])
       self._store_outputs(sg, out_op, (y,), env)
@@ -1533,7 +1552,7 @@ class GraphExecutor:
       # serving contract, so per-row lengths replace it.
       ctx = attention.decode_attention_int8_lengths(
           q_val, k_q, v_q, k_scale, v_scale, _prefix_lengths(mask),
-          k_zero_point=zp_k, v_zero_point=zp_v, compute='f32',
+          k_zero_point=zp_k, v_zero_point=zp_v, compute=self.attn_compute,
           out_dtype=self._act_dtype)
     elif route == 'dynlen':
       # Live-prefix reads: lengths from the prefix-form mask, the kernel
@@ -1545,7 +1564,7 @@ class GraphExecutor:
       # The additive mask as the graph gives it (no prefix assumed).
       ctx = attention.decode_attention_int8_masked(
           q_val, k_q, v_q, k_scale, v_scale, mask,
-          k_zero_point=zp_k, v_zero_point=zp_v, compute='f32')
+          k_zero_point=zp_k, v_zero_point=zp_v, compute=self.attn_compute)
     else:
       # Plain twin with the same numerics (zp corrections in closed form):
       # the JAX executor's XLA twin, for the shapes its gate keeps off
@@ -1595,7 +1614,8 @@ class GraphExecutor:
         fusion['k_scale_eff'], fusion['v_scale'],
         fusion['kq_scale'], fusion['vq_scale'], fusion['nq'],
         k_zero_point=fusion['zp_k'], v_zero_point=fusion['zp_v'],
-        act=mlp['act'], eps=fusion['eps'], bf=mlp['bf'])
+        act=mlp['act'], eps=fusion['eps'], bf=mlp['bf'],
+        compute=self.attn_compute)
     # The unit's four graph tensors, stored as the outputs of one op: the
     # residual stream (f32, cast to the activation dtype), the attention
     # context and the two pools (int8 codes, stored as they are).

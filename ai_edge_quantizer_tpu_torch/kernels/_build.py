@@ -35,7 +35,7 @@ SOURCES = ('qmatmul_int4_drq', 'attention_stale', 'mlp_int4_drq',
            'qmatmul_int4_weight_only', 'mlp_int4_bf16', 'attention_masked',
            'qmatmul_int4_blockwise', 'cache_row_write', 'attention_writeback',
            'attention_dynlen', 'qmatmul_int4_rmsnorm', 'qkv_rope',
-           'attention_oproj')
+           'attention_oproj', 'attention_int8_basic', 'attention_int4_row')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v')

@@ -1,6 +1,6 @@
 """Quantized-cache attention kernels (PyTorch + CUDA).
 
-Ports of eight Pallas kernels of
+Ports of the ten Pallas kernels of
 `ai_edge_quantizer_tpu/kernels/pallas_attention.py`, each with a plain
 PyTorch version beside its CUDA kernel (`csrc/`):
 
@@ -37,13 +37,20 @@ PyTorch version beside its CUDA kernel (`csrc/`):
     lengths attention of one KV head followed by the packed int4 out
     projection and the residual add, the JAX executor's AEQT_ATTN_BLOCK
     epilogue (`csrc/attention_oproj.cu`).
+  * `decode_attention_int8` (`_decode_attn_kernel`): the basic int8
+    decode attention, per-tensor scales and no zero points
+    (`csrc/attention_int8_basic.cu`, the lengths kernel's f32 body).
+  * `decode_attention_int4_lengths` (body `_ctx_prefix_len_int4`): decode
+    attention over int4 K/V pools with one bf16 scale per cache row, with
+    the row quantizer `quantize_kv_rows_int4` and its sidecar
+    (`csrc/attention_int4_row.cu`).
 
-The int8 CUDA decode kernels compute in f32 (`compute='f32'`, the
-executor's default). The plain versions of the lengths kernels also cover
-the `bf16` and `int8` compute modes; on a CUDA tensor those raise, as
-their kernels are not ported yet. The masked kernel and the out-projection
-epilogue have the f32 mode only, on both devices. The other Pallas attention kernels of that file
-are not ported yet (see ROADMAP.md).
+Compute modes (`compute`, the TPU kernels' f32 / bf16 / int8 attention
+arithmetic): the stale and the lengths kernels take all three on both
+devices (`csrc/attention_common.cuh` has the modes' operands). The
+splice (writeback), masked and out-projection kernels take only 'f32';
+their 'bf16' and 'int8' raise NotImplementedError on both devices until
+their CUDA bodies are ported.
 """
 
 from __future__ import annotations
@@ -57,6 +64,17 @@ from ai_edge_quantizer_tpu_torch.kernels import _build
 from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul
 
 _NEG = -1e30
+
+# The C entry points' compute-mode codes (aeqt::Compute in
+# csrc/attention_common.cuh).
+COMPUTE_MODES = {'f32': 0, 'bf16': 1, 'int8': 2}
+
+
+def compute_code(compute: str) -> int:
+  """The C code of a compute mode; ValueError for an unknown one."""
+  if compute not in COMPUTE_MODES:
+    raise ValueError(f'unknown attention compute mode {compute!r}')
+  return COMPUTE_MODES[compute]
 
 
 def score_scale(k_scale: float, h: int) -> float:
@@ -154,7 +172,8 @@ def decode_attention_int8_lengths_stale(
 
   q [B, NK, G, H] float; caches int8 [B, NK, S, H]; k/v new int8
   [B, NK, 1, H]; lengths int32 [B] counting the new token; per-tensor
-  scales and zero points as Python floats. Returns [B, NK, G, H] in
+  scales and zero points as Python floats; compute 'f32', 'bf16' or
+  'int8' (all three have a CUDA body). Returns [B, NK, G, H] in
   out_dtype.
   """
   args = (q, k_cache_stale, v_cache_stale, k_scale, v_scale, lengths,
@@ -163,9 +182,7 @@ def decode_attention_int8_lengths_stale(
     decode_attention_int8_lengths_stale.plain_calls += 1
     return decode_attention_int8_lengths_stale_plain(*args)
   name = 'decode_attention_int8_lengths_stale'
-  if compute != 'f32':
-    raise NotImplementedError(
-        f'{name}: compute={compute!r} has no CUDA kernel yet (f32 only).')
+  mode = compute_code(compute)
   b, nk, g, h = q.shape
   s = k_cache_stale.shape[2]
   r = b * nk
@@ -184,14 +201,14 @@ def decode_attention_int8_lengths_stale(
   out = torch.empty((r, g, h), dtype=out_dtype, device=q.device)
   fn = _build.entry(
       'attention_stale', 'aeqt_attention_stale',
-      [_build.P] * 7 + [_build.I] * 6 + [_build.F] * 4 + [_build.P])
+      [_build.P] * 7 + [_build.I] * 7 + [_build.F] * 4 + [_build.P])
   status = fn(q2.data_ptr(), k_cache_stale.data_ptr(),
               v_cache_stale.data_ptr(), k_new_q.data_ptr(),
               v_new_q.data_ptr(), lens.data_ptr(), out.data_ptr(),
-              int(out_dtype == torch.bfloat16), r, nk, g, s, h,
+              int(out_dtype == torch.bfloat16), mode, r, nk, g, s, h,
               score_scale(k_scale, h), float(v_scale), float(k_zero_point),
               float(v_zero_point), _build.stream_ptr(q.device))
-  _build.check(status, name, f'G={g}, S={s}, H={h}')
+  _build.check(status, name, f'G={g}, S={s}, H={h}, compute={compute}')
   decode_attention_int8_lengths_stale.launches += 1
   return out.reshape(b, nk, g, h)
 
@@ -264,7 +281,8 @@ def decode_attention_int8_lengths(
   """Decode attention over the int8 cache rows [0, lengths).
 
   q [B, NK, G, H] float; caches int8 [B, NK, S, H]; lengths int32 [B];
-  per-tensor scales and zero points as Python floats. A length of 0 gives
+  per-tensor scales and zero points as Python floats; compute 'f32',
+  'bf16' or 'int8' (all three have a CUDA body). A length of 0 gives
   every one of the S rows the weight 1/S, as the TPU kernel does. Returns
   [B, NK, G, H] in out_dtype.
   """
@@ -274,9 +292,7 @@ def decode_attention_int8_lengths(
     decode_attention_int8_lengths.plain_calls += 1
     return decode_attention_int8_lengths_plain(*args)
   name = 'decode_attention_int8_lengths'
-  if compute != 'f32':
-    raise NotImplementedError(
-        f'{name}: compute={compute!r} has no CUDA kernel yet (f32 only).')
+  mode = compute_code(compute)
   b, nk, g, h = q.shape
   s = k_cache.shape[2]
   r = b * nk
@@ -293,13 +309,13 @@ def decode_attention_int8_lengths(
   out = torch.empty((r, g, h), dtype=out_dtype, device=q.device)
   fn = _build.entry(
       'attention_lengths', 'aeqt_attention_lengths',
-      [_build.P] * 5 + [_build.I] * 6 + [_build.F] * 4 + [_build.P])
+      [_build.P] * 5 + [_build.I] * 7 + [_build.F] * 4 + [_build.P])
   status = fn(q2.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
               lens.data_ptr(), out.data_ptr(),
-              int(out_dtype == torch.bfloat16), r, nk, g, s, h,
+              int(out_dtype == torch.bfloat16), mode, r, nk, g, s, h,
               score_scale(k_scale, h), float(v_scale), float(k_zero_point),
               float(v_zero_point), _build.stream_ptr(q.device))
-  _build.check(status, name, f'G={g}, S={s}, H={h}')
+  _build.check(status, name, f'G={g}, S={s}, H={h}, compute={compute}')
   decode_attention_int8_lengths.launches += 1
   return out.reshape(b, nk, g, h)
 
@@ -317,7 +333,8 @@ def _oproj_check(q, compute):
   name = 'decode_attention_oproj'
   if compute != 'f32':
     raise NotImplementedError(
-        f'{name}: compute={compute!r} is not ported (f32 only).')
+        f'{name}: compute={compute!r} is not ported yet (f32 only; its '
+        f'bf16 and int8 bodies are the next slice of the port).')
   b, nk, g, h = q.shape
   if nk != 1:
     raise ValueError('out-proj epilogue supports MQA (NK == 1) only.')
@@ -383,7 +400,8 @@ def decode_attention_oproj(
   x_res [B, D], the residual stream; wo_packed [D, G*H/2] uint8
   split-half packed int4; so [D] f32. Returns x_res + W_o . attn(q, cache)
   [B, D] in x_res.dtype (decode_attention_oproj_plain has the arithmetic).
-  Only compute='f32' is ported; 'bf16' and 'int8' raise on both devices.
+  Only compute='f32' is ported; 'bf16' and 'int8' raise
+  NotImplementedError on both devices until the next slice of the port.
   The TPU wrapper's batch_block (its VMEM blocking) has no counterpart.
   """
   args = (q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, x_res,
@@ -493,18 +511,21 @@ def decode_attention_int8_lengths_writeback(
   [B] counting the new row; pos one int (a Python int or a one-element
   tensor on q's device; the same row for every batch row), clipped to
   [0, S - 1]. The caches' own storage is written: the JAX executor donates
-  them to this call, and the caches returned are the tensors given.
+  them to this call, and the caches returned are the tensors given. Only
+  compute='f32' is ported; 'bf16' and 'int8' raise NotImplementedError on
+  both devices until the next slice of the port.
   Returns (ctx [B, NK, G, H] in out_dtype, k_cache_q, v_cache_q).
   """
+  name = 'decode_attention_int8_lengths_writeback'
+  if compute != 'f32':
+    raise NotImplementedError(
+        f'{name}: compute={compute!r} is not ported yet (f32 only; its '
+        f'bf16 and int8 bodies are the next slice of the port).')
   args = (q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_new_q,
           v_new_q, pos, k_zero_point, v_zero_point, compute, out_dtype)
   if _build.device_kind(q) == 'cpu':
     decode_attention_int8_lengths_writeback.plain_calls += 1
     return decode_attention_int8_lengths_writeback_plain(*args)
-  name = 'decode_attention_int8_lengths_writeback'
-  if compute != 'f32':
-    raise NotImplementedError(
-        f'{name}: compute={compute!r} has no CUDA kernel yet (f32 only).')
   b, nk, g, h = q.shape
   s = k_cache_q.shape[2]
   r = b * nk
@@ -714,14 +735,15 @@ def decode_attention_int8_masked(
   and zero points as Python floats; mask additive (0 visible), any float
   dtype (read as f32), of a shape that broadcasts to [B, NK, G, S], as
   the TPU wrapper broadcasts it. Only compute='f32' is ported (the
-  executor's default); the TPU kernel's 'bf16' and 'int8' modes raise on
-  both devices. The TPU kernel's batch_block (its grid blocking) has no
+  executor's default); the TPU kernel's 'bf16' and 'int8' modes raise
+  NotImplementedError on both devices until the next slice of the port. The TPU kernel's batch_block (its grid blocking) has no
   counterpart here. Returns [B, NK, G, H] f32.
   """
   name = 'decode_attention_int8_masked'
   if compute != 'f32':
     raise NotImplementedError(
-        f'{name}: compute={compute!r} is not ported (f32 only).')
+        f'{name}: compute={compute!r} is not ported yet (f32 only; its '
+        f'bf16 and int8 bodies are the next slice of the port).')
   args = (q, k_cache_q, v_cache_q, k_scale, v_scale, mask, k_zero_point,
           v_zero_point)
   if _build.device_kind(q) == 'cpu':
@@ -1024,3 +1046,198 @@ def decode_attention_int4_group_lengths(
 
 decode_attention_int4_group_lengths.launches = 0
 decode_attention_int4_group_lengths.plain_calls = 0
+
+
+# -- basic int8 decode attention ------------------------------------------------
+
+
+def decode_attention_int8_plain(q, k_cache_q, v_cache_q, k_scale, v_scale,
+                                lengths):
+  """`_decode_attn_kernel` in plain PyTorch (any device), in its order: the
+  f32 dot times k_scale / sqrt(H), -1e30 at or past the row's length, the
+  row max subtracted, exp, divided by the row sum, the PV dot, times
+  v_scale. Returns [B, NK, G, H] f32."""
+  b, nk, g, h = q.shape
+  s = k_cache_q.shape[2]
+  qf = q.to(torch.float32)
+  scores = _qdot(qf, k_cache_q.to(torch.float32)) * score_scale(k_scale, h)
+  pos = torch.arange(s, device=q.device, dtype=torch.int32)
+  live = pos.reshape(1, 1, 1, s) < lengths.to(torch.int32).reshape(b, 1, 1, 1)
+  scores = torch.where(live, scores, _NEG)
+  scores = scores - torch.amax(scores, dim=-1, keepdim=True)
+  probs = torch.exp(scores)
+  probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+  ctx = torch.matmul(probs, v_cache_q.to(torch.float32))
+  return ctx * float(np.float32(v_scale))
+
+
+def decode_attention_int8(
+    q: torch.Tensor,
+    k_cache_q: torch.Tensor,
+    v_cache_q: torch.Tensor,
+    k_scale: float,
+    v_scale: float,
+    lengths: torch.Tensor,
+) -> torch.Tensor:
+  """The basic int8-cache decode attention (pallas_attention.
+  decode_attention_int8): no zero points, f32 compute.
+
+  q [B, NK, G, H] float; caches int8 [B, NK, S, H]; per-tensor scales as
+  Python floats; lengths int32 [B] (rows [0, length) visible; a length of
+  0 gives each of the S rows the weight 1/S, as the TPU kernel does).
+  Returns [B, NK, G, H] f32. The Pallas kernel scales the scores after
+  the dot and the context after the PV product; the XLA twin
+  `decode_attention_int8_ref` scales the caches first, a different
+  rounding.
+  """
+  args = (q, k_cache_q, v_cache_q, k_scale, v_scale, lengths)
+  if _build.device_kind(q) == 'cpu':
+    decode_attention_int8.plain_calls += 1
+    return decode_attention_int8_plain(*args)
+  name = 'decode_attention_int8'
+  b, nk, g, h = q.shape
+  s = k_cache_q.shape[2]
+  r = b * nk
+  q2 = q.to(torch.float32).reshape(r, g, h).contiguous()
+  for t, nm in ((k_cache_q, 'k_cache'), (v_cache_q, 'v_cache')):
+    _build.require(tuple(t.shape) == (b, nk, s, h), name,
+                   f'{nm} shape {tuple(t.shape)}')
+    _build.require_cuda_tensor(t, name, nm, (torch.int8,), 16)
+  lens = lengths.to(torch.int32).contiguous()
+  _build.require_cuda_tensor(lens, name, 'lengths', (torch.int32,))
+  _build.require(lens.numel() == b, name, 'lengths must have B entries')
+  out = torch.empty((r, g, h), dtype=torch.float32, device=q.device)
+  fn = _build.entry(
+      'attention_int8_basic', 'aeqt_attention_int8_basic',
+      [_build.P] * 5 + [_build.I] * 5 + [_build.F] * 2 + [_build.P])
+  status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
+              lens.data_ptr(), out.data_ptr(), r, nk, g, s, h,
+              score_scale(k_scale, h), float(v_scale),
+              _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}')
+  decode_attention_int8.launches += 1
+  return out.reshape(b, nk, g, h)
+
+
+decode_attention_int8.launches = 0
+decode_attention_int8.plain_calls = 0
+
+
+# -- int4 KV cache with per-row (per-token) scales ---------------------------
+#
+# Pools [B, NK, S, H/2] uint8, split-half along H as above, codes signed in
+# [-8, 7]; scales [B, NK, 8, S] bf16: row 0 the K row scales, row 1 the V
+# row scales, rows 2-7 zero (the TPU kernel's (8, 128) tile padding).
+
+
+def quantize_kv_rows_int4(x: torch.Tensor):
+  """Per-row symmetric int4 quantization of K or V rows
+  (pallas_attention.quantize_kv_rows_int4).
+
+  x [..., H] float -> (packed uint8 [..., H/2], scale f32 [...]): the scale
+  max(absmax, 1e-9) times f32(1/7) (a multiply), the codes
+  clip(round(x / scale), -8, 7) (a divide, half to even).
+  """
+  xf = x.to(torch.float32)
+  absmax = torch.amax(torch.abs(xf), dim=-1)
+  scale = torch.clamp_min(absmax, 1e-9) * _f32(1.0 / 7.0, x.device)
+  codes = torch.clamp(torch.round(xf / scale[..., None]), -8, 7)
+  return pack_int4_rows(codes.to(torch.int32)), scale
+
+
+def build_kv_scales_rows(k_scale: torch.Tensor,
+                         v_scale: torch.Tensor) -> torch.Tensor:
+  """Row scales [..., S] f32 of K and V -> the kernel's [..., 8, S] bf16
+  operand (rows 0 and 1, rounded to nearest even; rows 2-7 zero)."""
+  out = torch.zeros((*k_scale.shape[:-1], 8, k_scale.shape[-1]),
+                    dtype=torch.bfloat16, device=k_scale.device)
+  out[..., 0, :] = k_scale.to(torch.bfloat16)
+  out[..., 1, :] = v_scale.to(torch.bfloat16)
+  return out
+
+
+def decode_attention_int4_lengths_plain(q, k_packed, v_packed, kv_scales,
+                                        lengths, out_dtype=torch.float32):
+  """`_ctx_prefix_len_int4` in plain PyTorch (any device), in its order:
+  q rounded to bf16; the dots of its low half with the low K nibbles and
+  of its high half with the high ones, added; times the K row scale, then
+  times f32(1 / sqrt(H)); -1e30 at or past the row's length; softmax in
+  f32; bf16(p * the V row scale) against the low and the high V nibbles,
+  concatenated [low, high]."""
+  b, nk, g, h = q.shape
+  s = k_packed.shape[2]
+  h2 = h // 2
+  qb = _bf16_round(q.to(torch.float32))
+  kq = unpack_int4_rows(k_packed).to(torch.float32)
+  scores = (_qdot(qb[..., :h2], kq[..., :h2])
+            + _qdot(qb[..., h2:], kq[..., h2:]))
+  sc = kv_scales.to(torch.float32)
+  scores = scores * sc[:, :, 0:1, :] * _f32(1.0 / (h ** 0.5), q.device)
+  pos = torch.arange(s, device=q.device, dtype=torch.int32)
+  live = pos.reshape(1, 1, 1, s) < lengths.to(torch.int32).reshape(b, 1, 1, 1)
+  scores = torch.where(live, scores, _NEG)
+  scores = scores - torch.amax(scores, dim=-1, keepdim=True)
+  probs = torch.exp(scores)
+  probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+  pv = _bf16_round(probs * sc[:, :, 1:2, :])
+  vq = unpack_int4_rows(v_packed).to(torch.float32)
+  ctx = torch.cat([torch.matmul(pv, vq[..., :h2]),
+                   torch.matmul(pv, vq[..., h2:])], dim=-1)
+  return ctx.to(out_dtype)
+
+
+def decode_attention_int4_lengths(
+    q: torch.Tensor,
+    k_packed: torch.Tensor,
+    v_packed: torch.Tensor,
+    kv_scales: torch.Tensor,
+    lengths: torch.Tensor,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+  """Decode attention over per-row int4 KV pools
+  (pallas_attention.decode_attention_int4_lengths).
+
+  q [B, NK, G, H] float; k_packed / v_packed [B, NK, S, H/2] uint8
+  (pack_int4_rows); kv_scales [B, NK, 8, S] bf16 (build_kv_scales_rows);
+  lengths int32 [B]. A length of 0 gives every one of the S rows the
+  weight 1/S, as the TPU kernel does. The TPU kernel's batch_block (its
+  grid blocking) has no counterpart here. Returns [B, NK, G, H] in
+  out_dtype (f32 or bf16).
+  """
+  args = (q, k_packed, v_packed, kv_scales, lengths, out_dtype)
+  if _build.device_kind(q) == 'cpu':
+    decode_attention_int4_lengths.plain_calls += 1
+    return decode_attention_int4_lengths_plain(*args)
+  name = 'decode_attention_int4_lengths'
+  b, nk, g, h = q.shape
+  s = k_packed.shape[2]
+  r = b * nk
+  _build.require(out_dtype in (torch.float32, torch.bfloat16), name,
+                 f'out_dtype {out_dtype} must be f32 or bf16')
+  q2 = q.to(torch.float32).reshape(r, g, h).contiguous()
+  for t, nm in ((k_packed, 'k_packed'), (v_packed, 'v_packed')):
+    _build.require(tuple(t.shape) == (b, nk, s, h // 2), name,
+                   f'{nm} shape {tuple(t.shape)}')
+    _build.require_cuda_tensor(t, name, nm, (torch.uint8,), 16)
+  _build.require(tuple(kv_scales.shape) == (b, nk, 8, s), name,
+                 f'kv_scales shape {tuple(kv_scales.shape)}')
+  _build.require_cuda_tensor(kv_scales, name, 'kv_scales', (torch.bfloat16,))
+  lens = lengths.to(torch.int32).contiguous()
+  _build.require_cuda_tensor(lens, name, 'lengths', (torch.int32,))
+  _build.require(lens.numel() == b, name, 'lengths must have B entries')
+  out = torch.empty((r, g, h), dtype=out_dtype, device=q.device)
+  fn = _build.entry(
+      'attention_int4_row', 'aeqt_attention_int4_row',
+      [_build.P] * 6 + [_build.I] * 6 + [_build.F, _build.P])
+  status = fn(q2.data_ptr(), k_packed.data_ptr(), v_packed.data_ptr(),
+              kv_scales.data_ptr(), lens.data_ptr(), out.data_ptr(),
+              int(out_dtype == torch.bfloat16), r, nk, g, s, h,
+              float(np.float32(1.0 / (h ** 0.5))),
+              _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}')
+  decode_attention_int4_lengths.launches += 1
+  return out.reshape(b, nk, g, h)
+
+
+decode_attention_int4_lengths.launches = 0
+decode_attention_int4_lengths.plain_calls = 0

@@ -9,7 +9,7 @@ cache pools. On a CUDA tensor it launches the cooperative kernel of
 `csrc/fused_block.cu` (or raises); on a CPU tensor it runs
 `fused_mlp_qkv_attention_plain`, which repeats the kernel's arithmetic.
 
-Numerics (exactly `_kernel_impl`, f32 attention compute):
+Numerics (exactly `_kernel_impl`):
   xq, xs  = DRQ of rmsnorm(x_res) * g1 (sum of squares in f64, see
             ops/impl.py `rms_inverse`)
   per F-tile of bf columns: gate, up = (acc * xs) * s; h = act(gate) * up;
@@ -19,7 +19,9 @@ Numerics (exactly `_kernel_impl`, f32 attention compute):
             (the TPU kernel's host-side f32 inverse, not k / kq), v_new
             likewise
   ctx     = `decode_attention_int8_lengths_stale` over the rows
-            < lengths - 1 of the pre-write pools plus the inline new row.
+            < lengths - 1 of the pre-write pools plus the inline new row,
+            in the compute mode `compute` ('f32', 'bf16' or 'int8', the
+            branches of `_ctx_prefix_len_cur`; each has a CUDA body).
 Row clamp(pos, 0, S-1) of every batch row of the pools it is handed
 becomes (k_new, v_new): the TPU kernel's aliased outputs, written in
 place. The TPU kernel's `bb`, `ring` and `writeback` are VMEM and DMA
@@ -35,6 +37,7 @@ import torch
 
 from ai_edge_quantizer_tpu_torch.kernels import _build
 from ai_edge_quantizer_tpu_torch.kernels.attention import (
+    compute_code,
     decode_attention_int8_lengths_stale_plain,
     score_scale,
 )
@@ -112,7 +115,7 @@ def fused_mlp_qkv_attention_plain(
     x_res, gamma_ffn, wgu_packed, s_gu, wd_grouped, s_d, gamma_attn,
     wqkv_packed, s_qkv, rope_cos, rope_sin, k_pool, v_pool, lengths, pos,
     k_scale_eff, v_scale, kq_scale, vq_scale, num_q_heads, k_zero_point=0.0,
-    v_zero_point=0.0, act='gelu', eps=1e-6, bf=2048):
+    v_zero_point=0.0, act='gelu', eps=1e-6, bf=2048, compute='f32'):
   """`_kernel_impl` in plain PyTorch (any device)."""
   b, d, f, h, _ = _check_shapes(x_res, wgu_packed, wd_grouped, wqkv_packed,
                                 rope_cos, rope_sin, k_pool, v_pool, lengths,
@@ -145,7 +148,7 @@ def fused_mlp_qkv_attention_plain(
   ctx = decode_attention_int8_lengths_stale_plain(
       q[:, None], k_pool[:, None], v_pool[:, None], k_scale_eff, v_scale,
       lengths, k_new[:, None, None], v_new[:, None, None],
-      k_zero_point=k_zero_point, v_zero_point=v_zero_point, compute='f32')
+      k_zero_point=k_zero_point, v_zero_point=v_zero_point, compute=compute)
   _write_rows(k_pool, v_pool, pos, k_new, v_new)
   return ctx.reshape(b, nq, h), x_ffn.to(x_res.dtype), k_new, v_new
 
@@ -153,7 +156,8 @@ def fused_mlp_qkv_attention_plain(
 _PTRS = ('x', 'g1', 'wgu', 'sgu', 'wd', 'sd', 'g2', 'wqkv', 'sqkv', 'cos',
          'sin', 'lengths', 'pos', 'k_pool', 'v_pool', 'ctx', 'x_ffn', 'k_new',
          'v_new', 'xq1', 'xs1', 'hid', 'hq', 'hs', 'xf', 'xq2', 'xs2', 'qkv')
-_INTS = ('x_bf16', 'B', 'D', 'F', 'bf', 'NQ', 'H', 'S', 'act_silu')
+_INTS = ('x_bf16', 'B', 'D', 'F', 'bf', 'NQ', 'H', 'S', 'act_silu',
+         'compute')
 _FLOATS = ('eps', 'k_scale_eff', 'v_scale', 'zp_k', 'zp_v', 'kq_inv',
            'vq_inv')
 
@@ -169,7 +173,7 @@ def _launch(x_res, gamma_ffn, wgu_packed, s_gu, wd_grouped, s_d, gamma_attn,
             wqkv_packed, s_qkv, rope_cos, rope_sin, k_pool, v_pool, lengths,
             pos, k_scale_eff, v_scale, kq_scale, vq_scale, num_q_heads,
             k_zero_point=0.0, v_zero_point=0.0, act='gelu', eps=1e-6,
-            bf=2048):
+            bf=2048, compute='f32'):
   """The CUDA kernel's path: checks every tensor, launches, raises."""
   b, d, f, h, s = _check_shapes(x_res, wgu_packed, wd_grouped, wqkv_packed,
                                 rope_cos, rope_sin, k_pool, v_pool, lengths,
@@ -218,7 +222,8 @@ def _launch(x_res, gamma_ffn, wgu_packed, s_gu, wd_grouped, s_d, gamma_attn,
   args = _Args(
       **{n: tensors[n].data_ptr() for n in _PTRS},
       x_bf16=int(x.dtype == torch.bfloat16), B=b, D=d, F=f, bf=bf, NQ=nq,
-      H=h, S=s, act_silu=int(act == 'silu'), eps=eps,
+      H=h, S=s, act_silu=int(act == 'silu'), compute=compute_code(compute),
+      eps=eps,
       k_scale_eff=score_scale(k_scale_eff, h), v_scale=v_scale,
       zp_k=k_zero_point, zp_v=v_zero_point,
       kq_inv=float(np.float32(1.0 / kq_scale)),
@@ -226,7 +231,8 @@ def _launch(x_res, gamma_ffn, wgu_packed, s_gu, wd_grouped, s_d, gamma_attn,
   fn = _build.entry('fused_block', 'aeqt_fused_block',
                     [ctypes.POINTER(_Args), _build.P])
   status = fn(ctypes.byref(args), _build.stream_ptr(dev))
-  _build.check(status, _NAME, f'D={d}, F={f}, bf={bf}, NQ={nq}, H={h}, S={s}')
+  _build.check(status, _NAME, f'D={d}, F={f}, bf={bf}, NQ={nq}, H={h}, S={s}, '
+               f'compute={compute}')
   return out['ctx'], out['x_ffn'], out['k_new'], out['v_new']
 
 
@@ -256,6 +262,7 @@ def fused_mlp_qkv_attention(
     act: str = 'gelu',
     eps: float = 1e-6,
     bf: int = 2048,
+    compute: str = 'f32',
 ):
   """One decode-block unit; returns (ctx [B, NQ, H] f32, x_ffn [B, D] in
   x_res.dtype, k_new [B, H] int8, v_new [B, H] int8).
@@ -269,13 +276,14 @@ def fused_mlp_qkv_attention(
   (one KV head); lengths int32 [B] counting the new token; pos the shared
   write position (int or int32 tensor, clamped to [0, S-1]);
   k_scale_eff the score-side K scale (k_scale times the graph's score
-  factor times sqrt(H)), kq_scale and vq_scale the new row's scales.
+  factor times sqrt(H)), kq_scale and vq_scale the new row's scales;
+  compute the attention's mode, 'f32', 'bf16' or 'int8'.
   Row pos of every batch row of k_pool and v_pool is written in place.
   """
   args = (x_res, gamma_ffn, wgu_packed, s_gu, wd_grouped, s_d, gamma_attn,
           wqkv_packed, s_qkv, rope_cos, rope_sin, k_pool, v_pool, lengths,
           pos, k_scale_eff, v_scale, kq_scale, vq_scale, num_q_heads,
-          k_zero_point, v_zero_point, act, eps, bf)
+          k_zero_point, v_zero_point, act, eps, bf, compute)
   if _build.device_kind(x_res) == 'cpu':
     fused_mlp_qkv_attention.plain_calls += 1
     return fused_mlp_qkv_attention_plain(*args)

@@ -1,14 +1,15 @@
 // The lengths-masked int8 decode attention of attention_lengths.cu as a
-// kernel template, shared with attention_oproj.cu (the attention of the
-// out-projection epilogue). Its contract and design note are in
-// attention_lengths.cu.
+// kernel template over the compute mode and the output type, shared with
+// attention_oproj.cu (the attention of the out-projection epilogue, f32)
+// and attention_int8_basic.cu (zero points 0). Its contract and design
+// note are in attention_lengths.cu.
 #pragma once
 
 #include "attention_common.cuh"
 
 namespace aeqt {
 
-template <typename TOut>
+template <int C, typename TOut>
 __global__ void __launch_bounds__(kAttnThreads)
 lengths_attention_kernel(const float* __restrict__ q,
                          const int8_t* __restrict__ k,
@@ -20,7 +21,7 @@ lengths_attention_kernel(const float* __restrict__ q,
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                          // [G][H]
   float* sc = qs + (size_t)G * H;          // [G][S] scores, then probs
-  float* qsum = sc + (size_t)G * S;        // [G]
+  float* qsum = sc + (size_t)G * S;        // [G] sum(q), then p_sum (int8)
   float* red = qsum + G;                   // [RG][kGC][H] context partials
   const int row = blockIdx.x;
   const int b = row / NK;
@@ -34,13 +35,7 @@ lengths_attention_kernel(const float* __restrict__ q,
   for (int i = threadIdx.x; i < G * H; i += blockDim.x) qs[i] = qr[i];
   __syncthreads();
 
-  // sum(q[g]): one warp per query row.
-  for (int g = warp; g < G; g += nwarps) {
-    float s = 0.0f;
-    for (int h = lane; h < H; h += 32) s = s + qs[g * H + h];
-    s = warp_sum(s);
-    if (lane == 0) qsum[g] = s;
-  }
+  prepare_queries<C>(qs, qsum, red, G, H);
   __syncthreads();
 
   // Scores: one thread per live cache row.
@@ -48,15 +43,12 @@ lengths_attention_kernel(const float* __restrict__ q,
   for (int j = threadIdx.x; j < L; j += blockDim.x) {
     const int8_t* krow = kr + (size_t)j * H;
     for (int g0 = 0; g0 < G; g0 += kGC) {
-      float acc[kGC] = {};
-      if (!none) dot_row(qs, H, G, g0, krow, acc);
+      float s[kGC];
+      if (!none)
+        score_rows<C>(qs, qsum, red, G, H, g0, krow, zp_k, k_scale_eff, s);
 #pragma unroll
-      for (int i = 0; i < kGC; ++i) {
-        const int g = g0 + i;
-        if (g < G)
-          sc[(size_t)g * S + j] =
-              none ? kNegInf : (acc[i] - zp_k * qsum[g]) * k_scale_eff;
-      }
+      for (int i = 0; i < kGC; ++i)
+        if (g0 + i < G) sc[(size_t)(g0 + i) * S + j] = none ? kNegInf : s[i];
     }
   }
   __syncthreads();
@@ -74,7 +66,16 @@ lengths_attention_kernel(const float* __restrict__ q,
       sum = sum + p;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) srow[j] = srow[j] / sum;
+    float codes = 0.0f;  // int8: the sum of the probability codes (exact)
+    for (int j = lane; j < L; j += 32) {
+      const float p = prob_operand<C>(srow[j], sum);
+      srow[j] = p;
+      codes = codes + p;
+    }
+    if constexpr (C == kInt8) {
+      codes = warp_sum(codes);
+      if (lane == 0) qsum[g] = fmaxf(codes, 1.0f);
+    }
   }
   __syncthreads();
 
@@ -98,12 +99,13 @@ lengths_attention_kernel(const float* __restrict__ q,
       if (g >= G) continue;
       float ctx = 0.0f;
       for (int r = 0; r < RG; ++r) ctx = ctx + red[((size_t)r * kGC + i) * H + h];
-      store_f(out, ((size_t)row * G + g) * H + h, (ctx - zp_v) * v_scale);
+      store_f(out, ((size_t)row * G + g) * H + h,
+              finish_ctx<C>(ctx, qsum[g], zp_v, v_scale));
     }
   }
 }
 
-template <typename TOut>
+template <typename TOut, int C = kF32>
 int launch_lengths_attention(const void* q, const void* k, const void* v,
                              const void* lengths, void* out, int R, int NK,
                              int G, int S, int H, float k_scale_eff,
@@ -111,8 +113,9 @@ int launch_lengths_attention(const void* q, const void* k, const void* v,
                              cudaStream_t stream) {
   const size_t smem =
       ((size_t)G * H + (size_t)G * S + G + kRedFloats) * sizeof(float);
-  if (!head_dim_fits(H) || !smem_fits(smem)) return kShapeRefused;
-  auto* kernel = lengths_attention_kernel<TOut>;
+  if (!head_dim_fits(H) || !compute_fits(C, G, H) || !smem_fits(smem))
+    return kShapeRefused;
+  auto* kernel = lengths_attention_kernel<C, TOut>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -1,8 +1,11 @@
 // Decode attention over a stale (pre-write) int8 KV cache plus the new
-// token's k/v row as one inline softmax column, f32 compute.
+// token's k/v row as one inline softmax column, in the f32, bf16 or int8
+// compute mode.
 //
 // Replaces: ai_edge_quantizer_tpu/kernels/pallas_attention.py
-//   decode_attention_int8_lengths_stale (_ctx_prefix_len_cur, f32 branch).
+//   decode_attention_int8_lengths_stale (_ctx_prefix_len_cur, its three
+//   compute branches; the modes' operands are at the top of
+//   attention_common.cuh).
 //   For each (batch, kv-head) row r with L = lengths[b] - 1 stale rows:
 //     s[g, j]  = (q[g] . k[j] - zp_k * sum(q[g])) * k_scale_eff, j < L
 //     s_cur[g] = (q[g] . k_new - zp_k * sum(q[g])) * k_scale_eff
@@ -36,7 +39,7 @@ namespace {
 
 constexpr int kThreads = aeqt::kAttnThreads;
 
-template <typename TOut>
+template <int C, typename TOut>
 __global__ void __launch_bounds__(kThreads)
 stale_attention_kernel(const float* __restrict__ q,
                        const int8_t* __restrict__ k,
@@ -54,21 +57,22 @@ stale_attention_kernel(const float* __restrict__ q,
   const float* qr = q + (size_t)row * G * H;
   for (int i = threadIdx.x; i < G * H; i += blockDim.x) sm[i] = qr[i];
   __syncthreads();
-  aeqt::stale_attention_row(sm, G, S, H, L, k + (size_t)row * S * H,
+  aeqt::stale_attention_row<C>(sm, G, S, H, L, k + (size_t)row * S * H,
                             v + (size_t)row * S * H, k_new + (size_t)row * H,
                             v_new + (size_t)row * H, out + (size_t)row * G * H,
                             k_scale_eff, v_scale, zp_k, zp_v);
 }
 
-template <typename TOut>
+template <int C, typename TOut>
 int launch(const void* q, const void* k, const void* v, const void* k_new,
            const void* v_new, const void* lengths, void* out, int R, int NK,
            int G, int S, int H, float k_scale_eff, float v_scale, float zp_k,
            float zp_v, cudaStream_t stream) {
   const size_t smem = aeqt::stale_smem_floats(G, S, H) * sizeof(float);
-  if (!aeqt::head_dim_fits(H) || !aeqt::smem_fits(smem))
+  if (!aeqt::head_dim_fits(H) || !aeqt::compute_fits(C, G, H) ||
+      !aeqt::smem_fits(smem))
     return aeqt::kShapeRefused;
-  auto* kernel = stale_attention_kernel<TOut>;
+  auto* kernel = stale_attention_kernel<C, TOut>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -80,23 +84,39 @@ int launch(const void* q, const void* k, const void* v, const void* k_new,
   return (int)cudaGetLastError();
 }
 
+template <typename TOut>
+int launch_mode(int compute, const void* q, const void* k, const void* v,
+                const void* k_new, const void* v_new, const void* lengths,
+                void* out, int R, int NK, int G, int S, int H,
+                float k_scale_eff, float v_scale, float zp_k, float zp_v,
+                cudaStream_t s) {
+  return aeqt::with_compute(compute, [&](auto mode) {
+    return launch<decltype(mode)::value, TOut>(q, k, v, k_new, v_new, lengths,
+                                               out, R, NK, G, S, H,
+                                               k_scale_eff, v_scale, zp_k,
+                                               zp_v, s);
+  });
+}
+
 }  // namespace
 
 // q f32 [R, G, H] with R = B * NK; k, v int8 [R, S, H]; k_new, v_new int8
 // [R, H]; lengths int32 [B] (counting the new token); out [R, G, H] f32 or
-// bf16 (out_bf16). Returns aeqt::kShapeRefused unless H % 16 == 0,
-// 1024 % H == 0 and the G x S scores fit in shared memory.
+// bf16 (out_bf16); compute aeqt::kF32, kBF16 or kInt8. Returns
+// aeqt::kShapeRefused unless H % 16 == 0, 1024 % H == 0, the G x S scores
+// fit in shared memory and (int8) G * H / 4 + G <= aeqt::kRedFloats.
 extern "C" int aeqt_attention_stale(const void* q, const void* k,
                                     const void* v, const void* k_new,
                                     const void* v_new, const void* lengths,
-                                    void* out, int out_bf16, int R, int NK,
-                                    int G, int S, int H, float k_scale_eff,
-                                    float v_scale, float zp_k, float zp_v,
-                                    void* stream) {
+                                    void* out, int out_bf16, int compute,
+                                    int R, int NK, int G, int S, int H,
+                                    float k_scale_eff, float v_scale,
+                                    float zp_k, float zp_v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return launch<__nv_bfloat16>(q, k, v, k_new, v_new, lengths, out, R, NK,
-                                 G, S, H, k_scale_eff, v_scale, zp_k, zp_v, s);
-  return launch<float>(q, k, v, k_new, v_new, lengths, out, R, NK, G, S, H,
-                       k_scale_eff, v_scale, zp_k, zp_v, s);
+    return launch_mode<__nv_bfloat16>(compute, q, k, v, k_new, v_new, lengths,
+                                      out, R, NK, G, S, H, k_scale_eff,
+                                      v_scale, zp_k, zp_v, s);
+  return launch_mode<float>(compute, q, k, v, k_new, v_new, lengths, out, R,
+                            NK, G, S, H, k_scale_eff, v_scale, zp_k, zp_v, s);
 }

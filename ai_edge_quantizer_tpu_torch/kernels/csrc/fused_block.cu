@@ -3,7 +3,9 @@
 // the new row into the cache pools, in one cooperative launch.
 //
 // Replaces: ai_edge_quantizer_tpu/kernels/pallas_block.py
-//   fused_mlp_qkv_attention (_kernel_impl), f32 attention compute. Per
+//   fused_mlp_qkv_attention (_kernel_impl), its attention in the f32, bf16
+//   or int8 compute mode (`compute`, a template parameter of the kernel).
+//   Per
 //   batch row b (x_res [B, D] f32 or bf16):
 //     xq1, xs1 = rmsnorm_quant(x_res, g1)
 //     per F-tile t of bf columns: gate, up = (acc * xs1) * s (packed int4),
@@ -13,7 +15,7 @@
 //     q, k = half-split RoPE of the NQ query heads and of K; v = V
 //     k_new = clip(rint(k * (1/kq)), -127, 127); v_new likewise
 //     ctx = stale attention over the cache rows < lengths[b] - 1 plus the
-//           inline new column (aeqt::stale_attention_row)
+//           inline new column (aeqt::stale_attention_row in the mode)
 //   and row clamp(pos, 0, S - 1) of k_pool[b] and v_pool[b] becomes
 //   k_new[b] and v_new[b] (the TPU kernel's aliased outputs). The TPU
 //   kernel's ring prefetch (`bb`, `ring`) and dirty-tile writeback are
@@ -96,6 +98,7 @@ struct FusedBlockArgs {
   float* xs2;           // [B]
   float* qkv;           // [B, (NQ + 2) H]
   int x_bf16, B, D, F, bf, NQ, H, S, act_silu;
+  int compute;          // aeqt::kF32, kBF16 or kInt8
   float eps, k_scale_eff, v_scale, zp_k, zp_v, kq_inv, vq_inv;
 };
 
@@ -267,6 +270,7 @@ __device__ __forceinline__ int8_t row_code(float v) {
 }
 
 // Stage 7: one block per batch row.
+template <int C>
 __device__ __forceinline__ void attention_stage(const Args& a, float* sm) {
   const int H = a.H, half = a.H / 2, NQ = a.NQ, N = (a.NQ + 2) * a.H;
   for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
@@ -297,7 +301,7 @@ __device__ __forceinline__ void attention_stage(const Args& a, float* sm) {
     const int L = min(max(a.lengths[b] - 1, 0), a.S);
     int8_t* kr = a.k_pool + (size_t)b * a.S * H;
     int8_t* vr = a.v_pool + (size_t)b * a.S * H;
-    aeqt::stale_attention_row<float>(sm, NQ, a.S, H, L, kr, vr, kn, vn,
+    aeqt::stale_attention_row<C, float>(sm, NQ, a.S, H, L, kr, vr, kn, vn,
                                      a.ctx + (size_t)b * NQ * H,
                                      a.k_scale_eff, a.v_scale, a.zp_k,
                                      a.zp_v);
@@ -310,7 +314,7 @@ __device__ __forceinline__ void attention_stage(const Args& a, float* sm) {
   }
 }
 
-template <typename T>
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) fused_block_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
@@ -326,7 +330,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(const Args a) {
   grid.sync();
   matmul_stage<false>(a, smem);
   grid.sync();
-  attention_stage(a, reinterpret_cast<float*>(smem));
+  attention_stage<C>(a, reinterpret_cast<float*>(smem));
 }
 
 size_t smem_bytes(const Args& a) {
@@ -336,7 +340,7 @@ size_t smem_bytes(const Args& a) {
   return mm > down ? (mm > attn ? mm : attn) : (down > attn ? down : attn);
 }
 
-template <typename T>
+template <typename T, int C>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a);
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -347,7 +351,7 @@ int launch(const Args& a, cudaStream_t stream) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   if (!coop || !aeqt::smem_fits(smem)) return aeqt::kShapeRefused;
-  auto* kernel = fused_block_kernel<T>;
+  auto* kernel = fused_block_kernel<T, C>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -363,18 +367,27 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_mode(const Args& a, cudaStream_t s) {
+  return aeqt::with_compute(a.compute, [&](auto mode) {
+    return launch<T, decltype(mode)::value>(a, s);
+  });
+}
+
 }  // namespace
 
 // Returns aeqt::kShapeRefused (nothing launched) unless D % 32 == 0,
 // bf % 32 == 0, bf divides F, the head dim fits the attention body
-// (H % 16 == 0, 1024 % H == 0), the NQ x S scores and the staged rows fit
-// in shared memory, and the device takes cooperative launches.
+// (H % 16 == 0, 1024 % H == 0, and in int8 NQ * H / 4 + NQ <=
+// aeqt::kRedFloats), the NQ x S scores and the staged rows fit in shared
+// memory, and the device takes cooperative launches.
 extern "C" int aeqt_fused_block(const FusedBlockArgs* args, void* stream) {
   const Args& a = *args;
   if (a.B < 1 || a.NQ < 1 || a.S < 1 || a.D % 32 || a.bf < 32 || a.bf % 32 ||
-      a.F % a.bf || !aeqt::head_dim_fits(a.H))
+      a.F % a.bf || !aeqt::head_dim_fits(a.H) ||
+      !aeqt::compute_fits(a.compute, a.NQ, a.H))
     return aeqt::kShapeRefused;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.x_bf16) return launch<__nv_bfloat16>(a, s);
-  return launch<float>(a, s);
+  if (a.x_bf16) return launch_mode<__nv_bfloat16>(a, s);
+  return launch_mode<float>(a, s);
 }

@@ -7,7 +7,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
 
   1. facts: torch.version.cuda, nvcc --version, the card's name and power
      limit (nvidia-smi) and the kernels' build time;
-  2. kernels: each of the twenty-two kernels against its plain PyTorch version
+  2. kernels: each of the twenty-four kernel wrappers (the 22 Pallas
+     sites of the JAX package; #3 and #4 have a DRQ and a weight-only
+     wrapper each) against its plain PyTorch version
      on the card at the main paths' shapes (Gemma-2B; decode at batch 64
      and cache 1024, bench.py's decode at batch 256 with 897 live cache
      rows, prefill at 8 x 128 tokens; bf16 activations), with the stated
@@ -45,9 +47,22 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      bit and weight-only) and the attention + out-projection + residual
      epilogue (B 256 and 64, lengths 897, 0, 1 and S, bf16 and f32, DRQ bit
      for bit given the lengths kernel's context, weight-only), each timed
-     beside the unfused kernels it replaces; four attention shapes the CUDA
-     kernels do not take must raise, and the epilogue with two KV heads
-     or an odd head count;
+     beside the unfused kernels it replaces; the attention compute modes
+     (compute_mode_kernels): the stale attention (B 64 and bench.py's
+     decode), the lengths attention (the server's tick, and a zero length)
+     and the decode block (bench.py's step) in bf16 and int8 beside their
+     f32 rows (mode_ctx_check; the block's codes and pools bit for bit);
+     the basic int8 decode attention (#22, B 64 and 256, equal to the
+     lengths attention's plain version with zero points 0) and the per-row
+     int4 KV attention (#21, the A/B tool's shape B 256 and B 64, against
+     its plain version and the f32 twin of decode_attention_int4_ref);
+     four attention shapes the CUDA kernels do not take must raise, and
+     the epilogue with two KV heads or an odd head count;
+  2b. A/B tool: `python -m ai_edge_quantizer_tpu_torch.tools.attn_int4_bench`
+     at its defaults (B 256, S 1024, 18 chained launches, 16 steps) through
+     its `main`: its artifact line (ms, GB/s, rel_err_vs_float per format:
+     int8 lengths f32, int4 per row, int4 per group), each format's chained
+     output against the same chain of the plain versions, the launches;
   3. decode loop: the Gemma-2B int4 greedy decode graph at batch 64 with an
      int8 KV cache answers 64 requests (8 prompt tokens fed through the
      decode step, then 16 greedy tokens), the decode block off; launch
@@ -67,6 +82,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      (launches per step: prologue 18, epilogue 18, MLP 18, head 1) and
      with AEQT_NORM_FUSION=1 (norm-fused matmul 36, stale attention 18,
      int4 DRQ 18, K-blocked int4 DRQ 18, head 1), ids compared likewise;
+     and bench.py's own settings with AEQT_ATTN_COMPUTE=bf16 and =int8
+     (attn_compute; the block on's launches: block 17, stale attention 1),
+     ids compared with the block on's at f32;
   4. server: the port's DecodeServer at bench.py's server settings serves
      128 requests (prompt lengths cycling 32..512, 48 new tokens each) by
      step_chunk(8); every request must end done with 48 ids in range, and
@@ -75,7 +93,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      prefill pass and per chunk of 8 ticks, and the device's idle share
      (torch.profiler) are printed; then the same with int4-group pools
      (AEQT_BENCH_SERVER_KV=int4g: int4g attention 18 per tick, no flash
-     or lengths launch);
+     or lengths launch); then the int8-KV server with
+     executor_options={'attn_compute': 'bf16'} and {'attn_compute':
+     'int8'} (the ticks' lengths attention 18 a tick in the mode);
   4b. quantizer: examples/serve_gemma.py's flow at full width through the
      port's own entry points: the float serving graph (weights drawn on
      the host, int8 KV stamped) built once at each depth, then for
@@ -117,7 +137,10 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      default mode's weight-only and the packed blockwise FCs within their
      tolerance); and the decode step at FUSION_CPU_LAYERS layers with the
      attention block and with the norm fusion (the norm-fused FCs within
-     int_weights_tolerance, the epilogue's rows by EPILOGUE_ROW_RTOL).
+     int_weights_tolerance, the epilogue's rows by EPILOGUE_ROW_RTOL); and
+     the decode step with the block at FUSION_CPU_LAYERS layers in each
+     compute mode (the context rows by ATTN_MODE_ROW_RTOL, at most
+     ATTN_MODE_ROWS_OFF of them beyond 1e-5 in a layer).
 
 Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
@@ -445,6 +468,9 @@ def kernel_phase(torch, port, cfg, dev, timer):
   results.extend(default_mode_kernels(torch, port, cfg, dev, timer, gen))
   results.extend(cache_mode_kernels(torch, port, cfg, dev, timer, gen))
   results.extend(attn_block_kernels(torch, port, cfg, dev, timer, gen))
+  compute_mode_kernels(torch, port, cfg, dev, timer, gen, results)
+  results.append(int8_basic_kernel(torch, port, cfg, dev, timer, gen))
+  results.append(int4_row_kernel(torch, port, cfg, dev, timer, gen))
   refused_shapes(torch, att, dev)
   return results
 
@@ -656,6 +682,8 @@ def block_kernel(torch, port, cfg, dev, timer, gen):
                      'decode_attention_int8_lengths_stale, row write',
       'composition_vs_block': {'x_ffn_err': comp_x, 'ctx_err': comp_ctx,
                                'new_row_codes_differ': comp_codes},
+      'bound_parts': {'bytes': nbytes, 'int8_ops': int8_ops,
+                      'attention_ops': f32_ops},
       'B': Bb, 'live_rows': live, 'cases': cases}
 
 
@@ -2098,6 +2126,440 @@ def attn_block_kernels(torch, port, cfg, dev, timer, gen):
           oproj_kernel(torch, port, cfg, dev, timer, gen)]
 
 
+# -- the attention compute modes, #22 and #21 ---------------------------------
+
+COMPUTE_MODES = ('bf16', 'int8')
+# The peak rate of each mode's attention operations (its operands' type).
+MODE_OPS_PER_S = {'f32': F32_OPS_PER_S, 'bf16': BF16_OPS_PER_S,
+                  'int8': INT8_OPS_PER_S}
+# The context of a kernel in a compute mode against its plain version on
+# the same inputs: f32 sums in another order, so a row (one query row's H
+# values) is held to MODE_RTOL of max(max |ctx|, 1) as the f32 rows are,
+# except a row where a probability's operand rounds the other way (the
+# plain version's f32 probability and the kernel's differ in the last
+# place): a bf16 probability code by one bf16 step (2^-8 of p <= 1), an
+# int8 code by one of 127 (the context's code sum p_sum is about 127 at
+# these inputs, whose scores are peaked). Such a row must stay within
+# MODE_FLIP_STEPS steps of (127 + |zp_v|) * v_scale / 127 (int8) or
+# 2^-8 (127 + |zp_v|) v_scale (bf16), and at most MODE_ROWS_OFF_SHARE of the
+# rows may be such rows.
+MODE_RTOL = 1e-5
+MODE_FLIP_STEPS = 2
+MODE_ROWS_OFF_SHARE = 0.01
+
+
+def mode_flip_step(compute, v_scale, zp_v):
+  """The largest change of one context value when one probability's
+  operand rounds the other way (see MODE_FLIP_STEPS)."""
+  span = (127.0 + abs(zp_v)) * v_scale
+  return span * 2.0**-8 if compute == 'bf16' else 2.0 * span / 127.0
+
+
+def mode_ctx_check(torch, got, want, compute, v_scale, zp_v, label,
+                   rtol=MODE_RTOL):
+  """(max |got - want|, rows beyond the fine tolerance, rows) of a context
+  in a compute mode; raises beyond the rules above."""
+  h = want.shape[-1]
+  g, w = got.float().reshape(-1, h), want.float().reshape(-1, h)
+  fine = rtol * max(float(torch.max(torch.abs(w))), 1.0)
+  rows_err = torch.amax(torch.abs(g - w), dim=1)
+  off = int(torch.sum(rows_err > fine))
+  err = float(torch.max(rows_err))
+  loose = fine + MODE_FLIP_STEPS * mode_flip_step(compute, v_scale, zp_v)
+  if err > loose or off > MODE_ROWS_OFF_SHARE * w.shape[0]:
+    raise AssertionError(f'{label} {compute}: max err {err} (fine {fine}, '
+                         f'loose {loose}), {off} of {w.shape[0]} rows beyond '
+                         'the fine tolerance')
+  return err, off, w.shape[0]
+
+
+def compute_mode_kernels(torch, port, cfg, dev, timer, gen, results):
+  """The stale attention (#2, at B and at bench.py's decode), the lengths
+  attention (#7, the server's tick) and the decode block (#5, bench.py's
+  step) in the bf16 and int8 compute modes against their plain versions
+  on the same inputs (mode_ctx_check; the block's new-row codes, pools and
+  x_ffn as in f32, bit for bit and within 1e-6), each timed beside its
+  plain version; the bound takes the mode's operations at the peak rate
+  of its operands' type. Each row lands in `modes` of the kernel's f32
+  entry in `results`."""
+  att, blk, impl = port['attention'], port['block'], port['ops_impl']
+  pq, mlp = port['packed_qmatmul'], port['mlp']
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  by_name = {r['name']: r for r in results}
+  bf16, i32 = torch.bfloat16, torch.int32
+  k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
+
+  def randint(*shape):
+    return torch.randint(-127, 128, shape, generator=gen, device=dev).to(
+        torch.int8)
+
+  def attn_rows(name, kern, plain, args, kw, nbytes, ops, label):
+    rows = {}
+    for mode in COMPUTE_MODES:
+      b_ms, b_by = bound(nbytes, ops, MODE_OPS_PER_S[mode])
+      kwm = dict(kw, compute=mode)
+      got, want = kern(*args, **kwm), plain(*args, **kwm)
+      sync()
+      err, off, n = mode_ctx_check(torch, got, want, mode, v_scale, zp_v,
+                                   f'{name} {label}')
+      rows[mode] = {
+          'max_abs_err': err, 'rows_beyond_fine': off, 'rows': n,
+          'ms': timer(lambda: kern(*args, **kwm)),
+          'plain_ms': timer(lambda: plain(*args, **kwm)),
+          'bound_ms': b_ms, 'bound_by': b_by}
+      log(f'kernel {name} {label} {mode} ok: err {err:.3g}, {off} of {n} '
+          f'rows beyond {MODE_RTOL:g}; {rows[mode]["ms"]:.4f} ms (plain '
+          f'{rows[mode]["plain_ms"]:.4f}, bound {b_ms:.4f})')
+    return rows
+
+  # #2 at B (random lengths, rows 1 and S) and at bench.py's decode.
+  stale = by_name['decode_attention_int8_lengths_stale']
+  for label, b, lengths in (
+      ('decode', B, None), ('bench', BENCH_B,
+                            torch.full((BENCH_B,), BENCH_START + 1, dtype=i32,
+                                       device=dev))):
+    if lengths is None:
+      lengths = torch.randint(1, S + 1, (b,), generator=gen, device=dev).to(
+          i32)
+      lengths[0], lengths[1] = 1, S
+    q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
+    args = (q, randint(b, NK, S, H), randint(b, NK, S, H), k_scale, v_scale,
+            lengths, randint(b, NK, 1, H), randint(b, NK, 1, H))
+    live = NK * int(torch.sum(torch.clamp_min(lengths - 1, 0)))
+    nbytes = (q.numel() * 2 + 2 * live * H + 2 * b * NK * H + b * 4
+              + q.numel() * 4)
+    rows = attn_rows(stale['name'], att.decode_attention_int8_lengths_stale,
+                     att.decode_attention_int8_lengths_stale_plain, args,
+                     dict(k_zero_point=zp_k, v_zero_point=zp_v), nbytes,
+                     4 * G * H * (live + b * NK), label)
+    for mode, row in rows.items():
+      row['B'], row['live_rows'] = b, live
+      stale.setdefault('modes', {}).setdefault(mode, {})[label] = row
+
+  # #7 at the server's tick shape.
+  lens = by_name['decode_attention_int8_lengths']
+  q = torch.randn((B, NK, G, H), generator=gen, device=dev).to(bf16)
+  lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev).to(i32)
+  lengths[0], lengths[-1] = 1, S
+  args = (q, randint(B, NK, S, H), randint(B, NK, S, H), k_scale, v_scale,
+          lengths)
+  kw = dict(k_zero_point=zp_k, v_zero_point=zp_v)
+  for mode in COMPUTE_MODES:  # a zero-length row: every row weighs 1/S
+    zero = torch.zeros_like(lengths)
+    got0 = att.decode_attention_int8_lengths(*args[:5], zero, compute=mode,
+                                             **kw)
+    want0 = att.decode_attention_int8_lengths_plain(*args[:5], zero,
+                                                    compute=mode, **kw)
+    sync()
+    mode_ctx_check(torch, got0, want0, mode, v_scale, zp_v,
+                   'lengths attention, length 0')
+  live = NK * int(torch.sum(lengths))
+  nbytes = q.numel() * 2 + 2 * live * H + B * 4 + q.numel() * 4
+  for mode, row in attn_rows(lens['name'], att.decode_attention_int8_lengths,
+                             att.decode_attention_int8_lengths_plain, args,
+                             kw, nbytes, 4 * G * H * live,
+                             'server tick').items():
+    row['B'], row['live_rows'] = B, live
+    lens.setdefault('modes', {})[mode] = row
+
+  # #5 at bench.py's step (f32 x, as the executor passes it).
+  blk_row = by_name['fused_mlp_qkv_attention']
+  D, F, NQ = cfg.embed_dim, cfg.ffn_dim, cfg.num_query_heads
+  N, bf, eps = (NQ + 2) * H, 2048, cfg.norm_eps
+
+  def w4(*shape):
+    return torch.randint(-8, 8, shape, generator=gen, device=dev).to(
+        torch.int8)
+
+  def scales(n):
+    return torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
+
+  x = torch.randn((BENCH_B, D), generator=gen, device=dev).to(bf16).float()
+  wgu, sgu = pq.pack_int4_split(w4(2 * F, D)), scales(2 * F)
+  wd, sd = mlp.pack_int4_split_grouped(w4(D, F), bf), scales(D)
+  wqkv, sqkv = pq.pack_int4_split(w4(N, D)), scales(N)
+  g1 = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+  g2 = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+  kc, vc = randint(BENCH_B, S, H), randint(BENCH_B, S, H)
+  ang = (float(BENCH_START) * impl.rope_freqs(10000.0, H // 2, dev)).reshape(
+      1, H // 2).expand(BENCH_B, H // 2)
+  cos, sin = torch.cos(ang).contiguous(), torch.sin(ang).contiguous()
+  lengths = torch.full((BENCH_B,), BENCH_START + 1, dtype=i32, device=dev)
+
+  def block_args():
+    return ([x, g1, wgu, sgu, wd, sd, g2, wqkv, sqkv, cos, sin, kc.clone(),
+             vc.clone(), lengths, BENCH_START] + [0.06] * 4 + [NQ])
+
+  for mode in COMPUTE_MODES:
+    a, b_ = block_args(), block_args()
+    got = blk.fused_mlp_qkv_attention(*a, eps=eps, bf=bf, compute=mode)
+    want = blk.fused_mlp_qkv_attention_plain(*b_, eps=eps, bf=bf,
+                                             compute=mode)
+    sync()
+    codes = {name: int(torch.sum(g != w)) for name, g, w in (
+        ('k_new', got[2], want[2]), ('v_new', got[3], want[3]),
+        ('k_pool', a[11], b_[11]), ('v_pool', a[12], b_[12]))}
+    x_err = float(torch.max(torch.abs(got[1] - want[1]))
+                  / torch.max(torch.abs(want[1])))
+    if any(codes.values()) or x_err > 1e-6:
+      raise AssertionError(f'fused block {mode}: codes that differ {codes}, '
+                           f'x_ffn err {x_err}')
+    # The block's ctx is held as the f32 block's: 5e-5 of max |ctx|.
+    err, off, n = mode_ctx_check(torch, got[0], want[0], mode, 0.06, 0.0,
+                                 'fused block', rtol=5e-5)
+    a16 = block_args()
+    ms = timer(lambda: blk.fused_mlp_qkv_attention(*a16, eps=eps, bf=bf,
+                                                   compute=mode))
+    plain_ms = timer(lambda: blk.fused_mlp_qkv_attention_plain(
+        *a16, eps=eps, bf=bf, compute=mode), reps=5)
+    parts = blk_row['bound_parts']
+    b_ms, b_by = bound(parts['bytes'], parts['int8_ops'], INT8_OPS_PER_S,
+                       parts['attention_ops'], MODE_OPS_PER_S[mode])
+    blk_row.setdefault('modes', {})[mode] = {
+        'max_abs_err': err, 'rows_beyond_fine': off, 'rows': n,
+        'x_ffn_rel_err': x_err, 'codes_differ': codes, 'ms': ms,
+        'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by}
+    log(f'kernel fused_mlp_qkv_attention bench step {mode} ok: codes equal, '
+        f'x_ffn err {x_err:.3g}, ctx err {err:.3g} ({off} of {n} rows beyond '
+        f'5e-5); {ms:.3f} ms (plain {plain_ms:.3f})')
+
+
+def int8_basic_kernel(torch, port, cfg, dev, timer, gen):
+  """#22, the basic int8 decode attention, against its plain version at
+  B 64 and 256 (S 1024, random lengths 0..S with rows 0, 1 and S): f32
+  sums in another order, so held to 1e-5 of max(max |ctx|, 1); its plain
+  version must equal the lengths attention's plain version with both zero
+  points 0 bit for bit (the kernel runs that body). Timed beside SDPA
+  with the lengths mask over the caches dequantized to bf16. No entry
+  point of the JAX package reaches it, so no path launches it."""
+  att = port['attention']
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  k_scale, v_scale = 0.06, 0.05
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  rows = {}
+  for b in (B, BENCH_B):
+    q = torch.randn((b, NK, G, H), generator=gen, device=dev)
+    kc, vc = (torch.randint(-127, 128, (b, NK, S, H), generator=gen,
+                            device=dev).to(torch.int8) for _ in range(2))
+    lengths = torch.randint(0, S + 1, (b,), generator=gen, device=dev).to(
+        torch.int32)
+    lengths[0], lengths[1], lengths[2] = 0, 1, S
+    args = (q, kc, vc, k_scale, v_scale, lengths)
+    got = att.decode_attention_int8(*args)
+    want = att.decode_attention_int8_plain(*args)
+    twin = att.decode_attention_int8_lengths_plain(*args)
+    sync()
+    err = float(torch.max(torch.abs(got - want)))
+    ymax = float(torch.max(torch.abs(want)))
+    if err > 1e-5 * max(ymax, 1.0) or not torch.equal(want, twin):
+      raise AssertionError(f'decode_attention_int8 B {b}: err {err} (max '
+                           f'|ctx| {ymax}), equal to #7 plain with zero '
+                           f'points 0: {torch.equal(want, twin)}')
+    # A zero-length row attends all S rows (as the Pallas kernel's -1e30).
+    live = NK * int(torch.sum(torch.where(lengths > 0,
+                                          torch.clamp_max(lengths, S), S)))
+    nbytes = 2 * q.numel() * 4 + 2 * live * H + b * 4
+    b_ms, b_by = bound(nbytes, 4 * G * H * live, F32_OPS_PER_S)
+    kd = (kc.float() * k_scale).to(torch.bfloat16)
+    vd = (vc.float() * v_scale).to(torch.bfloat16)
+    qb = q.to(torch.bfloat16)
+    amask = torch.where(
+        torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
+        float('-inf')).to(torch.bfloat16).reshape(b, 1, 1, S)
+    amask[0] = 0.0
+    rows[b] = {'B': b, 'max_abs_err': err, 'max_abs_y': ymax,
+               'live_rows': live,
+               'ms': timer(lambda: att.decode_attention_int8(*args)),
+               'plain_ms': timer(lambda: att.decode_attention_int8_plain(
+                   *args)),
+               'bound_ms': b_ms, 'bound_by': b_by,
+               'library_ms': timer(lambda: sdpa(qb, kd, vd,
+                                                attn_mask=amask))}
+    log(f'kernel decode_attention_int8 B {b} ok: err {err:.3g} (max |ctx| '
+        f'{ymax:.3g}), plain equal to #7\'s with zero points 0; '
+        f'{rows[b]["ms"]:.4f} ms (plain {rows[b]["plain_ms"]:.4f}, SDPA '
+        f'{rows[b]["library_ms"]:.4f}, bound {b_ms:.4f})')
+  dec = rows[B]
+  return {
+      'name': 'decode_attention_int8', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'attention_int8_basic.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:108',
+      'jax': 'pallas_attention.decode_attention_int8',
+      'wrapper': att.decode_attention_int8, 'per_step': 0,
+      'path': 'none: no entry point of the JAX package reaches it '
+              '(tests/test_kernels.py is its one caller), so only this '
+              'kernel check launches it',
+      'max_abs_err': max(r['max_abs_err'] for r in rows.values()),
+      'ms': dec['ms'], 'plain_ms': dec['plain_ms'],
+      'bound_ms': dec['bound_ms'], 'bound_by': dec['bound_by'],
+      'library_ms': dec['library_ms'],
+      'library': 'scaled_dot_product_attention with the lengths mask over '
+                 'the caches dequantized to bf16',
+      'bench': rows[BENCH_B]}
+
+
+# #21 against its plain version: as the int4-group attention (a bf16
+# probability operand may round the other way, 2^-8 of it), so the same
+# INT4G_CTX_RTOL / INT4G_FINE_RTOL / INT4G_FINE_SHARE rule (int4g_ctx_ok).
+# Against the f32 twin of decode_attention_int4_ref (q and the operands
+# not rounded to bf16): within INT4_ROW_REF_RTOL of max |ctx|, the bf16
+# roundings of q and of p * vscale (2^-9 relative each).
+INT4_ROW_REF_RTOL = 2e-2
+
+
+def int4_row_ref(torch, att, q, kp, vp, scales, lengths):
+  """decode_attention_int4_ref in plain f32 PyTorch: the dequantized rows,
+  then f32 attention."""
+  h = q.shape[-1]
+  s = kp.shape[2]
+  sc = scales.float()
+  k = att.unpack_int4_rows(kp).float() * sc[:, :, 0, :, None]
+  v = att.unpack_int4_rows(vp).float() * sc[:, :, 1, :, None]
+  scores = torch.matmul(q.float(), k.transpose(-1, -2)) / (h ** 0.5)
+  live = (torch.arange(s, device=q.device).reshape(1, 1, 1, s)
+          < lengths.reshape(-1, 1, 1, 1))
+  scores = torch.where(live, scores, -1e30)
+  return torch.matmul(torch.softmax(scores, dim=-1), v)
+
+
+def int4_row_kernel(torch, port, cfg, dev, timer, gen):
+  """#21, the per-row int4 KV attention, against its plain version at the
+  A/B tool's shape (B 256, S 1024, lengths S - 2) and at B 64 with random
+  lengths 0..S, operands made by the tool (its quantizer and scales);
+  held by int4g_ctx_ok at f32 and one bf16 ulp beyond INT4G_CTX_RTOL at
+  bf16, and against the f32 twin by INT4_ROW_REF_RTOL. Timed beside SDPA
+  over the pools dequantized to bf16."""
+  att, tool = port['attention'], port['attn_int4_bench']
+  H, S = cfg.head_dim, cfg.max_seq_len
+  kern, plain = att.decode_attention_int4_lengths, (
+      att.decode_attention_int4_lengths_plain)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  rows = {}
+  for b, seed in ((BENCH_B, 1), (B, 2)):
+    ops = tool.make_operands(b, S, H, seed=seed, device=dev)
+    lengths = ops['lengths']
+    if b == B:
+      lengths = torch.randint(0, S + 1, (b,), generator=gen, device=dev).to(
+          torch.int32)
+      lengths[0], lengths[1], lengths[2] = 0, 1, S
+    args = (ops['q'], ops['kp_r'], ops['vp_r'], ops['scales_r'], lengths)
+    got32, want32 = kern(*args), plain(*args)
+    got16 = kern(*args, out_dtype=torch.bfloat16)
+    want16 = plain(*args, out_dtype=torch.bfloat16)
+    ref = int4_row_ref(torch, att, *args)
+    sync()
+    ymax = float(torch.max(torch.abs(want32)))
+    err = float(torch.max(torch.abs(got32 - want32)))
+    rel, share = int4g_ctx_diff(torch, got32, want32)
+    ulps = bf16_ulps(torch, got16, want16, atol=INT4G_CTX_RTOL * ymax)
+    ref_rel = float(torch.max(torch.abs(want32 - ref))
+                    / torch.max(torch.abs(ref)))
+    if not (int4g_ctx_ok(rel, share) and ulps <= 1.0
+            and ref_rel <= INT4_ROW_REF_RTOL):
+      raise AssertionError(f'int4 row attention B {b}: f32 err {err} (max '
+                           f'|ctx| {ymax}), share {share}, {ulps} bf16 ulps, '
+                           f'plain against the f32 twin {ref_rel}')
+    live = int(torch.sum(torch.where(lengths > 0,
+                                     torch.clamp_max(lengths, S), S)))
+    # Products of bf16 q with int4 values exact in bf16: the bf16 rate.
+    nbytes = 2 * ops['q'].numel() * 4 + live * H + 2 * live * 2 + b * 4
+    b_ms, b_by = bound(nbytes, 4 * tool.G * H * live, BF16_OPS_PER_S)
+    sc = ops['scales_r'].float()
+    kd = (att.unpack_int4_rows(ops['kp_r']).float()
+          * sc[:, :, 0, :, None]).to(torch.bfloat16)
+    vd = (att.unpack_int4_rows(ops['vp_r']).float()
+          * sc[:, :, 1, :, None]).to(torch.bfloat16)
+    qb = ops['q'].to(torch.bfloat16)
+    amask = torch.where(
+        torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
+        float('-inf')).to(torch.bfloat16).reshape(b, 1, 1, S)
+    amask[lengths <= 0] = 0.0
+    rows[b] = {'B': b, 'max_abs_err': err, 'max_abs_ctx': ymax,
+               'share_beyond_fine': share, 'bf16_ulps_beyond_tol': ulps,
+               'plain_vs_f32_twin_rel': ref_rel, 'live_rows': live,
+               'ms': timer(lambda: kern(*args)),
+               'plain_ms': timer(lambda: plain(*args)),
+               'bound_ms': b_ms, 'bound_by': b_by,
+               'library_ms': timer(lambda: sdpa(qb, kd, vd,
+                                                attn_mask=amask))}
+    del ops, kd, vd
+    log(f'kernel decode_attention_int4_lengths B {b} ok: f32 err {err:.3g} '
+        f'(max |ctx| {ymax:.3g}), share beyond {INT4G_FINE_RTOL:g} '
+        f'{share:.4g}, bf16 {ulps} ulps beyond tol, plain vs f32 twin '
+        f'{ref_rel:.3g}; {rows[b]["ms"]:.4f} ms (plain '
+        f'{rows[b]["plain_ms"]:.4f}, SDPA {rows[b]["library_ms"]:.4f}, bound '
+        f'{b_ms:.4f})')
+  ab = rows[BENCH_B]
+  return {
+      'name': 'decode_attention_int4_lengths', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+                'attention_int4_row.cu',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:1433',
+      'jax': 'pallas_attention.decode_attention_int4_lengths',
+      'wrapper': kern, 'per_step': 0, 'per_ab_step': tool.knobs()['layers'],
+      'max_abs_err': max(r['max_abs_err'] for r in rows.values()),
+      'ms': ab['ms'], 'plain_ms': ab['plain_ms'], 'bound_ms': ab['bound_ms'],
+      'bound_by': ab['bound_by'], 'library_ms': ab['library_ms'],
+      'library': 'scaled_dot_product_attention with the lengths mask over '
+                 'the pools dequantized to bf16',
+      'decode': rows[B]}
+
+
+# The A/B tool's chained outputs (16 steps of 18 launches) against the same
+# chain of the plain versions on the card, relative to the largest
+# magnitude: f32 sums in another order each launch (int8, f32 compute);
+# the int4 formats also round q to bf16 each launch, so an ulp of one
+# launch's output can move the next one's q by a bf16 step.
+AB_CHAIN_RTOL = {'int8': 1e-4, 'int4_row': 1e-3, 'int4_group': 1e-3}
+
+
+def ab_tool_phase(torch, port, kernels, dev='cuda'):
+  """The A/B tool (tools/attn_int4_bench.py) at its defaults on the card:
+  its `main`, which prints its artifact line; each format's launches
+  (two chains and one launch for its error, no plain run on the card);
+  each chained output against the same chain of the plain versions
+  (AB_CHAIN_RTOL); every rel_err_vs_float finite."""
+  tool = port['attn_int4_bench']
+  for k in kernels:
+    k['wrapper'].launches = 0
+    k['wrapper'].plain_calls = 0
+  result = tool.main([] if dev == 'cuda' else ['--device', dev])
+  sync()
+  art = result['artifact']
+  launches = {k['name']: k['wrapper'].launches for k in kernels}
+  plain = {k['name']: k['wrapper'].plain_calls for k in kernels}
+  chains = 2 if dev == 'cuda' else 1  # a warm-up chain and a timed one
+  per_format = chains * art['L'] * art['iters'] + 1
+  want = {name: 0 for name in launches}
+  want.update({'decode_attention_int8_lengths': per_format,
+               'decode_attention_int4_lengths': per_format,
+               'decode_attention_int4_group_lengths': per_format})
+  if launches != want or any(plain.values()):
+    raise AssertionError(f'A/B tool launches {launches}, want {want}; plain '
+                         f'runs on the card {plain}')
+  for k in kernels:
+    k['launches_ab_tool'] = launches[k['name']]
+  ops = result['operands']
+  chain = {}
+  for label, (fn, _) in tool.formats(ops, plain=True).items():
+    want_out = tool.chained(fn, ops['q'], art['L'], art['iters'])
+    got = result['outputs'][label]
+    rel = float(torch.max(torch.abs(got - want_out))
+                / torch.max(torch.abs(want_out)))
+    chain[label] = rel
+    if rel > AB_CHAIN_RTOL[label]:
+      raise AssertionError(f'A/B {label}: chained output rel err {rel}')
+  errs = {label: r['rel_err_vs_float'] for label, r in art['kernels'].items()}
+  if not all(np.isfinite(v) for v in errs.values()):
+    raise AssertionError(f'A/B rel_err_vs_float {errs}')
+  log(f'A/B tool ok: chained outputs against the plain chains (rel) {chain}; '
+      f'launches {dict((n, v) for n, v in launches.items() if v)}')
+  return {**art, 'chain_rel_err_vs_plain': chain}
+
+
 def refused_shapes(torch, att, dev):
   """Shapes that the JAX executor's gate sends to its Pallas kernels but
   that the CUDA kernels do not take: the wrapper raises ValueError on the
@@ -2499,7 +2961,9 @@ def bench_tokens(torch, cfg, dev):
 # AEQT_ATTN_BLOCK=1 (the prologue and the epilogue; an attention with an
 # epilogue joins no block unit) and with AEQT_NORM_FUSION=1 (the norms
 # fold into the QKV and gate/up FCs; a norm-fed chain forms no MLP unit,
-# so no block unit either).
+# so no block unit either); then bench.py's own settings with
+# AEQT_ATTN_COMPUTE=bf16 and =int8 (the block's and the stale attention's
+# compute mode).
 BENCH_SETTINGS = {
     'block on': dict(decode_block=True),
     'block off': dict(decode_block=False),
@@ -2507,7 +2971,12 @@ BENCH_SETTINGS = {
     'inplace': dict(decode_block=False, attn_writeback=None,
                     cache_write_inplace=True),
     'attn block': dict(attn_block=True),
-    'norm fusion': dict(norm_fusion=True)}
+    'norm fusion': dict(norm_fusion=True),
+    'attn bf16': dict(decode_block=True, attn_compute='bf16'),
+    'attn int8': dict(decode_block=True, attn_compute='int8')}
+# The settings above that only change the attention's compute mode
+# (AEQT_ATTN_COMPUTE) with bench.py's own options (the block on).
+MODE_SETTINGS = ('attn bf16', 'attn int8')
 
 
 def bench_decode_phase(torch, port, kernels, cfg, dev):
@@ -2548,6 +3017,8 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
                       'qmatmul_int4_packed_drq': layers,
                       'qmatmul_int4_packed_drq_kblock': layers,
                       'head_argmax': 1}}
+  for label in MODE_SETTINGS:
+    per_step[label] = per_step['block on']
   results, ids = {}, {}
   for label, options in BENCH_SETTINGS.items():
     ex = executor.GraphExecutor(graph, device=dev,
@@ -2577,6 +3048,12 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
       f'{same}')
   results['ids_equal_share'] = same.pop('block on')
   results['ids_equal_share_vs_block_off'] = same
+  # The compute modes against the same setting in f32 (the block on).
+  results['ids_equal_share_vs_f32'] = {
+      label: float(torch.mean((ids[label] == ids['block on']).float()))
+      for label in MODE_SETTINGS}
+  log(f'bench decode: ids equal to the block on\'s at f32 attention by '
+      f'compute mode: {results["ids_equal_share_vs_f32"]}')
   return results
 
 
@@ -2672,22 +3149,29 @@ def device_busy(torch, fn):
 
 
 def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
-                 slots=B, kv_int4_group=0):
+                 slots=B, kv_int4_group=0, attn_compute=None):
   """The port's DecodeServer under bench.py's mixed-length load: a warm-up
   request per prompt length, then n_requests requests (prompt lengths
   cycling 32..512, 48 new tokens each) served by step_chunk(8). With
   kv_int4_group, bench.py's AEQT_BENCH_SERVER_KV=int4g server: each tick
   runs INT4G_ATTENTION_SCATTER per layer, and the prefill's float
-  attention chain is graph ops (no int8 cache, so no attention unit)."""
+  attention chain is graph ops (no int8 cache, so no attention unit).
+  attn_compute: the executor's attention compute mode
+  (executor_options={'attn_compute': ...}, AEQT_ATTN_COMPUTE); the ticks'
+  lengths attention runs in it, the prefill's flash attention has none."""
   gemma, batching = port['gemma'], port['batching']
   name = 'server int4g' if kv_int4_group else 'server'
+  if attn_compute:
+    name = f'{name} attn {attn_compute}'
   t0 = time.monotonic()
   graph = serving_graph(gemma, cfg, slots, kv_int4_group)
   weights = gemma.device_materialize_quantized(graph, fc_bits=4,
                                                embedding_bits=8, device=dev)
-  server = batching.DecodeServer(graph, cfg, slots, weights=weights,
-                                 pack_weights=True,
-                                 activation_dtype='bfloat16', device=dev)
+  server = batching.DecodeServer(
+      graph, cfg, slots, weights=weights, pack_weights=True,
+      activation_dtype='bfloat16', device=dev,
+      executor_options={'attn_compute': attn_compute} if attn_compute
+      else None)
   del weights
   sync()
   log(f'{name} set-up (graph, weights, packing): '
@@ -3150,8 +3634,20 @@ def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
 # (an int4 weight of 8), about 3e-4 of the row's largest output at Gemma-
 # 2B's widths; 1e-3 leaves room for three such codes in one row.
 EPILOGUE_ROW_RTOL = 1e-3
-# Depth of the op-by-op runs of the attention-block and norm-fusion steps.
+# Depth of the op-by-op runs of the attention-block and norm-fusion steps
+# and of the compute modes' steps.
 FUSION_CPU_LAYERS = 3
+# A context row of an attention in a compute mode whose probability
+# operand rounded the other way on the card (OpByOp), relative to the
+# context's largest magnitude: one bf16 step of a probability moves a row
+# by at most 2^-8 of the V span, one int8 code by (|v| + |ctx|) / p_sum
+# with p_sum about 127 at peaked scores, about 2 / 127 of the span; the
+# largest magnitude is about the span at the Gemma-2B step's random caches.
+ATTN_MODE_ROW_RTOL = {'bf16': 1e-2, 'int8': 5e-2}
+# At most this many such rows in one attention's context (one layer; 64
+# rows at the op-by-op batch of 8): a flip is rare (2 rows in 3 layers in
+# the measured bf16 run), while a step run in another mode moves them all.
+ATTN_MODE_ROWS_OFF = 4
 
 
 class OpByOp:
@@ -3184,7 +3680,13 @@ class OpByOp:
   largest magnitude in a row where an f32 ulp of the context (its sums
   run in another order on the card) flipped one of the row's DRQ codes:
   such a row must stay within EPILOGUE_ROW_RTOL, and `epilogue_rows_off`
-  counts them.
+  counts them. In a compute mode other than f32 an attention's context
+  (the stale or lengths attention's output, the decode block's ctx) may
+  differ beyond 1e-5 of its largest magnitude in a row where one of its
+  probabilities' operands rounded the other way (a bf16 step or an int8
+  code): such a row must stay within ATTN_MODE_ROW_RTOL of the mode, one
+  context may hold at most ATTN_MODE_ROWS_OFF of them, and
+  `mode_rows_off` counts them.
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None,
@@ -3198,6 +3700,12 @@ class OpByOp:
     self.qkv_outs = {f[key] for f in ex._qkv_fusions.values()
                      for key in ('q_out', 'k_out', 'v_out')}
     self.epilogue_rows_off = 0
+    self.mode_rtol = ATTN_MODE_ROW_RTOL.get(ex.attn_compute)
+    self.mode_outs = set()
+    if self.mode_rtol is not None:
+      self.mode_outs = ({f['out'] for f in ex._attn_fusions.values()}
+                        | {f['ctx_out'] for f in ex._block_fusions.values()})
+    self.mode_rows_off = 0
     self.seen, self.worst, self.id_diffs, self.flips = [], {}, [], {}
     self.fine_share = 0.0
     store = ex._store_outputs
@@ -3288,13 +3796,22 @@ class OpByOp:
           if rel > fc_rule[1]:
             raise AssertionError(f'{sg.tensors[tid].name}: {fc_rule[0]} rel '
                                  f'err {rel} > {fc_rule[1]}')
-        elif tid in self.epilogue_outs:
+        elif tid in self.epilogue_outs or tid in self.mode_outs:
           w2 = want.double().reshape(-1, want.shape[-1])
           row_rel = torch.amax(torch.abs(got.double().reshape(w2.shape) - w2),
                                dim=1) / max(float(torch.max(torch.abs(w2))),
                                             1e-30)
-          self.epilogue_rows_off += int(torch.sum(row_rel > 1e-5))
-          if float(torch.max(row_rel)) > EPILOGUE_ROW_RTOL:
+          off = int(torch.sum(row_rel > 1e-5))
+          if tid in self.mode_outs:
+            self.mode_rows_off += off
+            row_tol = self.mode_rtol
+            if off > ATTN_MODE_ROWS_OFF:
+              raise AssertionError(f'{sg.tensors[tid].name}: {off} of '
+                                   f'{w2.shape[0]} context rows beyond 1e-5')
+          else:
+            self.epilogue_rows_off += off
+            row_tol = EPILOGUE_ROW_RTOL
+          if float(torch.max(row_rel)) > row_tol:
             raise AssertionError(f'{sg.tensors[tid].name}: a row rel err '
                                  f'{float(torch.max(row_rel))}')
         elif int4g:
@@ -3454,7 +3971,10 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   one of BENCH_SETTINGS ('attn block', 'norm fusion'), the executor's
   options on top of bench.py's, at start_pos BENCH_START over random int8
   caches: no block unit forms; each layer's prologue and epilogue, or its
-  two norm-fused FCs, must have been held (OpByOp's rules).
+  two norm-fused FCs, must have been held (OpByOp's rules); or one of
+  MODE_SETTINGS (with decode_block=True): bench.py's options in a compute
+  mode, a block unit in each layer but the first, held by OpByOp's rule
+  for a compute mode's context rows.
   """
   gemma, executor, head = port['gemma'], port['executor'], port['head']
   cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
@@ -3502,7 +4022,10 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   card.call(inputs, 'decode')
   units = len(card.ex._block_fusions)
   held = {'attn block': ('decode/QKV prologue', 'decode/attention epilogue'),
-          'norm fusion': ('decode/FC int4 norm-fused',)}.get(setting, ())
+          'norm fusion': ('decode/FC int4 norm-fused',),
+          'attn bf16': ('decode/BATCH_MATMUL', 'decode/FUSED_BLOCK'),
+          'attn int8': ('decode/BATCH_MATMUL', 'decode/FUSED_BLOCK')}.get(
+              setting, ())
   if units != (cfg.num_layers - 1 if decode_block else 0) or (
       decode_block and 'decode/FUSED_BLOCK' not in card.worst) or (
           kv_int4_group and 'decode/INT4G_ATTENTION' not in card.worst) or (
@@ -3513,7 +4036,8 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   log(f'{label} op by op: largest relative error by opcode {worst}; int8 '
       f'codes one step apart by opcode {card.flips}; int4g ctx share beyond '
       f'{INT4G_FINE_RTOL:g} {card.fine_share:.4g}; attention-epilogue rows '
-      f'beyond 1e-5 {card.epilogue_rows_off}')
+      f'beyond 1e-5 {card.epilogue_rows_off}; compute-mode context rows '
+      f'beyond 1e-5 {card.mode_rows_off}')
   judge_ids(torch, head, cpu, card, label)
   log(f'{label} ok: the card\'s ids equal the cpu ids in '
       f'{b8 - len(card.id_diffs)} of {b8} rows, cpu top-2 margins '
@@ -3523,6 +4047,7 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
             'id_diffs': len(card.id_diffs), 'block_units': units,
             'int4g_ctx_share_beyond_fine': card.fine_share,
             'epilogue_rows_beyond_1e-5': card.epilogue_rows_off,
+            'mode_rows_beyond_1e-5': card.mode_rows_off,
             'layers': cfg.num_layers}
   if decode_block or kv_int4_group or setting:
     return result
@@ -3625,6 +4150,7 @@ def main():
   from ai_edge_quantizer_tpu_torch.models import gemma
   from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
   from ai_edge_quantizer_tpu_torch.parallel import batching
+  from ai_edge_quantizer_tpu_torch.tools import attn_int4_bench
   from ai_edge_quantizer_tpu_torch.utils import progress_utils
   if any(m == 'jax' or m.startswith(('jax.', 'ai_edge_quantizer_tpu.'))
          or m == 'ai_edge_quantizer_tpu' for m in sys.modules):
@@ -3634,7 +4160,8 @@ def main():
               mlp=mlp, packed_qmatmul=packed_qmatmul, gemma=gemma,
               batching=batching, ops_impl=ops_impl, ir=ir,
               int_qmatmul=int_qmatmul, serialize=serialize, qkv=qkv,
-              Quantizer=Quantizer, progress_utils=progress_utils)
+              Quantizer=Quantizer, progress_utils=progress_utils,
+              attn_int4_bench=attn_int4_bench)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -3656,6 +4183,12 @@ def main():
   cfg = gemma.GEMMA_2B
   kernels = kernel_phase(torch, port, cfg, 'cuda', Timer(torch))
   log(f'phase kernels done at {time.monotonic() - t_start:.1f}s')
+  ab = ab_tool_phase(torch, port, kernels, 'cuda')
+  for label, r in ab['kernels'].items():
+    log(f'A/B tool on {smi}, {label}: {r["ms"]:.3f} ms a chained step of '
+        f'{ab["L"]} launches, {r["gbs"]:.1f} GB/s, rel err vs float '
+        f'{r["rel_err_vs_float"]:.5f}')
+  log(f'phase A/B tool done at {time.monotonic() - t_start:.1f}s')
   e2e = serve_phase(torch, port, kernels, cfg, 'cuda')
   log(f'e2e on {smi}: {e2e["ms_per_step"]:.3f} ms/step (median), '
       f'{e2e["tokens_per_s"]:.1f} tokens/s at batch {B}')
@@ -3680,6 +4213,12 @@ def main():
       f'p50 {server4["ttft_p50_ms"]:.1f} ms p99 {server4["ttft_p99_ms"]:.1f} '
       f'ms, chunk of {SERVE_CHUNK} ticks {server4["chunk_ms"]:.3f} ms (idle '
       f'{server4["chunk_idle_share"]:.3f})')
+  servers_mode = {}
+  for mode in COMPUTE_MODES:
+    r = servers_mode[mode] = server_phase(torch, port, kernels, cfg, 'cuda',
+                                          attn_compute=mode)
+    log(f'server attn {mode} on {smi}: {r["tokens_per_s"]:.1f} tokens/s, '
+        f'TTFT p50 {r["ttft_p50_ms"]:.1f} ms p99 {r["ttft_p99_ms"]:.1f} ms')
   log(f'phase server done at {time.monotonic() - t_start:.1f}s')
   kept = None if args.skip_cpu else {}
   quant = quantizer_phase(torch, port, kernels, cfg, 'cuda', kept=kept)
@@ -3708,6 +4247,11 @@ def main():
       bench[f'card_vs_cpu_{setting}'] = cpu_phase(
           torch, port, cfg, 'cuda', setting=setting, layers=FUSION_CPU_LAYERS)
       done(f'{setting} step')
+    for setting in MODE_SETTINGS:
+      bench[f'card_vs_cpu_{setting}'] = cpu_phase(
+          torch, port, cfg, 'cuda', decode_block=True, setting=setting,
+          layers=FUSION_CPU_LAYERS)
+      done(f'{setting} step')
     server['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda')
     done('server')
     server4['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda',
@@ -3732,6 +4276,11 @@ def main():
         'bench_decode_inplace': bench_launches['inplace'],
         'bench_decode_attn_block': bench_launches['attn block'],
         'bench_decode_norm_fusion': bench_launches['norm fusion'],
+        'bench_decode_attn_bf16': bench_launches['attn bf16'],
+        'bench_decode_attn_int8': bench_launches['attn int8'],
+        'server_attn_bf16': servers_mode['bf16']['launches'][k['name']],
+        'server_attn_int8': servers_mode['int8']['launches'][k['name']],
+        'ab_tool': entry.pop('launches_ab_tool'),
         'bench_decode_int4g': bench_launches['int4g'],
         'server_int4g': server4['launches'][k['name']],
         **{f'server_{recipe}': quant[recipe]['launches'][k['name']]
@@ -3745,7 +4294,9 @@ def main():
     # write only in the bench decode with those settings; the blockwise
     # matmul and the live-prefix attention only in the blockwise server;
     # the prologue and the epilogue only in the bench decode with the
-    # attention block, the norm-fused matmul only with the norm fusion).
+    # attention block, the norm-fused matmul only with the norm fusion; the
+    # per-row int4 attention only in the A/B tool; the basic int8
+    # attention on no path, see its 'path').
     by_path = entry['launches_by_path']
     entry['launches'] = (by_path['server'] or by_path['decode_loop']
                          or by_path['bench_decode_block_on']
@@ -3759,17 +4310,21 @@ def main():
                          or by_path['bench_decode_inplace']
                          or by_path[f'server_{BLOCKWISE_MODE}']
                          or by_path['bench_decode_attn_block']
-                         or by_path['bench_decode_norm_fusion'])
+                         or by_path['bench_decode_norm_fusion']
+                         or by_path['ab_tool'])
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)
-  missing = [e['name'] for e in line if not e['launches']]
+  # #22 alone is on no path (see its 'path'); every other kernel must be.
+  missing = [e['name'] for e in line if not e['launches']
+             and e['name'] != 'decode_attention_int8']
   if missing:
     raise AssertionError(f'kernels never launched on the main paths: '
                          f'{missing}')
   print(json.dumps({'kernels': line, 'e2e': e2e, 'bench_decode': bench,
                     'bench_decode_int4g': bench4, 'server': server,
                     'server_int4g': server4, 'quantizer': quant,
+                    'server_attn_modes': servers_mode, 'ab_tool': ab,
                     'card': smi}), flush=True)
   print(smi, flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -1,6 +1,7 @@
 """The port stands alone: no jax, no ml_dtypes, no JAX package; entry
 points default to the card and refuse to fall back to the CPU."""
 
+import json
 import os
 import pathlib
 import shutil
@@ -41,7 +42,7 @@ def test_port_imports_no_jax():
                'algorithms.uniform.octav', 'algorithms.uniform.hadamard',
                'algorithms.nonlinear.float_casting', 'recipe.recipe_utils',
                'pipeline.params_generator', 'pipeline.model_modifier',
-               'utils.progress_utils'):
+               'utils.progress_utils', 'tools', 'tools.attn_int4_bench'):
     assert f'ai_edge_quantizer_tpu_torch.{name}' in modules
   code = (
       'import importlib, sys\n'
@@ -56,6 +57,28 @@ def test_port_imports_no_jax():
                        env=_clean_env(), capture_output=True, text=True,
                        timeout=300)
   assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_ab_tool_runs_without_jax():
+  """`python -m ai_edge_quantizer_tpu_torch.tools.attn_int4_bench` on the
+  CPU (a tiny shape) prints its artifact and imports nothing of JAX."""
+  code = (
+      'import runpy, sys\n'
+      'sys.argv = ["attn_int4_bench", "--device", "cpu"]\n'
+      'runpy.run_module("ai_edge_quantizer_tpu_torch.tools.attn_int4_bench",'
+      ' run_name="__main__")\n'
+      'bad = sorted(m for m in sys.modules if m in ("jax", "ml_dtypes", '
+      '"ai_edge_quantizer_tpu") or m.startswith(("jax.", "ml_dtypes.", '
+      '"ai_edge_quantizer_tpu.")))\n'
+      'assert not bad, bad\n')
+  env = dict(_clean_env(), AEQT_AB_BATCH='1', AEQT_AB_SEQ='128',
+             AEQT_AB_LAYERS='1', AEQT_AB_HEADDIM='128', AEQT_AB_ITERS='1')
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+  assert out.returncode == 0, out.stderr + out.stdout
+  artifact = json.loads(out.stdout.strip().splitlines()[-1])
+  assert artifact['backend'] == 'cpu'
+  assert sorted(artifact['kernels']) == ['int4_group', 'int4_row', 'int8']
 
 
 def test_port_sources_never_name_the_jax_package():
