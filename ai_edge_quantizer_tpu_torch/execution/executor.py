@@ -57,17 +57,16 @@ Differences from the JAX executor:
     Mosaic tiling gates (head dim and cache length multiples of 128) are
     replaced by what each CUDA kernel takes.
   * `attn_compute` reaches the decode attentions as AEQT_ATTN_COMPUTE
-    does there. Ported in 'bf16' and 'int8': the stale attention, the
-    lengths attention and the decode block's attention (each has a CUDA
-    body in the three modes). Not ported yet: those modes of the splice
-    (writeback), masked and out-projection-epilogue attentions, whose
-    routes raise NotImplementedError on both devices, so that no device
-    runs a mode that the card cannot; they are the next slice of the
-    port. The flash (prefill), live-prefix and twin routes take no mode,
-    as in the JAX executor. Off a TPU the JAX executor runs the stale and
-    lengths attentions on its f32 XLA twin whatever the mode, and the
-    decode block in interpret mode in the mode; the port runs every
-    route in the mode on both devices.
+    does there. Every decode-attention route takes the mode, with a CUDA
+    body in each of the three: the stale, lengths, splice (writeback),
+    masked and out-projection-epilogue attentions and the decode block's
+    attention. The flash (prefill), live-prefix and twin routes take no
+    mode, as in the JAX executor. Off a TPU the JAX executor runs the
+    stale, lengths and masked attentions on its f32 XLA twin whatever the
+    mode (and the splice route not at all: it writes by DUS and attends
+    with the twin), and the decode block and the epilogue in interpret
+    mode in the mode; the port runs every route in the mode on both
+    devices.
 """
 
 from __future__ import annotations
@@ -1464,9 +1463,8 @@ class GraphExecutor:
         executor's default): `decode_attention_int8_masked`.
     A shape that passes the gate but that a CUDA kernel does not take
     raises in its wrapper; nothing falls back to the twin on the card.
-    The stale and lengths kernels run in `attn_compute`; the splice,
-    masked and epilogue kernels' wrappers raise in a mode other than
-    'f32'.
+    Every decode route (stale, splice, epilogue, lengths, masked) runs in
+    `attn_compute`; the flash, live-prefix and twin routes take no mode.
     """
     q_val = self._dequant_view(sg, fusion['q'], env)
     mask = self._dequant_view(sg, fusion['mask'], env)

@@ -14,10 +14,10 @@ PyTorch version beside its CUDA kernel (`csrc/`):
   * `flash_attention_int8_masked` (`_flash_attn_kernel`): prefill-shaped
     attention of R = G * T query rows with an additive mask, as an online
     softmax over S blocks (`csrc/flash_attention_int8.cu`).
-  * `decode_attention_int8_masked` (`_decode_attn_mask_kernel`, f32):
-    decode attention over all S int8 cache rows with an additive mask
-    that broadcasts to [B, NK, G, S], the JAX executor's default decode
-    attention (`csrc/attention_masked.cu`).
+  * `decode_attention_int8_masked` (`_decode_attn_mask_kernel` and its
+    bf16 and int8 variants): decode attention over all S int8 cache rows
+    with an additive mask that broadcasts to [B, NK, G, S], the JAX
+    executor's default decode attention (`csrc/attention_masked.cu`).
   * `decode_attention_int4_group_lengths` (body
     `_ctx_prefix_len_int4_group`): decode attention over int4 K/V pools
     with per-group scales in a bf16 sidecar (asymmetric K, symmetric V),
@@ -46,11 +46,11 @@ PyTorch version beside its CUDA kernel (`csrc/`):
     (`csrc/attention_int4_row.cu`).
 
 Compute modes (`compute`, the TPU kernels' f32 / bf16 / int8 attention
-arithmetic): the stale and the lengths kernels take all three on both
-devices (`csrc/attention_common.cuh` has the modes' operands). The
-splice (writeback), masked and out-projection kernels take only 'f32';
-their 'bf16' and 'int8' raise NotImplementedError on both devices until
-their CUDA bodies are ported.
+arithmetic): the stale, lengths, splice (writeback), masked and
+out-projection kernels take all three on both devices
+(`csrc/attention_common.cuh` has the modes' operands; `_mode_scores` and
+`_mode_context` are the plain versions'). The flash, live-prefix, int4
+and basic kernels take none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -91,7 +91,9 @@ def decode_attention_int8_lengths_stale_plain(
     q, k_cache_stale, v_cache_stale, k_scale, v_scale, lengths, k_new_q,
     v_new_q, k_zero_point=0.0, v_zero_point=0.0, compute='f32',
     out_dtype=torch.float32):
-  """`_ctx_prefix_len_cur` in plain PyTorch (any device)."""
+  """`_ctx_prefix_len_cur` in plain PyTorch (any device): the stale rows'
+  and the new row's scores with the mode's operands (`_mode_scores`), one
+  softmax over both, the new row's column added to the context last."""
   b, nk, g, h = q.shape
   s = k_cache_stale.shape[2]
   qf = q.to(torch.float32)
@@ -101,56 +103,28 @@ def decode_attention_int8_lengths_stale_plain(
   length_stale = (lengths.to(torch.int32) - 1).reshape(b, 1, 1, 1)
   pos = torch.arange(s, device=q.device, dtype=torch.int32)
   live = pos.reshape(1, 1, 1, s) < length_stale
-  if compute == 'int8':
-    q_absmax = torch.amax(torch.abs(qf), dim=-1, keepdim=True)
-    q_scale = torch.clamp_min(q_absmax, 1e-9) * (1.0 / 127.0)
-    q_q = torch.round(qf / q_scale).to(torch.int8)
-    qf_sum = torch.sum(q_q.to(torch.float32) * q_scale, dim=-1, keepdim=True)
-    qqf = q_q.to(torch.float32)
-    scores = _qdot(qqf, k_cache_stale.to(torch.float32)) * q_scale
-    scores = (scores - zp_k * qf_sum) * ks
-    scores = torch.where(live, scores, _NEG)
-    s_cur = _qdot(qqf, k_new_q.to(torch.float32)) * q_scale
-    s_cur = (s_cur - zp_k * qf_sum) * ks
-    m = torch.maximum(torch.amax(scores, dim=-1, keepdim=True), s_cur)
-    p = torch.exp(scores - m)
-    p_cur = torch.exp(s_cur - m)
-    denom = torch.sum(p, dim=-1, keepdim=True) + p_cur
-    p_q = torch.round(p / denom * 127.0).to(torch.int8)
-    p_cur_q = torch.round(p_cur / denom * 127.0).to(torch.int8)
-    ctx_acc = torch.matmul(p_q.to(torch.float32),
-                           v_cache_stale.to(torch.float32))
-    ctx_acc = ctx_acc + (p_cur_q.to(torch.float32)
-                         * v_new_q.to(torch.float32))
-    p_sum = torch.clamp_min(
-        torch.sum(p_q.to(torch.float32), dim=-1, keepdim=True)
-        + p_cur_q.to(torch.float32), 1.0)
-    ctx = ctx_acc / p_sum
-    return ((ctx - zp_v) * v_scale).to(out_dtype)
-  if compute == 'bf16':
-    def rnd(t):
-      return t.to(torch.bfloat16).to(torch.float32)
-  elif compute == 'f32':
-    def rnd(t):
-      return t
-  else:
-    raise ValueError(f'unknown attention compute mode {compute!r}')
-  kd = rnd(k_cache_stale.to(torch.float32))
-  kcd = rnd(k_new_q.to(torch.float32))
-  qd = rnd(qf)
-  q_sum = torch.sum(qf, dim=-1, keepdim=True)
-  scores = (_qdot(qd, kd) - zp_k * q_sum) * ks
+  scores = _mode_scores(qf, k_cache_stale.to(torch.float32), zp_k,
+                        compute) * ks
   scores = torch.where(live, scores, _NEG)
-  s_cur = (_qdot(qd, kcd) - zp_k * q_sum) * ks  # [B, NK, G, 1]
+  s_cur = _mode_scores(qf, k_new_q.to(torch.float32), zp_k,
+                       compute) * ks  # [B, NK, G, 1]
   m = torch.maximum(torch.amax(scores, dim=-1, keepdim=True), s_cur)
   p = torch.exp(scores - m)
   p_cur = torch.exp(s_cur - m)
   denom = torch.sum(p, dim=-1, keepdim=True) + p_cur
-  probs = p / denom
-  probs_cur = p_cur / denom
-  pv = torch.matmul(rnd(probs), rnd(v_cache_stale.to(torch.float32)))
-  pv_cur = rnd(probs_cur) * v_new_q.to(torch.float32)
-  ctx = pv + pv_cur
+  vf = v_cache_stale.to(torch.float32)
+  vnf = v_new_q.to(torch.float32)
+  if compute == 'int8':
+    p_q = torch.round(p / denom * 127.0).to(torch.int8).to(torch.float32)
+    p_cur_q = torch.round(p_cur / denom * 127.0).to(torch.int8).to(
+        torch.float32)
+    ctx = torch.matmul(p_q, vf) + p_cur_q * vnf
+    p_sum = torch.clamp_min(
+        torch.sum(p_q, dim=-1, keepdim=True) + p_cur_q, 1.0)
+    ctx = ctx / p_sum
+  else:
+    rnd = _bf16_round if compute == 'bf16' else (lambda t: t)
+    ctx = torch.matmul(rnd(p / denom), vf) + rnd(p_cur / denom) * vnf
   return ((ctx - zp_v) * v_scale).to(out_dtype)
 
 
@@ -220,50 +194,63 @@ decode_attention_int8_lengths_stale.plain_calls = 0
 # -- lengths-masked decode attention ----------------------------------------
 
 
+def _mode_scores(qf, kf, zp_k, compute):
+  """q . k less the zero-point term, before the score scale, with the
+  compute mode's operands (`_ctx_prefix_len`, `_decode_attn_mask_kernel_*`):
+  f32; bf16, q rounded to bf16 for the dot and the unrounded q summed for
+  zp_k * sum(q) (int8 K values are exact in bf16); int8, q_scale =
+  max(absmax, 1e-9) * f32(1/127), codes round(q / q_scale) (a true
+  division, half to even), the dot of the codes times q_scale, less
+  zp_k * sum(code * q_scale). qf [..., G, H] f32, kf [..., S, H] f32."""
+  if compute == 'int8':
+    q_absmax = torch.amax(torch.abs(qf), dim=-1, keepdim=True)
+    q_scale = torch.clamp_min(q_absmax, 1e-9) * (1.0 / 127.0)
+    qqf = torch.round(qf / q_scale).to(torch.int8).to(torch.float32)
+    scores = _qdot(qqf, kf) * q_scale
+    return scores - zp_k * torch.sum(qqf * q_scale, dim=-1, keepdim=True)
+  if compute == 'bf16':
+    qd = _bf16_round(qf)
+  elif compute == 'f32':
+    qd = qf
+  else:
+    raise ValueError(f'unknown attention compute mode {compute!r}')
+  return _qdot(qd, kf) - zp_k * torch.sum(qf, dim=-1, keepdim=True)
+
+
+def _mode_context(probs, vf, zp_v, v_scale, compute):
+  """(probs . v - zp_v) * v_scale with the compute mode's probability
+  operands: f32; bf16-rounded; int8 codes round(p * 127), the sum divided
+  by max(sum of the codes, 1). probs [..., G, S] after the divide by their
+  sum, vf [..., S, H] f32."""
+  if compute == 'int8':
+    p_q = torch.round(probs * 127.0).to(torch.int8).to(torch.float32)
+    p_sum = torch.clamp_min(torch.sum(p_q, dim=-1, keepdim=True), 1.0)
+    ctx = torch.matmul(p_q, vf) / p_sum
+  elif compute == 'bf16':
+    ctx = torch.matmul(_bf16_round(probs), vf)
+  else:
+    ctx = torch.matmul(probs, vf)
+  return (ctx - zp_v) * v_scale
+
+
 def decode_attention_int8_lengths_plain(
     q, k_cache, v_cache, k_scale, v_scale, lengths, k_zero_point=0.0,
     v_zero_point=0.0, compute='f32', out_dtype=torch.float32):
   """`_ctx_prefix_len` in plain PyTorch (any device)."""
   b, nk, g, h = q.shape
   s = k_cache.shape[2]
-  qf = q.to(torch.float32)
   ks = score_scale(k_scale, h)
-  zp_k, zp_v = float(k_zero_point), float(v_zero_point)
   v_scale = float(np.float32(v_scale))
   pos = torch.arange(s, device=q.device, dtype=torch.int32)
   live = pos.reshape(1, 1, 1, s) < lengths.to(torch.int32).reshape(b, 1, 1, 1)
-  kf = k_cache.to(torch.float32)
-  vf = v_cache.to(torch.float32)
-  if compute == 'int8':
-    q_absmax = torch.amax(torch.abs(qf), dim=-1, keepdim=True)
-    q_scale = torch.clamp_min(q_absmax, 1e-9) * (1.0 / 127.0)
-    q_q = torch.round(qf / q_scale).to(torch.int8)
-    qqf = q_q.to(torch.float32)
-    scores = _qdot(qqf, kf) * q_scale
-    scores = scores - zp_k * torch.sum(qqf * q_scale, dim=-1, keepdim=True)
-  elif compute in ('f32', 'bf16'):
-    if compute == 'bf16':
-      qd = qf.to(torch.bfloat16).to(torch.float32)
-      kd = kf.to(torch.bfloat16).to(torch.float32)
-    else:
-      qd, kd = qf, kf
-    scores = _qdot(qd, kd) - zp_k * torch.sum(qf, dim=-1, keepdim=True)
-  else:
-    raise ValueError(f'unknown attention compute mode {compute!r}')
+  scores = _mode_scores(q.to(torch.float32), k_cache.to(torch.float32),
+                        float(k_zero_point), compute)
   scores = torch.where(live, scores * ks, _NEG)
   scores = scores - torch.amax(scores, dim=-1, keepdim=True)
   probs = torch.exp(scores)
   probs = probs / torch.sum(probs, dim=-1, keepdim=True)
-  if compute == 'int8':
-    p_q = torch.round(probs * 127.0).to(torch.int8).to(torch.float32)
-    p_sum = torch.clamp_min(torch.sum(p_q, dim=-1, keepdim=True), 1.0)
-    ctx = torch.matmul(p_q, vf) / p_sum
-  elif compute == 'bf16':
-    ctx = torch.matmul(probs.to(torch.bfloat16).to(torch.float32),
-                       vf.to(torch.bfloat16).to(torch.float32))
-  else:
-    ctx = torch.matmul(probs, vf)
-  return ((ctx - zp_v) * v_scale).to(out_dtype)
+  return _mode_context(probs, v_cache.to(torch.float32), float(v_zero_point),
+                       v_scale, compute).to(out_dtype)
 
 
 def decode_attention_int8_lengths(
@@ -327,14 +314,9 @@ decode_attention_int8_lengths.plain_calls = 0
 # -- lengths attention + out projection + residual (the attention epilogue) --
 
 
-def _oproj_check(q, compute):
+def _oproj_check(q):
   """(B, G, H) of an epilogue call: MQA only and an even head count (the
-  TPU wrapper's ValueErrors), f32 compute only."""
-  name = 'decode_attention_oproj'
-  if compute != 'f32':
-    raise NotImplementedError(
-        f'{name}: compute={compute!r} is not ported yet (f32 only; its '
-        f'bf16 and int8 bodies are the next slice of the port).')
+  TPU wrapper's ValueErrors)."""
   b, nk, g, h = q.shape
   if nk != 1:
     raise ValueError('out-proj epilogue supports MQA (NK == 1) only.')
@@ -348,18 +330,18 @@ def decode_attention_oproj_plain(
     k_zero_point=0.0, v_zero_point=0.0, compute='f32', drq=True):
   """`_attn_oproj_kernel` in plain PyTorch (any device): q rounded to the
   activation dtype (bf16 for bf16 x_res, else f32), the lengths attention
-  (`_ctx_prefix_len`, f32) staged at that dtype, the packed out projection
+  (`_ctx_prefix_len` in `compute`) staged at that dtype, the packed out projection
   (DRQ: xs over the whole G*H row, int32 sums, (acc * xs) * so; weight-only:
   f32 sums, pair p's low nibbles against head p and its high nibbles
   against head p + G/2, pairs in order, then * so), cast, and added to
   x_res at that dtype. Returns [B, D] in x_res.dtype."""
-  b, g, h = _oproj_check(q, compute)
+  b, g, h = _oproj_check(q)
   cast = torch.bfloat16 if x_res.dtype == torch.bfloat16 else torch.float32
   d = wo_packed.shape[0]
   qf = q.to(cast).to(torch.float32)
   ctx = decode_attention_int8_lengths_plain(
       qf, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_zero_point,
-      v_zero_point, 'f32', cast).reshape(b, g * h)
+      v_zero_point, compute, cast).reshape(b, g * h)
   so32 = so.to(torch.float32).reshape(-1)
   if drq:
     o = packed_qmatmul.qmatmul_int4_packed_drq_plain(ctx, wo_packed, so32)
@@ -399,18 +381,19 @@ def decode_attention_oproj(
   per-tensor scales and zero points as Python floats; lengths int32 [B];
   x_res [B, D], the residual stream; wo_packed [D, G*H/2] uint8
   split-half packed int4; so [D] f32. Returns x_res + W_o . attn(q, cache)
-  [B, D] in x_res.dtype (decode_attention_oproj_plain has the arithmetic).
-  Only compute='f32' is ported; 'bf16' and 'int8' raise
-  NotImplementedError on both devices until the next slice of the port.
-  The TPU wrapper's batch_block (its VMEM blocking) has no counterpart.
+  [B, D] in x_res.dtype (decode_attention_oproj_plain has the arithmetic);
+  compute 'f32', 'bf16' or 'int8', the attention's (all three have a CUDA
+  body). The TPU wrapper's batch_block (its VMEM blocking) has no
+  counterpart.
   """
   args = (q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, x_res,
           wo_packed, so, k_zero_point, v_zero_point, compute, drq)
-  b, g, h = _oproj_check(q, compute)
+  b, g, h = _oproj_check(q)
   if _build.device_kind(q) == 'cpu':
     decode_attention_oproj.plain_calls += 1
     return decode_attention_oproj_plain(*args)
   name = 'decode_attention_oproj'
+  mode = compute_code(compute)
   s = k_cache_q.shape[2]
   d = wo_packed.shape[0]
   cast = torch.bfloat16 if x_res.dtype == torch.bfloat16 else torch.float32
@@ -438,14 +421,15 @@ def decode_attention_oproj(
   out = torch.empty((b, d), dtype=cast, device=q.device)
   fn = _build.entry(
       'attention_oproj', 'aeqt_attention_oproj',
-      [_build.P] * 10 + [_build.I] * 7 + [_build.F] * 4 + [_build.P])
+      [_build.P] * 10 + [_build.I] * 8 + [_build.F] * 4 + [_build.P])
   status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
               lens.data_ptr(), x2.data_ptr(), wo_packed.data_ptr(),
               so32.data_ptr(), ctx.data_ptr(), o.data_ptr(), out.data_ptr(),
-              int(cast == torch.bfloat16), int(drq), b, g, s, h, d,
+              int(cast == torch.bfloat16), int(drq), mode, b, g, s, h, d,
               score_scale(k_scale, h), float(v_scale), float(k_zero_point),
               float(v_zero_point), _build.stream_ptr(q.device))
-  _build.check(status, name, f'G={g}, S={s}, H={h}, D={d}, drq={drq}')
+  _build.check(status, name, f'G={g}, S={s}, H={h}, D={d}, drq={drq}, '
+               f'compute={compute}')
   decode_attention_oproj.launches += 1
   return out.to(x_res.dtype).reshape(x_res.shape)
 
@@ -511,21 +495,18 @@ def decode_attention_int8_lengths_writeback(
   [B] counting the new row; pos one int (a Python int or a one-element
   tensor on q's device; the same row for every batch row), clipped to
   [0, S - 1]. The caches' own storage is written: the JAX executor donates
-  them to this call, and the caches returned are the tensors given. Only
-  compute='f32' is ported; 'bf16' and 'int8' raise NotImplementedError on
-  both devices until the next slice of the port.
+  them to this call, and the caches returned are the tensors given.
+  compute 'f32', 'bf16' or 'int8' (all three have a CUDA body; in each,
+  row pos is read from k_new_q / v_new_q, never from the cache).
   Returns (ctx [B, NK, G, H] in out_dtype, k_cache_q, v_cache_q).
   """
-  name = 'decode_attention_int8_lengths_writeback'
-  if compute != 'f32':
-    raise NotImplementedError(
-        f'{name}: compute={compute!r} is not ported yet (f32 only; its '
-        f'bf16 and int8 bodies are the next slice of the port).')
   args = (q, k_cache_q, v_cache_q, k_scale, v_scale, lengths, k_new_q,
           v_new_q, pos, k_zero_point, v_zero_point, compute, out_dtype)
   if _build.device_kind(q) == 'cpu':
     decode_attention_int8_lengths_writeback.plain_calls += 1
     return decode_attention_int8_lengths_writeback_plain(*args)
+  name = 'decode_attention_int8_lengths_writeback'
+  mode = compute_code(compute)
   b, nk, g, h = q.shape
   s = k_cache_q.shape[2]
   r = b * nk
@@ -548,14 +529,14 @@ def decode_attention_int8_lengths_writeback(
   out = torch.empty((r, g, h), dtype=out_dtype, device=q.device)
   fn = _build.entry(
       'attention_writeback', 'aeqt_attention_writeback',
-      [_build.P] * 8 + [_build.I] * 6 + [_build.F] * 4 + [_build.P])
+      [_build.P] * 8 + [_build.I] * 7 + [_build.F] * 4 + [_build.P])
   status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
               k_new_q.data_ptr(), v_new_q.data_ptr(), lens.data_ptr(),
               pos_t.data_ptr(), out.data_ptr(),
-              int(out_dtype == torch.bfloat16), r, nk, g, s, h,
+              int(out_dtype == torch.bfloat16), mode, r, nk, g, s, h,
               score_scale(k_scale, h), float(v_scale), float(k_zero_point),
               float(v_zero_point), _build.stream_ptr(q.device))
-  _build.check(status, name, f'G={g}, S={s}, H={h}')
+  _build.check(status, name, f'G={g}, S={s}, H={h}, compute={compute}')
   decode_attention_int8_lengths_writeback.launches += 1
   return out.reshape(b, nk, g, h), k_cache_q, v_cache_q
 
@@ -694,28 +675,27 @@ decode_attention_int8_dynlen.plain_calls = 0
 
 def decode_attention_int8_masked_plain(
     q, k_cache_q, v_cache_q, k_scale, v_scale, mask, k_zero_point=0.0,
-    v_zero_point=0.0):
-  """`_decode_attn_mask_kernel` in plain PyTorch (any device), step by step
-  in its order: the scores in f32, minus zp_k * sum(q), times
-  k_scale / sqrt(H), plus the mask; the row max subtracted, exp, divided
-  by the row sum before the PV product; then (ctx - zp_v) * v_scale.
-  Returns [B, NK, G, H] f32."""
+    v_zero_point=0.0, compute='f32'):
+  """`_decode_attn_mask_kernel` (and its bf16 and int8 variants) in plain
+  PyTorch (any device), step by step in its order: the scores with the
+  mode's operands (`_mode_scores`), times k_scale / sqrt(H), plus the
+  mask; the row max subtracted, exp, divided by the row sum before the PV
+  product with the mode's probability operands (`_mode_context`); then
+  (ctx - zp_v) * v_scale. Returns [B, NK, G, H] f32."""
   b, nk, g, h = q.shape
   s = k_cache_q.shape[2]
-  qf = q.to(torch.float32)
   ks = score_scale(k_scale, h)
-  zp_k, zp_v = float(k_zero_point), float(v_zero_point)
   v_scale = float(np.float32(v_scale))
   maskf = torch.broadcast_to(mask.to(torch.float32), (b, nk, g, s))
-  scores = _qdot(qf, k_cache_q.to(torch.float32))
-  scores = scores - zp_k * torch.sum(qf, dim=-1, keepdim=True)
+  scores = _mode_scores(q.to(torch.float32), k_cache_q.to(torch.float32),
+                        float(k_zero_point), compute)
   scores = scores * ks
   scores = scores + maskf
   scores = scores - torch.amax(scores, dim=-1, keepdim=True)
   probs = torch.exp(scores)
   probs = probs / torch.sum(probs, dim=-1, keepdim=True)
-  ctx = torch.matmul(probs, v_cache_q.to(torch.float32))
-  return (ctx - zp_v) * v_scale
+  return _mode_context(probs, v_cache_q.to(torch.float32),
+                       float(v_zero_point), v_scale, compute)
 
 
 def decode_attention_int8_masked(
@@ -734,21 +714,17 @@ def decode_attention_int8_masked(
   q [B, NK, G, H] float; caches int8 [B, NK, S, H] with per-tensor scales
   and zero points as Python floats; mask additive (0 visible), any float
   dtype (read as f32), of a shape that broadcasts to [B, NK, G, S], as
-  the TPU wrapper broadcasts it. Only compute='f32' is ported (the
-  executor's default); the TPU kernel's 'bf16' and 'int8' modes raise
-  NotImplementedError on both devices until the next slice of the port. The TPU kernel's batch_block (its grid blocking) has no
-  counterpart here. Returns [B, NK, G, H] f32.
+  the TPU wrapper broadcasts it; compute 'f32', 'bf16' or 'int8' (all
+  three have a CUDA body). The TPU kernel's batch_block (its grid
+  blocking) has no counterpart here. Returns [B, NK, G, H] f32.
   """
-  name = 'decode_attention_int8_masked'
-  if compute != 'f32':
-    raise NotImplementedError(
-        f'{name}: compute={compute!r} is not ported yet (f32 only; its '
-        f'bf16 and int8 bodies are the next slice of the port).')
   args = (q, k_cache_q, v_cache_q, k_scale, v_scale, mask, k_zero_point,
-          v_zero_point)
+          v_zero_point, compute)
   if _build.device_kind(q) == 'cpu':
     decode_attention_int8_masked.plain_calls += 1
     return decode_attention_int8_masked_plain(*args)
+  name = 'decode_attention_int8_masked'
+  mode = compute_code(compute)
   b, nk, g, h = q.shape
   s = k_cache_q.shape[2]
   r = b * nk
@@ -765,14 +741,14 @@ def decode_attention_int8_masked(
   out = torch.empty((r, g, h), dtype=torch.float32, device=q.device)
   fn = _build.entry(
       'attention_masked', 'aeqt_attention_masked',
-      [_build.P] * 5 + [_build.I] * 5 + [ctypes.c_longlong] * 3
+      [_build.P] * 5 + [_build.I] * 6 + [ctypes.c_longlong] * 3
       + [_build.F] * 4 + [_build.P])
   status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
-              m4.data_ptr(), out.data_ptr(), r, nk, g, s, h, m4.stride(0),
-              m4.stride(1), m4.stride(2), score_scale(k_scale, h),
-              float(v_scale), float(k_zero_point), float(v_zero_point),
-              _build.stream_ptr(q.device))
-  _build.check(status, name, f'G={g}, S={s}, H={h}')
+              m4.data_ptr(), out.data_ptr(), mode, r, nk, g, s, h,
+              m4.stride(0), m4.stride(1), m4.stride(2),
+              score_scale(k_scale, h), float(v_scale), float(k_zero_point),
+              float(v_zero_point), _build.stream_ptr(q.device))
+  _build.check(status, name, f'G={g}, S={s}, H={h}, compute={compute}')
   decode_attention_int8_masked.launches += 1
   return out.reshape(b, nk, g, h)
 

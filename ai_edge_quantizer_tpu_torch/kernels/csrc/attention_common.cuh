@@ -1,7 +1,8 @@
 // Device helpers shared by the port's int8-cache decode attention kernels
-// (attention_stale.cu, attention_lengths.cu and the kernels built on them).
+// (attention_stale.cu, attention_lengths.cu, attention_masked.cu,
+// attention_writeback.cu and the kernels built on them).
 //
-// Both kernels take one block per (batch, kv-head) row, stage the G query
+// Each kernel takes one block per (batch, kv-head) row, stage the G query
 // rows in shared memory, score one cache row per thread (kGC query rows'
 // dot products in registers, four 16-byte chunks of the row in flight),
 // and form the context with 4 head columns and one row group per thread.
@@ -9,8 +10,9 @@
 // --fmad=false), in a fixed order.
 //
 // Compute modes (the TPU kernels' `compute`, pallas_attention.py
-// _ctx_prefix_len and _ctx_prefix_len_cur): a template parameter of the
-// stale body and of the lengths kernel.
+// _ctx_prefix_len, _ctx_prefix_len_cur and _decode_attn_mask_kernel_*): a
+// template parameter of the stale body and of the lengths, masked and
+// splice kernels.
 //   kF32:  f32 q, f32 probabilities.
 //   kBF16: q rounded to bf16 for the dots (its sum for the zero-point term
 //          from the unrounded q); the probabilities rounded to bf16 after
@@ -274,6 +276,96 @@ __device__ __forceinline__ float finish_ctx(float acc, float p_sum,
                                             float zp_v, float v_scale) {
   if constexpr (C == kInt8) acc = acc / p_sum;
   return (acc - zp_v) * v_scale;
+}
+
+// Softmax of one query row's n scores srow[0, n), in place, by one warp in
+// the TPU kernels' order: m = max(m0, max_j s), e = exp(s - m), their sum,
+// then each e replaced by its operand prob_operand<C>(e, sum). Returns, on
+// every lane, the sum of the operands (int8: the code sum, exact).
+template <int C>
+__device__ __forceinline__ float softmax_row(float* srow, int n, float m0,
+                                             int lane) {
+  float m = m0;
+  for (int j = lane; j < n; j += 32) m = fmaxf(m, srow[j]);
+  m = warp_max(m);
+  float sum = 0.0f;
+  for (int j = lane; j < n; j += 32) {
+    const float e = expf(srow[j] - m);
+    srow[j] = e;
+    sum = sum + e;
+  }
+  sum = warp_sum(sum);
+  float ops = 0.0f;
+  for (int j = lane; j < n; j += 32) {
+    const float p = prob_operand<C>(srow[j], sum);
+    srow[j] = p;
+    ops = ops + p;
+  }
+  if constexpr (C == kInt8) ops = warp_sum(ops);
+  return ops;
+}
+
+// context_rows with cache row p read from vnr instead of the cache (the
+// splice kernel's row), one row in flight.
+__device__ __forceinline__ void context_rows_spliced(
+    const float* sc, int S, int G, int g0, const int8_t* vr,
+    const int8_t* vnr, int p, int H, int L, int rg, int RG, int c,
+    float (&acc)[kGC][4]) {
+#pragma unroll
+  for (int i = 0; i < kGC; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  for (int j = rg; j < L; j += RG) {
+    const int8_t* row = j == p ? vnr : vr + (size_t)j * H;
+    add_row(sc, S, G, g0, j, __ldg(reinterpret_cast<const char4*>(row + 4 * c)),
+            acc);
+  }
+}
+
+// The context phase of the lengths, masked and splice kernels, after the
+// softmax: out[g] = finish_ctx<C>(sum_{j < L} sc[g, j] v[j], qsum[g]) for
+// the G query rows (qsum holds p_sum in int8), cache row p read from vnr
+// (p < 0: every row from vr). 4 head columns and one row group per thread;
+// the row groups' partials meet in `red` and are added in row-group order,
+// so the result does not depend on timing. Overwrites `red` (the int8 q
+// codes: the scores must be done).
+template <int C, typename TOut>
+__device__ __forceinline__ void context_phase(
+    const float* sc, const float* qsum, float* red, int G, int S, int H,
+    int L, const int8_t* vr, const int8_t* vnr, int p, TOut* out, float zp_v,
+    float v_scale) {
+  const int chunks = H / 4;
+  const int RG = blockDim.x / chunks;
+  const int c = threadIdx.x % chunks, rg = threadIdx.x / chunks;
+  for (int g0 = 0; g0 < G; g0 += kGC) {
+    float acc[kGC][4];
+    if (p < 0)
+      context_rows(sc, S, G, g0, vr, H, L, rg, RG, c, acc);
+    else
+      context_rows_spliced(sc, S, G, g0, vr, vnr, p, H, L, rg, RG, c, acc);
+    __syncthreads();  // the previous pass (or the scores) has read `red`
+#pragma unroll
+    for (int i = 0; i < kGC; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[((size_t)rg * kGC + i) * H + 4 * c + e] = acc[i][e];
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kGC * H; idx += blockDim.x) {
+      const int i = idx / H, h = idx % H, g = g0 + i;
+      if (g >= G) continue;
+      float ctx = 0.0f;
+      for (int r = 0; r < RG; ++r)
+        ctx = ctx + red[((size_t)r * kGC + i) * H + h];
+      store_f(out, (size_t)g * H + h, finish_ctx<C>(ctx, qsum[g], zp_v,
+                                                     v_scale));
+    }
+  }
+}
+
+// Floats of shared memory of the lengths, masked and splice kernels:
+// qs [G][H], the scores [G][S], qsum [G] and the context partials.
+inline size_t scores_smem_floats(int G, int S, int H) {
+  return (size_t)G * H + (size_t)G * S + G + kRedFloats;
 }
 
 // Floats of shared memory that stale_attention_row takes.

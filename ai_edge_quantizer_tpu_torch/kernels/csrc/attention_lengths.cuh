@@ -1,8 +1,8 @@
 // The lengths-masked int8 decode attention of attention_lengths.cu as a
 // kernel template over the compute mode and the output type, shared with
-// attention_oproj.cu (the attention of the out-projection epilogue, f32)
-// and attention_int8_basic.cu (zero points 0). Its contract and design
-// note are in attention_lengths.cu.
+// attention_oproj.cu (the attention of the out-projection epilogue, in its
+// mode) and attention_int8_basic.cu (f32, zero points 0). Its contract and
+// design note are in attention_lengths.cu.
 #pragma once
 
 #include "attention_common.cuh"
@@ -55,64 +55,23 @@ lengths_attention_kernel(const float* __restrict__ q,
 
   // Softmax over the L live scores: one warp per query row.
   for (int g = warp; g < G; g += nwarps) {
-    float* srow = sc + (size_t)g * S;
-    float m = kNegInf;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float p = expf(srow[j] - m);
-      srow[j] = p;
-      sum = sum + p;
-    }
-    sum = warp_sum(sum);
-    float codes = 0.0f;  // int8: the sum of the probability codes (exact)
-    for (int j = lane; j < L; j += 32) {
-      const float p = prob_operand<C>(srow[j], sum);
-      srow[j] = p;
-      codes = codes + p;
-    }
-    if constexpr (C == kInt8) {
-      codes = warp_sum(codes);
+    const float codes = softmax_row<C>(sc + (size_t)g * S, L, kNegInf, lane);
+    if constexpr (C == kInt8)
       if (lane == 0) qsum[g] = fmaxf(codes, 1.0f);
-    }
   }
   __syncthreads();
 
-  // Context: 4 head columns and one row group per thread.
-  const int8_t* vr = v + (size_t)row * S * H;
-  const int chunks = H / 4;
-  const int RG = blockDim.x / chunks;
-  const int c = threadIdx.x % chunks, rg = threadIdx.x / chunks;
-  for (int g0 = 0; g0 < G; g0 += kGC) {
-    float acc[kGC][4];
-    context_rows(sc, S, G, g0, vr, H, L, rg, RG, c, acc);
-    __syncthreads();  // the previous pass has read `red`
-#pragma unroll
-    for (int i = 0; i < kGC; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[((size_t)rg * kGC + i) * H + 4 * c + e] = acc[i][e];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kGC * H; idx += blockDim.x) {
-      const int i = idx / H, h = idx % H, g = g0 + i;
-      if (g >= G) continue;
-      float ctx = 0.0f;
-      for (int r = 0; r < RG; ++r) ctx = ctx + red[((size_t)r * kGC + i) * H + h];
-      store_f(out, ((size_t)row * G + g) * H + h,
-              finish_ctx<C>(ctx, qsum[g], zp_v, v_scale));
-    }
-  }
+  context_phase<C>(sc, qsum, red, G, S, H, L, v + (size_t)row * S * H,
+                   nullptr, -1, out + (size_t)row * G * H, zp_v, v_scale);
 }
 
-template <typename TOut, int C = kF32>
+template <typename TOut, int C>
 int launch_lengths_attention(const void* q, const void* k, const void* v,
                              const void* lengths, void* out, int R, int NK,
                              int G, int S, int H, float k_scale_eff,
                              float v_scale, float zp_k, float zp_v,
                              cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)G * H + (size_t)G * S + G + kRedFloats) * sizeof(float);
+  const size_t smem = scores_smem_floats(G, S, H) * sizeof(float);
   if (!head_dim_fits(H) || !compute_fits(C, G, H) || !smem_fits(smem))
     return kShapeRefused;
   auto* kernel = lengths_attention_kernel<C, TOut>;

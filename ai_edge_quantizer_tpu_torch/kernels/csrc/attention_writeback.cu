@@ -1,11 +1,12 @@
 // Lengths-masked decode attention over an int8 KV cache whose row `pos` is
 // replaced by the new token's K/V rows, which it also writes into the
-// caches (f32 compute).
+// caches, in the f32, bf16 or int8 compute mode.
 //
 // Replaces: ai_edge_quantizer_tpu/kernels/pallas_attention.py
-//   decode_attention_int8_lengths_writeback (f32 branch of
-//   _ctx_prefix_len over the spliced cache). The JAX executor runs it for
-//   each decode attention whose cache row write it folds in, under
+//   decode_attention_int8_lengths_writeback (_ctx_prefix_len over the
+//   spliced cache, its three compute branches; the modes' operands are at
+//   the top of attention_common.cuh). The JAX executor runs it for each
+//   decode attention whose cache row write it folds in, under
 //   AEQT_ATTN_WRITEBACK_MODE=splice with AEQT_ATTN_LENGTHS=1 (18 a step for
 //   Gemma-2B). For each (batch, kv-head) row r with L = lengths[b] live
 //   rows and p = clip(pos, 0, S - 1):
@@ -15,44 +16,30 @@
 //   and k[p] = k_new, v[p] = v_new are written into the caches, whose
 //   storage is the output (the TPU kernel aliases its cache outputs to its
 //   inputs). With L == 0 every score is -1e30 and each of the S rows gets
-//   weight 1/S, the spliced row among them.
+//   weight 1/S, the spliced row among them (in int8 each of the S codes is
+//   rint(127 / S): 1 at S 128, so all S rows are summed; 0 from S 256 on,
+//   so p_sum is 1 and ctx is -zp_v * v_scale).
 //
 // Bound on the H100: the cache bytes of the live rows, 2 * L * H a row,
 //   plus the two new rows read and written (at the bench shape, B 256, H
 //   256, 897 live rows: 117.6 MB, 35 us).
 //
-// Design: the lengths kernel (attention_lengths.cu) with the row pointer
+// Design: the lengths kernel (attention_lengths.cuh) with the row pointer
 //   chosen per cache row: row p is read from k_new / v_new, never from the
-//   cache, so the block's own write of row p (after its last read, at the
-//   end) races with no read; no other block touches row r. The TPU kernel
-//   writes back the whole 32-row tile around p (HBM writes must cover full
-//   tiles); here only the two rows move. The wrapper keeps the TPU gate
-//   S % 32 == 0 so that the routes agree.
+//   cache, in every mode (its score dot, its probability operand and its
+//   share of the int8 code sum), so the block's own write of row p (after
+//   its last read, at the end) races with no read; no other block touches
+//   row r. The TPU kernel writes back the whole 32-row tile around p (HBM
+//   writes must cover full tiles); here only the two rows move. The
+//   wrapper keeps the TPU gate S % 32 == 0 so that the routes agree.
 #include "attention_common.cuh"
 
 namespace {
 
 using aeqt::kGC;
-using aeqt::kRedFloats;
 constexpr int kThreads = aeqt::kAttnThreads;
 
-// context_rows of attention_common.cuh with cache row p read from vnr.
-__device__ __forceinline__ void context_rows_spliced(
-    const float* sc, int S, int G, int g0, const int8_t* vr,
-    const int8_t* vnr, int p, int H, int L, int rg, int RG, int c,
-    float (&acc)[kGC][4]) {
-#pragma unroll
-  for (int i = 0; i < kGC; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-  for (int j = rg; j < L; j += RG) {
-    const int8_t* row = j == p ? vnr : vr + (size_t)j * H;
-    aeqt::add_row(sc, S, G, g0, j,
-                  __ldg(reinterpret_cast<const char4*>(row + 4 * c)), acc);
-  }
-}
-
-template <typename TOut>
+template <int C, typename TOut>
 __global__ void __launch_bounds__(kThreads)
 writeback_attention_kernel(const float* __restrict__ q, int8_t* k, int8_t* v,
                            const int8_t* __restrict__ k_new,
@@ -65,7 +52,7 @@ writeback_attention_kernel(const float* __restrict__ q, int8_t* k, int8_t* v,
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                          // [G][H]
   float* sc = qs + (size_t)G * H;          // [G][S] scores, then probs
-  float* qsum = sc + (size_t)G * S;        // [G]
+  float* qsum = sc + (size_t)G * S;        // [G] sum(q), then p_sum (int8)
   float* red = qsum + G;                   // [RG][kGC][H] context partials
   const int row = blockIdx.x;
   const int b = row / NK;
@@ -84,88 +71,54 @@ writeback_attention_kernel(const float* __restrict__ q, int8_t* k, int8_t* v,
   for (int i = threadIdx.x; i < G * H; i += blockDim.x) qs[i] = qr[i];
   __syncthreads();
 
-  for (int g = warp; g < G; g += nwarps) {
-    float s = 0.0f;
-    for (int h = lane; h < H; h += 32) s = s + qs[g * H + h];
-    s = aeqt::warp_sum(s);
-    if (lane == 0) qsum[g] = s;
-  }
+  aeqt::prepare_queries<C>(qs, qsum, red, G, H);
   __syncthreads();
 
   // Scores: one thread per live cache row, row p from k_new.
   for (int j = threadIdx.x; j < L; j += blockDim.x) {
     const int8_t* krow = j == p ? knr : kr + (size_t)j * H;
     for (int g0 = 0; g0 < G; g0 += kGC) {
-      float acc[kGC] = {};
-      if (!none) aeqt::dot_row(qs, H, G, g0, krow, acc);
+      float s[kGC];
+      if (!none)
+        aeqt::score_rows<C>(qs, qsum, red, G, H, g0, krow, zp_k, k_scale_eff,
+                            s);
 #pragma unroll
-      for (int i = 0; i < kGC; ++i) {
-        const int g = g0 + i;
-        if (g < G)
-          sc[(size_t)g * S + j] =
-              none ? aeqt::kNegInf : (acc[i] - zp_k * qsum[g]) * k_scale_eff;
-      }
+      for (int i = 0; i < kGC; ++i)
+        if (g0 + i < G)
+          sc[(size_t)(g0 + i) * S + j] = none ? aeqt::kNegInf : s[i];
     }
   }
   __syncthreads();
 
   for (int g = warp; g < G; g += nwarps) {
-    float* srow = sc + (size_t)g * S;
-    float m = aeqt::kNegInf;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-    m = aeqt::warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum = sum + e;
-    }
-    sum = aeqt::warp_sum(sum);
-    for (int j = lane; j < L; j += 32) srow[j] = srow[j] / sum;
+    const float codes =
+        aeqt::softmax_row<C>(sc + (size_t)g * S, L, aeqt::kNegInf, lane);
+    if constexpr (C == aeqt::kInt8)
+      if (lane == 0) qsum[g] = fmaxf(codes, 1.0f);
   }
   __syncthreads();
 
-  const int chunks = H / 4;
-  const int RG = blockDim.x / chunks;
-  const int c = threadIdx.x % chunks, rg = threadIdx.x / chunks;
-  for (int g0 = 0; g0 < G; g0 += kGC) {
-    float acc[kGC][4];
-    context_rows_spliced(sc, S, G, g0, vr, vnr, p, H, L, rg, RG, c, acc);
-    __syncthreads();  // the previous pass has read `red`
-#pragma unroll
-    for (int i = 0; i < kGC; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[((size_t)rg * kGC + i) * H + 4 * c + e] = acc[i][e];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kGC * H; idx += blockDim.x) {
-      const int i = idx / H, h = idx % H, g = g0 + i;
-      if (g >= G) continue;
-      float ctx = 0.0f;
-      for (int r = 0; r < RG; ++r)
-        ctx = ctx + red[((size_t)r * kGC + i) * H + h];
-      aeqt::store_f(out, ((size_t)row * G + g) * H + h,
-                    (ctx - zp_v) * v_scale);
-    }
-  }
+  aeqt::context_phase<C>(sc, qsum, red, G, S, H, L, vr, vnr, p,
+                         out + (size_t)row * G * H, zp_v, v_scale);
 
-  // The row write, after every read of this row's caches.
+  // The row write, after every read of this row's caches (none of which
+  // reads row p).
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
     kr[(size_t)p * H + i] = knr[i];
     vr[(size_t)p * H + i] = vnr[i];
   }
 }
 
-template <typename TOut>
+template <int C, typename TOut>
 int launch(const void* q, void* k, void* v, const void* k_new,
            const void* v_new, const void* lengths, const void* pos, void* out,
            int R, int NK, int G, int S, int H, float k_scale_eff,
            float v_scale, float zp_k, float zp_v, cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)G * H + (size_t)G * S + G + kRedFloats) * sizeof(float);
-  if (!aeqt::head_dim_fits(H) || S % 32 != 0 || !aeqt::smem_fits(smem))
+  const size_t smem = aeqt::scores_smem_floats(G, S, H) * sizeof(float);
+  if (!aeqt::head_dim_fits(H) || S % 32 != 0 ||
+      !aeqt::compute_fits(C, G, H) || !aeqt::smem_fits(smem))
     return aeqt::kShapeRefused;
-  auto* kernel = writeback_attention_kernel<TOut>;
+  auto* kernel = writeback_attention_kernel<C, TOut>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -178,26 +131,42 @@ int launch(const void* q, void* k, void* v, const void* k_new,
   return (int)cudaGetLastError();
 }
 
+template <typename TOut>
+int launch_mode(int compute, const void* q, void* k, void* v,
+                const void* k_new, const void* v_new, const void* lengths,
+                const void* pos, void* out, int R, int NK, int G, int S,
+                int H, float k_scale_eff, float v_scale, float zp_k,
+                float zp_v, cudaStream_t s) {
+  return aeqt::with_compute(compute, [&](auto mode) {
+    return launch<decltype(mode)::value, TOut>(q, k, v, k_new, v_new,
+                                               lengths, pos, out, R, NK, G,
+                                               S, H, k_scale_eff, v_scale,
+                                               zp_k, zp_v, s);
+  });
+}
+
 }  // namespace
 
 // q f32 [R, G, H] with R = B * NK; k, v int8 [R, S, H] (written at row
 // clip(*pos, 0, S - 1)); k_new, v_new int8 [R, H]; lengths int32 [B]; pos
-// int32 [1] on the device; out [R, G, H] f32 or bf16 (out_bf16). Returns
-// aeqt::kShapeRefused unless H % 16 == 0, 1024 % H == 0, S % 32 == 0 and
-// the G x S scores fit in shared memory.
+// int32 [1] on the device; out [R, G, H] f32 or bf16 (out_bf16); compute
+// aeqt::kF32, kBF16 or kInt8. Returns aeqt::kShapeRefused unless
+// H % 16 == 0, 1024 % H == 0, S % 32 == 0, the G x S scores fit in shared
+// memory and (int8) G * H / 4 + G <= aeqt::kRedFloats.
 extern "C" int aeqt_attention_writeback(const void* q, void* k, void* v,
                                         const void* k_new, const void* v_new,
                                         const void* lengths, const void* pos,
-                                        void* out, int out_bf16, int R,
-                                        int NK, int G, int S, int H,
+                                        void* out, int out_bf16, int compute,
+                                        int R, int NK, int G, int S, int H,
                                         float k_scale_eff, float v_scale,
                                         float zp_k, float zp_v,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return launch<__nv_bfloat16>(q, k, v, k_new, v_new, lengths, pos, out, R,
-                                 NK, G, S, H, k_scale_eff, v_scale, zp_k,
-                                 zp_v, s);
-  return launch<float>(q, k, v, k_new, v_new, lengths, pos, out, R, NK, G, S,
-                       H, k_scale_eff, v_scale, zp_k, zp_v, s);
+    return launch_mode<__nv_bfloat16>(compute, q, k, v, k_new, v_new,
+                                      lengths, pos, out, R, NK, G, S, H,
+                                      k_scale_eff, v_scale, zp_k, zp_v, s);
+  return launch_mode<float>(compute, q, k, v, k_new, v_new, lengths, pos, out,
+                            R, NK, G, S, H, k_scale_eff, v_scale, zp_k, zp_v,
+                            s);
 }

@@ -153,7 +153,7 @@ class DecodeServer:
     if mesh is not None:
       raise NotImplementedError(
           'DecodeServer(mesh=...): the multi-device server is not ported '
-          'yet (ROADMAP.md Queue 1 item 11).')
+          'yet (ROADMAP.md Queue 1 item 7, multi-device).')
     self._kv_group = int(graph.metadata.get('kv_int4_group', 0))
     self.cfg = cfg
     self.batch_slots = batch_slots

@@ -52,6 +52,10 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      decode), the lengths attention (the server's tick, and a zero length)
      and the decode block (bench.py's step) in bf16 and int8 beside their
      f32 rows (mode_ctx_check; the block's codes and pools bit for bit);
+     the masked attention (B 64 and 256, prefix masks with an idle row
+     and a non-prefix mask), the splice attention (bench.py's shape, a
+     zero-length row) and the epilogue (bench.py's DRQ step, B 64
+     weight-only) in bf16 and int8, int8 bit for bit (#8's pools too);
      the basic int8 decode attention (#22, B 64 and 256, equal to the
      lengths attention's plain version with zero points 0) and the per-row
      int4 KV attention (#21, the A/B tool's shape B 256 and B 64, against
@@ -84,7 +88,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      int4 DRQ 18, K-blocked int4 DRQ 18, head 1), ids compared likewise;
      and bench.py's own settings with AEQT_ATTN_COMPUTE=bf16 and =int8
      (attn_compute; the block on's launches: block 17, stale attention 1),
-     ids compared with the block on's at f32;
+     and the splice and attention-block settings in each mode (splice 18,
+     epilogue 18 a step, in the mode), ids compared with the same setting's
+     at f32 (MODE_SETTINGS);
   4. server: the port's DecodeServer at bench.py's server settings serves
      128 requests (prompt lengths cycling 32..512, 48 new tokens each) by
      step_chunk(8); every request must end done with 48 ids in range, and
@@ -117,7 +123,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      MLP and head in their weight-only branches L and 1, masked attention
      L a tick, flash L a pass, no DRQ kernel; BLOCKWISE_MODE:
      blockwise packed 73 a tick or pass, live-prefix attention 18 a tick,
-     flash 18 a pass);
+     flash 18 a pass); DEFAULT_MODE's loaded graph then served again with
+     attn_compute bf16 and int8 (default_mode_servers: the masked attention
+     in the mode, as many launches as the f32 server's);
   5. card against CPU: the decode step at batch 8 with the decode block
      off (18 layers) and on (4 layers; the block is one op) and the int4g
      step (4 layers), and the server's first prefill pass and decode tick
@@ -138,9 +146,12 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      tolerance); and the decode step at FUSION_CPU_LAYERS layers with the
      attention block and with the norm fusion (the norm-fused FCs within
      int_weights_tolerance, the epilogue's rows by EPILOGUE_ROW_RTOL); and
-     the decode step with the block at FUSION_CPU_LAYERS layers in each
-     compute mode (the context rows by ATTN_MODE_ROW_RTOL, at most
-     ATTN_MODE_ROWS_OFF of them beyond 1e-5 in a layer).
+     the decode step at FUSION_CPU_LAYERS layers in each of MODE_SETTINGS
+     (the block, the splice and the attention block in each compute mode:
+     the context rows, and the epilogue's, by ATTN_MODE_ROW_RTOL, at most
+     ATTN_MODE_ROWS_OFF of them beyond 1e-5 in a layer), and DEFAULT_MODE's
+     server pass and tick in each compute mode (the masked attention's
+     context by the same rule).
 
 Its last lines: the `kernels` JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
@@ -1980,27 +1991,95 @@ def qkv_kernel(torch, port, cfg, dev, timer, gen):
       'decode': {key: rows[1][key] for key in timing}, 'by_shape': rows}
 
 
+OPROJ_SCALES = (0.06, 0.06, 3.0, -2.0)   # k_scale, v_scale, zp_k, zp_v
+
+
+def oproj_case(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute,
+               label):
+  """One epilogue call (#19) against its plain version: given #7's context
+  in `compute` (the lengths kernel, which the epilogue's first launch
+  is), the projection and the residual are the plain version's bit for
+  bit (DRQ) or within int_qmatmul.int_weights_tolerance over K = G*H and,
+  at bf16, one bf16 ulp of the projection (rounded before the add) and
+  one of y beyond it (weight-only). End to end against the plain version
+  the largest error is reported and held to 1e-2 of max |y| (its
+  attention sums in another f32 order, so a DRQ code of the context can
+  flip; a wrong head, pairing or scale moves it by far more). In a
+  compute mode #7's context is also held to its plain version
+  (mode_ctx_check), and in int8 (whose context equals the plain one bit
+  for bit) the DRQ output end to end bit for bit. Returns the check's
+  record; raises beyond these rules."""
+  pq, iq, att = port['packed_qmatmul'], port['int_qmatmul'], port['attention']
+  k_scale, v_scale, zp_k, zp_v = OPROJ_SCALES
+  b, _, G, H = q.shape
+  cast = xi.dtype
+  bf16 = torch.bfloat16
+  args = (q, kc, vc, k_scale, v_scale, lengths, xi, wo, so, zp_k, zp_v,
+          compute, drq)
+  got = att.decode_attention_oproj(*args)
+  want = att.decode_attention_oproj_plain(*args)
+  ctx = att.decode_attention_int8_lengths(
+      q.to(cast), kc, vc, k_scale, v_scale, lengths, zp_k, zp_v,
+      compute=compute, out_dtype=cast).reshape(b, G * H)
+  proj = (pq.qmatmul_int4_packed_drq_plain if drq
+          else pq.qmatmul_int4_packed_plain)
+  o = proj(ctx, wo, so)
+  given = xi + o
+  sync()
+  ymax = float(torch.max(torch.abs(want.float())))
+  err = float(torch.max(torch.abs(got.float() - want.float())))
+  err_given = float(torch.max(torch.abs(got.float() - given.float())))
+  tol = 0.0 if drq else iq.int_weights_tolerance(G * H, 0, ymax)
+  # At bf16 the projection is rounded before the residual add, so its own
+  # ulp (larger than y's where x_res cancels it) carries.
+  atol = tol + torch.exp2(torch.floor(torch.log2(torch.clamp_min(
+      torch.abs(o.float()), 2.0**-126))) - 7) if cast == bf16 else tol
+  ulps = bf16_ulps(torch, got, given, atol=atol) \
+      if cast == bf16 and not drq else None
+  ok_given = (err_given == 0.0) if drq else (
+      ulps <= 1.0 if ulps is not None else err_given <= tol)
+  exact = compute == 'int8' and drq
+  if (not ok_given or not err <= 1e-2 * ymax or got.dtype != cast
+      or (exact and err != 0.0)):
+    raise AssertionError(
+        f'attention epilogue {label} ({cast}, drq {drq}, {compute}): err '
+        f'given #7\'s context {err_given} (tolerance {tol}, bf16 ulps beyond '
+        f'it {ulps}), err end to end {err}, max |y| {ymax}')
+  check = {'lengths': int(lengths[0]), 'x': str(cast).split('.')[-1],
+           'drq': drq, 'max_abs_err_given_ctx': err_given,
+           'max_abs_err': err, 'max_abs_y': ymax, 'bf16_ulps_beyond': ulps}
+  if compute != 'f32':
+    ctx32 = att.decode_attention_int8_lengths(
+        q.to(cast), kc, vc, k_scale, v_scale, lengths, zp_k, zp_v,
+        compute=compute)
+    plain32 = att.decode_attention_int8_lengths_plain(
+        q.to(cast), kc, vc, k_scale, v_scale, lengths, zp_k, zp_v,
+        compute=compute)
+    sync()
+    c_err, off, n = mode_ctx_check(torch, ctx32, plain32, compute, v_scale,
+                                   zp_v, f'epilogue context {label}')
+    if compute == 'int8' and c_err != 0.0:
+      raise AssertionError(f'epilogue context {label} int8: err {c_err}, '
+                           'not bit for bit')
+    check.update(ctx_max_abs_err=c_err, ctx_rows_beyond_fine=off,
+                 ctx_rows=n)
+  return check
+
+
 def oproj_kernel(torch, port, cfg, dev, timer, gen):
   """The attention + out projection + residual epilogue (#19) against its
   plain version at bench.py's decode shape (B BENCH_B, S 1024, one KV head,
   G 8, H 256, D 2048) and at B B, lengths BENCH_START + 1 = 897 (the bench
-  step's), 0, 1 and S, bf16 and f32 x_res, DRQ on and off. The kernel's
-  attention is the lengths kernel (#7); given #7's context the projection
-  and the residual are the plain version's bit for bit (DRQ) or within
-  int_qmatmul.int_weights_tolerance over K = G*H and, at bf16, one bf16
-  ulp of the projection (rounded before the add) and one of y beyond it
-  (weight-only). End to end against the plain version (its attention
-  sums in another f32 order, so a DRQ code of the context can flip) the
-  largest error is reported and held to 1e-2 of max |y| (a wrong head,
-  pairing or scale moves it by far more). Timed at BENCH_B, lengths 897,
-  DRQ, bf16, beside the unfused route: #7, #1 and the residual ADD.
-  NK 2 and odd G raise ValueError on the card and launch nothing."""
-  pq, iq, att = port['packed_qmatmul'], port['int_qmatmul'], port['attention']
+  step's), 0, 1 and S, bf16 and f32 x_res, DRQ on and off, by oproj_case's
+  rules. Timed at BENCH_B, lengths 897, DRQ, bf16, beside the unfused
+  route: #7, #1 and the residual ADD. NK 2 and odd G raise ValueError on
+  the card and launch nothing."""
+  pq, att = port['packed_qmatmul'], port['attention']
   D, NK, H, S = cfg.embed_dim, cfg.num_kv_heads, cfg.head_dim, \
       cfg.max_seq_len
   G = cfg.num_query_heads // NK
   bf16 = torch.bfloat16
-  k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
+  k_scale, v_scale, zp_k, zp_v = OPROJ_SCALES
   wo = pq.pack_int4_split(torch.randint(-8, 8, (D, G * H), generator=gen,
                                         device=dev).to(torch.int8))
   so = torch.rand((D,), generator=gen, device=dev) * 0.01 + 0.005
@@ -2014,43 +2093,9 @@ def oproj_kernel(torch, port, cfg, dev, timer, gen):
     for n_live in (BENCH_START + 1, 0, 1, S):
       lengths = torch.full((b,), n_live, dtype=torch.int32, device=dev)
       for xi in (x, x.float()):
-        cast = xi.dtype
         for drq in (True, False):
-          args = (q, kc, vc, k_scale, v_scale, lengths, xi, wo, so, zp_k,
-                  zp_v, 'f32', drq)
-          got = att.decode_attention_oproj(*args)
-          want = att.decode_attention_oproj_plain(*args)
-          ctx = att.decode_attention_int8_lengths(
-              q.to(cast), kc, vc, k_scale, v_scale, lengths, zp_k, zp_v,
-              out_dtype=cast).reshape(b, G * H)
-          proj = (pq.qmatmul_int4_packed_drq_plain if drq
-                  else pq.qmatmul_int4_packed_plain)
-          o = proj(ctx, wo, so)
-          given = xi + o
-          sync()
-          ymax = float(torch.max(torch.abs(want.float())))
-          err = float(torch.max(torch.abs(got.float() - want.float())))
-          err_given = float(torch.max(torch.abs(got.float()
-                                                - given.float())))
-          tol = 0.0 if drq else iq.int_weights_tolerance(G * H, 0, ymax)
-          # At bf16 the projection is rounded before the residual add, so
-          # its own ulp (larger than y's where x_res cancels it) carries.
-          atol = tol + torch.exp2(torch.floor(torch.log2(torch.clamp_min(
-              torch.abs(o.float()), 2.0**-126))) - 7) if cast == bf16 else tol
-          ulps = bf16_ulps(torch, got, given, atol=atol) \
-              if cast == bf16 and not drq else None
-          ok_given = (err_given == 0.0) if drq else (
-              ulps <= 1.0 if ulps is not None else err_given <= tol)
-          if not ok_given or not err <= 1e-2 * ymax or got.dtype != cast:
-            raise AssertionError(
-                f'attention epilogue {phase} L {n_live} ({cast}, drq {drq}): '
-                f'err given #7\'s context {err_given} (tolerance {tol}, bf16 '
-                f'ulps beyond it {ulps}), err end to end {err}, max |y| '
-                f'{ymax}')
-          checks.append({'lengths': n_live, 'x': str(cast).split('.')[-1],
-                         'drq': drq, 'max_abs_err_given_ctx': err_given,
-                         'max_abs_err': err, 'max_abs_y': ymax,
-                         'bf16_ulps_beyond': ulps})
+          checks.append(oproj_case(torch, port, q, kc, vc, lengths, xi, wo,
+                                   so, drq, 'f32', phase))
     lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32,
                          device=dev)
     args = (q, kc, vc, k_scale, v_scale, lengths, x, wo, so, zp_k, zp_v)
@@ -2175,10 +2220,13 @@ def mode_ctx_check(torch, got, want, compute, v_scale, zp_v, label,
 
 def compute_mode_kernels(torch, port, cfg, dev, timer, gen, results):
   """The stale attention (#2, at B and at bench.py's decode), the lengths
-  attention (#7, the server's tick) and the decode block (#5, bench.py's
-  step) in the bf16 and int8 compute modes against their plain versions
-  on the same inputs (mode_ctx_check; the block's new-row codes, pools and
-  x_ffn as in f32, bit for bit and within 1e-6), each timed beside its
+  attention (#7, the server's tick), the decode block (#5, bench.py's
+  step), the masked attention (#17, masked_mode_rows), the splice
+  attention (#8, writeback_mode_rows) and the epilogue (#19,
+  oproj_mode_rows) in the bf16 and int8 compute modes against their plain
+  versions on the same inputs (mode_ctx_check, and every int8 context bit
+  for bit; the block's new-row codes, pools and x_ffn as in f32, bit for
+  bit and within 1e-6; #8's pools bit for bit), each timed beside its
   plain version; the bound takes the mode's operations at the peak rate
   of its operands' type. Each row lands in `modes` of the kernel's f32
   entry in `results`."""
@@ -2203,6 +2251,9 @@ def compute_mode_kernels(torch, port, cfg, dev, timer, gen, results):
       sync()
       err, off, n = mode_ctx_check(torch, got, want, mode, v_scale, zp_v,
                                    f'{name} {label}')
+      if mode == 'int8' and err != 0.0:
+        raise AssertionError(f'{name} {label} int8: err {err}, not bit for '
+                             'bit')
       rows[mode] = {
           'max_abs_err': err, 'rows_beyond_fine': off, 'rows': n,
           'ms': timer(lambda: kern(*args, **kwm)),
@@ -2323,6 +2374,165 @@ def compute_mode_kernels(torch, port, cfg, dev, timer, gen, results):
     log(f'kernel fused_mlp_qkv_attention bench step {mode} ok: codes equal, '
         f'x_ffn err {x_err:.3g}, ctx err {err:.3g} ({off} of {n} rows beyond '
         f'5e-5); {ms:.3f} ms (plain {plain_ms:.3f})')
+
+  masked_mode_rows(torch, att, cfg, dev, by_name, randint, attn_rows, gen)
+  writeback_mode_rows(torch, att, cfg, dev, timer, by_name, randint, gen)
+  oproj_mode_rows(torch, port, cfg, dev, timer, by_name, randint, gen)
+
+
+def masked_mode_rows(torch, att, cfg, dev, by_name, randint, attn_rows, gen):
+  """#17 in bf16 and int8 at the default-mode server's tick (B 64) and at
+  bench.py's batch (B 256), S 1024, zero points 3 and -2: the graph's
+  [B, 1, 1, S] prefix mask with rows of one column, of S and of none (an
+  idle server slot, -1e9 everywhere: uniform weights, in int8 every code
+  rint(127 / 1024) = 0, so ctx = -zp_v * v_scale), and at B 64 a non-prefix
+  [B, 1, G, S] mask with one query row hidden everywhere; attn_rows'
+  rules. Timed on each mask; the bound counts every
+  cache row (the mask decides)."""
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  row = by_name['decode_attention_int8_masked']
+  kw = dict(k_zero_point=3.0, v_zero_point=-2.0)
+  for label, b in (('decode', B), ('bench', BENCH_B)):
+    q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kc, vc = randint(b, NK, S, H), randint(b, NK, S, H)
+    lengths = torch.randint(1, S + 1, (b,), generator=gen, device=dev)
+    lengths[0], lengths[1], lengths[2] = 1, S, 0
+    prefix = torch.where(torch.arange(S, device=dev)[None, :]
+                         < lengths[:, None], 0.0, -1e9).reshape(b, 1, 1, S)
+    masks = {'prefix_row': prefix}
+    if b == B:
+      holes = torch.where(torch.rand((b, 1, G, S), generator=gen, device=dev)
+                          < 0.4, -1e9, 0.0)
+      holes[0, 0, 1] = -1e9  # one query row hidden everywhere: uniform
+      masks['nonprefix'] = holes
+    for mname, mask in masks.items():
+      nbytes = (q.numel() * 2 + kc.numel() + vc.numel() + mask.numel() * 4
+                + q.numel() * 4)
+      rows = attn_rows(row['name'], att.decode_attention_int8_masked,
+                       att.decode_attention_int8_masked_plain,
+                       (q, kc, vc, 0.06, 0.06, mask), kw, nbytes,
+                       4 * b * NK * G * S * H, f'{label} {mname}')
+      for mode, r in rows.items():
+        r.update(B=b, mask=mname, mask_shape=list(mask.shape))
+        row.setdefault('modes', {}).setdefault(mode, {})[
+            f'{label} {mname}'] = r
+
+
+def writeback_mode_rows(torch, att, cfg, dev, timer, by_name, randint, gen):
+  """#8 in bf16 and int8 at bench.py's decode shape (B 256, S 1024, pos
+  896): lengths 897, a shorter row (876) and a zero-length one (every row
+  at 1/S, the spliced one among them; in int8 every code 0 at S 1024).
+  Each side on its own copies of the pools: both pools bit for bit and
+  written in place; the context (f32 out) by mode_ctx_check, int8 bit for
+  bit, the bf16 out (the executor's) int8 bit for bit too. Timed at
+  lengths 897 with bf16 out, as the f32 row."""
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  b, bf16 = BENCH_B, torch.bfloat16
+  row = by_name['decode_attention_int8_lengths_writeback']
+  k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
+  q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
+  kc, vc = randint(b, NK, S, H), randint(b, NK, S, H)
+  kn, vn = randint(b, NK, 1, H), randint(b, NK, 1, H)
+  p = torch.tensor([BENCH_START], dtype=torch.int32, device=dev)
+  lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32, device=dev)
+  checked = lengths.clone()
+  checked[1], checked[2] = BENCH_START - 20, 0
+  live = NK * b * (BENCH_START + 1)
+  nbytes = q.numel() * 2 + 2 * live * H + 4 * kn.numel() + q.numel() * 2
+  for mode in COMPUTE_MODES:
+    errs = {}
+    for out_dtype in (torch.float32, bf16):
+      gk, gv, wk, wv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+      args = (k_scale, v_scale, checked, kn, vn, p)
+      kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=out_dtype,
+                compute=mode)
+      got, ko, vo = att.decode_attention_int8_lengths_writeback(
+          q, gk, gv, *args, **kw)
+      want, _, _ = att.decode_attention_int8_lengths_writeback_plain(
+          q, wk, wv, *args, **kw)
+      sync()
+      if (ko.data_ptr(), vo.data_ptr()) != (gk.data_ptr(), gv.data_ptr()) \
+          or not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+        raise AssertionError(f'splice attention {mode}: pools differ from '
+                             'the plain version or not in place')
+      if out_dtype == torch.float32:
+        errs['max_abs_err'], errs['rows_beyond_fine'], errs['rows'] = \
+            mode_ctx_check(torch, got, want, mode, v_scale, zp_v,
+                           'splice attention bench')
+      else:
+        errs['bf16_out_max_abs_err'] = float(torch.max(torch.abs(
+            got.float() - want.float())))
+    if mode == 'int8' and (errs['max_abs_err'] or
+                           errs['bf16_out_max_abs_err']):
+      raise AssertionError(f'splice attention int8: {errs}, not bit for bit')
+    gk, gv = kc.clone(), vc.clone()
+    targs = (q, gk, gv, k_scale, v_scale, lengths, kn, vn, p)
+    tkw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=bf16,
+               compute=mode)
+    b_ms, b_by = bound(nbytes, 4 * G * H * live, MODE_OPS_PER_S[mode])
+    r = row.setdefault('modes', {})[mode] = {
+        **errs, 'pools_equal': True, 'B': b, 'live_rows': live,
+        'ms': timer(lambda: att.decode_attention_int8_lengths_writeback(
+            *targs, **tkw)),
+        'plain_ms': timer(
+            lambda: att.decode_attention_int8_lengths_writeback_plain(
+                *targs, **tkw)),
+        'bound_ms': b_ms, 'bound_by': b_by}
+    log(f'kernel decode_attention_int8_lengths_writeback bench {mode} ok: '
+        f'pools equal, err {r["max_abs_err"]:.3g} ({r["rows_beyond_fine"]} '
+        f'of {r["rows"]} rows beyond {MODE_RTOL:g}); {r["ms"]:.4f} ms (plain '
+        f'{r["plain_ms"]:.4f}, bound {b_ms:.4f})')
+
+
+def oproj_mode_rows(torch, port, cfg, dev, timer, by_name, randint, gen):
+  """#19 in bf16 and int8 by oproj_case's rules: at bench.py's decode
+  (B 256, DRQ, bf16 x) and at B 64 weight-only (bf16 x), lengths 897 and
+  0; timed at 897. The bound takes the attention's operations at the
+  mode's peak and the projection's at the int8 (DRQ) or bf16 (weight-only)
+  peak."""
+  pq, att = port['packed_qmatmul'], port['attention']
+  D, NK, H, S = cfg.embed_dim, cfg.num_kv_heads, cfg.head_dim, \
+      cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  bf16 = torch.bfloat16
+  k_scale, v_scale, zp_k, zp_v = OPROJ_SCALES
+  row = by_name['decode_attention_oproj']
+  wo = pq.pack_int4_split(torch.randint(-8, 8, (D, G * H), generator=gen,
+                                        device=dev).to(torch.int8))
+  so = torch.rand((D,), generator=gen, device=dev) * 0.01 + 0.005
+  for label, b, drq in (('bench drq', BENCH_B, True),
+                        ('decode weight-only', B, False)):
+    q = torch.randn((b, 1, G, H), generator=gen, device=dev).to(bf16)
+    kc, vc = randint(b, 1, S, H), randint(b, 1, S, H)
+    x = torch.randn((b, D), generator=gen, device=dev).to(bf16)
+    lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32,
+                         device=dev)
+    live = b * (BENCH_START + 1)
+    nbytes = (b * G * H * 2 + 2 * live * H + b * 4 + b * D * 2
+              + D * G * H // 2 + D * 4 + b * D * 2)
+    for mode in COMPUTE_MODES:
+      checks = [oproj_case(torch, port, q, kc, vc, lens, x, wo, so, drq,
+                           mode, label)
+                for lens in (lengths, torch.zeros_like(lengths))]
+      args = (q, kc, vc, k_scale, v_scale, lengths, x, wo, so, zp_k, zp_v,
+              mode, drq)
+      b_ms, b_by = bound(nbytes, 4 * G * H * live, MODE_OPS_PER_S[mode],
+                         2 * b * D * G * H,
+                         INT8_OPS_PER_S if drq else BF16_OPS_PER_S)
+      r = row.setdefault('modes', {}).setdefault(mode, {})[label] = {
+          'B': b, 'drq': drq, 'live_rows': live, 'checks': checks,
+          'max_abs_err': max(c['max_abs_err'] for c in checks),
+          'ctx_max_abs_err': max(c['ctx_max_abs_err'] for c in checks),
+          'ms': timer(lambda: att.decode_attention_oproj(*args)),
+          'plain_ms': timer(lambda: att.decode_attention_oproj_plain(*args),
+                            reps=5),
+          'bound_ms': b_ms, 'bound_by': b_by}
+      log(f'kernel decode_attention_oproj {label} {mode} ok: err '
+          f'{r["max_abs_err"]:.3g}, ctx err {r["ctx_max_abs_err"]:.3g}; '
+          f'{r["ms"]:.4f} ms (plain {r["plain_ms"]:.4f}, bound {b_ms:.4f})')
 
 
 def int8_basic_kernel(torch, port, cfg, dev, timer, gen):
@@ -2963,7 +3173,8 @@ def bench_tokens(torch, cfg, dev):
 # fold into the QKV and gate/up FCs; a norm-fed chain forms no MLP unit,
 # so no block unit either); then bench.py's own settings with
 # AEQT_ATTN_COMPUTE=bf16 and =int8 (the block's and the stale attention's
-# compute mode).
+# compute mode), and the splice and attention-block settings in each mode
+# (#8 and #19 in the mode).
 BENCH_SETTINGS = {
     'block on': dict(decode_block=True),
     'block off': dict(decode_block=False),
@@ -2973,10 +3184,19 @@ BENCH_SETTINGS = {
     'attn block': dict(attn_block=True),
     'norm fusion': dict(norm_fusion=True),
     'attn bf16': dict(decode_block=True, attn_compute='bf16'),
-    'attn int8': dict(decode_block=True, attn_compute='int8')}
+    'attn int8': dict(decode_block=True, attn_compute='int8'),
+    'splice bf16': dict(decode_block=False, attn_writeback='splice',
+                        attn_compute='bf16'),
+    'splice int8': dict(decode_block=False, attn_writeback='splice',
+                        attn_compute='int8'),
+    'attn block bf16': dict(attn_block=True, attn_compute='bf16'),
+    'attn block int8': dict(attn_block=True, attn_compute='int8')}
 # The settings above that only change the attention's compute mode
-# (AEQT_ATTN_COMPUTE) with bench.py's own options (the block on).
-MODE_SETTINGS = ('attn bf16', 'attn int8')
+# (AEQT_ATTN_COMPUTE), each with the f32 setting it is compared with.
+MODE_SETTINGS = {'attn bf16': 'block on', 'attn int8': 'block on',
+                 'splice bf16': 'splice', 'splice int8': 'splice',
+                 'attn block bf16': 'attn block',
+                 'attn block int8': 'attn block'}
 
 
 def bench_decode_phase(torch, port, kernels, cfg, dev):
@@ -3017,8 +3237,8 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
                       'qmatmul_int4_packed_drq': layers,
                       'qmatmul_int4_packed_drq_kblock': layers,
                       'head_argmax': 1}}
-  for label in MODE_SETTINGS:
-    per_step[label] = per_step['block on']
+  for label, base in MODE_SETTINGS.items():
+    per_step[label] = per_step[base]
   results, ids = {}, {}
   for label, options in BENCH_SETTINGS.items():
     ex = executor.GraphExecutor(graph, device=dev,
@@ -3048,11 +3268,11 @@ def bench_decode_phase(torch, port, kernels, cfg, dev):
       f'{same}')
   results['ids_equal_share'] = same.pop('block on')
   results['ids_equal_share_vs_block_off'] = same
-  # The compute modes against the same setting in f32 (the block on).
+  # The compute modes against the same setting in f32.
   results['ids_equal_share_vs_f32'] = {
-      label: float(torch.mean((ids[label] == ids['block on']).float()))
-      for label in MODE_SETTINGS}
-  log(f'bench decode: ids equal to the block on\'s at f32 attention by '
+      label: float(torch.mean((ids[label] == ids[base]).float()))
+      for label, base in MODE_SETTINGS.items()}
+  log(f'bench decode: ids equal to the same setting\'s at f32 attention by '
       f'compute mode: {results["ids_equal_share_vs_f32"]}')
   return results
 
@@ -3575,11 +3795,52 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
                     export_s=export_s, aeqg_bytes=size, load_s=load_s,
                     server_setup_s=setup_s, units=units)
       results[recipe] = served
-      del server, ex, loaded
+      del server, ex
+      if recipe == DEFAULT_MODE:
+        results.update(default_mode_servers(
+            torch, port, kernels, cfg_r, dev, loaded, served, n_requests,
+            slots))
+      del loaded
       gc.collect()
       os.remove(path)  # one full-depth .aeqg at a time on the disk
       torch.cuda.empty_cache()
   return results
+
+
+def default_mode_servers(torch, port, kernels, cfg, dev, loaded, f32_served,
+                         n_requests=SERVE_REQUESTS, slots=B):
+  """DEFAULT_MODE's loaded graph (quantized and loaded once, by
+  quantizer_phase) served again with {**JAX_DEFAULT_OPTIONS,
+  'attn_compute': mode} for each of COMPUTE_MODES: serve_load's requests,
+  launches by quantized_launches (the masked attention #17, in the mode,
+  L a tick), and #17's launches equal to the f32 default-mode server's of
+  the same run (`f32_served`: the same requests, so the same ticks).
+  Returns {'<DEFAULT_MODE> attn <mode>': serve_load's result}."""
+  defaults = port['executor'].JAX_DEFAULT_OPTIONS
+  name = 'decode_attention_int8_masked'
+  out = {}
+  for mode in COMPUTE_MODES:
+    label = f'{DEFAULT_MODE} attn {mode}'
+    t0 = time.monotonic()
+    server = port['batching'].DecodeServer(
+        loaded, cfg, slots, pack_weights=True, activation_dtype='bfloat16',
+        device=dev, executor_options={**defaults, 'attn_compute': mode})
+    sync()
+    setup_s = time.monotonic() - t0
+    served = serve_load(torch, server, kernels, cfg, dev, f'quantized {label}',
+                        quantized_launches(DEFAULT_MODE, cfg.num_layers),
+                        n_requests, slots)
+    if served['launches'][name] != f32_served['launches'][name]:
+      raise AssertionError(f'{label}: {served["launches"][name]} launches of '
+                           f'{name}, the f32 server '
+                           f'{f32_served["launches"][name]}')
+    served.update(layers=cfg.num_layers, server_setup_s=setup_s,
+                  attn_compute=mode)
+    out[label] = served
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
 
 
 def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
@@ -3624,6 +3885,18 @@ def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
                                     if recipe.endswith('_hr') else set())
     if not need <= kinds:
       raise AssertionError(f'{recipe}: no {need - kinds} op held')
+    if recipe == DEFAULT_MODE:
+      # The same graph in each compute mode: the tick's masked attention
+      # (#17) in the mode, held by OpByOp's rule for a mode's context rows.
+      defaults = port['executor'].JAX_DEFAULT_OPTIONS
+      for mode in COMPUTE_MODES:
+        label = f'{DEFAULT_MODE} attn {mode}'
+        r = out[label] = server_cpu_phase(
+            torch, port, cfg_l, dev, graph=quantized,
+            label=f'quantized {label} card-vs-cpu',
+            executor_options={**defaults, 'attn_compute': mode})
+        if 'decode/BATCH_MATMUL' not in r['worst_rel_err_by_opcode']:
+          raise AssertionError(f'{label}: no masked attention held')
     del quantized
     gc.collect()
   return out
@@ -3686,7 +3959,8 @@ class OpByOp:
   probabilities' operands rounded the other way (a bf16 step or an int8
   code): such a row must stay within ATTN_MODE_ROW_RTOL of the mode, one
   context may hold at most ATTN_MODE_ROWS_OFF of them, and
-  `mode_rows_off` counts them.
+  `mode_rows_off` counts them; an epilogue's output in a compute mode is
+  held by that rule too (its context's rows move its rows).
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None,
@@ -3704,7 +3978,8 @@ class OpByOp:
     self.mode_outs = set()
     if self.mode_rtol is not None:
       self.mode_outs = ({f['out'] for f in ex._attn_fusions.values()}
-                        | {f['ctx_out'] for f in ex._block_fusions.values()})
+                        | {f['ctx_out'] for f in ex._block_fusions.values()}
+                        | self.epilogue_outs)
     self.mode_rows_off = 0
     self.seen, self.worst, self.id_diffs, self.flips = [], {}, [], {}
     self.fine_share = 0.0
@@ -3936,10 +4211,12 @@ def server_cpu_phase(torch, port, cfg, dev, kv_int4_group=0, graph=None,
   log(f'{label} ok: first prefill pass and decode tick op by op, '
       f'largest relative error by opcode {worst}; ids that differ '
       f'{len(card_watch.id_diffs)}; int4g ctx share beyond '
-      f'{INT4G_FINE_RTOL:g} {card_watch.fine_share:.4g}')
+      f'{INT4G_FINE_RTOL:g} {card_watch.fine_share:.4g}; compute-mode context '
+      f'rows beyond 1e-5 {card_watch.mode_rows_off}')
   return {'worst_rel_err_by_opcode': card_watch.worst,
           'id_diffs': len(card_watch.id_diffs),
-          'int4g_ctx_share_beyond_fine': card_watch.fine_share}
+          'int4g_ctx_share_beyond_fine': card_watch.fine_share,
+          'mode_rows_beyond_1e-5': card_watch.mode_rows_off}
 
 
 def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
@@ -3972,9 +4249,12 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   options on top of bench.py's, at start_pos BENCH_START over random int8
   caches: no block unit forms; each layer's prologue and epilogue, or its
   two norm-fused FCs, must have been held (OpByOp's rules); or one of
-  MODE_SETTINGS (with decode_block=True): bench.py's options in a compute
-  mode, a block unit in each layer but the first, held by OpByOp's rule
-  for a compute mode's context rows.
+  MODE_SETTINGS, its f32 setting in a compute mode (decode_block=True for
+  'block on''s: a block unit in each layer but the first), its attention
+  contexts (and the epilogue's outputs) held by OpByOp's rule for a
+  compute mode's context rows. The splice settings write each layer's new
+  rows into `inputs`' pools on the CPU run; the card's run reads its own
+  copies, and the rows written are the ones the kernel splices anyway.
   """
   gemma, executor, head = port['gemma'], port['executor'], port['head']
   cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
@@ -4023,9 +4303,9 @@ def cpu_phase(torch, port, cfg, dev, decode_block=False, kv_int4_group=0,
   units = len(card.ex._block_fusions)
   held = {'attn block': ('decode/QKV prologue', 'decode/attention epilogue'),
           'norm fusion': ('decode/FC int4 norm-fused',),
-          'attn bf16': ('decode/BATCH_MATMUL', 'decode/FUSED_BLOCK'),
-          'attn int8': ('decode/BATCH_MATMUL', 'decode/FUSED_BLOCK')}.get(
-              setting, ())
+          'block on': ('decode/BATCH_MATMUL', 'decode/FUSED_BLOCK'),
+          'splice': ('decode/BATCH_MATMUL',)}.get(
+              MODE_SETTINGS.get(setting, setting), ())
   if units != (cfg.num_layers - 1 if decode_block else 0) or (
       decode_block and 'decode/FUSED_BLOCK' not in card.worst) or (
           kv_int4_group and 'decode/INT4G_ATTENTION' not in card.worst) or (
@@ -4123,6 +4403,17 @@ def block_on_off_phase(torch, port, cfg, dev, layers=4, batch=8, steps=4):
   return {'layers': layers, 'batch': batch, 'steps': steps,
           'id_diffs': id_diffs, 'cache_code_diffs': code_diffs,
           'cache_max_code_diff': max_diff}
+
+
+# The path of launches_by_path that runs each kernel in a compute mode
+# ('{}' the mode), for the kernels line's launches_by_mode.
+MODE_PATHS = {
+    'decode_attention_int8_lengths_stale': 'bench_decode_attn_{}',
+    'fused_mlp_qkv_attention': 'bench_decode_attn_{}',
+    'decode_attention_int8_lengths': 'server_attn_{}',
+    'decode_attention_int8_masked': f'server_{DEFAULT_MODE}_attn_{{}}',
+    'decode_attention_int8_lengths_writeback': 'bench_decode_splice_{}',
+    'decode_attention_oproj': 'bench_decode_attn_block_{}'}
 
 
 def main():
@@ -4231,6 +4522,13 @@ def main():
         f'{r["chunk_ms"]:.3f} ms (idle {r["chunk_idle_share"]:.3f}); quantize '
         f'{r["quantize_s"]:.1f}s, export {r["export_s"]:.1f}s, load '
         f'{r["load_s"]:.1f}s, .aeqg {r["aeqg_bytes"]} bytes')
+  for mode in COMPUTE_MODES:
+    r = quant[f'{DEFAULT_MODE} attn {mode}']
+    log(f'quantized {DEFAULT_MODE} server attn {mode} ({r["layers"]} layers) '
+        f'on {smi}: {r["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
+        f'{r["ttft_p50_ms"]:.1f} ms p99 {r["ttft_p99_ms"]:.1f} ms; chunk of '
+        f'{SERVE_CHUNK} ticks {r["chunk_ms"]:.3f} ms (idle '
+        f'{r["chunk_idle_share"]:.3f})')
   log(f'phase quantizer done at {time.monotonic() - t_start:.1f}s')
   if not args.skip_cpu:
     def done(label):
@@ -4247,10 +4545,10 @@ def main():
       bench[f'card_vs_cpu_{setting}'] = cpu_phase(
           torch, port, cfg, 'cuda', setting=setting, layers=FUSION_CPU_LAYERS)
       done(f'{setting} step')
-    for setting in MODE_SETTINGS:
+    for setting, base in MODE_SETTINGS.items():
       bench[f'card_vs_cpu_{setting}'] = cpu_phase(
-          torch, port, cfg, 'cuda', decode_block=True, setting=setting,
-          layers=FUSION_CPU_LAYERS)
+          torch, port, cfg, 'cuda', decode_block=base == 'block on',
+          setting=setting, layers=FUSION_CPU_LAYERS)
       done(f'{setting} step')
     server['card_vs_cpu'] = server_cpu_phase(torch, port, cfg, 'cuda')
     done('server')
@@ -4278,13 +4576,20 @@ def main():
         'bench_decode_norm_fusion': bench_launches['norm fusion'],
         'bench_decode_attn_bf16': bench_launches['attn bf16'],
         'bench_decode_attn_int8': bench_launches['attn int8'],
+        'bench_decode_splice_bf16': bench_launches['splice bf16'],
+        'bench_decode_splice_int8': bench_launches['splice int8'],
+        'bench_decode_attn_block_bf16': bench_launches['attn block bf16'],
+        'bench_decode_attn_block_int8': bench_launches['attn block int8'],
         'server_attn_bf16': servers_mode['bf16']['launches'][k['name']],
         'server_attn_int8': servers_mode['int8']['launches'][k['name']],
         'ab_tool': entry.pop('launches_ab_tool'),
         'bench_decode_int4g': bench_launches['int4g'],
         'server_int4g': server4['launches'][k['name']],
         **{f'server_{recipe}': quant[recipe]['launches'][k['name']]
-           for recipe in QUANT_RECIPES}}
+           for recipe in QUANT_RECIPES},
+        **{f'server_{DEFAULT_MODE}_attn_{mode}':
+           quant[f'{DEFAULT_MODE} attn {mode}']['launches'][k['name']]
+           for mode in COMPUTE_MODES}}
     # The count of the path that runs the kernel (the stale kernel runs
     # only in the decode loops: the server's one-hot cache update leaves
     # no row write to fold into attention; the fused block only in the
@@ -4312,6 +4617,13 @@ def main():
                          or by_path['bench_decode_attn_block']
                          or by_path['bench_decode_norm_fusion']
                          or by_path['ab_tool'])
+    if k['name'] in MODE_PATHS:
+      entry['launches_by_mode'] = {
+          mode: by_path[MODE_PATHS[k['name']].format(mode)]
+          for mode in COMPUTE_MODES}
+      if not all(entry['launches_by_mode'].values()):
+        raise AssertionError(f'{k["name"]}: a compute mode never launched: '
+                             f'{entry["launches_by_mode"]}')
     entry['kernel_ms'] = entry['ms']
     entry['launches_per_step'] = entry.pop('per_step')
     line.append(entry)

@@ -357,26 +357,19 @@ def test_attention_oproj_matches_pallas(drq, dtype):
     assert _within(y, want, tol, bf16)
 
 
-@pytest.mark.parametrize('what', ['gqa', 'odd_g', 'compute'])
+@pytest.mark.parametrize('what', ['gqa', 'odd_g'])
 def test_attention_oproj_refuses_as_pallas(what):
-  """NK 2 and odd G raise ValueError, as the TPU wrapper does; compute
-  'bf16' raises NotImplementedError (f32 only, on both devices)."""
+  """NK 2 and odd G raise ValueError, as the TPU wrapper does."""
   q, kq, vq, lens, x, wo, so = _oproj_case(0)
   kw = dict(KW)
   if what == 'gqa':
     q = np.concatenate([q, q], axis=1)
     kq, vq = (np.concatenate([a, a], axis=1) for a in (kq, vq))
     jwant = pytest.raises(ValueError, match='MQA')
-  elif what == 'odd_g':
+  else:
     q = q[:, :, :3]
     jwant = pytest.raises(ValueError, match='even head count')
-  else:
-    kw['compute'] = 'bf16'
   args = (*SCALES, _t(lens), _t(x), _t(wo), _t(so))
-  if what == 'compute':
-    with pytest.raises(NotImplementedError):
-      OPROJ(_t(q), _t(kq), _t(vq), *args, **kw)
-    return
   with jwant:
     pallas_attention.decode_attention_oproj_pallas(
         _j(q), _j(kq), _j(vq), *SCALES, _j(lens), _j(x), _j(wo), _j(so),

@@ -34,8 +34,8 @@ differences of the JAX executor off a TPU are named here, not hidden:
     executor (ids and caches); run in the mode, their contexts differ from
     f32 on the same inputs by at most MODE_VS_F32 of the largest
     magnitude, and by more than nothing.
-The routes whose CUDA bodies have no bf16 or int8 yet (the splice, masked
-and epilogue attentions) raise in those modes on the CPU as on the card.
+The splice, masked and epilogue attentions in the modes are held in
+tests/test_torch_port_attn_modes.py.
 """
 
 import dataclasses
@@ -278,14 +278,15 @@ def test_block_mode_matches_pallas(mode, pos, block_weights):
 
 
 class _Recorder:
-  """Wraps an attention wrapper: records, per call, the output in the
-  executor's mode and the f32 output on the same inputs (its plain
-  version); with `as_jax`, returns the f32 output (the JAX executor's
-  XLA twin off a TPU)."""
+  """Wraps an attention wrapper: records, per call, the mode it was asked
+  for, the output in that mode and the f32 output on the same inputs (its
+  plain version; a tuple output, the splice's, by its first element);
+  with `as_jax`, returns the f32 output (the JAX executor's XLA twin off
+  a TPU)."""
 
   def __init__(self, fn, plain, as_jax=False):
     self.fn, self.plain, self.as_jax = fn, plain, as_jax
-    self.pairs = []
+    self.pairs, self.modes = [], []
     self.calls = 0
 
   # The wrapper counts its runs under its module name, which is this
@@ -297,11 +298,13 @@ class _Recorder:
 
   def __call__(self, *args, **kw):
     self.calls += 1
+    self.modes.append(kw.get('compute'))
     f32 = self.plain(*args, **dict(kw, compute='f32'))
     if self.as_jax:
       return f32
     out = self.fn(*args, **kw)
-    self.pairs.append((out.float(), f32.float()))
+    first = (lambda o: o[0] if isinstance(o, tuple) else o)
+    self.pairs.append((first(out).float(), first(f32).float()))
     return out
 
   def largest_rel_diff(self):
@@ -475,33 +478,7 @@ def test_server_mode_ticks_differ_from_f32_within_bound(mode_servers,
   assert 0 < diff <= MODE_VS_F32[mode], diff
 
 
-# -- the routes that take no mode yet ---------------------------------------------
-
-
-@pytest.mark.parametrize('route,options', [
-    ('decode_attention_int8_lengths_writeback',
-     dict(decode_block=False, attn_writeback='splice')),
-    ('decode_attention_int8_masked', executor.JAX_DEFAULT_OPTIONS),
-    ('decode_attention_oproj', dict(attn_block=True, attn_qkv=False)),
-])
-@pytest.mark.parametrize('mode', MODES)
-def test_unported_routes_raise_in_a_mode(mode, route, options):
-  """On the CPU as on the card: the route names its kernel; f32 runs."""
-  jcfg, _, tgraph, (_, tweights) = attn_block_graphs('mqa128', True)
-  feed = dict(_random_caches(jcfg, 1), **attn_block_inputs(jcfg, 37, 0))
-  feed = {k: torch.from_numpy(np.array(v)) for k, v in feed.items()}
-  for compute in ('f32', mode):
-    tex = executor.GraphExecutor(tgraph, device='cpu',
-                                 activation_dtype='float32',
-                                 **dict(options, attn_compute=compute))
-    tex.load_weights(tweights)
-    tex.prepare_serving_weights(min_weight_params=0)
-    if compute == 'f32':
-      out = tex(dict(feed), 'decode')
-      assert 'next_tokens' in out
-      continue
-    with pytest.raises(NotImplementedError, match=route):
-      tex(dict(feed), 'decode')
+# -- the routes that take no mode ----------------------------------------------
 
 
 def test_live_prefix_route_takes_no_mode():

@@ -120,19 +120,6 @@ def test_masked_attention_matches_pallas(nk, kind):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize('compute', ['bf16', 'int8'])
-def test_masked_attention_ports_f32_only(compute):
-  """The TPU kernel's bf16 and int8 compute modes are not ported: the
-  wrapper raises on the CPU as on the card, and runs nothing."""
-  before = MASKED.plain_calls
-  with pytest.raises(NotImplementedError, match='f32'):
-    MASKED(torch.zeros((1, 1, 8, 128)), torch.zeros((1, 1, 128, 128),
-                                                   dtype=torch.int8),
-           torch.zeros((1, 1, 128, 128), dtype=torch.int8), 1.0, 1.0,
-           torch.zeros((1, 1, 8, 128)), compute=compute)
-  assert MASKED.plain_calls == before
-
-
 # -- the MLP's bf16 branch (#3, drq=False) at the path's group width ----------
 
 
