@@ -129,6 +129,21 @@ def check(status: int, kernel: str, shape: str = '') -> None:
     raise RuntimeError(f'{kernel}: CUDA error {status} at launch')
 
 
+PLAN_FIELDS = ('grid_x', 'grid_y', 'split', 'threads', 'smem_bytes',
+               'stages')
+
+
+def plan(lib: str, fn: str, kernel: str, m: int, n: int, k: int) -> dict:
+  """The launch a tensor-core matmul's C plan function gives M, N, K
+  (csrc/int8_tc_gemm.cuh `plan_fields`): grid, split-K factor (blocks of a
+  cluster), threads, shared memory and ring stages. Raises ValueError for
+  a shape the kernel does not take, before anything is allocated."""
+  fields = (ctypes.c_longlong * len(PLAN_FIELDS))()
+  f = entry(lib, fn, [I, I, I, P])
+  check(f(m, n, k, fields), kernel, f'M={m} N={n} K={k}')
+  return dict(zip(PLAN_FIELDS, fields))
+
+
 def stream_ptr(device) -> int:
   import torch
   return torch.cuda.current_stream(device).cuda_stream

@@ -111,7 +111,11 @@ def decode_attention_int8_lengths_stale_plain(
   m = torch.maximum(torch.amax(scores, dim=-1, keepdim=True), s_cur)
   p = torch.exp(scores - m)
   p_cur = torch.exp(s_cur - m)
-  denom = torch.sum(p, dim=-1, keepdim=True) + p_cur
+  if compute == 'int8':  # as _softmax_sum, the new row's term in the f64 sum
+    denom = (torch.sum(p.to(torch.float64), dim=-1, keepdim=True)
+             + p_cur.to(torch.float64)).to(torch.float32)
+  else:
+    denom = torch.sum(p, dim=-1, keepdim=True) + p_cur
   vf = v_cache_stale.to(torch.float32)
   vnf = v_new_q.to(torch.float32)
   if compute == 'int8':
@@ -217,6 +221,18 @@ def _mode_scores(qf, kf, zp_k, compute):
   return _qdot(qd, kf) - zp_k * torch.sum(qf, dim=-1, keepdim=True)
 
 
+def _softmax_sum(e, compute):
+  """The softmax denominator over the last axis: an f32 sum; in int8 an
+  f64 sum rounded once to f32, which does not depend on the order of the
+  sum (but for a tie of that rounding), so the probability codes
+  round(e / sum * 127) are the kernels' (`attention_common.cuh` SumT),
+  which sum in another order."""
+  if compute == 'int8':
+    return torch.sum(e.to(torch.float64), dim=-1, keepdim=True).to(
+        torch.float32)
+  return torch.sum(e, dim=-1, keepdim=True)
+
+
 def _mode_context(probs, vf, zp_v, v_scale, compute):
   """(probs . v - zp_v) * v_scale with the compute mode's probability
   operands: f32; bf16-rounded; int8 codes round(p * 127), the sum divided
@@ -248,7 +264,7 @@ def decode_attention_int8_lengths_plain(
   scores = torch.where(live, scores * ks, _NEG)
   scores = scores - torch.amax(scores, dim=-1, keepdim=True)
   probs = torch.exp(scores)
-  probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+  probs = probs / _softmax_sum(probs, compute)
   return _mode_context(probs, v_cache.to(torch.float32), float(v_zero_point),
                        v_scale, compute).to(out_dtype)
 
@@ -693,7 +709,7 @@ def decode_attention_int8_masked_plain(
   scores = scores + maskf
   scores = scores - torch.amax(scores, dim=-1, keepdim=True)
   probs = torch.exp(scores)
-  probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+  probs = probs / _softmax_sum(probs, compute)
   return _mode_context(probs, v_cache_q.to(torch.float32),
                        float(v_zero_point), v_scale, compute)
 

@@ -278,23 +278,40 @@ __device__ __forceinline__ float finish_ctx(float acc, float p_sum,
   return (acc - zp_v) * v_scale;
 }
 
+// The softmax denominator's accumulator: f32, and f64 in int8, where the
+// codes rint(e / sum * 127) hang on the sum's last bit. An f64 sum of the
+// f32 terms, rounded once to f32, does not depend on the order of the sum
+// (but for a tie of the f32 rounding, about one row in 10^9), so the
+// kernels and the plain versions (attention.py `_softmax_sum`), which sum
+// in other orders, give the same codes.
+template <int C>
+using SumT = typename std::conditional<C == kInt8, double, float>::type;
+
+template <typename T>
+__device__ __forceinline__ T warp_sum_t(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Softmax of one query row's n scores srow[0, n), in place, by one warp in
-// the TPU kernels' order: m = max(m0, max_j s), e = exp(s - m), their sum,
-// then each e replaced by its operand prob_operand<C>(e, sum). Returns, on
-// every lane, the sum of the operands (int8: the code sum, exact).
+// the TPU kernels' order: m = max(m0, max_j s), e = exp(s - m), their sum
+// (SumT<C>), then each e replaced by its operand prob_operand<C>(e, sum).
+// Returns, on every lane, the sum of the operands (int8: the code sum,
+// exact).
 template <int C>
 __device__ __forceinline__ float softmax_row(float* srow, int n, float m0,
                                              int lane) {
   float m = m0;
   for (int j = lane; j < n; j += 32) m = fmaxf(m, srow[j]);
   m = warp_max(m);
-  float sum = 0.0f;
+  SumT<C> acc = 0;
   for (int j = lane; j < n; j += 32) {
     const float e = expf(srow[j] - m);
     srow[j] = e;
-    sum = sum + e;
+    acc = acc + (SumT<C>)e;
   }
-  sum = warp_sum(sum);
+  const float sum = (float)warp_sum_t(acc);
   float ops = 0.0f;
   for (int j = lane; j < n; j += 32) {
     const float p = prob_operand<C>(srow[j], sum);
@@ -447,15 +464,15 @@ __device__ void stale_attention_row(float* sm, int G, int S, int H, int L,
     float m = s_cur;
     for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
     m = warp_max(m);
-    float sum = 0.0f;
+    SumT<C> sum = 0;
     for (int j = lane; j < L; j += 32) {
       const float p = expf(srow[j] - m);
       srow[j] = p;
-      sum = sum + p;
+      sum = sum + (SumT<C>)p;
     }
-    sum = warp_sum(sum);
+    sum = warp_sum_t(sum);
     const float p_cur = expf(s_cur - m);
-    const float denom = sum + p_cur;
+    const float denom = (float)(sum + (SumT<C>)p_cur);
     float codes = 0.0f;  // int8: the sum of the probability codes (exact)
     for (int j = lane; j < L; j += 32) {
       const float p = prob_operand<C>(srow[j], denom);

@@ -5,9 +5,10 @@ pallas_qmatmul.py`, which the executor reaches through the dispatchers
 `kernels.qmatmul.drq_matmul` and `kernels.qmatmul.qmatmul`:
 
   * `qmatmul_pallas_int8_drq` (`_int8_drq_kernel`) as `qmatmul_int8_drq`,
-    CUDA kernel `csrc/qmatmul_int8_drq.cu`: x quantized per row in the
-    kernel, int8 x int8 in exact int32, (acc * xs) * s (+ b). It equals its
-    plain version bit for bit: codes, sums and outputs.
+    CUDA kernel `csrc/qmatmul_int8_drq.cu` on the int8 tensor-core core
+    `csrc/int8_tc_gemm.cuh`: x quantized per row into int8 scratch, int8 x
+    int8 in exact int32 (wgmma), (acc * xs) * s (+ b). It equals its plain
+    version bit for bit: codes, sums and outputs.
   * `qmatmul_pallas` (`_channelwise_kernel`, `_blockwise_kernel`) as
     `qmatmul_int_weights`, CUDA kernel `csrc/qmatmul_int_weights.cu`: f32
     operands, each block's partial dot scaled and summed in block order in
@@ -76,12 +77,16 @@ def qmatmul_int8_drq(
     _build.require(bias.numel() == n, name, 'bias must have N entries')
   out = torch.empty((m, n), dtype=packed_qmatmul.compute_dtype(x),
                     device=x2.device)
+  xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+  xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
   fn = _build.entry('qmatmul_int8_drq', 'aeqt_qmatmul_int8_drq',
                     [_build.P, _build.I, _build.P, _build.P, _build.P,
-                     _build.P, _build.I, _build.I, _build.I, _build.P])
+                     _build.P, _build.P, _build.P, _build.I, _build.I,
+                     _build.I, _build.P])
   status = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), w_q.data_ptr(),
               scale.data_ptr(), None if bias is None else bias.data_ptr(),
-              out.data_ptr(), m, n, k, _build.stream_ptr(x2.device))
+              out.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+              m, n, k, _build.stream_ptr(x2.device))
   _build.check(status, name, f'M={m} N={n} K={k}')
   qmatmul_int8_drq.launches += 1
   return out.to(x.dtype).reshape(lead + (n,))

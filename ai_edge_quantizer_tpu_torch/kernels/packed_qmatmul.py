@@ -9,7 +9,8 @@ Pallas kernels over packed weights:
     route);
   * `qmatmul_pallas_int4_packed_drq_kblock` as
     `qmatmul_int4_packed_drq_kblock`, CUDA kernel
-    `csrc/qmatmul_int4_drq_kblock.cu` (DRQ with K > 8192);
+    `csrc/qmatmul_int4_drq_kblock.cu` on the int8 tensor-core core
+    `csrc/int8_tc_gemm.cuh` (DRQ with K > 8192);
   * `qmatmul_pallas_int4_packed` (weight-only, the JAX executor's default
     for packed FCs) as `qmatmul_int4_packed`, CUDA kernel
     `csrc/qmatmul_int4_weight_only.cu(h)`;

@@ -25,8 +25,11 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      int_qmatmul.int_weights_tolerance) at the quantized serving graph's
      shapes; the K-blocked int4 DRQ matmul bit for bit at the down
      projection's shapes (N 2048, K 16384, decode and prefill rows), M = 1,
-     an odd M and two small K, bf16 and f32 x, with and without a bias,
-     timed beside torch._int_mm; the kernels of the JAX executor's
+     17, an odd M and 200, N 200 and two small K, bf16 and f32 x, with and
+     without a bias, timed beside torch._int_mm; both DRQ matmuls (the
+     int8 tensor-core core) also at their edge shapes and twice in a row
+     on fresh inputs, with each shape's launch plan (grid, split-K, shared
+     memory) and ptxas' registers and spills logged; the kernels of the JAX executor's
      default mode (default_mode_kernels): the weight-only packed matmul at
      the QKV and out-projection shapes (decode, prefill and an odd M; bf16
      and f32 x, with and without a bias), the additive-mask decode
@@ -164,6 +167,7 @@ import gc
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -913,6 +917,71 @@ def int4g_kernel(torch, port, cfg, dev, timer, gen):
 QUANT_BLOCK = 32   # gemma_mixed48_b32's block size
 
 
+def ptxas_report(build, lib, part):
+  """Registers and spills, as ptxas printed them into _build/<lib>.log,
+  of each entry function whose mangled name contains `part`."""
+  found, fn, spills = [], None, None
+  for line in (build.BUILD_DIR / f'{lib}.log').read_text().splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+      fn, spills = m.group(1), None
+      continue
+    m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+    if m:
+      spills = (int(m.group(1)), int(m.group(2)))
+      continue
+    m = re.search(r'Used (\d+) registers', line)
+    if m and fn and part in fn:
+      found.append({'function': fn, 'registers': int(m.group(1)),
+                    'spill_stores': spills and spills[0],
+                    'spill_loads': spills and spills[1]})
+  return found
+
+
+def bits_differ(torch, a, b):
+  """Count of outputs whose bits differ (bf16 or f32)."""
+  view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+  return int(torch.sum(a.view(view) != b.view(view)))
+
+
+def tc_edge_checks(torch, wrapper, plain, make, shapes, label):
+  """A tensor-core DRQ matmul against its plain version bit for bit at
+  `shapes` ((name, M, N, K); make(M, N, K) gives x, w, s, bias), with bf16
+  and f32 x, with and without the bias; then two calls in a row on fresh
+  inputs at each shape (the split-K counters and slabs must start clean),
+  both held to the plain version."""
+  rows = []
+  for name, m, n, k in shapes:
+    x, w, s, bias = make(m, n, k)
+    differ = [bits_differ(torch, wrapper(xi, w, s, bi), plain(xi, w, s, bi))
+              for xi in (x, x.float()) for bi in (None, bias)]
+    first, second = make(m, n, k), make(m, n, k)
+    y1 = wrapper(first[0], first[1], first[2], first[3])
+    y2 = wrapper(second[0], second[1], second[2], second[3])
+    twice = [bits_differ(torch, y1, plain(*first)),
+             bits_differ(torch, y2, plain(*second))]
+    sync()
+    if any(differ) or any(twice):
+      raise AssertionError(f'{label} {name} (M {m}, N {n}, K {k}): '
+                           f'{differ} outputs differ from the plain version '
+                           '(bf16, bf16 with bias, f32, f32 with bias), '
+                           f'{twice} in two calls in a row')
+    rows.append({'check': name, 'M': m, 'N': n, 'K': k,
+                 'outputs_differ': differ, 'twice_differ': twice})
+  return rows
+
+
+# The int8 DRQ kernel's edge checks: (name, M, N, K). M 1, 17 and 200 at
+# the QKV FC, N 2112 (not a multiple of the 128-column tile), K = 16 * 129
+# with N 200, a K split 3 ways (rows shared unevenly in the cluster), and
+# decode and prefill.
+INT8_EDGE_SHAPES = (('m1', 1, 2560, 2048), ('m17', 17, 2560, 2048),
+                    ('m200', 200, 2560, 2048), ('ragged_n', 64, 2112, 2048),
+                    ('k16_odd', 37, 200, 2064), ('split_3', 64, 128, 1536),
+                    ('decode', B, 2560, 2048),
+                    ('prefill', PREFILL_ROWS, 2048, 2048))
+
+
 def int_weight_kernels(torch, port, cfg, dev, timer, gen):
   """The int8 DRQ kernel and the weight-only kernel against their plain
   versions on the card, at the shapes the quantized serving graph gives
@@ -931,10 +1000,14 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
   the plain versions and, where one PyTorch call computes the same
   contraction, that call; each kernel's headline times are the means of
   its decode shapes, as for the other matmuls."""
-  iq, pq = port['int_qmatmul'], port['packed_qmatmul']
+  iq, pq, build = port['int_qmatmul'], port['packed_qmatmul'], port['_build']
   D, F, V = cfg.embed_dim, cfg.ffn_dim, cfg.vocab_size
   NQ, NK, H = cfg.num_query_heads, cfg.num_kv_heads, cfg.head_dim
   bf16 = torch.bfloat16
+
+  def drq_plan(m, n, k):
+    return build.plan('qmatmul_int8_drq', 'aeqt_qmatmul_int8_drq_plan',
+                      'qmatmul_int8_drq', m, n, k)
 
   def randn(*shape):
     return torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -946,9 +1019,29 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
   def scales(*shape):
     return torch.rand(shape, generator=gen, device=dev) * 0.01 + 0.005
 
-  def bits_differ(a, b):
-    view = torch.int16 if a.dtype == bf16 else torch.int32
-    return int(torch.sum(a.view(view) != b.view(view)))
+  def drq_inputs(m, n, k):
+    return (randn(m, k), randint(-127, 128, n, k), scales(n),
+            torch.randn((n,), generator=gen, device=dev))
+
+  drq_edges = tc_edge_checks(torch, iq.qmatmul_int8_drq,
+                             iq.qmatmul_int8_drq_plain, drq_inputs,
+                             INT8_EDGE_SHAPES, 'int8 DRQ')
+  for row in drq_edges:
+    row['launch'] = drq_plan(row['M'], row['N'], row['K'])
+  before = (iq.qmatmul_int8_drq.launches, iq.qmatmul_int8_drq.plain_calls)
+  try:
+    iq.qmatmul_int8_drq(randn(4, 40), randint(-127, 128, 256, 40),
+                        scales(256))
+  except ValueError as e:
+    if (iq.qmatmul_int8_drq.launches,
+        iq.qmatmul_int8_drq.plain_calls) != before:
+      raise AssertionError('int8 DRQ: a refused K counted a run') from e
+    log(f'int8 DRQ kernel refuses K 40: {e}')
+  else:
+    raise AssertionError('the int8 DRQ kernel took K = 40')
+  drq_ptxas = ptxas_report(build, 'qmatmul_int8_drq', 'int8_tc_gemm_kernel')
+  log(f'kernel qmatmul_int8_drq edges ok: bit for bit, twice in a row; '
+      f'{drq_edges}; ptxas {drq_ptxas}')
 
   drq_rows = []
   for phase, m in (('decode', B), ('prefill', PREFILL_ROWS)):
@@ -956,7 +1049,7 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
       x, w, s = randn(m, k), randint(-127, 128, n, k), scales(n)
       bias = torch.randn((n,), generator=gen, device=dev)
       cases = ((x, None), (x.float(), None), (x.float(), bias))
-      differ = [bits_differ(iq.qmatmul_int8_drq(xi, w, s, bi),
+      differ = [bits_differ(torch, iq.qmatmul_int8_drq(xi, w, s, bi),
                             iq.qmatmul_int8_drq_plain(xi, w, s, bi))
                 for xi, bi in cases]
       sync()
@@ -976,7 +1069,7 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
           'plain_ms': timer(lambda: iq.qmatmul_int8_drq_plain(x, w, s),
                             reps=plain_reps),
           'library_ms': timer(lambda: torch._int_mm(xq, w_t)),
-          'bound_ms': b_ms, 'bound_by': b_by})
+          'bound_ms': b_ms, 'bound_by': b_by, 'launch': drq_plan(m, n, k)})
   log(f'kernel qmatmul_int8_drq ok: bit for bit; {drq_rows}')
 
   wo_rows = []
@@ -1046,7 +1139,8 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
       **summary(drq_rows, 'decode', timing),
       'bound_by': drq_rows[0]['bound_by'],
       'library': 'torch._int_mm on the codes (contraction only)',
-      'prefill': summary(drq_rows, 'prefill', timing), 'by_shape': drq_rows},
+      'prefill': summary(drq_rows, 'prefill', timing), 'by_shape': drq_rows,
+      'edge_checks': drq_edges, 'ptxas': drq_ptxas},
       {
       'name': 'qmatmul_int_weights', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
@@ -1066,12 +1160,15 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
 
 
 # The K-blocked kernel's checks: (label, M, N, K). The server's down
-# projection at decode and prefill rows, then M = 1, an odd M, one ragged K
-# step (K/2 = 528 bytes) and two full steps with a ragged third (2080).
+# projection at decode and prefill rows, then M = 1, 17, an odd M and 200,
+# N 200 (not a multiple of the 128-column tile), one ragged K step (K/2 =
+# 528 bytes) and two full steps with a ragged third (2080).
 KBLOCK_SHAPES = (('decode', B, None, None), ('prefill', PREFILL_ROWS, None,
                                              None),
-                 ('m1', 1, 256, None), ('odd_m', 37, 256, None),
-                 ('small_k', 37, 256, 1056), ('ragged_k', 64, 256, 4160))
+                 ('m1', 1, 256, None), ('m17', 17, None, None),
+                 ('odd_m', 37, 256, None), ('m200', 200, None, None),
+                 ('ragged_n', B, 200, None), ('small_k', 37, 256, 1056),
+                 ('ragged_k', 64, 256, 4160))
 
 
 def kblock_kernel(torch, port, cfg, dev, timer, gen):
@@ -1079,64 +1176,64 @@ def kblock_kernel(torch, port, cfg, dev, timer, gen):
   at KBLOCK_SHAPES (N = D and K = F, gemma_mixed48_hr's down projection,
   where a shape leaves them None); bf16 and f32 x, with and without a
   bias, every output bit for bit (the codes divide as the plain version
-  does, the int32 sums are exact, the epilogue rounds in the same order).
-  Timed at decode and prefill with bf16 x and no bias (the server's down
-  FC) beside the plain version and torch._int_mm on the codes (the
-  contraction only; it needs M > 16). A K the kernel does not take must be
-  refused."""
-  pq = port['packed_qmatmul']
-  bf16 = torch.bfloat16
+  does, the int32 sums are exact, the epilogue rounds in the same order),
+  and two calls in a row on fresh inputs. Timed at decode and prefill with
+  bf16 x and no bias (the server's down FC) beside the plain version and
+  torch._int_mm on the codes (the contraction only; it needs M > 16). A K
+  the kernel does not take must be refused."""
+  pq, build = port['packed_qmatmul'], port['_build']
 
-  def bits_differ(a, b):
-    view = torch.int16 if a.dtype == bf16 else torch.int32
-    return int(torch.sum(a.view(view) != b.view(view)))
-
-  rows = []
-  for phase, m, n, k in KBLOCK_SHAPES:
-    n, k = n or cfg.embed_dim, k or cfg.ffn_dim
-    x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+  def inputs(m, n, k):
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     w = pq.pack_int4_split(torch.randint(-8, 8, (n, k), generator=gen,
                                          device=dev).to(torch.int8))
     s = torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
-    bias = torch.randn((n,), generator=gen, device=dev)
-    cases = ((x, None), (x, bias), (x.float(), None), (x.float(), bias))
-    differ = [bits_differ(pq.qmatmul_int4_packed_drq_kblock(xi, w, s, bi),
-                          pq.qmatmul_int4_packed_drq_kblock_plain(xi, w, s,
-                                                                  bi))
-              for xi, bi in cases]
-    sync()
-    if any(differ):
-      raise AssertionError(f'K-blocked int4 DRQ {phase} (M {m}, N {n}, K '
-                           f'{k}): {differ} outputs differ from the plain '
-                           'version (bf16, bf16 with bias, f32, f32 with '
-                           'bias)')
-    row = {'phase': phase, 'M': m, 'N': n, 'K': k, 'outputs_differ': differ}
-    if phase in ('decode', 'prefill'):
-      xq = pq.quantize_rows_drq_div(x.float())[0]
-      w_t = pq.unpack_int4_split(w).t()
-      nbytes = m * k * 2 + n * k // 2 + n * 4 + m * n * 2
-      b_ms, b_by = bound(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
-      row.update(
-          ms=timer(lambda: pq.qmatmul_int4_packed_drq_kblock(x, w, s)),
-          plain_ms=timer(lambda: pq.qmatmul_int4_packed_drq_kblock_plain(
-              x, w, s), reps=25 if phase == 'decode' else 5),
-          library_ms=timer(lambda: torch._int_mm(xq, w_t)),
-          bound_ms=b_ms, bound_by=b_by)
-    rows.append(row)
-  log(f'kernel qmatmul_int4_packed_drq_kblock ok: bit for bit; {rows}')
+    return x, w, s, torch.randn((n,), generator=gen, device=dev)
+
+  shapes = [(phase, m, n or cfg.embed_dim, k or cfg.ffn_dim)
+            for phase, m, n, k in KBLOCK_SHAPES]
+  rows = tc_edge_checks(torch, pq.qmatmul_int4_packed_drq_kblock,
+                        pq.qmatmul_int4_packed_drq_kblock_plain, inputs,
+                        shapes, 'K-blocked int4 DRQ')
+  for row in rows:
+    m, n, k = row['M'], row['N'], row['K']
+    row['launch'] = build.plan('qmatmul_int4_drq_kblock',
+                               'aeqt_qmatmul_int4_drq_kblock_plan',
+                               'qmatmul_int4_packed_drq_kblock', m, n, k)
+    if row['check'] not in ('decode', 'prefill'):
+      continue
+    x, w, s, _ = inputs(m, n, k)
+    xq = pq.quantize_rows_drq_div(x.float())[0]
+    w_t = pq.unpack_int4_split(w).t()
+    nbytes = m * k * 2 + n * k // 2 + n * 4 + m * n * 2
+    b_ms, b_by = bound(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
+    row.update(
+        ms=timer(lambda: pq.qmatmul_int4_packed_drq_kblock(x, w, s)),
+        plain_ms=timer(lambda: pq.qmatmul_int4_packed_drq_kblock_plain(
+            x, w, s), reps=25 if row['check'] == 'decode' else 5),
+        library_ms=timer(lambda: torch._int_mm(xq, w_t)),
+        bound_ms=b_ms, bound_by=b_by)
+  ptxas = ptxas_report(build, 'qmatmul_int4_drq_kblock',
+                       'int8_tc_gemm_kernel')
+  log(f'kernel qmatmul_int4_packed_drq_kblock ok: bit for bit, twice in a '
+      f'row; {rows}; ptxas {ptxas}')
 
   x = torch.randn((4, 48), device=dev)
   w = torch.zeros((256, 24), dtype=torch.uint8, device=dev)
   s = torch.ones((256,), device=dev)
+  wrapper = pq.qmatmul_int4_packed_drq_kblock
+  before = (wrapper.launches, wrapper.plain_calls)
   try:
-    pq.qmatmul_int4_packed_drq_kblock(x, w, s)
+    wrapper(x, w, s)
   except ValueError as e:
+    if (wrapper.launches, wrapper.plain_calls) != before:
+      raise AssertionError('K-blocked: a refused K counted a run') from e
     log(f'K-blocked kernel refuses K 48: {e}')
   else:
     raise AssertionError('the K-blocked kernel took K = 48')
 
   def at(phase):
-    r = next(r for r in rows if r['phase'] == phase)
+    r = next(r for r in rows if r['check'] == phase)
     return {key: r[key] for key in ('ms', 'plain_ms', 'bound_ms',
                                     'library_ms')}
 
@@ -1151,7 +1248,7 @@ def kblock_kernel(torch, port, cfg, dev, timer, gen):
       'max_abs_err': 0.0,
       **at('decode'), 'bound_by': rows[0]['bound_by'],
       'library': 'torch._int_mm on the codes (contraction only)',
-      'prefill': at('prefill'), 'by_shape': rows}
+      'prefill': at('prefill'), 'by_shape': rows, 'ptxas': ptxas}
 
 
 def default_mode_kernels(torch, port, cfg, dev, timer, gen):
@@ -4452,7 +4549,7 @@ def main():
               batching=batching, ops_impl=ops_impl, ir=ir,
               int_qmatmul=int_qmatmul, serialize=serialize, qkv=qkv,
               Quantizer=Quantizer, progress_utils=progress_utils,
-              attn_int4_bench=attn_int4_bench)
+              attn_int4_bench=attn_int4_bench, _build=_build)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 

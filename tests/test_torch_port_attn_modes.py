@@ -457,3 +457,24 @@ def test_attn_block_decode_mode_matches_jax(mode, dtype, drq, monkeypatch):
   epilogues = len(attn_block._units(tex)['epilogue'])
   assert epilogues == cfg.num_layers
   assert OPROJ.plain_calls - before == attn_block.STEPS * epilogues
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_int8_softmax_sum_does_not_hang_on_order(seed):
+  """In int8 the softmax denominator is an f64 sum rounded once to f32
+  (`attention._softmax_sum`; the kernels' `SumT`): every order of the terms
+  gives the same f32, where f32 sums in other orders need not, and the
+  probability codes round(e / sum * 127) hang on its last bit."""
+  rng = np.random.default_rng(seed)
+  e = torch.from_numpy(np.exp(
+      rng.standard_normal((64, 1024)) * 4.0 - 8.0).astype(np.float32))
+  want = attention._softmax_sum(e, 'int8')
+  assert want.dtype == torch.float32
+  f32_orders_differ = False
+  for _ in range(8):
+    perm = torch.from_numpy(rng.permutation(e.shape[1]))
+    assert torch.equal(attention._softmax_sum(e[:, perm], 'int8'), want)
+    f32_orders_differ |= not torch.equal(
+        attention._softmax_sum(e[:, perm], 'f32'),
+        attention._softmax_sum(e, 'f32'))
+  assert f32_orders_differ
