@@ -133,15 +133,17 @@ PLAN_FIELDS = ('grid_x', 'grid_y', 'split', 'threads', 'smem_bytes',
                'stages')
 
 
-def plan(lib: str, fn: str, kernel: str, m: int, n: int, k: int) -> dict:
-  """The launch a tensor-core matmul's C plan function gives M, N, K
-  (csrc/int8_tc_gemm.cuh `plan_fields`): grid, split-K factor (blocks of a
-  cluster), threads, shared memory and ring stages. Raises ValueError for
-  a shape the kernel does not take, before anything is allocated."""
-  fields = (ctypes.c_longlong * len(PLAN_FIELDS))()
-  f = entry(lib, fn, [I, I, I, P])
-  check(f(m, n, k, fields), kernel, f'M={m} N={n} K={k}')
-  return dict(zip(PLAN_FIELDS, fields))
+def plan(lib: str, fn: str, kernel: str, *dims: int,
+         fields=PLAN_FIELDS) -> dict:
+  """The launch a tensor-core kernel's C plan function gives a shape: for
+  the matmuls (csrc/int8_tc_gemm.cuh `plan_fields`, dims M, N, K) grid,
+  split-K factor (blocks of a cluster), threads, shared memory and ring
+  stages; another kernel names its own `fields`. Raises ValueError for a
+  shape the kernel does not take, before anything is allocated."""
+  out = (ctypes.c_longlong * len(fields))()
+  f = entry(lib, fn, [I] * len(dims) + [P])
+  check(f(*dims, out), kernel, ' '.join(str(d) for d in dims))
+  return dict(zip(fields, out))
 
 
 def stream_ptr(device) -> int:

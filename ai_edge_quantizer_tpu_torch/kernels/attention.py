@@ -13,7 +13,8 @@ PyTorch version beside its CUDA kernel (`csrc/`):
     attention over the cache rows [0, lengths) (`csrc/attention_lengths.cu`).
   * `flash_attention_int8_masked` (`_flash_attn_kernel`): prefill-shaped
     attention of R = G * T query rows with an additive mask, as an online
-    softmax over S blocks (`csrc/flash_attention_int8.cu`).
+    softmax over S blocks (`csrc/flash_attention_int8.cu`, on the bf16 and
+    fp16 tensor cores).
   * `decode_attention_int8_masked` (`_decode_attn_mask_kernel` and its
     bf16 and int8 variants): decode attention over all S int8 cache rows
     with an additive mask that broadcasts to [B, NK, G, S], the JAX
@@ -828,7 +829,9 @@ def flash_attention_int8_masked(
 
   q [B, NK, R, H] float with R = G * T grouped query rows; caches int8
   [B, NK, S, H]; mask [B, 1, R, S] (broadcast over the kv heads) or
-  [B, NK, R, S], any float dtype (read as f32). Returns [B, NK, R, H] f32.
+  [B, NK, R, S], any float dtype. Returns [B, NK, R, H] f32. The CUDA
+  kernel reads q and the mask as they come when they are f32 or bf16 (both
+  exact in f32), and widens another float dtype to f32 first.
   """
   args = (q, k_cache, v_cache, k_scale, v_scale, mask, k_zero_point,
           v_zero_point)
@@ -846,20 +849,32 @@ def flash_attention_int8_masked(
                  and mask.shape[1] in (1, nk)
                  and tuple(mask.shape[2:]) == (r, s), name,
                  f'mask shape {tuple(mask.shape)}')
-  q2 = q.to(torch.float32).contiguous()
-  m2 = mask.to(torch.float32).contiguous()
-  _build.require_cuda_tensor(q2, name, 'q', (torch.float32,), 16)
-  _build.require_cuda_tensor(m2, name, 'mask', (torch.float32,))
+  q2, m2 = (t if t.dtype in (torch.float32, torch.bfloat16)
+            else t.to(torch.float32) for t in (q, mask))
+  # The kernel's tensor map steps over mask rows of whole 16-byte units;
+  # the columns past S are never read.
+  pad = -s % (16 // m2.element_size())
+  if pad:
+    m2 = torch.nn.functional.pad(m2, (0, pad))
+  q2, m2 = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format)
+            for t in (q2, m2))
+  _build.require_cuda_tensor(q2, name, 'q', (torch.float32, torch.bfloat16),
+                             16)
+  _build.require_cuda_tensor(m2, name, 'mask',
+                             (torch.float32, torch.bfloat16), 16)
   out = torch.empty((b, nk, r, h), dtype=torch.float32, device=q.device)
   fn = _build.entry(
       'flash_attention_int8', 'aeqt_flash_attention_int8',
-      [_build.P] * 5 + [_build.I] * 6 + [_build.F] * 4 + [_build.P])
-  status = fn(q2.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-              m2.data_ptr(), out.data_ptr(), b * nk, nk, r, s, h,
-              int(m2.shape[1]), score_scale(k_scale, h), float(v_scale),
-              float(k_zero_point), float(v_zero_point),
-              _build.stream_ptr(q.device))
-  _build.check(status, name, f'H={h}')
+      [_build.P, _build.I, _build.P, _build.P, _build.P, _build.I, _build.I,
+       _build.P] + [_build.I] * 6 + [_build.F] * 4 + [_build.P])
+  status = fn(q2.data_ptr(), int(q2.dtype == torch.bfloat16),
+              k_cache.data_ptr(), v_cache.data_ptr(), m2.data_ptr(),
+              int(m2.dtype == torch.bfloat16), int(m2.shape[3]),
+              out.data_ptr(), b * nk, nk, r, s, h, int(m2.shape[1]),
+              score_scale(k_scale, h), float(v_scale), float(k_zero_point),
+              float(v_zero_point), _build.stream_ptr(q.device))
+  _build.check(status, name, f'H={h}, S={s}, mask {m2.dtype}')
   flash_attention_int8_masked.launches += 1
   return out
 

@@ -1,13 +1,14 @@
 // Int8 tensor-core core of the DRQ matmuls (#15 qmatmul_int8_drq.cu, #6
-// qmatmul_int4_drq_kblock.cu) on Hopper:
+// qmatmul_int4_drq_kblock.cu, #1 qmatmul_int4_drq.cu) on Hopper:
 //   y[M, N] = (f32(xq[M, K] . B[N, K]^T) * xs[M]) * s[N] (+ b[N])
 //
 // Two launches on the caller's stream:
 //   1. quantize_rows_kernel: one block per row of x, the row's DRQ codes
 //      into int8 scratch xq [M, K] and its scale into xs [M]. Two formulas,
-//      each the one its kernel's plain version uses: #15's reciprocal
-//      (drq_common.cuh quantize_rows: rint(x * (1 / xs))) and #6's division
-//      (rint(x / xs)); xs = max(absmax, 1e-9) * (1/127) in both.
+//      each the one its kernel's plain version uses: #15's and #1's
+//      reciprocal (drq_common.cuh quantize_rows: rint(x * (1 / xs))) and
+//      #6's division (rint(x / xs)); xs = max(absmax, 1e-9) * (1/127) in
+//      all three.
 //   2. int8_tc_gemm_kernel: a 64 x 128 (one consumer warpgroup, M <= 64)
 //      or 128 x 128 (two) output tile per block. One producer warp keeps a
 //      ring of 3-8 stages in flight with TMA (cp.async.bulk.tensor, 128-byte
@@ -22,7 +23,9 @@
 //
 // B comes through a loader policy:
 //   Int8RowsB    (#15): int8 weight rows w [N, K], loaded as they are.
-//   SplitNibblesB (#6): split-half packed rows w [N, K/2] (byte j holds
+//   SplitNibbles (#6 SplitNibblesB with the division, #1
+//     SplitNibblesRecipB with the reciprocal; the loads and the unpack are
+//     the same): split-half packed rows w [N, K/2] (byte j holds
 //     w[n, j] in its low nibble and w[n, j + K/2] in its high one). One
 //     packed [128, 128-byte] tile per stage; the consumers unpack it, byte
 //     for byte in place (the swizzle moves whole bytes, so a swizzled packed
@@ -49,11 +52,10 @@
 //   goes through global memory, and nothing carries over between calls.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums only; no driver library is linked
-
 #include <algorithm>
 
 #include "drq_common.cuh"
+#include "tc_ptx.cuh"
 
 namespace aeqt {
 namespace tc {
@@ -63,6 +65,12 @@ constexpr int kBN = 128;        // output columns of a tile (wgmma n128)
 constexpr int kWgRows = 64;     // output rows of one consumer warpgroup (m64)
 constexpr int kMaxStages = 8;
 constexpr int kMinSplitSteps = 4;  // K steps a split takes at least
+// ... under #1 (SplitNibblesRecipB) with one consumer warpgroup, whose K
+// <= 8192 gives few steps (K 2048: 8): at decode a split of 4 (two steps
+// each) streams the weights on 80 SMs, where 4 steps each would leave 40
+// to do it. Two warpgroups keep kMinSplitSteps: at M 256 a split of 2
+// beats one of 3 or 4 (PERF.md §6).
+constexpr int kMinSplitStepsInt4Drq = 2;
 constexpr int kMaxSplit = 4;       // blocks of a split tile: one cluster
 constexpr int kQuantThreads = 256;
 constexpr size_t kSmemBudget = 232448 - 1024;  // opt-in maximum less static
@@ -125,7 +133,7 @@ __device__ __forceinline__ float absmax_vec(float amax, const uint4& u) {
 constexpr int kKeep = 8;
 
 // Row m of x [M, K] -> xq[m, :] int8 and xs[m]: xs = max(absmax, 1e-9) *
-// (1/127), xq = rint(x / xs) (kDivide, #6) or rint(x * (1 / xs)) (#15).
+// (1/127), xq = rint(x / xs) (kDivide, #6) or rint(x * (1 / xs)) (#15, #1).
 // With vec (K a multiple of 16 bytes of x, x 16-byte aligned) a thread
 // reads 16 bytes at a time and keeps up to kKeep of them for the second
 // pass; the arithmetic is the same per element.
@@ -185,103 +193,11 @@ quantize_rows_kernel(const T* __restrict__ x, int K, int vec,
   if (threadIdx.x == 0) xs[m] = s;
 }
 
-// ------------------------------------------------------ PTX building blocks
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Spins until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// A box of the 2D map at (column c0, row c1) into shared memory; completes
-// its bytes on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Programmatic dependent launch: launch 2 starts while launch 1 runs
-// (launch 1 lets it at its start); launch 2 waits here, before it reads
-// anything launch 1 writes, until launch 1 has finished and its writes
-// are visible.
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
-// Makes this thread's generic-proxy shared-memory writes visible to the
-// async proxy (wgmma's operand reads).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows with
-// the 128-byte swizzle, its 8-row atoms 1024 bytes apart; the tile starts
-// 1024-byte aligned, plus a multiple of 32 bytes for a later k32 step.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma that owns them.
 __device__ __forceinline__ void fence_acc(int (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
 // d[64 x 128] (+)= A[64 x 32] . B[128 x 32]^T, s8 x s8 -> s32, both
@@ -378,6 +294,7 @@ constexpr int kTileBytes = kBN * kBK;  // one [128, 128-byte] B tile
 // #15: B is w [N, K] int8; a stage holds A [bm, 128] then B [128, 128].
 struct Int8RowsB {
   static constexpr bool kDivide = false;
+  static constexpr int kMinSteps = kMinSplitSteps;
   static constexpr size_t kUnpackBytes = 0;
   __host__ __device__ static int steps(int K) { return (K + kBK - 1) / kBK; }
   __host__ __device__ static size_t stage_bytes(int bm) {
@@ -406,11 +323,15 @@ struct Int8RowsB {
   }
 };
 
-// #6: B is w [N, K/2] split-half packed; a stage holds A lo [bm, 128] (codes
-// at kb), A hi [bm, 128] (codes at K/2 + kb) and the packed [128, 128]
-// tile; two unpack buffers of lo and hi s8 tiles alternate by step.
-struct SplitNibblesB {
-  static constexpr bool kDivide = true;
+// #6 and #1: B is w [N, K/2] split-half packed; a stage holds A lo [bm,
+// 128] (codes at kb), A hi [bm, 128] (codes at K/2 + kb) and the packed
+// [128, 128] tile; two unpack buffers of lo and hi s8 tiles alternate by
+// step. kDiv picks the row-quantize formula of the kernel's plain version,
+// kMinSteps the fewest K steps of a split.
+template <bool kDiv, int kMin>
+struct SplitNibbles {
+  static constexpr bool kDivide = kDiv;
+  static constexpr int kMinSteps = kMin;
   static constexpr size_t kUnpackBytes = 2 * 2 * kTileBytes;
   __host__ __device__ static int steps(int K) {
     return (K / 2 + kBK - 1) / kBK;
@@ -456,6 +377,10 @@ struct SplitNibblesB {
     fence_acc(d);
   }
 };
+
+// #6: rint(x / xs); #1: rint(x * (1 / xs)).
+using SplitNibblesB = SplitNibbles<true, kMinSplitSteps>;
+using SplitNibblesRecipB = SplitNibbles<false, kMinSplitStepsInt4Drq>;
 
 // ------------------------------------------------------------ pass 2
 
@@ -631,7 +556,8 @@ inline int sm_count() {
 
 // Split K only while the tiles leave SMs idle (at most one block per SM),
 // into at most kMaxSplit blocks (a portable cluster) of at least
-// kMinSplitSteps steps, every split the same number of steps but the last.
+// B::kMinSteps steps (kMinSplitSteps at two warpgroups), every split the
+// same number of steps but the last.
 // The ring takes the stages that fit; it always holds the epilogue's tile
 // (kEpiBytes and the row scales).
 template <class B>
@@ -643,8 +569,9 @@ inline Plan make_plan(int M, int N, int K) {
   p.n_tiles = (N + kBN - 1) / kBN;
   p.steps = B::steps(K);
   const int tiles = p.m_tiles * p.n_tiles;
+  const int min_steps = p.wgs == 1 ? B::kMinSteps : kMinSplitSteps;
   const int want = std::max(
-      1, std::min({p.steps / kMinSplitSteps, sm_count() / tiles, kMaxSplit}));
+      1, std::min({p.steps / min_steps, sm_count() / tiles, kMaxSplit}));
   p.steps_per_split = (p.steps + want - 1) / want;
   p.split = (p.steps + p.steps_per_split - 1) / p.steps_per_split;
   const size_t stage = B::stage_bytes(bm);
@@ -652,32 +579,6 @@ inline Plan make_plan(int M, int N, int K) {
                            (kSmemBudget - 1024 - B::kUnpackBytes) / stage);
   p.smem = 1024 + p.stages * stage + B::kUnpackBytes;
   return p;
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
-// the library links no driver library.
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // A 2D map of a row-major uint8 matrix [rows, cols] (cols % 16 == 0, the
@@ -696,9 +597,6 @@ inline bool encode_2d(CUtensorMap* map, const void* base, uint64_t cols,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-
-// Status of a refused tensor map (no cudaError_t value is this large).
-constexpr int kTensorMapFailed = 100000;
 
 // Launch 1 of a call under plan p.
 template <class B, typename TIn>

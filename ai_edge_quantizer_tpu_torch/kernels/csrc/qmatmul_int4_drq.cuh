@@ -1,9 +1,13 @@
-// int4 DRQ matmul: y[M, N] = int8(x) . unpack(w[N, K/2])^T * xs[M] * s[N] (+b)
+// SIMT int4 DRQ matmul tiles: y[M, N] = int8(x) . unpack(w[N, K/2])^T *
+// xs[M] * s[N] (+b), the arithmetic of pallas_qmatmul.py
+// qmatmul_pallas_int4_packed_drq (_int4_drq_kernel).
 //
-// Replaces: ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py
-//   qmatmul_pallas_int4_packed_drq (_int4_drq_kernel). Used for the fused
-//   QKV projection and the attention out-projection of each decode layer,
-//   and (with an f32 output) for the gate/up projection of the MLP.
+// Used by the kernels that fuse this matmul with other work: #20
+//   qkv_rope.cu (the QKV projection after the norm), #19
+//   attention_oproj.cu (the out-projection after the attention) and #3
+//   mlp_int4_drq.cu (the gate/up projection, with an f32 output for bf16
+//   x). The stand-alone #1 (qmatmul_int4_drq.cu) runs on the int8
+//   tensor-core core (int8_tc_gemm.cuh) instead.
 //
 // Bound on the H100: at decode shapes (M = batch = 64, K = 2048) the
 //   weight bytes dominate: N*K/2 + M*K*2 + M*N*2 bytes over 3.35 TB/s

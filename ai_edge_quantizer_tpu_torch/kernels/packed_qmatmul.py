@@ -5,8 +5,8 @@ int4 layout (`pack_int4_split`, `unpack_int4_split`) and five of its
 Pallas kernels over packed weights:
 
   * `qmatmul_pallas_int4_packed_drq` as `qmatmul_int4_packed_drq`, CUDA
-    kernel `csrc/qmatmul_int4_drq.cu(h)` (K <= 8192 on the executor's
-    route);
+    kernel `csrc/qmatmul_int4_drq.cu` on the int8 tensor-core core
+    `csrc/int8_tc_gemm.cuh` (K <= 8192 on the executor's route);
   * `qmatmul_pallas_int4_packed_drq_kblock` as
     `qmatmul_int4_packed_drq_kblock`, CUDA kernel
     `csrc/qmatmul_int4_drq_kblock.cu` on the int8 tensor-core core
@@ -110,10 +110,6 @@ def qmatmul_int4_packed_drq(
   lead = x.shape[:-1]
   x2 = x.reshape(-1, k).to(compute_dtype(x)).contiguous()
   m = x2.shape[0]
-  _build.require(k % 32 == 0, name, f'K={k} must be a multiple of 32')
-  # The block stages 16 quantized rows of x (qmatmul_int4_drq.cuh).
-  _build.require(16 * k + 64 <= _build.MAX_SMEM, name,
-                 f'K={k} exceeds the shared-memory row budget')
   _build.require_cuda_tensor(w_packed, name, 'w_packed', (torch.uint8,), 16)
   _build.require_cuda_tensor(scale, name, 'scale', (torch.float32,))
   _build.require(scale.numel() == n, name, 'scale must have N entries')
@@ -122,14 +118,18 @@ def qmatmul_int4_packed_drq(
     _build.require_cuda_tensor(bias, name, 'bias', (torch.float32,))
     _build.require(bias.numel() == n, name, 'bias must have N entries')
   out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+  xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+  xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
   fn = _build.entry('qmatmul_int4_drq', 'aeqt_qmatmul_int4_drq',
                     [_build.P, _build.I, _build.P, _build.P, _build.P,
-                     _build.P, _build.I, _build.I, _build.I, _build.P])
+                     _build.P, _build.P, _build.P, _build.I, _build.I,
+                     _build.I, _build.P])
   status = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16),
               w_packed.data_ptr(), scale.data_ptr(),
               None if bias is None else bias.data_ptr(), out.data_ptr(),
-              m, n, k, _build.stream_ptr(x2.device))
-  _build.check(status, name)
+              xq.data_ptr(), xs.data_ptr(), m, n, k,
+              _build.stream_ptr(x2.device))
+  _build.check(status, name, f'M={m}, N={n}, K={k}')
   qmatmul_int4_packed_drq.launches += 1
   return out.to(x.dtype).reshape(lead + (n,))
 

@@ -26,10 +26,17 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      shapes; the K-blocked int4 DRQ matmul bit for bit at the down
      projection's shapes (N 2048, K 16384, decode and prefill rows), M = 1,
      17, an odd M and 200, N 200 and two small K, bf16 and f32 x, with and
-     without a bias, timed beside torch._int_mm; both DRQ matmuls (the
-     int8 tensor-core core) also at their edge shapes and twice in a row
-     on fresh inputs, with each shape's launch plan (grid, split-K, shared
-     memory) and ptxas' registers and spills logged; the kernels of the JAX executor's
+     without a bias, timed beside torch._int_mm; the three DRQ matmuls
+     of the int8 tensor-core core (int8, K-blocked and the int4 DRQ
+     matmul, this one at the QKV and out-projection shapes, decode,
+     bench and prefill rows, M 1, 17 and 200, a ragged N and K and
+     uneven splits) also at their edge shapes and twice in a row
+     on fresh inputs, bit for bit, with each shape's launch plan (grid,
+     split-K, shared memory) and ptxas' registers and spills logged; the
+     tensor-core flash attention at the server's prefill and at
+     FLASH_CASES (H 64 and 128, NK 2 with both mask layouts, f32 q, a bf16
+     mask, ragged and odd S, ragged R, a fully masked row), with its
+     launch plans and registers; the kernels of the JAX executor's
      default mode (default_mode_kernels): the weight-only packed matmul at
      the QKV and out-projection shapes (decode, prefill and an odd M; bf16
      and f32 x, with and without a bias), the additive-mask decode
@@ -275,34 +282,42 @@ def kernel_phase(torch, port, cfg, dev, timer):
 
   results = []
 
-  # 1. int4 DRQ matmul: the fused QKV and the out-projection of a layer, at
-  # a decode step's rows (B), bench.py's decode rows (BENCH_B) and a prefill
-  # pass's rows (Bp * T).
+  # 1. int4 DRQ matmul (on the int8 tensor-core core): bit for bit at
+  # INT4_DRQ_EDGE_SHAPES, then timed at the fused
+  # QKV and the out-projection of a layer, at a decode step's rows (B),
+  # bench.py's decode rows (BENCH_B) and a prefill pass's rows (Bp * T).
+  def drq_inputs(m, n, k):
+    w = pq.pack_int4_split(randint(-8, 8, n, k))
+    return (randn(m, k), w, scales(n),
+            torch.randn((n,), generator=gen, device=dev))
+
+  def drq_plan(m, n, k):
+    return port['_build'].plan('qmatmul_int4_drq',
+                               'aeqt_qmatmul_int4_drq_plan',
+                               'qmatmul_int4_packed_drq', m, n, k)
+
+  shapes = [(name, m, n or (NQ + 2 * NK) * H, k or D)
+            for name, m, n, k in INT4_DRQ_EDGE_SHAPES]
+  shapes += [(f'{phase}_{label}', m, n, D)
+             for phase, m in (('decode', B), ('bench', BENCH_B),
+                              ('prefill', PREFILL_ROWS))
+             for label, n in (('qkv', (NQ + 2 * NK) * H), ('out_proj', D))]
+  drq_edges = tc_edge_checks(torch, pq.qmatmul_int4_packed_drq,
+                             pq.qmatmul_int4_packed_drq_plain, drq_inputs,
+                             shapes, 'int4 DRQ')
+  for row in drq_edges:
+    row['launch'] = drq_plan(row['M'], row['N'], row['K'])
+  drq_ptxas = ptxas_report(port['_build'], 'qmatmul_int4_drq',
+                           'int8_tc_gemm_kernel')
+  log(f'kernel qmatmul_int4_packed_drq edges ok: bit for bit, twice in a '
+      f'row; {drq_edges}; ptxas {drq_ptxas}')
   by_shape = []
   for phase, m in (('decode', B), ('bench', BENCH_B),
                    ('prefill', PREFILL_ROWS)):
     for label, n in (('qkv', (NQ + 2 * NK) * H), ('out_proj', D)):
-      x = randn(m, 1, D)
-      w_q = randint(-8, 8, n, D)
-      w = pq.pack_int4_split(w_q)
-      s = scales(n)
-      got = pq.qmatmul_int4_packed_drq(x, w, s)
-      want = pq.qmatmul_int4_packed_drq_plain(x, w, s)
-      sync()
-      ulps = bf16_ulps(torch, got, want)
-      err = float(torch.max(torch.abs(got.float() - want.float())))
-      if ulps > 1.0:
-        raise AssertionError(f'qmatmul {label}: {ulps} bf16 ulps from plain')
-      got32 = pq.qmatmul_int4_packed_drq(x.float(), w, s)
-      want32 = pq.qmatmul_int4_packed_drq_plain(x.float(), w, s)
-      rel32 = float(torch.max(torch.abs(got32 - want32)
-                              / torch.clamp_min(torch.abs(want32), 1e-30)))
-      if rel32 > 1e-6:
-        raise AssertionError(f'qmatmul {label} f32: rel err {rel32}')
-      xq = torch.round(x.reshape(m, D).float() * 10).clamp(-127, 127).to(
-          torch.int8)
-      w_t = w_q.t()
-      lib_ms = timer(lambda: torch._int_mm(xq, w_t))
+      x, w, s, _ = drq_inputs(m, n, D)
+      xq = pq.quantize_rows_drq(x.float())[0]
+      w_t = pq.unpack_int4_split(w).t()
       nbytes = m * D * 2 + n * D // 2 + n * 4 + m * n * 2
       b_ms, b_by = bound(nbytes, 2 * m * n * D, INT8_OPS_PER_S)
       by_shape.append({
@@ -310,31 +325,27 @@ def kernel_phase(torch, port, cfg, dev, timer):
           'ms': timer(lambda: pq.qmatmul_int4_packed_drq(x, w, s)),
           'plain_ms': timer(
               lambda: pq.qmatmul_int4_packed_drq_plain(x, w, s)),
-          'library_ms': lib_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-          'max_abs_err': err, 'max_bf16_ulps': ulps,
-          'max_rel_err_f32': rel32})
+          'library_ms': timer(lambda: torch._int_mm(xq, w_t)),
+          'bound_ms': b_ms, 'bound_by': b_by, 'launch': drq_plan(m, n, D)})
 
   def mean(key, phase):
     rows = [r[key] for r in by_shape if r['phase'] == phase]
     return sum(rows) / len(rows)
 
+  timing = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
   results.append({
       'name': 'qmatmul_int4_packed_drq', 'route': 'cuda',
-      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/qmatmul_int4_drq.cuh',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/qmatmul_int4_drq.cu',
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:667',
       'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed_drq',
       'wrapper': pq.qmatmul_int4_packed_drq, 'per_step': 2 * cfg.num_layers,
-      'max_abs_err': max(r['max_abs_err'] for r in by_shape),
-      'ms': mean('ms', 'decode'), 'plain_ms': mean('plain_ms', 'decode'),
-      'bound_ms': mean('bound_ms', 'decode'), 'bound_by': 'bytes',
-      'library_ms': mean('library_ms', 'decode'),
+      'max_abs_err': max(r['max_abs_err'] for r in drq_edges),
+      **{key: mean(key, 'decode') for key in timing}, 'bound_by': 'bytes',
       'library': 'torch._int_mm on the unpacked int8 weight (contraction '
                  'only)',
-      'prefill': {key: mean(key, 'prefill') for key in
-                  ('ms', 'plain_ms', 'bound_ms', 'library_ms')},
-      'bench': {key: mean(key, 'bench') for key in
-                ('ms', 'plain_ms', 'bound_ms', 'library_ms')},
-      'by_shape': by_shape})
+      'prefill': {key: mean(key, 'prefill') for key in timing},
+      'bench': {key: mean(key, 'bench') for key in timing},
+      'by_shape': by_shape, 'edge_checks': drq_edges, 'ptxas': drq_ptxas})
   log(f'kernel qmatmul_int4_packed_drq ok: {by_shape}')
 
   # 2. Stale-cache attention, f32 compute, bf16 output.
@@ -475,7 +486,8 @@ def kernel_phase(torch, port, cfg, dev, timer):
       'bench': head_bench})
   log('kernel head_argmax ok: ids identical (planted tie included)')
   results.append(lengths_kernel(torch, att, cfg, dev, timer, gen))
-  results.append(flash_kernel(torch, att, cfg, dev, timer, gen))
+  results.append(flash_kernel(torch, att, port['_build'], cfg, dev, timer,
+                              gen))
   results.append(block_kernel(torch, port, cfg, dev, timer, gen))
   results.append(int4g_kernel(torch, port, cfg, dev, timer, gen))
   results.extend(int_weight_kernels(torch, port, cfg, dev, timer, gen))
@@ -949,12 +961,16 @@ def tc_edge_checks(torch, wrapper, plain, make, shapes, label):
   `shapes` ((name, M, N, K); make(M, N, K) gives x, w, s, bias), with bf16
   and f32 x, with and without the bias; then two calls in a row on fresh
   inputs at each shape (the split-K counters and slabs must start clean),
-  both held to the plain version."""
+  both held to the plain version. Each row also keeps the largest
+  absolute difference of the first four outputs (0 when bit for bit)."""
   rows = []
   for name, m, n, k in shapes:
     x, w, s, bias = make(m, n, k)
-    differ = [bits_differ(torch, wrapper(xi, w, s, bi), plain(xi, w, s, bi))
-              for xi in (x, x.float()) for bi in (None, bias)]
+    pairs = [(wrapper(xi, w, s, bi), plain(xi, w, s, bi))
+             for xi in (x, x.float()) for bi in (None, bias)]
+    differ = [bits_differ(torch, got, want) for got, want in pairs]
+    err = max(float(torch.max(torch.abs(got.float() - want.float())))
+              for got, want in pairs)
     first, second = make(m, n, k), make(m, n, k)
     y1 = wrapper(first[0], first[1], first[2], first[3])
     y2 = wrapper(second[0], second[1], second[2], second[3])
@@ -967,7 +983,8 @@ def tc_edge_checks(torch, wrapper, plain, make, shapes, label):
                            '(bf16, bf16 with bias, f32, f32 with bias), '
                            f'{twice} in two calls in a row')
     rows.append({'check': name, 'M': m, 'N': n, 'K': k,
-                 'outputs_differ': differ, 'twice_differ': twice})
+                 'outputs_differ': differ, 'twice_differ': twice,
+                 'max_abs_err': err})
   return rows
 
 
@@ -980,6 +997,21 @@ INT8_EDGE_SHAPES = (('m1', 1, 2560, 2048), ('m17', 17, 2560, 2048),
                     ('k16_odd', 37, 200, 2064), ('split_3', 64, 128, 1536),
                     ('decode', B, 2560, 2048),
                     ('prefill', PREFILL_ROWS, 2048, 2048))
+
+
+# The int4 DRQ kernel's edge checks: (name, M, N, K), N and K the QKV FC's
+# (NQ + 2 NK) * H and D where None. M 1, 17 and 200, N 2112 (not a
+# multiple of the 128-column tile), K = 2560 split 3 + 3 + 3 + 1 steps, K
+# = 1792 split 3 + 3 + 1 (rows 22, 22, 20 a block), at two warpgroups K =
+# 3584 split 5 + 5 + 4, K = 2080 (a ragged K step) at M 37 and N 200; then
+# the server's shapes (kernel_phase).
+INT4_DRQ_EDGE_SHAPES = (('m1', 1, None, None), ('m17', 17, None, None),
+                        ('m200', 200, None, None),
+                        ('ragged_n', 64, 2112, None),
+                        ('split_4_uneven', 64, 128, 2560),
+                        ('split_3_uneven', 64, 256, 1792),
+                        ('split_3_uneven_m200', 200, 256, 3584),
+                        ('ragged_k', 37, 200, 2080))
 
 
 def int_weight_kernels(torch, port, cfg, dev, timer, gen):
@@ -1135,7 +1167,7 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
       'jax': 'pallas_qmatmul.qmatmul_pallas_int8_drq',
       'wrapper': iq.qmatmul_int8_drq, 'per_step': 0,
       'per_tick_quantized': 2 * QUANT_LAYERS['gemma_mixed48'],
-      'max_abs_err': 0.0,
+      'max_abs_err': max(r['max_abs_err'] for r in drq_edges),
       **summary(drq_rows, 'decode', timing),
       'bound_by': drq_rows[0]['bound_by'],
       'library': 'torch._int_mm on the codes (contraction only)',
@@ -1245,7 +1277,7 @@ def kblock_kernel(torch, port, cfg, dev, timer, gen):
       'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed_drq_kblock',
       'wrapper': pq.qmatmul_int4_packed_drq_kblock, 'per_step': 0,
       'per_tick_quantized_hr': QUANT_LAYERS['gemma_mixed48_hr'],
-      'max_abs_err': 0.0,
+      'max_abs_err': max(r['max_abs_err'] for r in rows),
       **at('decode'), 'bound_by': rows[0]['bound_by'],
       'library': 'torch._int_mm on the codes (contraction only)',
       'prefill': at('prefill'), 'by_shape': rows, 'ptxas': ptxas}
@@ -2985,9 +3017,66 @@ def prefill_mask(torch, dev, g, start, s):
           PREFILL_BATCH, 1, g * PREFILL_LEN, s).contiguous()
 
 
-def flash_kernel(torch, att, cfg, dev, timer, gen):
+# The flash kernel's further checks: (name,
+# B, NK, R, S, H, mask_nk, q dtype, mask dtype). H 64 and 128, NK 2 with
+# one mask for both kv heads and one each, f32 q (three bf16 parts), a
+# bf16 mask, a ragged S (200 and 1000: a last key tile of 8 and 40 keys),
+# ragged R, an odd S (203 and 301: mask rows the wrapper pads to whole
+# 16-byte units); every case has a fully masked row.
+FLASH_CASES = (('h64', 2, 1, 128, 256, 64, 1, 'bfloat16', 'float32'),
+               ('h128', 2, 1, 256, 512, 128, 1, 'bfloat16', 'float32'),
+               ('nk2_mask1', 2, 2, 128, 256, 128, 1, 'bfloat16', 'float32'),
+               ('nk2_mask2', 2, 2, 128, 256, 128, 2, 'bfloat16', 'float32'),
+               ('f32_q', 2, 2, 128, 256, 128, 2, 'float32', 'float32'),
+               ('f32_q_h64', 2, 1, 128, 256, 64, 1, 'float32', 'float32'),
+               ('bf16_mask', 2, 1, 1024, 1024, 256, 1, 'bfloat16',
+                'bfloat16'),
+               ('ragged_s', 2, 2, 128, 200, 64, 2, 'bfloat16', 'float32'),
+               ('ragged_s_h256', 1, 1, 1000, 1000, 256, 1, 'bfloat16',
+                'float32'),
+               ('odd_s', 2, 2, 128, 203, 128, 2, 'bfloat16', 'float32'),
+               ('odd_s_bf16_mask', 1, 1, 192, 301, 64, 1, 'float32',
+                'bfloat16'))
+
+
+def flash_plan(torch, build, b, nk, r, s, h, mask_nk, q_dtype,
+               mask_dtype):
+  """The launch the flash kernel's C plan gives a shape: grid, bf16 parts
+  of q, threads, shared memory, ring stages."""
+  return build.plan(
+      'flash_attention_int8', 'aeqt_flash_attention_int8_plan',
+      'flash_attention_int8_masked', b * nk, nk, r, s, h, mask_nk,
+      int(q_dtype == torch.bfloat16), int(mask_dtype == torch.bfloat16),
+      fields=('grid_x', 'grid_y', 'q_parts', 'threads', 'smem_bytes',
+              'stages'))
+
+
+def flash_case(torch, att, dev, gen, b, nk, r, s, h, mask_nk, q_dtype,
+               mask_dtype, start):
+  """Inputs of one flash check: q, int8 caches, the causal prefill mask of
+  the chunk at `start` over R = 8 groups of R / 8 rows (one mask for all
+  kv heads, or a reversed one for the others), row 3 fully masked."""
+  q = torch.randn((b, nk, r, h), generator=gen, device=dev).to(q_dtype)
+  kc, vc = (torch.randint(-127, 128, (b, nk, s, h), generator=gen,
+                          device=dev).to(torch.int8) for _ in range(2))
+  t = max(r // 8, 1)
+  pos = start + torch.arange(r, device=dev) % t
+  rows = torch.where(torch.arange(s, device=dev)[None, :] <= pos[:, None],
+                     0.0, -1e9)
+  mask = rows.reshape(1, 1, r, s).expand(b, mask_nk, r, s).contiguous()
+  if mask_nk > 1:
+    mask[:, 1:] = torch.flip(mask[:, 1:], dims=(-1,))
+  mask[0, 0, 3] = -1e9
+  return q, kc, vc, mask.to(mask_dtype)
+
+
+def flash_kernel(torch, att, build, cfg, dev, timer, gen):
   """Flash attention at the server's prefill pass: Bp = 8, R = G*T = 1024,
-  S = 1024, with the causal device masks of chunks 0 and 3."""
+  S = 1024, with the causal device masks of chunks 0 and 3, then at
+  FLASH_CASES; every case within 1e-5 * max(|y|, 1) of the plain version
+  (the tensor cores' f32 sums in another order than the plain version's;
+  tests/test_torch_port_flash_tc.py holds the kernel's operand splits to
+  the same bound on the CPU)."""
   NK, H = cfg.num_kv_heads, cfg.head_dim
   G = cfg.num_query_heads // NK
   S = cfg.max_seq_len
@@ -2998,26 +3087,29 @@ def flash_kernel(torch, att, cfg, dev, timer, gen):
   kc, vc = (torch.randint(-127, 128, (PREFILL_BATCH, NK, S, H), generator=gen,
                           device=dev).to(torch.int8) for _ in range(2))
   k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
+  kw = dict(k_zero_point=zp_k, v_zero_point=zp_v)
   kd = (kc.float() * k_scale).to(bf16)
   vd = (vc.float() * v_scale).to(bf16)
   sdpa = torch.nn.functional.scaled_dot_product_attention
+
+  def check(label, args):
+    got = att.flash_attention_int8_masked(*args, **kw)
+    want = att.flash_attention_int8_masked_plain(*args, **kw)
+    sync()
+    err = float(torch.max(torch.abs(got - want)))
+    ymax = float(torch.max(torch.abs(want)))
+    if not (err <= 1e-5 * max(ymax, 1.0) and bool(torch.isfinite(got).all())):
+      raise AssertionError(f'flash attention {label}: err {err}, max |y| '
+                           f'{ymax}')
+    return err, ymax
+
   by_chunk = []
   for chunk in (0, 3):
     mask = prefill_mask(torch, dev, G, chunk * PREFILL_LEN, S)
     args = (q, kc, vc, k_scale, v_scale, mask)
-    kw = dict(k_zero_point=zp_k, v_zero_point=zp_v)
-    got = att.flash_attention_int8_masked(*args, **kw)
-    want = att.flash_attention_int8_masked_plain(*args, **kw)
-    sync()
-    # f32 with fmaf over 64-key tiles against the plain version's 512-key
-    # blocks: rounding only, of values of order v_scale * 127.
-    err = float(torch.max(torch.abs(got - want)))
-    ymax = float(torch.max(torch.abs(want)))
-    if not err <= 1e-5 * max(ymax, 1.0):
-      raise AssertionError(f'flash attention chunk {chunk}: err {err}, '
-                           f'max |y| {ymax}')
+    err, ymax = check(f'chunk {chunk}', args)
     nbytes = (q.numel() * 2 + kc.numel() + vc.numel() + mask.numel() * 4
-              + got.numel() * 4)
+              + q.numel() * 4)
     b_ms, b_by = bound(nbytes, 4 * PREFILL_BATCH * NK * R * S * H,
                        BF16_OPS_PER_S)
     mask_bf16 = mask.to(bf16)
@@ -3027,8 +3119,25 @@ def flash_kernel(torch, att, cfg, dev, timer, gen):
         'plain_ms': timer(
             lambda: att.flash_attention_int8_masked_plain(*args, **kw)),
         'bound_ms': b_ms, 'bound_by': b_by,
-        'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=mask_bf16))})
+        'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=mask_bf16)),
+        'launch': flash_plan(torch, build, PREFILL_BATCH, NK, R, S, H, 1,
+                             bf16, mask.dtype)})
   log(f'kernel flash_attention_int8_masked ok: {by_chunk}')
+  cases = []
+  for name, b, nk, r, s, h, mask_nk, qd, md in FLASH_CASES:
+    qd, md = getattr(torch, qd), getattr(torch, md)
+    args = flash_case(torch, att, dev, gen, b, nk, r, s, h, mask_nk, qd, md,
+                      start=s // 3)
+    err, ymax = check(name, args[:3] + (k_scale, v_scale, args[3]))
+    cases.append({'check': name, 'B': b, 'NK': nk, 'R': r, 'S': s, 'H': h,
+                  'mask_nk': mask_nk, 'q': str(qd), 'mask': str(md),
+                  'max_abs_err': err, 'max_abs_y': ymax,
+                  'launch': flash_plan(torch, build, b, nk, r, s, h, mask_nk,
+                                       qd, md)})
+  ptxas = ptxas_report(build, 'flash_attention_int8',
+                       'flash_tc_kernel')
+  log(f'kernel flash_attention_int8_masked cases ok: {cases}; ptxas '
+      f'{ptxas}')
 
   def mean(key):
     return sum(r[key] for r in by_chunk) / len(by_chunk)
@@ -3041,13 +3150,13 @@ def flash_kernel(torch, att, cfg, dev, timer, gen):
       'jax': 'pallas_attention.flash_attention_int8_masked',
       'wrapper': att.flash_attention_int8_masked, 'per_step': 0,
       'per_prefill_pass': cfg.num_layers,
-      'max_abs_err': max(r['max_abs_err'] for r in by_chunk),
+      'max_abs_err': max(r['max_abs_err'] for r in by_chunk + cases),
       'ms': mean('ms'), 'plain_ms': mean('plain_ms'),
       'bound_ms': mean('bound_ms'), 'bound_by': by_chunk[0]['bound_by'],
       'library_ms': mean('library_ms'),
       'library': 'scaled_dot_product_attention with the additive mask over '
                  'a dequantized bf16 cache',
-      'by_chunk': by_chunk}
+      'by_chunk': by_chunk, 'cases': cases, 'ptxas': ptxas}
 
 
 def serve_phase(torch, port, kernels, cfg, dev):
