@@ -12,27 +12,51 @@
 //   rows (M = 1024) the operations, 2*M*N*K at the bf16 tensor-core peak
 //   (11 us for QKV).
 //
-// Design: the split-half layout is one group of K columns of the shared
-//   weight-only kernels (qmatmul_int4_weight_only.cuh): the low-nibble and
-//   the high-nibble halves are contracted in f32 and added, then
-//   y = acc * s (+ b), stored in the compute dtype (bf16 for bf16 x, f32
-//   otherwise), as the Pallas kernel does. bf16 x runs on tensor cores
-//   (mma.sync, f32 sums), f32 x on the SIMT f32 kernel.
-#include "qmatmul_int4_weight_only.cuh"
+// Design: the low-nibble and the high-nibble halves are contracted in f32
+//   and added, then y = acc * s (+ b), stored in the compute dtype (bf16 for
+//   bf16 x, f32 otherwise), as the Pallas kernel does. bf16 x runs on the
+//   bf16 tensor-core core int4_bf16_tc_gemm.cuh (policy ChannelScale: a
+//   TMA ring of x and packed weight tiles, the weights widened in registers
+//   into wgmma's A fragments, wgmma m64nNk16 against x in shared memory,
+//   split-K in a cluster at decode; one launch, no scratch); f32 x on the
+//   SIMT f32 kernel (qmatmul_int4_simt.cuh).
+#include "int4_bf16_tc_gemm.cuh"
+#include "qmatmul_int4_simt.cuh"
 
-// x [M, K] bf16 (x_bf16) or f32; w [N, K/2] uint8 split-half packed, rows
-// 16-byte aligned; scale [N] f32; bias [N] f32 or null; out [M, N] in x's
-// dtype. Takes N % 64 == 0 and K % 128 == 0; refuses any other shape with
-// kShapeRefused.
+// N % 64 == 0 and K % 128 == 0 (int4_bf16_tc_gemm.cuh takes; the SIMT
+// kernel's tiles of 64 columns and steps of 32 packed bytes fit them).
+static bool takes(int M, int N, int K) {
+  return aeqt::w4::takes(M, N, K, 0) && N % aeqt::kWpBN == 0;
+}
+
+// x [M, K] bf16 (x_bf16) or f32, 16-byte aligned; w [N, K/2] uint8
+// split-half packed, 16-byte aligned; scale [N] f32; bias [N] f32 or null;
+// out [M, N] in x's dtype. Takes N % 64 == 0 and K % 128 == 0; refuses
+// any other shape with kShapeRefused before any launch.
 extern "C" int aeqt_qmatmul_int4_weight_only(const void* x, int x_bf16,
                                              const void* w, const void* scale,
                                              const void* bias, void* out,
                                              int M, int N, int K,
                                              void* stream) {
+  if (!takes(M, N, K)) return aeqt::kShapeRefused;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return aeqt::launch_wo<__nv_bfloat16, __nv_bfloat16>(
-        x, w, scale, bias, out, M, N, K, K, nullptr, s);
-  return aeqt::launch_wo<float, float>(x, w, scale, bias, out, M, N, K, K,
-                                       nullptr, s);
+    return aeqt::w4::run<aeqt::w4::ChannelScale>(x, w, scale, bias, out, M,
+                                                 N, K, 0, s);
+  const dim3 grid(N / aeqt::kWpBN, (M + aeqt::kWpBM - 1) / aeqt::kWpBM);
+  aeqt::qmatmul_int4_wo_kernel<float, float><<<grid, aeqt::kWpThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<float*>(out), M, N, K, K);
+  return (int)cudaGetLastError();
+}
+
+// The launch the bf16 path gives this shape (int4_bf16_tc_gemm.cuh
+// plan_fields: grid x, y, z, threads, shared memory, stages, tokens a tile),
+// or kShapeRefused.
+extern "C" int aeqt_qmatmul_int4_weight_only_plan(int M, int N, int K,
+                                                  long long* fields) {
+  if (!takes(M, N, K)) return aeqt::kShapeRefused;
+  aeqt::w4::plan_fields<aeqt::w4::ChannelScale>(M, N, K, 0, fields);
+  return 0;
 }

@@ -13,10 +13,11 @@ Pallas kernels over packed weights:
     `csrc/int8_tc_gemm.cuh` (DRQ with K > 8192);
   * `qmatmul_pallas_int4_packed` (weight-only, the JAX executor's default
     for packed FCs) as `qmatmul_int4_packed`, CUDA kernel
-    `csrc/qmatmul_int4_weight_only.cu(h)`;
+    `csrc/qmatmul_int4_weight_only.cu` on the bf16 tensor-core core
+    `csrc/int4_bf16_tc_gemm.cuh` for bf16 x (SIMT f32 for f32 x);
   * `qmatmul_pallas_int4_packed_blockwise` (one scale per block of bs
     K-columns, bs % 128 == 0) as `qmatmul_int4_packed_blockwise`, CUDA
-    kernel `csrc/qmatmul_int4_blockwise.cu`;
+    kernel `csrc/qmatmul_int4_blockwise.cu`, the same core for bf16 x;
   * `qmatmul_pallas_int4_packed_rmsnorm` (RMS norm times gamma ahead of
     the weight-only matmul, the JAX executor's AEQT_NORM_FUSION) as
     `qmatmul_int4_packed_rmsnorm`, CUDA kernel
@@ -29,7 +30,6 @@ arithmetic in plain PyTorch. Each counts its launches and its plain runs.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -39,6 +39,9 @@ from ai_edge_quantizer_tpu_torch.kernels.qmatmul import int_matmul_exact
 from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
 
 _INV127 = 1.0 / 127.0  # rounded once to f32 where it meets an f32 tensor
+# The bf16 tensor-core core's launch (csrc/int4_bf16_tc_gemm.cuh
+# plan_fields): _build.plan's fields and the tokens of a tile.
+INT4_BF16_PLAN_FIELDS = _build.PLAN_FIELDS + ('tile_tokens',)
 
 
 def pack_int4_split(w_q: torch.Tensor) -> torch.Tensor:
@@ -333,22 +336,14 @@ def qmatmul_int4_packed_blockwise(
     _build.require_cuda_tensor(bias, name, 'bias', (torch.float32,))
     _build.require(bias.numel() == n, name, 'bias must have N entries')
   out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-  part = None
-  if x2.dtype == torch.bfloat16:
-    floats = _build.entry('qmatmul_int4_blockwise',
-                          'aeqt_qmatmul_int4_blockwise_scratch',
-                          [_build.I] * 4, ctypes.c_longlong)(m, n, k, bs)
-    if floats:
-      part = torch.empty((floats,), dtype=torch.float32, device=x2.device)
   fn = _build.entry('qmatmul_int4_blockwise', 'aeqt_qmatmul_int4_blockwise',
                     [_build.P, _build.I, _build.P, _build.P, _build.P,
-                     _build.P, _build.P, _build.I, _build.I, _build.I,
-                     _build.I, _build.P])
+                     _build.P, _build.I, _build.I, _build.I, _build.I,
+                     _build.P])
   status = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16),
               w_packed.data_ptr(), scale.data_ptr(),
               None if bias is None else bias.data_ptr(), out.data_ptr(),
-              None if part is None else part.data_ptr(), m, n, k, bs,
-              _build.stream_ptr(x2.device))
+              m, n, k, bs, _build.stream_ptr(x2.device))
   _build.check(status, name, f'M={m}, N={n}, K={k}, block size {bs}')
   qmatmul_int4_packed_blockwise.launches += 1
   return out.to(x.dtype).reshape(lead + (n,))

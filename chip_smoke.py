@@ -1294,7 +1294,8 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
     full-mantissa f32 x, with and without a bias): f32 outputs within
     int_qmatmul.int_weights_tolerance of max |y| (f32 sums in another
     order), bf16 outputs within one bf16 ulp beyond it; timed beside
-    torch.matmul on the weight dequantized to bf16;
+    torch.matmul on the weight dequantized to bf16; each shape's launch
+    (int4_bf16_tc_gemm.cuh's plan) and ptxas' registers logged;
   * the additive-mask decode attention (B 64 and 256, S 1024, zero points
     3 and -2; the graph's [B, 1, 1, S] prefix mask, the same broadcast to
     [B, 1, G, S], and a non-prefix [B, 1, G, S] mask with one row hidden
@@ -1315,7 +1316,7 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
     winner, the cast_dt rounding)."""
   pq, att, mlp, head = (port['packed_qmatmul'], port['attention'],
                         port['mlp'], port['head'])
-  iq = port['int_qmatmul']
+  iq, build = port['int_qmatmul'], port['_build']
   D, F, V = cfg.embed_dim, cfg.ffn_dim, cfg.vocab_size
   NQ, NK, H = cfg.num_query_heads, cfg.num_kv_heads, cfg.head_dim
   S = cfg.max_seq_len
@@ -1372,7 +1373,11 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
                        'bf16_ulps_beyond': ulps})
       row = {'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': k,
              'max_abs_err': max(c['max_abs_err'] for c in checks),
-             'checks': checks}
+             'checks': checks,
+             'launch': build.plan('qmatmul_int4_weight_only',
+                                  'aeqt_qmatmul_int4_weight_only_plan',
+                                  'qmatmul_int4_packed', m, n, k,
+                                  fields=pq.INT4_BF16_PLAN_FIELDS)}
       if phase != 'odd_m':
         wdq = (pq.unpack_int4_split(w).float() * s[:, None]).to(bf16)
         nbytes = m * k * 2 + n * k // 2 + n * 4 + m * n * 2
@@ -1384,11 +1389,19 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
             library_ms=timer(lambda: torch.matmul(x, wdq.T)),
             bound_ms=b_ms, bound_by=b_by)
       wo_rows.append(row)
-  log(f'kernel qmatmul_int4_packed ok: {wo_rows}')
+  wo_ptxas = ptxas_report(build, 'qmatmul_int4_weight_only',
+                          'int4_bf16_tc_kernel')
+  log(f'kernel qmatmul_int4_packed ok: {wo_rows}; ptxas {wo_ptxas}')
+  for r in wo_rows:
+    if 'ms' in r:
+      log(f'  #12 {r["phase"]} {r["shape"]} M {r["M"]} N {r["N"]} K '
+          f'{r["K"]}: {r["ms"]:.5f} ms, library {r["library_ms"]:.5f}, '
+          f'bound {r["bound_ms"]:.5f} ({r["bound_by"]}), launch '
+          f'{r["launch"]}')
   results.append({
       'name': 'qmatmul_int4_packed', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
-                'qmatmul_int4_weight_only.cuh',
+                'int4_bf16_tc_gemm.cuh',
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:199',
       'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed',
       'wrapper': pq.qmatmul_int4_packed, 'per_step': 0,
@@ -1399,7 +1412,7 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
                        if r['phase'] == 'decode'),
       'library': 'torch.matmul on the weight dequantized to bf16',
       'prefill': {key: mean(wo_rows, key, 'prefill') for key in timing},
-      'by_shape': wo_rows})
+      'by_shape': wo_rows, 'ptxas': wo_ptxas})
 
   # 2. Additive-mask decode attention (#17).
   k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
@@ -1621,10 +1634,11 @@ def blockwise_kernel(torch, port, cfg, dev, timer, gen):
   int_qmatmul.int_weights_tolerance(K, bs) of max |y| (f32 sums in another
   order within a block), bf16 outputs within one bf16 ulp beyond it. Timed
   with bf16 x and no bias beside the plain version and torch.matmul on the
-  weight dequantized to bf16 (scales per block applied); the headline
-  times are the means of the decode QKV and out-projection shapes, as for
-  #12."""
-  pq, iq = port['packed_qmatmul'], port['int_qmatmul']
+  weight dequantized to bf16 (scales per block applied; a time only: w * s
+  rounded to bf16 is another function), each shape's times, launch
+  (int4_bf16_tc_gemm.cuh's plan) and bound logged; the headline times are
+  the means of the decode QKV and out-projection shapes, as for #12."""
+  pq, iq, build = port['packed_qmatmul'], port['int_qmatmul'], port['_build']
   bf16 = torch.bfloat16
   rows = []
   for phase, m, label, n, k, bs in blockwise_shapes(cfg):
@@ -1665,6 +1679,10 @@ def blockwise_kernel(torch, port, cfg, dev, timer, gen):
         'block_size': bs,
         'max_abs_err': max(c['max_abs_err'] for c in checks),
         'checks': checks,
+        'launch': build.plan('qmatmul_int4_blockwise',
+                             'aeqt_qmatmul_int4_blockwise_plan',
+                             'qmatmul_int4_packed_blockwise', m, n, k, bs,
+                             fields=pq.INT4_BF16_PLAN_FIELDS),
         'ms': timer(lambda: pq.qmatmul_int4_packed_blockwise(x, w, s)),
         'plain_ms': timer(
             lambda: pq.qmatmul_int4_packed_blockwise_plain(x, w, s),
@@ -1673,7 +1691,13 @@ def blockwise_kernel(torch, port, cfg, dev, timer, gen):
         'bound_ms': b_ms, 'bound_by': b_by})
     del w, s, wdq, x, x32
     torch.cuda.empty_cache()
-  log(f'kernel qmatmul_int4_packed_blockwise ok: {rows}')
+  ptxas = ptxas_report(build, 'qmatmul_int4_blockwise', 'int4_bf16_tc_kernel')
+  log(f'kernel qmatmul_int4_packed_blockwise ok: {rows}; ptxas {ptxas}')
+  for r in rows:
+    log(f'  #13 {r["phase"]} {r["shape"]} M {r["M"]} N {r["N"]} K {r["K"]} '
+        f'bs {r["block_size"]}: {r["ms"]:.5f} ms, library '
+        f'{r["library_ms"]:.5f}, bound {r["bound_ms"]:.5f} '
+        f'({r["bound_by"]}), launch {r["launch"]}')
   timing = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
 
   def mean(phase):
@@ -1684,7 +1708,7 @@ def blockwise_kernel(torch, port, cfg, dev, timer, gen):
   return {
       'name': 'qmatmul_int4_packed_blockwise', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
-                'qmatmul_int4_blockwise.cu',
+                'int4_bf16_tc_gemm.cuh',
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_qmatmul.py:461',
       'jax': 'pallas_qmatmul.qmatmul_pallas_int4_packed_blockwise',
       'wrapper': pq.qmatmul_int4_packed_blockwise, 'per_step': 0,
@@ -1692,7 +1716,7 @@ def blockwise_kernel(torch, port, cfg, dev, timer, gen):
       'max_abs_err': max(r['max_abs_err'] for r in rows),
       **mean('decode'), 'bound_by': rows[0]['bound_by'],
       'library': 'torch.matmul on the weight dequantized to bf16',
-      'prefill': mean('prefill'), 'by_shape': rows}
+      'prefill': mean('prefill'), 'by_shape': rows, 'ptxas': ptxas}
 
 
 def cache_row_kernel(torch, port, cfg, dev, timer, gen):
