@@ -1,5 +1,5 @@
-// Decode attention over an int8 KV cache that reads only the live prefix:
-// chunks of c cache rows, an online softmax across them (f32 compute).
+// Decode attention over an int8 KV cache that reads only the live prefix
+// (f32 compute).
 //
 // Replaces: ai_edge_quantizer_tpu/kernels/pallas_attention.py
 //   decode_attention_int8_dynlen. The JAX executor runs it for each decode
@@ -16,165 +16,61 @@
 // A row of length 0 (a server's idle slot) scores -1e30 everywhere, so m
 //   stays -1e30 and every one of its n_chunks * c rows gets p = 1: its
 //   context is the mean of that many V rows, a count set by the longest
-//   row in its row block. This kernel reproduces that: each block finds
-//   its row block's longest row, and a zero-length row reads n_chunks * c
-//   V rows. A row of length L > 0 gains nothing from a chunk past L (there
-//   m' = m, a = 1, p = 0 exactly), so it reads ceil(L / c) chunks and no
-//   row at or past L.
+//   row in its row block. This kernel reproduces that: each CTA finds its
+//   row block's longest row, and a zero-length row reads n_chunks * c V
+//   rows. A row of length L > 0 gains nothing from a chunk past L (there
+//   m' = m, a = 1, p = 0 exactly), so no row at or past L is read.
 //
 // Bound on the H100: the K and V bytes of the live rows (2 * L * H a row,
 //   n_chunks * c * H for a zero-length row's V) over 3.35 TB/s.
 //
-// Design (simple first): one block of 256 threads per (batch, kv-head) row
-//   (the TPU's row block only sets n_chunks), its chunks in order. Per
-//   chunk: scores one thread per cache row (attention_common.cuh's dot_row,
-//   G query rows in registers); the softmax update one warp per query row;
-//   the context 4 head columns and one row group per thread, the row
-//   groups' partials added in a fixed order, then acc = acc * a + pv in
-//   shared memory.
-#include "attention_common.cuh"
+// Design: attention_split_tc.cuh. The S rows of a (batch, kv-head) row are
+//   split across a cluster of CTAs sized by the occupancy query (3 at a
+//   batch of 64 and S 1024); a CTA streams only the live rows of its
+//   slice through its ring (none past L: it still joins the cluster's
+//   barriers). With the row's maximum m over the
+//   cluster, e = exp(s - m) needs no rescaling: l is the cluster's sum of
+//   e, acc the sum of e . v over the slices in split order, and a chunk
+//   past L adds exactly 0, as in the online form; on a row of length > 0
+//   the two differ only by rounding.
+#include "attention_split_tc.cuh"
 
 namespace {
 
-using aeqt::kGC;
-using aeqt::kRedFloats;
-constexpr int kThreads = aeqt::kAttnThreads;
+using aeqt::split::Args;
+using aeqt::split::Kernel;
 
-__global__ void __launch_bounds__(kThreads)
-dynlen_attention_kernel(const float* __restrict__ q,
-                        const int8_t* __restrict__ k,
-                        const int8_t* __restrict__ v,
-                        const int* __restrict__ lengths,
-                        float* __restrict__ out, int NK, int G, int S, int H,
-                        int c, int rb, float k_scale_eff, float v_scale,
-                        float zp_k, float zp_v) {
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                          // [G][H]
-  float* acc_s = qs + (size_t)G * H;       // [G][H] context accumulators
-  float* sc = acc_s + (size_t)G * H;       // [G][c] scores, then p
-  float* qsum = sc + (size_t)G * c;        // [G]
-  float* m_s = qsum + G;                   // [G] running max
-  float* l_s = m_s + G;                    // [G] running denominator
-  float* a_s = l_s + G;                    // [G] this chunk's rescale
-  float* red = a_s + G;                    // [RG][kGC][H] context partials
-  const int row = blockIdx.x;
-  const int len = lengths[row / NK];
-  const bool zero = len <= 0;
-  // n_chunks of the row block (the TPU kernel's grid step).
-  const int rb0 = (row / rb) * rb;
-  int blk_len = lengths[rb0 / NK];
-  for (int r = rb0 + 1; r < rb0 + rb; ++r) blk_len = max(blk_len, lengths[r / NK]);
-  const int max_chunks = S / c;
-  const int n_chunks =
-      min(max(blk_len > 0 ? (blk_len + c - 1) / c : 0, 1), max_chunks);
-  const int row_chunks = zero ? n_chunks : min(n_chunks, (len + c - 1) / c);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int8_t* kr = k + (size_t)row * S * H;
-  const int8_t* vr = v + (size_t)row * S * H;
+template <int H, int NTS>
+__global__ void __launch_bounds__(aeqt::split::kThreads, 2)
+dynlen_attention_kernel(const Args a) {
+  aeqt::split::attend<true, aeqt::kF32, H, NTS>(a);
+}
 
-  const float* qr = q + (size_t)row * G * H;
-  for (int i = threadIdx.x; i < G * H; i += blockDim.x) {
-    qs[i] = qr[i];
-    acc_s[i] = 0.0f;
+// The kernel of a head dim and query-row count; nullptr for a shape the
+// kernels do not take.
+Kernel kernel_for(int R, int G, int S, int H) {
+  if (!aeqt::split::takes(aeqt::kF32, R, G, S, H)) return nullptr;
+  const bool two = G > 8;  // query rows in two n-tiles
+  switch (H) {
+    case 64:
+      return two ? &dynlen_attention_kernel<64, 2>
+                 : &dynlen_attention_kernel<64, 1>;
+    case 128:
+      return two ? &dynlen_attention_kernel<128, 2>
+                 : &dynlen_attention_kernel<128, 1>;
+    case 256:
+      return two ? &dynlen_attention_kernel<256, 2>
+                 : &dynlen_attention_kernel<256, 1>;
   }
-  __syncthreads();
-  for (int g = warp; g < G; g += nwarps) {
-    float s = 0.0f;
-    for (int h = lane; h < H; h += 32) s = s + qs[g * H + h];
-    s = aeqt::warp_sum(s);
-    if (lane == 0) {
-      qsum[g] = s;
-      m_s[g] = aeqt::kNegInf;
-      l_s[g] = 0.0f;
-    }
-  }
-  __syncthreads();
-
-  const int chunks = H / 4;
-  const int RG = blockDim.x / chunks;
-  const int col = threadIdx.x % chunks, rg = threadIdx.x / chunks;
-  for (int ci = 0; ci < row_chunks; ++ci) {
-    const int base = ci * c;
-    // Rows of this chunk below the row's length (all of them for len 0,
-    // whose p is 1 everywhere).
-    const int live = zero ? c : min(c, len - base);
-    for (int j = threadIdx.x; j < c; j += blockDim.x) {
-      for (int g0 = 0; g0 < G; g0 += kGC) {
-        float acc[kGC] = {};
-        const bool scored = !zero && j < live;
-        if (scored) aeqt::dot_row(qs, H, G, g0, kr + (size_t)(base + j) * H, acc);
-#pragma unroll
-        for (int i = 0; i < kGC; ++i) {
-          const int g = g0 + i;
-          if (g < G)
-            sc[(size_t)g * c + j] =
-                scored ? (acc[i] - zp_k * qsum[g]) * k_scale_eff
-                       : aeqt::kNegInf;
-        }
-      }
-    }
-    __syncthreads();
-    // The online softmax update: one warp per query row.
-    for (int g = warp; g < G; g += nwarps) {
-      float* srow = sc + (size_t)g * c;
-      float mc = aeqt::kNegInf;
-      for (int j = lane; j < c; j += 32) mc = fmaxf(mc, srow[j]);
-      mc = aeqt::warp_max(mc);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mc);
-      float sum = 0.0f;
-      for (int j = lane; j < c; j += 32) {
-        const float p = expf(srow[j] - m_new);
-        srow[j] = p;
-        sum = sum + p;
-      }
-      sum = aeqt::warp_sum(sum);
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        a_s[g] = a;
-        l_s[g] = a * l_s[g] + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // acc = acc * a + p . v over the chunk's live rows (p is 0 past them).
-    for (int g0 = 0; g0 < G; g0 += kGC) {
-      float acc[kGC][4];
-      aeqt::context_rows(sc, c, G, g0, vr + (size_t)base * H, H, live, rg,
-                         RG, col, acc);
-#pragma unroll
-      for (int i = 0; i < kGC; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          red[((size_t)rg * kGC + i) * H + 4 * col + e] = acc[i][e];
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kGC * H; idx += blockDim.x) {
-        const int i = idx / H, h = idx % H, g = g0 + i;
-        if (g >= G) continue;
-        float pv = 0.0f;
-        for (int r = 0; r < RG; ++r)
-          pv = pv + red[((size_t)r * kGC + i) * H + h];
-        acc_s[g * H + h] = acc_s[g * H + h] * a_s[g] + pv;
-      }
-      __syncthreads();  // red is free again; acc_s and sc are settled
-    }
-  }
-
-  for (int i = threadIdx.x; i < G * H; i += blockDim.x) {
-    const int g = i / H;
-    out[(size_t)row * G * H + i] =
-        (acc_s[i] / fmaxf(l_s[g], 1e-30f) - zp_v) * v_scale;
-  }
+  return nullptr;
 }
 
 }  // namespace
 
 // q f32 [R, G, H] with R = B * NK; k, v int8 [R, S, H]; lengths int32 [B];
 // out f32 [R, G, H]; c, rb the TPU kernel's chunk and row block (the
-// wrapper forms them as it does). Returns aeqt::kShapeRefused unless
-// H % 16 == 0, 1024 % H == 0, S % c == 0, R % rb == 0 and the block's
+// wrapper forms them as it does). Returns aeqt::kShapeRefused unless H is
+// 64, 128 or 256, G <= 16, R <= 65535, S % c == 0, R % rb == 0 and a CTA's
 // shared memory fits.
 extern "C" int aeqt_attention_dynlen(const void* q, const void* k,
                                      const void* v, const void* lengths,
@@ -182,20 +78,35 @@ extern "C" int aeqt_attention_dynlen(const void* q, const void* k,
                                      int H, int c, int rb, float k_scale_eff,
                                      float v_scale, float zp_k, float zp_v,
                                      void* stream) {
-  const size_t smem = ((size_t)2 * G * H + (size_t)G * c + 4 * G +
-                       kRedFloats) * sizeof(float);
-  if (!aeqt::head_dim_fits(H) || c <= 0 || S % c != 0 || rb <= 0 ||
-      R % rb != 0 || !aeqt::smem_fits(smem))
+  const Kernel kernel = kernel_for(R, G, S, H);
+  if (kernel == nullptr || c <= 0 || S % c != 0 || rb <= 0 || R % rb != 0)
     return aeqt::kShapeRefused;
-  cudaError_t err = cudaFuncSetAttribute(
-      dynlen_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dynlen_attention_kernel<<<R, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(out), NK, G, S, H, c, rb, k_scale_eff, v_scale,
-      zp_k, zp_v);
-  return (int)cudaGetLastError();
+  Args a = {};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const int8_t*>(k);
+  a.v = static_cast<const int8_t*>(v);
+  a.out = static_cast<float*>(out);
+  a.lengths = static_cast<const int*>(lengths);
+  a.c = c;
+  a.rb = rb;
+  a.NK = NK;
+  a.G = G;
+  a.S = S;
+  a.ks = k_scale_eff;
+  a.v_scale = v_scale;
+  a.zp_k = zp_k;
+  a.zp_v = zp_v;
+  return aeqt::split::launch(
+      kernel, a, aeqt::split::choose_plan(kernel, aeqt::kF32, G, S, H, R), R,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The launch of a shape (chip_smoke.SPLIT_PLAN_FIELDS).
+extern "C" int aeqt_attention_dynlen_plan(int R, int G, int S, int H,
+                                          long long* fields) {
+  const Kernel kernel = kernel_for(R, G, S, H);
+  if (kernel == nullptr) return aeqt::kShapeRefused;
+  aeqt::split::plan_fields(
+      aeqt::split::choose_plan(kernel, aeqt::kF32, G, S, H, R), R, fields);
+  return 0;
 }

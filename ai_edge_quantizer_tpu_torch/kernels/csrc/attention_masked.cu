@@ -22,106 +22,57 @@
 // Bound on the H100: the cache bytes, 2 * S * H per (batch, kv-head) row,
 //   plus the mask as the caller gives it: at Gemma-2B (H = 256, one KV head,
 //   G = 8) with B = 64 and S = 1024 that is 33.5 MB of K/V, about 10 us at
-//   3.35 TB/s. The f32 work (4 * G * S * H per row) is 1/8 of that time at
-//   the 67 TFLOP/s f32 rate; in int8 the score dot runs on __dp4a.
+//   3.35 TB/s.
 //
-// Design (simple first): the lengths kernel's layout (attention_lengths.cuh,
-//   helpers of attention_common.cuh) over all S rows. One block of 256
-//   threads per (batch, kv-head) row; the G query rows and the G x S scores
-//   live in shared memory (32 KB of scores at G 8, S 1024), the int8 q
-//   codes and scales in the context partials' space until the context
-//   starts; scores one thread per cache row, four 16-byte loads in flight,
-//   the mask element added beside its score after the scale (the mask is
-//   addressed by strides, so a mask broadcast over kv heads or query rows
-//   is never copied); softmax one warp per query row; context 4 head
-//   columns and one row group per thread, the row groups' partial sums
-//   added in a fixed order, so the result does not depend on timing.
-#include "attention_common.cuh"
+// Design: attention_split_tc.cuh. The S rows of a (batch, kv-head) row are
+//   split across a cluster of CTAs sized by the occupancy query (3 at a
+//   batch of 64 and S 1024), each streaming its 128-row chunks through a
+//   two-stage ring of bulk copies; scores and context on the tensor cores
+//   (bf16 / fp16 mma.sync, s8 in int8 mode); the softmax's
+//   maxima and sums, and the context partials, meet in distributed shared
+//   memory in split order. The mask element is added beside its score after
+//   the scale, addressed by strides (a mask broadcast over kv heads or
+//   query rows is never copied).
+#include "attention_split_tc.cuh"
 
 namespace {
 
-using aeqt::kGC;
-constexpr int kThreads = aeqt::kAttnThreads;
+using aeqt::split::Args;
+using aeqt::split::Kernel;
 
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-masked_attention_kernel(const float* __restrict__ q,
-                        const int8_t* __restrict__ k,
-                        const int8_t* __restrict__ v,
-                        const float* __restrict__ mask,
-                        float* __restrict__ out, int NK, int G, int S, int H,
-                        long long mask_sb, long long mask_sn,
-                        long long mask_sg, float k_scale_eff, float v_scale,
-                        float zp_k, float zp_v) {
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                          // [G][H]
-  float* sc = qs + (size_t)G * H;          // [G][S] scores, then probs
-  float* qsum = sc + (size_t)G * S;        // [G] sum(q), then p_sum (int8)
-  float* red = qsum + G;                   // [RG][kGC][H] context partials
-  const int row = blockIdx.x;
-  const int b = row / NK, nk = row % NK;
-  const float* mrow = mask + b * mask_sb + nk * mask_sn;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-
-  const float* qr = q + (size_t)row * G * H;
-  for (int i = threadIdx.x; i < G * H; i += blockDim.x) qs[i] = qr[i];
-  __syncthreads();
-
-  aeqt::prepare_queries<C>(qs, qsum, red, G, H);
-  __syncthreads();
-
-  // Scores: one thread per cache row, the mask added after the scale.
-  const int8_t* kr = k + (size_t)row * S * H;
-  for (int j = threadIdx.x; j < S; j += blockDim.x) {
-    const int8_t* krow = kr + (size_t)j * H;
-    for (int g0 = 0; g0 < G; g0 += kGC) {
-      float s[kGC];
-      aeqt::score_rows<C>(qs, qsum, red, G, H, g0, krow, zp_k, k_scale_eff,
-                          s);
-#pragma unroll
-      for (int i = 0; i < kGC; ++i) {
-        const int g = g0 + i;
-        if (g < G) sc[(size_t)g * S + j] = s[i] + mrow[g * mask_sg + j];
-      }
-    }
-  }
-  __syncthreads();
-
-  // Softmax over the S scores: one warp per query row (no floor under the
-  // max: jnp.max of the row).
-  for (int g = warp; g < G; g += nwarps) {
-    const float codes =
-        aeqt::softmax_row<C>(sc + (size_t)g * S, S, -INFINITY, lane);
-    if constexpr (C == aeqt::kInt8)
-      if (lane == 0) qsum[g] = fmaxf(codes, 1.0f);
-  }
-  __syncthreads();
-
-  aeqt::context_phase<C>(sc, qsum, red, G, S, H, S, v + (size_t)row * S * H,
-                         nullptr, -1, out + (size_t)row * G * H, zp_v,
-                         v_scale);
+template <int C, int H, int NTS>
+__global__ void __launch_bounds__(aeqt::split::kThreads, 2)
+masked_attention_kernel(const Args a) {
+  aeqt::split::attend<false, C, H, NTS>(a);
 }
 
 template <int C>
-int launch(const void* q, const void* k, const void* v, const void* mask,
-           void* out, int R, int NK, int G, int S, int H, long long mask_sb,
-           long long mask_sn, long long mask_sg, float k_scale_eff,
-           float v_scale, float zp_k, float zp_v, cudaStream_t stream) {
-  const size_t smem = aeqt::scores_smem_floats(G, S, H) * sizeof(float);
-  if (R <= 0 || G <= 0 || S <= 0 || !aeqt::head_dim_fits(H) ||
-      !aeqt::compute_fits(C, G, H) || !aeqt::smem_fits(smem))
-    return aeqt::kShapeRefused;
-  auto* kernel = masked_attention_kernel<C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<R, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(mask),
-      static_cast<float*>(out), NK, G, S, H, mask_sb, mask_sn, mask_sg,
-      k_scale_eff, v_scale, zp_k, zp_v);
-  return (int)cudaGetLastError();
+Kernel kernel_for(int H, int G) {
+  const bool two = G > 8;  // query rows in two n-tiles
+  switch (H) {
+    case 64:
+      return two ? &masked_attention_kernel<C, 64, 2>
+                 : &masked_attention_kernel<C, 64, 1>;
+    case 128:
+      return two ? &masked_attention_kernel<C, 128, 2>
+                 : &masked_attention_kernel<C, 128, 1>;
+    case 256:
+      return two ? &masked_attention_kernel<C, 256, 2>
+                 : &masked_attention_kernel<C, 256, 1>;
+  }
+  return nullptr;
+}
+
+// The kernel of a compute mode, head dim and query-row count; nullptr for
+// a shape or mode the kernels do not take.
+Kernel kernel_for(int compute, int R, int G, int S, int H) {
+  if (!aeqt::split::takes(compute, R, G, S, H)) return nullptr;
+  switch (compute) {
+    case aeqt::kF32: return kernel_for<aeqt::kF32>(H, G);
+    case aeqt::kBF16: return kernel_for<aeqt::kBF16>(H, G);
+    case aeqt::kInt8: return kernel_for<aeqt::kInt8>(H, G);
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -129,9 +80,9 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 // q f32 [R, G, H] with R = B * NK; k, v int8 [R, S, H]; mask f32 with
 // element (b, nk, g, j) at b * mask_sb + nk * mask_sn + g * mask_sg + j
 // (a stride of 0 broadcasts); out f32 [R, G, H]; compute aeqt::kF32, kBF16
-// or kInt8. Returns aeqt::kShapeRefused (nothing launched) unless
-// H % 16 == 0, 1024 % H == 0, the G x S scores fit in shared memory and
-// (int8) G * H / 4 + G <= aeqt::kRedFloats.
+// or kInt8. Returns aeqt::kShapeRefused (nothing launched) unless H is 64,
+// 128 or 256, G <= 16, R <= 65535 and a CTA's shared memory (its ring, the
+// G x rows scores) fits.
 extern "C" int aeqt_attention_masked(const void* q, const void* k,
                                      const void* v, const void* mask,
                                      void* out, int compute, int R, int NK,
@@ -139,9 +90,36 @@ extern "C" int aeqt_attention_masked(const void* q, const void* k,
                                      long long mask_sn, long long mask_sg,
                                      float k_scale_eff, float v_scale,
                                      float zp_k, float zp_v, void* stream) {
-  return aeqt::with_compute(compute, [&](auto mode) {
-    return launch<decltype(mode)::value>(
-        q, k, v, mask, out, R, NK, G, S, H, mask_sb, mask_sn, mask_sg,
-        k_scale_eff, v_scale, zp_k, zp_v, static_cast<cudaStream_t>(stream));
-  });
+  const Kernel kernel = kernel_for(compute, R, G, S, H);
+  if (kernel == nullptr) return aeqt::kShapeRefused;
+  Args a = {};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const int8_t*>(k);
+  a.v = static_cast<const int8_t*>(v);
+  a.out = static_cast<float*>(out);
+  a.mask = static_cast<const float*>(mask);
+  a.mask_sb = mask_sb;
+  a.mask_sn = mask_sn;
+  a.mask_sg = mask_sg;
+  a.NK = NK;
+  a.G = G;
+  a.S = S;
+  a.ks = k_scale_eff;
+  a.v_scale = v_scale;
+  a.zp_k = zp_k;
+  a.zp_v = zp_v;
+  return aeqt::split::launch(
+      kernel, a, aeqt::split::choose_plan(kernel, compute, G, S, H, R), R,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The launch of a shape (chip_smoke.SPLIT_PLAN_FIELDS: cluster size,
+// rows, cache rows a CTA, threads, shared memory).
+extern "C" int aeqt_attention_masked_plan(int R, int G, int S, int H,
+                                          int compute, long long* fields) {
+  const Kernel kernel = kernel_for(compute, R, G, S, H);
+  if (kernel == nullptr) return aeqt::kShapeRefused;
+  aeqt::split::plan_fields(
+      aeqt::split::choose_plan(kernel, compute, G, S, H, R), R, fields);
+  return 0;
 }

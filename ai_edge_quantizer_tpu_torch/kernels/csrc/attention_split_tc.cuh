@@ -1,0 +1,896 @@
+// Decode attention over an int8 KV cache with the S cache rows of each
+// (batch, kv-head) row split across a thread-block cluster, both
+// contractions on the tensor cores (mma.sync): the body of the masked
+// (attention_masked.cu, #17, every compute mode) and the live-prefix
+// (attention_dynlen.cu, #18) kernels.
+//
+// Bound on the H100: the cache bytes. At Gemma-2B's decode (one KV head,
+// G = 8 query rows of H = 256, S = 1024) a row holds 512 KB of K and V; the
+// score and context products are 4 * G * S * H operations a row, about 1 %
+// of the bf16 tensor-core rate even with three operand parts.
+//
+// Design. One CTA of kThreads threads per (split, row): grid (n_split, R),
+// a cluster of the n_split CTAs of a row. n_split is the most (up to 8)
+// whose clusters the device holds all at once (choose_plan: 8 at small
+// batches, 3 at Gemma-2B's decode batch of 64, 1 at 256), and a CTA takes
+// whole chunks of kChunk rows. A CTA
+//   1. streams its chunks through a ring of kStages shared-memory stages,
+//      one bulk copy (cp.async.bulk, 1-D TMA) a chunk on the stage's
+//      mbarrier: first its K chunks, then its V chunks, the first two at
+//      entry and each next one as a stage is read, so that the V copies
+//      are in flight while the last scores and the softmax run (the
+//      live-prefix kernel copies only its live rows: rows < L, or for a
+//      zero-length row its V rows < n_chunks * c);
+//   2. meanwhile stages the query operands in the tensor cores' fragment
+//      order: f32 q in kQPartsF32 bf16 parts (their sum is q to 24 bits;
+//      the smallest part is multiplied first), bf16 mode one bf16 part (q
+//      rounded as before), int8 mode the codes; sum(q) (or sum(code *
+//      q_scale)) in the order of attention_common.cuh's prepare_queries;
+//   3. scores each chunk with mma.sync m16n8k16 bf16 (int8: m16n8k32 s8,
+//      int32 sums): cache rows are M (one 16-row tile a warp), the query
+//      rows N (8 a tile: G < 8 pads with zero rows, G up to 16 takes two
+//      tiles), H the
+//      depth; int8 K widens to bf16 exactly (byte into an f32 mantissa,
+//      then a pair conversion); then each score as before:
+//      (q . k - zp_k * sum(q)) * k_scale_eff, plus the mask (read by its
+//      strides) or -1e30 past the length;
+//   4. takes each query row's maximum over its slice; the maxima meet in
+//      distributed shared memory and every CTA takes their maximum (order
+//      free, so every e = exp(s - m) is the one-block kernel's value); the
+//      local sums of e (SumT<C>) meet the same way, added in split order,
+//      so every CTA holds the same denominator, and the mode's operand
+//      prob_operand<C> follows as before. The live-prefix kernel keeps its
+//      own formula: e unnormalised, l = the cluster's sum of e;
+//   5. forms its slice's context ctx^T [H, G] = V^T . p^T on the tensor
+//      cores: V is A (16 head columns a tile), p the N = 8 side. Float
+//      modes: mma.sync m16n8k16 f16, V widened to fp16 exactly (0x64 | byte
+//      ^ 0x80 is 1024 + 128 + v, less 1152), p * kPScale in kPParts fp16
+//      parts (bf16 mode: one part, exact), the sum divided by kPScale;
+//      int8: m16n8k32 s8 on the codes, int32, exact. The rows of a k-step
+//      come to each thread as bytes of four (eight) rows, transposed with
+//      prmt. Warps split H in two and each chunk's rows in four, their
+//      sums in registers across the chunks; the four row quarters are
+//      added in order;
+//   6. the [G, H] partials meet in distributed shared memory: CTA i adds
+//      the i-th n-th of every CTA's partial (in fragment order) in split
+//      order (a fixed order: the result does not depend on timing), applies
+//      finish_ctx<C> (int8: the code sums of the cluster, exact) or
+//      acc / max(l, 1e-30), and writes them.
+//   A chunk is plain rows (one copy), so the fragment reads of K meet every
+//   row at the same bank (two-way conflicts); V's reads take whole rows of
+//   128 bytes. The tensor cores' f32 sums run in their own order: f32
+//   results hold 1e-5 * max(|y|, 1) of the plain versions (the CPU twin,
+//   tests/test_torch_port_attn_split.py, shows one part fewer of q or p
+//   fails it).
+#pragma once
+
+#include <cuda_fp16.h>
+
+#include "attention_common.cuh"
+#include "tc_ptx.cuh"
+
+namespace aeqt {
+namespace split {
+
+constexpr int kThreads = 256;        // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 128;          // cache rows of a ring stage
+constexpr int kStages = 2;           // ring stages of a CTA
+constexpr int kMaxSplit = 8;         // CTAs of a cluster (portable size)
+constexpr int kMaxG = 16;            // query rows: two n-tiles at most
+constexpr int kQPartsF32 = 3;        // bf16 parts of an f32 q
+constexpr int kPParts = 2;           // fp16 parts of an f32 p
+constexpr float kPScale = 32768.0f;  // p's scale before the split: 2^15
+constexpr uint32_t kFlip = 0x80808080u;  // int8 -> biased byte (v + 128)
+
+// The head dims the fragment layout takes.
+inline bool head_dim_fits(int H) { return H == 64 || H == 128 || H == 256; }
+
+// bf16 parts of q: f32 kQPartsF32, bf16 one; int8 takes codes instead.
+__host__ __device__ constexpr int q_parts(int C) {
+  return C == kF32 ? kQPartsF32 : (C == kBF16 ? 1 : 0);
+}
+// fp16 parts of the context's probability operand.
+__host__ __device__ constexpr int p_parts(int C) {
+  return C == kBF16 ? 1 : kPParts;
+}
+
+// Floats between two query rows' scores: 4 more than the slice's rows, so
+// that the rows of a fragment fall on different banks.
+__host__ __device__ inline int sc_pitch(int T) { return T + 4; }
+
+__host__ __device__ inline size_t up16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// Byte offsets of a CTA's shared memory: the ring of kStages chunks of
+// kChunk K or V rows (after the last, the four row quarters' context
+// partials in fragment order), the query operands in fragment order, the
+// scores [G][T + 4] (then e, the operands p), sum(q), q scales, and the
+// cluster's exchange slots: the maxima, the sums of e (SumT: 8 bytes), the
+// int8 code sums; the cluster's l or code sum of each query row; the
+// stages' mbarriers.
+struct Layout {
+  size_t ring, q, sc, qsum, qscale, xmax, xsum, xcodes, xtot, bars, bytes;
+};
+
+__host__ __device__ inline Layout layout(int C, int G, int H, int T) {
+  const size_t nt = (size_t)(G + 7) / 8;
+  const size_t ring = (size_t)kStages * kChunk * H;
+  const size_t parts = (size_t)128 * nt * H;
+  Layout L;
+  L.ring = 0;
+  L.q = up16(ring > parts ? ring : parts);
+  L.sc = up16(L.q + (C == kInt8 ? nt * H * 8 : q_parts(C) * nt * H * 16));
+  L.qsum = up16(L.sc + (size_t)G * sc_pitch(T) * 4);
+  L.qscale = up16(L.qsum + (size_t)G * 4);
+  L.xmax = up16(L.qscale + (size_t)G * 4);
+  L.xsum = up16(L.xmax + (size_t)G * 4);
+  L.xcodes = up16(L.xsum + (size_t)G * 8);
+  L.xtot = up16(L.xcodes + (size_t)G * 4);
+  L.bars = up16(L.xtot + (size_t)G * 4);
+  L.bytes = L.bars + 8 * kStages;
+  return L;
+}
+
+// The kernels' arguments (the masked kernel reads mask*, the live-prefix
+// kernel lengths, c and rb).
+struct Args {
+  const float* q;   // [R, G, H]
+  const int8_t* k;  // [R, S, H]
+  const int8_t* v;  // [R, S, H]
+  float* out;       // [R, G, H]
+  const float* mask;
+  long long mask_sb, mask_sn, mask_sg;
+  const int* lengths;
+  int c, rb;
+  int NK, G, S, rows;
+  float ks, v_scale, zp_k, zp_v;
+};
+
+// The launch of a shape: n_split CTAs (one cluster) a row, `rows` cache
+// rows a CTA (whole chunks), the dynamic shared memory.
+struct Plan {
+  int n_split, rows;
+  size_t smem;
+};
+
+// The plan of n_split CTAs a row, whole chunks each (the last CTA's slice
+// cut at S).
+inline Plan plan_for(int C, int G, int S, int H, int n_split) {
+  const int chunks = S > kChunk ? (S + kChunk - 1) / kChunk : 1;
+  Plan p;
+  p.n_split = n_split;
+  p.rows = (chunks + n_split - 1) / n_split * kChunk;
+  p.smem = layout(C, G, H, p.rows).bytes;
+  return p;
+}
+
+// Whether the kernels take a shape (the entry points add their own terms):
+// the plan with the most CTAs a row must fit.
+inline bool takes(int C, int R, int G, int S, int H) {
+  if (R < 1 || R > 65535 || G < 1 || G > kMaxG || S < 1 || !head_dim_fits(H))
+    return false;
+  const int chunks = S > kChunk ? (S + kChunk - 1) / kChunk : 1;
+  return smem_fits(plan_for(C, G, S, H, chunks < kMaxSplit ? chunks
+                                                           : kMaxSplit)
+                       .smem);
+}
+
+// The launch of `kernel` under plan p for R rows: grid (n_split, R), one
+// cluster of n_split CTAs a row.
+inline cudaLaunchConfig_t launch_config(const Plan& p, int R,
+                                        cudaLaunchAttribute* attr,
+                                        cudaStream_t stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(p.n_split, R);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = p.smem;
+  config.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.n_split;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+using Kernel = void (*)(Args);
+
+// The clusters of plan p the device holds at once (the occupancy query,
+// kept per kernel and plan: a server asks at every step).
+inline int max_clusters(Kernel kernel, const Plan& p) {
+  struct Known {
+    Kernel kernel;
+    int n_split;
+    size_t smem;
+    int clusters;
+  };
+  static Known known[64];
+  static int n_known = 0;
+  for (int i = 0; i < n_known; ++i)
+    if (known[i].kernel == kernel && known[i].n_split == p.n_split &&
+        known[i].smem == p.smem)
+      return known[i].clusters;
+  int clusters = 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = launch_config(p, 1, &attr, 0);
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)p.smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &config) !=
+          cudaSuccess) {
+    cudaGetLastError();  // a refused query is no launch error
+    clusters = 0;
+  }
+  if (n_known < 64) known[n_known++] = {kernel, p.n_split, p.smem, clusters};
+  return clusters;
+}
+
+// The split: the most CTAs a row (kMaxSplit at most, a portable cluster;
+// whole chunks each) whose R clusters the device holds at once, by the
+// occupancy query; else the fewest (one, where its scores fit). A grid of
+// more clusters than the device holds leaves its last ones to start only
+// when the first ones end, each waiting out its whole serial chain; at a
+// batch too large for any split to fit at once, a row's whole S in one CTA
+// ran fastest (PERF.md §6). At S 1024 on the H100 that is 8 CTAs a row
+// for small batches, 3 at a batch of 64 and 1 at 256.
+inline Plan choose_plan(Kernel kernel, int C, int G, int S, int H, int R) {
+  const int chunks = S > kChunk ? (S + kChunk - 1) / kChunk : 1;
+  Plan fits = plan_for(C, G, S, H, chunks < kMaxSplit ? chunks : kMaxSplit);
+  int tried = 0;
+  for (int per = (chunks + kMaxSplit - 1) / kMaxSplit; per <= chunks;
+       ++per) {
+    const int n = (chunks + per - 1) / per;
+    if (n == tried) continue;  // the same split as the last try
+    tried = n;
+    const Plan p = plan_for(C, G, S, H, n);
+    if (!smem_fits(p.smem)) break;  // fewer CTAs hold more scores
+    if (R <= max_clusters(kernel, p)) return p;
+    fits = p;
+  }
+  return fits;  // more than one wave: the fewest CTAs a row that fit
+}
+
+// Plan fields as chip_smoke.py reads them (SPLIT_PLAN_FIELDS): the
+// cluster size (splits, grid x), grid y (rows), cache rows a CTA, threads,
+// dynamic shared memory.
+inline void plan_fields(const Plan& p, int R, long long* f) {
+  f[0] = p.n_split;
+  f[1] = R;
+  f[2] = p.rows;
+  f[3] = kThreads;
+  f[4] = (long long)p.smem;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_f16(float (&d)[4], uint32_t a0,
+                                        uint32_t a1, uint32_t a2, uint32_t a3,
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Bytes e and e + 1 of a biased word (each byte v + 128) as a bf16 pair
+// (byte e in the low half), exactly: the byte as an f32 mantissa (2^23 +
+// v + 128), less 2^23 + 128.
+template <int E>
+__device__ __forceinline__ uint32_t bf16_pair(uint32_t biased) {
+  const float lo =
+      __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 | E)) -
+      8388736.0f;
+  const float hi =
+      __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 | (E + 1))) -
+      8388736.0f;
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Bytes 0 and 1 (SEL 0x4140) or 2 and 3 (0x4342) of a biased word as an
+// fp16 pair, exactly: 0x64 above each byte is 1024 + v + 128, less 1152.
+template <int SEL>
+__device__ __forceinline__ uint32_t f16_pair(uint32_t biased) {
+  uint32_t d;
+  asm("sub.rn.f16x2 %0, %1, %2;"
+      : "=r"(d)
+      : "r"(__byte_perm(biased, 0x64646464u, SEL)), "r"(0x64806480u));
+  return d;
+}
+
+// Byte BO and BO + 1 of x and of y, interleaved: [x.BO, y.BO, x.BO+1,
+// y.BO+1].
+template <int BO>
+__device__ __forceinline__ uint32_t pair_rows(uint32_t x, uint32_t y) {
+  return __byte_perm(x, y, BO | ((4 + BO) << 4) | ((BO + 1) << 8) |
+                               ((5 + BO) << 12));
+}
+
+// x0 and x1 in NP fp16 parts, each rounding what the earlier ones left.
+template <int NP>
+__device__ __forceinline__ void f16_parts(float x0, float x1,
+                                          uint32_t (&out)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    out[p] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 = x0 - __low2float(h);
+    x1 = x1 - __high2float(h);
+  }
+}
+
+// W bytes of a V row as W / 4 words.
+template <int W>
+__device__ __forceinline__ void load_row(const int8_t* p,
+                                         uint32_t (&w)[W / 4]) {
+  if constexpr (W == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (W == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// Fragment order of the query operands. Thread t of a warp reads, from
+// cache rows grp and grp + 8, the 16 bytes at 64 gi + 16 t; its word u is
+// the k16 step 4 gi + u (bytes 0, 1: k 2t, 2t + 1; bytes 2, 3: k 2t + 8,
+// 2t + 9), or for int8 words 2v and 2v + 1 the k32 step 2 gi + v. Query
+// row g of n-tile nt and head column h go where lane 4 (g % 8) + t finds
+// them: bf16 element index of part p ...
+template <int H>
+__device__ __forceinline__ int q_index(int p, int nts, int nt, int g8,
+                                          int h) {
+  const int ks = 4 * (h >> 6) + ((h >> 2) & 3);
+  const int ln = 4 * g8 + ((h >> 4) & 3);
+  return (((p * nts + nt) * (H / 16) + ks) * 32 + ln) * 4 + (h & 3);
+}
+// ... and byte index of the int8 codes.
+template <int H>
+__device__ __forceinline__ int code_index(int nt, int g8, int h) {
+  const int ks = 2 * (h >> 6) + ((h >> 3) & 1);
+  const int ln = 4 * g8 + ((h >> 4) & 3);
+  return ((nt * (H / 32) + ks) * 32 + ln) * 8 + 4 * ((h >> 2) & 1) + (h & 3);
+}
+
+// Step 2: the query operands of the G rows qr [G][H] (zeros for the pad
+// rows up to a whole n-tile), qsum and (int8) the q scales; one warp a
+// query row, in prepare_queries' order.
+// Query row g (zeros past G) into registers, lane-strided: every load in
+// flight at once.
+template <int H>
+__device__ __forceinline__ void load_query(const float* __restrict__ qr,
+                                           int G, int g, float (&x)[H / 32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < H / 32; ++i)
+    x[i] = g < G ? qr[(size_t)g * H + lane + 32 * i] : 0.0f;
+}
+
+// x holds this warp's first row (g = warp), loaded before the copies were
+// issued.
+template <int C, int H>
+__device__ __forceinline__ void stage_queries(const float* __restrict__ qr,
+                                              int G, uint8_t* qbuf,
+                                              float* qsum, float* qscale,
+                                              float (&x)[H / 32]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nts = (G + 7) >> 3;
+  for (int g = warp; g < 8 * nts; g += kWarps) {
+    const int nt = g >> 3, g8 = g & 7;
+    const bool real = g < G;
+    if (g != warp) load_query<H>(qr, G, g, x);
+    float s = 0.0f;
+    if constexpr (C == kInt8) {
+      float m = 0.0f;
+#pragma unroll
+      for (int i = 0; i < H / 32; ++i) m = fmaxf(m, fabsf(x[i]));
+      m = warp_max(m);
+      const float scale = fmaxf(m, (float)1e-9) * kInv127;
+#pragma unroll
+      for (int i = 0; i < H / 32; ++i) {
+        const float code = real ? rintf(x[i] / scale) : 0.0f;
+        qbuf[code_index<H>(nt, g8, lane + 32 * i)] =
+            (uint8_t)(int8_t)(int)code;
+        s = s + code * scale;
+      }
+      s = warp_sum(s);
+      if (real && lane == 0) qscale[g] = scale;
+    } else {
+      __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(qbuf);
+#pragma unroll
+      for (int i = 0; i < H / 32; ++i) {
+        const int h = lane + 32 * i;
+        float r = x[i];
+        s = s + r;
+#pragma unroll
+        for (int p = 0; p < q_parts(C); ++p) {
+          const __nv_bfloat16 b = __float2bfloat16_rn(r);
+          qb[q_index<H>(p, nts, nt, g8, h)] = b;
+          r = r - __bfloat162float(b);
+        }
+      }
+      s = warp_sum(s);
+    }
+    if (real && lane == 0) qsum[g] = s;
+  }
+}
+
+// Step 3: the scores of one chunk, slice rows [j0, j0 + kChunk) lying in
+// ring stage `kst`, one 16-row tile a warp, into sc [G][T + 4] for the
+// rows j < kr (rows of a tile past kr are computed and not stored).
+template <bool kDyn, int C, int H>
+__device__ __forceinline__ void score_chunk(const Args& a, const int8_t* kst,
+                                            const uint8_t* qbuf,
+                                            const float* qsum,
+                                            const float* qscale,
+                                            const float* mrow, float* sc,
+                                            int j0, int kr, int s0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, t = lane & 3;
+  const int G = a.G, P = sc_pitch(a.rows), nts = (G + 7) >> 3;
+  const int mt = warp;  // the warp's tile of the chunk
+  if (j0 + 16 * mt < kr) {
+    const int8_t* k0 = kst + (size_t)(16 * mt + grp) * H + 16 * t;
+    const int8_t* k1 = k0 + 8 * H;
+    for (int nt = 0; nt < nts; ++nt) {
+      float dot[4];
+      if constexpr (C == kInt8) {
+        int acc[4] = {0, 0, 0, 0};
+        const uint2* qb =
+            reinterpret_cast<const uint2*>(qbuf) + nt * (H / 32) * 32 + lane;
+#pragma unroll
+        for (int gi = 0; gi < H / 64; ++gi) {
+          const uint4 w0 = *reinterpret_cast<const uint4*>(k0 + 64 * gi);
+          const uint4 w1 = *reinterpret_cast<const uint4*>(k1 + 64 * gi);
+          const uint2 b0 = qb[(2 * gi) * 32], b1 = qb[(2 * gi + 1) * 32];
+          mma_s8(acc, w0.x, w1.x, w0.y, w1.y, b0.x, b0.y);
+          mma_s8(acc, w0.z, w1.z, w0.w, w1.w, b1.x, b1.y);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int g = 8 * nt + 2 * t + (i & 1);
+          dot[i] = g < G ? (float)acc[i] * qscale[g] : 0.0f;
+        }
+      } else {
+        constexpr int QP = q_parts(C);
+        float acc[QP][4] = {};  // one chain of products a part
+        const uint2* qb = reinterpret_cast<const uint2*>(qbuf) + lane;
+#pragma unroll
+        for (int gi = 0; gi < H / 64; ++gi) {
+          const uint4 w0 = *reinterpret_cast<const uint4*>(k0 + 64 * gi);
+          const uint4 w1 = *reinterpret_cast<const uint4*>(k1 + 64 * gi);
+          const uint32_t r0[4] = {w0.x ^ kFlip, w0.y ^ kFlip, w0.z ^ kFlip,
+                                  w0.w ^ kFlip};
+          const uint32_t r1[4] = {w1.x ^ kFlip, w1.y ^ kFlip, w1.z ^ kFlip,
+                                  w1.w ^ kFlip};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint32_t a0 = bf16_pair<0>(r0[u]), a2 = bf16_pair<2>(r0[u]);
+            const uint32_t a1 = bf16_pair<0>(r1[u]), a3 = bf16_pair<2>(r1[u]);
+            const int ks = 4 * gi + u;
+#pragma unroll
+            for (int p = QP - 1; p >= 0; --p) {  // the smallest part first
+              const uint2 b = qb[((p * nts + nt) * (H / 16) + ks) * 32];
+              mma_bf16(acc[p], a0, a1, a2, a3, b.x, b.y);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // the smallest part's sum first
+          dot[i] = acc[QP - 1][i];
+#pragma unroll
+          for (int p = QP - 2; p >= 0; --p) dot[i] = dot[i] + acc[p][i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int g = 8 * nt + 2 * t + (i & 1);
+        const int j = j0 + 16 * mt + grp + 8 * (i >> 1);
+        if (g >= G || j >= kr) continue;
+        float s = (dot[i] - a.zp_k * qsum[g]) * a.ks;
+        if constexpr (!kDyn) s = s + mrow[g * a.mask_sg + s0 + j];
+        sc[g * P + j] = s;
+      }
+    }
+  }
+}
+
+// Step 5 in a float mode: the partial context of query rows [8 nt, 8 nt +
+// 8) over rows [j0, j1) of the chunk in ring stage vst (k16 steps; sc
+// points at the chunk's first score column), head columns
+// h0 + 2 mt and h0 + 2 mt + 1 of tile mt; V widened to fp16, p in NP fp16
+// parts of p * kPScale.
+template <int C, int H>
+__device__ __forceinline__ void context_f16(const int8_t* vst,
+                                            const float* sc, int G, int P,
+                                            int nt, int j0, int j1, int h0,
+                                            float (&acc)[H / 32][4]) {
+  constexpr int W = H / 16, MT = H / 32, NP = p_parts(C);
+  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
+  const int g = 8 * nt + grp;
+  for (int jb = j0; jb < j1; jb += 16) {
+    uint32_t r[4][W / 4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      load_row<W>(vst + (size_t)(jb + 4 * t + i) * H + h0, r[i]);
+#pragma unroll
+      for (int w = 0; w < W / 4; ++w) r[i][w] ^= kFlip;
+    }
+    float4 pv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (g < G) pv = *reinterpret_cast<const float4*>(sc + g * P + jb + 4 * t);
+    uint32_t b0[NP], b1[NP];
+    f16_parts<NP>(pv.x * kPScale, pv.y * kPScale, b0);
+    f16_parts<NP>(pv.z * kPScale, pv.w * kPScale, b1);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int wi = mt >> 1;
+      uint32_t x01, x23;
+      if (mt & 1) {
+        x01 = pair_rows<2>(r[0][wi], r[1][wi]);
+        x23 = pair_rows<2>(r[2][wi], r[3][wi]);
+      } else {
+        x01 = pair_rows<0>(r[0][wi], r[1][wi]);
+        x23 = pair_rows<0>(r[2][wi], r[3][wi]);
+      }
+      const uint32_t a0 = f16_pair<0x4140>(x01), a1 = f16_pair<0x4342>(x01);
+      const uint32_t a2 = f16_pair<0x4140>(x23), a3 = f16_pair<0x4342>(x23);
+#pragma unroll
+      for (int p = NP - 1; p >= 0; --p)  // the smallest part first
+        mma_f16(acc[mt], a0, a1, a2, a3, b0[p], b1[p]);
+    }
+  }
+}
+
+// Step 5 in int8: the same on the codes, k32 steps, m16n8k32 s8.
+template <int H>
+__device__ __forceinline__ void context_s8(const int8_t* vst,
+                                           const float* sc, int G, int P,
+                                           int nt, int j0, int j1, int h0,
+                                           int (&acc)[H / 32][4]) {
+  constexpr int W = H / 16, MT = H / 32;
+  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
+  const int g = 8 * nt + grp;
+  for (int jb = j0; jb < j1; jb += 32) {
+    uint32_t r[8][W / 4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      load_row<W>(vst + (size_t)(jb + 16 * (i >> 2) + 4 * t + (i & 3)) * H +
+                      h0,
+                  r[i]);
+    uint32_t b0 = 0, b1 = 0;
+    if (g < G) {
+      const float4 c0 =
+          *reinterpret_cast<const float4*>(sc + g * P + jb + 4 * t);
+      const float4 c1 =
+          *reinterpret_cast<const float4*>(sc + g * P + jb + 16 + 4 * t);
+      b0 = (uint32_t)__float2int_rn(c0.x) |
+           ((uint32_t)__float2int_rn(c0.y) << 8) |
+           ((uint32_t)__float2int_rn(c0.z) << 16) |
+           ((uint32_t)__float2int_rn(c0.w) << 24);
+      b1 = (uint32_t)__float2int_rn(c1.x) |
+           ((uint32_t)__float2int_rn(c1.y) << 8) |
+           ((uint32_t)__float2int_rn(c1.z) << 16) |
+           ((uint32_t)__float2int_rn(c1.w) << 24);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int wi = mt >> 1;
+      uint32_t x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[i] = (mt & 1) ? pair_rows<2>(r[2 * i][wi], r[2 * i + 1][wi])
+                        : pair_rows<0>(r[2 * i][wi], r[2 * i + 1][wi]);
+      mma_s8(acc[mt], __byte_perm(x[0], x[1], 0x5410),
+             __byte_perm(x[0], x[1], 0x7632), __byte_perm(x[2], x[3], 0x5410),
+             __byte_perm(x[2], x[3], 0x7632), b0, b1);
+    }
+  }
+}
+
+// The context partials lie in the order of the C fragments in registers,
+// [quarter][n-tile][hh][mt][lane][4], so that every store, the quarters'
+// sum and the cluster's reads take whole rows of banks: element e of lane
+// (grp, t) in tile mt of half hh, n-tile nt, is query row 8 nt + 2 t +
+// (e & 1) at head column hh H / 2 + grp H / 16 + 2 mt + (e >> 1).
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(int* p, const int (&v)[4]) {
+  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+// The kernels' body: kDyn false is the masked kernel in compute mode C,
+// true the live-prefix kernel (C = kF32). One CTA: blockIdx.x the split
+// (its rank in the cluster), blockIdx.y the (batch, kv-head) row.
+template <bool kDyn, int C, int H, int NTS>
+__device__ __forceinline__ void attend(const Args& a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  using AccT = typename std::conditional<C == kInt8, int, float>::type;
+  const int G = a.G, S = a.S, T = a.rows, P = sc_pitch(T);
+  const Layout L = layout(C, G, H, T);
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + L.ring);
+  uint8_t* qbuf = smem + L.q;
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* qsum = reinterpret_cast<float*>(smem + L.qsum);
+  float* qscale = reinterpret_cast<float*>(smem + L.qscale);
+  float* xmax = reinterpret_cast<float*>(smem + L.xmax);
+  SumT<C>* xsum = reinterpret_cast<SumT<C>*>(smem + L.xsum);
+  float* xcodes = reinterpret_cast<float*>(smem + L.xcodes);
+  float* xtot = reinterpret_cast<float*>(smem + L.xtot);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  AccT* part = reinterpret_cast<AccT*>(smem + L.ring);  // after the last V
+
+  const int me = blockIdx.x, nsplit = gridDim.x, row = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int s0 = me * T;
+  const int here = min(max(S - s0, 0), T);
+  // Rows of the slice to score (kr) and to read from V (vr).
+  int kr = here, vr = here;
+  if constexpr (kDyn) {
+    // The TPU kernel's chunk count of this row's block of rb rows.
+    const int len = a.lengths[row / a.NK];
+    const int rb0 = (row / a.rb) * a.rb;
+    int blk = a.lengths[rb0 / a.NK];
+    for (int r = rb0 + 1; r < rb0 + a.rb; ++r)
+      blk = max(blk, a.lengths[r / a.NK]);
+    const int n_chunks =
+        min(max(blk > 0 ? (blk + a.c - 1) / a.c : 0, 1), S / a.c);
+    const int live_k = len > 0 ? min(len, n_chunks * a.c) : 0;
+    const int live_v = len > 0 ? live_k : n_chunks * a.c;
+    kr = min(max(live_k - s0, 0), here);
+    vr = min(max(live_v - s0, 0), here);
+  }
+
+  // 1. The slice's loads: its K chunks, then its V chunks (live rows
+  //    only), each one bulk copy into ring stage i % kStages; the first
+  //    kStages at once (this warp's first query row loaded first), the
+  //    next as a stage is read.
+  const int nk = (kr + kChunk - 1) / kChunk, nv = (vr + kChunk - 1) / kChunk;
+  const size_t base = ((size_t)row * S + s0) * H;
+  auto issue_load = [&](int i) {
+    if (i >= nk + nv) return;
+    const bool is_v = i >= nk;
+    const int c = is_v ? i - nk : i;
+    const uint32_t bytes = (uint32_t)(min((is_v ? vr : kr) - c * kChunk,
+                                          kChunk) * H);
+    uint64_t* bar = &bars[i % kStages];
+    tc::mbar_expect_tx(bar, bytes);
+    tc::bulk_load(ring + (size_t)(i % kStages) * kChunk * H,
+                  (is_v ? a.v : a.k) + base + (size_t)c * kChunk * H, bytes,
+                  bar);
+  };
+  auto await_load = [&](int i) {
+    tc::mbar_wait(&bars[i % kStages], (uint32_t)(i / kStages) & 1);
+  };
+  const float* qr = a.q + (size_t)row * G * H;
+  float xq[H / 32];
+  load_query<H>(qr, G, warp, xq);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) tc::mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < kStages; ++i) issue_load(i);
+
+  // 2. Query operands.
+  stage_queries<C, H>(qr, G, qbuf, qsum, qscale, xq);
+  __syncthreads();
+
+  // 3. Scores.
+  const float* mrow = nullptr;
+  if constexpr (!kDyn)
+    mrow = a.mask + (row / a.NK) * a.mask_sb + (row % a.NK) * a.mask_sn;
+  for (int c = 0; c < nk; ++c) {
+    await_load(c);
+    score_chunk<kDyn, C, H>(a, ring + (size_t)(c % kStages) * kChunk * H,
+                            qbuf, qsum, qscale, mrow, sc, c * kChunk, kr, s0);
+    __syncthreads();  // the stage is read
+    if (tid == 0) issue_load(c + kStages);
+  }
+  __syncthreads();
+
+  // 4. Softmax across the cluster: the maxima, then e and its sums.
+  for (int g = warp; g < G; g += kWarps) {
+    float m = kDyn ? kNegInf : -INFINITY;
+    for (int j = lane; j < kr; j += 32) m = fmaxf(m, sc[g * P + j]);
+    m = warp_max(m);
+    if (lane == 0) xmax[g] = m;
+  }
+  tc::cluster_sync();
+  for (int g = warp; g < G; g += kWarps) {
+    float m = lane < nsplit ? *tc::cluster_map(&xmax[g], lane) : -INFINITY;
+    m = warp_max(m);
+    // Live-prefix rows scored -1e30 (a zero-length row's V rows): e of
+    // -1e30 less the maximum.
+    const float e_dead = kDyn ? expf(kNegInf - m) : 0.0f;
+    SumT<C> acc = 0;
+    for (int j = lane; j < T; j += 32) {
+      float e = 0.0f;
+      if (j < kr)
+        e = expf(sc[g * P + j] - m);
+      else if (j < vr)
+        e = e_dead;
+      sc[g * P + j] = e;
+      acc = acc + (SumT<C>)e;
+    }
+    acc = warp_sum_t(acc);
+    if (lane == 0) xsum[g] = acc;
+  }
+  if constexpr (!kDyn) {
+    tc::cluster_sync();
+    for (int g = warp; g < G; g += kWarps) {
+      const SumT<C> mine = lane < nsplit ? *tc::cluster_map(&xsum[g], lane) : 0;
+      SumT<C> tot = 0;
+      for (int r = 0; r < nsplit; ++r)  // split order
+        tot = tot + __shfl_sync(0xffffffffu, mine, r);
+      const float denom = (float)tot;
+      float codes = 0.0f;
+      for (int j = lane; j < T; j += 32) {
+        const float p = j < kr ? prob_operand<C>(sc[g * P + j], denom) : 0.0f;
+        sc[g * P + j] = p;
+        codes = codes + p;
+      }
+      if constexpr (C == kInt8) {
+        codes = warp_sum(codes);
+        if (lane == 0) xcodes[g] = codes;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 5. The slice's context, chunk by chunk: warp (hh, qq) takes head
+  //    columns [hh H / 2, (hh + 1) H / 2) and rows [32 qq, 32 qq + 32) of
+  //    each chunk, its sums in registers across the chunks.
+  const int qstride = ((G + 7) >> 3) * 8 * H;  // a row quarter's partial
+  {
+    constexpr int MT = H / 32;
+    const int grp = lane >> 2;
+    const int hh = warp & 1, qq = warp >> 1;
+    const int h0 = hh * (H / 2) + grp * (H / 16);
+    AccT acc[NTS][MT][4];
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][mt][i] = 0;
+    for (int c = 0; c < nv; ++c) {
+      await_load(nk + c);
+      const int8_t* vst = ring + (size_t)((nk + c) % kStages) * kChunk * H;
+      const int j0 = 32 * qq, j1 = min(j0 + 32, vr - c * kChunk);
+#pragma unroll
+      for (int nt = 0; nt < NTS; ++nt) {
+        if constexpr (C == kInt8)
+          context_s8<H>(vst, sc + c * kChunk, G, P, nt, j0, j1, h0, acc[nt]);
+        else
+          context_f16<C, H>(vst, sc + c * kChunk, G, P, nt, j0, j1, h0,
+                            acc[nt]);
+      }
+      __syncthreads();  // the stage is read
+      if (tid == 0) issue_load(nk + c + kStages);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        store4(part + (size_t)qq * qstride +
+                   (((nt * 2 + hh) * MT + mt) * 32 + lane) * 4,
+               acc[nt][mt]);
+  }
+  __syncthreads();
+  for (int i = tid; i < qstride; i += kThreads) {  // quarters in order
+    AccT s = part[i];
+    for (int q4 = 1; q4 < 4; ++q4) s = s + part[(size_t)q4 * qstride + i];
+    part[i] = s;
+  }
+  tc::cluster_sync();
+
+  // 6. The cluster's l (live-prefix) or int8 code sum of each query row,
+  //    then this CTA's share (1 / n_split) of the partials' fragments,
+  //    summed over the cluster in split order (every remote value loaded
+  //    before the sum).
+  if constexpr (kDyn || C == kInt8) {
+    for (int g = warp; g < G; g += kWarps) {
+      float mine = 0.0f;
+      if (lane < nsplit) {
+        if constexpr (kDyn)
+          mine = *tc::cluster_map(&xsum[g], lane);
+        else
+          mine = *tc::cluster_map(&xcodes[g], lane);
+      }
+      float tot = 0.0f;
+      for (int r = 0; r < nsplit; ++r)
+        tot = tot + __shfl_sync(0xffffffffu, mine, r);
+      if (lane == 0) xtot[g] = tot;
+    }
+    __syncthreads();
+  }
+  using AccT4 = typename std::conditional<C == kInt8, int4, float4>::type;
+  const int n4 = qstride / 4;  // fragments of 4 values
+  const int i0 = me * n4 / nsplit, i1 = (me + 1) * n4 / nsplit;
+  for (int i = i0 + tid; i < i1; i += kThreads) {
+    // Fragment i: its lane, tile, half and n-tile.
+    constexpr int MT = H / 32;
+    const int ln = i & 31, mt = (i >> 5) % MT, rest = (i >> 5) / MT;
+    const int g = 8 * (rest >> 1) + 2 * (ln & 3);
+    const int h = (rest & 1) * (H / 2) + (ln >> 2) * (H / 16) + 2 * mt;
+    AccT4 v[kMaxSplit];
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r)
+      if (r < nsplit)
+        v[r] = *tc::cluster_map(reinterpret_cast<const AccT4*>(part) + i, r);
+    AccT y4[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+    for (int r = 1; r < kMaxSplit; ++r)
+      if (r < nsplit) {
+        y4[0] = y4[0] + v[r].x;
+        y4[1] = y4[1] + v[r].y;
+        y4[2] = y4[2] + v[r].z;
+        y4[3] = y4[3] + v[r].w;
+      }
+    // y4: (g, h), (g + 1, h), (g, h + 1), (g + 1, h + 1).
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int gg = g + (e & 1);
+      if (gg >= G) continue;
+      const AccT acc = y4[e];
+      float y;
+      if constexpr (kDyn)
+        y = (acc * (1.0f / kPScale) / fmaxf(xtot[gg], 1e-30f) - a.zp_v) *
+            a.v_scale;
+      else if constexpr (C == kInt8)
+        y = finish_ctx<C>((float)acc, fmaxf(xtot[gg], 1.0f), a.zp_v,
+                          a.v_scale);
+      else
+        y = finish_ctx<C>(acc * (1.0f / kPScale), 1.0f, a.zp_v, a.v_scale);
+      a.out[((size_t)row * G + gg) * H + h + (e >> 1)] = y;
+    }
+  }
+  tc::cluster_sync();  // no CTA leaves while others read its shared memory
+}
+
+// Launches `kernel` under plan p for R rows.
+inline int launch(Kernel kernel, Args a, const Plan& p, int R,
+                  cudaStream_t stream) {
+  a.rows = p.rows;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = launch_config(p, R, &attr, stream);
+  return (int)cudaLaunchKernelEx(&config, kernel, a);
+}
+
+}  // namespace split
+}  // namespace aeqt

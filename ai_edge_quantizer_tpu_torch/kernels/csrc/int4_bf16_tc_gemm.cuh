@@ -224,25 +224,6 @@ __device__ __forceinline__ void a_frags(const uint8_t* packed, int r, int c,
   widen_word(window_bytes(v1, q), lo[1], lo[3], hi[1], hi[3]);
 }
 
-// Every thread of the cluster (the blocks of one tile's splits) arrives
-// and waits; shared-memory writes before it are visible to the cluster's
-// blocks after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The address of `p` (this block's shared memory) in block `rank` of the
-// cluster, as a generic pointer into distributed shared memory.
-__device__ __forceinline__ const float* cluster_map(const float* p, int rank) {
-  uint64_t q;
-  asm volatile("mapa.u64 %0, %1, %2;"
-               : "=l"(q)
-               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
-  return reinterpret_cast<const float*>(q);
-}
-
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }

@@ -256,25 +256,6 @@ __device__ __forceinline__ void wgmma_stage(int (&d)[64], const void* a,
 constexpr int kEpiStride = kBN + 8;
 constexpr int kEpiBytes = 2 * kWgRows * kEpiStride * 4;
 
-// Every thread of the cluster (the blocks of one tile's splits) arrives
-// and waits; shared-memory writes before it are visible to the cluster's
-// blocks after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The address of `p` (this block's shared memory) in block `rank` of the
-// cluster, as a generic pointer into distributed shared memory.
-__device__ __forceinline__ const int* cluster_map(const int* p, int rank) {
-  uint64_t q;
-  asm volatile("mapa.u64 %0, %1, %2;"
-               : "=l"(q)
-               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
-  return reinterpret_cast<const int*>(q);
-}
-
 __device__ __forceinline__ void store4(float* p, const float (&y)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
 }

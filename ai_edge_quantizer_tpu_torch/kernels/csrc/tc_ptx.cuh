@@ -1,10 +1,12 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (int8_tc_gemm.cuh: #15, #6, #1; flash_attention_int8.cu: #9): shared
-// memory addresses, mbarriers, TMA loads (cp.async.bulk.tensor), named
-// barriers, the async-proxy fence, the wgmma shared-memory descriptor of a
-// 128-byte-swizzled tile and wgmma's fence / commit / wait, and the
-// tensor-map encoder reached through the runtime (no driver library is
-// linked).
+// (int8_tc_gemm.cuh: #15, #6, #1; int4_bf16_tc_gemm.cuh: #12, #13;
+// flash_attention_int8.cu: #9; attention_split_tc.cuh: #17, #18): shared
+// memory addresses, mbarriers, TMA loads (cp.async.bulk.tensor, and the
+// 1-D cp.async.bulk), cluster barriers and distributed shared memory,
+// named barriers, the async-proxy fence, the wgmma shared-memory
+// descriptor of a 128-byte-swizzled tile and wgmma's fence / commit /
+// wait, and the tensor-map encoder reached through the runtime (no driver
+// library is linked).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only
@@ -78,6 +80,37 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` contiguous bytes from global memory into shared memory by one
+// bulk copy (1-D TMA, cp.async.bulk): both addresses 16-byte aligned,
+// bytes a multiple of 16; completes its bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Every thread of the cluster arrives and waits; shared-memory writes
+// before it are visible to the cluster's blocks after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The address of `p` (this block's shared memory) in block `rank` of the
+// cluster, as a generic pointer into distributed shared memory.
+template <typename T>
+__device__ __forceinline__ const T* cluster_map(const T* p, int rank) {
+  uint64_t q;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(q)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(q);
 }
 
 // Programmatic dependent launch: launch 2 starts while launch 1 runs

@@ -49,7 +49,10 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      shape; bf16 and f32 x, with and without a bias), the splice attention
      at bench.py's shape (pos 896, 0, 31, 32, 1023; pools bit for bit),
      the in-place row write (bit for bit, clipped starts) and the
-     live-prefix attention (B 64 and 256, zero-length rows); the kernels
+     live-prefix attention (B 64 and 256, zero-length rows; at B 64 also
+     every length S and every length below 128); the two split-S
+     attentions of attention_split_tc.cuh (#17, #18) log each shape's
+     launch (splits, cluster, rows a CTA) and ptxas' registers; the kernels
      of the norm fusion and the attention block (attn_block_kernels): the
      norm-fused weight-only matmul at the QKV and gate/up shapes (M 256
      and 64, bf16 and f32 x, with and without a bias, N padded), the
@@ -135,7 +138,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      blockwise packed 73 a tick or pass, live-prefix attention 18 a tick,
      flash 18 a pass); DEFAULT_MODE's loaded graph then served again with
      attn_compute bf16 and int8 (default_mode_servers: the masked attention
-     in the mode, as many launches as the f32 server's);
+     in the mode, as many launches as the f32 server's); the live-prefix
+     attention's device time in the blockwise server's chunk of ticks and
+     the masked attention's in the default-mode servers' (chunk_device_ms);
   5. card against CPU: the decode step at batch 8 with the decode block
      off (18 layers) and on (4 layers; the block is one op) and the int4g
      step (4 layers), and the server's first prefill pass and decode tick
@@ -1459,7 +1464,12 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
             library_ms=timer(lambda: sdpa(q, kd, vd, attn_mask=mask_bf16)),
             bound_ms=b_ms, bound_by=b_by)
       att_rows.append(row)
-  log(f'kernel decode_attention_int8_masked ok: {att_rows}')
+  att_launch = {str(b): split_plan(build, 'attention_masked', b * NK, G, S, H,
+                                   att.compute_code('f32'))
+                for b in (B, BENCH_B)}
+  att_ptxas = ptxas_report(build, 'attention_masked', 'masked_attention_kernel')
+  log(f'kernel decode_attention_int8_masked ok: {att_rows}; launch '
+      f'{att_launch}; ptxas {att_ptxas}')
 
   def att_at(b, mname):
     r = next(r for r in att_rows if r['B'] == b and r['mask'] == mname)
@@ -1468,6 +1478,7 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
   results.append({
       'name': 'decode_attention_int8_masked', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_masked.cu',
+      'core': SPLIT_CORE, 'launch': att_launch, 'ptxas': att_ptxas,
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:1085',
       'jax': 'pallas_attention.decode_attention_int8_masked (f32 compute)',
       'wrapper': att.decode_attention_int8_masked, 'per_step': 0,
@@ -1875,15 +1886,18 @@ def dynlen_bytes(torch, att, lengths, nk, s, h, chunk=256, row_block=8):
   return (2 * rows_kv + rows_v0) * h, rows_kv
 
 
-def dynlen_kernel(torch, att, cfg, dev, timer, gen):
+def dynlen_kernel(torch, att, build, cfg, dev, timer, gen):
   """The live-prefix attention (#18) against its plain version on the card
   at the server's tick shapes (B 64 and 256, S 1024, G 8, H 256, chunk 256,
   row blocks of 8): lengths spanning 1..S with zero-length rows (idle
-  slots), one in a row block beside a full row; f32 outputs within 1e-5 of
-  max(max |y|, 1) (f32 sums in another order). Timed at B 64 beside SDPA
-  over the pools dequantized to bf16 with the lengths mask (a zero-length
-  row there is all -inf: SDPA gives NaN where the kernel gives the TPU's
-  mean)."""
+  slots), one in a row block beside a full row; at B 64 also every length
+  S (the whole cache) and every length below 128 (one zero: its block's
+  mean over one chunk); f32 outputs within 1e-5 of max(max |y|, 1) (f32
+  sums in another order). Timed beside SDPA over the pools dequantized to
+  bf16 with the lengths mask (a zero-length row there is all -inf: SDPA
+  gives NaN where the kernel gives the TPU's mean); each shape's launch
+  (attention_split_tc.cuh's plan: splits, cluster, rows a CTA) and ptxas'
+  registers logged."""
   NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
   G = cfg.num_query_heads // NK
   bf16 = torch.bfloat16
@@ -1922,22 +1936,52 @@ def dynlen_kernel(torch, att, cfg, dev, timer, gen):
         'plain_ms': timer(
             lambda: att.decode_attention_int8_dynlen_plain(*args, **kw)),
         'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
-        'bound_ms': b_ms, 'bound_by': b_by})
+        'bound_ms': b_ms, 'bound_by': b_by,
+        'launch': split_plan(build, 'attention_dynlen', b * NK, G, S, H)})
+    if b == B:  # the whole cache, and every length below 128
+      short = torch.randint(1, 128, (b,), generator=gen, device=dev).to(
+          torch.int32)
+      short[3] = 0
+      for label, lens in (('every length S', torch.full_like(lengths, S)),
+                          ('every length below 128', short)):
+        a2 = (q, kc, vc, k_scale, v_scale, lens)
+        got = att.decode_attention_int8_dynlen(*a2, **kw)
+        want = att.decode_attention_int8_dynlen_plain(*a2, **kw)
+        sync()
+        err = float(torch.max(torch.abs(got - want)))
+        ymax = float(torch.max(torch.abs(want)))
+        if not err <= 1e-5 * max(ymax, 1.0):
+          raise AssertionError(f'dynlen attention B {b}, {label}: err {err}, '
+                               f'max |y| {ymax}')
+        cache_bytes, live = dynlen_bytes(torch, att, lens, NK, S, H)
+        nbytes = (q.numel() * 2 + cache_bytes + lens.numel() * 4
+                  + q.numel() * 4)
+        b_ms, b_by = bound(nbytes, 4 * G * H * live, F32_OPS_PER_S)
+        rows.append({
+            'phase': label, 'B': b, 'max_abs_err': err, 'max_abs_y': ymax,
+            'live_rows': live, 'cache_bytes': cache_bytes,
+            'ms': timer(lambda: att.decode_attention_int8_dynlen(*a2, **kw)),
+            'bound_ms': b_ms, 'bound_by': b_by})
     del kc, vc, kd, vd
-  log(f'kernel decode_attention_int8_dynlen ok: {rows}')
+  ptxas = ptxas_report(build, 'attention_dynlen', 'dynlen_attention_kernel')
+  log(f'kernel decode_attention_int8_dynlen ok: {rows}; ptxas {ptxas}')
   timing = ('ms', 'plain_ms', 'bound_ms', 'library_ms')
+  decode, bench = (next(r for r in rows if r['phase'] == ph)
+                   for ph in ('decode', 'bench'))
   return {
       'name': 'decode_attention_int8_dynlen', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_dynlen.cu',
+      'core': SPLIT_CORE, 'ptxas': ptxas,
+      'launch': {str(r['B']): r['launch'] for r in rows if 'launch' in r},
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:1018',
       'jax': 'pallas_attention.decode_attention_int8_dynlen',
       'wrapper': att.decode_attention_int8_dynlen, 'per_step': 0,
       'per_tick_blockwise': cfg.num_layers,
       'max_abs_err': max(r['max_abs_err'] for r in rows),
-      **{key: rows[0][key] for key in timing}, 'bound_by': rows[0]['bound_by'],
+      **{key: decode[key] for key in timing}, 'bound_by': decode['bound_by'],
       'library': 'scaled_dot_product_attention over the pools dequantized to '
                  'bf16 with the lengths mask',
-      'bench': {key: rows[1][key] for key in timing}, 'by_shape': rows}
+      'bench': {key: bench[key] for key in timing}, 'by_shape': rows}
 
 
 def cache_mode_kernels(torch, port, cfg, dev, timer, gen):
@@ -1946,7 +1990,7 @@ def cache_mode_kernels(torch, port, cfg, dev, timer, gen):
   return [blockwise_kernel(torch, port, cfg, dev, timer, gen),
           writeback_kernel(torch, att, cfg, dev, timer, gen),
           cache_row_kernel(torch, port, cfg, dev, timer, gen),
-          dynlen_kernel(torch, att, cfg, dev, timer, gen)]
+          dynlen_kernel(torch, att, port['_build'], cfg, dev, timer, gen)]
 
 
 # -- the norm fusion and the attention-block fusions (#14, #20, #19) ---------
@@ -2950,12 +2994,11 @@ def refused_shapes(torch, att, dev):
            i8(1, 1, 8192, 128, dtype=torch.uint8),
            i8(1, 1, 48, 8192, dtype=torch.bfloat16),
            torch.ones(1, dtype=torch.int32, device=dev))),
-      ('masked decode attention, G = 8 x S = 8192 scores',
-       att.decode_attention_int8_masked,
+      ('masked decode attention, H = 384', att.decode_attention_int8_masked,
        lambda: att.decode_attention_int8_masked(
-           torch.zeros((1, 1, 8, 256), device=dev), i8(1, 1, 8192, 256),
-           i8(1, 1, 8192, 256), 1.0, 1.0,
-           torch.zeros((1, 1, 1, 8192), device=dev))))
+           torch.zeros((1, 1, 8, 384), device=dev), i8(1, 1, 128, 384),
+           i8(1, 1, 128, 384), 1.0, 1.0,
+           torch.zeros((1, 1, 1, 128), device=dev))))
   for what, wrapper, call in cases:
     before = (wrapper.launches, wrapper.plain_calls)
     try:
@@ -3061,6 +3104,21 @@ FLASH_CASES = (('h64', 2, 1, 128, 256, 64, 1, 'bfloat16', 'float32'),
                ('odd_s', 2, 2, 128, 203, 128, 2, 'bfloat16', 'float32'),
                ('odd_s_bf16_mask', 1, 1, 192, 301, 64, 1, 'float32',
                 'bfloat16'))
+
+
+# The split-S decode attentions (#17, #18): their shared core and the launch
+# fields of its plan (csrc/attention_split_tc.cuh plan_fields).
+SPLIT_CORE = 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_split_tc.cuh'
+SPLIT_PLAN_FIELDS = ('cluster', 'grid_y', 'rows', 'threads', 'smem_bytes')
+
+
+def split_plan(build, lib, *dims):
+  """The launch of #17 (lib 'attention_masked', dims R, G, S, H and the
+  compute code) or #18 ('attention_dynlen', R, G, S, H): the cluster size
+  (the splits, grid x), grid y (rows), cache rows a CTA, threads, shared
+  memory."""
+  return build.plan(lib, f'aeqt_{lib}_plan', lib, *dims,
+                    fields=SPLIT_PLAN_FIELDS)
 
 
 def flash_plan(torch, build, b, nk, r, s, h, mask_nk, q_dtype,
@@ -3579,8 +3637,8 @@ class CountingExecutor:
 
 
 def device_busy(torch, fn):
-  """(wall ms, device busy ms, top kernels) of one call of fn under
-  torch.profiler (CUDA activity)."""
+  """(wall ms, device busy ms, kernels by device ms, largest first) of one
+  call of fn under torch.profiler (CUDA activity)."""
   from torch.profiler import ProfilerActivity, profile
   sync()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3594,8 +3652,8 @@ def device_busy(torch, fn):
     if us > 0 and e.device_type.name == 'CUDA':
       name = e.key.replace('(anonymous namespace)::', '').split('(')[0][:90]
       by_name[name] = by_name.get(name, 0.0) + us / 1e3
-  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-  return wall_ms, sum(by_name.values()), top
+  ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+  return wall_ms, sum(by_name.values()), ranked
 
 
 def server_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
@@ -3777,13 +3835,13 @@ def serve_load(torch, server, kernels, cfg, dev, name, want_fn,
       f'of {[round(t, 3) for t in pass_ms]}); device busy {pf_busy:.3f} ms '
       f'under the profiler ({pf_wall:.3f} ms wall), idle share '
       f'{1 - pf_busy / pass_med:.3f}')
-  for kname, ms in pf_top:
+  for kname, ms in pf_top[:8]:
     log(f'  {ms:8.3f} ms/pass  {kname}')
   log(f'{name} chunk of {SERVE_CHUNK} decode ticks (64 slots busy): '
       f'{chunk_med:.3f} ms (median of {[round(t, 3) for t in chunk_ms]}); '
       f'device busy {ch_busy:.3f} ms under the profiler ({ch_wall:.3f} ms '
       f'wall), idle share {1 - ch_busy / chunk_med:.3f}')
-  for kname, ms in ch_top:
+  for kname, ms in ch_top[:8]:
     log(f'  {ms:8.3f} ms/chunk  {kname}')
   device_s = (passes * pf_busy + ticks * ch_busy / SERVE_CHUNK) / 1e3
   log(f'{name} time split (estimate from the two profiles): prefill passes '
@@ -3796,7 +3854,8 @@ def serve_load(torch, server, kernels, cfg, dev, name, want_fn,
       'chunk_ms': chunk_med, 'chunk_device_busy_ms': ch_busy,
       'chunk_idle_share': 1 - ch_busy / chunk_med,
       'device_work_s_estimate': device_s,
-      'prefill_pass_top': dict(pf_top), 'chunk_top': dict(ch_top)})
+      'prefill_pass_top': dict(pf_top[:8]), 'chunk_top': dict(ch_top[:8]),
+      'chunk_by_kernel': dict(ch_top)})
   return result
 
 
@@ -4759,6 +4818,20 @@ def main():
         f'{r["ttft_p50_ms"]:.1f} ms p99 {r["ttft_p99_ms"]:.1f} ms; chunk of '
         f'{SERVE_CHUNK} ticks {r["chunk_ms"]:.3f} ms (idle '
         f'{r["chunk_idle_share"]:.3f})')
+  # #18 and #17 in a chunk of ticks of the servers that run them.
+  by_kernel = {k['name']: k for k in kernels}
+  for name, fn, labels in (
+      ('decode_attention_int8_dynlen', 'dynlen_attention_kernel',
+       (BLOCKWISE_MODE,)),
+      ('decode_attention_int8_masked', 'masked_attention_kernel',
+       (DEFAULT_MODE,) + tuple(f'{DEFAULT_MODE} attn {m}'
+                               for m in COMPUTE_MODES if m != 'f32'))):
+    for label in labels:
+      ms = sum(t for kname, t in quant[label]['chunk_by_kernel'].items()
+               if fn in kname)
+      by_kernel[name].setdefault('chunk_device_ms', {})[label] = ms
+      log(f'{name} in the {label} server on {smi}: {ms:.3f} ms of device '
+          f'time a chunk of {SERVE_CHUNK} ticks')
   log(f'phase quantizer done at {time.monotonic() - t_start:.1f}s')
   if not args.skip_cpu:
     def done(label):
