@@ -43,13 +43,14 @@ using aeqt::split::Kernel;
 template <int H, int NTS>
 __global__ void __launch_bounds__(aeqt::split::kThreads, 2)
 dynlen_attention_kernel(const Args a) {
-  aeqt::split::attend<true, aeqt::kF32, H, NTS>(a);
+  aeqt::split::attend<aeqt::split::kDynlen, aeqt::kF32, H, NTS>(a);
 }
 
 // The kernel of a head dim and query-row count; nullptr for a shape the
 // kernels do not take.
 Kernel kernel_for(int R, int G, int S, int H) {
-  if (!aeqt::split::takes(aeqt::kF32, R, G, S, H)) return nullptr;
+  if (!aeqt::split::takes(aeqt::split::kDynlen, aeqt::kF32, R, G, S, H))
+    return nullptr;
   const bool two = G > 8;  // query rows in two n-tiles
   switch (H) {
     case 64:
@@ -63,6 +64,12 @@ Kernel kernel_for(int R, int G, int S, int H) {
                  : &dynlen_attention_kernel<256, 1>;
   }
   return nullptr;
+}
+
+aeqt::split::Plan plan_of(Kernel kernel, int R, int G, int S, int H) {
+  return aeqt::split::choose_plan(
+      kernel, aeqt::split::Int8Smem{aeqt::split::kDynlen, aeqt::kF32, G, H},
+      S, R);
 }
 
 }  // namespace
@@ -85,7 +92,7 @@ extern "C" int aeqt_attention_dynlen(const void* q, const void* k,
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const int8_t*>(k);
   a.v = static_cast<const int8_t*>(v);
-  a.out = static_cast<float*>(out);
+  a.out = out;
   a.lengths = static_cast<const int*>(lengths);
   a.c = c;
   a.rb = rb;
@@ -96,9 +103,8 @@ extern "C" int aeqt_attention_dynlen(const void* q, const void* k,
   a.v_scale = v_scale;
   a.zp_k = zp_k;
   a.zp_v = zp_v;
-  return aeqt::split::launch(
-      kernel, a, aeqt::split::choose_plan(kernel, aeqt::kF32, G, S, H, R), R,
-      static_cast<cudaStream_t>(stream));
+  return aeqt::split::launch(kernel, a, plan_of(kernel, R, G, S, H), R,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The launch of a shape (chip_smoke.SPLIT_PLAN_FIELDS).
@@ -106,7 +112,6 @@ extern "C" int aeqt_attention_dynlen_plan(int R, int G, int S, int H,
                                           long long* fields) {
   const Kernel kernel = kernel_for(R, G, S, H);
   if (kernel == nullptr) return aeqt::kShapeRefused;
-  aeqt::split::plan_fields(
-      aeqt::split::choose_plan(kernel, aeqt::kF32, G, S, H, R), R, fields);
+  aeqt::split::plan_fields(plan_of(kernel, R, G, S, H), R, fields);
   return 0;
 }

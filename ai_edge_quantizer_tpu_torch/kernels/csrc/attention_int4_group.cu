@@ -27,25 +27,46 @@
 //   3.35 TB/s, against 1.9 GFLOP of products (0.002 ms on the bf16 tensor
 //   cores).
 //
-// Design (simple first, SIMT): one block of 256 threads per (batch,
-//   kv-head) row, laid out as attention_lengths.cu. bf16(q) and its
-//   per-group sums sit in shared memory. Scores: one thread per live row,
-//   16 packed bytes (32 columns) per load, each K value rounded to bf16 as
-//   the TPU kernel forms its operand, one scale load per run of min(group,
-//   16) columns (a template parameter: five instantiations cover every
-//   power-of-two group, so the build stays short). Softmax: one warp
-//   per query row, in the TPU kernel's order (max, exp, sum, divide), then
-//   the probabilities rounded to bf16. Context: 2 packed bytes (4 columns)
-//   and one row group per thread, the row groups' partial sums added in a
-//   fixed order, so the result does not depend on timing. Every product
-//   and sum is rounded on its own (--fmad=false).
+// Design: attention_split_tc.cuh's int4-group body (`attend_int4g`): the S
+//   rows of a (batch, kv-head) row split across a cluster of CTAs sized by
+//   the occupancy query; a CTA streams its live rows' packed codes and
+//   sidecar strips through a two-stage ring of bulk copies (one for a
+//   chunk's codes, one a strip); K and V widened to their bf16 operands in
+//   registers (bf16(code * scale), rounded once), the scores, the offset
+//   term and the context on the bf16 tensor cores (mma.sync m16n8k16, f32
+//   sums); the softmax's maxima and sums, and the context partials, meet
+//   in distributed shared memory in split order. The output is f32 or
+//   bf16, rounded once at the write.
+//
+// Shapes the core does not take (H other than 64, 128 or 256, G > 16,
+//   R > 65535, S % 8 != 0, a sidecar not 16-byte aligned, or a slice past
+//   shared memory) go, by that fixed rule, to the first design's one-block
+//   kernel below (SIMT): one block of 256 threads per (batch, kv-head) row,
+//   laid out as attention_lengths.cu. bf16(q) and its per-group sums sit in
+//   shared memory. Scores: one thread per live row, 16 packed bytes (32
+//   columns) per load, each K value rounded to bf16 as the TPU kernel forms
+//   its operand, one scale load per run of min(group, 16) columns (a
+//   template parameter: five instantiations cover every power-of-two
+//   group, so the build stays short). Softmax: one warp per query row, in
+//   the TPU kernel's order (max, exp, sum, divide), then the probabilities
+//   rounded to bf16. Context: 2 packed bytes (4 columns) and one row group
+//   per thread, the row groups' partial sums added in a fixed order, so the
+//   result does not depend on timing. Every product and sum is rounded on
+//   its own (--fmad=false).
 #include "attention_common.cuh"
+#include "attention_split_tc.cuh"
 
 namespace {
 
 using aeqt::kGC;
 using aeqt::kRedFloats;
 constexpr int kThreads = aeqt::kAttnThreads;
+
+// The one-block kernel's shared memory.
+size_t one_block_smem(int G, int S, int H, int group) {
+  return ((size_t)G * H + (size_t)G * S + kRedFloats +
+          (size_t)G * (H / group)) * sizeof(float);
+}
 
 __device__ __forceinline__ float bf16_bits(uint16_t bits) {
   return __uint_as_float((uint32_t)bits << 16);
@@ -230,8 +251,7 @@ template <int kSub>
 int launch(const void* q, const void* k, const void* v, const void* sidecar,
            const void* lengths, void* out, int out_bf16, int R, int NK, int G,
            int S, int H, int shift, float inv_sqrt_h, cudaStream_t stream) {
-  const size_t smem = ((size_t)G * H + (size_t)G * S + kRedFloats +
-                       (size_t)G * (H >> shift)) * sizeof(float);
+  const size_t smem = one_block_smem(G, S, H, 1 << shift);
   if (!aeqt::smem_fits(smem)) return aeqt::kShapeRefused;
   auto* kernel = int4_group_attention_kernel<kSub>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -245,24 +265,94 @@ int launch(const void* q, const void* k, const void* v, const void* sidecar,
   return (int)cudaGetLastError();
 }
 
+template <int H, int NTS, int KG>
+__global__ void __launch_bounds__(aeqt::split::kThreads, 2)
+int4_group_attention_split_kernel(const aeqt::split::Args a) {
+  aeqt::split::attend_int4g<H, NTS, KG>(a);
+}
+
+template <int H, int NTS>
+aeqt::split::Kernel split_kernel_for(int group) {
+  switch (group < 16 ? group : 16) {
+    case 1: return &int4_group_attention_split_kernel<H, NTS, 1>;
+    case 2: return &int4_group_attention_split_kernel<H, NTS, 2>;
+    case 4: return &int4_group_attention_split_kernel<H, NTS, 4>;
+    case 8: return &int4_group_attention_split_kernel<H, NTS, 8>;
+    case 16: return &int4_group_attention_split_kernel<H, NTS, 16>;
+  }
+  return nullptr;
+}
+
+// The split kernel of a shape; nullptr for one the core does not take (the
+// one-block kernel's). group is a power of two dividing H / 2.
+aeqt::split::Kernel split_kernel_for(int R, int G, int S, int H, int group) {
+  if (!aeqt::split::takes_int4g(R, G, S, H, group)) return nullptr;
+  const bool two = G > 8;  // query rows in two n-tiles
+  switch (H) {
+    case 64:
+      return two ? split_kernel_for<64, 2>(group)
+                 : split_kernel_for<64, 1>(group);
+    case 128:
+      return two ? split_kernel_for<128, 2>(group)
+                 : split_kernel_for<128, 1>(group);
+    case 256:
+      return two ? split_kernel_for<256, 2>(group)
+                 : split_kernel_for<256, 1>(group);
+  }
+  return nullptr;
+}
+
+aeqt::split::Plan plan_of(aeqt::split::Kernel kernel, int R, int G, int S,
+                          int H, int group) {
+  return aeqt::split::choose_plan(
+      kernel, aeqt::split::Int4GroupSmem{G, H, H / group}, S, R);
+}
+
+bool group_fits(int R, int NK, int G, int S, int H, int group) {
+  return R > 0 && NK > 0 && G > 0 && S > 0 && H > 0 && group > 0 &&
+         !(group & (group - 1)) && H % 32 == 0 && 1024 % H == 0 &&
+         H % (2 * group) == 0;
+}
+
 }  // namespace
 
 // q f32 [R, G, H] with R = B * NK; k, v uint8 [R, S, H/2]; sidecar bf16
 // [R, 3 * (H / group), S]; lengths int32 [B]; out [R, G, H] f32 or bf16
-// (out_bf16); inv_sqrt_h = f32(1 / sqrt(H)). Returns aeqt::kShapeRefused
+// (out_bf16); inv_sqrt_h = f32(1 / sqrt(H)). The split core where it takes
+// the shape, else the one-block kernel; returns aeqt::kShapeRefused
 // unless group is a power of two dividing H / 2, H % 32 == 0,
-// 1024 % H == 0 and the G x S scores fit in shared memory.
+// 1024 % H == 0 and one of the two takes the shape (the one-block kernel:
+// the G x S scores fit in shared memory).
 extern "C" int aeqt_attention_int4_group(const void* q, const void* k,
                                          const void* v, const void* sidecar,
                                          const void* lengths, void* out,
                                          int out_bf16, int R, int NK, int G,
                                          int S, int H, int group,
                                          float inv_sqrt_h, void* stream) {
-  if (R <= 0 || NK <= 0 || G <= 0 || S <= 0 || H <= 0 || group <= 0 ||
-      (group & (group - 1)) || H % 32 || 1024 % H || H % (2 * group))
-    return aeqt::kShapeRefused;
+  if (!group_fits(R, NK, G, S, H, group)) return aeqt::kShapeRefused;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int shift = __builtin_ctz((unsigned)group);
+  const aeqt::split::Kernel kernel =
+      reinterpret_cast<uintptr_t>(sidecar) % 16 == 0
+          ? split_kernel_for(R, G, S, H, group)
+          : nullptr;
+  if (kernel != nullptr) {
+    aeqt::split::Args a = {};
+    a.q = static_cast<const float*>(q);
+    a.k = static_cast<const int8_t*>(k);
+    a.v = static_cast<const int8_t*>(v);
+    a.out = out;
+    a.out_bf16 = out_bf16;
+    a.lengths = static_cast<const int*>(lengths);
+    a.sidecar = static_cast<const uint16_t*>(sidecar);
+    a.shift = shift;
+    a.NK = NK;
+    a.G = G;
+    a.S = S;
+    a.ks = inv_sqrt_h;
+    return aeqt::split::launch(kernel, a, plan_of(kernel, R, G, S, H, group),
+                               R, st);
+  }
   switch (group < 16 ? group : 16) {
 #define AEQT_SUB(n)                                                          \
   case n:                                                                    \
@@ -272,4 +362,25 @@ extern "C" int aeqt_attention_int4_group(const void* q, const void* k,
 #undef AEQT_SUB
   }
   return aeqt::kShapeRefused;
+}
+
+// The launch of a shape with a 16-byte aligned sidecar
+// (chip_smoke.SPLIT_PLAN_FIELDS); a shape on the one-block kernel gives
+// cluster 0, R blocks of all S rows and its shared memory.
+extern "C" int aeqt_attention_int4_group_plan(int R, int G, int S, int H,
+                                              int group, long long* fields) {
+  if (!group_fits(R, 1, G, S, H, group)) return aeqt::kShapeRefused;
+  const aeqt::split::Kernel kernel = split_kernel_for(R, G, S, H, group);
+  if (kernel != nullptr) {
+    aeqt::split::plan_fields(plan_of(kernel, R, G, S, H, group), R, fields);
+    return 0;
+  }
+  const size_t smem = one_block_smem(G, S, H, group);
+  if (!aeqt::smem_fits(smem)) return aeqt::kShapeRefused;
+  fields[0] = 0;
+  fields[1] = R;
+  fields[2] = S;
+  fields[3] = kThreads;
+  fields[4] = (long long)smem;
+  return 0;
 }

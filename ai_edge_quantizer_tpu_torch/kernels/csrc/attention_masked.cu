@@ -43,7 +43,7 @@ using aeqt::split::Kernel;
 template <int C, int H, int NTS>
 __global__ void __launch_bounds__(aeqt::split::kThreads, 2)
 masked_attention_kernel(const Args a) {
-  aeqt::split::attend<false, C, H, NTS>(a);
+  aeqt::split::attend<aeqt::split::kMasked, C, H, NTS>(a);
 }
 
 template <int C>
@@ -66,13 +66,21 @@ Kernel kernel_for(int H, int G) {
 // The kernel of a compute mode, head dim and query-row count; nullptr for
 // a shape or mode the kernels do not take.
 Kernel kernel_for(int compute, int R, int G, int S, int H) {
-  if (!aeqt::split::takes(compute, R, G, S, H)) return nullptr;
+  if (!aeqt::split::takes(aeqt::split::kMasked, compute, R, G, S, H))
+    return nullptr;
   switch (compute) {
     case aeqt::kF32: return kernel_for<aeqt::kF32>(H, G);
     case aeqt::kBF16: return kernel_for<aeqt::kBF16>(H, G);
     case aeqt::kInt8: return kernel_for<aeqt::kInt8>(H, G);
   }
   return nullptr;
+}
+
+aeqt::split::Plan plan_of(Kernel kernel, int compute, int R, int G, int S,
+                          int H) {
+  return aeqt::split::choose_plan(
+      kernel, aeqt::split::Int8Smem{aeqt::split::kMasked, compute, G, H}, S,
+      R);
 }
 
 }  // namespace
@@ -96,7 +104,7 @@ extern "C" int aeqt_attention_masked(const void* q, const void* k,
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const int8_t*>(k);
   a.v = static_cast<const int8_t*>(v);
-  a.out = static_cast<float*>(out);
+  a.out = out;
   a.mask = static_cast<const float*>(mask);
   a.mask_sb = mask_sb;
   a.mask_sn = mask_sn;
@@ -108,9 +116,8 @@ extern "C" int aeqt_attention_masked(const void* q, const void* k,
   a.v_scale = v_scale;
   a.zp_k = zp_k;
   a.zp_v = zp_v;
-  return aeqt::split::launch(
-      kernel, a, aeqt::split::choose_plan(kernel, compute, G, S, H, R), R,
-      static_cast<cudaStream_t>(stream));
+  return aeqt::split::launch(kernel, a, plan_of(kernel, compute, R, G, S, H),
+                             R, static_cast<cudaStream_t>(stream));
 }
 
 // The launch of a shape (chip_smoke.SPLIT_PLAN_FIELDS: cluster size,
@@ -119,7 +126,6 @@ extern "C" int aeqt_attention_masked_plan(int R, int G, int S, int H,
                                           int compute, long long* fields) {
   const Kernel kernel = kernel_for(compute, R, G, S, H);
   if (kernel == nullptr) return aeqt::kShapeRefused;
-  aeqt::split::plan_fields(
-      aeqt::split::choose_plan(kernel, compute, G, S, H, R), R, fields);
+  aeqt::split::plan_fields(plan_of(kernel, compute, R, G, S, H), R, fields);
   return 0;
 }

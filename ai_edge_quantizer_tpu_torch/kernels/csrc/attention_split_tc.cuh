@@ -1,8 +1,10 @@
-// Decode attention over an int8 KV cache with the S cache rows of each
+// Decode attention over a quantized KV cache with the S cache rows of each
 // (batch, kv-head) row split across a thread-block cluster, both
 // contractions on the tensor cores (mma.sync): the body of the masked
-// (attention_masked.cu, #17, every compute mode) and the live-prefix
-// (attention_dynlen.cu, #18) kernels.
+// (attention_masked.cu, #17), the live-prefix (attention_dynlen.cu, #18)
+// and the lengths (attention_lengths.cu, #7) kernels over int8 caches in
+// every compute mode (`attend`), and of the int4-group kernel
+// (attention_int4_group.cu, #10) over packed int4 pools (`attend_int4g`).
 //
 // Bound on the H100: the cache bytes. At Gemma-2B's decode (one KV head,
 // G = 8 query rows of H = 256, S = 1024) a row holds 512 KB of K and V; the
@@ -19,8 +21,9 @@
 //      mbarrier: first its K chunks, then its V chunks, the first two at
 //      entry and each next one as a stage is read, so that the V copies
 //      are in flight while the last scores and the softmax run (the
-//      live-prefix kernel copies only its live rows: rows < L, or for a
-//      zero-length row its V rows < n_chunks * c);
+//      live-prefix and lengths forms copy only their live rows: rows < L,
+//      or for a zero-length row no K row and its V rows, n_chunks * c of
+//      them for #18, all S for #7);
 //   2. meanwhile stages the query operands in the tensor cores' fragment
 //      order: f32 q in kQPartsF32 bf16 parts (their sum is q to 24 bits;
 //      the smallest part is multiplied first), bf16 mode one bf16 part (q
@@ -33,7 +36,14 @@
 //      depth; int8 K widens to bf16 exactly (byte into an f32 mantissa,
 //      then a pair conversion); then each score as before:
 //      (q . k - zp_k * sum(q)) * k_scale_eff, plus the mask (read by its
-//      strides) or -1e30 past the length;
+//      strides) or -1e30 past the length. The lengths form's f32 mode
+//      instead forms q . k as one f32 FMA chain over h = 0 .. H - 1 (SIMT,
+//      `score_chunk_chain`), the order of the plain version's f32 matmul
+//      on the card (equal to it bit for bit): its check holds the context
+//      to 1e-5 absolute, about one ulp of the scores at Gemma-2B's widths
+//      (the plain version's own rounding error against an f64 truth is
+//      about 1e-5 there), which tensor-core sums in their own order do not
+//      meet (PERF.md §6);
 //   4. takes each query row's maximum over its slice; the maxima meet in
 //      distributed shared memory and every CTA takes their maximum (order
 //      free, so every e = exp(s - m) is the one-block kernel's value); the
@@ -49,19 +59,44 @@
 //      int8: m16n8k32 s8 on the codes, int32, exact. The rows of a k-step
 //      come to each thread as bytes of four (eight) rows, transposed with
 //      prmt. Warps split H in two and each chunk's rows in four, their
-//      sums in registers across the chunks; the four row quarters are
-//      added in order;
+//      sums in registers across the chunks (the lengths form's f32 mode
+//      adds each k-step's products into its sums by an f32 add, so that
+//      the tensor cores' own accumulation spans one k-step); the four row
+//      quarters are added in order;
 //   6. the [G, H] partials meet in distributed shared memory: CTA i adds
 //      the i-th n-th of every CTA's partial (in fragment order) in split
 //      order (a fixed order: the result does not depend on timing), applies
 //      finish_ctx<C> (int8: the code sums of the cluster, exact) or
-//      acc / max(l, 1e-30), and writes them.
+//      acc / max(l, 1e-30), and writes them (f32, or bf16 rounded once at
+//      the write).
 //   A chunk is plain rows (one copy), so the fragment reads of K meet every
 //   row at the same bank (two-way conflicts); V's reads take whole rows of
-//   128 bytes. The tensor cores' f32 sums run in their own order: f32
-//   results hold 1e-5 * max(|y|, 1) of the plain versions (the CPU twin,
-//   tests/test_torch_port_attn_split.py, shows one part fewer of q or p
-//   fails it).
+//   128 bytes. The chained scores read the K chunk copied (in shared
+//   memory) to rows of H + kKPad bytes, so that the rows a warp reads at
+//   once lie on eight bank groups. The tensor cores' f32 sums run in their
+//   own order: f32 results hold 1e-5 * max(|y|, 1) of the plain versions
+//   (the CPU twins, tests/test_torch_port_attn_split*.py, show one part
+//   fewer of q or p fails it).
+//
+// The int4-group body (`attend_int4g`, #10's arithmetic: bf16 operands and
+// f32 sums) keeps steps 1, 4, 5 and 6 and the cluster: a ring stage holds
+// a chunk's packed codes [kChunk, H / 2] and the sidecar strips of its
+// rows ([NG, kChunk] bf16 each: K scales and mins for a K chunk, V scales
+// for a V chunk), the codes one bulk copy and each strip one more (S is
+// the sidecar's minor axis, so a chunk's scales are 2 NG or NG runs of 256
+// bytes; the lanes of one warp issue them together, with no tensor map to
+// encode on the host at every call). Scores: as the lengths form's f32
+// mode, one f32 FMA chain a score in the plain version's order on the card
+// (bf16(q) . K over h, then sum_n qsum[g, n] * kmin[n, j] over n), K[j, h]
+// = bf16(kcode * kscale) formed two at a time in registers (0x4300 | code
+// is the bf16 128 + code, and one bf16x2 FMA with -128 * kscale leaves the
+// product rounded once): its check holds the context to 1e-3 of its
+// largest value with a bf16 rounding of p in between, which a one-ulp
+// difference of a score flips (PERF.md §6). Context: V[j, h] =
+// bf16(vcode * vscale) (0x4300 | (code ^ 8), less 136, times vscale) is
+// A, bf16 p the N = 8 side, f32 sums (mma.sync m16n8k16 bf16). Warps
+// split H by nibble (the low nibbles hold columns [0, H / 2), the high
+// ones the rest) and each chunk's rows in four.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -82,9 +117,26 @@ constexpr int kQPartsF32 = 3;        // bf16 parts of an f32 q
 constexpr int kPParts = 2;           // fp16 parts of an f32 p
 constexpr float kPScale = 32768.0f;  // p's scale before the split: 2^15
 constexpr uint32_t kFlip = 0x80808080u;  // int8 -> biased byte (v + 128)
+constexpr int kKPad = 16;            // bytes after a K row of a chained chunk
+
+// The bodies of the int8-cache kernels: the masked (#17), live-prefix (#18)
+// and lengths (#7) forms.
+enum Form : int { kMasked = 0, kDynlen = 1, kLengths = 2 };
 
 // The head dims the fragment layout takes.
 inline bool head_dim_fits(int H) { return H == 64 || H == 128 || H == 256; }
+
+// Whether a form scores f32 q by one FMA chain a score (step 3).
+__host__ __device__ constexpr bool chained(int F, int C) {
+  return F == kLengths && C == kF32;
+}
+
+// The chained scores read a K chunk copied from its ring stage to rows
+// kKPad bytes longer (kpad), so that the 32 rows a warp reads at once lie
+// on eight bank groups: bytes of that copy for rows of rb bytes.
+__host__ __device__ inline size_t kpad_bytes(int rb) {
+  return (size_t)kChunk * (rb + kKPad);
+}
 
 // bf16 parts of q: f32 kQPartsF32, bf16 one; int8 takes codes instead.
 __host__ __device__ constexpr int q_parts(int C) {
@@ -105,23 +157,32 @@ __host__ __device__ inline size_t up16(size_t x) {
 
 // Byte offsets of a CTA's shared memory: the ring of kStages chunks of
 // kChunk K or V rows (after the last, the four row quarters' context
-// partials in fragment order), the query operands in fragment order, the
+// partials in fragment order), the chained form's padded K chunk, the
+// query operands in fragment order (the chained form's f32 rows), the
 // scores [G][T + 4] (then e, the operands p), sum(q), q scales, and the
 // cluster's exchange slots: the maxima, the sums of e (SumT: 8 bytes), the
 // int8 code sums; the cluster's l or code sum of each query row; the
 // stages' mbarriers.
 struct Layout {
-  size_t ring, q, sc, qsum, qscale, xmax, xsum, xcodes, xtot, bars, bytes;
+  size_t ring, kpad, q, sc, qsum, qscale, xmax, xsum, xcodes, xtot, bars,
+      bytes;
 };
 
-__host__ __device__ inline Layout layout(int C, int G, int H, int T) {
+__host__ __device__ inline size_t query_bytes(int F, int C, int G, int H) {
   const size_t nt = (size_t)(G + 7) / 8;
-  const size_t ring = (size_t)kStages * kChunk * H;
+  if (chained(F, C)) return 8 * nt * (H + 4) * 4;  // f32 rows, padded
+  return C == kInt8 ? nt * H * 8 : q_parts(C) * nt * H * 16;
+}
+
+__host__ __device__ inline Layout layout(int F, int C, int G, int H, int T) {
+  const size_t nt = (size_t)(G + 7) / 8;
   const size_t parts = (size_t)128 * nt * H;
+  const size_t ring = (size_t)kStages * kChunk * H;
   Layout L;
   L.ring = 0;
-  L.q = up16(ring > parts ? ring : parts);
-  L.sc = up16(L.q + (C == kInt8 ? nt * H * 8 : q_parts(C) * nt * H * 16));
+  L.kpad = up16(ring > parts ? ring : parts);
+  L.q = up16(L.kpad + (chained(F, C) ? kpad_bytes(H) : 0));
+  L.sc = up16(L.q + query_bytes(F, C, G, H));
   L.qsum = up16(L.sc + (size_t)G * sc_pitch(T) * 4);
   L.qscale = up16(L.qsum + (size_t)G * 4);
   L.xmax = up16(L.qscale + (size_t)G * 4);
@@ -134,19 +195,29 @@ __host__ __device__ inline Layout layout(int C, int G, int H, int T) {
 }
 
 // The kernels' arguments (the masked kernel reads mask*, the live-prefix
-// kernel lengths, c and rb).
+// kernel lengths, c and rb, the lengths kernel lengths, the int4-group
+// kernel lengths, sidecar and shift, with ks = f32(1 / sqrt(H))).
 struct Args {
   const float* q;   // [R, G, H]
-  const int8_t* k;  // [R, S, H]
-  const int8_t* v;  // [R, S, H]
-  float* out;       // [R, G, H]
+  const int8_t* k;  // [R, S, H] (int4 group: packed uint8 [R, S, H / 2])
+  const int8_t* v;  // [R, S, H] (int4 group: packed uint8 [R, S, H / 2])
+  void* out;        // [R, G, H]: f32, or bf16 where out_bf16
   const float* mask;
   long long mask_sb, mask_sn, mask_sg;
   const int* lengths;
+  const uint16_t* sidecar;  // int4 group: bf16 [R, 3 NG, S]
   int c, rb;
-  int NK, G, S, rows;
+  int NK, G, S, rows, out_bf16, shift;
   float ks, v_scale, zp_k, zp_v;
 };
+
+// Element i of the output, rounded once to its type.
+__device__ __forceinline__ void store_out(const Args& a, size_t i, float y) {
+  if (a.out_bf16)
+    static_cast<__nv_bfloat16*>(a.out)[i] = __float2bfloat16_rn(y);
+  else
+    static_cast<float*>(a.out)[i] = y;
+}
 
 // The launch of a shape: n_split CTAs (one cluster) a row, `rows` cache
 // rows a CTA (whole chunks), the dynamic shared memory.
@@ -155,26 +226,38 @@ struct Plan {
   size_t smem;
 };
 
+// A body's shared memory for a slice of T cache rows: the int8 forms'
+// (layout) ...
+struct Int8Smem {
+  int F, C, G, H;
+  size_t operator()(int T) const { return layout(F, C, G, H, T).bytes; }
+};
+
 // The plan of n_split CTAs a row, whole chunks each (the last CTA's slice
-// cut at S).
-inline Plan plan_for(int C, int G, int S, int H, int n_split) {
+// cut at S); smem_of(T) is the body's shared memory for T rows a CTA.
+template <class SmemOf>
+inline Plan plan_for(const SmemOf& smem_of, int S, int n_split) {
   const int chunks = S > kChunk ? (S + kChunk - 1) / kChunk : 1;
   Plan p;
   p.n_split = n_split;
   p.rows = (chunks + n_split - 1) / n_split * kChunk;
-  p.smem = layout(C, G, H, p.rows).bytes;
+  p.smem = smem_of(p.rows);
   return p;
 }
 
-// Whether the kernels take a shape (the entry points add their own terms):
-// the plan with the most CTAs a row must fit.
-inline bool takes(int C, int R, int G, int S, int H) {
-  if (R < 1 || R > 65535 || G < 1 || G > kMaxG || S < 1 || !head_dim_fits(H))
-    return false;
+// Whether a body takes R rows of S cache rows (the entry points add their
+// own terms): the plan with the most CTAs a row must fit.
+template <class SmemOf>
+inline bool takes_rows(const SmemOf& smem_of, int R, int G, int S) {
+  if (R < 1 || R > 65535 || G < 1 || G > kMaxG || S < 1) return false;
   const int chunks = S > kChunk ? (S + kChunk - 1) / kChunk : 1;
-  return smem_fits(plan_for(C, G, S, H, chunks < kMaxSplit ? chunks
-                                                           : kMaxSplit)
-                       .smem);
+  return smem_fits(
+      plan_for(smem_of, S, chunks < kMaxSplit ? chunks : kMaxSplit).smem);
+}
+
+// Whether the int8 forms take a shape.
+inline bool takes(int F, int C, int R, int G, int S, int H) {
+  return head_dim_fits(H) && takes_rows(Int8Smem{F, C, G, H}, R, G, S);
 }
 
 // The launch of `kernel` under plan p for R rows: grid (n_split, R), one
@@ -236,16 +319,17 @@ inline int max_clusters(Kernel kernel, const Plan& p) {
 // batch too large for any split to fit at once, a row's whole S in one CTA
 // ran fastest (PERF.md §6). At S 1024 on the H100 that is 8 CTAs a row
 // for small batches, 3 at a batch of 64 and 1 at 256.
-inline Plan choose_plan(Kernel kernel, int C, int G, int S, int H, int R) {
+template <class SmemOf>
+inline Plan choose_plan(Kernel kernel, const SmemOf& smem_of, int S, int R) {
   const int chunks = S > kChunk ? (S + kChunk - 1) / kChunk : 1;
-  Plan fits = plan_for(C, G, S, H, chunks < kMaxSplit ? chunks : kMaxSplit);
+  Plan fits = plan_for(smem_of, S, chunks < kMaxSplit ? chunks : kMaxSplit);
   int tried = 0;
   for (int per = (chunks + kMaxSplit - 1) / kMaxSplit; per <= chunks;
        ++per) {
     const int n = (chunks + per - 1) / per;
     if (n == tried) continue;  // the same split as the last try
     tried = n;
-    const Plan p = plan_for(C, G, S, H, n);
+    const Plan p = plan_for(smem_of, S, n);
     if (!smem_fits(p.smem)) break;  // fewer CTAs hold more scores
     if (R <= max_clusters(kernel, p)) return p;
     fits = p;
@@ -448,7 +532,7 @@ __device__ __forceinline__ void stage_queries(const float* __restrict__ qr,
 // Step 3: the scores of one chunk, slice rows [j0, j0 + kChunk) lying in
 // ring stage `kst`, one 16-row tile a warp, into sc [G][T + 4] for the
 // rows j < kr (rows of a tile past kr are computed and not stored).
-template <bool kDyn, int C, int H>
+template <int F, int C, int H>
 __device__ __forceinline__ void score_chunk(const Args& a, const int8_t* kst,
                                             const uint8_t* qbuf,
                                             const float* qsum,
@@ -518,9 +602,109 @@ __device__ __forceinline__ void score_chunk(const Args& a, const int8_t* kst,
         const int j = j0 + 16 * mt + grp + 8 * (i >> 1);
         if (g >= G || j >= kr) continue;
         float s = (dot[i] - a.zp_k * qsum[g]) * a.ks;
-        if constexpr (!kDyn) s = s + mrow[g * a.mask_sg + s0 + j];
+        if constexpr (F == kMasked) s = s + mrow[g * a.mask_sg + s0 + j];
         sc[g * P + j] = s;
       }
+    }
+  }
+}
+
+// Step 2 of the chained form: the f32 query rows qr [G][H] into qf
+// [8 nt][H + 4] (zeros past G, so that every chain runs unguarded; a pitch
+// that puts the rows a warp reads at once on separate banks) and their
+// sums, one warp a query row, in prepare_queries' order.
+template <int H>
+__device__ __forceinline__ void stage_query_rows(const float* __restrict__ qr,
+                                                 int G, float* qf,
+                                                 float* qsum,
+                                                 float (&x)[H / 32]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < 8 * ((G + 7) >> 3); g += kWarps) {
+    if (g != warp) load_query<H>(qr, G, g, x);
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < H / 32; ++i) {
+      qf[g * (H + 4) + lane + 32 * i] = x[i];
+      s = s + x[i];
+    }
+    s = warp_sum(s);
+    if (g < G && lane == 0) qsum[g] = s;
+  }
+}
+
+// The chained scores' first step: the n rows of rb bytes of a K chunk in
+// ring stage `st` into kpad, rows rb + kKPad bytes apart; every thread
+// copies 16-byte units.
+template <int RB>
+__device__ __forceinline__ void pad_rows(const uint8_t* st, uint8_t* kpad,
+                                         int n) {
+  constexpr int U = RB / 16;  // units a row
+  for (int u = threadIdx.x; u < n * U; u += kThreads) {
+    const int r = u / U, c = u % U;
+    *reinterpret_cast<uint4*>(kpad + (size_t)r * (RB + kKPad) + 16 * c) =
+        *reinterpret_cast<const uint4*>(st + (size_t)r * RB + 16 * c);
+  }
+}
+
+// The chained scores' lanes: warp w takes cache rows 32 (w % 4) + lane of
+// a chunk and the query rows (w / 4) NQ .. + NQ - 1 (NQ = 4 NTS), one f32
+// FMA chain each over h = 0 .. H - 1: each K element is widened once for
+// NQ chains, and each q word is one broadcast read.
+template <int NTS>
+struct Chain {
+  static constexpr int NQ = 4 * NTS;
+  __device__ static int row() { return 32 * ((threadIdx.x >> 5) & 3) +
+                                       (threadIdx.x & 31); }
+  __device__ static int g0() { return (threadIdx.x >> 7) * NQ; }
+};
+
+// Step 3 of the chained form: the scores of one chunk (slice rows [j0, j0 +
+// kChunk), copied to kpad), q . k one f32 FMA chain over h in increasing
+// order, then (q . k - zp_k * sum(q)) * k_scale_eff, for the rows j < kr.
+template <int H, int NTS>
+__device__ __forceinline__ void score_chunk_chain(const Args& a,
+                                                  const uint8_t* kpad,
+                                                  const float* qf,
+                                                  const float* qsum,
+                                                  float* sc, int j0, int kr) {
+  using CH = Chain<NTS>;
+  constexpr int QP = H + 4, NQ = CH::NQ;
+  const int G = a.G, P = sc_pitch(a.rows);
+  const int j = CH::row(), g0 = CH::g0();
+  if (j0 + (j & ~31) >= kr || g0 >= G) return;  // warp-uniform
+  const uint8_t* krow = kpad + (size_t)j * (H + kKPad);
+  float acc[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) acc[i] = 0.0f;
+#pragma unroll 2
+  for (int h = 0; h < H; h += 16) {
+    const uint4 w = *reinterpret_cast<const uint4*>(krow + h);
+    const uint32_t r[4] = {w.x ^ kFlip, w.y ^ kFlip, w.z ^ kFlip,
+                           w.w ^ kFlip};
+    float kf[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e)  // the biased byte as an f32 mantissa
+      kf[e] = __uint_as_float(__byte_perm(r[e >> 2], 0x4B000000u,
+                                          0x7440 | (e & 3))) -
+              8388736.0f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {  // rows past G: zeros
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qf + (g0 + i) * QP + h + 4 * u);
+        acc[i] = __fmaf_rn(qv.x, kf[4 * u], acc[i]);
+        acc[i] = __fmaf_rn(qv.y, kf[4 * u + 1], acc[i]);
+        acc[i] = __fmaf_rn(qv.z, kf[4 * u + 2], acc[i]);
+        acc[i] = __fmaf_rn(qv.w, kf[4 * u + 3], acc[i]);
+      }
+    }
+  }
+  if (j0 + j < kr) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int g = g0 + i;
+      if (g < G) sc[g * P + j0 + j] = (acc[i] - a.zp_k * qsum[g]) * a.ks;
     }
   }
 }
@@ -530,7 +714,9 @@ __device__ __forceinline__ void score_chunk(const Args& a, const int8_t* kst,
 // points at the chunk's first score column), head columns
 // h0 + 2 mt and h0 + 2 mt + 1 of tile mt; V widened to fp16, p in NP fp16
 // parts of p * kPScale.
-template <int C, int H>
+// kStep: each k-step's products summed by the tensor cores from zero and
+// added into acc by an f32 add.
+template <int C, int H, bool kStep>
 __device__ __forceinline__ void context_f16(const int8_t* vst,
                                             const float* sc, int G, int P,
                                             int nt, int j0, int j1, int h0,
@@ -564,9 +750,18 @@ __device__ __forceinline__ void context_f16(const int8_t* vst,
       }
       const uint32_t a0 = f16_pair<0x4140>(x01), a1 = f16_pair<0x4342>(x01);
       const uint32_t a2 = f16_pair<0x4140>(x23), a3 = f16_pair<0x4342>(x23);
+      if constexpr (kStep) {
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int p = NP - 1; p >= 0; --p)  // the smallest part first
-        mma_f16(acc[mt], a0, a1, a2, a3, b0[p], b1[p]);
+        for (int p = NP - 1; p >= 0; --p)  // the smallest part first
+          mma_f16(d, a0, a1, a2, a3, b0[p], b1[p]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][i] = acc[mt][i] + d[i];
+      } else {
+#pragma unroll
+        for (int p = NP - 1; p >= 0; --p)  // the smallest part first
+          mma_f16(acc[mt], a0, a1, a2, a3, b0[p], b1[p]);
+      }
     }
   }
 }
@@ -629,16 +824,135 @@ __device__ __forceinline__ void store4(int* p, const int (&v)[4]) {
   *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
 }
 
-// The kernels' body: kDyn false is the masked kernel in compute mode C,
-// true the live-prefix kernel (C = kF32). One CTA: blockIdx.x the split
-// (its rank in the cluster), blockIdx.y the (batch, kv-head) row.
-template <bool kDyn, int C, int H, int NTS>
+// Step 4 for the G query rows of a CTA's slice (scores sc [G][T + 4] of its
+// kr scored rows; rows [kr, vr) scored -1e30, T rows in all): the row maxima
+// over the cluster, e = exp(s - m), the sums of e (SumT<C>) over the cluster
+// in split order, then (but for the live-prefix form) the mode's operand
+// prob_operand<C>(e, sum) in place, 0 past vr. Maxima start at -1e30 where a
+// row may have no scored row (the live-prefix and lengths forms: a
+// zero-length row's e is then 1), else at -inf. xsum keeps this CTA's sum
+// of e; xcodes (int8) its operands' sum.
+template <int F, int C>
+__device__ __forceinline__ void softmax_cluster(float* sc, int G, int P,
+                                                int T, int kr, int vr,
+                                                float* xmax, SumT<C>* xsum,
+                                                float* xcodes) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nsplit = gridDim.x;
+  constexpr bool kLive = F != kMasked;  // rows may have no scored row
+  for (int g = warp; g < G; g += kWarps) {
+    float m = kLive ? kNegInf : -INFINITY;
+    for (int j = lane; j < kr; j += 32) m = fmaxf(m, sc[g * P + j]);
+    m = warp_max(m);
+    if (lane == 0) xmax[g] = m;
+  }
+  tc::cluster_sync();
+  for (int g = warp; g < G; g += kWarps) {
+    float m = lane < nsplit ? *tc::cluster_map(&xmax[g], lane) : -INFINITY;
+    m = warp_max(m);
+    // Rows scored -1e30 (a zero-length row's V rows): e of -1e30 less the
+    // maximum.
+    const float e_dead = kLive ? expf(kNegInf - m) : 0.0f;
+    SumT<C> acc = 0;
+    for (int j = lane; j < T; j += 32) {
+      float e = 0.0f;
+      if (j < kr)
+        e = expf(sc[g * P + j] - m);
+      else if (j < vr)
+        e = e_dead;
+      sc[g * P + j] = e;
+      acc = acc + (SumT<C>)e;
+    }
+    acc = warp_sum_t(acc);
+    if (lane == 0) xsum[g] = acc;
+  }
+  if constexpr (F != kDynlen) {
+    tc::cluster_sync();
+    for (int g = warp; g < G; g += kWarps) {
+      const SumT<C> mine = lane < nsplit ? *tc::cluster_map(&xsum[g], lane) : 0;
+      SumT<C> tot = 0;
+      for (int r = 0; r < nsplit; ++r)  // split order
+        tot = tot + __shfl_sync(0xffffffffu, mine, r);
+      const float denom = (float)tot;
+      float codes = 0.0f;
+      for (int j = lane; j < T; j += 32) {
+        const float p = j < vr ? prob_operand<C>(sc[g * P + j], denom) : 0.0f;
+        sc[g * P + j] = p;
+        codes = codes + p;
+      }
+      if constexpr (C == kInt8) {
+        codes = warp_sum(codes);
+        if (lane == 0) xcodes[g] = codes;
+      }
+    }
+  }
+}
+
+// Step 6, first: the row quarters' partials `part` ([4][qstride] in
+// fragment order, see store4) added in order; then the cluster's barrier.
+template <typename AccT>
+__device__ __forceinline__ void sum_quarters(AccT* part, int qstride) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < qstride; i += kThreads) {  // in order
+    AccT s = part[i];
+    for (int q4 = 1; q4 < 4; ++q4) s = s + part[(size_t)q4 * qstride + i];
+    part[i] = s;
+  }
+  tc::cluster_sync();
+}
+
+// Step 6, then: this CTA's share (1 / n_split) of the fragments summed over
+// the cluster in split order (every remote value loaded before the sum);
+// finish(g, h, acc) writes each value.
+template <int H, typename AccT, class Finish>
+__device__ __forceinline__ void gather_partials(const AccT* part, int G,
+                                                int qstride,
+                                                const Finish& finish) {
+  const int tid = threadIdx.x, me = blockIdx.x, nsplit = gridDim.x;
+  using AccT4 = typename std::conditional<std::is_same<AccT, int>::value,
+                                          int4, float4>::type;
+  const int n4 = qstride / 4;  // fragments of 4 values
+  const int i0 = me * n4 / nsplit, i1 = (me + 1) * n4 / nsplit;
+  for (int i = i0 + tid; i < i1; i += kThreads) {
+    // Fragment i: its lane, tile, half and n-tile.
+    constexpr int MT = H / 32;
+    const int ln = i & 31, mt = (i >> 5) % MT, rest = (i >> 5) / MT;
+    const int g = 8 * (rest >> 1) + 2 * (ln & 3);
+    const int h = (rest & 1) * (H / 2) + (ln >> 2) * (H / 16) + 2 * mt;
+    AccT4 v[kMaxSplit];
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r)
+      if (r < nsplit)
+        v[r] = *tc::cluster_map(reinterpret_cast<const AccT4*>(part) + i, r);
+    AccT y4[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+    for (int r = 1; r < kMaxSplit; ++r)
+      if (r < nsplit) {
+        y4[0] = y4[0] + v[r].x;
+        y4[1] = y4[1] + v[r].y;
+        y4[2] = y4[2] + v[r].z;
+        y4[3] = y4[3] + v[r].w;
+      }
+    // y4: (g, h), (g + 1, h), (g, h + 1), (g + 1, h + 1).
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (g + (e & 1) < G) finish(g + (e & 1), h + (e >> 1), y4[e]);
+  }
+  tc::cluster_sync();  // no CTA leaves while others read its shared memory
+}
+
+// The int8 kernels' body in form F and compute mode C (the live-prefix
+// form C = kF32). One CTA: blockIdx.x the split (its rank in the cluster),
+// blockIdx.y the (batch, kv-head) row.
+template <int F, int C, int H, int NTS>
 __device__ __forceinline__ void attend(const Args& a) {
   extern __shared__ __align__(128) uint8_t smem[];
   using AccT = typename std::conditional<C == kInt8, int, float>::type;
+  constexpr bool kChain = chained(F, C);
   const int G = a.G, S = a.S, T = a.rows, P = sc_pitch(T);
-  const Layout L = layout(C, G, H, T);
+  const Layout L = layout(F, C, G, H, T);
   int8_t* ring = reinterpret_cast<int8_t*>(smem + L.ring);
+  uint8_t* kpad = smem + L.kpad;
   uint8_t* qbuf = smem + L.q;
   float* sc = reinterpret_cast<float*>(smem + L.sc);
   float* qsum = reinterpret_cast<float*>(smem + L.qsum);
@@ -656,7 +970,7 @@ __device__ __forceinline__ void attend(const Args& a) {
   const int here = min(max(S - s0, 0), T);
   // Rows of the slice to score (kr) and to read from V (vr).
   int kr = here, vr = here;
-  if constexpr (kDyn) {
+  if constexpr (F == kDynlen) {
     // The TPU kernel's chunk count of this row's block of rb rows.
     const int len = a.lengths[row / a.NK];
     const int rb0 = (row / a.rb) * a.rb;
@@ -669,12 +983,18 @@ __device__ __forceinline__ void attend(const Args& a) {
     const int live_v = len > 0 ? live_k : n_chunks * a.c;
     kr = min(max(live_k - s0, 0), here);
     vr = min(max(live_v - s0, 0), here);
+  } else if constexpr (F == kLengths) {
+    // Rows < L; a zero-length row scores -1e30 everywhere: every one of
+    // its S rows weighs 1 / S.
+    const int len = a.lengths[row / a.NK];
+    kr = len > 0 ? min(max(min(len, S) - s0, 0), here) : 0;
+    vr = len > 0 ? kr : here;
   }
 
   // 1. The slice's loads: its K chunks, then its V chunks (live rows
   //    only), each one bulk copy into ring stage i % kStages; the first
-  //    kStages at once (this warp's first query row loaded first), the
-  //    next as a stage is read.
+  //    kStages at once (this warp's first query row loaded first), the next
+  //    as a stage is read (the chained form's K chunk: as it is padded).
   const int nk = (kr + kChunk - 1) / kChunk, nv = (vr + kChunk - 1) / kChunk;
   const size_t base = ((size_t)row * S + s0) * H;
   auto issue_load = [&](int i) {
@@ -704,69 +1024,38 @@ __device__ __forceinline__ void attend(const Args& a) {
     for (int i = 0; i < kStages; ++i) issue_load(i);
 
   // 2. Query operands.
-  stage_queries<C, H>(qr, G, qbuf, qsum, qscale, xq);
+  if constexpr (kChain)
+    stage_query_rows<H>(qr, G, reinterpret_cast<float*>(qbuf), qsum, xq);
+  else
+    stage_queries<C, H>(qr, G, qbuf, qsum, qscale, xq);
   __syncthreads();
 
   // 3. Scores.
   const float* mrow = nullptr;
-  if constexpr (!kDyn)
+  if constexpr (F == kMasked)
     mrow = a.mask + (row / a.NK) * a.mask_sb + (row % a.NK) * a.mask_sn;
   for (int c = 0; c < nk; ++c) {
     await_load(c);
-    score_chunk<kDyn, C, H>(a, ring + (size_t)(c % kStages) * kChunk * H,
-                            qbuf, qsum, qscale, mrow, sc, c * kChunk, kr, s0);
-    __syncthreads();  // the stage is read
-    if (tid == 0) issue_load(c + kStages);
+    const int8_t* kst = ring + (size_t)(c % kStages) * kChunk * H;
+    if constexpr (kChain) {
+      pad_rows<H>(reinterpret_cast<const uint8_t*>(kst), kpad,
+                  min(kr - c * kChunk, kChunk));
+      __syncthreads();  // the stage is read
+      if (tid == 0) issue_load(c + kStages);
+      score_chunk_chain<H, NTS>(a, kpad, reinterpret_cast<const float*>(qbuf),
+                                qsum, sc, c * kChunk, kr);
+      __syncthreads();  // kpad is read
+    } else {
+      score_chunk<F, C, H>(a, kst, qbuf, qsum, qscale, mrow, sc, c * kChunk,
+                           kr, s0);
+      __syncthreads();  // the stage is read
+      if (tid == 0) issue_load(c + kStages);
+    }
   }
   __syncthreads();
 
-  // 4. Softmax across the cluster: the maxima, then e and its sums.
-  for (int g = warp; g < G; g += kWarps) {
-    float m = kDyn ? kNegInf : -INFINITY;
-    for (int j = lane; j < kr; j += 32) m = fmaxf(m, sc[g * P + j]);
-    m = warp_max(m);
-    if (lane == 0) xmax[g] = m;
-  }
-  tc::cluster_sync();
-  for (int g = warp; g < G; g += kWarps) {
-    float m = lane < nsplit ? *tc::cluster_map(&xmax[g], lane) : -INFINITY;
-    m = warp_max(m);
-    // Live-prefix rows scored -1e30 (a zero-length row's V rows): e of
-    // -1e30 less the maximum.
-    const float e_dead = kDyn ? expf(kNegInf - m) : 0.0f;
-    SumT<C> acc = 0;
-    for (int j = lane; j < T; j += 32) {
-      float e = 0.0f;
-      if (j < kr)
-        e = expf(sc[g * P + j] - m);
-      else if (j < vr)
-        e = e_dead;
-      sc[g * P + j] = e;
-      acc = acc + (SumT<C>)e;
-    }
-    acc = warp_sum_t(acc);
-    if (lane == 0) xsum[g] = acc;
-  }
-  if constexpr (!kDyn) {
-    tc::cluster_sync();
-    for (int g = warp; g < G; g += kWarps) {
-      const SumT<C> mine = lane < nsplit ? *tc::cluster_map(&xsum[g], lane) : 0;
-      SumT<C> tot = 0;
-      for (int r = 0; r < nsplit; ++r)  // split order
-        tot = tot + __shfl_sync(0xffffffffu, mine, r);
-      const float denom = (float)tot;
-      float codes = 0.0f;
-      for (int j = lane; j < T; j += 32) {
-        const float p = j < kr ? prob_operand<C>(sc[g * P + j], denom) : 0.0f;
-        sc[g * P + j] = p;
-        codes = codes + p;
-      }
-      if constexpr (C == kInt8) {
-        codes = warp_sum(codes);
-        if (lane == 0) xcodes[g] = codes;
-      }
-    }
-  }
+  // 4. Softmax across the cluster.
+  softmax_cluster<F, C>(sc, G, P, T, kr, vr, xmax, xsum, xcodes);
   __syncthreads();
 
   // 5. The slice's context, chunk by chunk: warp (hh, qq) takes head
@@ -794,8 +1083,8 @@ __device__ __forceinline__ void attend(const Args& a) {
         if constexpr (C == kInt8)
           context_s8<H>(vst, sc + c * kChunk, G, P, nt, j0, j1, h0, acc[nt]);
         else
-          context_f16<C, H>(vst, sc + c * kChunk, G, P, nt, j0, j1, h0,
-                            acc[nt]);
+          context_f16<C, H, kChain>(vst, sc + c * kChunk, G, P, nt, j0, j1,
+                                    h0, acc[nt]);
       }
       __syncthreads();  // the stage is read
       if (tid == 0) issue_load(nk + c + kStages);
@@ -808,23 +1097,15 @@ __device__ __forceinline__ void attend(const Args& a) {
                    (((nt * 2 + hh) * MT + mt) * 32 + lane) * 4,
                acc[nt][mt]);
   }
-  __syncthreads();
-  for (int i = tid; i < qstride; i += kThreads) {  // quarters in order
-    AccT s = part[i];
-    for (int q4 = 1; q4 < 4; ++q4) s = s + part[(size_t)q4 * qstride + i];
-    part[i] = s;
-  }
-  tc::cluster_sync();
 
   // 6. The cluster's l (live-prefix) or int8 code sum of each query row,
-  //    then this CTA's share (1 / n_split) of the partials' fragments,
-  //    summed over the cluster in split order (every remote value loaded
-  //    before the sum).
-  if constexpr (kDyn || C == kInt8) {
+  //    then the partials summed over the cluster.
+  sum_quarters(part, qstride);
+  if constexpr (F == kDynlen || C == kInt8) {
     for (int g = warp; g < G; g += kWarps) {
       float mine = 0.0f;
       if (lane < nsplit) {
-        if constexpr (kDyn)
+        if constexpr (F == kDynlen)
           mine = *tc::cluster_map(&xsum[g], lane);
         else
           mine = *tc::cluster_map(&xcodes[g], lane);
@@ -836,48 +1117,407 @@ __device__ __forceinline__ void attend(const Args& a) {
     }
     __syncthreads();
   }
-  using AccT4 = typename std::conditional<C == kInt8, int4, float4>::type;
-  const int n4 = qstride / 4;  // fragments of 4 values
-  const int i0 = me * n4 / nsplit, i1 = (me + 1) * n4 / nsplit;
-  for (int i = i0 + tid; i < i1; i += kThreads) {
-    // Fragment i: its lane, tile, half and n-tile.
-    constexpr int MT = H / 32;
-    const int ln = i & 31, mt = (i >> 5) % MT, rest = (i >> 5) / MT;
-    const int g = 8 * (rest >> 1) + 2 * (ln & 3);
-    const int h = (rest & 1) * (H / 2) + (ln >> 2) * (H / 16) + 2 * mt;
-    AccT4 v[kMaxSplit];
+  gather_partials<H>(part, G, qstride, [&](int g, int h, AccT acc) {
+    float y;
+    if constexpr (F == kDynlen)
+      y = (acc * (1.0f / kPScale) / fmaxf(xtot[g], 1e-30f) - a.zp_v) *
+          a.v_scale;
+    else if constexpr (C == kInt8)
+      y = finish_ctx<C>((float)acc, fmaxf(xtot[g], 1.0f), a.zp_v, a.v_scale);
+    else
+      y = finish_ctx<C>(acc * (1.0f / kPScale), 1.0f, a.zp_v, a.v_scale);
+    store_out(a, ((size_t)row * G + g) * H + h, y);
+  });
+}
+
+// ---- The int4-group body (#10) ----
+
+// Bytes of a ring stage: a chunk's packed codes [kChunk][H / 2], then 2 NG
+// strips [NG][kChunk] bf16 (a K chunk: its scales, then its mins; a V
+// chunk: its scales in the first NG).
+__host__ __device__ inline size_t g4_stage(int H, int NG) {
+  return (size_t)kChunk * (H / 2) + (size_t)4 * NG * kChunk;
+}
+
+// Byte offsets of an int4-group CTA's shared memory: the ring (after the
+// last V chunk, the row quarters' context partials), a K chunk's codes
+// padded (kpad), bf16(q) as f32 rows [8 nt][H + 4], the f32 group sums
+// [G][NG], the scores [G][T + 4], the cluster's maxima and sums, the
+// stages' mbarriers.
+struct Layout4 {
+  size_t ring, kpad, q, qsum, sc, xmax, xsum, bars, bytes;
+};
+
+__host__ __device__ inline Layout4 layout4(int G, int H, int NG, int T) {
+  const size_t nt = (size_t)(G + 7) / 8;
+  const size_t ring = (size_t)kStages * g4_stage(H, NG);
+  const size_t parts = (size_t)128 * nt * H;
+  Layout4 L;
+  L.ring = 0;
+  L.kpad = up16(ring > parts ? ring : parts);
+  L.q = up16(L.kpad + kpad_bytes(H / 2));
+  L.qsum = up16(L.q + 8 * nt * (H + 4) * 4);
+  L.sc = up16(L.qsum + (size_t)G * NG * 4);
+  L.xmax = up16(L.sc + (size_t)G * sc_pitch(T) * 4);
+  L.xsum = up16(L.xmax + (size_t)G * 4);
+  L.bars = up16(L.xsum + (size_t)G * 4);
+  L.bytes = L.bars + 8 * kStages;
+  return L;
+}
+
+struct Int4GroupSmem {
+  int G, H, NG;
+  size_t operator()(int T) const { return layout4(G, H, NG, T).bytes; }
+};
+
+// Whether the int4-group body takes a shape: the int8 forms' terms, S a
+// multiple of 8 (a strip's copy, whole 16-byte units, stays inside S).
+inline bool takes_int4g(int R, int G, int S, int H, int group) {
+  return head_dim_fits(H) && group > 0 && S % 8 == 0 &&
+         takes_rows(Int4GroupSmem{G, H, H / group}, R, G, S);
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// The K operand pair of two unsigned codes (bits 0-3 and 16-19 of x, other
+// bits ignored) and their scales s2 (m2 = -128 * s2): 0x4300 | code is the
+// bf16 128 + code, and (128 + code) * s - 128 * s is code * s, rounded once.
+__device__ __forceinline__ uint32_t k_pair(uint32_t x, uint32_t s2,
+                                           uint32_t m2) {
+  const uint32_t c = (x & 0x000F000Fu) | 0x43004300u;
+  return bf2_bits(__hfma2(bits_bf2(c), bits_bf2(s2), bits_bf2(m2)));
+}
+
+// The V operand pair of two signed codes (nibbles at bits 0-3 and 16-19 of
+// y, (u ^ 8) - 8) and their scales: 0x4300 | (u ^ 8) less 136 is the code,
+// exactly; times the scale, rounded once.
+__device__ __forceinline__ uint32_t v_pair(uint32_t y, uint32_t s2) {
+  const uint32_t c = (y & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 code =
+      __hsub2(bits_bf2(c), bits_bf2(0x43084308u));  // 136
+  return bf2_bits(__hmul2(code, bits_bf2(s2)));
+}
+
+// Step 2: bf16(q) of the query rows as f32 rows qf [8 nt][H + 4] (zeros
+// past G), and the f32 group sums qsum [G][NG] of bf16(q) (columns in a
+// lane in order, then the lanes of a group by a butterfly: a sum of bf16
+// values, exact but where they span more than 24 bits); one warp a query
+// row.
+template <int H>
+__device__ __forceinline__ void stage_queries_g4(const float* __restrict__ qr,
+                                                 int G, int NG, int group,
+                                                 float* qf, float* qsum,
+                                                 float (&x)[H / 32]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < 8 * ((G + 7) >> 3); g += kWarps) {
+    if (g != warp) load_query<H>(qr, G, g, x);
+    float run = 0.0f;  // a group wider than 32 columns: its sum so far
 #pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r)
-      if (r < nsplit)
-        v[r] = *tc::cluster_map(reinterpret_cast<const AccT4*>(part) + i, r);
-    AccT y4[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+    for (int i = 0; i < H / 32; ++i) {
+      float v = __bfloat162float(__float2bfloat16_rn(x[i]));
+      qf[g * (H + 4) + lane + 32 * i] = v;
 #pragma unroll
-    for (int r = 1; r < kMaxSplit; ++r)
-      if (r < nsplit) {
-        y4[0] = y4[0] + v[r].x;
-        y4[1] = y4[1] + v[r].y;
-        y4[2] = y4[2] + v[r].z;
-        y4[3] = y4[3] + v[r].w;
+      for (int o = 1; o < 32; o <<= 1)
+        if (o < group) v = v + __shfl_xor_sync(0xffffffffu, v, o);
+      if (g >= G) continue;
+      if (group <= 32) {
+        if (lane % group == 0) qsum[g * NG + (32 * i + lane) / group] = v;
+      } else {
+        run = run + v;
+        if ((32 * (i + 1)) % group == 0) {
+          if (lane == 0) qsum[g * NG + 32 * i / group] = run;
+          run = 0.0f;
+        }
       }
-    // y4: (g, h), (g + 1, h), (g, h + 1), (g + 1, h + 1).
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int gg = g + (e & 1);
-      if (gg >= G) continue;
-      const AccT acc = y4[e];
-      float y;
-      if constexpr (kDyn)
-        y = (acc * (1.0f / kPScale) / fmaxf(xtot[gg], 1e-30f) - a.zp_v) *
-            a.v_scale;
-      else if constexpr (C == kInt8)
-        y = finish_ctx<C>((float)acc, fmaxf(xtot[gg], 1.0f), a.zp_v,
-                          a.v_scale);
-      else
-        y = finish_ctx<C>(acc * (1.0f / kPScale), 1.0f, a.zp_v, a.v_scale);
-      a.out[((size_t)row * G + gg) * H + h + (e >> 1)] = y;
     }
   }
-  tc::cluster_sync();  // no CTA leaves while others read its shared memory
+}
+
+// Step 3: the scores of one chunk (slice rows [j0, j0 + kChunk): codes in
+// kpad, scales and mins in ring stage `st`), by Chain's lanes: bf16(q) . K
+// one f32 FMA chain over h = 0 .. H - 1 (K[j, h] = bf16(kcode * kscale),
+// formed two at a time by k_pair; the products are exact), the offset
+// sum_n qsum[g, n] * kmin[n, j] one more over n, then (dot + offset) *
+// inv_sqrt_h: the plain version's order on the card. KG = min(group, 16).
+template <int H, int NTS, int KG>
+__device__ __forceinline__ void score_chunk_g4(const Args& a,
+                                               const uint8_t* kpad,
+                                               const uint8_t* st,
+                                               const float* qf,
+                                               const float* qsum, float* sc,
+                                               int j0, int kr, int NG) {
+  using CH = Chain<NTS>;
+  constexpr int QP = H + 4, NQ = CH::NQ, RB = H / 2, NS = 16 / KG;
+  const int G = a.G, P = sc_pitch(a.rows), shift = a.shift;
+  const int j = CH::row(), g0 = CH::g0();
+  if (j0 + (j & ~31) >= kr || g0 >= G) return;  // warp-uniform
+  const uint8_t* krow = kpad + (size_t)j * (RB + kKPad);
+  const uint16_t* ksc = reinterpret_cast<const uint16_t*>(st + kChunk * RB);
+  const uint16_t* kmn = ksc + NG * kChunk;
+  const __nv_bfloat162 m128 = __floats2bfloat162_rn(-128.0f, -128.0f);
+  float acc[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) acc[i] = 0.0f;
+  for (int hf = 0; hf < 2; ++hf) {  // the low nibbles, then the high ones
+#pragma unroll 2
+    for (int b0 = 0; b0 < RB; b0 += 16) {
+      const uint4 w = *reinterpret_cast<const uint4*>(krow + b0);
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+      uint32_t sv[NS];  // the 16 bytes' scales, KG bytes each
+#pragma unroll
+      for (int k = 0; k < NS; ++k)
+        sv[k] = ksc[(hf * (NG / 2) + ((b0 + k * KG) >> shift)) * kChunk + j];
+#pragma unroll
+      for (int wi = 0; wi < 4; ++wi) {
+        const int b = 4 * wi;  // bytes b .. b + 3 of the 16
+        const uint32_t x = hf ? words[wi] >> 4 : words[wi];
+        const uint32_t s02 = sv[b / KG] | sv[(b + 2) / KG] << 16;
+        const uint32_t s13 = sv[(b + 1) / KG] | sv[(b + 3) / KG] << 16;
+        const uint32_t p02 = k_pair(x, s02,
+                                    bf2_bits(__hmul2(bits_bf2(s02), m128)));
+        const uint32_t p13 = k_pair(x >> 8, s13,
+                                    bf2_bits(__hmul2(bits_bf2(s13), m128)));
+        const float kf[4] = {__uint_as_float(p02 << 16),
+                             __uint_as_float(p13 << 16),
+                             __uint_as_float(p02 & 0xFFFF0000u),
+                             __uint_as_float(p13 & 0xFFFF0000u)};
+        const int h = hf * RB + b0 + b;
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {  // rows past G: zeros
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qf + (g0 + i) * QP + h);
+          acc[i] = __fmaf_rn(qv.x, kf[0], acc[i]);
+          acc[i] = __fmaf_rn(qv.y, kf[1], acc[i]);
+          acc[i] = __fmaf_rn(qv.z, kf[2], acc[i]);
+          acc[i] = __fmaf_rn(qv.w, kf[3], acc[i]);
+        }
+      }
+    }
+  }
+  if (j0 + j < kr) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int g = g0 + i;
+      if (g < G) {
+        float off = 0.0f;
+        for (int n = 0; n < NG; ++n)
+          off = __fmaf_rn(qsum[g * NG + n],
+                          __uint_as_float((uint32_t)kmn[n * kChunk + j]
+                                          << 16),
+                          off);
+        sc[g * P + j0 + j] = (acc[i] + off) * a.ks;
+      }
+    }
+  }
+}
+
+// Step 5: the partial context of rows [j0, j1) of the chunk in stage `st`
+// (k16 steps; sc points at the chunk's first score column) for the warp's
+// nibble half hh (columns hh H / 2 + the bytes [grp W, grp W + W), W =
+// H / 16): A = V^T, bf16(vcode * vscale), the rows of a k-step 4t .. 4t + 3
+// from four loads and one 8-byte scale load a block; B = bf16 p. KG =
+// min(group, 16).
+template <int H, int NTS, int KG>
+__device__ __forceinline__ void context_g4(const uint8_t* st, const float* sc,
+                                           int G, int P, int j0, int j1,
+                                           int hh, int NG, int shift,
+                                           float (&acc)[NTS][H / 32][4]) {
+  constexpr int W = H / 16, MT = H / 32, KGV = KG < W ? KG : W;
+  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
+  const int nts = (G + 7) >> 3;
+  const int b0 = grp * W;  // the thread's first byte of a row
+  const uint16_t* vsc = reinterpret_cast<const uint16_t*>(st + kChunk * H / 2);
+  int strip[W / KGV];
+#pragma unroll
+  for (int bk = 0; bk < W / KGV; ++bk)
+    strip[bk] = (hh * (NG / 2) + ((b0 + bk * KGV) >> shift)) * kChunk;
+  for (int jb = j0; jb < j1; jb += 16) {
+    uint32_t r[4][W < 4 ? 1 : W / 4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      load_row<W>(reinterpret_cast<const int8_t*>(st) +
+                      (size_t)(jb + 4 * t + i) * (H / 2) + b0,
+                  r[i]);
+    uint32_t s01[W / KGV], s23[W / KGV];
+#pragma unroll
+    for (int bk = 0; bk < W / KGV; ++bk) {
+      const uint2 sv = *reinterpret_cast<const uint2*>(vsc + strip[bk] + jb +
+                                                       4 * t);
+      s01[bk] = sv.x;
+      s23[bk] = sv.y;
+    }
+    uint32_t pb0[NTS], pb1[NTS];
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt) {
+      const int g = 8 * nt + grp;
+      float4 pv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (nt < nts && g < G)
+        pv = *reinterpret_cast<const float4*>(sc + g * P + jb + 4 * t);
+      pb0[nt] = bf2_bits(__floats2bfloat162_rn(pv.x, pv.y));
+      pb1[nt] = bf2_bits(__floats2bfloat162_rn(pv.z, pv.w));
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int wi = mt >> 1;
+      uint32_t x01, x23;
+      if (mt & 1) {
+        x01 = pair_rows<2>(r[0][wi], r[1][wi]);
+        x23 = pair_rows<2>(r[2][wi], r[3][wi]);
+      } else {
+        x01 = pair_rows<0>(r[0][wi], r[1][wi]);
+        x23 = pair_rows<0>(r[2][wi], r[3][wi]);
+      }
+      if (hh) {  // the high nibbles
+        x01 >>= 4;
+        x23 >>= 4;
+      }
+      const int ba = (2 * mt) / KGV, bb = (2 * mt + 1) / KGV;
+      const uint32_t a0 = v_pair(__byte_perm(x01, 0, 0x4140), s01[ba]);
+      const uint32_t a1 = v_pair(__byte_perm(x01, 0, 0x4342), s01[bb]);
+      const uint32_t a2 = v_pair(__byte_perm(x23, 0, 0x4140), s23[ba]);
+      const uint32_t a3 = v_pair(__byte_perm(x23, 0, 0x4342), s23[bb]);
+#pragma unroll
+      for (int nt = 0; nt < NTS; ++nt)
+        if (nt < nts) mma_bf16(acc[nt][mt], a0, a1, a2, a3, pb0[nt], pb1[nt]);
+    }
+  }
+}
+
+// The int4-group kernel's body (#10): the lengths form's rows and
+// softmax with bf16 probabilities, the scores and context above. KG =
+// min(group, 16).
+template <int H, int NTS, int KG>
+__device__ __forceinline__ void attend_int4g(const Args& a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int G = a.G, S = a.S, T = a.rows, P = sc_pitch(T);
+  const int NG = H >> a.shift, group = 1 << a.shift;
+  const Layout4 L = layout4(G, H, NG, T);
+  const size_t stage = g4_stage(H, NG);
+  uint8_t* ring = smem + L.ring;
+  uint8_t* kpad = smem + L.kpad;
+  float* qf = reinterpret_cast<float*>(smem + L.q);
+  float* qsum = reinterpret_cast<float*>(smem + L.qsum);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* xmax = reinterpret_cast<float*>(smem + L.xmax);
+  float* xsum = reinterpret_cast<float*>(smem + L.xsum);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  float* part = reinterpret_cast<float*>(smem + L.ring);  // after the last V
+
+  const int me = blockIdx.x, row = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int s0 = me * T;
+  const int here = min(max(S - s0, 0), T);
+  const int len = a.lengths[row / a.NK];
+  const int kr = len > 0 ? min(max(min(len, S) - s0, 0), here) : 0;
+  const int vr = len > 0 ? kr : here;
+
+  // 1. Loads: a chunk's codes one bulk copy, each strip one more (lanes of
+  //    warp 0), its rows rounded up to 8 (inside S: S % 8 == 0).
+  const int nk = (kr + kChunk - 1) / kChunk, nv = (vr + kChunk - 1) / kChunk;
+  const int H2 = H / 2;
+  auto issue_load = [&](int i) {
+    if (i >= nk + nv) return;
+    const bool is_v = i >= nk;
+    const int c = is_v ? i - nk : i;
+    const int n = min((is_v ? vr : kr) - c * kChunk, kChunk);
+    const int n8 = (n + 7) & ~7;
+    const int strips = is_v ? NG : 2 * NG, first = is_v ? 2 * NG : 0;
+    uint64_t* bar = &bars[i % kStages];
+    uint8_t* dst = ring + (i % kStages) * stage;
+    const int j = s0 + c * kChunk;
+    if (lane == 0) {
+      tc::mbar_expect_tx(bar, (uint32_t)(n * H2 + strips * n8 * 2));
+      tc::bulk_load(dst, (is_v ? a.v : a.k) + ((size_t)row * S + j) * H2,
+                    (uint32_t)(n * H2), bar);
+    }
+    __syncwarp();
+    for (int sidx = lane; sidx < strips; sidx += 32)
+      tc::bulk_load(dst + kChunk * H2 + (size_t)sidx * kChunk * 2,
+                    a.sidecar + ((size_t)row * 3 * NG + first + sidx) * S + j,
+                    (uint32_t)(n8 * 2), bar);
+  };
+  auto await_load = [&](int i) {
+    tc::mbar_wait(&bars[i % kStages], (uint32_t)(i / kStages) & 1);
+  };
+  const float* qr = a.q + (size_t)row * G * H;
+  float xq[H / 32];
+  load_query<H>(qr, G, warp, xq);
+  // The strips' rows past a copy are read (times p = 0) by the last k-step
+  // of a V chunk: zeros before the first copies, earlier strips after.
+  for (int s = 0; s < kStages; ++s)
+    for (size_t i = kChunk * H2 + 16 * tid; i < stage; i += 16 * kThreads)
+      *reinterpret_cast<uint4*>(ring + s * stage + i) = make_uint4(0, 0, 0, 0);
+  tc::fence_proxy_async();
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) tc::mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int i = 0; i < kStages; ++i) issue_load(i);
+
+  // 2. Query operands.
+  stage_queries_g4<H>(qr, G, NG, group, qf, qsum, xq);
+  __syncthreads();
+
+  // 3. Scores: the chunk's codes padded, then the chains.
+  for (int c = 0; c < nk; ++c) {
+    await_load(c);
+    const uint8_t* st = ring + (c % kStages) * stage;
+    pad_rows<H / 2>(st, kpad, min(kr - c * kChunk, kChunk));
+    __syncthreads();
+    score_chunk_g4<H, NTS, KG>(a, kpad, st, qf, qsum, sc, c * kChunk, kr,
+                               NG);
+    __syncthreads();  // the stage and kpad are read
+    if (warp == 0) issue_load(c + kStages);
+  }
+  __syncthreads();
+
+  // 4. Softmax across the cluster: bf16 probabilities.
+  softmax_cluster<kLengths, kBF16>(sc, G, P, T, kr, vr, xmax, xsum, nullptr);
+  __syncthreads();
+
+  // 5. The slice's context: warp (hh, qq) takes the nibble half hh and rows
+  //    [32 qq, 32 qq + 32) of each chunk.
+  constexpr int MT = H / 32;
+  const int qstride = ((G + 7) >> 3) * 8 * H;
+  {
+    const int hh = warp & 1, qq = warp >> 1;
+    float acc[NTS][MT][4];
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][mt][i] = 0.0f;
+    for (int c = 0; c < nv; ++c) {
+      await_load(nk + c);
+      const int j0 = 32 * qq, j1 = min(j0 + 32, vr - c * kChunk);
+      context_g4<H, NTS, KG>(ring + ((nk + c) % kStages) * stage,
+                             sc + c * kChunk, G, P, j0, j1, hh, NG, a.shift,
+                             acc);
+      __syncthreads();  // the stage is read
+      if (warp == 0) issue_load(nk + c + kStages);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        store4(part + (size_t)qq * qstride +
+                   (((nt * 2 + hh) * MT + mt) * 32 + lane) * 4,
+               acc[nt][mt]);
+  }
+
+  // 6. The partials summed over the cluster: the context as it is.
+  sum_quarters(part, qstride);
+  gather_partials<H>(part, G, qstride, [&](int g, int h, float acc) {
+    store_out(a, ((size_t)row * G + g) * H + h, acc);
+  });
 }
 
 // Launches `kernel` under plan p for R rows.

@@ -50,9 +50,14 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      at bench.py's shape (pos 896, 0, 31, 32, 1023; pools bit for bit),
      the in-place row write (bit for bit, clipped starts) and the
      live-prefix attention (B 64 and 256, zero-length rows; at B 64 also
-     every length S and every length below 128); the two split-S
-     attentions of attention_split_tc.cuh (#17, #18) log each shape's
-     launch (splits, cluster, rows a CTA) and ptxas' registers; the kernels
+     every length S and every length below 128); the four split-S
+     attentions of attention_split_tc.cuh (#17, #18, the lengths
+     attention #7 and the int4-group attention #10, these two timed at
+     B 64 and at bench.py's B 256, #7 in every compute mode) log each
+     shape's launch (splits, cluster, rows a CTA; cluster 0
+     for #7's and #10's one-block kernels, which take the shapes the core
+     does not) and ptxas' registers, and #7 and #10 run at S 8192 (the
+     core's) and H 512 (the one-block kernels'); the kernels
      of the norm fusion and the attention block (attn_block_kernels): the
      norm-fused weight-only matmul at the QKV and gate/up shapes (M 256
      and 64, bf16 and f32 x, with and without a bias, N padded), the
@@ -73,8 +78,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      lengths attention's plain version with zero points 0) and the per-row
      int4 KV attention (#21, the A/B tool's shape B 256 and B 64, against
      its plain version and the f32 twin of decode_attention_int4_ref);
-     four attention shapes the CUDA kernels do not take must raise, and
-     the epilogue with two KV heads or an odd head count;
+     four attention shapes the CUDA kernels do not take must raise (#7 and
+     #10 at S 65536), and the epilogue with two KV heads or an odd head
+     count;
   2b. A/B tool: `python -m ai_edge_quantizer_tpu_torch.tools.attn_int4_bench`
      at its defaults (B 256, S 1024, 18 chained launches, 16 steps) through
      its `main`: its artifact line (ms, GB/s, rel_err_vs_float per format:
@@ -490,7 +496,8 @@ def kernel_phase(torch, port, cfg, dev, timer):
       'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
       'bench': head_bench})
   log('kernel head_argmax ok: ids identical (planted tie included)')
-  results.append(lengths_kernel(torch, att, cfg, dev, timer, gen))
+  results.append(lengths_kernel(torch, att, port['_build'], cfg, dev, timer,
+                                gen))
   results.append(flash_kernel(torch, att, port['_build'], cfg, dev, timer,
                               gen))
   results.append(block_kernel(torch, port, cfg, dev, timer, gen))
@@ -503,6 +510,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
   compute_mode_kernels(torch, port, cfg, dev, timer, gen, results)
   results.append(int8_basic_kernel(torch, port, cfg, dev, timer, gen))
   results.append(int4_row_kernel(torch, port, cfg, dev, timer, gen))
+  split_edge_shapes(torch, att, port['_build'], dev, gen, results)
   refused_shapes(torch, att, dev)
   return results
 
@@ -795,8 +803,9 @@ def int4g_kernel(torch, port, cfg, dev, timer, gen):
   INT4G_ATTENTION_SCATTER at the server's shape on the card and on the CPU
   from the same inputs: the pools and the sidecar it writes must be equal
   bit for bit, the context held as the kernel's. Timed at
-  bench.py's step (pos BENCH_START) beside the plain version and SDPA over
-  the pools dequantized to bf16."""
+  bench.py's step (pos BENCH_START) and at the server's tick (B rows, the
+  tick's lengths) beside the plain version and SDPA over the pools
+  dequantized to bf16, each with its launch (split_plan)."""
   att, impl, ir = port['attention'], port['ops_impl'], port['ir']
   NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
   G = cfg.num_query_heads // NK
@@ -886,47 +895,65 @@ def int4g_kernel(torch, port, cfg, dev, timer, gen):
     raise AssertionError(f'INT4G_ATTENTION_SCATTER: ctx {op_rel} relative, '
                          f'share {op_share}')
 
-  # Timing at bench.py's step; SDPA over the dequantized bf16 pools.
-  lengths = torch.full((BENCH_B,), BENCH_START + 1, dtype=i32, device=dev)
-  args = (q, kp, vp, sc, lengths, INT4G_GROUP)
-  kw = dict(out_dtype=bf16)
-  scf = sc.float()
-  grp = torch.arange(H, device=dev) // INT4G_GROUP
-  k32 = kp.to(torch.int32)
-  kcodes = torch.cat([k32 & 0xF, k32 >> 4], dim=-1).float()
-  kd = (kcodes * scf[:, :, :NG].transpose(-1, -2)[..., grp]
-        + scf[:, :, NG:2 * NG].transpose(-1, -2)[..., grp]).to(bf16)
-  vd = (att.unpack_int4_rows(vp).float()
-        * scf[:, :, 2 * NG:].transpose(-1, -2)[..., grp]).to(bf16)
-  del k32, kcodes, scf
-  amask = torch.where(
-      torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
-      float('-inf')).to(bf16).reshape(BENCH_B, 1, 1, S)
+  # Timing at bench.py's step and the server's tick; SDPA over the pools
+  # dequantized to bf16.
   sdpa = torch.nn.functional.scaled_dot_product_attention
-  live = NK * BENCH_B * (BENCH_START + 1)
-  nbytes = (q.numel() * 2 + live * (H + 6 * NG) + lengths.numel() * 4
-            + q.numel() * 2)
-  b_ms, b_by = bound(nbytes, 4 * G * H * live, BF16_OPS_PER_S)
-  ms = timer(lambda: kern(*args, **kw))
-  plain_ms = timer(lambda: plain(*args, **kw))
-  lib_ms = timer(lambda: sdpa(q, kd, vd, attn_mask=amask))
-  log(f'kernel decode_attention_int4_group_lengths: {ms:.4f} ms at the bench '
-      f'step (plain {plain_ms:.4f}, SDPA on bf16 pools {lib_ms:.4f}, bound '
-      f'{b_ms:.4f} by {b_by}; {nbytes / 1e6:.1f} MB, {live} live rows)')
+
+  def timed(q, kp, vp, sc, lengths, label):
+    b = q.shape[0]
+    args = (q, kp, vp, sc, lengths, INT4G_GROUP)
+    kw = dict(out_dtype=bf16)
+    scf = sc.float()
+    grp = torch.arange(H, device=dev) // INT4G_GROUP
+    k32 = kp.to(torch.int32)
+    kcodes = torch.cat([k32 & 0xF, k32 >> 4], dim=-1).float()
+    kd = (kcodes * scf[:, :, :NG].transpose(-1, -2)[..., grp]
+          + scf[:, :, NG:2 * NG].transpose(-1, -2)[..., grp]).to(bf16)
+    vd = (att.unpack_int4_rows(vp).float()
+          * scf[:, :, 2 * NG:].transpose(-1, -2)[..., grp]).to(bf16)
+    del k32, kcodes, scf
+    amask = torch.where(
+        torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
+        float('-inf')).to(bf16).reshape(b, 1, 1, S)
+    live = NK * int(torch.sum(lengths))
+    nbytes = (q.numel() * 2 + live * (H + 6 * NG) + lengths.numel() * 4
+              + q.numel() * 2)
+    b_ms, b_by = bound(nbytes, 4 * G * H * live, BF16_OPS_PER_S)
+    row = {
+        'B': b, 'live_rows': live, 'bytes': nbytes,
+        'ms': timer(lambda: kern(*args, **kw)),
+        'plain_ms': timer(lambda: plain(*args, **kw)),
+        'bound_ms': b_ms, 'bound_by': b_by,
+        'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
+        'launch': split_plan(port['_build'], 'attention_int4_group', b * NK,
+                             G, S, H, INT4G_GROUP)}
+    log(f'kernel decode_attention_int4_group_lengths: {row["ms"]:.4f} ms at '
+        f'the {label} (plain {row["plain_ms"]:.4f}, SDPA on bf16 pools '
+        f'{row["library_ms"]:.4f}, bound {b_ms:.4f} by {b_by}; '
+        f'{nbytes / 1e6:.1f} MB, {live} live rows), launch {row["launch"]}')
+    return row
+
+  lengths = torch.full((BENCH_B,), BENCH_START + 1, dtype=i32, device=dev)
+  bench = timed(q, kp, vp, sc, lengths, 'bench step')
+  tick = timed(qs, kps, vps, scs, lens_s, 'server tick')
   return {
       'name': 'decode_attention_int4_group_lengths', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
                 'attention_int4_group.cu',
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:1677',
       'jax': 'pallas_attention.decode_attention_int4_group_lengths',
+      'core': SPLIT_CORE,
       'wrapper': kern, 'per_step': 0, 'per_bench_step_int4g': cfg.num_layers,
       'per_tick_int4g': cfg.num_layers,
       'max_abs_err': max(c['max_abs_err'] for c in cases),
-      'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-      'library_ms': lib_ms,
+      **{k: bench[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                               'library_ms', 'B', 'live_rows', 'bytes',
+                               'launch')},
       'library': 'scaled_dot_product_attention over the pools dequantized '
                  'to bf16',
-      'B': BENCH_B, 'live_rows': live, 'bytes': nbytes, 'cases': cases,
+      'tick': tick, 'cases': cases,
+      'ptxas': ptxas_report(port['_build'], 'attention_int4_group',
+                            'int4_group_attention_split_kernel'),
       'dropped_rounding_refused': dropped,
       'op_card_vs_cpu': {'values_differ': op_diff, 'ctx_max_abs_err': op_err,
                          'ctx_share_beyond_fine': op_share}}
@@ -2191,11 +2218,40 @@ def qkv_kernel(torch, port, cfg, dev, timer, gen):
 OPROJ_SCALES = (0.06, 0.06, 3.0, -2.0)   # k_scale, v_scale, zp_k, zp_v
 
 
+def oproj_context(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute):
+  """The context [B, G*H] that the epilogue's (#19) first launch forms (the
+  one-block body of #7, attention_lengths.cuh, which the epilogue keeps):
+  its C entry point called as its wrapper calls it, the ctx scratch kept."""
+  build = port['_build']
+  b, _, g, h = q.shape
+  s, d = kc.shape[2], wo.shape[0]
+  k_scale, v_scale, zp_k, zp_v = OPROJ_SCALES
+  cast = xi.dtype
+  q2 = q.to(cast).to(torch.float32).reshape(b, g, h).contiguous()
+  lens = lengths.to(torch.int32).reshape(-1).contiguous()
+  x2 = xi.reshape(b, d).to(cast).contiguous()
+  so32 = so.to(torch.float32).reshape(-1).contiguous()
+  ctx, o, out = (torch.empty((b, n), dtype=cast, device=q.device)
+                 for n in (g * h, d, d))
+  fn = build.entry('attention_oproj', 'aeqt_attention_oproj',
+                   [build.P] * 10 + [build.I] * 8 + [build.F] * 4 + [build.P])
+  build.check(fn(q2.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                 lens.data_ptr(), x2.data_ptr(), wo.data_ptr(),
+                 so32.data_ptr(), ctx.data_ptr(), o.data_ptr(),
+                 out.data_ptr(), int(cast == torch.bfloat16), int(drq),
+                 port['attention'].compute_code(compute), b, g, s, h, d,
+                 port['attention'].score_scale(k_scale, h), float(v_scale),
+                 float(zp_k), float(zp_v), build.stream_ptr(q.device)),
+              'decode_attention_oproj')
+  return ctx
+
+
 def oproj_case(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute,
                label):
-  """One epilogue call (#19) against its plain version: given #7's context
-  in `compute` (the lengths kernel, which the epilogue's first launch
-  is), the projection and the residual are the plain version's bit for
+  """One epilogue call (#19) against its plain version: given the context
+  of its first launch in `compute` (oproj_context: #7's one-block body,
+  which the epilogue keeps while #7 runs on the split core), the
+  projection and the residual are the plain version's bit for
   bit (DRQ) or within int_qmatmul.int_weights_tolerance over K = G*H and,
   at bf16, one bf16 ulp of the projection (rounded before the add) and
   one of y beyond it (weight-only). End to end against the plain version
@@ -2215,9 +2271,8 @@ def oproj_case(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute,
           compute, drq)
   got = att.decode_attention_oproj(*args)
   want = att.decode_attention_oproj_plain(*args)
-  ctx = att.decode_attention_int8_lengths(
-      q.to(cast), kc, vc, k_scale, v_scale, lengths, zp_k, zp_v,
-      compute=compute, out_dtype=cast).reshape(b, G * H)
+  ctx = oproj_context(torch, port, q, kc, vc, lengths, xi, wo, so, drq,
+                      compute)
   proj = (pq.qmatmul_int4_packed_drq_plain if drq
           else pq.qmatmul_int4_packed_plain)
   o = proj(ctx, wo, so)
@@ -2240,8 +2295,8 @@ def oproj_case(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute,
       or (exact and err != 0.0)):
     raise AssertionError(
         f'attention epilogue {label} ({cast}, drq {drq}, {compute}): err '
-        f'given #7\'s context {err_given} (tolerance {tol}, bf16 ulps beyond '
-        f'it {ulps}), err end to end {err}, max |y| {ymax}')
+        f'given its first launch\'s context {err_given} (tolerance {tol}, '
+        f'bf16 ulps beyond it {ulps}), err end to end {err}, max |y| {ymax}')
   check = {'lengths': int(lengths[0]), 'x': str(cast).split('.')[-1],
            'drq': drq, 'max_abs_err_given_ctx': err_given,
            'max_abs_err': err, 'max_abs_y': ymax, 'bf16_ulps_beyond': ulps}
@@ -2485,31 +2540,44 @@ def compute_mode_kernels(torch, port, cfg, dev, timer, gen, results):
       row['B'], row['live_rows'] = b, live
       stale.setdefault('modes', {}).setdefault(mode, {})[label] = row
 
-  # #7 at the server's tick shape.
+  # #7 at the server's tick shape (a zero length too) and at bench.py's
+  # decode with in-place writes (BENCH_B rows of BENCH_START + 1), with the
+  # launch of each.
   lens = by_name['decode_attention_int8_lengths']
-  q = torch.randn((B, NK, G, H), generator=gen, device=dev).to(bf16)
-  lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev).to(i32)
-  lengths[0], lengths[-1] = 1, S
-  args = (q, randint(B, NK, S, H), randint(B, NK, S, H), k_scale, v_scale,
-          lengths)
   kw = dict(k_zero_point=zp_k, v_zero_point=zp_v)
-  for mode in COMPUTE_MODES:  # a zero-length row: every row weighs 1/S
-    zero = torch.zeros_like(lengths)
-    got0 = att.decode_attention_int8_lengths(*args[:5], zero, compute=mode,
-                                             **kw)
-    want0 = att.decode_attention_int8_lengths_plain(*args[:5], zero,
-                                                    compute=mode, **kw)
-    sync()
-    mode_ctx_check(torch, got0, want0, mode, v_scale, zp_v,
-                   'lengths attention, length 0')
-  live = NK * int(torch.sum(lengths))
-  nbytes = q.numel() * 2 + 2 * live * H + B * 4 + q.numel() * 4
-  for mode, row in attn_rows(lens['name'], att.decode_attention_int8_lengths,
-                             att.decode_attention_int8_lengths_plain, args,
-                             kw, nbytes, 4 * G * H * live,
-                             'server tick').items():
-    row['B'], row['live_rows'] = B, live
-    lens.setdefault('modes', {})[mode] = row
+  for label, b in (('server tick', B), ('bench', BENCH_B)):
+    q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
+    if b == B:
+      lengths = torch.randint(1, S + 1, (b,), generator=gen, device=dev).to(
+          i32)
+      lengths[0], lengths[-1] = 1, S
+    else:
+      lengths = torch.full((b,), BENCH_START + 1, dtype=i32, device=dev)
+    args = (q, randint(b, NK, S, H), randint(b, NK, S, H), k_scale, v_scale,
+            lengths)
+    for mode in COMPUTE_MODES:  # a zero-length row: every row weighs 1/S
+      zero = torch.zeros_like(lengths)
+      got0 = att.decode_attention_int8_lengths(*args[:5], zero, compute=mode,
+                                               **kw)
+      want0 = att.decode_attention_int8_lengths_plain(*args[:5], zero,
+                                                      compute=mode, **kw)
+      sync()
+      mode_ctx_check(torch, got0, want0, mode, v_scale, zp_v,
+                     'lengths attention, length 0')
+    live = NK * int(torch.sum(lengths))
+    nbytes = q.numel() * 2 + 2 * live * H + b * 4 + q.numel() * 4
+    for mode, row in attn_rows(lens['name'],
+                               att.decode_attention_int8_lengths,
+                               att.decode_attention_int8_lengths_plain, args,
+                               kw, nbytes, 4 * G * H * live, label).items():
+      row['B'], row['live_rows'] = b, live
+      row['launch'] = split_plan(port['_build'], 'attention_lengths', b * NK,
+                                 G, S, H, att.compute_code(mode))
+      log(f'kernel {lens["name"]} {label} {mode} launch {row["launch"]}')
+      if b == B:
+        lens.setdefault('modes', {}).setdefault(mode, {}).update(row)
+      else:
+        lens['modes'][mode]['bench'] = row
 
   # #5 at bench.py's step (f32 x, as the executor passes it).
   blk_row = by_name['fused_mlp_qkv_attention']
@@ -2967,6 +3035,105 @@ def ab_tool_phase(torch, port, kernels, dev='cuda'):
   return {**art, 'chain_rel_err_vs_plain': chain}
 
 
+def int4g_f64(torch, att, q, kp, vp, sidecar, lengths, group):
+  """The int4-group attention in f64 with its four bf16 roundings kept (the
+  plain version's function, its sums exact to f64)."""
+  b, nk, g, h = q.shape
+  s = kp.shape[2]
+  ng = h // group
+  f64 = torch.float64
+  qb = q.float().to(torch.bfloat16).to(f64)
+  grp = torch.arange(h, device=q.device) // group
+  sc = sidecar.to(f64)
+  k32 = kp.to(torch.int32)
+  kcodes = torch.cat([k32 & 0xF, k32 >> 4], dim=-1).to(f64)
+  kd = (kcodes * sc[:, :, :ng].transpose(-1, -2)[..., grp]).to(
+      torch.bfloat16).to(f64)
+  scores = torch.matmul(qb, kd.transpose(-1, -2))
+  qsums = qb.reshape(b, nk, g, ng, group).sum(-1)
+  scores = (scores + torch.matmul(qsums, sc[:, :, ng:2 * ng])) / h ** 0.5
+  live = torch.arange(s, device=q.device)[None, None, None, :] < (
+      lengths.reshape(b, 1, 1, 1))
+  p = torch.softmax(torch.where(live, scores, -1e30), -1).to(
+      torch.bfloat16).to(f64)
+  vd = (att.unpack_int4_rows(vp).to(f64)
+        * sc[:, :, 2 * ng:].transpose(-1, -2)[..., grp]).to(
+            torch.bfloat16).to(f64)
+  return torch.matmul(p, vd)
+
+
+def split_edge_shapes(torch, att, build, dev, gen, results):
+  """#7 and #10 off the main path's shapes, each against its plain version
+  with its launch (split_plan), into the kernel's `edge_shapes`: S 8192,
+  which the split core takes (a slice's scores fit; the one-block kernels
+  refused it, G x S scores past shared memory), and H 512, which goes to
+  the one-block kernels by the entry points' fixed rule (cluster 0). #7 in
+  f32 within 1e-5 * max(|y|, 1) and in int8 bit for bit; #10 by
+  int4g_ctx_ok against the plain version at H 512 and against an f64 run of
+  the same function (int4g_f64) at S 8192, and there within
+  INT4G_CTX_RTOL of the plain version: over thousands of live rows the
+  plain version's own f32 sums leave the fine rule's share (on an H100,
+  0.1045 of the elements against f64 where the kernel's was 0.0374;
+  PERF.md §6)."""
+  by_name = {r['name']: r for r in results}
+  kw = dict(k_zero_point=3.0, v_zero_point=-2.0)
+  for b, s, h in ((2, 8192, 256), (4, 512, 512)):
+    q = torch.randn((b, 1, 8, h), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kc, vc = (torch.randint(-127, 128, (b, 1, s, h), generator=gen,
+                            device=dev).to(torch.int8) for _ in range(2))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev).to(
+        torch.int32)
+    lengths[0] = s
+    args = (q, kc, vc, 0.06, 0.06, lengths)
+    for mode in ('f32', 'int8'):
+      got = att.decode_attention_int8_lengths(*args, compute=mode, **kw)
+      want = att.decode_attention_int8_lengths_plain(*args, compute=mode,
+                                                     **kw)
+      sync()
+      err = float(torch.max(torch.abs(got - want)))
+      ymax = float(torch.max(torch.abs(want)))
+      if err > (0.0 if mode == 'int8' else 1e-5 * max(ymax, 1.0)):
+        raise AssertionError(f'lengths attention S {s} H {h} {mode}: err '
+                             f'{err}, max |y| {ymax}')
+      row = {'B': b, 'S': s, 'H': h, 'compute': mode, 'max_abs_err': err,
+             'launch': split_plan(build, 'attention_lengths', b, 8, s, h,
+                                  att.compute_code(mode))}
+      by_name['decode_attention_int8_lengths'].setdefault(
+          'edge_shapes', []).append(row)
+      log(f'kernel decode_attention_int8_lengths edge shape ok: {row}')
+  for b, s, h in ((2, 8192, 256), (2, 256, 512)):
+    q = torch.randn((b, 1, 8, h), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kp, vp, sc = int4g_pools(torch, att, b, 1, s, h, gen, dev)
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev).to(
+        torch.int32)
+    lengths[0] = s
+    args = (q, kp, vp, sc, lengths, INT4G_GROUP)
+    got = att.decode_attention_int4_group_lengths(*args)
+    want = att.decode_attention_int4_group_lengths_plain(*args)
+    sync()
+    rel_plain, share_plain = int4g_ctx_diff(torch, got, want)
+    ok = int4g_ctx_ok(rel_plain, share_plain)
+    row = {'B': b, 'S': s, 'H': h, 'max_rel_err': rel_plain,
+           'share_beyond_fine': share_plain,
+           'launch': split_plan(build, 'attention_int4_group', b, 8, s, h,
+                                INT4G_GROUP)}
+    if s > S:
+      truth = int4g_f64(torch, att, *args)
+      rel, share = int4g_ctx_diff(torch, got, truth)
+      plain_rel, plain_share = int4g_ctx_diff(torch, want, truth)
+      ok = rel_plain <= INT4G_CTX_RTOL and int4g_ctx_ok(rel, share)
+      row.update(f64_max_rel_err=rel, f64_share_beyond_fine=share,
+                 plain_f64_max_rel_err=plain_rel,
+                 plain_f64_share_beyond_fine=plain_share)
+    if not ok:
+      raise AssertionError(f'int4g attention S {s} H {h}: {row}')
+    by_name['decode_attention_int4_group_lengths'].setdefault(
+        'edge_shapes', []).append(row)
+    log(f'kernel decode_attention_int4_group_lengths edge shape ok: {row}')
+
+
 def refused_shapes(torch, att, dev):
   """Shapes that the JAX executor's gate sends to its Pallas kernels but
   that the CUDA kernels do not take: the wrapper raises ValueError on the
@@ -2975,24 +3142,24 @@ def refused_shapes(torch, att, dev):
     return torch.zeros(shape, dtype=dtype, device=dev)
 
   cases = (
-      ('lengths attention, G = 8 x S = 8192 scores',
+      ('lengths attention, G = 8 x S = 65536 scores',
        att.decode_attention_int8_lengths,
        lambda: att.decode_attention_int8_lengths(
-           torch.zeros((1, 1, 8, 256), device=dev), i8(1, 1, 8192, 256),
-           i8(1, 1, 8192, 256), 1.0, 1.0,
+           torch.zeros((1, 1, 8, 256), device=dev), i8(1, 1, 65536, 256),
+           i8(1, 1, 65536, 256), 1.0, 1.0,
            torch.ones(1, dtype=torch.int32, device=dev))),
       ('flash attention, H = 384', att.flash_attention_int8_masked,
        lambda: att.flash_attention_int8_masked(
            torch.zeros((1, 1, 32, 384), device=dev), i8(1, 1, 128, 384),
            i8(1, 1, 128, 384), 1.0, 1.0,
            torch.zeros((1, 1, 32, 128), device=dev))),
-      ('int4-group attention, G = 8 x S = 8192 scores',
+      ('int4-group attention, G = 8 x S = 65536 scores',
        att.decode_attention_int4_group_lengths,
        lambda: att.decode_attention_int4_group_lengths(
            torch.zeros((1, 1, 8, 256), device=dev),
-           i8(1, 1, 8192, 128, dtype=torch.uint8),
-           i8(1, 1, 8192, 128, dtype=torch.uint8),
-           i8(1, 1, 48, 8192, dtype=torch.bfloat16),
+           i8(1, 1, 65536, 128, dtype=torch.uint8),
+           i8(1, 1, 65536, 128, dtype=torch.uint8),
+           i8(1, 1, 48, 65536, dtype=torch.bfloat16),
            torch.ones(1, dtype=torch.int32, device=dev))),
       ('masked decode attention, H = 384', att.decode_attention_int8_masked,
        lambda: att.decode_attention_int8_masked(
@@ -3011,9 +3178,14 @@ def refused_shapes(torch, att, dev):
     raise AssertionError(f'{what}: the CUDA wrapper took a refused shape')
 
 
-def lengths_kernel(torch, att, cfg, dev, timer, gen):
+def lengths_kernel(torch, att, build, cfg, dev, timer, gen):
   """Lengths attention at the server's decode tick: B = 64, S = 1024,
-  random lengths 1..1024 (first and last rows 1 and S)."""
+  random lengths 1..1024 (first and last rows 1 and S), f32 compute, held
+  to 1e-5 absolute in f32 (a zero length too) and one bf16 ulp beyond it;
+  then at bench.py's decode with in-place writes (BENCH_B rows of
+  BENCH_START + 1: the new row is written first), held to 1e-5 *
+  max(|y|, 1) as the stale attention is there. Each timed beside its
+  plain version and SDPA, with its launch (split_plan)."""
   NK, H = cfg.num_kv_heads, cfg.head_dim
   G = cfg.num_query_heads // NK
   S = cfg.max_seq_len
@@ -3054,23 +3226,66 @@ def lengths_kernel(torch, att, cfg, dev, timer, gen):
       torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
       float('-inf')).to(bf16).reshape(B, 1, 1, S)
   sdpa = torch.nn.functional.scaled_dot_product_attention
+  launch = split_plan(build, 'attention_lengths', B * NK, G, S, H, 0)
+  ms = timer(lambda: att.decode_attention_int8_lengths(*args, **kw))
   log(f'kernel decode_attention_int8_lengths ok: f32 err {err32}, '
-      f'length-0 err {err0}, {ulps} bf16 ulps')
+      f'length-0 err {err0}, {ulps} bf16 ulps; {ms:.5f} ms, launch {launch}')
+
+  # bench.py's decode with in-place writes: B 256, BENCH_START + 1 rows.
+  qb = torch.randn((BENCH_B, NK, G, H), generator=gen, device=dev).to(bf16)
+  kcb, vcb = (torch.randint(-127, 128, (BENCH_B, NK, S, H), generator=gen,
+                            device=dev).to(torch.int8) for _ in range(2))
+  lb = torch.full((BENCH_B,), BENCH_START + 1, dtype=torch.int32,
+                  device=dev)
+  argsb = (qb, kcb, vcb, k_scale, v_scale, lb)
+  gotb = att.decode_attention_int8_lengths(*argsb, **kw32)
+  wantb = att.decode_attention_int8_lengths_plain(*argsb, **kw32)
+  sync()
+  errb = float(torch.max(torch.abs(gotb - wantb)))
+  ymaxb = float(torch.max(torch.abs(wantb)))
+  if errb > 1e-5 * max(ymaxb, 1.0):
+    raise AssertionError(f'lengths attention at the bench shape: err {errb}, '
+                         f'max |y| {ymaxb}')
+  liveb = NK * BENCH_B * (BENCH_START + 1)
+  nbytesb = qb.numel() * 2 + 2 * liveb * H + BENCH_B * 4 + qb.numel() * 2
+  bb_ms, bb_by = bound(nbytesb, 4 * G * H * liveb, F32_OPS_PER_S)
+  kdb = (kcb.float() * k_scale).to(bf16)
+  vdb = (vcb.float() * v_scale).to(bf16)
+  amaskb = torch.where(
+      torch.arange(S, device=dev)[None, :] < lb[:, None], 0.0,
+      float('-inf')).to(bf16).reshape(BENCH_B, 1, 1, S)
+  bench = {
+      'B': BENCH_B, 'live_rows': liveb, 'max_abs_err': errb,
+      'max_abs_y': ymaxb,
+      'ms': timer(lambda: att.decode_attention_int8_lengths(*argsb, **kw)),
+      'plain_ms': timer(
+          lambda: att.decode_attention_int8_lengths_plain(*argsb, **kw)),
+      'bound_ms': bb_ms, 'bound_by': bb_by,
+      'library_ms': timer(lambda: sdpa(qb, kdb, vdb, attn_mask=amaskb)),
+      'launch': split_plan(build, 'attention_lengths', BENCH_B * NK, G, S, H,
+                           0)}
+  log(f'kernel decode_attention_int8_lengths bench shape ok: err {errb:.3g}; '
+      f'{bench["ms"]:.5f} ms (plain {bench["plain_ms"]:.4f}, SDPA '
+      f'{bench["library_ms"]:.4f}, bound {bb_ms:.4f}), launch '
+      f'{bench["launch"]}')
   return {
       'name': 'decode_attention_int8_lengths', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_lengths.cu',
+      'core': SPLIT_CORE,
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:508',
       'jax': 'pallas_attention.decode_attention_int8_lengths (f32 compute)',
       'wrapper': att.decode_attention_int8_lengths, 'per_step': 0,
       'per_tick': cfg.num_layers, 'max_abs_err': err32,
       'max_bf16_ulps': ulps, 'length0_max_abs_err': err0,
-      'ms': timer(lambda: att.decode_attention_int8_lengths(*args, **kw)),
+      'ms': ms,
       'plain_ms': timer(
           lambda: att.decode_attention_int8_lengths_plain(*args, **kw)),
       'bound_ms': b_ms, 'bound_by': b_by,
       'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
       'library': 'scaled_dot_product_attention over a dequantized bf16 cache',
-      'live_rows': live}
+      'live_rows': live, 'launch': launch, 'bench': bench,
+      'ptxas': ptxas_report(build, 'attention_lengths',
+                            'lengths_attention_split_kernel')}
 
 
 def prefill_mask(torch, dev, g, start, s):
@@ -3106,17 +3321,21 @@ FLASH_CASES = (('h64', 2, 1, 128, 256, 64, 1, 'bfloat16', 'float32'),
                 'bfloat16'))
 
 
-# The split-S decode attentions (#17, #18): their shared core and the launch
-# fields of its plan (csrc/attention_split_tc.cuh plan_fields).
+# The split-S decode attentions (#17, #18, #7, #10): their shared core and
+# the launch fields of its plan (csrc/attention_split_tc.cuh plan_fields; a
+# cluster of 0 is #7's or #10's one-block kernel, for a shape the core does
+# not take).
 SPLIT_CORE = 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_split_tc.cuh'
 SPLIT_PLAN_FIELDS = ('cluster', 'grid_y', 'rows', 'threads', 'smem_bytes')
 
 
 def split_plan(build, lib, *dims):
   """The launch of #17 (lib 'attention_masked', dims R, G, S, H and the
-  compute code) or #18 ('attention_dynlen', R, G, S, H): the cluster size
-  (the splits, grid x), grid y (rows), cache rows a CTA, threads, shared
-  memory."""
+  compute code), #18 ('attention_dynlen', R, G, S, H), #7
+  ('attention_lengths', R, G, S, H, compute code) or #10
+  ('attention_int4_group', R, G, S, H, group): the cluster size (the
+  splits, grid x; 0 for a one-block kernel), grid y (rows), cache rows a
+  CTA, threads, shared memory."""
   return build.plan(lib, f'aeqt_{lib}_plan', lib, *dims,
                     fields=SPLIT_PLAN_FIELDS)
 
@@ -4832,6 +5051,19 @@ def main():
       by_kernel[name].setdefault('chunk_device_ms', {})[label] = ms
       log(f'{name} in the {label} server on {smi}: {ms:.3f} ms of device '
           f'time a chunk of {SERVE_CHUNK} ticks')
+  # #7 and #10 likewise in the int8 servers (each compute mode) and the
+  # int4g server.
+  for name, fn, runs in (
+      ('decode_attention_int8_lengths', 'lengths_attention',
+       {'server': server, **{f'server attn {m}': r
+                             for m, r in servers_mode.items()}}),
+      ('decode_attention_int4_group_lengths', 'int4_group_attention',
+       {'server int4g': server4})):
+    for label, r in runs.items():
+      ms = sum(t for kname, t in r['chunk_by_kernel'].items() if fn in kname)
+      by_kernel[name].setdefault('chunk_device_ms', {})[label] = ms
+      log(f'{name} in the {label} on {smi}: {ms:.3f} ms of device time a '
+          f'chunk of {SERVE_CHUNK} ticks')
   log(f'phase quantizer done at {time.monotonic() - t_start:.1f}s')
   if not args.skip_cpu:
     def done(label):

@@ -124,16 +124,19 @@ def _context(p, v_cache, n_parts, n_split):
 
 
 def masked_twin(q, k_cache, v_cache, mask, compute='f32', q_parts=None,
-                p_parts=None, n_split=None):
+                p_parts=None, n_split=None, scores=None):
   """#17's arithmetic on the split schedule (make_plan's split unless
-  given): [B, NK, G, H] f32."""
+  given): [B, NK, G, H] f32. `scores`, where given, stands for the scaled
+  scores before the mask."""
   b, nk, g, h = q.shape
   s = k_cache.shape[2]
   n_split = n_split or splits(s)[0]
   ks = attention.score_scale(K_SCALE, h)
   v_scale = float(np.float32(V_SCALE))
   maskf = torch.broadcast_to(mask.to(torch.float32), (b, nk, g, s))
-  sc = _scores(q, k_cache, compute, q_parts) * ks + maskf
+  if scores is None:
+    scores = _scores(q, k_cache, compute, q_parts) * ks
+  sc = scores + maskf
   m = torch.amax(torch.stack([torch.amax(sc[..., sl], dim=-1, keepdim=True)
                               for sl in _slices(s, n_split)]), dim=0)
   e = torch.exp(sc - m)
@@ -383,8 +386,9 @@ def test_kernels_run_on_the_split_core():
   for part in ('cp.async.bulk.shared::cluster.global', 'barrier.cluster',
                'mapa.u64'):
     assert part in ptx
-  for name, body in (('attention_masked', 'attend<false, C, H, NTS>'),
-                     ('attention_dynlen', 'attend<true, aeqt::kF32, H, NTS>')):
+  for name, body in (
+      ('attention_masked', 'attend<aeqt::split::kMasked, C, H, NTS>'),
+      ('attention_dynlen', 'attend<aeqt::split::kDynlen, aeqt::kF32, H, NTS>')):
     src = (CSRC / f'{name}.cu').read_text()
     assert '#include "attention_split_tc.cuh"' in src and body in src
     for old in ('<<<', 'context_phase', 'softmax_row', 'score_rows',

@@ -161,9 +161,9 @@ def test_launch_status_raises_for_a_refused_shape(status, raised):
     (256, 1024, 8, False, 'masked'),
     (128, 128, 32, False, 'flash'),      # 32 grouped rows: prefill-shaped
     (128, 128, 31, True, 'lengths'),
-    # Shapes the CUDA kernels do not take but the JAX gate sends to Pallas:
-    # they stay on the kernels' path, whose wrappers raise on the card.
-    (256, 8192, 8, True, 'lengths'),     # G x S scores exceed shared memory
+    # Shapes the JAX gate sends to Pallas stay on the kernels' path, whether
+    # or not the CUDA kernel takes them (its wrapper raises on the card).
+    (256, 8192, 8, True, 'lengths'),     # the split core's slices: taken
     (384, 1024, 1024, True, 'flash'),    # no flash kernel for H = 384
     # The JAX gate (H and S multiples of 128): the plain twin.
     (64, 1024, 1024, True, 'twin'),
@@ -181,7 +181,7 @@ def test_attention_route_is_the_jax_gate(h, s, rows, attn_lengths, want):
     (128, 64, 'prefill', True, None),        # S = 64: the plain twin
     (128, 128, 'decode', True, 'lengths'),   # decode rows, lengths mode
     (128, 128, 'decode', False, None),       # masked mode: neither kernel
-    (256, 8192, 'decode', True, 'lengths'),  # refused by the CUDA kernel
+    (256, 8192, 'decode', True, 'lengths'),  # the split core's S 8192
 ])
 def test_executor_dispatch_follows_the_kernel_gates(head_dim, seq, sig,
                                                     attn_lengths, ran):
