@@ -24,20 +24,40 @@
 // Bound on the H100: bytes. A live row costs H bytes of packed K and V and
 //   4 bytes of its two scales: at the A/B tool's shape (B 256, one KV head,
 //   G 8, H 256, 1022 live rows) about 68 MB, 0.02 ms at 3.35 TB/s, against
-//   4 G H L products a row (1.1 GFLOP, 0.017 ms at the 67 TFLOP/s f32 SIMT
-//   rate).
+//   4 G H L products a row (1.1 GFLOP, 0.001 ms on the bf16 tensor cores).
 //
-// Design (simple first, SIMT; attention_int4_group.cu's layout): one block
-//   of 256 threads per (batch, kv-head) row. bf16(q) sits in shared memory.
-//   Scores: one thread per live row, 16 packed bytes (16 low and 16 high
-//   columns) a load, the kGC query rows' two half dots in registers.
-//   Softmax: one warp per query row in the TPU kernel's order, then
-//   bf16(p * vscale) as the context operand. Context: 2 packed bytes
-//   (columns 2c, 2c + 1 and H/2 + 2c, H/2 + 2c + 1) and one row group per
-//   thread, the row groups' partials added in a fixed order, so the result
-//   does not depend on timing. Every product and sum is rounded on its own
-//   (--fmad=false).
+// Design: attention_split_tc.cuh's per-row int4 body (`attend_int4r`), the
+//   cluster split, ring, softmax exchange and partial gather of the lengths
+//   (#7) and int4-group (#10) bodies: the S rows of a (batch, kv-head) row
+//   split across a cluster of CTAs sized by the occupancy query; a CTA
+//   streams its live rows' packed codes and their scales (S is the minor
+//   axis of kv_scales, so a chunk's K or V scales are one 256-byte strip)
+//   through a two-stage ring of bulk copies, two a chunk. Scores: as #10's,
+//   one f32 FMA chain a half dot in the plain version's order on the card
+//   (bf16(q) over h = 0 .. H/2 - 1 against the low nibbles, and over the
+//   high half against the high nibbles, read from the K chunk copied to
+//   padded rows), then ((lo + hi) * kscale) * inv_sqrt_h: the check rounds
+//   p * vscale to bf16 before the context, which a one-ulp difference of a
+//   score flips. Softmax: f32 probabilities, the maxima and sums met across
+//   the cluster in split order. Context on the bf16 tensor cores (mma.sync
+//   m16n8k16, f32 sums): the V nibble widened to bf16 exactly (0x4300 |
+//   (u ^ 8), less 136) as A, bf16(p * vscale) as the N side; warps split H
+//   by nibble. The output is f32 or bf16, rounded once at the write.
+//
+// Shapes the core does not take (H other than 64, 128 or 256, G > 16,
+//   R > 65535, S % 8 != 0, kv_scales not 16-byte aligned, or a slice past
+//   shared memory) go, by that fixed rule, to the first design's one-block
+//   kernel below (SIMT): one block of 256 threads per (batch, kv-head) row.
+//   bf16(q) sits in shared memory. Scores: one thread per live row, 16
+//   packed bytes (16 low and 16 high columns) a load, the kGC query rows'
+//   two half dots in registers. Softmax: one warp per query row in the TPU
+//   kernel's order, then bf16(p * vscale) as the context operand. Context:
+//   2 packed bytes (columns 2c, 2c + 1 and H/2 + 2c, H/2 + 2c + 1) and one
+//   row group per thread, the row groups' partials added in a fixed order,
+//   so the result does not depend on timing. Every product and sum is
+//   rounded on its own (--fmad=false).
 #include "attention_common.cuh"
+#include "attention_split_tc.cuh"
 
 namespace {
 
@@ -191,31 +211,113 @@ int4_row_attention_kernel(const float* __restrict__ q,
   }
 }
 
+// The one-block kernel's shared memory.
+size_t one_block_smem(int G, int S, int H) {
+  return ((size_t)G * H + (size_t)G * S + kRedFloats) * sizeof(float);
+}
+
+bool row_fits(int R, int NK, int G, int S, int H) {
+  return R > 0 && NK > 0 && G > 0 && S > 0 && H > 0 && H % 32 == 0 &&
+         1024 % H == 0;
+}
+
+template <int H, int NTS>
+__global__ void __launch_bounds__(aeqt::split::kThreads, 2)
+int4_row_attention_split_kernel(const aeqt::split::Args a) {
+  aeqt::split::attend_int4r<H, NTS>(a);
+}
+
+// The split kernel of a shape; nullptr for one the core does not take (the
+// one-block kernel's).
+aeqt::split::Kernel split_kernel_for(int R, int G, int S, int H) {
+  if (!aeqt::split::takes_int4r(R, G, S, H)) return nullptr;
+  const bool two = G > 8;  // query rows in two n-tiles
+  switch (H) {
+    case 64:
+      return two ? &int4_row_attention_split_kernel<64, 2>
+                 : &int4_row_attention_split_kernel<64, 1>;
+    case 128:
+      return two ? &int4_row_attention_split_kernel<128, 2>
+                 : &int4_row_attention_split_kernel<128, 1>;
+    case 256:
+      return two ? &int4_row_attention_split_kernel<256, 2>
+                 : &int4_row_attention_split_kernel<256, 1>;
+  }
+  return nullptr;
+}
+
+aeqt::split::Plan plan_of(aeqt::split::Kernel kernel, int R, int G, int S,
+                          int H) {
+  return aeqt::split::choose_plan(kernel, aeqt::split::Int4RowSmem{G, H}, S,
+                                  R);
+}
+
 }  // namespace
 
 // q f32 [R, G, H] with R = B * NK; k, v uint8 [R, S, H/2]; scales bf16
 // [R, 8, S]; lengths int32 [B]; out [R, G, H] f32 or bf16 (out_bf16);
-// inv_sqrt_h = f32(1 / sqrt(H)). Returns aeqt::kShapeRefused unless
-// H % 32 == 0, 1024 % H == 0 and the G x S scores fit in shared memory.
+// inv_sqrt_h = f32(1 / sqrt(H)). The split core where it takes the shape,
+// else the one-block kernel; returns aeqt::kShapeRefused unless H % 32 ==
+// 0, 1024 % H == 0 and one of the two takes the shape (the one-block
+// kernel: the G x S scores fit in shared memory).
 extern "C" int aeqt_attention_int4_row(const void* q, const void* k,
                                        const void* v, const void* scales,
                                        const void* lengths, void* out,
                                        int out_bf16, int R, int NK, int G,
                                        int S, int H, float inv_sqrt_h,
                                        void* stream) {
-  const size_t smem =
-      ((size_t)G * H + (size_t)G * S + kRedFloats) * sizeof(float);
-  if (R <= 0 || NK <= 0 || G <= 0 || S <= 0 || H <= 0 || H % 32 ||
-      1024 % H || !aeqt::smem_fits(smem))
-    return aeqt::kShapeRefused;
+  if (!row_fits(R, NK, G, S, H)) return aeqt::kShapeRefused;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const aeqt::split::Kernel split =
+      reinterpret_cast<uintptr_t>(scales) % 16 == 0
+          ? split_kernel_for(R, G, S, H)
+          : nullptr;
+  if (split != nullptr) {
+    aeqt::split::Args a = {};
+    a.q = static_cast<const float*>(q);
+    a.k = static_cast<const int8_t*>(k);
+    a.v = static_cast<const int8_t*>(v);
+    a.out = out;
+    a.out_bf16 = out_bf16;
+    a.lengths = static_cast<const int*>(lengths);
+    a.sidecar = static_cast<const uint16_t*>(scales);
+    a.NK = NK;
+    a.G = G;
+    a.S = S;
+    a.ks = inv_sqrt_h;
+    return aeqt::split::launch(split, a, plan_of(split, R, G, S, H), R, st);
+  }
+  const size_t smem = one_block_smem(G, S, H);
+  if (!aeqt::smem_fits(smem)) return aeqt::kShapeRefused;
   auto* kernel = int4_row_attention_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<R, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<R, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const uint8_t*>(k),
       static_cast<const uint8_t*>(v), static_cast<const uint16_t*>(scales),
       static_cast<const int*>(lengths), out, out_bf16, NK, G, S, H,
       inv_sqrt_h);
   return (int)cudaGetLastError();
+}
+
+// The launch of a shape with 16-byte aligned scales
+// (chip_smoke.SPLIT_PLAN_FIELDS); a shape on the one-block kernel gives
+// cluster 0, R blocks of all S rows and its shared memory.
+extern "C" int aeqt_attention_int4_row_plan(int R, int G, int S, int H,
+                                            long long* fields) {
+  if (!row_fits(R, 1, G, S, H)) return aeqt::kShapeRefused;
+  const aeqt::split::Kernel kernel = split_kernel_for(R, G, S, H);
+  if (kernel != nullptr) {
+    aeqt::split::plan_fields(plan_of(kernel, R, G, S, H), R, fields);
+    return 0;
+  }
+  const size_t smem = one_block_smem(G, S, H);
+  if (!aeqt::smem_fits(smem)) return aeqt::kShapeRefused;
+  fields[0] = 0;
+  fields[1] = R;
+  fields[2] = S;
+  fields[3] = kThreads;
+  fields[4] = (long long)smem;
+  return 0;
 }

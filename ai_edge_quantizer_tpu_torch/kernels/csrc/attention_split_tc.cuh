@@ -3,8 +3,10 @@
 // contractions on the tensor cores (mma.sync): the body of the masked
 // (attention_masked.cu, #17), the live-prefix (attention_dynlen.cu, #18)
 // and the lengths (attention_lengths.cu, #7) kernels over int8 caches in
-// every compute mode (`attend`), and of the int4-group kernel
-// (attention_int4_group.cu, #10) over packed int4 pools (`attend_int4g`).
+// every compute mode (`attend`), of the int4-group kernel
+// (attention_int4_group.cu, #10) over packed int4 pools (`attend_int4g`)
+// and of the per-row int4 kernel (attention_int4_row.cu, #21,
+// `attend_int4r`).
 //
 // Bound on the H100: the cache bytes. At Gemma-2B's decode (one KV head,
 // G = 8 query rows of H = 256, S = 1024) a row holds 512 KB of K and V; the
@@ -97,6 +99,18 @@
 // A, bf16 p the N = 8 side, f32 sums (mma.sync m16n8k16 bf16). Warps
 // split H by nibble (the low nibbles hold columns [0, H / 2), the high
 // ones the rest) and each chunk's rows in four.
+//
+// The per-row int4 body (`attend_int4r`, #21's arithmetic) is #10's with
+// one scale a cache row: a ring stage holds a chunk's packed codes and one
+// strip of its rows' scales ([kChunk] bf16 of kv_scales [R, 8, S]: row 0
+// for a K chunk, row 1 for a V chunk), both bulk copies. Scores: two f32
+// FMA chains a score, bf16(q) over the low half of H against the low
+// nibbles and over the high half against the high ones (the plain
+// version's two matmuls, in their order on the card), then ((lo + hi) *
+// kscale) * inv_sqrt_h. Softmax with f32 probabilities (the lengths form's
+// rows). Context: the V code widened to bf16 exactly (0x4300 | (u ^ 8),
+// less 136) is A, bf16(p * vscale) the N = 8 side, f32 sums (mma.sync
+// m16n8k16 bf16); warps split H by nibble as #10's.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -1193,14 +1207,17 @@ __device__ __forceinline__ uint32_t k_pair(uint32_t x, uint32_t s2,
   return bf2_bits(__hfma2(bits_bf2(c), bits_bf2(s2), bits_bf2(m2)));
 }
 
-// The V operand pair of two signed codes (nibbles at bits 0-3 and 16-19 of
-// y, (u ^ 8) - 8) and their scales: 0x4300 | (u ^ 8) less 136 is the code,
-// exactly; times the scale, rounded once.
-__device__ __forceinline__ uint32_t v_pair(uint32_t y, uint32_t s2) {
+// Two signed codes (nibbles at bits 0-3 and 16-19 of y, (u ^ 8) - 8) as a
+// bf16 pair, exactly: 0x4300 | (u ^ 8) is 136 + the code, less 136.
+__device__ __forceinline__ uint32_t code_pair(uint32_t y) {
   const uint32_t c = (y & 0x000F000Fu) ^ 0x43084308u;
-  const __nv_bfloat162 code =
-      __hsub2(bits_bf2(c), bits_bf2(0x43084308u));  // 136
-  return bf2_bits(__hmul2(code, bits_bf2(s2)));
+  return bf2_bits(__hsub2(bits_bf2(c), bits_bf2(0x43084308u)));
+}
+
+// The V operand pair of two signed codes and their scales: the codes
+// (code_pair) times the scales, rounded once.
+__device__ __forceinline__ uint32_t v_pair(uint32_t y, uint32_t s2) {
+  return bf2_bits(__hmul2(bits_bf2(code_pair(y)), bits_bf2(s2)));
 }
 
 // Step 2: bf16(q) of the query rows as f32 rows qf [8 nt][H + 4] (zeros
@@ -1503,6 +1520,323 @@ __device__ __forceinline__ void attend_int4g(const Args& a) {
                              acc);
       __syncthreads();  // the stage is read
       if (warp == 0) issue_load(nk + c + kStages);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        store4(part + (size_t)qq * qstride +
+                   (((nt * 2 + hh) * MT + mt) * 32 + lane) * 4,
+               acc[nt][mt]);
+  }
+
+  // 6. The partials summed over the cluster: the context as it is.
+  sum_quarters(part, qstride);
+  gather_partials<H>(part, G, qstride, [&](int g, int h, float acc) {
+    store_out(a, ((size_t)row * G + g) * H + h, acc);
+  });
+}
+
+// ---- The per-row int4 body (#21) ----
+
+// Bytes of a ring stage: a chunk's packed codes [kChunk][H / 2], then its
+// rows' scales [kChunk] bf16 (a K chunk: the K scales, row 0 of kv_scales;
+// a V chunk: the V scales, row 1).
+__host__ __device__ inline size_t r4_stage(int H) {
+  return (size_t)kChunk * (H / 2) + (size_t)2 * kChunk;
+}
+
+// Byte offsets of a per-row int4 CTA's shared memory: the ring (after the
+// last V chunk, the row quarters' context partials), a K chunk's codes
+// padded (kpad), bf16(q) as f32 rows [8 nt][H + 4], the scores [G][T + 4],
+// the cluster's maxima and sums, the stages' mbarriers.
+struct Layout4r {
+  size_t ring, kpad, q, sc, xmax, xsum, bars, bytes;
+};
+
+__host__ __device__ inline Layout4r layout4r(int G, int H, int T) {
+  const size_t nt = (size_t)(G + 7) / 8;
+  const size_t ring = (size_t)kStages * r4_stage(H);
+  const size_t parts = (size_t)128 * nt * H;
+  Layout4r L;
+  L.ring = 0;
+  L.kpad = up16(ring > parts ? ring : parts);
+  L.q = up16(L.kpad + kpad_bytes(H / 2));
+  L.sc = up16(L.q + 8 * nt * (H + 4) * 4);
+  L.xmax = up16(L.sc + (size_t)G * sc_pitch(T) * 4);
+  L.xsum = up16(L.xmax + (size_t)G * 4);
+  L.bars = up16(L.xsum + (size_t)G * 4);
+  L.bytes = L.bars + 8 * kStages;
+  return L;
+}
+
+struct Int4RowSmem {
+  int G, H;
+  size_t operator()(int T) const { return layout4r(G, H, T).bytes; }
+};
+
+// Whether the per-row int4 body takes a shape: the int8 forms' terms, S a
+// multiple of 8 (a scale strip's copy, whole 16-byte units, stays inside S,
+// and row 1 of kv_scales starts 16-byte aligned).
+inline bool takes_int4r(int R, int G, int S, int H) {
+  return head_dim_fits(H) && S % 8 == 0 &&
+         takes_rows(Int4RowSmem{G, H}, R, G, S);
+}
+
+// Step 2: bf16(q) of the query rows as f32 rows qf [8 nt][H + 4] (zeros
+// past G); one warp a query row.
+template <int H>
+__device__ __forceinline__ void stage_queries_r4(const float* __restrict__ qr,
+                                                 int G, float* qf,
+                                                 float (&x)[H / 32]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < 8 * ((G + 7) >> 3); g += kWarps) {
+    if (g != warp) load_query<H>(qr, G, g, x);
+#pragma unroll
+    for (int i = 0; i < H / 32; ++i)
+      qf[g * (H + 4) + lane + 32 * i] =
+          __bfloat162float(__float2bfloat16_rn(x[i]));
+  }
+}
+
+// Step 3: the scores of one chunk (slice rows [j0, j0 + kChunk): codes in
+// kpad, K scales in ring stage `st`), by Chain's lanes: bf16(q) over the
+// low half of H against the low nibbles, one f32 FMA chain over h = 0 ..
+// H/2 - 1, and over the high half against the high nibbles, another (the
+// plain version's two matmuls on the card); then ((lo + hi) * kscale[j]) *
+// inv_sqrt_h.
+template <int H, int NTS>
+__device__ __forceinline__ void score_chunk_r4(const Args& a,
+                                               const uint8_t* kpad,
+                                               const uint8_t* st,
+                                               const float* qf, float* sc,
+                                               int j0, int kr) {
+  using CH = Chain<NTS>;
+  constexpr int QP = H + 4, NQ = CH::NQ, RB = H / 2;
+  const int G = a.G, P = sc_pitch(a.rows);
+  const int j = CH::row(), g0 = CH::g0();
+  if (j0 + (j & ~31) >= kr || g0 >= G) return;  // warp-uniform
+  const uint8_t* krow = kpad + (size_t)j * (RB + kKPad);
+  float acc[2][NQ];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) acc[hf][i] = 0.0f;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {  // the low nibbles, then the high ones
+#pragma unroll 2
+    for (int b0 = 0; b0 < RB; b0 += 16) {
+      const uint4 w = *reinterpret_cast<const uint4*>(krow + b0);
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int wi = 0; wi < 4; ++wi) {
+        const uint32_t x = hf ? words[wi] >> 4 : words[wi];
+        const uint32_t p02 = code_pair(x), p13 = code_pair(x >> 8);
+        const float kf[4] = {__uint_as_float(p02 << 16),
+                             __uint_as_float(p13 << 16),
+                             __uint_as_float(p02 & 0xFFFF0000u),
+                             __uint_as_float(p13 & 0xFFFF0000u)};
+        const int h = hf * RB + b0 + 4 * wi;
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {  // rows past G: zeros
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qf + (g0 + i) * QP + h);
+          acc[hf][i] = __fmaf_rn(qv.x, kf[0], acc[hf][i]);
+          acc[hf][i] = __fmaf_rn(qv.y, kf[1], acc[hf][i]);
+          acc[hf][i] = __fmaf_rn(qv.z, kf[2], acc[hf][i]);
+          acc[hf][i] = __fmaf_rn(qv.w, kf[3], acc[hf][i]);
+        }
+      }
+    }
+  }
+  if (j0 + j < kr) {
+    const uint16_t* ksc = reinterpret_cast<const uint16_t*>(st + kChunk * RB);
+    const float ks = __uint_as_float((uint32_t)ksc[j] << 16);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int g = g0 + i;
+      if (g < G) {
+        const float dot = acc[0][i] + acc[1][i];
+        const float scaled = dot * ks;
+        sc[g * P + j0 + j] = scaled * a.ks;
+      }
+    }
+  }
+}
+
+// Step 5: the partial context of rows [j0, j1) of the chunk in stage `st`
+// (k16 steps; sc points at the chunk's first column of probabilities) for
+// the warp's nibble half hh (columns hh H / 2 + the bytes [grp W, grp W +
+// W), W = H / 16): A = V^T, the codes widened to bf16 exactly (code_pair),
+// the rows of a k-step 4t .. 4t + 3 from four loads; B = bf16(p * vscale),
+// the product rounded in f32, then to bf16, with one 8-byte scale load a
+// k-step.
+template <int H, int NTS>
+__device__ __forceinline__ void context_r4(const uint8_t* st, const float* sc,
+                                           int G, int P, int j0, int j1,
+                                           int hh,
+                                           float (&acc)[NTS][H / 32][4]) {
+  constexpr int W = H / 16, MT = H / 32;
+  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
+  const int nts = (G + 7) >> 3;
+  const int b0 = grp * W;  // the thread's first byte of a row
+  const uint16_t* vsc = reinterpret_cast<const uint16_t*>(st + kChunk * H / 2);
+  for (int jb = j0; jb < j1; jb += 16) {
+    uint32_t r[4][W < 4 ? 1 : W / 4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      load_row<W>(reinterpret_cast<const int8_t*>(st) +
+                      (size_t)(jb + 4 * t + i) * (H / 2) + b0,
+                  r[i]);
+    const uint2 sv = *reinterpret_cast<const uint2*>(vsc + jb + 4 * t);
+    const float vs[4] = {__uint_as_float(sv.x << 16),
+                         __uint_as_float(sv.x & 0xFFFF0000u),
+                         __uint_as_float(sv.y << 16),
+                         __uint_as_float(sv.y & 0xFFFF0000u)};
+    uint32_t pb0[NTS], pb1[NTS];
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt) {
+      const int g = 8 * nt + grp;
+      float4 pv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (nt < nts && g < G)
+        pv = *reinterpret_cast<const float4*>(sc + g * P + jb + 4 * t);
+      pb0[nt] = bf2_bits(__floats2bfloat162_rn(__fmul_rn(pv.x, vs[0]),
+                                               __fmul_rn(pv.y, vs[1])));
+      pb1[nt] = bf2_bits(__floats2bfloat162_rn(__fmul_rn(pv.z, vs[2]),
+                                               __fmul_rn(pv.w, vs[3])));
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int wi = mt >> 1;
+      uint32_t x01, x23;
+      if (mt & 1) {
+        x01 = pair_rows<2>(r[0][wi], r[1][wi]);
+        x23 = pair_rows<2>(r[2][wi], r[3][wi]);
+      } else {
+        x01 = pair_rows<0>(r[0][wi], r[1][wi]);
+        x23 = pair_rows<0>(r[2][wi], r[3][wi]);
+      }
+      if (hh) {  // the high nibbles
+        x01 >>= 4;
+        x23 >>= 4;
+      }
+      const uint32_t a0 = code_pair(__byte_perm(x01, 0, 0x4140));
+      const uint32_t a1 = code_pair(__byte_perm(x01, 0, 0x4342));
+      const uint32_t a2 = code_pair(__byte_perm(x23, 0, 0x4140));
+      const uint32_t a3 = code_pair(__byte_perm(x23, 0, 0x4342));
+#pragma unroll
+      for (int nt = 0; nt < NTS; ++nt)
+        if (nt < nts) mma_bf16(acc[nt][mt], a0, a1, a2, a3, pb0[nt], pb1[nt]);
+    }
+  }
+}
+
+// The per-row int4 kernel's body (#21): the lengths form's rows, its
+// softmax with f32 probabilities, the scores and context above; a.sidecar
+// is kv_scales [R, 8, S] bf16.
+template <int H, int NTS>
+__device__ __forceinline__ void attend_int4r(const Args& a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int G = a.G, S = a.S, T = a.rows, P = sc_pitch(T);
+  const Layout4r L = layout4r(G, H, T);
+  const size_t stage = r4_stage(H);
+  uint8_t* ring = smem + L.ring;
+  uint8_t* kpad = smem + L.kpad;
+  float* qf = reinterpret_cast<float*>(smem + L.q);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* xmax = reinterpret_cast<float*>(smem + L.xmax);
+  float* xsum = reinterpret_cast<float*>(smem + L.xsum);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  float* part = reinterpret_cast<float*>(smem + L.ring);  // after the last V
+
+  const int me = blockIdx.x, row = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int s0 = me * T;
+  const int here = min(max(S - s0, 0), T);
+  const int len = a.lengths[row / a.NK];
+  const int kr = len > 0 ? min(max(min(len, S) - s0, 0), here) : 0;
+  const int vr = len > 0 ? kr : here;
+
+  // 1. Loads: a chunk's codes one bulk copy and its scales one more, its
+  //    rows rounded up to 8 (inside S: S % 8 == 0).
+  const int nk = (kr + kChunk - 1) / kChunk, nv = (vr + kChunk - 1) / kChunk;
+  const int H2 = H / 2;
+  auto issue_load = [&](int i) {
+    if (i >= nk + nv) return;
+    const bool is_v = i >= nk;
+    const int c = is_v ? i - nk : i;
+    const int n = min((is_v ? vr : kr) - c * kChunk, kChunk);
+    const int n8 = (n + 7) & ~7;
+    uint64_t* bar = &bars[i % kStages];
+    uint8_t* dst = ring + (i % kStages) * stage;
+    const int j = s0 + c * kChunk;
+    tc::mbar_expect_tx(bar, (uint32_t)(n * H2 + n8 * 2));
+    tc::bulk_load(dst, (is_v ? a.v : a.k) + ((size_t)row * S + j) * H2,
+                  (uint32_t)(n * H2), bar);
+    tc::bulk_load(dst + kChunk * H2,
+                  a.sidecar + ((size_t)row * 8 + (is_v ? 1 : 0)) * S + j,
+                  (uint32_t)(n8 * 2), bar);
+  };
+  auto await_load = [&](int i) {
+    tc::mbar_wait(&bars[i % kStages], (uint32_t)(i / kStages) & 1);
+  };
+  const float* qr = a.q + (size_t)row * G * H;
+  float xq[H / 32];
+  load_query<H>(qr, G, warp, xq);
+  // The scales past a copy are read (times p = 0) by the last k-step of a
+  // V chunk: zeros before the first copies, earlier scales after.
+  for (int s = 0; s < kStages; ++s)
+    for (size_t i = kChunk * H2 + 16 * tid; i < stage; i += 16 * kThreads)
+      *reinterpret_cast<uint4*>(ring + s * stage + i) = make_uint4(0, 0, 0, 0);
+  tc::fence_proxy_async();
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) tc::mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < kStages; ++i) issue_load(i);
+
+  // 2. Query operands.
+  stage_queries_r4<H>(qr, G, qf, xq);
+  __syncthreads();
+
+  // 3. Scores: the chunk's codes padded, then the chains.
+  for (int c = 0; c < nk; ++c) {
+    await_load(c);
+    const uint8_t* st = ring + (c % kStages) * stage;
+    pad_rows<H / 2>(st, kpad, min(kr - c * kChunk, kChunk));
+    __syncthreads();
+    score_chunk_r4<H, NTS>(a, kpad, st, qf, sc, c * kChunk, kr);
+    __syncthreads();  // the stage and kpad are read
+    if (tid == 0) issue_load(c + kStages);
+  }
+  __syncthreads();
+
+  // 4. Softmax across the cluster: f32 probabilities.
+  softmax_cluster<kLengths, kF32>(sc, G, P, T, kr, vr, xmax, xsum, nullptr);
+  __syncthreads();
+
+  // 5. The slice's context: warp (hh, qq) takes the nibble half hh and rows
+  //    [32 qq, 32 qq + 32) of each chunk.
+  constexpr int MT = H / 32;
+  const int qstride = ((G + 7) >> 3) * 8 * H;
+  {
+    const int hh = warp & 1, qq = warp >> 1;
+    float acc[NTS][MT][4];
+#pragma unroll
+    for (int nt = 0; nt < NTS; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][mt][i] = 0.0f;
+    for (int c = 0; c < nv; ++c) {
+      await_load(nk + c);
+      const int j0 = 32 * qq, j1 = min(j0 + 32, vr - c * kChunk);
+      context_r4<H, NTS>(ring + ((nk + c) % kStages) * stage, sc + c * kChunk,
+                         G, P, j0, j1, hh, acc);
+      __syncthreads();  // the stage is read
+      if (tid == 0) issue_load(nk + c + kStages);
     }
 #pragma unroll
     for (int nt = 0; nt < NTS; ++nt)

@@ -3,7 +3,10 @@
 //   y[M, N] = x[M, K] (bf16) . unpack(w[N, K/2])^T, f32 sums, one scale
 //   policy, y stored as bf16.
 // The weight is split-half packed: byte j of a row holds column j in its
-// low nibble and column K/2 + j in its high one.
+// low nibble and column K/2 + j in its high one. The weight-only int8
+// matmul (#16, qmatmul_int_weights.cu) builds its own kernel of the same
+// structure from this header's wgmma, barrier, fragment and tensor-map
+// helpers.
 //
 // Scale policies (each its Pallas kernel's arithmetic, as the plain
 // versions in kernels/packed_qmatmul.py state it):
@@ -106,15 +109,18 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 // further, of warp w's rows 16w .. 16w + 15), B K-major in shared memory
 // (128-byte swizzle). Register d[4j + 2h + e] of thread t (warp w = t / 32
 // of the warpgroup, g = lane / 4, q = lane % 4) holds row 16w + g + 8h,
-// column 8j + 2q + e.
+// column 8j + 2q + e. With accumulate 0 the product replaces d (wgmma's
+// scale-d predicate): a fresh sum needs no zeroing.
 template <int NT>
 __device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate = 1);
 
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
                                              const uint32_t (&a)[4],
-                                             uint64_t db) {
+                                             uint64_t db,
+                                              int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -134,13 +140,14 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db,
+                                               int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -172,7 +179,7 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // Four packed bytes as bf16 pairs: lo01 the low nibbles of bytes 0 and 1

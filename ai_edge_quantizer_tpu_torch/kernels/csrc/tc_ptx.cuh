@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's tensor-core kernels
 // (int8_tc_gemm.cuh: #15, #6, #1; int4_bf16_tc_gemm.cuh: #12, #13;
-// flash_attention_int8.cu: #9; attention_split_tc.cuh: #17, #18): shared
+// qmatmul_int_weights.cu: #16; flash_attention_int8.cu: #9;
+// attention_split_tc.cuh: #17, #18, #7, #10, #21): shared
 // memory addresses, mbarriers, TMA loads (cp.async.bulk.tensor, and the
 // 1-D cp.async.bulk), cluster barriers and distributed shared memory,
 // named barriers, the async-proxy fence, the wgmma shared-memory

@@ -10,11 +10,18 @@ pallas_qmatmul.py`, which the executor reaches through the dispatchers
     int8 in exact int32 (wgmma), (acc * xs) * s (+ b). It equals its plain
     version bit for bit: codes, sums and outputs.
   * `qmatmul_pallas` (`_channelwise_kernel`, `_blockwise_kernel`) as
-    `qmatmul_int_weights`, CUDA kernel `csrc/qmatmul_int_weights.cu`: f32
-    operands, each block's partial dot scaled and summed in block order in
-    f32, the bias after the last block. Only the f32 order of the sum
-    within a block differs between the kernel, its plain version and the
-    TPU's MXU, so they agree to `int_weights_tolerance`.
+    `qmatmul_int_weights`, CUDA kernel `csrc/qmatmul_int_weights.cu` on the
+    bf16 tensor cores (wgmma): the int8 weight widened to bf16 exactly, x
+    as one bf16 operand (bf16 x) or three bf16 parts whose sum is x to all
+    24 bits (f32 x, and any other dtype after a cast to f32), so every
+    product is exact in f32; each block's partial dot is summed from zero
+    by the tensor cores (the smallest part first), then y = y + p * s in
+    block order in f32, the bias after the last block. At decode K splits
+    across a cluster in whole blocks (channelwise: whole steps, scaled
+    after the splits' sum) and the splits add in split order. Only the
+    order of the f32 sums differs from the plain version and the TPU's
+    MXU, so they agree to `int_weights_tolerance`. Output in x's dtype:
+    bf16 for bf16 x (the f32 result rounded once), else f32.
 
 Each wrapper has two cases: a CUDA tensor launches the kernel (or raises),
 a CPU tensor runs the plain version. Each counts its launches and its
@@ -119,14 +126,34 @@ def qmatmul_int_weights_plain(x, w_q, scale, bias=None, block_size=0):
 
 def int_weights_tolerance(k: int, block_size: int, y_max: float) -> float:
   """Largest |difference| allowed between two f32 evaluations of
-  qmatmul_int_weights that differ only in the order of the sum within a
-  block (kernel, plain version, the TPU's MXU): one unit roundoff per
-  sequential addition an output takes, bs within its block and K/bs across
-  blocks, times the largest |y|. Rounding errors of random-signed terms
-  grow like the square root of that count, so the bound holds with a wide
-  margin; a wrong product, block or scale moves y by far more."""
+  qmatmul_int_weights that differ only in the order of their f32 sums
+  (kernel, plain version, the TPU's MXU): one unit roundoff per
+  sequential addition an output takes, bs within its block (the kernel:
+  the tensor cores' sums over its k16 windows and x parts) and K/bs
+  across blocks (the kernel: y + p * s in block order within a split of
+  K, the splits' partial y added in split order), times the largest |y|.
+  Rounding errors of random-signed terms grow like the square root of
+  that count, so the bound holds with a wide margin; a wrong product,
+  block or scale moves y by far more."""
   bs = block_size or k
   return (bs + k // bs) * _F32_EPS * y_max
+
+
+# Fields of aeqt_qmatmul_int_weights_plan (csrc/qmatmul_int_weights.cu):
+# the grid, split-K, threads, shared memory and ring stages as
+# _build.PLAN_FIELDS, tokens a tile, bf16 parts of x, the scale policy
+# (0 channelwise; 1 bs 32: two block sums a stage at decode rows; 2 another
+# bs: one block sum a half stage) and the blocks an SM it plans for.
+INT_WEIGHTS_PLAN_FIELDS = _build.PLAN_FIELDS + ('tile_tokens', 'x_parts',
+                                                'policy', 'blocks_an_sm')
+
+
+def int_weights_plan(m: int, n: int, k: int, block_size: int,
+                     x_bf16: bool) -> dict:
+  """The launch the weight-only kernel gives a shape (card only)."""
+  return _build.plan('qmatmul_int_weights', 'aeqt_qmatmul_int_weights_plan',
+                     'qmatmul_int_weights', m, n, k, block_size, int(x_bf16),
+                     fields=INT_WEIGHTS_PLAN_FIELDS)
 
 
 def qmatmul_int_weights(
@@ -137,15 +164,19 @@ def qmatmul_int_weights(
     block_size: int = 0,
 ) -> torch.Tensor:
   """Weight-only x [..., K] . integer w_q [N, K] (int8 container) ->
-  [..., N] in x.dtype, f32 compute. scale [N] (block_size 0) or
-  [N, K // block_size]; symmetric weights only."""
+  [..., N] in x.dtype, f32 sums of exact products. scale [N] (block_size
+  0) or [N, K // block_size]; symmetric weights only."""
   if _build.device_kind(x) == 'cpu':
     qmatmul_int_weights.plain_calls += 1
     return qmatmul_int_weights_plain(x, w_q, scale, bias, block_size)
   name = 'qmatmul_int_weights'
   n, k = w_q.shape
   lead = x.shape[:-1]
-  x2 = x.reshape(-1, k).to(torch.float32).contiguous()
+  x2 = x.reshape(-1, k)
+  x_bf16 = x2.dtype == torch.bfloat16
+  x2 = x2.to(torch.bfloat16 if x_bf16 else torch.float32).contiguous()
+  if x2.data_ptr() % 16:  # TMA and the parts' loads read 16-byte units
+    x2 = x2.clone()
   m = x2.shape[0]
   bs = block_size or k
   _build.require_cuda_tensor(w_q, name, 'w_q', (torch.int8,), 16)
@@ -156,14 +187,20 @@ def qmatmul_int_weights(
     bias = bias.to(torch.float32).contiguous()
     _build.require_cuda_tensor(bias, name, 'bias', (torch.float32,))
     _build.require(bias.numel() == n, name, 'bias must have N entries')
-  out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
+  out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+  # The three bf16 parts of an f32 x (csrc/qmatmul_int_weights.cu).
+  parts = None if x_bf16 else torch.empty((3, m, k), dtype=torch.bfloat16,
+                                          device=x2.device)
   fn = _build.entry('qmatmul_int_weights', 'aeqt_qmatmul_int_weights',
-                    [_build.P, _build.P, _build.P, _build.P, _build.P,
-                     _build.I, _build.I, _build.I, _build.I, _build.P])
-  status = fn(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-              None if bias is None else bias.data_ptr(), out.data_ptr(),
-              m, n, k, bs, _build.stream_ptr(x2.device))
-  _build.check(status, name, f'M={m} N={n} K={k} block {bs}')
+                    [_build.P, _build.I, _build.P, _build.P, _build.P,
+                     _build.P, _build.P, _build.I, _build.I, _build.I,
+                     _build.I, _build.P])
+  status = fn(x2.data_ptr(), int(x_bf16),
+              None if parts is None else parts.data_ptr(), w_q.data_ptr(),
+              scale.data_ptr(), None if bias is None else bias.data_ptr(),
+              out.data_ptr(), m, n, k, block_size,
+              _build.stream_ptr(x2.device))
+  _build.check(status, name, f'M={m} N={n} K={k} block {block_size}')
   qmatmul_int_weights.launches += 1
   return out.to(x.dtype).reshape(lead + (n,))
 

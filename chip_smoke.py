@@ -1059,11 +1059,13 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
   Weight-only (the blockwise-32 FFN and head FCs of _b32): gate/up N 32768
   at K 2048, down N 2048 at K 16384, head N 256128 at K 2048, checked at
   bf16 x widened to f32 and at full-mantissa f32 x within
-  int_qmatmul.int_weights_tolerance of max |y|, and its channelwise branch
-  (no entry point reaches it) at N 2048, K 2048. Timed with bf16 x beside
-  the plain versions and, where one PyTorch call computes the same
-  contraction, that call; each kernel's headline times are the means of
-  its decode shapes, as for the other matmuls."""
+  int_qmatmul.int_weights_tolerance of max |y|, at bf16 x (bf16 out)
+  within one bf16 ulp beyond it, and its channelwise branch (no entry
+  point reaches it) at N 2048, K 2048. Timed with bf16 x and with f32 x
+  beside the plain versions and, where one PyTorch call computes the same
+  contraction, that call; each row's launch plan and the kernels' ptxas
+  registers and spills logged; each kernel's headline times are the means
+  of its decode shapes, as for the other matmuls."""
   iq, pq, build = port['int_qmatmul'], port['packed_qmatmul'], port['_build']
   D, F, V = cfg.embed_dim, cfg.ffn_dim, cfg.vocab_size
   NQ, NK, H = cfg.num_query_heads, cfg.num_kv_heads, cfg.head_dim
@@ -1146,25 +1148,33 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
   for phase, m, label, n, k in shapes:
     bs = 0 if phase == 'channelwise' else QUANT_BLOCK
     x, w = randn(m, k), randint(-8, 8, n, k)
+    x32 = torch.randn((m, k), generator=gen, device=dev)
     s = scales(n, k // bs) if bs else scales(n)
     # bf16 values widened to f32 (every product exact) and f32 values with
-    # a full mantissa (a kernel that rounded x would fail these).
+    # a full mantissa (a kernel that rounded x would fail these), then bf16
+    # x as the server passes it (one bf16 operand, a bf16 result: one bf16
+    # ulp beyond the tolerance, as for the packed matmuls' bf16 outputs).
     checks = {}
-    for key, xi in (('bf16_x', x.float()),
-                    ('f32_x', torch.randn((m, k), generator=gen, device=dev))):
+    for key, xi in (('bf16_x', x.float()), ('f32_x', x32), ('bf16_in', x)):
       got = iq.qmatmul_int_weights(xi, w, s, block_size=bs)
       want = iq.qmatmul_int_weights_plain(xi, w, s, block_size=bs)
       sync()
-      err = float(torch.max(torch.abs(got - want)))
-      ymax = float(torch.max(torch.abs(want)))
+      err = float(torch.max(torch.abs(got.float() - want.float())))
+      ymax = float(torch.max(torch.abs(want.float())))
       tol = iq.int_weights_tolerance(k, bs, ymax)
-      if not err <= tol:
+      ulps = bf16_ulps(torch, got, want, atol=tol) if xi.dtype == bf16 \
+          else None
+      if (ulps is not None and ulps > 1.0) or (ulps is None
+                                               and not err <= tol):
         raise AssertionError(f'weight-only {phase} {label} {key}: err {err} '
-                             f'> {tol} (max |y| {ymax})')
-      checks[key] = {'max_abs_err': err, 'max_abs_y': ymax, 'tolerance': tol}
+                             f'> {tol} (max |y| {ymax}; bf16 ulps beyond '
+                             f'it {ulps})')
+      checks[key] = {'max_abs_err': err, 'max_abs_y': ymax, 'tolerance': tol,
+                     'bf16_ulps_beyond': ulps}
       del got, want, xi
     # Both operands are exact in bf16 (int8 codes, bf16 x), so bf16 tensor
-    # cores with f32 sums compute this function: their peak bounds it.
+    # cores with f32 sums compute this function: their peak bounds it. An
+    # f32 x's three bf16 parts are the kernel's cost, not more work.
     nbytes = m * k * 2 + n * k + s.numel() * 4 + m * n * 2
     b_ms, b_by = bound(nbytes, 2 * m * n * k, BF16_OPS_PER_S)
     row = {'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': k,
@@ -1173,15 +1183,22 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
            'checks': checks,
            'ms': timer(lambda: iq.qmatmul_int_weights(x, w, s,
                                                       block_size=bs)),
+           'ms_f32_x': timer(lambda: iq.qmatmul_int_weights(x32, w, s,
+                                                            block_size=bs)),
            'plain_ms': timer(lambda: iq.qmatmul_int_weights_plain(
                x, w, s, block_size=bs),
                              reps=25 if m <= B else 3, warmup=1),
-           'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+           'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+           'launch': iq.int_weights_plan(m, n, k, bs, True),
+           'launch_f32_x': iq.int_weights_plan(m, n, k, bs, False)}
     if not bs:
-      wf, x32 = w.float(), x.float()
-      row['library_ms'] = timer(lambda: torch.matmul(x32, wf.T))
+      wf, xf = w.float(), x.float()
+      row['library_ms'] = timer(lambda: torch.matmul(xf, wf.T))
+      row['library_ms_f32_x'] = timer(lambda: torch.matmul(x32, wf.T))
     wo_rows.append(row)
-  log(f'kernel qmatmul_int_weights ok: {wo_rows}')
+    del x32
+  wo_ptxas = ptxas_report(build, 'qmatmul_int_weights', '_kernel')
+  log(f'kernel qmatmul_int_weights ok: {wo_rows}; ptxas {wo_ptxas}')
 
   def mean(rows, key, phase):
     vals = [r[key] for r in rows if r['phase'] == phase]
@@ -1214,13 +1231,14 @@ def int_weight_kernels(torch, port, cfg, dev, timer, gen):
       'wrapper': iq.qmatmul_int_weights, 'per_step': 0,
       'per_tick_quantized_b32': 2 * QUANT_LAYERS['gemma_mixed48_b32'] + 1,
       'max_abs_err': max(r['max_abs_err'] for r in blockwise),
-      **summary(blockwise, 'decode', ('ms', 'plain_ms', 'bound_ms')),
+      **summary(blockwise, 'decode', ('ms', 'ms_f32_x', 'plain_ms',
+                                      'bound_ms')),
       'bound_by': wo_rows[0]['bound_by'], 'library_ms': None,
-      'prefill': summary(blockwise, 'prefill', ('ms', 'plain_ms',
+      'prefill': summary(blockwise, 'prefill', ('ms', 'ms_f32_x', 'plain_ms',
                                                 'bound_ms')),
       'library': 'none for the blockwise branch; torch.matmul on f32 '
                  'weights for the channelwise one (by_shape)',
-      'by_shape': wo_rows}]
+      'by_shape': wo_rows, 'ptxas': wo_ptxas}]
 
 
 # The K-blocked kernel's checks: (label, M, N, K). The server's down
@@ -2906,7 +2924,9 @@ def int4_row_kernel(torch, port, cfg, dev, timer, gen):
   lengths 0..S, operands made by the tool (its quantizer and scales);
   held by int4g_ctx_ok at f32 and one bf16 ulp beyond INT4G_CTX_RTOL at
   bf16, and against the f32 twin by INT4_ROW_REF_RTOL. Timed beside SDPA
-  over the pools dequantized to bf16."""
+  over the pools dequantized to bf16; each shape's launch (the split
+  core's plan, cluster 0 for the one-block kernel) and the kernels' ptxas
+  registers and spills logged."""
   att, tool = port['attention'], port['attn_int4_bench']
   H, S = cfg.head_dim, cfg.max_seq_len
   kern, plain = att.decode_attention_int4_lengths, (
@@ -2952,9 +2972,13 @@ def int4_row_kernel(torch, port, cfg, dev, timer, gen):
         torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
         float('-inf')).to(torch.bfloat16).reshape(b, 1, 1, S)
     amask[lengths <= 0] = 0.0
+    qb_, nk_, g_, _ = ops['q'].shape
     rows[b] = {'B': b, 'max_abs_err': err, 'max_abs_ctx': ymax,
                'share_beyond_fine': share, 'bf16_ulps_beyond_tol': ulps,
                'plain_vs_f32_twin_rel': ref_rel, 'live_rows': live,
+               'launch': split_plan(port['_build'], 'attention_int4_row',
+                                    qb_ * nk_, g_, S, H)
+                         if dev == 'cuda' else None,
                'ms': timer(lambda: kern(*args)),
                'plain_ms': timer(lambda: plain(*args)),
                'bound_ms': b_ms, 'bound_by': b_by,
@@ -2966,8 +2990,11 @@ def int4_row_kernel(torch, port, cfg, dev, timer, gen):
         f'{share:.4g}, bf16 {ulps} ulps beyond tol, plain vs f32 twin '
         f'{ref_rel:.3g}; {rows[b]["ms"]:.4f} ms (plain '
         f'{rows[b]["plain_ms"]:.4f}, SDPA {rows[b]["library_ms"]:.4f}, bound '
-        f'{b_ms:.4f})')
+        f'{b_ms:.4f}); launch {rows[b]["launch"]}')
   ab = rows[BENCH_B]
+  ptxas = (ptxas_report(port['_build'], 'attention_int4_row', '_kernel')
+           if dev == 'cuda' else None)
+  log(f'kernel decode_attention_int4_lengths ptxas {ptxas}')
   return {
       'name': 'decode_attention_int4_lengths', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
@@ -2980,6 +3007,7 @@ def int4_row_kernel(torch, port, cfg, dev, timer, gen):
       'bound_by': ab['bound_by'], 'library_ms': ab['library_ms'],
       'library': 'scaled_dot_product_attention with the lengths mask over '
                  'the pools dequantized to bf16',
+      'core': SPLIT_CORE, 'launch': ab['launch'], 'ptxas': ptxas,
       'decode': rows[B]}
 
 
@@ -3332,10 +3360,11 @@ SPLIT_PLAN_FIELDS = ('cluster', 'grid_y', 'rows', 'threads', 'smem_bytes')
 def split_plan(build, lib, *dims):
   """The launch of #17 (lib 'attention_masked', dims R, G, S, H and the
   compute code), #18 ('attention_dynlen', R, G, S, H), #7
-  ('attention_lengths', R, G, S, H, compute code) or #10
-  ('attention_int4_group', R, G, S, H, group): the cluster size (the
-  splits, grid x; 0 for a one-block kernel), grid y (rows), cache rows a
-  CTA, threads, shared memory."""
+  ('attention_lengths', R, G, S, H, compute code), #10
+  ('attention_int4_group', R, G, S, H, group) or #21
+  ('attention_int4_row', R, G, S, H): the cluster size (the splits, grid
+  x; 0 for a one-block kernel), grid y (rows), cache rows a CTA, threads,
+  shared memory."""
   return build.plan(lib, f'aeqt_{lib}_plan', lib, *dims,
                     fields=SPLIT_PLAN_FIELDS)
 
@@ -5037,11 +5066,12 @@ def main():
         f'{r["ttft_p50_ms"]:.1f} ms p99 {r["ttft_p99_ms"]:.1f} ms; chunk of '
         f'{SERVE_CHUNK} ticks {r["chunk_ms"]:.3f} ms (idle '
         f'{r["chunk_idle_share"]:.3f})')
-  # #18 and #17 in a chunk of ticks of the servers that run them.
+  # #18, #17 and #16 in a chunk of ticks of the servers that run them.
   by_kernel = {k['name']: k for k in kernels}
   for name, fn, labels in (
       ('decode_attention_int8_dynlen', 'dynlen_attention_kernel',
        (BLOCKWISE_MODE,)),
+      ('qmatmul_int_weights', 'int_weights', ('gemma_mixed48_b32',)),
       ('decode_attention_int8_masked', 'masked_attention_kernel',
        (DEFAULT_MODE,) + tuple(f'{DEFAULT_MODE} attn {m}'
                                for m in COMPUTE_MODES if m != 'f32'))):

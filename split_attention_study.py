@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Measurements behind the lengths (#7) and int4-group (#10) decode
-attentions on the split-S core (csrc/attention_split_tc.cuh), on one
-NVIDIA GPU. Each prints one JSON line per measurement.
+"""Measurements behind the lengths (#7), int4-group (#10) and per-row
+int4 (#21) decode attentions on the split-S core
+(csrc/attention_split_tc.cuh), on one NVIDIA GPU. Each prints one JSON
+line per measurement.
 
   python3 split_attention_study.py [--root CHECKOUT] [times] [order] [truth]
 
 times  #7 at the server's tick (B 64, random lengths) and at bench.py's
        decode (B 256, 897 rows), every compute mode, bf16 out; #10 at
-       bench.py's decode and the server's tick; CUDA-event medians as
-       chip_smoke.Timer takes them (L2 flushed). --root picks the checkout
-       whose kernels run (default: this file's), so two checkouts can be
-       timed in turns on one card.
+       bench.py's decode and the server's tick; #21 at the A/B tool's
+       shape (B 256, lengths S - 2) and at B 64 with lengths 0..S
+       (chip_smoke.int4_row_kernel's inputs), f32 out; CUDA-event medians
+       as chip_smoke.Timer takes them (L2 flushed). --root picks the
+       checkout whose kernels run (default: this file's), so two checkouts
+       can be timed in turns on one card.
 order  the share of the plain versions' f32 matmul outputs on the card
-       (#7's q . k, #10's q . K and its offset term) equal to one f32 FMA
-       chain over the contraction in increasing order.
+       (#7's q . k, #10's q . K and its offset term, #21's two half dots as
+       its plain version slices them) equal to one f32 FMA chain over the
+       contraction in increasing order.
 truth  #7's f32 context at B 64 (chip_smoke.lengths_kernel's inputs, eight
        seeds) against an f64 run of the same function, for the plain
        version and the kernel, and the two against each other.
@@ -62,6 +66,17 @@ def times(torch, cs, att):
     emit(kernel='decode_attention_int4_group_lengths', B=b,
          ms=timer(lambda: att.decode_attention_int4_group_lengths(
              q, kp, vp, sc, lens, 16, out_dtype=torch.bfloat16)))
+  from ai_edge_quantizer_tpu_torch.tools import attn_int4_bench as tool
+  for b, seed in ((BENCH_B, 1), (B, 2)):
+    ops = tool.make_operands(b, S, H, seed=seed, device='cuda')
+    lens = ops['lengths']
+    if b == B:
+      lens = torch.randint(0, S + 1, (b,), generator=gen, device='cuda').to(
+          torch.int32)
+      lens[0], lens[1], lens[2] = 0, 1, S
+    args = (ops['q'], ops['kp_r'], ops['vp_r'], ops['scales_r'], lens)
+    emit(kernel='decode_attention_int4_lengths', B=b,
+         ms=timer(lambda: att.decode_attention_int4_lengths(*args)))
 
 
 def chain(torch, a, b):
@@ -86,10 +101,20 @@ def order(torch, cs, att):
     qs = torch.randn((b, 1, G, 16), generator=gen, device='cuda') * 3
     kmin = torch.randn((b, 1, 16, S), generator=gen, device='cuda').to(
         torch.bfloat16).float()
+    # #21's operands as its plain version forms them: the unpacked codes
+    # [..., S, H] f32, both sliced at H / 2 (strided views).
+    k4 = att.unpack_int4_rows(torch.randint(
+        0, 256, (b, 1, S, H // 2), generator=gen, device='cuda').to(
+            torch.uint8)).to(torch.float32)
+    h2 = H // 2
     for what, x, y, mm in (
         ('#7 q . k', q, k8, torch.matmul(q, k8.transpose(-1, -2))),
         ('#10 q . K', q, kb, torch.matmul(q, kb.transpose(-1, -2))),
-        ('#10 offset', qs, kmin.transpose(-1, -2), torch.matmul(qs, kmin))):
+        ('#10 offset', qs, kmin.transpose(-1, -2), torch.matmul(qs, kmin)),
+        ('#21 q lo . k lo', q[..., :h2], k4[..., :h2],
+         att._qdot(q[..., :h2], k4[..., :h2])),
+        ('#21 q hi . k hi', q[..., h2:], k4[..., h2:],
+         att._qdot(q[..., h2:], k4[..., h2:]))):
       emit(study='order', B=b, matmul=what,
            share_equal_to_chain=float((chain(torch, x, y) == mm).double()
                                       .mean()))
@@ -144,7 +169,8 @@ def main():
   from ai_edge_quantizer_tpu_torch.kernels import _build
   from ai_edge_quantizer_tpu_torch.kernels import attention as att
   # Only the two kernels' libraries are built.
-  _build.SOURCES = ('attention_lengths', 'attention_int4_group')
+  _build.SOURCES = ('attention_lengths', 'attention_int4_group',
+                    'attention_int4_row')
   _build.build(_build.SOURCES)
   torch.backends.cuda.matmul.allow_tf32 = False
   emit(card=cs.run_text(['nvidia-smi', '--query-gpu=name,power.limit',
