@@ -1,9 +1,11 @@
 // Decode attention over a quantized KV cache with the S cache rows of each
 // (batch, kv-head) row split across a thread-block cluster, both
 // contractions on the tensor cores (mma.sync): the body of the masked
-// (attention_masked.cu, #17), the live-prefix (attention_dynlen.cu, #18)
-// and the lengths (attention_lengths.cu, #7) kernels over int8 caches in
-// every compute mode (`attend`), of the int4-group kernel
+// (attention_masked.cu, #17), the live-prefix (attention_dynlen.cu, #18),
+// the lengths (attention_lengths.cu, #7), the stale-cache
+// (attention_stale.cu, #2) and the splice-writeback (attention_writeback.cu,
+// #8) kernels over int8 caches in every compute mode (`attend`), of the
+// int4-group kernel
 // (attention_int4_group.cu, #10) over packed int4 pools (`attend_int4g`)
 // and of the per-row int4 kernel (attention_int4_row.cu, #21,
 // `attend_int4r`).
@@ -23,9 +25,10 @@
 //      mbarrier: first its K chunks, then its V chunks, the first two at
 //      entry and each next one as a stage is read, so that the V copies
 //      are in flight while the last scores and the softmax run (the
-//      live-prefix and lengths forms copy only their live rows: rows < L,
-//      or for a zero-length row no K row and its V rows, n_chunks * c of
-//      them for #18, all S for #7);
+//      live-prefix, lengths, stale and splice forms copy only their live
+//      rows: rows < L (the stale form: L = lengths - 1), or for a
+//      zero-length row no K row and its V rows, n_chunks * c of them for
+//      #18, all S for #7 and #8, none for #2);
 //   2. meanwhile stages the query operands in the tensor cores' fragment
 //      order: f32 q in kQPartsF32 bf16 parts (their sum is q to 24 bits;
 //      the smallest part is multiplied first), bf16 mode one bf16 part (q
@@ -38,8 +41,9 @@
 //      depth; int8 K widens to bf16 exactly (byte into an f32 mantissa,
 //      then a pair conversion); then each score as before:
 //      (q . k - zp_k * sum(q)) * k_scale_eff, plus the mask (read by its
-//      strides) or -1e30 past the length. The lengths form's f32 mode
-//      instead forms q . k as one f32 FMA chain over h = 0 .. H - 1 (SIMT,
+//      strides) or -1e30 past the length. The f32 mode of the lengths,
+//      stale and splice forms instead forms q . k as one f32 FMA chain over
+//      h = 0 .. H - 1 (SIMT,
 //      `score_chunk_chain`), the order of the plain version's f32 matmul
 //      on the card (equal to it bit for bit): its check holds the context
 //      to 1e-5 absolute, about one ulp of the scores at Gemma-2B's widths
@@ -61,8 +65,8 @@
 //      int8: m16n8k32 s8 on the codes, int32, exact. The rows of a k-step
 //      come to each thread as bytes of four (eight) rows, transposed with
 //      prmt. Warps split H in two and each chunk's rows in four, their
-//      sums in registers across the chunks (the lengths form's f32 mode
-//      adds each k-step's products into its sums by an f32 add, so that
+//      sums in registers across the chunks (the chained f32 modes add
+//      each k-step's products into their sums by an f32 add, so that
 //      the tensor cores' own accumulation spans one k-step); the four row
 //      quarters are added in order;
 //   6. the [G, H] partials meet in distributed shared memory: CTA i adds
@@ -71,6 +75,26 @@
 //      finish_ctx<C> (int8: the code sums of the cluster, exact) or
 //      acc / max(l, 1e-30), and writes them (f32, or bf16 rounded once at
 //      the write).
+//   The stale form (#2) adds the new token's column, which is no cache row:
+//   every CTA of the cluster forms s_cur itself between steps 2 and 3 (G
+//   dots of H against k_new staged in shared memory, while the first chunks
+//   are in flight; f32 and bf16 in the order of the plain version's
+//   one-column matmul on the card, new_column_order; int8 exact), so it
+//   needs no exchange; step 4 takes s_cur into the maximum after the
+//   cluster's maxima and e_cur into the denominator after the slices' sums
+//   (int8: inside the f64 sum), and step 6 adds p_cur's operand times v_new
+//   after the cluster's partials (int8: its code in int32, and into the
+//   code sum), the plain version's order. A row with no stale row (lengths
+//   0 or 1) reads nothing and its context is v_new.
+//   The splice form (#8) is the lengths form with row p = clip(pos, 0,
+//   S - 1) replaced by the new token's rows in shared memory, never in the
+//   cache: the CTA whose slice holds p waits for the chunk's bulk copy,
+//   overwrites that row of the ring stage with k_new (V: v_new; K where p is
+//   a scored row, V where it is a read one), fences the generic writes
+//   against the stage's next bulk copy (fence.proxy.async) and lets the
+//   chunk be read after a __syncthreads; after gather_partials (all its
+//   copies landed) it writes the two rows into the caches. No other CTA
+//   reads row p of its (batch, kv-head) row.
 //   A chunk is plain rows (one copy), so the fragment reads of K meet every
 //   row at the same bank (two-way conflicts); V's reads take whole rows of
 //   128 bytes. The chained scores read the K chunk copied (in shared
@@ -133,16 +157,24 @@ constexpr float kPScale = 32768.0f;  // p's scale before the split: 2^15
 constexpr uint32_t kFlip = 0x80808080u;  // int8 -> biased byte (v + 128)
 constexpr int kKPad = 16;            // bytes after a K row of a chained chunk
 
-// The bodies of the int8-cache kernels: the masked (#17), live-prefix (#18)
-// and lengths (#7) forms.
-enum Form : int { kMasked = 0, kDynlen = 1, kLengths = 2 };
+// The bodies of the int8-cache kernels: the masked (#17), live-prefix (#18),
+// lengths (#7), stale (#2: lengths - 1 cache rows and the new token's
+// column) and splice (#8: the lengths form with row pos read from the new
+// token's rows, which it writes into the caches) forms.
+enum Form : int {
+  kMasked = 0,
+  kDynlen = 1,
+  kLengths = 2,
+  kStale = 3,
+  kSplice = 4
+};
 
 // The head dims the fragment layout takes.
 inline bool head_dim_fits(int H) { return H == 64 || H == 128 || H == 256; }
 
 // Whether a form scores f32 q by one FMA chain a score (step 3).
 __host__ __device__ constexpr bool chained(int F, int C) {
-  return F == kLengths && C == kF32;
+  return (F == kLengths || F == kStale || F == kSplice) && C == kF32;
 }
 
 // The chained scores read a K chunk copied from its ring stage to rows
@@ -175,11 +207,12 @@ __host__ __device__ inline size_t up16(size_t x) {
 // query operands in fragment order (the chained form's f32 rows), the
 // scores [G][T + 4] (then e, the operands p), sum(q), q scales, and the
 // cluster's exchange slots: the maxima, the sums of e (SumT: 8 bytes), the
-// int8 code sums; the cluster's l or code sum of each query row; the
-// stages' mbarriers.
+// int8 code sums; the cluster's l or code sum of each query row; the stale
+// form's new column (s_cur, then e_cur, then p_cur's operand, [G] f32) and
+// k_new's H bytes; the stages' mbarriers.
 struct Layout {
-  size_t ring, kpad, q, sc, qsum, qscale, xmax, xsum, xcodes, xtot, bars,
-      bytes;
+  size_t ring, kpad, q, sc, qsum, qscale, xmax, xsum, xcodes, xtot, cur, knew,
+      bars, bytes;
 };
 
 __host__ __device__ inline size_t query_bytes(int F, int C, int G, int H) {
@@ -203,21 +236,40 @@ __host__ __device__ inline Layout layout(int F, int C, int G, int H, int T) {
   L.xsum = up16(L.xmax + (size_t)G * 4);
   L.xcodes = up16(L.xsum + (size_t)G * 8);
   L.xtot = up16(L.xcodes + (size_t)G * 4);
-  L.bars = up16(L.xtot + (size_t)G * 4);
+  L.cur = up16(L.xtot + (size_t)G * 4);
+  L.knew = up16(L.cur + (F == kStale ? (size_t)G * 4 : 0));
+  L.bars = up16(L.knew + (F == kStale ? (size_t)H : 0));
   L.bytes = L.bars + 8 * kStages;
   return L;
 }
 
 // The kernels' arguments (the masked kernel reads mask*, the live-prefix
-// kernel lengths, c and rb, the lengths kernel lengths, the int4-group
-// kernel lengths, sidecar and shift, with ks = f32(1 / sqrt(H))).
+// kernel lengths, c and rb, the lengths kernel lengths, the stale kernel
+// lengths, k_new and v_new, the splice kernel those and pos, the
+// int4-group kernel lengths, sidecar and shift, with ks = f32(1 / sqrt(H))).
+// The stale and splice kernels' pointers share storage with the masked
+// kernel's mask fields, which they do not read: the block stays 128 bytes
+// (24 more made #7's f32 kernel 4 % slower on the H100, PERF.md §6).
 struct Args {
   const float* q;   // [R, G, H]
-  const int8_t* k;  // [R, S, H] (int4 group: packed uint8 [R, S, H / 2])
-  const int8_t* v;  // [R, S, H] (int4 group: packed uint8 [R, S, H / 2])
+  const int8_t* k;  // [R, S, H] (int4 group: packed uint8 [R, S, H / 2];
+                    // splice: written at row pos)
+  const int8_t* v;  // [R, S, H] (int4 group: packed uint8 [R, S, H / 2];
+                    // splice: written at row pos)
   void* out;        // [R, G, H]: f32, or bf16 where out_bf16
-  const float* mask;
-  long long mask_sb, mask_sn, mask_sg;
+  union {
+    const float* mask;
+    const int8_t* k_new;  // stale, splice: the new token's rows [R, H]
+  };
+  union {
+    long long mask_sb;
+    const int8_t* v_new;  // stale, splice: [R, H]
+  };
+  union {
+    long long mask_sn;
+    const int* pos;  // splice: [1] on the device, clipped to [0, S - 1]
+  };
+  long long mask_sg;
   const int* lengths;
   const uint16_t* sidecar;  // int4 group: bf16 [R, 3 NG, S]
   int c, rb;
@@ -723,6 +775,81 @@ __device__ __forceinline__ void score_chunk_chain(const Args& a,
   }
 }
 
+// The order of the stale form's new column q . k_new (f32 and bf16 modes):
+// the plain version's one-column matmul, a batched [G, H] . [H, 1] product
+// over R = B * NK rows, on the H100 (split_attention_study.py order, every
+// output equal): `parts` partial FMA chains over h in increasing order,
+// then added. One row: 32 contiguous runs of H / 32, added as a butterfly
+// (part l with l + parts / 2, then on down); up to 64 rows: min(16, H / 8)
+// such runs; more rows: parts strided by `parts` (h = l, l + parts, ...),
+// 16 added in order (H 64: 4, as a butterfly).
+struct NewColumnOrder {
+  int parts;
+  bool strided, butterfly;
+};
+
+__host__ __device__ inline NewColumnOrder new_column_order(int R, int H) {
+  if (R == 1) return {32, false, true};
+  if (R <= 64) return {H / 8 < 16 ? H / 8 : 16, false, true};
+  if (H == 64) return {4, true, true};
+  return {16, true, false};
+}
+
+// The stale form's new column: each query row's score against k_new (knew,
+// H bytes in shared memory) into cur [G], as a cache row's: (q . k_new -
+// zp_k * sum(q)) * k_scale_eff, q . k_new in new_column_order's parts
+// (f32: the f32 rows qf; bf16: bf16(q), each product exact), int8 the
+// codes' int32 sum (exact) times q_scale. Lanes l of a group of `parts`
+// take part l of query row g, the CTA's threads in turns where the groups
+// outnumber them (parts * G up to 512).
+template <int C, int H>
+__device__ __forceinline__ void new_column_scores(const Args& a,
+                                                  const uint8_t* qbuf,
+                                                  const float* qsum,
+                                                  const float* qscale,
+                                                  const int8_t* knew,
+                                                  float* cur) {
+  const NewColumnOrder o = new_column_order(gridDim.y, H);
+  const int n = H / o.parts, nts = (a.G + 7) >> 3;
+  for (int t = threadIdx.x; (t & ~31) < o.parts * a.G; t += kThreads) {
+    const int g = t / o.parts, l = t % o.parts;  // warp-uniform loop
+    const bool real = g < a.G;
+    const int nt = g >> 3, g8 = g & 7;
+    float dot = 0.0f;
+    int idot = 0;
+    if (real) {
+      const float* qf = reinterpret_cast<const float*>(qbuf) + g * (H + 4);
+      const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(qbuf);
+      for (int i = 0; i < n; ++i) {
+        const int h = o.strided ? l + o.parts * i : l * n + i;
+        if constexpr (C == kInt8)
+          idot += (int)(int8_t)qbuf[code_index<H>(nt, g8, h)] * (int)knew[h];
+        else if constexpr (C == kF32)
+          dot = __fmaf_rn(qf[h], (float)knew[h], dot);
+        else
+          dot = __fmaf_rn(
+              __bfloat162float(qb[q_index<H>(0, nts, nt, g8, h)]),
+              (float)knew[h], dot);
+      }
+    }
+    if constexpr (C == kInt8) {
+      for (int d = o.parts / 2; d >= 1; d >>= 1)  // exact: any order
+        idot += __shfl_xor_sync(0xffffffffu, idot, d);
+      if (real) dot = (float)idot * qscale[g];
+    } else if (o.butterfly) {
+      for (int d = o.parts / 2; d >= 1; d >>= 1)
+        dot = dot + __shfl_xor_sync(0xffffffffu, dot, d);
+    } else {
+      const int first = (t & 31) - l;
+      float sum = __shfl_sync(0xffffffffu, dot, first);
+      for (int r = 1; r < o.parts; ++r)
+        sum = sum + __shfl_sync(0xffffffffu, dot, first + r);
+      dot = sum;
+    }
+    if (real && l == 0) cur[g] = (dot - a.zp_k * qsum[g]) * a.ks;
+  }
+}
+
 // Step 5 in a float mode: the partial context of query rows [8 nt, 8 nt +
 // 8) over rows [j0, j1) of the chunk in ring stage vst (k16 steps; sc
 // points at the chunk's first score column), head columns
@@ -843,14 +970,18 @@ __device__ __forceinline__ void store4(int* p, const int (&v)[4]) {
 // over the cluster, e = exp(s - m), the sums of e (SumT<C>) over the cluster
 // in split order, then (but for the live-prefix form) the mode's operand
 // prob_operand<C>(e, sum) in place, 0 past vr. Maxima start at -1e30 where a
-// row may have no scored row (the live-prefix and lengths forms: a
-// zero-length row's e is then 1), else at -inf. xsum keeps this CTA's sum
-// of e; xcodes (int8) its operands' sum.
+// row may have no scored row (every form but the masked one: a zero-length
+// row's e is then 1), else at -inf. xsum keeps this CTA's sum of e; xcodes
+// (int8) its operands' sum. The stale form's new column (cur: s_cur, the
+// same in every CTA) joins the maximum after the cluster's, its e_cur the
+// sum after the cluster's (in int8 inside the f64 sum), and cur ends as
+// p_cur's operand, as the plain version orders them.
 template <int F, int C>
 __device__ __forceinline__ void softmax_cluster(float* sc, int G, int P,
                                                 int T, int kr, int vr,
                                                 float* xmax, SumT<C>* xsum,
-                                                float* xcodes) {
+                                                float* xcodes,
+                                                float* cur = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nsplit = gridDim.x;
   constexpr bool kLive = F != kMasked;  // rows may have no scored row
@@ -864,6 +995,12 @@ __device__ __forceinline__ void softmax_cluster(float* sc, int G, int P,
   for (int g = warp; g < G; g += kWarps) {
     float m = lane < nsplit ? *tc::cluster_map(&xmax[g], lane) : -INFINITY;
     m = warp_max(m);
+    if constexpr (F == kStale) {
+      m = fmaxf(m, cur[g]);
+      const float e_cur = expf(cur[g] - m);
+      __syncwarp();
+      if (lane == 0) cur[g] = e_cur;
+    }
     // Rows scored -1e30 (a zero-length row's V rows): e of -1e30 less the
     // maximum.
     const float e_dead = kLive ? expf(kNegInf - m) : 0.0f;
@@ -887,6 +1024,11 @@ __device__ __forceinline__ void softmax_cluster(float* sc, int G, int P,
       SumT<C> tot = 0;
       for (int r = 0; r < nsplit; ++r)  // split order
         tot = tot + __shfl_sync(0xffffffffu, mine, r);
+      float e_cur = 0.0f;
+      if constexpr (F == kStale) {
+        e_cur = cur[g];
+        tot = tot + (SumT<C>)e_cur;  // the new column last
+      }
       const float denom = (float)tot;
       float codes = 0.0f;
       for (int j = lane; j < T; j += 32) {
@@ -897,6 +1039,10 @@ __device__ __forceinline__ void softmax_cluster(float* sc, int G, int P,
       if constexpr (C == kInt8) {
         codes = warp_sum(codes);
         if (lane == 0) xcodes[g] = codes;
+      }
+      if constexpr (F == kStale) {
+        __syncwarp();
+        if (lane == 0) cur[g] = prob_operand<C>(e_cur, denom);
       }
     }
   }
@@ -975,6 +1121,8 @@ __device__ __forceinline__ void attend(const Args& a) {
   SumT<C>* xsum = reinterpret_cast<SumT<C>*>(smem + L.xsum);
   float* xcodes = reinterpret_cast<float*>(smem + L.xcodes);
   float* xtot = reinterpret_cast<float*>(smem + L.xtot);
+  float* cur = reinterpret_cast<float*>(smem + L.cur);
+  int8_t* knew = reinterpret_cast<int8_t*>(smem + L.knew);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
   AccT* part = reinterpret_cast<AccT*>(smem + L.ring);  // after the last V
 
@@ -997,12 +1145,24 @@ __device__ __forceinline__ void attend(const Args& a) {
     const int live_v = len > 0 ? live_k : n_chunks * a.c;
     kr = min(max(live_k - s0, 0), here);
     vr = min(max(live_v - s0, 0), here);
-  } else if constexpr (F == kLengths) {
+  } else if constexpr (F == kLengths || F == kSplice) {
     // Rows < L; a zero-length row scores -1e30 everywhere: every one of
     // its S rows weighs 1 / S.
     const int len = a.lengths[row / a.NK];
     kr = len > 0 ? min(max(min(len, S) - s0, 0), here) : 0;
     vr = len > 0 ? kr : here;
+  } else if constexpr (F == kStale) {
+    // The L = lengths - 1 stale rows (the new token's column is apart): a
+    // row with none reads nothing and weighs the new column alone.
+    const int len = min(max(a.lengths[row / a.NK] - 1, 0), S);
+    kr = vr = min(max(len - s0, 0), here);
+  }
+  // The splice form: the slice row of row p = clip(pos, 0, S - 1), where
+  // this CTA holds it (-1: another CTA does).
+  int sub = -1;
+  if constexpr (F == kSplice) {
+    const int p = min(max(*a.pos, 0), S - 1);
+    if (p >= s0 && p < s0 + here) sub = p - s0;
   }
 
   // 1. The slice's loads: its K chunks, then its V chunks (live rows
@@ -1026,6 +1186,23 @@ __device__ __forceinline__ void attend(const Args& a) {
   auto await_load = [&](int i) {
     tc::mbar_wait(&bars[i % kStages], (uint32_t)(i / kStages) & 1);
   };
+  // The splice form, once chunk c of the slice's n copied rows (kr of K,
+  // vr of V) has landed in stage st: where it holds row sub, that row
+  // becomes the new token's (src, H bytes) before any thread reads the
+  // stage. The proxy fence orders the generic writes before the stage's
+  // next bulk copy (issued after the stage's readers' __syncthreads).
+  auto splice = [&](int8_t* st, int c, int n, const int8_t* src) {
+    if constexpr (F == kSplice) {
+      if (sub >= c * kChunk && sub < min(n, (c + 1) * kChunk)) {
+        if (tid < H / 16) {
+          reinterpret_cast<uint4*>(st + (size_t)(sub - c * kChunk) * H)[tid] =
+              __ldg(reinterpret_cast<const uint4*>(src) + tid);
+          tc::fence_proxy_async();
+        }
+        __syncthreads();
+      }
+    }
+  };
   const float* qr = a.q + (size_t)row * G * H;
   float xq[H / 32];
   load_query<H>(qr, G, warp, xq);
@@ -1037,12 +1214,20 @@ __device__ __forceinline__ void attend(const Args& a) {
   if (tid == 0)
     for (int i = 0; i < kStages; ++i) issue_load(i);
 
-  // 2. Query operands.
+  // 2. Query operands (the stale form: k_new beside them, then the new
+  //    column's scores, while the first chunks are in flight).
   if constexpr (kChain)
     stage_query_rows<H>(qr, G, reinterpret_cast<float*>(qbuf), qsum, xq);
   else
     stage_queries<C, H>(qr, G, qbuf, qsum, qscale, xq);
+  if constexpr (F == kStale) {
+    if (tid < H / 16)
+      reinterpret_cast<uint4*>(knew)[tid] = __ldg(
+          reinterpret_cast<const uint4*>(a.k_new + (size_t)row * H) + tid);
+  }
   __syncthreads();
+  if constexpr (F == kStale)
+    new_column_scores<C, H>(a, qbuf, qsum, qscale, knew, cur);
 
   // 3. Scores.
   const float* mrow = nullptr;
@@ -1050,7 +1235,8 @@ __device__ __forceinline__ void attend(const Args& a) {
     mrow = a.mask + (row / a.NK) * a.mask_sb + (row % a.NK) * a.mask_sn;
   for (int c = 0; c < nk; ++c) {
     await_load(c);
-    const int8_t* kst = ring + (size_t)(c % kStages) * kChunk * H;
+    int8_t* kst = ring + (size_t)(c % kStages) * kChunk * H;
+    splice(kst, c, kr, a.k_new + (size_t)row * H);
     if constexpr (kChain) {
       pad_rows<H>(reinterpret_cast<const uint8_t*>(kst), kpad,
                   min(kr - c * kChunk, kChunk));
@@ -1069,7 +1255,7 @@ __device__ __forceinline__ void attend(const Args& a) {
   __syncthreads();
 
   // 4. Softmax across the cluster.
-  softmax_cluster<F, C>(sc, G, P, T, kr, vr, xmax, xsum, xcodes);
+  softmax_cluster<F, C>(sc, G, P, T, kr, vr, xmax, xsum, xcodes, cur);
   __syncthreads();
 
   // 5. The slice's context, chunk by chunk: warp (hh, qq) takes head
@@ -1090,7 +1276,8 @@ __device__ __forceinline__ void attend(const Args& a) {
         for (int i = 0; i < 4; ++i) acc[nt][mt][i] = 0;
     for (int c = 0; c < nv; ++c) {
       await_load(nk + c);
-      const int8_t* vst = ring + (size_t)((nk + c) % kStages) * kChunk * H;
+      int8_t* vst = ring + (size_t)((nk + c) % kStages) * kChunk * H;
+      splice(vst, c, vr, a.v_new + (size_t)row * H);
       const int j0 = 32 * qq, j1 = min(j0 + 32, vr - c * kChunk);
 #pragma unroll
       for (int nt = 0; nt < NTS; ++nt) {
@@ -1131,17 +1318,43 @@ __device__ __forceinline__ void attend(const Args& a) {
     }
     __syncthreads();
   }
+  // The stale form adds the new column last, as the plain version: p_cur's
+  // operand times v_new (int8: its code, in int32, and the code into the
+  // code sum).
+  const int8_t* vnew = a.v_new + (size_t)row * H;
   gather_partials<H>(part, G, qstride, [&](int g, int h, AccT acc) {
     float y;
-    if constexpr (F == kDynlen)
+    if constexpr (F == kDynlen) {
       y = (acc * (1.0f / kPScale) / fmaxf(xtot[g], 1e-30f) - a.zp_v) *
           a.v_scale;
-    else if constexpr (C == kInt8)
-      y = finish_ctx<C>((float)acc, fmaxf(xtot[g], 1.0f), a.zp_v, a.v_scale);
-    else
-      y = finish_ctx<C>(acc * (1.0f / kPScale), 1.0f, a.zp_v, a.v_scale);
+    } else if constexpr (C == kInt8) {
+      float codes = xtot[g];
+      if constexpr (F == kStale) {
+        acc = acc + (int)cur[g] * (int)vnew[h];
+        codes = codes + cur[g];
+      }
+      y = finish_ctx<C>((float)acc, fmaxf(codes, 1.0f), a.zp_v, a.v_scale);
+    } else {
+      float ctx = acc * (1.0f / kPScale);
+      if constexpr (F == kStale) ctx = ctx + cur[g] * (float)vnew[h];
+      y = finish_ctx<C>(ctx, 1.0f, a.zp_v, a.v_scale);
+    }
     store_out(a, ((size_t)row * G + g) * H + h, y);
   });
+
+  // The splice form's row write: the CTA holding row p, after every read of
+  // it (its bulk copies have all landed), writes the new rows into both
+  // caches; no other CTA reads row p of this (batch, kv-head) row.
+  if constexpr (F == kSplice) {
+    if (sub >= 0 && tid < 2 * (H / 16)) {
+      const bool is_v = tid >= H / 16;
+      const int u = is_v ? tid - H / 16 : tid;
+      const size_t at = ((size_t)row * S + s0 + sub) * H;
+      reinterpret_cast<uint4*>(const_cast<int8_t*>(is_v ? a.v : a.k) + at)[u] =
+          __ldg(reinterpret_cast<const uint4*>(is_v ? a.v_new : a.k_new) +
+                (size_t)row * (H / 16) + u);
+    }
+  }
 }
 
 // ---- The int4-group body (#10) ----

@@ -15,29 +15,91 @@
 //     ctx[g]  = (sum_j softmax(s)[g, j] v'[j] - zp_v) * v_scale
 //   and k[p] = k_new, v[p] = v_new are written into the caches, whose
 //   storage is the output (the TPU kernel aliases its cache outputs to its
-//   inputs). With L == 0 every score is -1e30 and each of the S rows gets
-//   weight 1/S, the spliced row among them (in int8 each of the S codes is
-//   rint(127 / S): 1 at S 128, so all S rows are summed; 0 from S 256 on,
-//   so p_sum is 1 and ctx is -zp_v * v_scale).
+//   inputs), for every row, also one whose length does not reach p. With
+//   L == 0 every score is -1e30 and each of the S rows gets weight 1/S, the
+//   spliced row among them (in int8 each of the S codes is rint(127 / S):
+//   1 at S 128, so all S rows are summed; 0 from S 256 on, so p_sum is 1
+//   and ctx is -zp_v * v_scale).
 //
 // Bound on the H100: the cache bytes of the live rows, 2 * L * H a row,
 //   plus the two new rows read and written (at the bench shape, B 256, H
 //   256, 897 live rows: 117.6 MB, 35 us).
 //
-// Design: the lengths kernel (attention_lengths.cuh) with the row pointer
-//   chosen per cache row: row p is read from k_new / v_new, never from the
-//   cache, in every mode (its score dot, its probability operand and its
-//   share of the int8 code sum), so the block's own write of row p (after
-//   its last read, at the end) races with no read; no other block touches
-//   row r. The TPU kernel writes back the whole 32-row tile around p (HBM
-//   writes must cover full tiles); here only the two rows move. The
-//   wrapper keeps the TPU gate S % 32 == 0 so that the routes agree.
+// Design: attention_split_tc.cuh, the splice form (`attend<kSplice, C>`):
+//   the lengths form (#7) with row p substituted in shared memory, never
+//   in the cache. The CTA whose slice holds p waits for the bulk copy of
+//   the chunk holding it (its mbarrier), overwrites that row of the ring
+//   stage with k_new's H bytes (V: v_new's), fences the generic writes
+//   against the stage's next bulk copy (fence.proxy.async) and only then,
+//   after a __syncthreads, lets the chunk be read: before the chained f32
+//   mode's pad_rows, before score_chunk / context_* in the others. K is
+//   substituted where p < kr, V where p < vr (a zero-length row reads every
+//   V row: V always), so row p feeds the score dot, the probability operand
+//   and the int8 code sum in every mode. The same CTA writes the two
+//   global rows at its end, after gather_partials: every bulk copy of its
+//   slice has landed by then, and no other CTA reads row p of its row. The
+//   TPU kernel writes back the whole 32-row tile around p (HBM writes must
+//   cover full tiles); here only the two rows move. The wrapper and this
+//   entry point keep the TPU gate S % 32 == 0 so that the routes agree.
+//
+// Shapes the core does not take (H other than 64, 128 or 256, G > 16,
+//   R > 65535, or a slice's scores past shared memory) go, by that fixed
+//   rule, to the one-block kernel below: the lengths kernel of
+//   attention_common.cuh with the row pointer chosen per cache row (row p
+//   read from k_new / v_new, never from the cache), its own write of row p
+//   after its last read, at the end.
 #include "attention_common.cuh"
+#include "attention_split_tc.cuh"
 
 namespace {
 
 using aeqt::kGC;
+using aeqt::split::Args;
+using aeqt::split::Kernel;
 constexpr int kThreads = aeqt::kAttnThreads;
+
+template <int C, int H, int NTS>
+__global__ void __launch_bounds__(aeqt::split::kThreads, 2)
+splice_attention_split_kernel(const Args a) {
+  aeqt::split::attend<aeqt::split::kSplice, C, H, NTS>(a);
+}
+
+template <int C>
+Kernel kernel_for(int H, int G) {
+  const bool two = G > 8;  // query rows in two n-tiles
+  switch (H) {
+    case 64:
+      return two ? &splice_attention_split_kernel<C, 64, 2>
+                 : &splice_attention_split_kernel<C, 64, 1>;
+    case 128:
+      return two ? &splice_attention_split_kernel<C, 128, 2>
+                 : &splice_attention_split_kernel<C, 128, 1>;
+    case 256:
+      return two ? &splice_attention_split_kernel<C, 256, 2>
+                 : &splice_attention_split_kernel<C, 256, 1>;
+  }
+  return nullptr;
+}
+
+// The split kernel of a compute mode and shape; nullptr for a shape the
+// core does not take (the one-block kernel's).
+Kernel kernel_for(int compute, int R, int G, int S, int H) {
+  if (!aeqt::split::takes(aeqt::split::kSplice, compute, R, G, S, H))
+    return nullptr;
+  switch (compute) {
+    case aeqt::kF32: return kernel_for<aeqt::kF32>(H, G);
+    case aeqt::kBF16: return kernel_for<aeqt::kBF16>(H, G);
+    case aeqt::kInt8: return kernel_for<aeqt::kInt8>(H, G);
+  }
+  return nullptr;
+}
+
+aeqt::split::Plan plan_of(Kernel kernel, int compute, int R, int G, int S,
+                          int H) {
+  return aeqt::split::choose_plan(
+      kernel, aeqt::split::Int8Smem{aeqt::split::kSplice, compute, G, H}, S,
+      R);
+}
 
 template <int C, typename TOut>
 __global__ void __launch_bounds__(kThreads)
@@ -150,9 +212,11 @@ int launch_mode(int compute, const void* q, void* k, void* v,
 // q f32 [R, G, H] with R = B * NK; k, v int8 [R, S, H] (written at row
 // clip(*pos, 0, S - 1)); k_new, v_new int8 [R, H]; lengths int32 [B]; pos
 // int32 [1] on the device; out [R, G, H] f32 or bf16 (out_bf16); compute
-// aeqt::kF32, kBF16 or kInt8. Returns aeqt::kShapeRefused unless
-// H % 16 == 0, 1024 % H == 0, S % 32 == 0, the G x S scores fit in shared
-// memory and (int8) G * H / 4 + G <= aeqt::kRedFloats.
+// aeqt::kF32, kBF16 or kInt8. The split core where it takes the shape, else
+// the one-block kernel; returns aeqt::kShapeRefused (nothing launched)
+// unless S % 32 == 0 and, on the one-block kernel, H % 16 == 0,
+// 1024 % H == 0, the G x S scores fit in shared memory and (int8)
+// G * H / 4 + G <= aeqt::kRedFloats.
 extern "C" int aeqt_attention_writeback(const void* q, void* k, void* v,
                                         const void* k_new, const void* v_new,
                                         const void* lengths, const void* pos,
@@ -162,11 +226,58 @@ extern "C" int aeqt_attention_writeback(const void* q, void* k, void* v,
                                         float zp_k, float zp_v,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16)
-    return launch_mode<__nv_bfloat16>(compute, q, k, v, k_new, v_new,
-                                      lengths, pos, out, R, NK, G, S, H,
-                                      k_scale_eff, v_scale, zp_k, zp_v, s);
-  return launch_mode<float>(compute, q, k, v, k_new, v_new, lengths, pos, out,
-                            R, NK, G, S, H, k_scale_eff, v_scale, zp_k, zp_v,
-                            s);
+  if (S % 32 != 0) return aeqt::kShapeRefused;
+  const Kernel kernel = kernel_for(compute, R, G, S, H);
+  if (kernel == nullptr) {
+    if (out_bf16)
+      return launch_mode<__nv_bfloat16>(compute, q, k, v, k_new, v_new,
+                                        lengths, pos, out, R, NK, G, S, H,
+                                        k_scale_eff, v_scale, zp_k, zp_v, s);
+    return launch_mode<float>(compute, q, k, v, k_new, v_new, lengths, pos,
+                              out, R, NK, G, S, H, k_scale_eff, v_scale, zp_k,
+                              zp_v, s);
+  }
+  Args a = {};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const int8_t*>(k);
+  a.v = static_cast<const int8_t*>(v);
+  a.k_new = static_cast<const int8_t*>(k_new);
+  a.v_new = static_cast<const int8_t*>(v_new);
+  a.pos = static_cast<const int*>(pos);
+  a.out = out;
+  a.out_bf16 = out_bf16;
+  a.lengths = static_cast<const int*>(lengths);
+  a.NK = NK;
+  a.G = G;
+  a.S = S;
+  a.ks = k_scale_eff;
+  a.v_scale = v_scale;
+  a.zp_k = zp_k;
+  a.zp_v = zp_v;
+  return aeqt::split::launch(kernel, a, plan_of(kernel, compute, R, G, S, H),
+                             R, s);
+}
+
+// The launch of a shape (chip_smoke.SPLIT_PLAN_FIELDS: cluster size, rows,
+// cache rows a CTA, threads, shared memory); a shape on the one-block
+// kernel gives cluster 0, R blocks of all S rows and its shared memory.
+extern "C" int aeqt_attention_writeback_plan(int R, int G, int S, int H,
+                                             int compute, long long* fields) {
+  if (S % 32 != 0) return aeqt::kShapeRefused;
+  const Kernel kernel = kernel_for(compute, R, G, S, H);
+  if (kernel != nullptr) {
+    aeqt::split::plan_fields(plan_of(kernel, compute, R, G, S, H), R, fields);
+    return 0;
+  }
+  const size_t smem = aeqt::scores_smem_floats(G, S, H) * sizeof(float);
+  if (compute < aeqt::kF32 || compute > aeqt::kInt8 ||
+      !aeqt::head_dim_fits(H) || !aeqt::compute_fits(compute, G, H) ||
+      !aeqt::smem_fits(smem))
+    return aeqt::kShapeRefused;
+  fields[0] = 0;
+  fields[1] = R;
+  fields[2] = S;
+  fields[3] = aeqt::kAttnThreads;
+  fields[4] = (long long)smem;
+  return 0;
 }

@@ -47,17 +47,19 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      (cache_mode_kernels): the blockwise packed matmul at every FC shape of
      Gemma-2B (decode and prefill rows, block 128, and block 256 at one
      shape; bf16 and f32 x, with and without a bias), the splice attention
-     at bench.py's shape (pos 896, 0, 31, 32, 1023; pools bit for bit),
+     at bench.py's shape (pos 896, 0, 31, 32, 127, 128, 1023) and at B 64
+     (pos 896), pools bit for bit,
      the in-place row write (bit for bit, clipped starts) and the
      live-prefix attention (B 64 and 256, zero-length rows; at B 64 also
-     every length S and every length below 128); the four split-S
-     attentions of attention_split_tc.cuh (#17, #18, the lengths
-     attention #7 and the int4-group attention #10, these two timed at
-     B 64 and at bench.py's B 256, #7 in every compute mode) log each
-     shape's launch (splits, cluster, rows a CTA; cluster 0
-     for #7's and #10's one-block kernels, which take the shapes the core
-     does not) and ptxas' registers, and #7 and #10 run at S 8192 (the
-     core's) and H 512 (the one-block kernels'); the kernels
+     every length S and every length below 128); the split-S attentions
+     of attention_split_tc.cuh (#17, #18, the lengths attention #7, the
+     stale attention #2, the splice attention #8 and the int4-group
+     attention #10, #7, #2, #8 and #10 timed at B 64 and at bench.py's
+     B 256, #7, #2 and #8 in every compute mode) log each shape's launch
+     (splits, cluster, rows a CTA; cluster 0 for a one-block kernel, which
+     takes the shapes the core does not) and ptxas' registers, and #7,
+     #2, #8 and #10 run at S 8192 (the core's) and H 512 (the one-block
+     kernels'); the kernels
      of the norm fusion and the attention block (attn_block_kernels): the
      norm-fused weight-only matmul at the QKV and gate/up shapes (M 256
      and 64, bf16 and f32 x, with and without a bias, N padded), the
@@ -71,8 +73,8 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      and the decode block (bench.py's step) in bf16 and int8 beside their
      f32 rows (mode_ctx_check; the block's codes and pools bit for bit);
      the masked attention (B 64 and 256, prefix masks with an idle row
-     and a non-prefix mask), the splice attention (bench.py's shape, a
-     zero-length row) and the epilogue (bench.py's DRQ step, B 64
+     and a non-prefix mask), the splice attention (bench.py's shape and
+     B 64, a zero-length row) and the epilogue (bench.py's DRQ step, B 64
      weight-only) in bf16 and int8, int8 bit for bit (#8's pools too);
      the basic int8 decode attention (#22, B 64 and 256, equal to the
      lengths attention's plain version with zero points 0) and the per-row
@@ -393,9 +395,11 @@ def kernel_phase(torch, port, cfg, dev, timer):
       torch.arange(S, device=dev)[None, :] < lengths[:, None], 0.0,
       float('-inf')).to(bf16).reshape(B, 1, 1, S)
   sdpa = torch.nn.functional.scaled_dot_product_attention
+  build = port['_build']
   results.append({
       'name': 'decode_attention_int8_lengths_stale', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_stale.cu',
+      'core': SPLIT_CORE,
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:695',
       'jax': 'pallas_attention.decode_attention_int8_lengths_stale',
       'wrapper': att.decode_attention_int8_lengths_stale,
@@ -409,8 +413,12 @@ def kernel_phase(torch, port, cfg, dev, timer):
       'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
       'library': 'scaled_dot_product_attention over a dequantized bf16 cache',
       'live_rows': live,
-      'bench': stale_bench(torch, att, cfg, dev, timer, gen)})
-  log(f'kernel decode_attention_int8_lengths_stale ok: err {err32}')
+      'launch': split_plan(build, 'attention_stale', B * NK, G, S, H, 0),
+      'bench': stale_bench(torch, att, build, cfg, dev, timer, gen),
+      'ptxas': ptxas_report(build, 'attention_stale',
+                            'stale_attention_split_kernel')})
+  log(f'kernel decode_attention_int8_lengths_stale ok: err {err32}, launch '
+      f'{results[-1]["launch"]}')
 
   # 3. MLP, DRQ branch, bf = 2048 (the bench's AEQT_MLP_BF), at a decode
   # step's rows and a prefill pass's rows.
@@ -515,10 +523,11 @@ def kernel_phase(torch, port, cfg, dev, timer):
   return results
 
 
-def stale_bench(torch, att, cfg, dev, timer, gen):
+def stale_bench(torch, att, build, cfg, dev, timer, gen):
   """Stale attention at bench.py's decode: BENCH_B rows, every one
   BENCH_START + 1 long (BENCH_START live cache rows), f32 compute, bf16
-  output; checked against the plain version as in the kernel phase."""
+  output; checked against the plain version as in the kernel phase, with
+  its launch (split_plan)."""
   NK, H = cfg.num_kv_heads, cfg.head_dim
   G = cfg.num_query_heads // NK
   S = cfg.max_seq_len
@@ -560,7 +569,9 @@ def stale_bench(torch, att, cfg, dev, timer, gen):
       'plain_ms': timer(
           lambda: att.decode_attention_int8_lengths_stale_plain(*args, **kw)),
       'bound_ms': b_ms, 'bound_by': b_by,
-      'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask))}
+      'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
+      'launch': split_plan(build, 'attention_stale', BENCH_B * NK, G, S, H,
+                           0)}
 
 
 def block_kernel(torch, port, cfg, dev, timer, gen):
@@ -1834,86 +1845,105 @@ def attention_lengths_mask(torch, lengths, s, dtype):
       0.0, float('-inf')).to(dtype).reshape(-1, 1, 1, s)
 
 
-def writeback_kernel(torch, att, cfg, dev, timer, gen):
+def writeback_kernel(torch, att, build, cfg, dev, timer, gen):
   """The splice attention (#8) against its plain version on the card at
   bench.py's decode shape (B 256, one KV head, G 8, H 256, S 1024), pos
-  896 and 0, 31, 32, S - 1; lengths pos + 1 but for a shorter row and a
-  zero-length one: f32 context within 1e-5 of max(max |y|, 1) (f32 sums
-  in another order over up to 1024 rows), bf16 (the executor's output)
-  within one bf16 ulp beyond that, both pools bit for bit (each side on
-  its own copies) and written in place. Timed at pos 896 beside SDPA over
-  the pools dequantized to bf16 with the lengths mask."""
+  896 and 0, 31, 32, 127, 128, S - 1, and at the server's tick batch (B 64)
+  at pos 896; lengths pos + 1 but for a shorter row and a zero-length one:
+  f32 context within 1e-5 of max(max |y|, 1) (f32 sums in another order
+  over up to 1024 rows), bf16 (the executor's output) within one bf16 ulp
+  beyond that, both pools bit for bit (each side on its own copies) and
+  written in place. Timed at pos 896 (lengths 897) at both batches beside
+  SDPA over the pools dequantized to bf16 with the lengths mask, each with
+  its launch (split_plan)."""
   NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
   G = cfg.num_query_heads // NK
-  b = BENCH_B
   bf16 = torch.bfloat16
-  q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
-  kc, vc = (torch.randint(-127, 128, (b, NK, S, H), generator=gen,
-                          device=dev).to(torch.int8) for _ in range(2))
-  kn, vn = (torch.randint(-127, 128, (b, NK, 1, H), generator=gen,
-                          device=dev).to(torch.int8) for _ in range(2))
   k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
-  checks = []
-  for pos in (BENCH_START, 0, 31, 32, S - 1):
-    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
-    lengths[1], lengths[2] = max(pos - 20, 1), 0
-    p = torch.tensor([pos], dtype=torch.int32, device=dev)
-    errs = {}
-    for out_dtype in (torch.float32, bf16):
-      gk, gv, wk, wv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-      args = (k_scale, v_scale, lengths, kn, vn, p)
-      kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=out_dtype)
-      got, ko, vo = att.decode_attention_int8_lengths_writeback(
-          q, gk, gv, *args, **kw)
-      want, _, _ = att.decode_attention_int8_lengths_writeback_plain(
-          q, wk, wv, *args, **kw)
-      sync()
-      if (ko.data_ptr(), vo.data_ptr()) != (gk.data_ptr(), gv.data_ptr()) \
-          or not (torch.equal(gk, wk) and torch.equal(gv, wv)):
-        raise AssertionError(f'splice attention pos {pos}: pools differ from '
-                             'the plain version or not in place')
-      if out_dtype == torch.float32:
-        errs['f32'] = float(torch.max(torch.abs(got - want)))
-        errs['max_abs_y'] = float(torch.max(torch.abs(want)))
-        tol = 1e-5 * max(errs['max_abs_y'], 1.0)
-      else:
-        errs['bf16_ulps'] = bf16_ulps(torch, got, want, atol=tol)
-    if errs['f32'] > tol or errs['bf16_ulps'] > 1.0:
-      raise AssertionError(f'splice attention pos {pos}: {errs}')
-    checks.append({'pos': pos, **errs})
-  lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32, device=dev)
-  p = torch.tensor([BENCH_START], dtype=torch.int32, device=dev)
-  gk, gv = kc.clone(), vc.clone()
-  args = (q, gk, gv, k_scale, v_scale, lengths, kn, vn, p)
-  kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=bf16)
-  live = NK * b * (BENCH_START + 1)
-  nbytes = q.numel() * 2 + 2 * live * H + 4 * kn.numel() + q.numel() * 2
-  b_ms, b_by = bound(nbytes, 4 * G * H * live, F32_OPS_PER_S)
-  kd = ((gk.float() - zp_k) * k_scale).to(bf16)
-  vd = ((gv.float() - zp_v) * v_scale).to(bf16)
-  amask = attention_lengths_mask(torch, lengths, S, bf16)
   sdpa = torch.nn.functional.scaled_dot_product_attention
-  log(f'kernel decode_attention_int8_lengths_writeback ok: {checks}')
+
+  def at_batch(b, positions):
+    q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
+    kc, vc = (torch.randint(-127, 128, (b, NK, S, H), generator=gen,
+                            device=dev).to(torch.int8) for _ in range(2))
+    kn, vn = (torch.randint(-127, 128, (b, NK, 1, H), generator=gen,
+                            device=dev).to(torch.int8) for _ in range(2))
+    checks = []
+    for pos in positions:
+      lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
+      lengths[1], lengths[2] = max(pos - 20, 1), 0
+      p = torch.tensor([pos], dtype=torch.int32, device=dev)
+      errs = {}
+      for out_dtype in (torch.float32, bf16):
+        gk, gv, wk, wv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        args = (k_scale, v_scale, lengths, kn, vn, p)
+        kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=out_dtype)
+        got, ko, vo = att.decode_attention_int8_lengths_writeback(
+            q, gk, gv, *args, **kw)
+        want, _, _ = att.decode_attention_int8_lengths_writeback_plain(
+            q, wk, wv, *args, **kw)
+        sync()
+        if (ko.data_ptr(), vo.data_ptr()) != (gk.data_ptr(), gv.data_ptr()) \
+            or not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+          raise AssertionError(f'splice attention B {b} pos {pos}: pools '
+                               'differ from the plain version or not in '
+                               'place')
+        if out_dtype == torch.float32:
+          errs['f32'] = float(torch.max(torch.abs(got - want)))
+          errs['max_abs_y'] = float(torch.max(torch.abs(want)))
+          tol = 1e-5 * max(errs['max_abs_y'], 1.0)
+        else:
+          errs['bf16_ulps'] = bf16_ulps(torch, got, want, atol=tol)
+      if errs['f32'] > tol or errs['bf16_ulps'] > 1.0:
+        raise AssertionError(f'splice attention B {b} pos {pos}: {errs}')
+      checks.append({'pos': pos, **errs})
+    lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32,
+                         device=dev)
+    p = torch.tensor([BENCH_START], dtype=torch.int32, device=dev)
+    gk, gv = kc.clone(), vc.clone()
+    args = (q, gk, gv, k_scale, v_scale, lengths, kn, vn, p)
+    kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=bf16)
+    live = NK * b * (BENCH_START + 1)
+    nbytes = q.numel() * 2 + 2 * live * H + 4 * kn.numel() + q.numel() * 2
+    b_ms, b_by = bound(nbytes, 4 * G * H * live, F32_OPS_PER_S)
+    kd = ((gk.float() - zp_k) * k_scale).to(bf16)
+    vd = ((gv.float() - zp_v) * v_scale).to(bf16)
+    amask = attention_lengths_mask(torch, lengths, S, bf16)
+    row = {
+        'B': b, 'live_rows': live, 'max_abs_err': max(c['f32'] for c in checks),
+        'checks': checks,
+        'ms': timer(lambda: att.decode_attention_int8_lengths_writeback(
+            *args, **kw)),
+        'plain_ms': timer(
+            lambda: att.decode_attention_int8_lengths_writeback_plain(
+                *args, **kw)),
+        'bound_ms': b_ms, 'bound_by': b_by,
+        'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
+        'launch': split_plan(build, 'attention_writeback', b * NK, G, S, H,
+                             0)}
+    log(f'kernel decode_attention_int8_lengths_writeback B {b} ok: {checks}; '
+        f'{row["ms"]:.5f} ms (plain {row["plain_ms"]:.4f}, SDPA '
+        f'{row["library_ms"]:.4f}, bound {b_ms:.4f}), launch {row["launch"]}')
+    return row
+
+  bench = at_batch(BENCH_B, (BENCH_START, 0, 31, 32, 127, 128, S - 1))
+  tick = at_batch(B, (BENCH_START,))
   return {
       'name': 'decode_attention_int8_lengths_writeback', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
                 'attention_writeback.cu',
+      'core': SPLIT_CORE,
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_attention.py:850',
       'jax': 'pallas_attention.decode_attention_int8_lengths_writeback '
              '(f32 compute)',
       'wrapper': att.decode_attention_int8_lengths_writeback, 'per_step': 0,
       'per_step_bench_splice': cfg.num_layers,
-      'max_abs_err': max(c['f32'] for c in checks), 'checks': checks,
-      'ms': timer(lambda: att.decode_attention_int8_lengths_writeback(
-          *args, **kw)),
-      'plain_ms': timer(
-          lambda: att.decode_attention_int8_lengths_writeback_plain(
-              *args, **kw)),
-      'bound_ms': b_ms, 'bound_by': b_by,
-      'library_ms': timer(lambda: sdpa(q, kd, vd, attn_mask=amask)),
+      **bench,
       'library': 'scaled_dot_product_attention over the pools dequantized '
                  'to bf16 with the lengths mask (no row write)',
-      'live_rows': live}
+      'b64': tick,
+      'ptxas': ptxas_report(build, 'attention_writeback',
+                            'splice_attention_split_kernel')}
 
 
 def dynlen_bytes(torch, att, lengths, nk, s, h, chunk=256, row_block=8):
@@ -2033,7 +2063,8 @@ def cache_mode_kernels(torch, port, cfg, dev, timer, gen):
   """The four kernels of the blockwise server and the opt-in cache modes."""
   att = port['attention']
   return [blockwise_kernel(torch, port, cfg, dev, timer, gen),
-          writeback_kernel(torch, att, cfg, dev, timer, gen),
+          writeback_kernel(torch, att, port['_build'], cfg, dev, timer,
+                           gen),
           cache_row_kernel(torch, port, cfg, dev, timer, gen),
           dynlen_kernel(torch, att, port['_build'], cfg, dev, timer, gen)]
 
@@ -2556,6 +2587,9 @@ def compute_mode_kernels(torch, port, cfg, dev, timer, gen, results):
                      4 * G * H * (live + b * NK), label)
     for mode, row in rows.items():
       row['B'], row['live_rows'] = b, live
+      row['launch'] = split_plan(port['_build'], 'attention_stale', b * NK,
+                                 G, S, H, att.compute_code(mode))
+      log(f'kernel {stale["name"]} {label} {mode} launch {row["launch"]}')
       stale.setdefault('modes', {}).setdefault(mode, {})[label] = row
 
   # #7 at the server's tick shape (a zero length too) and at bench.py's
@@ -2659,7 +2693,8 @@ def compute_mode_kernels(torch, port, cfg, dev, timer, gen, results):
         f'5e-5); {ms:.3f} ms (plain {plain_ms:.3f})')
 
   masked_mode_rows(torch, att, cfg, dev, by_name, randint, attn_rows, gen)
-  writeback_mode_rows(torch, att, cfg, dev, timer, by_name, randint, gen)
+  writeback_mode_rows(torch, att, cfg, dev, timer, by_name, randint, gen,
+                      port['_build'])
   oproj_mode_rows(torch, port, cfg, dev, timer, by_name, randint, gen)
 
 
@@ -2703,71 +2738,84 @@ def masked_mode_rows(torch, att, cfg, dev, by_name, randint, attn_rows, gen):
             f'{label} {mname}'] = r
 
 
-def writeback_mode_rows(torch, att, cfg, dev, timer, by_name, randint, gen):
+def writeback_mode_rows(torch, att, cfg, dev, timer, by_name, randint, gen,
+                        build):
   """#8 in bf16 and int8 at bench.py's decode shape (B 256, S 1024, pos
-  896): lengths 897, a shorter row (876) and a zero-length one (every row
-  at 1/S, the spliced one among them; in int8 every code 0 at S 1024).
-  Each side on its own copies of the pools: both pools bit for bit and
-  written in place; the context (f32 out) by mode_ctx_check, int8 bit for
-  bit, the bf16 out (the executor's) int8 bit for bit too. Timed at
-  lengths 897 with bf16 out, as the f32 row."""
+  896) and at the server's tick batch (B 64, `b64`): lengths 897, a shorter
+  row (876) and a zero-length one (every row at 1/S, the spliced one among
+  them; in int8 every code 0 at S 1024). Each side on its own copies of
+  the pools: both pools bit for bit and written in place; the context (f32
+  out) by mode_ctx_check, int8 bit for bit, the bf16 out (the executor's)
+  int8 bit for bit too. Timed at lengths 897 with bf16 out, as the f32
+  row, with its launch (split_plan)."""
   NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
   G = cfg.num_query_heads // NK
-  b, bf16 = BENCH_B, torch.bfloat16
+  bf16 = torch.bfloat16
   row = by_name['decode_attention_int8_lengths_writeback']
   k_scale, v_scale, zp_k, zp_v = 0.06, 0.06, 3.0, -2.0
-  q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
-  kc, vc = randint(b, NK, S, H), randint(b, NK, S, H)
-  kn, vn = randint(b, NK, 1, H), randint(b, NK, 1, H)
-  p = torch.tensor([BENCH_START], dtype=torch.int32, device=dev)
-  lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32, device=dev)
-  checked = lengths.clone()
-  checked[1], checked[2] = BENCH_START - 20, 0
-  live = NK * b * (BENCH_START + 1)
-  nbytes = q.numel() * 2 + 2 * live * H + 4 * kn.numel() + q.numel() * 2
-  for mode in COMPUTE_MODES:
-    errs = {}
-    for out_dtype in (torch.float32, bf16):
-      gk, gv, wk, wv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-      args = (k_scale, v_scale, checked, kn, vn, p)
-      kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=out_dtype,
-                compute=mode)
-      got, ko, vo = att.decode_attention_int8_lengths_writeback(
-          q, gk, gv, *args, **kw)
-      want, _, _ = att.decode_attention_int8_lengths_writeback_plain(
-          q, wk, wv, *args, **kw)
-      sync()
-      if (ko.data_ptr(), vo.data_ptr()) != (gk.data_ptr(), gv.data_ptr()) \
-          or not (torch.equal(gk, wk) and torch.equal(gv, wv)):
-        raise AssertionError(f'splice attention {mode}: pools differ from '
-                             'the plain version or not in place')
-      if out_dtype == torch.float32:
-        errs['max_abs_err'], errs['rows_beyond_fine'], errs['rows'] = \
-            mode_ctx_check(torch, got, want, mode, v_scale, zp_v,
-                           'splice attention bench')
+  for b in (BENCH_B, B):
+    q = torch.randn((b, NK, G, H), generator=gen, device=dev).to(bf16)
+    kc, vc = randint(b, NK, S, H), randint(b, NK, S, H)
+    kn, vn = randint(b, NK, 1, H), randint(b, NK, 1, H)
+    p = torch.tensor([BENCH_START], dtype=torch.int32, device=dev)
+    lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32,
+                         device=dev)
+    checked = lengths.clone()
+    checked[1], checked[2] = BENCH_START - 20, 0
+    live = NK * b * (BENCH_START + 1)
+    nbytes = q.numel() * 2 + 2 * live * H + 4 * kn.numel() + q.numel() * 2
+    for mode in COMPUTE_MODES:
+      errs = {}
+      for out_dtype in (torch.float32, bf16):
+        gk, gv, wk, wv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        args = (k_scale, v_scale, checked, kn, vn, p)
+        kw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=out_dtype,
+                  compute=mode)
+        got, ko, vo = att.decode_attention_int8_lengths_writeback(
+            q, gk, gv, *args, **kw)
+        want, _, _ = att.decode_attention_int8_lengths_writeback_plain(
+            q, wk, wv, *args, **kw)
+        sync()
+        if (ko.data_ptr(), vo.data_ptr()) != (gk.data_ptr(), gv.data_ptr()) \
+            or not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+          raise AssertionError(f'splice attention B {b} {mode}: pools differ '
+                               'from the plain version or not in place')
+        if out_dtype == torch.float32:
+          errs['max_abs_err'], errs['rows_beyond_fine'], errs['rows'] = \
+              mode_ctx_check(torch, got, want, mode, v_scale, zp_v,
+                             f'splice attention B {b}')
+        else:
+          errs['bf16_out_max_abs_err'] = float(torch.max(torch.abs(
+              got.float() - want.float())))
+      if mode == 'int8' and (errs['max_abs_err'] or
+                             errs['bf16_out_max_abs_err']):
+        raise AssertionError(f'splice attention B {b} int8: {errs}, not bit '
+                             'for bit')
+      gk, gv = kc.clone(), vc.clone()
+      targs = (q, gk, gv, k_scale, v_scale, lengths, kn, vn, p)
+      tkw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=bf16,
+                 compute=mode)
+      b_ms, b_by = bound(nbytes, 4 * G * H * live, MODE_OPS_PER_S[mode])
+      r = {
+          **errs, 'pools_equal': True, 'B': b, 'live_rows': live,
+          'ms': timer(lambda: att.decode_attention_int8_lengths_writeback(
+              *targs, **tkw)),
+          'plain_ms': timer(
+              lambda: att.decode_attention_int8_lengths_writeback_plain(
+                  *targs, **tkw)),
+          'bound_ms': b_ms, 'bound_by': b_by,
+          'launch': split_plan(build, 'attention_writeback', b * NK, G, S, H,
+                               att.compute_code(mode))}
+      modes = row.setdefault('modes', {})
+      if b == BENCH_B:
+        modes[mode] = r
       else:
-        errs['bf16_out_max_abs_err'] = float(torch.max(torch.abs(
-            got.float() - want.float())))
-    if mode == 'int8' and (errs['max_abs_err'] or
-                           errs['bf16_out_max_abs_err']):
-      raise AssertionError(f'splice attention int8: {errs}, not bit for bit')
-    gk, gv = kc.clone(), vc.clone()
-    targs = (q, gk, gv, k_scale, v_scale, lengths, kn, vn, p)
-    tkw = dict(k_zero_point=zp_k, v_zero_point=zp_v, out_dtype=bf16,
-               compute=mode)
-    b_ms, b_by = bound(nbytes, 4 * G * H * live, MODE_OPS_PER_S[mode])
-    r = row.setdefault('modes', {})[mode] = {
-        **errs, 'pools_equal': True, 'B': b, 'live_rows': live,
-        'ms': timer(lambda: att.decode_attention_int8_lengths_writeback(
-            *targs, **tkw)),
-        'plain_ms': timer(
-            lambda: att.decode_attention_int8_lengths_writeback_plain(
-                *targs, **tkw)),
-        'bound_ms': b_ms, 'bound_by': b_by}
-    log(f'kernel decode_attention_int8_lengths_writeback bench {mode} ok: '
-        f'pools equal, err {r["max_abs_err"]:.3g} ({r["rows_beyond_fine"]} '
-        f'of {r["rows"]} rows beyond {MODE_RTOL:g}); {r["ms"]:.4f} ms (plain '
-        f'{r["plain_ms"]:.4f}, bound {b_ms:.4f})')
+        modes[mode]['b64'] = r
+      log(f'kernel decode_attention_int8_lengths_writeback B {b} {mode} ok: '
+          f'pools equal, err {r["max_abs_err"]:.3g} ({r["rows_beyond_fine"]} '
+          f'of {r["rows"]} rows beyond {MODE_RTOL:g}); {r["ms"]:.4f} ms '
+          f'(plain {r["plain_ms"]:.4f}, bound {b_ms:.4f}), launch '
+          f'{r["launch"]}')
 
 
 def oproj_mode_rows(torch, port, cfg, dev, timer, by_name, randint, gen):
@@ -3091,12 +3139,14 @@ def int4g_f64(torch, att, q, kp, vp, sidecar, lengths, group):
 
 
 def split_edge_shapes(torch, att, build, dev, gen, results):
-  """#7 and #10 off the main path's shapes, each against its plain version
-  with its launch (split_plan), into the kernel's `edge_shapes`: S 8192,
-  which the split core takes (a slice's scores fit; the one-block kernels
-  refused it, G x S scores past shared memory), and H 512, which goes to
-  the one-block kernels by the entry points' fixed rule (cluster 0). #7 in
-  f32 within 1e-5 * max(|y|, 1) and in int8 bit for bit; #10 by
+  """#7, #2, #8 and #10 off the main path's shapes, each against its plain
+  version with its launch (split_plan), into the kernel's `edge_shapes`: S
+  8192, which the split core takes (a slice's scores fit; the one-block
+  kernels refused it, G x S scores past shared memory), and H 512, which
+  goes to the one-block kernels by the entry points' fixed rule (cluster
+  0). #7, #2 and #8 in f32 within 1e-5 * max(|y|, 1) and in int8 bit for
+  bit (#2 with a row of no stale row, #8 at a pos in a later slice with a
+  zero-length row and its pools bit for bit); #10 by
   int4g_ctx_ok against the plain version at H 512 and against an f64 run of
   the same function (int4g_f64) at S 8192, and there within
   INT4G_CTX_RTOL of the plain version: over thousands of live rows the
@@ -3130,6 +3180,42 @@ def split_edge_shapes(torch, att, build, dev, gen, results):
       by_name['decode_attention_int8_lengths'].setdefault(
           'edge_shapes', []).append(row)
       log(f'kernel decode_attention_int8_lengths edge shape ok: {row}')
+    kn, vn = (torch.randint(-127, 128, (b, 1, 1, h), generator=gen,
+                            device=dev).to(torch.int8) for _ in range(2))
+    lengths[1] = 0  # #2: the new column alone; #8: every V row read
+    pos = torch.tensor([s // 2 + 5], dtype=torch.int32, device=dev)
+    for mode in ('f32', 'int8'):
+      stale = att.decode_attention_int8_lengths_stale(
+          *args[:5], lengths, kn, vn, compute=mode, **kw)
+      stale_want = att.decode_attention_int8_lengths_stale_plain(
+          *args[:5], lengths, kn, vn, compute=mode, **kw)
+      gk, gv, wk, wv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+      splice, _, _ = att.decode_attention_int8_lengths_writeback(
+          q, gk, gv, 0.06, 0.06, lengths, kn, vn, pos, compute=mode, **kw)
+      splice_want, _, _ = att.decode_attention_int8_lengths_writeback_plain(
+          q, wk, wv, 0.06, 0.06, lengths, kn, vn, pos, compute=mode, **kw)
+      sync()
+      if not (torch.equal(gk, wk) and torch.equal(gv, wv)):
+        raise AssertionError(f'splice attention S {s} H {h} {mode}: pools '
+                             'differ from the plain version')
+      for name, lib, got, want in (
+          ('decode_attention_int8_lengths_stale', 'attention_stale', stale,
+           stale_want),
+          ('decode_attention_int8_lengths_writeback', 'attention_writeback',
+           splice, splice_want)):
+        err = float(torch.max(torch.abs(got - want)))
+        ymax = float(torch.max(torch.abs(want)))
+        if err > (0.0 if mode == 'int8' else 1e-5 * max(ymax, 1.0)):
+          raise AssertionError(f'{name} S {s} H {h} {mode}: err {err}, max '
+                               f'|y| {ymax}')
+        row = {'B': b, 'S': s, 'H': h, 'compute': mode, 'max_abs_err': err,
+               'lengths': lengths.tolist(),
+               'launch': split_plan(build, lib, b, 8, s, h,
+                                    att.compute_code(mode))}
+        if lib == 'attention_writeback':
+          row.update(pos=int(pos), pools_equal=True)
+        by_name[name].setdefault('edge_shapes', []).append(row)
+        log(f'kernel {name} edge shape ok: {row}')
   for b, s, h in ((2, 8192, 256), (2, 256, 512)):
     q = torch.randn((b, 1, 8, h), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -3349,10 +3435,10 @@ FLASH_CASES = (('h64', 2, 1, 128, 256, 64, 1, 'bfloat16', 'float32'),
                 'bfloat16'))
 
 
-# The split-S decode attentions (#17, #18, #7, #10): their shared core and
-# the launch fields of its plan (csrc/attention_split_tc.cuh plan_fields; a
-# cluster of 0 is #7's or #10's one-block kernel, for a shape the core does
-# not take).
+# The split-S decode attentions (#17, #18, #7, #2, #8, #10, #21): their
+# shared core and the launch fields of its plan (csrc/attention_split_tc.cuh
+# plan_fields; a cluster of 0 is a one-block kernel, for a shape the core
+# does not take).
 SPLIT_CORE = 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_split_tc.cuh'
 SPLIT_PLAN_FIELDS = ('cluster', 'grid_y', 'rows', 'threads', 'smem_bytes')
 
@@ -3360,7 +3446,8 @@ SPLIT_PLAN_FIELDS = ('cluster', 'grid_y', 'rows', 'threads', 'smem_bytes')
 def split_plan(build, lib, *dims):
   """The launch of #17 (lib 'attention_masked', dims R, G, S, H and the
   compute code), #18 ('attention_dynlen', R, G, S, H), #7
-  ('attention_lengths', R, G, S, H, compute code), #10
+  ('attention_lengths', R, G, S, H, compute code), #2 ('attention_stale',
+  the same), #8 ('attention_writeback', the same), #10
   ('attention_int4_group', R, G, S, H, group) or #21
   ('attention_int4_row', R, G, S, H): the cluster size (the splits, grid
   x; 0 for a one-block kernel), grid y (rows), cache rows a CTA, threads,

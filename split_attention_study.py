@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Measurements behind the lengths (#7), int4-group (#10) and per-row
-int4 (#21) decode attentions on the split-S core
-(csrc/attention_split_tc.cuh), on one NVIDIA GPU. Each prints one JSON
-line per measurement.
+"""Measurements behind the lengths (#7), stale (#2), splice (#8),
+int4-group (#10) and per-row int4 (#21) decode attentions on the split-S
+core (csrc/attention_split_tc.cuh), on one NVIDIA GPU. Each prints one
+JSON line per measurement.
 
   python3 split_attention_study.py [--root CHECKOUT] [times] [order] [truth]
 
 times  #7 at the server's tick (B 64, random lengths) and at bench.py's
-       decode (B 256, 897 rows), every compute mode, bf16 out; #10 at
+       decode (B 256, 897 rows), every compute mode, bf16 out; #2 at B 64
+       (random lengths, rows 1 and S: chip_smoke's kernel phase) and at
+       bench.py's decode (897 long: 896 stale rows), #8 at pos 896 with
+       lengths 897 at both batches, every compute mode, bf16 out; #10 at
        bench.py's decode and the server's tick; #21 at the A/B tool's
        shape (B 256, lengths S - 2) and at B 64 with lengths 0..S
        (chip_smoke.int4_row_kernel's inputs), f32 out; CUDA-event medians
@@ -16,8 +19,10 @@ times  #7 at the server's tick (B 64, random lengths) and at bench.py's
        can be timed in turns on one card.
 order  the share of the plain versions' f32 matmul outputs on the card
        (#7's q . k, #10's q . K and its offset term, #21's two half dots as
-       its plain version slices them) equal to one f32 FMA chain over the
-       contraction in increasing order.
+       its plain version slices them, #2's one-column q . k_new) equal to
+       one f32 FMA chain over the contraction in increasing order; for #2's
+       q . k_new also the share equal to the kernel's order
+       (new_column_order in the header) at R 1, 64, 65 and 256.
 truth  #7's f32 context at B 64 (chip_smoke.lengths_kernel's inputs, eight
        seeds) against an f64 run of the same function, for the plain
        version and the kernel, and the two against each other.
@@ -58,6 +63,31 @@ def times(torch, cs, att):
       emit(kernel='decode_attention_int8_lengths', B=b, compute=mode,
            ms=timer(lambda: att.decode_attention_int8_lengths(
                q, kc, vc, K_SCALE, V_SCALE, lens, compute=mode, **kw)))
+  for b in (B, BENCH_B):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    kc, vc = (torch.randint(-127, 128, (b, 1, S, H), generator=gen,
+                            device='cuda').to(torch.int8) for _ in range(2))
+    kn, vn = (torch.randint(-127, 128, (b, 1, 1, H), generator=gen,
+                            device='cuda').to(torch.int8) for _ in range(2))
+    if b == B:
+      lens = torch.randint(1, S + 1, (b,), generator=gen, device='cuda').to(
+          torch.int32)
+      lens[0], lens[1] = 1, S
+    else:
+      lens = torch.full((b,), BENCH_ROWS, dtype=torch.int32, device='cuda')
+    rows = torch.full((b,), BENCH_ROWS, dtype=torch.int32, device='cuda')
+    pos = torch.tensor([BENCH_ROWS - 1], dtype=torch.int32, device='cuda')
+    for mode in ('f32', 'bf16', 'int8'):
+      emit(kernel='decode_attention_int8_lengths_stale', B=b, compute=mode,
+           ms=timer(lambda: att.decode_attention_int8_lengths_stale(
+               q, kc, vc, K_SCALE, V_SCALE, lens, kn, vn, compute=mode,
+               **kw)))
+      emit(kernel='decode_attention_int8_lengths_writeback', B=b,
+           compute=mode,
+           ms=timer(lambda: att.decode_attention_int8_lengths_writeback(
+               q, kc, vc, K_SCALE, V_SCALE, rows, kn, vn, pos, compute=mode,
+               **kw)))
   for b in (BENCH_B, B):
     q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(
         torch.bfloat16)
@@ -89,6 +119,40 @@ def chain(torch, a, b):
   return acc
 
 
+def new_column(torch, a, b, r):
+  """a [..., G, H] . b [..., 1, H] -> [..., G] in the stale kernel's order
+  of the new column at R = r rows (attention_split_tc.cuh
+  new_column_order): `parts` f32 FMA chains, then added as a butterfly or
+  in order."""
+  h = a.shape[-1]
+  if r == 1:
+    parts, strided, butterfly = 32, False, True
+  elif r <= 64:
+    parts, strided, butterfly = min(16, h // 8), False, True
+  elif h == 64:
+    parts, strided, butterfly = 4, True, True
+  else:
+    parts, strided, butterfly = 16, True, False
+  n = h // parts
+  idx = torch.tensor([[l + parts * i if strided else l * n + i
+                       for i in range(n)] for l in range(parts)],
+                     device=a.device)
+  x = a[..., idx].double()              # [..., G, parts, n]
+  y = b[..., 0, :][..., idx].double()   # [..., parts, n]
+  acc = torch.zeros(x.shape[:-1], device=a.device)
+  for i in range(n):
+    acc = (acc.double() + x[..., i] * y[..., None, :, i]).float()
+  if butterfly:
+    while acc.shape[-1] > 1:
+      half = acc.shape[-1] // 2
+      acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+  total = acc[..., 0]
+  for l in range(1, parts):
+    total = total + acc[..., l]
+  return total
+
+
 def order(torch, cs, att):
   gen = torch.Generator(device='cuda').manual_seed(0)
   for b in (B, BENCH_B):
@@ -118,6 +182,18 @@ def order(torch, cs, att):
       emit(study='order', B=b, matmul=what,
            share_equal_to_chain=float((chain(torch, x, y) == mm).double()
                                       .mean()))
+  # #2's new column: the plain version's [G, H] . [H, 1] matmul per row.
+  for b in (1, B, B + 1, BENCH_B):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(
+        torch.bfloat16).float()
+    kn = torch.randint(-127, 128, (b, 1, 1, H), generator=gen,
+                       device='cuda').to(torch.int8).float()
+    mm = att._qdot(q, kn)[..., 0]
+    emit(study='order', B=b, matmul='#2 q . k_new',
+         share_equal_to_chain=float((chain(torch, q, kn)[..., 0] == mm)
+                                    .double().mean()),
+         share_equal_to_kernel=float((new_column(torch, q, kn, b) == mm)
+                                     .double().mean()))
 
 
 def truth(torch, cs, att):
@@ -168,8 +244,9 @@ def main():
   import chip_smoke as cs
   from ai_edge_quantizer_tpu_torch.kernels import _build
   from ai_edge_quantizer_tpu_torch.kernels import attention as att
-  # Only the two kernels' libraries are built.
-  _build.SOURCES = ('attention_lengths', 'attention_int4_group',
+  # Only the studied kernels' libraries are built.
+  _build.SOURCES = ('attention_lengths', 'attention_stale',
+                    'attention_writeback', 'attention_int4_group',
                     'attention_int4_row')
   _build.build(_build.SOURCES)
   torch.backends.cuda.matmul.allow_tf32 = False
