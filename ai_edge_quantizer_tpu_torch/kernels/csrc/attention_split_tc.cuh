@@ -777,7 +777,7 @@ __device__ __forceinline__ void score_chunk_chain(const Args& a,
 
 // The order of the stale form's new column q . k_new (f32 and bf16 modes):
 // the plain version's one-column matmul, a batched [G, H] . [H, 1] product
-// over R = B * NK rows, on the H100 (split_attention_study.py order, every
+// over R = B * NK rows, on the H100 (kernel_study.py order, every
 // output equal): `parts` partial FMA chains over h in increasing order,
 // then added. One row: 32 contiguous runs of H / 32, added as a butterfly
 // (part l with l + parts / 2, then on down); up to 64 rows: min(16, H / 8)

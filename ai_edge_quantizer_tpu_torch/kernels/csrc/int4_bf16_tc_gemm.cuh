@@ -1,5 +1,7 @@
 // Bf16 tensor-core core of the weight-only packed int4 matmuls (#12
-// qmatmul_int4_weight_only.cu, #13 qmatmul_int4_blockwise.cu) on Hopper:
+// qmatmul_int4_weight_only.cu, #13 qmatmul_int4_blockwise.cu; the MLP's
+// weight-only branch #3, mlp_int4_bf16.cu, policies GateUpScale and
+// GroupSum) on Hopper:
 //   y[M, N] = x[M, K] (bf16) . unpack(w[N, K/2])^T, f32 sums, one scale
 //   policy, y stored as bf16.
 // The weight is split-half packed: byte j of a row holds column j in its
@@ -80,21 +82,6 @@ constexpr int kNT1 = 64;         // tokens a tile at decode rows (M <= 64)
 constexpr size_t kSmemBudget = 232448 - 1024;  // opt-in maximum less static
 // Dynamic shared memory of a block where two share an SM (one warpgroup).
 constexpr size_t kSmemHalf = 114688 - 1024;
-
-// Spins until the barrier's phase of the given parity has completed. The
-// loop lives inside the asm, so that the compiler sees no divergent path
-// between a wgmma and its wait (it would serialize every wgmma).
-__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma that owns them.
@@ -240,6 +227,8 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 // #12: one scale per weight row; lo and hi staged apart.
 struct ChannelScale {
   static constexpr bool kBlocks = false;
+  static constexpr bool kGateUp = false;
+  static constexpr bool kGrouped = false;
   static constexpr int kEpiTiles = 2;  // lo and hi sums staged
   // Tokens a tile at two warpgroups (prefill rows). Two accumulators of
   // 128 and the A fragments crowd the 168 registers a thread of a
@@ -251,9 +240,39 @@ struct ChannelScale {
 // #13: one scale per weight row and block of bs K-columns; y staged.
 struct BlockScale {
   static constexpr bool kBlocks = true;
+  static constexpr bool kGateUp = false;
+  static constexpr bool kGrouped = false;
   static constexpr int kEpiTiles = 1;
   // 64: three accumulators (y, lo, hi) of 128 tokens would not fit the 168
   // registers a thread of a 288-thread block may hold.
+  static constexpr int kNT2 = 64;
+};
+
+// #3's gate/up (mlp_int4_bf16.cu): N = 2F weight rows, gate rows then up
+// rows. A block's weight tile holds gate rows f0 .. f0 + kRows/2 - 1 in its
+// first half and up rows F + f0 .. in its second (two TMA boxes), so the
+// epilogue finds gate and up of one column in its staged lo and hi tiles
+// and stores h = bf16(act(gate) * up) [M, F], gate = (lo + hi) * s_g, up
+// = (lo + hi) * s_u. The activation comes in `nb` (1: silu, else
+// gelu-tanh). K never splits (make_plan): at F 16384 there are 512 tiles.
+// ChannelScale's tiles: two warpgroups of 64 tokens at every M (half the
+// x tiles' reads from L2 at decode) were no faster at decode and slower
+// at M 256 and 1024 on the H100.
+struct GateUpScale : ChannelScale {
+  static constexpr bool kGateUp = true;
+};
+
+// #3's down (mlp_int4_bf16.cu): group-split packed weights (byte j of
+// group g, bs = bf/2 bytes a group, holds column g*bf + j in its low
+// nibble and g*bf + bf/2 + j in its high one): the x tiles of a step come
+// from columns j0 + g*bf/2 and that + bf/2, and at each group's end y +=
+// lo + hi (BlockScale's flush with unit scales: lo * 1 + hi * 1 is lo +
+// hi), then y * s[n]. K splits in whole groups.
+struct GroupSum {
+  static constexpr bool kBlocks = true;
+  static constexpr bool kGateUp = false;
+  static constexpr bool kGrouped = true;
+  static constexpr int kEpiTiles = 1;
   static constexpr int kNT2 = 64;
 };
 
@@ -314,17 +333,44 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   }
   __syncthreads();
 
+  // The MLP's gate/up lets the down (its programmatic dependent launch)
+  // start now; the down brings its first stages' weights, then waits for
+  // the gate/up's h before any x tile.
+  if constexpr (P::kGateUp)
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   if (warp == kConsumers / 32) {  // the producer warp: one thread loads
     if (lane == 0) {
+      int early = 0;  // GroupSum: stages whose weights are loaded already
+      if constexpr (P::kGrouped) {
+        early = min(nk, stages);
+        for (int i = 0; i < early; ++i) {
+          uint8_t* st = ring + (size_t)i * G::kStage;
+          mbar_expect_tx(&full_bar[i], (uint32_t)G::kStage);
+          tma_load_2d(st + 2 * G::kX, &w_map, (first + i) * kStepBytes, n0,
+                      &full_bar[i]);
+        }
+        griddep_wait();
+      }
       for (int i = 0; i < nk; ++i) {
         const int s = i % stages;
         uint8_t* st = ring + (size_t)s * G::kStage;
         if (i >= stages) mbar_wait(&empty_bar[s], ((i / stages) - 1) & 1);
-        mbar_expect_tx(&full_bar[s], (uint32_t)G::kStage);
+        if (i >= early) mbar_expect_tx(&full_bar[s], (uint32_t)G::kStage);
         const int j0 = (first + i) * kStepBytes;
-        tma_load_2d(st, &x_map, j0, m0, &full_bar[s]);
-        tma_load_2d(st + G::kX, &x_map, K / 2 + j0, m0, &full_bar[s]);
-        tma_load_2d(st + 2 * G::kX, &w_map, j0, n0, &full_bar[s]);
+        int x_lo = j0, x_hi = K / 2 + j0;
+        if constexpr (P::kGrouped) {  // the step's group g: j0 + g * bf/2
+          x_lo = j0 + ((first + i) / block_steps) * block_steps * kStepBytes;
+          x_hi = x_lo + block_steps * kStepBytes;
+        }
+        tma_load_2d(st, &x_map, x_lo, m0, &full_bar[s]);
+        tma_load_2d(st + G::kX, &x_map, x_hi, m0, &full_bar[s]);
+        if constexpr (P::kGateUp) {  // gate rows f0 .., then up rows F + f0 ..
+          tma_load_2d(st + 2 * G::kX, &w_map, j0, n0 / 2, &full_bar[s]);
+          tma_load_2d(st + 2 * G::kX + (G::kRows / 2) * kStepBytes, &w_map,
+                      j0, N / 2 + n0 / 2, &full_bar[s]);
+        } else if (i >= early) {
+          tma_load_2d(st + 2 * G::kX, &w_map, j0, n0, &full_bar[s]);
+        }
       }
     }
     __syncwarp();
@@ -344,25 +390,36 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   for (int i = 0; i < (P::kBlocks ? kAcc : 1); ++i) y[i] = 0.0f;
   // BlockScale: the current byte block's scales of the thread's two weight
   // rows (s[n, jb] and s[n, nb/2 + jb] for rows row, row + 8).
-  float slo[2] = {}, shi[2] = {};
+  // GroupSum: unit scales.
+  float slo[2] = {P::kGrouped ? 1.0f : 0.0f, P::kGrouped ? 1.0f : 0.0f};
+  float shi[2] = {P::kGrouped ? 1.0f : 0.0f, P::kGrouped ? 1.0f : 0.0f};
   // The epilogue's scales and biases of the thread's four weight rows
   // (kConsumers is a multiple of kGroups: the same rows in every item),
   // loaded now so that their latency hides behind the main loop.
   constexpr int kGroups = G::kRows / 4;  // 4 weight rows an item
   const int c4 = (threadIdx.x % kGroups) * 4, c = n0 + c4;
+  // GateUpScale: sc the gate scales, bi the up scales of the thread's four
+  // h columns (kConsumers is a multiple of kGroups / 2).
   float sc[4], bi[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int cc = min(c + e, N - 1);  // clamped: loads need no guard
-    sc[e] = P::kBlocks ? 1.0f : __ldg(scale + cc);
-    bi[e] = bias != nullptr ? __ldg(bias + cc) : 0.0f;
+    if constexpr (P::kGateUp) {
+      const int f = n0 / 2 + (threadIdx.x % (kGroups / 2)) * 4;
+      const int cc = min(f + e, N / 2 - 1);
+      sc[e] = __ldg(scale + cc);
+      bi[e] = __ldg(scale + N / 2 + cc);
+    } else {
+      const int cc = min(c + e, N - 1);  // clamped: loads need no guard
+      sc[e] = P::kBlocks && !P::kGrouped ? 1.0f : __ldg(scale + cc);
+      bi[e] = bias != nullptr ? __ldg(bias + cc) : 0.0f;
+    }
   }
 
   for (int i = 0; i < nk; ++i) {
     const int s = i % stages;
     const int step = first + i;
     const uint8_t* st = ring + (size_t)s * G::kStage;
-    if constexpr (P::kBlocks) {
+    if constexpr (P::kBlocks && !P::kGrouped) {
       if (step % block_steps == 0) {  // loads that the block's end reads
         const int jb = step / block_steps;
 #pragma unroll
@@ -436,48 +493,84 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   } else {
     bar_sync(1, kConsumers);
   }
-  for (int it = threadIdx.x; it < (tok_end - tok_begin) * kGroups;
-       it += kConsumers) {
-    const int tt = tok_begin + it / kGroups;
-    float4 t[P::kEpiTiles];
+  if constexpr (P::kGateUp) {  // one block a tile (no split)
+    constexpr int kHalf = G::kRows / 2, kItems = kHalf / 4;
+    const int F = N / 2;
+    const int f4 = (threadIdx.x % kItems) * 4, f = n0 / 2 + f4;
+    for (int it = threadIdx.x; it < NT * kItems; it += kConsumers) {
+      const int tt = it / kItems, m = m0 + tt;
+      if (m >= M || f >= F) continue;  // F % 4 == 0: f < F covers f + 3
+      const float* lo_t = tile + tt * S;
+      const float* hi_t = lo_t + G::kEpiTile / 4;
+      const float4 gl = *reinterpret_cast<const float4*>(lo_t + f4);
+      const float4 gh = *reinterpret_cast<const float4*>(hi_t + f4);
+      const float4 ul = *reinterpret_cast<const float4*>(lo_t + kHalf + f4);
+      const float4 uh = *reinterpret_cast<const float4*>(hi_t + kHalf + f4);
+      const float g0[4] = {gl.x, gl.y, gl.z, gl.w};
+      const float g1[4] = {gh.x, gh.y, gh.z, gh.w};
+      const float u0[4] = {ul.x, ul.y, ul.z, ul.w};
+      const float u1[4] = {uh.x, uh.y, uh.z, uh.w};
+      float v[4];
 #pragma unroll
-    for (int e = 0; e < P::kEpiTiles; ++e) {
-      const float* at = tile + e * (G::kEpiTile / 4) + tt * S + c4;
-      if (splits == 1) {
-        t[e] = *reinterpret_cast<const float4*>(at);
-        continue;
+      for (int e = 0; e < 4; ++e) {
+        const float gate = (g0[e] + g1[e]) * sc[e];
+        const float up = (u0[e] + u1[e]) * bi[e];
+        v[e] = (nb == 1 ? silu(gate) : gelu_tanh(gate)) * up;
       }
-      // Every split's partial in flight at once, then added in split order.
-      float4 part[kMaxSplit];
-#pragma unroll
-      for (int z = 0; z < kMaxSplit; ++z)
-        if (z < splits)
-          part[z] = *reinterpret_cast<const float4*>(cluster_map(at, z));
-      t[e] = part[0];
-#pragma unroll
-      for (int z = 1; z < kMaxSplit; ++z)
-        if (z < splits) t[e] = add4(t[e], part[z]);
+      const __nv_bfloat162 v01 = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 v23 = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 pk;
+      pk.x = *reinterpret_cast<const uint32_t*>(&v01);
+      pk.y = *reinterpret_cast<const uint32_t*>(&v23);
+      *reinterpret_cast<uint2*>(out + (size_t)m * F + f) = pk;
     }
-    const int m = m0 + tt;
-    if (m >= M || c >= N) continue;  // N % 4 == 0: c < N covers c + 3
-    const float* t0 = reinterpret_cast<const float*>(&t[0]);
-    float v[4];
+    return;
+  } else {
+    for (int it = threadIdx.x; it < (tok_end - tok_begin) * kGroups;
+         it += kConsumers) {
+      const int tt = tok_begin + it / kGroups;
+      float4 t[P::kEpiTiles];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (P::kBlocks) {
-        v[e] = t0[e];
-      } else {
-        const float acc = t0[e] + reinterpret_cast<const float*>(&t[1])[e];
-        v[e] = acc * sc[e];
+      for (int e = 0; e < P::kEpiTiles; ++e) {
+        const float* at = tile + e * (G::kEpiTile / 4) + tt * S + c4;
+        if (splits == 1) {
+          t[e] = *reinterpret_cast<const float4*>(at);
+          continue;
+        }
+        // Every split's partial in flight at once, then added in split order.
+        float4 part[kMaxSplit];
+#pragma unroll
+        for (int z = 0; z < kMaxSplit; ++z)
+          if (z < splits)
+            part[z] = *reinterpret_cast<const float4*>(cluster_map(at, z));
+        t[e] = part[0];
+#pragma unroll
+        for (int z = 1; z < kMaxSplit; ++z)
+          if (z < splits) t[e] = add4(t[e], part[z]);
       }
-      if (bias != nullptr) v[e] = v[e] + bi[e];
+      const int m = m0 + tt;
+      if (m >= M || c >= N) continue;  // N % 4 == 0: c < N covers c + 3
+      const float* t0 = reinterpret_cast<const float*>(&t[0]);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (P::kGrouped) {
+          v[e] = t0[e] * sc[e];
+        } else if constexpr (P::kBlocks) {
+          v[e] = t0[e];
+        } else {
+          const float acc = t0[e] + reinterpret_cast<const float*>(&t[1])[e];
+          v[e] = acc * sc[e];
+        }
+        if (bias != nullptr) v[e] = v[e] + bi[e];
+      }
+      const __nv_bfloat162 v01 = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 v23 = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 pk;
+      pk.x = *reinterpret_cast<const uint32_t*>(&v01);
+      pk.y = *reinterpret_cast<const uint32_t*>(&v23);
+      *reinterpret_cast<uint2*>(out + (size_t)m * N + c) = pk;
     }
-    const __nv_bfloat162 v01 = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 v23 = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 pk;
-    pk.x = *reinterpret_cast<const uint32_t*>(&v01);
-    pk.y = *reinterpret_cast<const uint32_t*>(&v23);
-    *reinterpret_cast<uint2*>(out + (size_t)m * N + c) = pk;
   }
   if (splits > 1) cluster_sync();  // no block leaves while others read it
 }
@@ -538,8 +631,10 @@ inline Plan make_plan(int M, int N, int K, int bs) {
   const int units = p.steps / unit;
   const int min_units = std::max(1, kMinSplitSteps / unit);
   const int tiles = p.m_tiles * p.n_tiles;
-  const int want = std::max(
-      1, std::min({units / min_units, sm_count() / tiles, kMaxSplit}));
+  // GroupSum at one warpgroup counts two blocks an SM.
+  const int sms = (P::kGrouped && p.wgs == 1 ? 2 : 1) * sm_count();
+  const int want = P::kGateUp ? 1 : std::max(
+      1, std::min({units / min_units, sms / tiles, kMaxSplit}));
   const int per = (units + want - 1) / want;
   p.split = (units + per - 1) / per;
   p.steps_per_split = per * unit;
@@ -580,7 +675,7 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
   if (!encode_2d(&x_map, x, 2, (uint64_t)K, (uint64_t)M, 64, (uint32_t)NT,
                  true) ||
       !encode_2d(&w_map, w, 1, (uint64_t)(K / 2), (uint64_t)N, kStepBytes,
-                 (uint32_t)G::kRows, false))
+                 (uint32_t)(P::kGateUp ? G::kRows / 2 : G::kRows), false))
     return kTensorMapFailed;
   auto* kernel = int4_bf16_tc_kernel<P, NT, WGS>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -591,13 +686,24 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
   config.blockDim = dim3(128 * WGS + 32);
   config.dynamicSmemBytes = p.smem;
   config.stream = stream;
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = 1;
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = p.split;
+  // GroupSum (the MLP's down) is a programmatic dependent launch on the
+  // gate/up before it.
+  cudaLaunchAttribute attrs[2];
+  int n_attrs = 0;
+  if (p.split > 1) {
+    attrs[n_attrs].id = cudaLaunchAttributeClusterDimension;
+    attrs[n_attrs].val.clusterDim.x = 1;
+    attrs[n_attrs].val.clusterDim.y = 1;
+    attrs[n_attrs].val.clusterDim.z = p.split;
+    ++n_attrs;
+  }
+  if (P::kGrouped) {
+    attrs[n_attrs].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attrs[n_attrs].val.programmaticStreamSerializationAllowed = 1;
+    ++n_attrs;
+  }
   config.attrs = attrs;
-  config.numAttrs = p.split > 1 ? 1 : 0;
+  config.numAttrs = n_attrs;
   return (int)cudaLaunchKernelEx(
       &config, kernel, x_map, w_map, static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M,
@@ -608,15 +714,23 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
 // packed (16-byte aligned), scale [N] (ChannelScale) or [N, K/bs]
 // (BlockScale, bs > 0) f32, bias [N] f32 or null, out [M, N] bf16. Shapes
 // are the caller's to check first (takes).
+// run_nb passes `nb` to the kernel as it is (GateUpScale's activation).
 template <class P>
-int run(const void* x, const void* w, const void* scale, const void* bias,
-        void* out, int M, int N, int K, int bs, cudaStream_t stream) {
+int run_nb(const void* x, const void* w, const void* scale, const void* bias,
+           void* out, int M, int N, int K, int bs, int nb,
+           cudaStream_t stream) {
   const Plan p = make_plan<P>(M, N, K, bs);
-  const int nb = bs > 0 ? K / bs : 1;
   if (p.wgs == 2)
     return launch<P, P::kNT2, 2>(x, w, scale, bias, out, M, N, K, nb, p,
                                  stream);
   return launch<P, kNT1, 1>(x, w, scale, bias, out, M, N, K, nb, p, stream);
+}
+
+template <class P>
+int run(const void* x, const void* w, const void* scale, const void* bias,
+        void* out, int M, int N, int K, int bs, cudaStream_t stream) {
+  return run_nb<P>(x, w, scale, bias, out, M, N, K, bs,
+                   bs > 0 ? K / bs : 1, stream);
 }
 
 // The plan as the Python wrapper reads it: grid x (token tiles), y (weight

@@ -1,5 +1,6 @@
 // Int8 tensor-core core of the DRQ matmuls (#15 qmatmul_int8_drq.cu, #6
-// qmatmul_int4_drq_kblock.cu, #1 qmatmul_int4_drq.cu) on Hopper:
+// qmatmul_int4_drq_kblock.cu, #1 qmatmul_int4_drq.cu; the DRQ MLP #3,
+// mlp_int4_drq.cu, builds its own kernels from its pieces) on Hopper:
 //   y[M, N] = (f32(xq[M, K] . B[N, K]^T) * xs[M]) * s[N] (+ b[N])
 //
 // Two launches on the caller's stream:
@@ -30,7 +31,8 @@
 //     packed [128, 128-byte] tile per stage; the consumers unpack it, byte
 //     for byte in place (the swizzle moves whole bytes, so a swizzled packed
 //     tile unpacks to two swizzled s8 tiles with the same layout) into lo
-//     and hi tiles, ((v ^ 8) - 8) per nibble with __vsub4, and contract lo
+//     and hi tiles (unpack_split_tile, each nibble sign-extended: the
+//     bytes of ((v ^ 8) - 8)), and contract lo
 //     against xq[:, kb:kb+128] and hi against xq[:, K/2+kb:K/2+kb+128].
 //
 // Exactness: |acc| <= K * 127 * 128 < 2^31 for every K the kernels are
@@ -304,6 +306,41 @@ struct Int8RowsB {
   }
 };
 
+// Four nibbles (one a byte, 0..15) sign-extended to int8 bytes, the
+// value of nib_lo / nib_hi (drq_common.cuh): a byte with bit 3 set gains
+// 0xF0 (b | 0xF0 is b - 16 mod 256), and (n & 0x08) * 0x1E is 0xF0 a
+// byte with no carry between bytes. Four integer operations where
+// nib_lo's __vsub4 form takes more (the two timed in turns:
+// kernel_study.py variants, 'vsub4').
+__device__ __forceinline__ uint32_t sign_extend_nibbles(uint32_t n) {
+  return n | ((n & 0x08080808u) * 0x1Eu);
+}
+
+// The split-half unpack (#1, #6 and both contractions of #3): the packed
+// [128, 128-byte] tile at `packed_tile` byte for byte into a lo and a hi
+// s8 tile (lo, lo + kTileBytes), in place under the swizzle, by the
+// block's `consumers` threads; then the fence that lets the async proxy
+// (wgmma) read them. The caller's barrier makes both tiles whole.
+__device__ __forceinline__ void unpack_split_tile(const uint8_t* packed_tile,
+                                                  uint8_t* lo,
+                                                  int consumers) {
+  const uint4* packed = reinterpret_cast<const uint4*>(packed_tile);
+  uint8_t* hi = lo + kTileBytes;
+  for (int v = threadIdx.x; v < kTileBytes / 16; v += consumers) {
+    const uint4 p = packed[v];
+    const uint32_t w[4] = {p.x, p.y, p.z, p.w};
+    uint32_t l[4], h[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      l[e] = sign_extend_nibbles(w[e] & 0x0F0F0F0Fu);
+      h[e] = sign_extend_nibbles((w[e] >> 4) & 0x0F0F0F0Fu);
+    }
+    reinterpret_cast<uint4*>(lo)[v] = make_uint4(l[0], l[1], l[2], l[3]);
+    reinterpret_cast<uint4*>(hi)[v] = make_uint4(h[0], h[1], h[2], h[3]);
+  }
+  fence_proxy_async();
+}
+
 // #6 and #1: B is w [N, K/2] split-half packed; a stage holds A lo [bm,
 // 128] (codes at kb), A hi [bm, 128] (codes at K/2 + kb) and the packed
 // [128, 128] tile; two unpack buffers of lo and hi s8 tiles alternate by
@@ -335,18 +372,9 @@ struct SplitNibbles {
 
   __device__ static void mma(int (&d)[64], uint8_t* st, uint8_t* unpack,
                              int step, int wg, int bm, int consumers) {
-    const uint4* packed =
-        reinterpret_cast<const uint4*>(st + 2 * (size_t)bm * kBK);
     uint8_t* lo = unpack + (size_t)(step & 1) * 2 * kTileBytes;
     uint8_t* hi = lo + kTileBytes;
-    for (int v = threadIdx.x; v < kTileBytes / 16; v += consumers) {
-      const uint4 p = packed[v];
-      reinterpret_cast<uint4*>(lo)[v] =
-          make_uint4(nib_lo(p.x), nib_lo(p.y), nib_lo(p.z), nib_lo(p.w));
-      reinterpret_cast<uint4*>(hi)[v] =
-          make_uint4(nib_hi(p.x), nib_hi(p.y), nib_hi(p.z), nib_hi(p.w));
-    }
-    fence_proxy_async();
+    unpack_split_tile(st + 2 * (size_t)bm * kBK, lo, consumers);
     bar_sync(1, consumers);  // both tiles whole before any warpgroup reads
     const uint8_t* a = st + (size_t)wg * kWgRows * kBK;
     wgmma_fence();

@@ -29,7 +29,7 @@
 //   m64n128k32 s8 against the codes at kb and at K/2 + kb. Decode's single
 //   row of tiles splits K over a cluster (make_plan). The SIMT tiles of
 //   qmatmul_int4_drq.cuh stay for the kernels that fuse them (#20
-//   qkv_rope.cu, #19 attention_oproj.cu, #3 mlp_int4_drq.cu).
+//   qkv_rope.cu, #19 attention_oproj.cu).
 #include "int8_tc_gemm.cuh"
 
 static bool takes(int M, int N, int K) {

@@ -3,11 +3,11 @@
 // qmatmul_pallas_int4_packed_drq (_int4_drq_kernel).
 //
 // Used by the kernels that fuse this matmul with other work: #20
-//   qkv_rope.cu (the QKV projection after the norm), #19
-//   attention_oproj.cu (the out-projection after the attention) and #3
-//   mlp_int4_drq.cu (the gate/up projection, with an f32 output for bf16
-//   x). The stand-alone #1 (qmatmul_int4_drq.cu) runs on the int8
-//   tensor-core core (int8_tc_gemm.cuh) instead.
+//   qkv_rope.cu (the QKV projection after the norm) and #19
+//   attention_oproj.cu (the out-projection after the attention). The
+//   stand-alone #1 (qmatmul_int4_drq.cu) and the MLP's gate/up (#3
+//   mlp_int4_drq.cu) run on the int8 tensor-core core (int8_tc_gemm.cuh)
+//   instead.
 //
 // Bound on the H100: at decode shapes (M = batch = 64, K = 2048) the
 //   weight bytes dominate: N*K/2 + M*K*2 + M*N*2 bytes over 3.35 TB/s

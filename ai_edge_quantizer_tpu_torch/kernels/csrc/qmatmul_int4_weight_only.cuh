@@ -7,11 +7,11 @@
 // layout (pallas_qmatmul.pack_int4_split); group = bf is the MLP's down
 // weight (pallas_mlp.pack_int4_split_grouped).
 //
-// Used by the fused kernels: mlp_int4_bf16.cu (the gate/up and down
-//   projections of pallas_mlp._mlp_bf16_kernel), qmatmul_int4_rmsnorm.cu,
-//   qkv_rope.cu, attention_oproj.cu and head_argmax.cu. The unfused
-//   weight-only and blockwise matmuls (#12, #13) run bf16 x on
-//   int4_bf16_tc_gemm.cuh and f32 x on qmatmul_int4_simt.cuh.
+// Used by the fused kernels: qmatmul_int4_rmsnorm.cu, qkv_rope.cu,
+//   attention_oproj.cu and head_argmax.cu. The unfused weight-only and
+//   blockwise matmuls (#12, #13) and the MLP's weight-only branch (#3,
+//   mlp_int4_bf16.cu) run bf16 x on int4_bf16_tc_gemm.cuh and f32 x on
+//   qmatmul_int4_simt.cuh.
 //
 // Arithmetic (the Pallas kernels'): x in its compute dtype (bf16 or f32)
 //   and the sign-extended nibbles are f32 operands (a bf16 value times an

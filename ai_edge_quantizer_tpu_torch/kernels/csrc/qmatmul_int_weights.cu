@@ -67,7 +67,7 @@
 //   f32 x: split_x_kernel writes the three parts into bf16 scratch [3, M,
 //   K] first; the matmul is its programmatic dependent launch, whose first
 //   weight tiles load before it waits for the parts.
-//   What bounds it (int_weights_study.py and scratch variants on the H100):
+//   What bounds it (kernel_study.py times and variants on the H100):
 //   at decode the stream of the x tiles, which every 64-row weight tile
 //   reads again from L2 (twice its weight bytes), then the widening and
 //   the flush, each some 10-20 % of the time; PERF.md §6.
@@ -503,7 +503,7 @@ inline void size_ring(Plan& p) {
 // where that needs fewer waves than two or its splits form clusters (a
 // cluster's blocks must find free slots in one GPC at once: at two an SM
 // the decode down projection's clusters of 8 did not all fit,
-// int_weights_study.py); else two, its shared memory padded past a third
+// kernel_study.py times); else two, its shared memory padded past a third
 // of the SM's (three a slower wave of the same count: gate/up's 512).
 inline Plan make_plan(int M, int N, int K, int bs, int parts) {
   Plan p;

@@ -1,13 +1,14 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (int8_tc_gemm.cuh: #15, #6, #1; int4_bf16_tc_gemm.cuh: #12, #13;
-// qmatmul_int_weights.cu: #16; flash_attention_int8.cu: #9;
-// attention_split_tc.cuh: #17, #18, #7, #10, #21): shared
-// memory addresses, mbarriers, TMA loads (cp.async.bulk.tensor, and the
-// 1-D cp.async.bulk), cluster barriers and distributed shared memory,
-// named barriers, the async-proxy fence, the wgmma shared-memory
-// descriptor of a 128-byte-swizzled tile and wgmma's fence / commit /
-// wait, and the tensor-map encoder reached through the runtime (no driver
-// library is linked).
+// (int8_tc_gemm.cuh: #15, #6, #1, #3 DRQ; int4_bf16_tc_gemm.cuh: #12,
+// #13, #3 weight-only; qmatmul_int_weights.cu: #16;
+// flash_attention_int8.cu: #9; attention_split_tc.cuh: #17, #18, #7, #10,
+// #21, #22): shared memory addresses, mbarriers (a spin in C++, and one
+// inside an asm block for waits between a wgmma and its wait), TMA loads
+// (cp.async.bulk.tensor, and the 1-D cp.async.bulk), cluster barriers and
+// distributed shared memory, named barriers, the async-proxy fence, the
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile and wgmma's
+// fence / commit / wait, and the tensor-map encoder reached through the
+// runtime (no driver library is linked).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only
@@ -56,6 +57,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// Spins until the barrier's phase of the given parity has completed. The
+// loop lives inside the asm, so that the compiler sees no divergent path
+// between a wgmma and its wait (it would serialize every wgmma).
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // A box of the 2D map at (column c0, row c1) into shared memory; completes

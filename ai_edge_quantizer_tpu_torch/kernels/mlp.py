@@ -8,6 +8,9 @@ its non-DRQ (weight-only, `_mlp_bf16_kernel`) branch those of
 `csrc/mlp_int4_bf16.cu` (tensor cores for bf16 x).
 `mlp_int4_packed` dispatches on `drq`; the weight-only branch is also
 `mlp_int4_packed_bf16`, which keeps its own launch and plain-run counts.
+Both CUDA routes run on the tensor-core cores (`int8_tc_gemm.cuh` for the
+DRQ branch, `int4_bf16_tc_gemm.cuh` for bf16 x in the weight-only branch;
+f32 x keeps SIMT tiles); `drq_plan` and `bf16_plan` give their launches.
 
 Numerics of the DRQ branch: x quantized per row; gate/up as (acc * xs) *
 s; h = act(gate) * up; h quantized per (row, bf-column group) with
@@ -74,6 +77,32 @@ def activation(kind: str):
   if kind == 'silu':
     return lambda x: x * torch.sigmoid(x)
   raise ValueError(f'unsupported mlp activation {kind!r}')
+
+
+# The launches of the DRQ branch's two contractions (csrc/mlp_int4_drq.cu
+# aeqt_mlp_int4_drq_plan) and of the bf16 branch's (csrc/mlp_int4_bf16.cu,
+# int4_bf16_tc_gemm.cuh plan_fields of each).
+DRQ_PLAN_FIELDS = tuple(
+    f'{part}_{name}' for part in ('gate_up', 'down')
+    for name in ('grid_x', 'grid_y', 'chain', 'threads', 'stages',
+                 'smem_bytes'))
+BF16_PLAN_FIELDS = tuple(
+    f'{part}_{name}' for part in ('gate_up', 'down')
+    for name in _build.PLAN_FIELDS + ('tile_tokens',))
+
+
+def drq_plan(m: int, d: int, f: int, bf: int) -> dict:
+  """The launches mlp_int4_packed's DRQ kernel gives a shape (card only)."""
+  return _build.plan('mlp_int4_drq', 'aeqt_mlp_int4_drq_plan',
+                     'mlp_int4_packed', m, d, f, bf, fields=DRQ_PLAN_FIELDS)
+
+
+def bf16_plan(m: int, d: int, f: int, bf: int) -> dict:
+  """The launches mlp_int4_packed_bf16 gives a shape for bf16 x (card
+  only)."""
+  return _build.plan('mlp_int4_bf16', 'aeqt_mlp_int4_bf16_plan',
+                     'mlp_int4_packed_bf16', m, d, f, bf,
+                     fields=BF16_PLAN_FIELDS)
 
 
 def mlp_int4_packed_plain(x, wgu_packed, s_gu, wd_grouped, s_d, act='gelu',
@@ -163,11 +192,8 @@ def mlp_int4_packed(
   lead = x.shape[:-1]
   x2 = x.reshape(-1, d).to(compute_dtype(x)).contiguous()
   m = x2.shape[0]
-  _build.require(d % 32 == 0, name, f'D={d} must be a multiple of 32')
-  _build.require(bf % 32 == 0 and f % bf == 0, name,
-                 f'bf={bf} must be a multiple of 32 dividing F={f}')
-  _build.require(16 * d + 64 <= _build.MAX_SMEM, name, f'D={d} is too wide')
-  _build.require(8 * f <= _build.MAX_SMEM, name, f'F={f} is too wide')
+  # The shape rule (D % 32, bf % 256, bf <= 8192) is the kernel's own:
+  # it refuses any other shape with kShapeRefused before any launch.
   _check_weights(name, wgu_packed, s_gu, wd_grouped, s_d, bf)
   dev = x2.device
   gu = torch.empty((m, two_f), dtype=torch.float32, device=dev)
@@ -182,7 +208,7 @@ def mlp_int4_packed(
               s_d.data_ptr(), gu.data_ptr(), hq.data_ptr(), hs.data_ptr(),
               out.data_ptr(), m, d, f, bf, int(act == 'silu'),
               _build.stream_ptr(dev))
-  _build.check(status, name)
+  _build.check(status, name, f'M={m}, D={d}, F={f}, bf={bf}')
   mlp_int4_packed.launches += 1
   return out.to(x.dtype).reshape(lead + (d,))
 

@@ -420,50 +420,8 @@ def kernel_phase(torch, port, cfg, dev, timer):
   log(f'kernel decode_attention_int8_lengths_stale ok: err {err32}, launch '
       f'{results[-1]["launch"]}')
 
-  # 3. MLP, DRQ branch, bf = 2048 (the bench's AEQT_MLP_BF), at a decode
-  # step's rows and a prefill pass's rows.
-  bf = min(2048, F // 2)
-  wgu = pq.pack_int4_split(randint(-8, 8, 2 * F, D))
-  sgu = scales(2 * F)
-  wd = mlp.pack_int4_split_grouped(randint(-8, 8, D, F), bf)
-  sd = scales(D)
-  mlp_rows = {}
-  for phase, m in (('decode', B), ('bench', BENCH_B),
-                   ('prefill', PREFILL_ROWS)):
-    x = randn(m, 1, D)
-    margs = (x, wgu, sgu, wd, sd)
-    got = mlp.mlp_int4_packed(*margs, bf=bf)
-    want = mlp.mlp_int4_packed_plain(*margs, bf=bf)
-    sync()
-    err = float(torch.max(torch.abs(got.float() - want.float())))
-    ymax = float(torch.max(torch.abs(want.float())))
-    # A one-ulp tanh difference may flip one hidden rounding.
-    if err > 1e-3 * ymax:
-      raise AssertionError(f'mlp {phase}: max err {err} vs max |y| {ymax}')
-    nbytes = (m * D * 2 + 2 * F * D // 2 + 2 * F * 4 + D * F // 2 + D * 4
-              + m * D * 2)
-    b_ms, b_by = bound(nbytes, 3 * 2 * m * F * D, INT8_OPS_PER_S)
-    mlp_rows[phase] = {
-        'M': m, 'max_abs_err': err, 'max_abs_y': ymax,
-        'ms': timer(lambda: mlp.mlp_int4_packed(*margs, bf=bf)),
-        'plain_ms': timer(lambda: mlp.mlp_int4_packed_plain(*margs, bf=bf),
-                          reps=25 if phase == 'decode' else 5),
-        'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
-  dec = mlp_rows['decode']
-  results.append({
-      'name': 'mlp_int4_packed', 'route': 'cuda',
-      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/mlp_int4_drq.cu',
-      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_mlp.py:268',
-      'jax': 'pallas_mlp.mlp_pallas_int4_packed (drq=True)',
-      'wrapper': mlp.mlp_int4_packed, 'per_step': cfg.num_layers,
-      'max_abs_err': max(r['max_abs_err'] for r in mlp_rows.values()),
-      'max_abs_y': dec['max_abs_y'], 'ms': dec['ms'],
-      'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
-      'bound_by': dec['bound_by'], 'library_ms': None,
-      'prefill': mlp_rows['prefill'], 'bench': mlp_rows['bench']})
-  err = max(r['max_abs_err'] for r in mlp_rows.values())
-  ymax = dec['max_abs_y']
-  log(f'kernel mlp_int4_packed ok: err {err} (max |y| {ymax})')
+  # 3. MLP, DRQ branch (#3, on the int8 tensor-core core).
+  results.append(mlp_drq_kernel(torch, port, cfg, dev, timer, gen))
 
   # 4. Greedy head, int8 DRQ (the tied 256128 x 2048 embedding).
   x = randn(B, 1, D)
@@ -521,6 +479,114 @@ def kernel_phase(torch, port, cfg, dev, timer):
   split_edge_shapes(torch, att, port['_build'], dev, gen, results)
   refused_shapes(torch, att, dev)
   return results
+
+
+def mlp_drq_kernel(torch, port, cfg, dev, timer, gen):
+  """#3's DRQ branch against its plain version at bf 2048 (the bench's
+  AEQT_MLP_BF) and 512: a decode step's rows (B), a bench step's
+  (BENCH_B), a prefill pass's (PREFILL_ROWS) and a ragged M 7, gelu, and
+  silu once at decode; held to 1e-3 of max |y| (a one-ulp tanh difference
+  may flip one hidden rounding), the outputs that differ in any bit
+  counted. Timed at the three row counts of each bf beside the plain
+  version and, as a yardstick only, the library composition of the same
+  function: torch._int_mm for gate/up and per group for the down, the
+  quantizes and scales in torch (many calls, so library_ms stays null);
+  with each shape's launch plan (mlp.drq_plan) and ptxas' report."""
+  pq, mlp = port['packed_qmatmul'], port['mlp']
+  build = port['_build']
+  D, F = cfg.embed_dim, cfg.ffn_dim
+
+  def randint(lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev).to(
+        torch.int8)
+
+  def scales(n):
+    return torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
+
+  wgu_q = randint(-8, 8, 2 * F, D)
+  wd_q = randint(-8, 8, D, F)
+  wgu, sgu, sd = pq.pack_int4_split(wgu_q), scales(2 * F), scales(D)
+
+  def library(x, wd_groups, act):
+    """The same function from PyTorch calls (a yardstick, on no path)."""
+    xq, xs = pq.quantize_rows_drq(x.reshape(-1, D).float())
+    gu = torch._int_mm(xq, wgu_q.t())
+    gate = (gu[:, :F].float() * xs) * sgu[:F]
+    up = (gu[:, F:].float() * xs) * sgu[F:]
+    h = mlp.activation(act)(gate) * up
+    acc = torch.zeros((x.shape[0], D), dtype=torch.float32, device=dev)
+    bf = F // len(wd_groups)
+    for t, w in enumerate(wd_groups):
+      hq, hs = pq.quantize_rows_drq(h[:, t * bf:(t + 1) * bf])
+      acc = acc + torch._int_mm(hq, w.t()).float() * hs
+    return (acc * sd).to(x.dtype)
+
+  rows = {}
+  for bf in (min(2048, F // 2), min(512, F // 2)):
+    wd = mlp.pack_int4_split_grouped(wd_q, bf)
+    wd_groups = [wd_q[:, t * bf:(t + 1) * bf].contiguous()
+                 for t in range(F // bf)]
+    shapes = [('decode', B, 'gelu'), ('bench', BENCH_B, 'gelu'),
+              ('prefill', PREFILL_ROWS, 'gelu'), ('ragged', 7, 'gelu')]
+    if bf == min(512, F // 2):
+      shapes.append(('decode_silu', B, 'silu'))
+    for phase, m, act in shapes:
+      x = torch.randn((m, 1, D), generator=gen, device=dev).to(torch.bfloat16)
+      margs = (x, wgu, sgu, wd, sd)
+      got = mlp.mlp_int4_packed(*margs, act=act, bf=bf)
+      want = mlp.mlp_int4_packed_plain(*margs, act=act, bf=bf)
+      sync()
+      err = float(torch.max(torch.abs(got.float() - want.float())))
+      ymax = float(torch.max(torch.abs(want.float())))
+      if err > 1e-3 * ymax:
+        raise AssertionError(f'mlp bf {bf} {phase}: max err {err} vs max '
+                             f'|y| {ymax}')
+      row = {'M': m, 'bf': bf, 'act': act, 'max_abs_err': err,
+             'max_abs_y': ymax, 'outputs_differ': bits_differ(torch, got,
+                                                              want),
+             'launch': mlp.drq_plan(m, D, F, bf)}
+      if phase in ('decode', 'bench', 'prefill'):
+        nbytes = (m * D * 2 + 2 * F * D // 2 + 2 * F * 4 + D * F // 2
+                  + D * 4 + m * D * 2)
+        b_ms, b_by = bound(nbytes, 3 * 2 * m * F * D, INT8_OPS_PER_S)
+        lib = library(x.reshape(m, D), wd_groups, act)
+        sync()
+        row.update(
+            ms=timer(lambda: mlp.mlp_int4_packed(*margs, act=act, bf=bf)),
+            plain_ms=timer(lambda: mlp.mlp_int4_packed_plain(
+                *margs, act=act, bf=bf), reps=25 if m <= B else 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            library_composition_ms=timer(
+                lambda: library(x.reshape(m, D), wd_groups, act), reps=5),
+            library_composition_max_abs_err=float(torch.max(torch.abs(
+                lib.float() - want.reshape(m, D).float()))))
+      rows[f'bf{bf}_{phase}'] = row
+      log(f'kernel mlp_int4_packed bf {bf} {phase} (M {m}, {act}) ok: err '
+          f'{err} (max |y| {ymax}), {row["outputs_differ"]} outputs differ; '
+          + (f'{row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f}, library '
+             f'composition {row["library_composition_ms"]:.4f}, bound '
+             f'{row["bound_ms"]:.4f}); ' if 'ms' in row else '')
+          + f'launch {row["launch"]}')
+  bf = min(2048, F // 2)
+  dec = rows[f'bf{bf}_decode']
+  return {
+      'name': 'mlp_int4_packed', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/mlp_int4_drq.cu',
+      'core': 'ai_edge_quantizer_tpu_torch/kernels/csrc/int8_tc_gemm.cuh',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_mlp.py:268',
+      'jax': 'pallas_mlp.mlp_pallas_int4_packed (drq=True)',
+      'wrapper': mlp.mlp_int4_packed, 'per_step': cfg.num_layers,
+      'max_abs_err': max(r['max_abs_err'] for r in rows.values()),
+      'max_abs_y': dec['max_abs_y'], 'ms': dec['ms'],
+      'plain_ms': dec['plain_ms'], 'bound_ms': dec['bound_ms'],
+      'bound_by': dec['bound_by'], 'library_ms': None,
+      'library_composition_ms': dec['library_composition_ms'],
+      'library_composition': 'torch._int_mm for gate/up and for each '
+                             'group of the down, the quantizes in torch',
+      'launch': dec['launch'], 'prefill': rows[f'bf{bf}_prefill'],
+      'bench': rows[f'bf{bf}_bench'], 'rows': rows,
+      'ptxas': ptxas_report(build, 'mlp_int4_drq', 'mlp_tc_kernel')
+               + ptxas_report(build, 'mlp_int4_drq', 'hquant_kernel')}
 
 
 def stale_bench(torch, att, build, cfg, dev, timer, gen):
@@ -1363,10 +1429,11 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
     everywhere): within 1e-5 of max(max |y|, 1) (f32 sums in another
     order); timed beside scaled_dot_product_attention over the pools
     dequantized to bf16 with the mask;
-  * the MLP's weight-only branch (bf 512, gelu; decode and prefill rows):
-    bf16 x within one bf16 ulp beyond 1e-3 of max |y| (a sum in another
-    order can round a bf16 hidden value the other way), f32 x within 1e-5
-    of max |y|;
+  * the MLP's weight-only branch (bf 512 and 2048, gelu; decode, prefill
+    and ragged rows): bf16 x within one bf16 ulp beyond 1e-3 of max |y| (a
+    sum in another order can round a bf16 hidden value the other way), f32
+    x (bf 512) within 1e-5 of max |y|; timed beside the library
+    composition of the same function, with each shape's launch plan;
   * the head's weight-only branch (packed int4 and int8 weights, N 256128,
     M B and BENCH_B): with a planted winner (two equal rows of the largest
     code in different vocab tiles, scaled to win, and positive x) every id
@@ -1547,58 +1614,88 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
       'bench': att_at(BENCH_B, 'prefix_row'),
       'nonprefix': att_at(B, 'nonprefix'), 'by_shape': att_rows})
 
-  # 3. The MLP's weight-only branch (#3, drq=False), bf 512.
-  bf = 512
-  wgu = pq.pack_int4_split(randint(-8, 8, 2 * F, D))
-  sgu = scales(2 * F)
-  wd = mlp.pack_int4_split_grouped(randint(-8, 8, D, F), bf)
-  sd = scales(D)
+  # 3. The MLP's weight-only branch (#3, drq=False, on the bf16
+  # tensor-core core for bf16 x), bf 512 (the JAX package's default) and
+  # 2048: decode, prefill and a ragged M 7 with bf16 x (at most 1 bf16 ulp
+  # beyond 1e-3 of max |y|), f32 x at bf 512 (the SIMT tiles, 1e-5 of max
+  # |y|). Timed beside the plain version and, as a yardstick only, the
+  # library composition: torch.matmul against the weights dequantized to
+  # bf16, the activation, torch.matmul (library_ms stays null).
+  wgu_q, wd_q = randint(-8, 8, 2 * F, D), randint(-8, 8, D, F)
+  wgu, sgu, sd = pq.pack_int4_split(wgu_q), scales(2 * F), scales(D)
+  wgu_deq = (wgu_q.float() * sgu[:, None]).to(bf16)
+  wd_deq = (wd_q.float() * sd[:, None]).to(bf16)
+
+  def library(x2):
+    gu = torch.matmul(x2, wgu_deq.T)
+    h = (mlp.gelu_tanh(gu[:, :F].float()) * gu[:, F:].float()).to(bf16)
+    return torch.matmul(h, wd_deq.T)
+
   mlp_rows = {}
-  for phase, m in (('decode', B), ('prefill', PREFILL_ROWS)):
-    x = randn(m, 1, D)
-    margs = (x, wgu, sgu, wd, sd)
-    checks = {}
-    for key, xi in (('bf16_x', x), ('f32_x', torch.randn(
-        (m, 1, D), generator=gen, device=dev))):
-      got = mlp.mlp_int4_packed_bf16(xi, *margs[1:], bf=bf)
-      want = mlp.mlp_int4_packed_plain(xi, *margs[1:], drq=False, bf=bf)
-      sync()
-      err = float(torch.max(torch.abs(got.float() - want.float())))
-      ymax = float(torch.max(torch.abs(want.float())))
-      if key == 'bf16_x':
-        ulps = bf16_ulps(torch, got, want, atol=1e-3 * ymax)
-        bad = ulps > 1.0
-      else:
-        ulps, bad = None, not err <= 1e-5 * ymax
-      if bad:
-        raise AssertionError(f'mlp bf16 branch {phase} {key}: err {err}, '
-                             f'max |y| {ymax}, bf16 ulps beyond 1e-3 of it '
-                             f'{ulps}')
-      checks[key] = {'max_abs_err': err, 'max_abs_y': ymax,
-                     'bf16_ulps_beyond': ulps}
-      del got, want
-    nbytes = (m * D * 2 + 2 * F * D // 2 + 2 * F * 4 + D * F // 2 + D * 4
-              + m * D * 2)
-    b_ms, b_by = bound(nbytes, 3 * 2 * m * F * D, BF16_OPS_PER_S)
-    mlp_rows[phase] = {
-        'M': m, 'max_abs_err': max(c['max_abs_err'] for c in checks.values()),
-        'checks': checks,
-        'ms': timer(lambda: mlp.mlp_int4_packed_bf16(*margs, bf=bf)),
-        'plain_ms': timer(
-            lambda: mlp.mlp_int4_packed_plain(*margs, drq=False, bf=bf),
-            reps=25 if phase == 'decode' else 5),
-        'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
-  log(f'kernel mlp_int4_packed_bf16 ok: {mlp_rows}')
-  dec = mlp_rows['decode']
+  for bf in (512, 2048):
+    wd = mlp.pack_int4_split_grouped(wd_q, bf)
+    for phase, m in (('decode', B), ('prefill', PREFILL_ROWS), ('ragged', 7)):
+      x = randn(m, 1, D)
+      margs = (x, wgu, sgu, wd, sd)
+      checks = {}
+      inputs = [('bf16_x', x)]
+      if bf == 512 and phase != 'ragged':
+        inputs.append(('f32_x', torch.randn((m, 1, D), generator=gen,
+                                            device=dev)))
+      for key, xi in inputs:
+        got = mlp.mlp_int4_packed_bf16(xi, *margs[1:], bf=bf)
+        want = mlp.mlp_int4_packed_plain(xi, *margs[1:], drq=False, bf=bf)
+        sync()
+        err = float(torch.max(torch.abs(got.float() - want.float())))
+        ymax = float(torch.max(torch.abs(want.float())))
+        if key == 'bf16_x':
+          ulps = bf16_ulps(torch, got, want, atol=1e-3 * ymax)
+          bad = ulps > 1.0
+        else:
+          ulps, bad = None, not err <= 1e-5 * ymax
+        if bad:
+          raise AssertionError(f'mlp bf16 branch bf {bf} {phase} {key}: err '
+                               f'{err}, max |y| {ymax}, bf16 ulps beyond '
+                               f'1e-3 of it {ulps}')
+        checks[key] = {'max_abs_err': err, 'max_abs_y': ymax,
+                       'bf16_ulps_beyond': ulps}
+        del got, want
+      row = {'M': m, 'bf': bf,
+             'max_abs_err': max(c['max_abs_err'] for c in checks.values()),
+             'checks': checks, 'launch': mlp.bf16_plan(m, D, F, bf)}
+      if phase != 'ragged':
+        nbytes = (m * D * 2 + 2 * F * D // 2 + 2 * F * 4 + D * F // 2
+                  + D * 4 + m * D * 2)
+        b_ms, b_by = bound(nbytes, 3 * 2 * m * F * D, BF16_OPS_PER_S)
+        x2 = x.reshape(m, D)
+        row.update(
+            ms=timer(lambda: mlp.mlp_int4_packed_bf16(*margs, bf=bf)),
+            plain_ms=timer(
+                lambda: mlp.mlp_int4_packed_plain(*margs, drq=False, bf=bf),
+                reps=25 if phase == 'decode' else 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            library_composition_ms=timer(lambda: library(x2)))
+      mlp_rows[f'bf{bf}_{phase}'] = row
+      log(f'kernel mlp_int4_packed_bf16 bf {bf} {phase} ok: {row}')
+  del wgu_deq, wd_deq
+  dec = mlp_rows['bf512_decode']
   results.append({
       'name': 'mlp_int4_packed_bf16', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/mlp_int4_bf16.cu',
+      'core': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
+              'int4_bf16_tc_gemm.cuh',
       'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_mlp.py:268',
       'jax': 'pallas_mlp.mlp_pallas_int4_packed (drq=False)',
       'wrapper': mlp.mlp_int4_packed_bf16, 'per_step': 0,
       'per_tick_default_mode': L, 'max_abs_err': dec['max_abs_err'],
       **{key: dec[key] for key in timing}, 'bound_by': dec['bound_by'],
-      'prefill': mlp_rows['prefill']})
+      'library_composition_ms': dec['library_composition_ms'],
+      'library_composition': 'torch.matmul against bf16-dequantized '
+                             'weights, gelu, torch.matmul',
+      'launch': dec['launch'], 'prefill': mlp_rows['bf512_prefill'],
+      'rows': mlp_rows,
+      'ptxas': ptxas_report(port['_build'], 'mlp_int4_bf16',
+                            'int4_bf16_tc_kernel')})
 
   # 4. The head's weight-only branch (#4, drq=False), N = V.
   head_rows = []
@@ -2872,9 +2969,12 @@ def int8_basic_kernel(torch, port, cfg, dev, timer, gen):
   sums in another order, so held to 1e-5 of max(max |ctx|, 1); its plain
   version must equal the lengths attention's plain version with both zero
   points 0 bit for bit (the kernel runs that body). Timed beside SDPA
-  with the lengths mask over the caches dequantized to bf16. No entry
-  point of the JAX package reaches it, so no path launches it."""
+  with the lengths mask over the caches dequantized to bf16, with its
+  launch (the split core's lengths form where it takes the shape) and
+  ptxas' report. No entry point of the JAX package reaches it, so no path
+  launches it."""
   att = port['attention']
+  build = port['_build']
   NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
   G = cfg.num_query_heads // NK
   k_scale, v_scale = 0.06, 0.05
@@ -2917,11 +3017,14 @@ def int8_basic_kernel(torch, port, cfg, dev, timer, gen):
                    *args)),
                'bound_ms': b_ms, 'bound_by': b_by,
                'library_ms': timer(lambda: sdpa(qb, kd, vd,
-                                                attn_mask=amask))}
+                                                attn_mask=amask)),
+               'launch': split_plan(build, 'attention_int8_basic', b * NK,
+                                    G, S, H)}
     log(f'kernel decode_attention_int8 B {b} ok: err {err:.3g} (max |ctx| '
         f'{ymax:.3g}), plain equal to #7\'s with zero points 0; '
         f'{rows[b]["ms"]:.4f} ms (plain {rows[b]["plain_ms"]:.4f}, SDPA '
-        f'{rows[b]["library_ms"]:.4f}, bound {b_ms:.4f})')
+        f'{rows[b]["library_ms"]:.4f}, bound {b_ms:.4f}); launch '
+        f'{rows[b]["launch"]}')
   dec = rows[B]
   return {
       'name': 'decode_attention_int8', 'route': 'cuda',
@@ -2939,6 +3042,9 @@ def int8_basic_kernel(torch, port, cfg, dev, timer, gen):
       'library_ms': dec['library_ms'],
       'library': 'scaled_dot_product_attention with the lengths mask over '
                  'the caches dequantized to bf16',
+      'core': SPLIT_CORE, 'launch': dec['launch'],
+      'ptxas': ptxas_report(build, 'attention_int8_basic',
+                            'int8_basic_split_kernel'),
       'bench': rows[BENCH_B]}
 
 
@@ -3435,7 +3541,7 @@ FLASH_CASES = (('h64', 2, 1, 128, 256, 64, 1, 'bfloat16', 'float32'),
                 'bfloat16'))
 
 
-# The split-S decode attentions (#17, #18, #7, #2, #8, #10, #21): their
+# The split-S decode attentions (#17, #18, #7, #2, #8, #10, #21, #22): their
 # shared core and the launch fields of its plan (csrc/attention_split_tc.cuh
 # plan_fields; a cluster of 0 is a one-block kernel, for a shape the core
 # does not take).
@@ -3448,8 +3554,9 @@ def split_plan(build, lib, *dims):
   compute code), #18 ('attention_dynlen', R, G, S, H), #7
   ('attention_lengths', R, G, S, H, compute code), #2 ('attention_stale',
   the same), #8 ('attention_writeback', the same), #10
-  ('attention_int4_group', R, G, S, H, group) or #21
-  ('attention_int4_row', R, G, S, H): the cluster size (the splits, grid
+  ('attention_int4_group', R, G, S, H, group), #21
+  ('attention_int4_row', R, G, S, H) or #22 ('attention_int8_basic', R,
+  G, S, H): the cluster size (the splits, grid
   x; 0 for a one-block kernel), grid y (rows), cache rows a CTA, threads,
   shared memory."""
   return build.plan(lib, f'aeqt_{lib}_plan', lib, *dims,

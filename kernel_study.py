@@ -1,0 +1,652 @@
+#!/usr/bin/env python3
+"""Measurements behind the port's redesigned kernels, on one NVIDIA GPU.
+Each prints one JSON line per measurement.
+
+  python3 kernel_study.py [--root CHECKOUT] [--kernels K,...] [--reps N]
+                          STUDY [STUDY ...]
+
+--root picks the checkout whose kernels (and chip_smoke.py) run (default:
+this file's), so two checkouts can be timed in turns on one card, one
+process each. --kernels picks the groups that `times` covers (default:
+all three). Times are CUDA-event medians of --reps calls as
+chip_smoke.Timer takes them (L2 flushed before each).
+
+Kernel groups of `times`:
+  mlp          #3 (kernels/mlp.py): the DRQ branch (bf 2048 and 512) and
+               the weight-only branch with bf16 x (bf 512 and 2048) at a
+               decode tick's rows (M 64), a bench step's (256) and a
+               prefill pass's (1024), GEMMA_2B widths (D 2048, F 16384),
+               gelu; #22 (decode_attention_int8) at B 64 and 256 (S 1024,
+               random lengths with rows 0, 1 and S: chip_smoke.
+               int8_basic_kernel's inputs).
+  attention    the split-S core (csrc/attention_split_tc.cuh): #7 at the
+               server's tick (B 64, random lengths) and at bench.py's
+               decode (B 256, 897 rows), every compute mode, bf16 out; #2
+               at B 64 (random lengths, rows 1 and S) and at bench.py's
+               decode (897 long: 896 stale rows), #8 at pos 896 with
+               lengths 897 at both batches, every compute mode, bf16 out;
+               #10 at bench.py's decode and the server's tick; #21 at the
+               A/B tool's shape (B 256, lengths S - 2) and at B 64 with
+               lengths 0..S, f32 out.
+  int_weights  #16 (int_qmatmul.qmatmul_int_weights) at chip_smoke.
+               int_weight_kernels' rows: gemma_mixed48_b32's blockwise-32
+               FCs at decode (M 64: gate/up N 32768 at K 2048, down N 2048
+               at K 16384, head N 256128 at K 2048) and at a prefill pass's
+               rows (M 1024; the head 8 rows), and the channelwise branch
+               at M 64, N 2048, K 2048 beside torch.matmul on f32 weights;
+               each with bf16 x and full-mantissa f32 x.
+
+Studies:
+  times     the rows of the groups above.
+  launches  the device time of each launch of one #3 call at the `mlp`
+            rows (torch.profiler, the mean of 5 calls each after an L2
+            flush).
+  host      the host time of one #3 call at decode (M 64, bf 2048 and
+            512, both branches): the wrapper's Python, its allocations and
+            every launch it enqueues, with the card kept busy so that no
+            call waits for it (the median over 5 rounds of 50 calls).
+  steps     bench.py's decode through chip_smoke.bench_decode_phase under
+            the block on, the block off, the in-place writes and the norm
+            fusion (ms a step, host clock, median of chip_smoke's timed
+            steps; the device's busy time and idle share by
+            torch.profiler), one process a checkout.
+  order     the share of the split core's plain versions' f32 matmul
+            outputs on the card (#7's q . k, #10's q . K and its offset
+            term, #21's two half dots as its plain version slices them,
+            #2's one-column q . k_new) equal to one f32 FMA chain over the
+            contraction in increasing order; for #2's q . k_new also the
+            share equal to the kernel's order (new_column_order in the
+            header) at R 1, 64, 65 and 256.
+  truth     #7's f32 context at B 64 (chip_smoke.lengths_kernel's inputs,
+            eight seeds) against an f64 run of the same function, for the
+            plain version and the kernel, and the two against each other.
+  variants  copies of this checkout's csrc/ with one edit each, built
+            under kernels/_build/variants/ and timed with the unchanged
+            kernel built the same way, in turns, for the groups of
+            --kernels that have variants. int_weights: at #16's decode
+            rows with bf16 x, one part of the bs-32 decode loop taken out
+            (wrong results, for the time only): 'no_flush' (y + p * s left
+            out, and with it the scale loads), 'no_scale_load' (the block
+            scales a constant, the flush kept), 'no_widen' (constant A
+            fragments: no shared-memory read or widening of the weights)
+            and 'stream' (no widening, no wgmma, no flush: the consumers
+            only release the stages, so the ring's stream of weight and x
+            tiles alone sets the time). mlp: 'vsub4', the int8 core's
+            split-half unpack with drq_common.cuh's nib_lo / nib_hi
+            (__vsub4) in place of sign_extend_nibbles (the same bytes),
+            at #3's DRQ rows (bf 2048), #1's QKV shape (N 2560, K 2048)
+            and #6's down shape (N 2048, K 16384) at M 64 and 1024.
+"""
+
+import argparse
+import functools
+import json
+import pathlib
+import statistics
+import sys
+import time
+
+D, F, V = 2048, 16384, 256128
+MLP_ROWS = (64, 256, 1024)
+B, S, H, G = 64, 1024, 256, 8
+BENCH_B, BENCH_ROWS = 256, 897
+K_SCALE, V_SCALE, ZP_K, ZP_V = 0.06, 0.06, 3.0, -2.0
+PREFILL_ROWS, PREFILL_BATCH, QUANT_BLOCK = 1024, 8, 32
+GROUPS = ('mlp', 'attention', 'int_weights')
+# The kernel libraries each group and study builds (steps: every one).
+SOURCES = {
+    'mlp': ('mlp_int4_drq', 'mlp_int4_bf16', 'attention_int8_basic'),
+    'attention': ('attention_lengths', 'attention_stale',
+                  'attention_writeback', 'attention_int4_group',
+                  'attention_int4_row'),
+    'int_weights': ('qmatmul_int_weights',)}
+STUDY_GROUP = {'launches': 'mlp', 'host': 'mlp', 'order': 'attention',
+               'truth': 'attention'}
+STEP_SETTINGS = ('block on', 'block off', 'inplace', 'norm fusion')
+
+
+def emit(**row):
+  print(json.dumps(row), flush=True)
+
+
+# ------------------------------------------------------------------- #3, #22
+
+
+def mlp_cases(torch, mods, rows=MLP_ROWS, bfs=None):
+  """(key, call) of each #3 case; weights from one seed."""
+  mlp, pq = mods['mlp'], mods['pq']
+  gen = torch.Generator(device='cuda').manual_seed(3)
+
+  def randint(*shape):
+    return torch.randint(-8, 8, shape, generator=gen, device='cuda').to(
+        torch.int8)
+
+  def scales(n):
+    return torch.rand((n,), generator=gen, device='cuda') * 0.01 + 0.005
+
+  wgu, sgu, sd = pq.pack_int4_split(randint(2 * F, D)), scales(2 * F), \
+      scales(D)
+  wd_q = randint(D, F)
+  cases = []
+  for drq, branch_bfs in ((True, (2048, 512)), (False, (512, 2048))):
+    for bf in bfs or branch_bfs:
+      wd = mlp.pack_int4_split_grouped(wd_q, bf)
+      for m in rows:
+        x = torch.randn((m, D), generator=gen, device='cuda').to(
+            torch.bfloat16)
+        fn = mlp.mlp_int4_packed if drq else mlp.mlp_int4_packed_bf16
+        cases.append(({'kernel': 'mlp_int4_packed' if drq
+                       else 'mlp_int4_packed_bf16', 'bf': bf, 'M': m},
+                      lambda fn=fn, x=x, wd=wd, bf=bf: fn(x, wgu, sgu, wd,
+                                                          sd, bf=bf)))
+  return cases
+
+
+def basic_cases(torch, att):
+  gen = torch.Generator(device='cuda').manual_seed(22)
+  cases = []
+  for b in (64, 256):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda')
+    kc, vc = (torch.randint(-127, 128, (b, 1, S, H), generator=gen,
+                            device='cuda').to(torch.int8) for _ in range(2))
+    lengths = torch.randint(0, S + 1, (b,), generator=gen,
+                            device='cuda').to(torch.int32)
+    lengths[0], lengths[1], lengths[2] = 0, 1, S
+    args = (q, kc, vc, 0.06, 0.05, lengths)
+    cases.append(({'kernel': 'decode_attention_int8', 'B': b},
+                   lambda args=args: att.decode_attention_int8(*args)))
+  return cases
+
+
+def mlp_times(torch, mods, timer):
+  for key, call in (mlp_cases(torch, mods)
+                    + basic_cases(torch, mods['att'])):
+    call()
+    emit(study='times', **key, ms=timer(call))
+
+
+def launches(torch, mods, timer):
+  flush = torch.empty(128 * 2**20, dtype=torch.uint8, device='cuda')
+  for key, call in mlp_cases(torch, mods):
+    for _ in range(3):
+      call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+      for _ in range(5):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        call()
+      torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+      if 'sleep' in e.key or 'spin' in e.key or 'zero' in e.key \
+          or 'fill' in e.key.lower():
+        continue
+      us = getattr(e, 'device_time', 0) or 0
+      if us:
+        name = e.key.replace('(anonymous namespace)::', '').split('(')[0]
+        per[name[:80]] = round(us, 3)
+    emit(study='launches', **key, device_us=per)
+
+
+def host(torch, mods, timer, calls=50, rounds=5):
+  for key, call in mlp_cases(torch, mods, rows=(64,), bfs=(2048, 512)):
+    for _ in range(3):
+      call()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+      torch.cuda._sleep(200_000_000)  # longer than the calls' enqueueing
+      t0 = time.perf_counter()
+      for _ in range(calls):
+        call()
+      per_call.append((time.perf_counter() - t0) / calls * 1e6)
+      torch.cuda.synchronize()
+    emit(study='host', **key, host_us=statistics.median(per_call),
+         rounds_us=[round(t, 3) for t in per_call])
+
+
+def steps(torch, mods, timer):
+  """chip_smoke's bench decode phase under STEP_SETTINGS only."""
+  cs = mods['cs']
+  from ai_edge_quantizer_tpu_torch.execution import executor
+  from ai_edge_quantizer_tpu_torch.kernels import block, cache, head
+  from ai_edge_quantizer_tpu_torch.kernels import qkv
+  from ai_edge_quantizer_tpu_torch.models import gemma
+  att, pq = mods['att'], mods['pq']
+  wrappers = {
+      'fused_mlp_qkv_attention': block.fused_mlp_qkv_attention,
+      'decode_attention_int8_lengths_stale':
+          att.decode_attention_int8_lengths_stale,
+      'decode_attention_int8_lengths': att.decode_attention_int8_lengths,
+      'decode_attention_oproj': att.decode_attention_oproj,
+      'mlp_int4_packed': mods['mlp'].mlp_int4_packed,
+      'head_argmax': head.head_argmax,
+      'qmatmul_int4_packed_drq': pq.qmatmul_int4_packed_drq,
+      'qmatmul_int4_packed_drq_kblock': pq.qmatmul_int4_packed_drq_kblock,
+      'qmatmul_int4_packed_rmsnorm': pq.qmatmul_int4_packed_rmsnorm,
+      'dus_row_inplace': cache.dus_row_inplace, 'qkv_rope': qkv.qkv_rope}
+  kernels = [{'name': n, 'wrapper': w} for n, w in wrappers.items()]
+  cs.sync = torch.cuda.synchronize
+  cs.BENCH_SETTINGS = {k: cs.BENCH_SETTINGS[k] for k in STEP_SETTINGS}
+  cs.MODE_SETTINGS = {}
+  results = cs.bench_decode_phase(
+      torch, {'gemma': gemma, 'executor': executor}, kernels,
+      gemma.GEMMA_2B, 'cuda')
+  for label in STEP_SETTINGS:
+    r = results[label]
+    emit(study='steps', setting=label, ms_per_step=r['ms_per_step'],
+         step_ms=r['step_ms'],
+         device_busy_ms_per_step=r['device_busy_ms_per_step'],
+         device_idle_share=r['device_idle_share'])
+
+
+# ------------------------------------------------------ the split-S core
+
+
+def attention_times(torch, mods, timer):
+  att, cs = mods['att'], mods['cs']
+  gen = torch.Generator(device='cuda').manual_seed(7)
+  kw = dict(k_zero_point=ZP_K, v_zero_point=ZP_V, out_dtype=torch.bfloat16)
+
+  def lengths_for(b):
+    if b == B:
+      return torch.randint(1, S + 1, (b,), generator=gen, device='cuda').to(
+          torch.int32)
+    return torch.full((b,), BENCH_ROWS, dtype=torch.int32, device='cuda')
+
+  for b in (B, BENCH_B):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    kc, vc = (torch.randint(-127, 128, (b, 1, S, H), generator=gen,
+                            device='cuda').to(torch.int8) for _ in range(2))
+    lens = lengths_for(b)
+    for mode in ('f32', 'bf16', 'int8'):
+      emit(kernel='decode_attention_int8_lengths', B=b, compute=mode,
+           ms=timer(lambda: att.decode_attention_int8_lengths(
+               q, kc, vc, K_SCALE, V_SCALE, lens, compute=mode, **kw)))
+  for b in (B, BENCH_B):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    kc, vc = (torch.randint(-127, 128, (b, 1, S, H), generator=gen,
+                            device='cuda').to(torch.int8) for _ in range(2))
+    kn, vn = (torch.randint(-127, 128, (b, 1, 1, H), generator=gen,
+                            device='cuda').to(torch.int8) for _ in range(2))
+    if b == B:
+      lens = torch.randint(1, S + 1, (b,), generator=gen, device='cuda').to(
+          torch.int32)
+      lens[0], lens[1] = 1, S
+    else:
+      lens = torch.full((b,), BENCH_ROWS, dtype=torch.int32, device='cuda')
+    rows = torch.full((b,), BENCH_ROWS, dtype=torch.int32, device='cuda')
+    pos = torch.tensor([BENCH_ROWS - 1], dtype=torch.int32, device='cuda')
+    for mode in ('f32', 'bf16', 'int8'):
+      emit(kernel='decode_attention_int8_lengths_stale', B=b, compute=mode,
+           ms=timer(lambda: att.decode_attention_int8_lengths_stale(
+               q, kc, vc, K_SCALE, V_SCALE, lens, kn, vn, compute=mode,
+               **kw)))
+      emit(kernel='decode_attention_int8_lengths_writeback', B=b,
+           compute=mode,
+           ms=timer(lambda: att.decode_attention_int8_lengths_writeback(
+               q, kc, vc, K_SCALE, V_SCALE, rows, kn, vn, pos, compute=mode,
+               **kw)))
+  for b in (BENCH_B, B):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    kp, vp, sc = cs.int4g_pools(torch, att, b, 1, S, H, gen, 'cuda')
+    lens = lengths_for(b)
+    emit(kernel='decode_attention_int4_group_lengths', B=b,
+         ms=timer(lambda: att.decode_attention_int4_group_lengths(
+             q, kp, vp, sc, lens, 16, out_dtype=torch.bfloat16)))
+  from ai_edge_quantizer_tpu_torch.tools import attn_int4_bench as tool
+  for b, seed in ((BENCH_B, 1), (B, 2)):
+    ops = tool.make_operands(b, S, H, seed=seed, device='cuda')
+    lens = ops['lengths']
+    if b == B:
+      lens = torch.randint(0, S + 1, (b,), generator=gen, device='cuda').to(
+          torch.int32)
+      lens[0], lens[1], lens[2] = 0, 1, S
+    args = (ops['q'], ops['kp_r'], ops['vp_r'], ops['scales_r'], lens)
+    emit(kernel='decode_attention_int4_lengths', B=b,
+         ms=timer(lambda: att.decode_attention_int4_lengths(*args)))
+
+
+def chain(torch, a, b):
+  """a [..., M, K] . b [..., N, K] as one f32 FMA chain over k = 0 .. K - 1
+  (each step exact in f64, rounded once)."""
+  acc = torch.zeros(a.shape[:-1] + (b.shape[-2],), device=a.device)
+  for k in range(a.shape[-1]):
+    acc = (acc.double() + a[..., k:k + 1].double()
+           * b[..., k].double()[..., None, :]).float()
+  return acc
+
+
+def new_column(torch, a, b, r):
+  """a [..., G, H] . b [..., 1, H] -> [..., G] in the stale kernel's order
+  of the new column at R = r rows (attention_split_tc.cuh
+  new_column_order): `parts` f32 FMA chains, then added as a butterfly or
+  in order."""
+  h = a.shape[-1]
+  if r == 1:
+    parts, strided, butterfly = 32, False, True
+  elif r <= 64:
+    parts, strided, butterfly = min(16, h // 8), False, True
+  elif h == 64:
+    parts, strided, butterfly = 4, True, True
+  else:
+    parts, strided, butterfly = 16, True, False
+  n = h // parts
+  idx = torch.tensor([[l + parts * i if strided else l * n + i
+                       for i in range(n)] for l in range(parts)],
+                     device=a.device)
+  x = a[..., idx].double()              # [..., G, parts, n]
+  y = b[..., 0, :][..., idx].double()   # [..., parts, n]
+  acc = torch.zeros(x.shape[:-1], device=a.device)
+  for i in range(n):
+    acc = (acc.double() + x[..., i] * y[..., None, :, i]).float()
+  if butterfly:
+    while acc.shape[-1] > 1:
+      half = acc.shape[-1] // 2
+      acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+  total = acc[..., 0]
+  for l in range(1, parts):
+    total = total + acc[..., l]
+  return total
+
+
+def order(torch, mods, timer):
+  att = mods['att']
+  gen = torch.Generator(device='cuda').manual_seed(0)
+  for b in (B, BENCH_B):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(
+        torch.bfloat16).float()
+    k8 = torch.randint(-127, 128, (b, 1, S, H), generator=gen,
+                       device='cuda').to(torch.int8).float()
+    kb = torch.randn((b, 1, S, H), generator=gen, device='cuda').to(
+        torch.bfloat16).float()
+    qs = torch.randn((b, 1, G, 16), generator=gen, device='cuda') * 3
+    kmin = torch.randn((b, 1, 16, S), generator=gen, device='cuda').to(
+        torch.bfloat16).float()
+    # #21's operands as its plain version forms them: the unpacked codes
+    # [..., S, H] f32, both sliced at H / 2 (strided views).
+    k4 = att.unpack_int4_rows(torch.randint(
+        0, 256, (b, 1, S, H // 2), generator=gen, device='cuda').to(
+            torch.uint8)).to(torch.float32)
+    h2 = H // 2
+    for what, x, y, mm in (
+        ('#7 q . k', q, k8, torch.matmul(q, k8.transpose(-1, -2))),
+        ('#10 q . K', q, kb, torch.matmul(q, kb.transpose(-1, -2))),
+        ('#10 offset', qs, kmin.transpose(-1, -2), torch.matmul(qs, kmin)),
+        ('#21 q lo . k lo', q[..., :h2], k4[..., :h2],
+         att._qdot(q[..., :h2], k4[..., :h2])),
+        ('#21 q hi . k hi', q[..., h2:], k4[..., h2:],
+         att._qdot(q[..., h2:], k4[..., h2:]))):
+      emit(study='order', B=b, matmul=what,
+           share_equal_to_chain=float((chain(torch, x, y) == mm).double()
+                                      .mean()))
+  # #2's new column: the plain version's [G, H] . [H, 1] matmul per row.
+  for b in (1, B, B + 1, BENCH_B):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(
+        torch.bfloat16).float()
+    kn = torch.randint(-127, 128, (b, 1, 1, H), generator=gen,
+                       device='cuda').to(torch.int8).float()
+    mm = att._qdot(q, kn)[..., 0]
+    emit(study='order', B=b, matmul='#2 q . k_new',
+         share_equal_to_chain=float((chain(torch, q, kn)[..., 0] == mm)
+                                    .double().mean()),
+         share_equal_to_kernel=float((new_column(torch, q, kn, b) == mm)
+                                     .double().mean()))
+
+
+def truth(torch, mods, timer):
+  att = mods['att']
+  kw = dict(k_zero_point=ZP_K, v_zero_point=ZP_V)
+  ks = att.score_scale(K_SCALE, H)
+  vs = float(torch.tensor(V_SCALE, dtype=torch.float32))
+  for seed in range(8):
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    q = torch.randn((B, 1, G, H), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    kc, vc = (torch.randint(-127, 128, (B, 1, S, H), generator=gen,
+                            device='cuda').to(torch.int8) for _ in range(2))
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device='cuda').to(
+        torch.int32)
+    lens[0], lens[-1] = 1, S
+    qd = q.double()
+    scores = (torch.matmul(qd, kc.double().transpose(-1, -2))
+              - ZP_K * qd.sum(-1, keepdim=True)) * ks
+    live = torch.arange(S, device='cuda')[None, None, None, :] < lens.reshape(
+        B, 1, 1, 1)
+    p = torch.softmax(torch.where(live, scores, -1e30), -1)
+    f64 = (torch.matmul(p, vc.double()) - ZP_V) * vs
+    plain = att.decode_attention_int8_lengths_plain(
+        q, kc, vc, K_SCALE, V_SCALE, lens, **kw)
+    kern = att.decode_attention_int8_lengths(q, kc, vc, K_SCALE, V_SCALE,
+                                             lens, **kw)
+    torch.cuda.synchronize()
+
+    def err(x, y):
+      return float((x.double() - y.double()).abs().max())
+
+    emit(study='truth', seed=seed, plain_vs_f64=err(plain, f64),
+         kernel_vs_f64=err(kern, f64), kernel_vs_plain=err(kern, plain))
+
+
+# -------------------------------------------------------------------- #16
+
+
+def int_weights_times(torch, mods, timer):
+  iq = mods['iq']
+  gen = torch.Generator(device='cuda').manual_seed(3)
+  rows = [('decode', B, 'gate_up', 2 * F, D), ('decode', B, 'down', D, F),
+          ('decode', B, 'head', V, D),
+          ('prefill', PREFILL_ROWS, 'gate_up', 2 * F, D),
+          ('prefill', PREFILL_ROWS, 'down', D, F),
+          ('prefill', PREFILL_BATCH, 'head', V, D),
+          ('channelwise', B, 'out_proj', D, D)]
+  for phase, m, label, n, k in rows:
+    bs = 0 if phase == 'channelwise' else QUANT_BLOCK
+    x = torch.randn((m, k), generator=gen, device='cuda').to(torch.bfloat16)
+    x32 = torch.randn((m, k), generator=gen, device='cuda')
+    w = torch.randint(-8, 8, (n, k), generator=gen, device='cuda').to(
+        torch.int8)
+    s = torch.rand((n, k // bs) if bs else (n,), generator=gen,
+                   device='cuda') * 0.01 + 0.005
+    row = {'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': k,
+           'block_size': bs,
+           'ms': timer(lambda: iq.qmatmul_int_weights(x, w, s,
+                                                      block_size=bs)),
+           'ms_f32_x': timer(lambda: iq.qmatmul_int_weights(
+               x32, w, s, block_size=bs))}
+    if hasattr(iq, 'int_weights_plan'):
+      row['launch'] = iq.int_weights_plan(m, n, k, bs, True)
+    if not bs:
+      wf, xf = w.float(), x.float()
+      row['library_ms'] = timer(lambda: torch.matmul(xf, wf.T))
+      row['library_ms_f32_x'] = timer(lambda: torch.matmul(x32, wf.T))
+    emit(study='times', kernel='qmatmul_int_weights', **row)
+    del x, x32, w, s
+
+
+# A variant: (file of csrc/, exact text, its stand-in) edits of a copy of
+# csrc/. #16's: one part of the bs-32 decode loop taken out (times only).
+_IW = 'qmatmul_int_weights.cu'
+_FLUSH = (_IW, """    const float scaled = p[r] * s[(r >> 1) & 1];
+    y[r] = y[r] + scaled;""", """    if (r == 0) y[r] = y[r] + p[r];""")
+_WIDEN = (_IW, """      a_frags(st + XP * G::kX, row, cw, q, a[cw]);""",
+          """      for (int e = 0; e < 4; ++e)
+        a[cw][e] = 0x3F803F80u ^ (uint32_t)(i & 1);""")
+_STREAM = (_IW, """    } else if constexpr (kTwoSums) {""",
+           """    } else if constexpr (kTwoSums) {
+      mbar_arrive(&empty_bar[s]);
+      y[0] = y[0] + s0[0] + s1[1] + (float)st[XP * G::kX + row * kStepK];
+    } else if constexpr (kTwoSums && false) {""")
+_SCALES = (_IW, '''        const float2 v =
+            __ldg(reinterpret_cast<const float2*>(srow[u]) + step);
+        s0[u] = v.x;
+        s1[u] = v.y;''', '''        s0[u] = bias != nullptr ? 0.5f : 0.25f;
+        s1[u] = s0[u];''')
+# The int8 core's split-half unpack (#3's both contractions, #1, #6) with
+# the nibbles sign-extended by drq_common.cuh's nib_lo / nib_hi (__vsub4,
+# ((v ^ 8) - 8) a byte; the same bytes) in place of sign_extend_nibbles.
+_VSUB4 = ('int8_tc_gemm.cuh', """      l[e] = sign_extend_nibbles(w[e] & 0x0F0F0F0Fu);
+      h[e] = sign_extend_nibbles((w[e] >> 4) & 0x0F0F0F0Fu);""",
+          """      l[e] = (uint32_t)nib_lo(w[e]);
+      h[e] = (uint32_t)nib_hi(w[e]);""")
+# Each group's variants and the libraries they build.
+VARIANTS = {
+    'int_weights': (('qmatmul_int_weights',),
+                    {'kernel': [], 'no_flush': [_FLUSH],
+                     'no_scale_load': [_SCALES], 'no_widen': [_WIDEN],
+                     'stream': [_WIDEN, _STREAM]}),
+    'mlp': (('mlp_int4_drq', 'qmatmul_int4_drq', 'qmatmul_int4_drq_kblock'),
+            {'kernel': [], 'vsub4': [_VSUB4]})}
+
+
+def build_variants(build, group):
+  """{variant: {library: path}}, each variant's libraries built from its
+  own patched copy of csrc/ (under kernels/_build/variants/), every nvcc
+  started together."""
+  import shutil
+  import subprocess
+  names, edits_of = VARIANTS[group]
+  out = build.BUILD_DIR / 'variants' / group
+  shutil.rmtree(out, ignore_errors=True)
+  procs, libs = {}, {}
+  for variant, edits in edits_of.items():
+    csrc = out / variant / 'csrc'
+    shutil.copytree(build.CSRC, csrc)
+    for file, old, new in edits:
+      text = (csrc / file).read_text()
+      if text.count(old) != 1:
+        raise RuntimeError(f'variant {variant}: anchor not found once: {old}')
+      (csrc / file).write_text(text.replace(old, new))
+    libs[variant] = {}
+    for name in names:
+      lib = out / variant / f'lib{name}.so'
+      libs[variant][name] = lib
+      procs[variant, name] = subprocess.Popen(
+          [build.nvcc_path(), *build.NVCC_FLAGS, '-I', str(csrc), '-o',
+           str(lib), str(csrc / f'{name}.cu')],
+          stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+  for key, proc in procs.items():
+    if proc.wait():
+      raise RuntimeError(f'variant {key} did not build')
+  return libs
+
+
+def variant_calls(torch, mods, group):
+  """(label, call) of the rows each group's variants are timed at."""
+  gen = torch.Generator(device='cuda').manual_seed(3)
+  if group == 'int_weights':
+    iq, calls = mods['iq'], []
+    for label, n, k in (('gate_up', 2 * F, D), ('down', D, F),
+                        ('head', V, D)):
+      x = torch.randn((B, k), generator=gen, device='cuda').to(torch.bfloat16)
+      w = torch.randint(-8, 8, (n, k), generator=gen, device='cuda').to(
+          torch.int8)
+      s = torch.rand((n, k // QUANT_BLOCK), generator=gen,
+                     device='cuda') * 0.01 + 0.005
+      calls.append((label, lambda x=x, w=w, s=s: iq.qmatmul_int_weights(
+          x, w, s, block_size=QUANT_BLOCK)))
+    return calls
+  calls = [(f'mlp_int4_packed_bf{key["bf"]}_M{key["M"]}', call)
+           for key, call in mlp_cases(torch, mods, bfs=(2048,))
+           if key['kernel'] == 'mlp_int4_packed']
+  pq = mods['pq']
+  w = pq.pack_int4_split(torch.randint(-8, 8, (2560, D), generator=gen,
+                                       device='cuda').to(torch.int8))
+  s = torch.rand((2560,), generator=gen, device='cuda') * 0.01 + 0.005
+  wk = pq.pack_int4_split(torch.randint(-8, 8, (D, F), generator=gen,
+                                        device='cuda').to(torch.int8))
+  sk = torch.rand((D,), generator=gen, device='cuda') * 0.01 + 0.005
+  for m in (64, 1024):
+    x = torch.randn((m, D), generator=gen, device='cuda').to(torch.bfloat16)
+    xk = torch.randn((m, F), generator=gen, device='cuda').to(torch.bfloat16)
+    # #1 at the QKV projection's shape, #6 at the down projection's.
+    calls.append((f'qmatmul_int4_packed_drq_M{m}',
+                  lambda x=x: pq.qmatmul_int4_packed_drq(x, w, s)))
+    calls.append((f'qmatmul_int4_packed_drq_kblock_M{m}',
+                  lambda xk=xk: pq.qmatmul_int4_packed_drq_kblock(xk, wk, sk)))
+  return calls
+
+
+def variants(torch, mods, timer, groups):
+  import ctypes
+  build = mods['build']
+  for group in groups:
+    if group not in VARIANTS:
+      continue
+    libs = build_variants(build, group)
+    calls = variant_calls(torch, mods, group)
+    turns = list(libs) + list(libs)[::-1]  # in turns
+    for variant in turns:
+      loaded = {n: ctypes.CDLL(str(p)) for n, p in libs[variant].items()}
+      build.library = lambda name, loaded=loaded: loaded[name]
+      row = {'group': group, 'variant': variant}
+      for label, call in calls:
+        call()
+        row[label + '_ms'] = timer(call)
+      emit(study='variants', **row)
+
+
+# ------------------------------------------------------------------- main
+
+TIMES = {'mlp': mlp_times, 'attention': attention_times,
+         'int_weights': int_weights_times}
+STUDIES = {'launches': launches, 'host': host, 'steps': steps,
+           'order': order, 'truth': truth}
+
+
+def main():
+  parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+  parser.add_argument('--root', default=str(pathlib.Path(__file__).parent))
+  parser.add_argument('--kernels', default=','.join(GROUPS))
+  parser.add_argument('--reps', type=int, default=25)
+  parser.add_argument('studies', nargs='+',
+                      choices=('times', 'variants') + tuple(STUDIES))
+  args = parser.parse_args()
+  groups = [g for g in args.kernels.split(',') if g]
+  if any(g not in GROUPS for g in groups):
+    parser.error(f'--kernels takes {",".join(GROUPS)}')
+  import torch
+  if not torch.cuda.is_available():
+    print('kernel_study: no CUDA device; nothing was run.', file=sys.stderr)
+    return 2
+  root = pathlib.Path(args.root).resolve()
+  sys.path.insert(0, str(root))
+  import chip_smoke as cs
+  from ai_edge_quantizer_tpu_torch.kernels import _build
+  from ai_edge_quantizer_tpu_torch.kernels import attention as att
+  from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul as iq
+  from ai_edge_quantizer_tpu_torch.kernels import mlp
+  from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul as pq
+  # Only the studied kernels' libraries are built; the steps, every one.
+  if 'steps' not in args.studies:
+    needed = set(groups if {'times', 'variants'} & set(args.studies)
+                 else ())
+    needed |= {STUDY_GROUP[s] for s in args.studies if s in STUDY_GROUP}
+    _build.SOURCES = tuple(n for g in GROUPS if g in needed
+                           for n in SOURCES[g])
+  _build.build(_build.SOURCES)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  timer = functools.partial(cs.Timer(torch).__call__, reps=args.reps)
+  mods = dict(cs=cs, build=_build, att=att, iq=iq, mlp=mlp, pq=pq)
+  emit(card=cs.run_text(['nvidia-smi', '--query-gpu=name,power.limit',
+                         '--format=csv,noheader']).splitlines()[0],
+       root=str(root))
+  for study in args.studies:
+    if study == 'times':
+      for group in groups:
+        TIMES[group](torch, mods, timer)
+    elif study == 'variants':
+      variants(torch, mods, timer, groups)
+    else:
+      STUDIES[study](torch, mods, timer)
+  return 0
+
+
+if __name__ == '__main__':
+  sys.exit(main())

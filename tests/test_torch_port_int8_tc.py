@@ -3,10 +3,11 @@ kernels #15 `qmatmul_int8_drq`, #6 `qmatmul_int4_packed_drq_kblock` and #1
 `qmatmul_int4_packed_drq`) on the CPU, where no CUDA kernel runs: numpy
 twins of what the kernel does that the plain versions do not show.
 
-  * The byte-wise nibble unpack, `((v & 0xF) ^ 8) - 8` per byte of a
-    32-bit word (`__vsub4`, drq_common.cuh `nib_lo` / `nib_hi`), equals
-    `packed_qmatmul.unpack_int4_split` on every byte value and on random
-    words.
+  * The byte-wise nibble unpack (`unpack_split_tile`: each nibble n of a
+    32-bit word sign-extended as `n | ((n & 0x08080808) * 0x1E)`, the
+    bytes of drq_common.cuh's `nib_lo` / `nib_hi`, `((v & 0xF) ^ 8) - 8`),
+    equals `packed_qmatmul.unpack_int4_split` on every byte value and on
+    random words.
   * The split-K schedule: the kernel's plan (tiles, K steps, splits; the
     constants read from the header) and its tile walk, with TMA's zero fill
     past every edge, give int32 partials whose sum over the cluster of a
@@ -55,21 +56,22 @@ H100_SMS = 132
 # ------------------------------------------------------------ nibble unpack
 
 
-def _vsub4_nibbles(words, shift):
-  """numpy twin of nib_lo (shift 0) / nib_hi (shift 4): per byte of each
-  uint32 word, __vsub4(((w >> shift) & 0x0F0F0F0F) ^ 0x08080808,
-  0x08080808), a byte-wise subtraction modulo 256, read as int8."""
-  v = ((words >> np.uint32(shift)) & np.uint32(0x0F0F0F0F)) ^ np.uint32(
-      0x08080808)
-  b = v.view(np.uint8).astype(np.int16)
-  return ((b - 8) % 256).astype(np.uint8).view(np.int8)
+def _sign_extend_nibbles(words, shift):
+  """numpy twin of the core's unpack of the low (shift 0) / high (shift 4)
+  nibbles: n = (w >> shift) & 0x0F0F0F0F, then n | ((n & 0x08080808) *
+  0x1E) in 32 bits (a byte with bit 3 set gains 0xF0, no carry between
+  bytes), read as int8."""
+  n = ((words >> np.uint32(shift)) & np.uint32(0x0F0F0F0F)).astype(
+      np.uint64)
+  v = (n | ((n & 0x08080808) * 0x1E)) & 0xFFFFFFFF
+  return v.astype(np.uint32).view(np.int8)
 
 
 def _unpack_words(packed):
   """Unpacks uint8 [N, K/2] as the kernel does, four bytes a word."""
   words = np.ascontiguousarray(packed).view(np.uint32)
-  lo = _vsub4_nibbles(words, 0).reshape(packed.shape)
-  hi = _vsub4_nibbles(words, 4).reshape(packed.shape)
+  lo = _sign_extend_nibbles(words, 0).reshape(packed.shape)
+  hi = _sign_extend_nibbles(words, 4).reshape(packed.shape)
   return np.concatenate([lo, hi], axis=1)
 
 
