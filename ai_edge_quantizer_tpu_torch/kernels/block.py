@@ -5,9 +5,12 @@ Port of `ai_edge_quantizer_tpu/kernels/pallas_block.py`
 of the decode step computes MLP(l-1), both RMS norms, the packed QKV
 projection of layer l, RoPE, the int8 quantization of the new K/V row and
 the stale-cache attention of layer l, and writes the new row into the
-cache pools. On a CUDA tensor it launches the cooperative kernel of
-`csrc/fused_block.cu` (or raises); on a CPU tensor it runs
-`fused_mlp_qkv_attention_plain`, which repeats the kernel's arithmetic.
+cache pools. On a CUDA tensor it launches the chain of `csrc/fused_block.cu`
+(or raises): #3's DRQ MLP kernels on the int8 tensor-core core with the
+residual in the down's epilogue, the QKV on the same core with RoPE and
+the new row's codes in its epilogue, #2's stale attention on the split
+tensor-core core, then the pools' row write. On a CPU tensor it runs
+`fused_mlp_qkv_attention_plain`, which repeats the kernels' arithmetic.
 
 Numerics (exactly `_kernel_impl`):
   xq, xs  = DRQ of rmsnorm(x_res) * g1 (sum of squares in f64, see
@@ -155,7 +158,7 @@ def fused_mlp_qkv_attention_plain(
 
 _PTRS = ('x', 'g1', 'wgu', 'sgu', 'wd', 'sd', 'g2', 'wqkv', 'sqkv', 'cos',
          'sin', 'lengths', 'pos', 'k_pool', 'v_pool', 'ctx', 'x_ffn', 'k_new',
-         'v_new', 'xq1', 'xs1', 'hid', 'hq', 'hs', 'xf', 'xq2', 'xs2', 'qkv')
+         'v_new', 'xq1', 'xs1', 'hid', 'hq', 'hs', 'xf', 'xq2', 'xs2', 'q')
 _INTS = ('x_bf16', 'B', 'D', 'F', 'bf', 'NQ', 'H', 'S', 'act_silu',
          'compute')
 _FLOATS = ('eps', 'k_scale_eff', 'v_scale', 'zp_k', 'zp_v', 'kq_inv',
@@ -201,7 +204,11 @@ def _launch(x_res, gamma_ffn, wgu_packed, s_gu, wd_grouped, s_d, gamma_attn,
     _build.require_cuda_tensor(t, _NAME, nm, (torch.int8,), 16)
   lens = lengths.to(torch.int32).contiguous()
   _build.require_cuda_tensor(lens, _NAME, 'lengths', (torch.int32,))
-  pos_t = torch.as_tensor(pos, device=dev).to(torch.int32).reshape(1)
+  # An int pos is filled on the device: no copy from the host, which would
+  # wait for the stream.
+  pos_t = (pos.to(device=dev, dtype=torch.int32).reshape(1)
+           if isinstance(pos, torch.Tensor) else
+           torch.full((1,), int(pos), dtype=torch.int32, device=dev))
   _build.require_cuda_tensor(pos_t, _NAME, 'pos', (torch.int32,))
 
   def empty(shape, dtype):
@@ -213,7 +220,7 @@ def _launch(x_res, gamma_ffn, wgu_packed, s_gu, wd_grouped, s_d, gamma_attn,
                  hid=empty((b, f), f32), hq=empty((b, f), torch.int8),
                  hs=empty((b, f // bf), f32), xf=empty((b, d), f32),
                  xq2=empty((b, d), torch.int8), xs2=empty((b,), f32),
-                 qkv=empty((b, (nq + 2) * h), f32))
+                 q=empty((b, nq, h), f32))
   tensors = dict(x=x, g1=vecs['gamma_ffn'], wgu=wgu_packed, sgu=vecs['s_gu'],
                  wd=wd_grouped, sd=vecs['s_d'], g2=vecs['gamma_attn'],
                  wqkv=wqkv_packed, sqkv=vecs['s_qkv'], cos=vecs['rope_cos'],
@@ -234,6 +241,25 @@ def _launch(x_res, gamma_ffn, wgu_packed, s_gu, wd_grouped, s_d, gamma_attn,
   _build.check(status, _NAME, f'D={d}, F={f}, bf={bf}, NQ={nq}, H={h}, S={s}, '
                f'compute={compute}')
   return out['ctx'], out['x_ffn'], out['k_new'], out['v_new']
+
+
+# The chain's launches (csrc/fused_block.cu aeqt_fused_block_plan): the
+# gate/up, down and QKV contractions as the MLP's plans give them, then the
+# attention's (cluster size 0: the one-block body).
+PLAN_FIELDS = tuple(
+    f'{part}_{name}' for part in ('gate_up', 'down', 'qkv')
+    for name in ('grid_x', 'grid_y', 'chain', 'threads', 'stages',
+                 'smem_bytes')) + tuple(
+        f'attention_{name}' for name in ('cluster', 'rows', 'cache_rows',
+                                         'threads', 'smem_bytes'))
+
+
+def plan(b: int, d: int, f: int, bf: int, nq: int, h: int, s: int,
+         compute: str = 'f32', x_bf16: bool = True) -> dict:
+  """The launches fused_mlp_qkv_attention gives a shape (card only)."""
+  return _build.plan('fused_block', 'aeqt_fused_block_plan', _NAME, b, d, f,
+                     bf, nq, h, s, compute_code(compute), int(x_bf16),
+                     fields=PLAN_FIELDS)
 
 
 def fused_mlp_qkv_attention(

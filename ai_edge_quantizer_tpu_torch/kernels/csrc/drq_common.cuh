@@ -84,38 +84,6 @@ __device__ __forceinline__ float silu(float x) {
   return x * (1.0f / (1.0f + expf(-x)));
 }
 
-// RMS norm of one row of K values fused with its per-row DRQ (one warp):
-//   var = mean(x^2), xn = (x * (1 / sqrt(var + eps))) * gamma,
-//   xs  = max(absmax(xn), 1e-9) * (1/127), xq = rint(xn * (1 / xs)).
-// The sum of squares is taken in f64 (each square is exact there) and
-// rounded to f32 once, which makes a difference between orders of the sum
-// very unlikely, though not impossible: the plain PyTorch versions
-// (ops/impl.py RMS_NORM, kernels/block.py) sum in f64 in another order
-// and, in every check so far, get the same f32.
-// x may have been written earlier in the same launch (plain loads only).
-template <typename T>
-__device__ void rmsnorm_quant_row(const T* x, const float* gamma, int K,
-                                  float eps, int8_t* xq, float* xs,
-                                  int lane) {
-  double ss = 0.0;
-  for (int k = lane; k < K; k += 32) {
-    const double v = (double)load_f(x, k);
-    ss += v * v;
-  }
-  ss = warp_sum_double(ss);
-  const float var = (float)(ss / (double)K);
-  const float r = 1.0f / sqrtf(var + eps);
-  float amax = 0.0f;
-  for (int k = lane; k < K; k += 32)
-    amax = fmaxf(amax, fabsf((load_f(x, k) * r) * gamma[k]));
-  amax = warp_max(amax);
-  const float s = fmaxf(amax, 1e-9f) * kInv127;
-  const float inv = 1.0f / s;
-  for (int k = lane; k < K; k += 32)
-    xq[k] = (int8_t)__float2int_rn(((load_f(x, k) * r) * gamma[k]) * inv);
-  if (lane == 0) *xs = s;
-}
-
 // Per-row DRQ of rows [m0, m0 + bm) of x [M, K] into shared memory:
 // xq [bm][K] int8 and xs [bm] f32. One warp per row. Rows past M are 0.
 template <typename T>
@@ -180,26 +148,6 @@ __device__ __forceinline__ void dot_packed(const uint8_t* __restrict__ wrow,
       a = __dp4a(hi[1], xh.y, a);
       a = __dp4a(hi[2], xh.z, a);
       a = __dp4a(hi[3], xh.w, a);
-      acc[r] = a;
-    }
-  }
-}
-
-// One warp: acc[r] += wrow . xq[r] over an int8 row of k bytes (k % 16 == 0).
-template <int BM>
-__device__ __forceinline__ void dot_int8(const int8_t* __restrict__ wrow,
-                                         int k, const int8_t* xq, int ld,
-                                         int lane, int (&acc)[BM]) {
-  for (int j = lane * 16; j < k; j += 512) {
-    const int4 wv = __ldg(reinterpret_cast<const int4*>(wrow + j));
-#pragma unroll
-    for (int r = 0; r < BM; ++r) {
-      const int4 xv = *reinterpret_cast<const int4*>(xq + (size_t)r * ld + j);
-      int a = acc[r];
-      a = __dp4a(wv.x, xv.x, a);
-      a = __dp4a(wv.y, xv.y, a);
-      a = __dp4a(wv.z, xv.z, a);
-      a = __dp4a(wv.w, xv.w, a);
       acc[r] = a;
     }
   }

@@ -3,10 +3,13 @@
 Port of `head_argmax_pallas` in `ai_edge_quantizer_tpu/kernels/
 pallas_head.py` (`_head_argmax_kernel`). The DRQ branches (int8 [N, K]
 weights, the tied Gemma embedding head, and split-half packed int4
-[N, K/2]) run the CUDA kernels of `csrc/head_argmax.cu` on a CUDA tensor,
-and so do the weight-only (bf16, drq=False) branches, through their own
-entry point. `head_argmax` dispatches on `drq`; the weight-only branch is
-also `head_argmax_bf16`, which keeps its own launch and plain-run counts.
+[N, K/2]) run the CUDA kernels of `csrc/head_argmax.cu` on a CUDA tensor:
+the int8 tensor-core core's row quantize, then its tiles with an argmax
+epilogue (one (max, first index) pair a row and 128-column tile) and a
+reduction of the pairs. The weight-only (bf16, drq=False) branches run
+there too, through their own entry point. `head_argmax` dispatches on
+`drq`; the weight-only branch is also `head_argmax_bf16`, which keeps its
+own launch and plain-run counts.
 In that branch x is rounded to bf16 whatever its dtype and the weights
 are taken as bf16 values, with f32 sums (on tensor cores on the card).
 
@@ -29,7 +32,17 @@ from ai_edge_quantizer_tpu_torch.kernels.packed_qmatmul import (
 from ai_edge_quantizer_tpu_torch.kernels.qmatmul import int_matmul_exact
 
 _NEG_INF = -3.4e38  # pallas_head._NEG_INF
-_HEAD_BN = 64       # vocab columns per tile of head_argmax.cu
+_HEAD_BN = 64       # vocab columns per tile of the weight-only branch
+_HEAD_DRQ_BN = 128  # vocab columns per tile of the DRQ branch (wgmma n128)
+# The DRQ branch's tile launch (csrc/head_argmax.cu aeqt_head_argmax_plan).
+DRQ_PLAN_FIELDS = ('blocks', 'row_tiles', 'col_tiles', 'threads',
+                   'smem_bytes', 'stages')
+
+
+def drq_plan(m: int, n: int, k: int, packed: bool) -> dict:
+  """The tile launch head_argmax's DRQ branch gives a shape (card only)."""
+  return _build.plan('head_argmax', 'aeqt_head_argmax_plan', 'head_argmax',
+                     m, n, k, int(packed), fields=DRQ_PLAN_FIELDS)
 
 
 def head_argmax_plain(x, w_q, scale, *, packed, true_n=None, drq=True):
@@ -87,18 +100,20 @@ def head_argmax(
   if x2.dtype not in (torch.float32, torch.bfloat16):
     x2 = x2.to(torch.float32)
   x2 = x2.contiguous()
-  _build.require(k % 32 == 0, name, f'K={k} must be a multiple of 32')
-  _build.require(16 * k + 1088 <= _build.MAX_SMEM, name, f'K={k} too wide')
-  n, true_n, pmax, pidx, ids = _scratch(name, x2, w_q, scale, packed, true_n)
+  n, true_n, pmax, pidx, ids = _scratch(name, x2, w_q, scale, packed, true_n,
+                                        _HEAD_DRQ_BN)
+  m = x2.shape[0]
+  xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+  xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
   fn = _build.entry('head_argmax', 'aeqt_head_argmax',
-                    [_build.P, _build.I, _build.P, _build.I, _build.P,
-                     _build.P, _build.P, _build.P] + [_build.I] * 5
-                    + [_build.P])
+                    [_build.P, _build.I, _build.P, _build.I] + [_build.P] * 6
+                    + [_build.I] * 5 + [_build.P])
   status = fn(x2.data_ptr(), int(x2.dtype == torch.bfloat16), w_q.data_ptr(),
-              int(packed), scale.data_ptr(), pmax.data_ptr(), pidx.data_ptr(),
-              ids.data_ptr(), x2.shape[0], n, k, true_n,
-              int(x.dtype == torch.bfloat16), _build.stream_ptr(x2.device))
-  _build.check(status, name)
+              int(packed), scale.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+              pmax.data_ptr(), pidx.data_ptr(), ids.data_ptr(), m, n, k,
+              true_n, int(x.dtype == torch.bfloat16),
+              _build.stream_ptr(x2.device))
+  _build.check(status, name, f'M={m}, N={n}, K={k}')
   head_argmax.launches += 1
   return ids.reshape(x.shape[:-1])
 
@@ -142,15 +157,15 @@ head_argmax_bf16.launches = 0
 head_argmax_bf16.plain_calls = 0
 
 
-def _scratch(name, x2, w_q, scale, packed, true_n):
-  """Checks the weights of a CUDA launch and allocates its per-tile pairs
-  and ids: (N, true_n, pmax, pidx, ids)."""
+def _scratch(name, x2, w_q, scale, packed, true_n, tile=_HEAD_BN):
+  """Checks the weights of a CUDA launch and allocates its pairs, one a row
+  and `tile`-column tile, and ids: (N, true_n, pmax, pidx, ids)."""
   n = w_q.shape[0]
   _build.require_cuda_tensor(
       w_q, name, 'w_q', (torch.uint8,) if packed else (torch.int8,), 16)
   _build.require_cuda_tensor(scale, name, 'scale', (torch.float32,))
   _build.require(scale.numel() == n, name, 'scale must have N entries')
-  m, tiles, dev = x2.shape[0], -(-n // _HEAD_BN), x2.device
+  m, tiles, dev = x2.shape[0], -(-n // tile), x2.device
   return (n, n if true_n is None else min(true_n, n),
           torch.empty((m, tiles), dtype=torch.float32, device=dev),
           torch.empty((m, tiles), dtype=torch.int32, device=dev),

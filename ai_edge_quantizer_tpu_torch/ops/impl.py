@@ -237,7 +237,7 @@ def rms_inverse(xf: torch.Tensor, eps: float) -> torch.Tensor:
   The sum of squares is taken in f64 (each square is exact there) and
   rounded to f32 once, which makes a difference between orders of the sum
   very unlikely, though not impossible: the CUDA kernels that fuse the
-  norm (kernels/csrc/drq_common.cuh `rmsnorm_quant_row`) sum in another
+  norm (kernels/csrc/fused_block.cu `norm_quant_kernel`) sum in another
   order and, in every check so far, get the same f32. 1 / sqrt is two IEEE
   roundings on every device, which `torch.rsqrt` does not promise. The JAX
   op takes an f32 mean and rsqrt; at D 2048 its var differs from this one

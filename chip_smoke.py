@@ -17,6 +17,11 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      where one PyTorch call computes the same contraction or attention,
      that call (`library_ms`, never used by the port), and for the fused
      decode block the composition of the unfused kernels it replaces; the
+     greedy head's DRQ branches (head_kernel: int8 at decode, prefill and
+     bench rows, packed int4 at decode and bench rows, ties across and
+     inside 128-column tiles, true_n < N; ids identical); the fused block
+     (block_kernel) also with NQ 17, where #2's one-block body takes its
+     attention, in each compute mode; the
      bound from bytes over 3.35 TB/s or operations over the peak rate; the
      int4-group attention at pos 0/31/32/896/1023 and the server's mixed
      lengths, with INT4G_ATTENTION_SCATTER's pools and sidecar equal to
@@ -423,45 +428,15 @@ def kernel_phase(torch, port, cfg, dev, timer):
   # 3. MLP, DRQ branch (#3, on the int8 tensor-core core).
   results.append(mlp_drq_kernel(torch, port, cfg, dev, timer, gen))
 
-  # 4. Greedy head, int8 DRQ (the tied 256128 x 2048 embedding).
+  # 4. Greedy head, DRQ (the tied 256128 x 2048 embedding, and packed):
+  # the shared generator's draws are the ones this check always took, so
+  # that every later check sees the inputs it saw before; head_kernel's
+  # further inputs come from a generator of its own.
   x = randn(B, 1, D)
   w_q = randint(-127, 128, V, D)
   s = scales(V)
-  # A planted tie across two vocab tiles: rows 100 and V - 100 equal and
-  # scaled to win.
-  w_q[V - 100] = w_q[100]
-  s[100] = s[V - 100] = 1.0
-  hargs = (x, w_q, s)
-  for rows in (hargs, (x[:PREFILL_BATCH], w_q, s)):  # decode; prefill
-    got = head.head_argmax(*rows, packed=False)
-    want = head.head_argmax_plain(*rows, packed=False)
-    sync()
-    mism = int(torch.sum(got != want))
-    if mism:
-      raise AssertionError(f'head: {mism} ids differ from plain')
-  nbytes = B * D * 2 + V * D + V * 4 + B * 4
-  b_ms, b_by = bound(nbytes, 2 * B * V * D, INT8_OPS_PER_S)
   xb = randn(BENCH_B, 1, D)
-  hb_ms, hb_by = bound(BENCH_B * D * 2 + V * D + V * 4 + BENCH_B * 4,
-                       2 * BENCH_B * V * D, INT8_OPS_PER_S)
-  head_bench = {
-      'M': BENCH_B,
-      'ms': timer(lambda: head.head_argmax(xb, w_q, s, packed=False)),
-      'plain_ms': timer(lambda: head.head_argmax_plain(xb, w_q, s,
-                                                       packed=False)),
-      'bound_ms': hb_ms, 'bound_by': hb_by, 'library_ms': None}
-  results.append({
-      'name': 'head_argmax', 'route': 'cuda',
-      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/head_argmax.cu',
-      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_head.py:169',
-      'jax': 'pallas_head.head_argmax_pallas (int8, drq=True)',
-      'wrapper': head.head_argmax, 'per_step': 1, 'max_abs_err': 0.0,
-      'ms': timer(lambda: head.head_argmax(*hargs, packed=False)),
-      'plain_ms': timer(lambda: head.head_argmax_plain(*hargs,
-                                                        packed=False)),
-      'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
-      'bench': head_bench})
-  log('kernel head_argmax ok: ids identical (planted tie included)')
+  results.append(head_kernel(torch, port, cfg, dev, timer, (x, w_q, s, xb)))
   results.append(lengths_kernel(torch, att, port['_build'], cfg, dev, timer,
                                 gen))
   results.append(flash_kernel(torch, att, port['_build'], cfg, dev, timer,
@@ -640,6 +615,110 @@ def stale_bench(torch, att, build, cfg, dev, timer, gen):
                            0)}
 
 
+def head_kernel(torch, port, cfg, dev, timer, drawn):
+  """#4's DRQ branches (csrc/head_argmax.cu on the int8 tensor-core core
+  with an argmax epilogue) against the plain version: the tied int8 head
+  (V x D; `drawn`: x at B rows, its weights and scales, x at BENCH_B
+  rows) at a decode tick's rows (B), a prefill pass's (PREFILL_BATCH, the
+  first of x) and a bench step's (BENCH_B), with a tie planted across two
+  128-column tiles (rows 100 and V - 100, scaled to win), at B also with
+  true_n < N
+  and with a tie inside one tile (rows 200 and 201; weights of their own),
+  and the packed int4 head at B and BENCH_B. Ids must be identical. Timed
+  at B and BENCH_B beside the plain version and, as a yardstick only, the
+  library composition torch._int_mm + scale + cast + torch.argmax on the
+  same codes (the unpacked weights for the packed head; the codes and
+  scales of x made before, untimed), with the tile launch's plan and
+  ptxas' report."""
+  head, pq, build = port['head'], port['packed_qmatmul'], port['_build']
+  D, V = cfg.embed_dim, cfg.vocab_size
+  gen = torch.Generator(device=dev).manual_seed(4)
+
+  def randint(lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev).to(
+        torch.int8)
+
+  def scales(n):
+    return torch.rand((n,), generator=gen, device=dev) * 0.01 + 0.005
+
+  def planted(lo, hi, a, b_, s_win):
+    w, s = randint(lo, hi, V, D), scales(V)
+    w[b_] = w[a]
+    s[a] = s[b_] = s_win
+    return w, s
+
+  x, w8, s8, xb = drawn
+  w8[V - 100] = w8[100]  # across tiles
+  s8[100] = s8[V - 100] = 1.0
+  w8_in, s8_in = planted(-127, 128, 200, 201, 1.0)   # inside one tile
+  w4_q, s4 = planted(-8, 8, 100, V - 100, 1.0)
+  w4 = pq.pack_int4_split(w4_q)
+  cases = []
+
+  def check(label, x, w, s, packed, true_n=None):
+    got = head.head_argmax(x, w, s, packed=packed, true_n=true_n)
+    want = head.head_argmax_plain(x, w, s, packed=packed, true_n=true_n)
+    sync()
+    mism = int(torch.sum(got != want))
+    if mism:
+      raise AssertionError(f'head {label}: {mism} ids differ from plain')
+    cases.append({'case': label, 'M': x.shape[0], 'packed': packed,
+                  'true_n': true_n, 'ids_differ': 0})
+
+  xs_by_m = {B: x, PREFILL_BATCH: x[:PREFILL_BATCH], BENCH_B: xb}
+  for m, x in xs_by_m.items():
+    check(f'int8 M {m}, tie across tiles', x, w8, s8, False)
+  x = xs_by_m[B]
+  check(f'int8 M {B}, true_n {V - 1000}', x, w8, s8, False, V - 1000)
+  check(f'int8 M {B}, tie inside a tile', x, w8_in, s8_in, False)
+  check(f'int8 M {B}, f32 x', x.float(), w8, s8, False)
+  for m in (B, BENCH_B):
+    check(f'packed M {m}, tie across tiles', xs_by_m[m], w4, s4, True)
+
+  def timed(m, packed):
+    x = xs_by_m[m]
+    w, s, w_int8 = (w4, s4, w4_q) if packed else (w8, s8, w8)
+    k_bytes = D // 2 if packed else D
+    nbytes = m * D * 2 + V * k_bytes + V * 4 + m * 4
+    b_ms, b_by = bound(nbytes, 2 * m * V * D, INT8_OPS_PER_S)
+    xq, xq_s = pq.quantize_rows_drq(x.reshape(m, D).float())
+    w_t = w_int8.t()
+
+    def library():
+      y = torch._int_mm(xq, w_t).float() * xq_s * s
+      return torch.argmax(y.to(torch.bfloat16).float(), dim=-1)
+    return {'M': m, 'packed': packed,
+            'ms': timer(lambda: head.head_argmax(x, w, s, packed=packed)),
+            'plain_ms': timer(lambda: head.head_argmax_plain(
+                x, w, s, packed=packed), reps=5),
+            'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+            'library_composition_ms': timer(library),
+            'launch': head.drq_plan(m, V, D, packed)}
+
+  rows = {f'{"packed" if p else "int8"}_M{m}': timed(m, p)
+          for p in (False, True) for m in (B, BENCH_B)}
+  main = rows[f'int8_M{B}']
+  log(f'kernel head_argmax ok: ids identical in {len(cases)} cases (planted '
+      'ties included); ' + ', '.join(
+          f'{k} {r["ms"]:.4f} ms (library composition '
+          f'{r["library_composition_ms"]:.4f}, bound {r["bound_ms"]:.4f})'
+          for k, r in rows.items()))
+  return {
+      'name': 'head_argmax', 'route': 'cuda',
+      'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/head_argmax.cu',
+      'core': 'ai_edge_quantizer_tpu_torch/kernels/csrc/int8_tc_gemm.cuh',
+      'replaces': 'ai_edge_quantizer_tpu/kernels/pallas_head.py:169',
+      'jax': 'pallas_head.head_argmax_pallas (int8, drq=True)',
+      'wrapper': head.head_argmax, 'per_step': 1, 'max_abs_err': 0.0,
+      **{k: main[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                              'library_ms', 'library_composition_ms',
+                              'launch')},
+      'library_composition': 'torch._int_mm + scale + cast + torch.argmax '
+                             '(the codes of x made before, untimed)',
+      'bench': rows[f'int8_M{BENCH_B}'], 'rows': rows, 'cases': cases,
+      'ptxas': ptxas_report(build, 'head_argmax', 'head_tc_kernel')}
+
+
 def block_kernel(torch, port, cfg, dev, timer, gen):
   """The fused decode block against its plain version at bench.py's shape:
   GEMMA_2B widths, BENCH_B rows, S = 1024, bf = 2048, random pools.
@@ -766,6 +845,8 @@ def block_kernel(torch, port, cfg, dev, timer, gen):
   if comp_x != 0.0 or comp_ctx > 5e-5 * cases[-1]['ctx_max_abs']:
     raise AssertionError('the fused block and the unfused kernels disagree')
 
+  cases.extend(block_one_block_cases(torch, port, dev))
+
   live = Bb * BENCH_START
   nbytes = (2 * F * D // 2 + D * F // 2 + N * D // 2
             + (2 * F + N + 3 * D) * 4          # scales and gammas
@@ -801,7 +882,75 @@ def block_kernel(torch, port, cfg, dev, timer, gen):
                                'new_row_codes_differ': comp_codes},
       'bound_parts': {'bytes': nbytes, 'int8_ops': int8_ops,
                       'attention_ops': f32_ops},
-      'B': Bb, 'live_rows': live, 'cases': cases}
+      'B': Bb, 'live_rows': live, 'cases': cases,
+      'core': 'ai_edge_quantizer_tpu_torch/kernels/csrc/int8_tc_gemm.cuh, '
+              'attention_split_tc.cuh',
+      'launch': blk.plan(Bb, D, F, bf, NQ, H, S, 'f32', True),
+      'ptxas': ptxas_report(port['_build'], 'fused_block', '')}
+
+
+def block_one_block_cases(torch, port, dev):
+  """The fused block where #2's split core does not take the attention
+  (NQ 17 query rows, more than its 16): the one-block body, by the fixed
+  rule, at small widths in each compute mode; k_new, v_new, both pools
+  and the f32 x_ffn's bits equal to the plain version's, ctx to 5e-5 of
+  its largest magnitude in f32 and bf16 (the bf16 mode's operands round
+  alike in both) and bit for bit in int8."""
+  blk, pq, mlp = port['block'], port['packed_qmatmul'], port['mlp']
+  impl = port['ops_impl']
+  b, d, f, bf, nq, h, s, pos = 4, 256, 512, 256, 17, 128, 256, 100
+  n = (nq + 2) * h
+  gen = torch.Generator(device=dev).manual_seed(17)  # the later checks'
+  # inputs stay those of the shared generator
+
+  def randint(lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev).to(
+        torch.int8)
+
+  def scales(k):
+    return torch.rand((k,), generator=gen, device=dev) * 0.01 + 0.005
+
+  x = torch.randn((b, d), generator=gen, device=dev)
+  ang = (pos * impl.rope_freqs(10000.0, h // 2, dev)).reshape(
+      1, h // 2).expand(b, h // 2)
+  lengths = torch.tensor([1, pos + 1, pos + 40, s], dtype=torch.int32,
+                         device=dev)
+  fixed = [x, 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev),
+           pq.pack_int4_split(randint(-8, 8, 2 * f, d)), scales(2 * f),
+           mlp.pack_int4_split_grouped(randint(-8, 8, d, f), bf), scales(d),
+           1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev),
+           pq.pack_int4_split(randint(-8, 8, n, d)), scales(n),
+           torch.cos(ang).contiguous(), torch.sin(ang).contiguous()]
+  kc, vc = randint(-127, 128, b, s, h), randint(-127, 128, b, s, h)
+  out = []
+  for mode in ('f32', 'bf16', 'int8'):
+    plan = blk.plan(b, d, f, bf, nq, h, s, mode, False)
+    if plan['attention_cluster'] != 0:
+      raise AssertionError(f'fused block NQ {nq}: the split core took it')
+    runs = []
+    for fn in (blk.fused_mlp_qkv_attention,
+               blk.fused_mlp_qkv_attention_plain):
+      pools = [kc.clone(), vc.clone()]
+      runs.append((fn(*fixed, *pools, lengths, pos, 0.06, 0.06, 0.06, 0.06,
+                      nq, bf=bf, compute=mode), pools))
+    sync()
+    (got, gp), (want, wp) = runs
+    codes = sum(int(torch.sum(g != w)) for g, w in (
+        (got[2], want[2]), (got[3], want[3]), (gp[0], wp[0]),
+        (gp[1], wp[1])))
+    x_bits = bits_differ(torch, got[1], want[1])
+    err = float(torch.max(torch.abs(got[0] - want[0])))
+    ctx_max = float(torch.max(torch.abs(want[0])))
+    if codes or x_bits or err > (0.0 if mode == 'int8' else 5e-5 * ctx_max):
+      raise AssertionError(f'fused block one-block attention {mode}: codes '
+                           f'that differ {codes}, x_ffn bits {x_bits}, ctx '
+                           f'err {err} (max |ctx| {ctx_max})')
+    log(f'kernel fused_mlp_qkv_attention NQ {nq} (one-block attention) '
+        f'{mode} ok: ctx err {err:.3g}, launch {plan}')
+    out.append({'case': f'one-block attention NQ {nq} {mode}',
+                'ctx_max_abs_err': err, 'ctx_max_abs': ctx_max,
+                'x_ffn_err': 0.0, 'launch': plan})
+  return out
 
 
 INT4G_GROUP = 16   # bench.py's kv_int4_group

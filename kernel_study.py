@@ -7,8 +7,8 @@ Each prints one JSON line per measurement.
 
 --root picks the checkout whose kernels (and chip_smoke.py) run (default:
 this file's), so two checkouts can be timed in turns on one card, one
-process each. --kernels picks the groups that `times` covers (default:
-all three). Times are CUDA-event medians of --reps calls as
+process each. --kernels picks the groups that `times` and `launches`
+cover (default: all four). Times are CUDA-event medians of --reps calls as
 chip_smoke.Timer takes them (L2 flushed before each).
 
 Kernel groups of `times`:
@@ -28,6 +28,12 @@ Kernel groups of `times`:
                #10 at bench.py's decode and the server's tick; #21 at the
                A/B tool's shape (B 256, lengths S - 2) and at B 64 with
                lengths 0..S, f32 out.
+  block        #5 (block.fused_mlp_qkv_attention) at bench.py's decode
+               step (GEMMA_2B widths, B 256, S 1024, every row 897 long,
+               pos 896, bf 2048) in every compute mode with f32 and with
+               bf16 x; #4 (head.head_argmax, DRQ) on the tied int8 head
+               and a packed int4 one (N 256128, K 2048) at M 64 and 256,
+               bf16 x.
   int_weights  #16 (int_qmatmul.qmatmul_int_weights) at chip_smoke.
                int_weight_kernels' rows: gemma_mixed48_b32's blockwise-32
                FCs at decode (M 64: gate/up N 32768 at K 2048, down N 2048
@@ -38,9 +44,10 @@ Kernel groups of `times`:
 
 Studies:
   times     the rows of the groups above.
-  launches  the device time of each launch of one #3 call at the `mlp`
-            rows (torch.profiler, the mean of 5 calls each after an L2
-            flush).
+  launches  the device time of each launch of one call at the `mlp` and
+            `block` rows of --kernels (torch.profiler, the mean of 5
+            calls each after an L2 flush: device_us a launch of each
+            kernel, device_us_per_call its launches' sum in one call).
   host      the host time of one #3 call at decode (M 64, bf 2048 and
             512, both branches): the wrapper's Python, its allocations and
             every launch it enqueues, with the card kept busy so that no
@@ -92,16 +99,16 @@ B, S, H, G = 64, 1024, 256, 8
 BENCH_B, BENCH_ROWS = 256, 897
 K_SCALE, V_SCALE, ZP_K, ZP_V = 0.06, 0.06, 3.0, -2.0
 PREFILL_ROWS, PREFILL_BATCH, QUANT_BLOCK = 1024, 8, 32
-GROUPS = ('mlp', 'attention', 'int_weights')
+GROUPS = ('mlp', 'attention', 'block', 'int_weights')
 # The kernel libraries each group and study builds (steps: every one).
 SOURCES = {
     'mlp': ('mlp_int4_drq', 'mlp_int4_bf16', 'attention_int8_basic'),
     'attention': ('attention_lengths', 'attention_stale',
                   'attention_writeback', 'attention_int4_group',
                   'attention_int4_row'),
+    'block': ('fused_block', 'head_argmax'),
     'int_weights': ('qmatmul_int_weights',)}
-STUDY_GROUP = {'launches': 'mlp', 'host': 'mlp', 'order': 'attention',
-               'truth': 'attention'}
+STUDY_GROUP = {'host': 'mlp', 'order': 'attention', 'truth': 'attention'}
 STEP_SETTINGS = ('block on', 'block off', 'inplace', 'norm fusion')
 
 
@@ -165,20 +172,22 @@ def mlp_times(torch, mods, timer):
     emit(study='times', **key, ms=timer(call))
 
 
-def launches(torch, mods, timer):
+def launches(torch, mods, timer, calls=5):
   flush = torch.empty(128 * 2**20, dtype=torch.uint8, device='cuda')
-  for key, call in mlp_cases(torch, mods):
+  cases = [c for g in mods['groups'] if g in LAUNCH_CASES
+           for c in LAUNCH_CASES[g](torch, mods)]
+  for key, call in cases:
     for _ in range(3):
       call()
     torch.cuda.synchronize()
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-      for _ in range(5):
+      for _ in range(calls):
         flush.zero_()
         torch.cuda._sleep(2_000_000)
         call()
       torch.cuda.synchronize()
-    per = {}
+    per, per_call = {}, {}
     for e in prof.key_averages():
       if 'sleep' in e.key or 'spin' in e.key or 'zero' in e.key \
           or 'fill' in e.key.lower():
@@ -187,7 +196,10 @@ def launches(torch, mods, timer):
       if us:
         name = e.key.replace('(anonymous namespace)::', '').split('(')[0]
         per[name[:80]] = round(us, 3)
-    emit(study='launches', **key, device_us=per)
+        per_call[name[:80]] = round(
+            (getattr(e, 'device_time_total', 0) or 0) / calls, 3)
+    emit(study='launches', **key, device_us=per, device_us_per_call=per_call,
+         total_us_per_call=round(sum(per_call.values()), 3))
 
 
 def host(torch, mods, timer, calls=50, rounds=5):
@@ -240,6 +252,65 @@ def steps(torch, mods, timer):
          step_ms=r['step_ms'],
          device_busy_ms_per_step=r['device_busy_ms_per_step'],
          device_idle_share=r['device_idle_share'])
+
+
+# ------------------------------------------------------------------- #5, #4
+
+
+def block_cases(torch, mods):
+  """(key, call) of each #5 and #4 case (see the `block` group)."""
+  from ai_edge_quantizer_tpu_torch.kernels import block, head
+  from ai_edge_quantizer_tpu_torch.ops import impl
+  mlp, pq = mods['mlp'], mods['pq']
+  gen = torch.Generator(device='cuda').manual_seed(5)
+
+  def randint(lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device='cuda').to(
+        torch.int8)
+
+  def scales(n):
+    return torch.rand((n,), generator=gen, device='cuda') * 0.01 + 0.005
+
+  nq, bf, n = G, 2048, (G + 2) * H
+  x32 = torch.randn((BENCH_B, D), generator=gen, device='cuda')
+  g1, g2 = (1.0 + 0.1 * torch.randn((D,), generator=gen, device='cuda')
+            for _ in range(2))
+  wgu, sgu = pq.pack_int4_split(randint(-8, 8, 2 * F, D)), scales(2 * F)
+  wd, sd = mlp.pack_int4_split_grouped(randint(-8, 8, D, F), bf), scales(D)
+  wqkv, sqkv = pq.pack_int4_split(randint(-8, 8, n, D)), scales(n)
+  kc, vc = (randint(-127, 128, BENCH_B, S, H) for _ in range(2))
+  ang = (float(BENCH_ROWS - 1) * impl.rope_freqs(10000.0, H // 2, 'cuda')
+         ).reshape(1, H // 2).expand(BENCH_B, H // 2)
+  cos, sin = torch.cos(ang).contiguous(), torch.sin(ang).contiguous()
+  lengths = torch.full((BENCH_B,), BENCH_ROWS, dtype=torch.int32,
+                       device='cuda')
+  # The write position on the device, as the executor passes it.
+  pos = torch.tensor(BENCH_ROWS - 1, dtype=torch.int32, device='cuda')
+  cases = []
+  for compute in ('f32', 'bf16', 'int8'):
+    for xname, x in (('f32', x32), ('bf16', x32.to(torch.bfloat16))):
+      args = (x, g1, wgu, sgu, wd, sd, g2, wqkv, sqkv, cos, sin, kc, vc,
+              lengths, pos, 0.06, 0.06, 0.06, 0.06, nq)
+      cases.append(({'kernel': 'fused_mlp_qkv_attention', 'B': BENCH_B,
+                     'compute': compute, 'x': xname},
+                    lambda args=args, compute=compute:
+                    block.fused_mlp_qkv_attention(*args, bf=bf,
+                                                  compute=compute)))
+  w8, s8 = randint(-127, 128, V, D), scales(V)
+  w4, s4 = pq.pack_int4_split(randint(-8, 8, V, D)), scales(V)
+  for packed, w, s in ((False, w8, s8), (True, w4, s4)):
+    for m in (64, 256):
+      x = torch.randn((m, D), generator=gen, device='cuda').to(torch.bfloat16)
+      cases.append(({'kernel': 'head_argmax', 'packed': packed, 'M': m},
+                    lambda x=x, w=w, s=s, packed=packed:
+                    head.head_argmax(x, w, s, packed=packed)))
+  return cases
+
+
+def block_times(torch, mods, timer):
+  for key, call in block_cases(torch, mods):
+    call()
+    emit(study='times', **key, ms=timer(call))
 
 
 # ------------------------------------------------------ the split-S core
@@ -595,7 +666,8 @@ def variants(torch, mods, timer, groups):
 # ------------------------------------------------------------------- main
 
 TIMES = {'mlp': mlp_times, 'attention': attention_times,
-         'int_weights': int_weights_times}
+         'block': block_times, 'int_weights': int_weights_times}
+LAUNCH_CASES = {'mlp': mlp_cases, 'block': block_cases}
 STUDIES = {'launches': launches, 'host': host, 'steps': steps,
            'order': order, 'truth': truth}
 
@@ -627,13 +699,16 @@ def main():
   if 'steps' not in args.studies:
     needed = set(groups if {'times', 'variants'} & set(args.studies)
                  else ())
+    if 'launches' in args.studies:
+      needed |= set(groups) & set(LAUNCH_CASES)
     needed |= {STUDY_GROUP[s] for s in args.studies if s in STUDY_GROUP}
     _build.SOURCES = tuple(n for g in GROUPS if g in needed
                            for n in SOURCES[g])
   _build.build(_build.SOURCES)
   torch.backends.cuda.matmul.allow_tf32 = False
   timer = functools.partial(cs.Timer(torch).__call__, reps=args.reps)
-  mods = dict(cs=cs, build=_build, att=att, iq=iq, mlp=mlp, pq=pq)
+  mods = dict(cs=cs, build=_build, att=att, iq=iq, mlp=mlp, pq=pq,
+              groups=groups)
   emit(card=cs.run_text(['nvidia-smi', '--query-gpu=name,power.limit',
                          '--format=csv,noheader']).splitlines()[0],
        root=str(root))

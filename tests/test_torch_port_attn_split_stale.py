@@ -361,7 +361,9 @@ def test_stale_and_splice_run_on_the_split_core():
   for name, form, plan in (
       ('attention_stale.cu', 'kStale', 'aeqt_attention_stale_plan'),
       ('attention_writeback.cu', 'kSplice', 'aeqt_attention_writeback_plan')):
-    text = (csrc / name).read_text()
+    # The entry points, then the kernels where a header holds them.
+    text = ''.join((csrc / n).read_text() for n in (name, name + 'h')
+                   if (csrc / n).exists())
     assert f'attend<aeqt::split::{form}, C, H, NTS>(a)' in text
     assert f'extern "C" int {plan}' in text
     assert 'if (kernel == nullptr) {' in text  # the fixed rule

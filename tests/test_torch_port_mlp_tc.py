@@ -44,7 +44,9 @@ from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul as pq
 CSRC = pathlib.Path(_build.CSRC)
 INT8_CORE = (CSRC / 'int8_tc_gemm.cuh').read_text()
 BF16_CORE = (CSRC / 'int4_bf16_tc_gemm.cuh').read_text()
-DRQ_SRC = (CSRC / 'mlp_int4_drq.cu').read_text()
+# The DRQ branch's entry points, then its kernels (shared with #5).
+DRQ_SRC = ((CSRC / 'mlp_int4_drq.cu').read_text()
+           + (CSRC / 'mlp_int4_drq.cuh').read_text())
 BF16_SRC = (CSRC / 'mlp_int4_bf16.cu').read_text()
 BASIC_SRC = (CSRC / 'attention_int8_basic.cu').read_text()
 H100_SMS = 132
