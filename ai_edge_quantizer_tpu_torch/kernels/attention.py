@@ -433,18 +433,25 @@ def decode_attention_oproj(
   so32 = so.to(torch.float32).reshape(-1).contiguous()
   _build.require_cuda_tensor(so32, name, 'so', (torch.float32,))
   _build.require(so32.numel() == d, name, 'so must have D entries')
+  if x2.data_ptr() % 16:  # the projection's epilogue reads it in vectors
+    x2 = x2.clone()
   ctx = torch.empty((b, g * h), dtype=cast, device=q.device)
-  o = torch.empty((b, d), dtype=cast, device=q.device)
   out = torch.empty((b, d), dtype=cast, device=q.device)
+  scratch = (None, None)  # DRQ: ctx's row codes and scales (#1's quantize)
+  if drq:
+    scratch = (torch.empty((b, g * h), dtype=torch.int8, device=q.device),
+               torch.empty((b,), dtype=torch.float32, device=q.device))
   fn = _build.entry(
       'attention_oproj', 'aeqt_attention_oproj',
-      [_build.P] * 10 + [_build.I] * 8 + [_build.F] * 4 + [_build.P])
+      [_build.P] * 11 + [_build.I] * 8 + [_build.F] * 4 + [_build.P])
   status = fn(q2.data_ptr(), k_cache_q.data_ptr(), v_cache_q.data_ptr(),
               lens.data_ptr(), x2.data_ptr(), wo_packed.data_ptr(),
-              so32.data_ptr(), ctx.data_ptr(), o.data_ptr(), out.data_ptr(),
-              int(cast == torch.bfloat16), int(drq), mode, b, g, s, h, d,
-              score_scale(k_scale, h), float(v_scale), float(k_zero_point),
-              float(v_zero_point), _build.stream_ptr(q.device))
+              so32.data_ptr(), ctx.data_ptr(),
+              *(t if t is None else t.data_ptr() for t in scratch),
+              out.data_ptr(), int(cast == torch.bfloat16), int(drq), mode, b,
+              g, s, h, d, score_scale(k_scale, h), float(v_scale),
+              float(k_zero_point), float(v_zero_point),
+              _build.stream_ptr(q.device))
   _build.check(status, name, f'G={g}, S={s}, H={h}, D={d}, drq={drq}, '
                f'compute={compute}')
   decode_attention_oproj.launches += 1
@@ -453,6 +460,26 @@ def decode_attention_oproj(
 
 decode_attention_oproj.launches = 0
 decode_attention_oproj.plain_calls = 0
+
+# The epilogue's launches (csrc/attention_oproj.cu aeqt_attention_oproj_plan):
+# the attention's (#7's: cluster 0 is the one-block body), then the
+# projection's grid, split, threads, shared memory, ring stages and tokens
+# a tile (#1's for DRQ, the bf16 core's for bf16 weight-only, the SIMT
+# kernel's for f32).
+OPROJ_PLAN_FIELDS = tuple(
+    f'attention_{n}' for n in ('cluster', 'rows', 'cache_rows', 'threads',
+                               'smem_bytes')) + tuple(
+        f'projection_{n}' for n in ('grid_x', 'grid_y', 'split', 'threads',
+                                    'smem_bytes', 'stages', 'tile_tokens'))
+
+
+def oproj_plan(b: int, g: int, s: int, h: int, d: int, compute: str = 'f32',
+               drq: bool = True, x_bf16: bool = True) -> dict:
+  """The launches decode_attention_oproj gives a shape (card only)."""
+  return _build.plan('attention_oproj', 'aeqt_attention_oproj_plan',
+                     'decode_attention_oproj', b, g, s, h, d,
+                     compute_code(compute), int(drq), int(x_bf16),
+                     fields=OPROJ_PLAN_FIELDS)
 
 
 # -- lengths attention with the new row written in (splice) -----------------

@@ -30,49 +30,9 @@
 //   Other shapes go, by that fixed rule, to #7's one-block kernel of
 //   attention_lengths.cuh (one block of 256 threads a row, the G x S
 //   scores in shared memory), which takes any H with 1024 % H == 0 while
-//   the scores fit. The kernel choice is #7's (attention_lengths.cu
-//   kernel_for) for compute kF32.
+//   the scores fit. The launch is #7's (attention_lengths.cuh,
+//   aeqt::lengths::launch) at compute kF32.
 #include "attention_lengths.cuh"
-#include "attention_split_tc.cuh"
-
-namespace {
-
-using aeqt::split::Args;
-using aeqt::split::Kernel;
-
-template <int H, int NTS>
-__global__ void __launch_bounds__(aeqt::split::kThreads, 2)
-int8_basic_split_kernel(const Args a) {
-  aeqt::split::attend<aeqt::split::kLengths, aeqt::kF32, H, NTS>(a);
-}
-
-// The split kernel of a shape; nullptr for a shape the core does not take
-// (the one-block kernel's).
-Kernel kernel_for(int R, int G, int S, int H) {
-  if (!aeqt::split::takes(aeqt::split::kLengths, aeqt::kF32, R, G, S, H))
-    return nullptr;
-  const bool two = G > 8;  // query rows in two n-tiles
-  switch (H) {
-    case 64:
-      return two ? &int8_basic_split_kernel<64, 2>
-                 : &int8_basic_split_kernel<64, 1>;
-    case 128:
-      return two ? &int8_basic_split_kernel<128, 2>
-                 : &int8_basic_split_kernel<128, 1>;
-    case 256:
-      return two ? &int8_basic_split_kernel<256, 2>
-                 : &int8_basic_split_kernel<256, 1>;
-  }
-  return nullptr;
-}
-
-aeqt::split::Plan plan_of(Kernel kernel, int G, int S, int H, int R) {
-  return aeqt::split::choose_plan(
-      kernel,
-      aeqt::split::Int8Smem{aeqt::split::kLengths, aeqt::kF32, G, H}, S, R);
-}
-
-}  // namespace
 
 // q f32 [R, G, H] with R = B * NK; k, v int8 [R, S, H]; lengths int32 [B];
 // out f32 [R, G, H]; k_scale_eff = f32(k_scale) / f32(sqrt(H)). The split
@@ -85,27 +45,9 @@ extern "C" int aeqt_attention_int8_basic(const void* q, const void* k,
                                          void* out, int R, int NK, int G,
                                          int S, int H, float k_scale_eff,
                                          float v_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Kernel kernel = kernel_for(R, G, S, H);
-  if (kernel == nullptr)
-    return aeqt::launch_lengths_attention<float, aeqt::kF32>(
-        q, k, v, lengths, out, R, NK, G, S, H, k_scale_eff, v_scale, 0.0f,
-        0.0f, s);
-  Args a = {};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const int8_t*>(k);
-  a.v = static_cast<const int8_t*>(v);
-  a.out = out;
-  a.out_bf16 = 0;
-  a.lengths = static_cast<const int*>(lengths);
-  a.NK = NK;
-  a.G = G;
-  a.S = S;
-  a.ks = k_scale_eff;
-  a.v_scale = v_scale;
-  a.zp_k = 0.0f;
-  a.zp_v = 0.0f;
-  return aeqt::split::launch(kernel, a, plan_of(kernel, G, S, H, R), R, s);
+  return aeqt::lengths::launch<aeqt::kF32>(
+      q, k, v, lengths, out, 0, R, NK, G, S, H, k_scale_eff, v_scale, 0.0f,
+      0.0f, static_cast<cudaStream_t>(stream));
 }
 
 // The launch of a shape (chip_smoke.SPLIT_PLAN_FIELDS: cluster size, rows,
@@ -113,18 +55,5 @@ extern "C" int aeqt_attention_int8_basic(const void* q, const void* k,
 // kernel gives cluster 0, R blocks of all S rows and its shared memory.
 extern "C" int aeqt_attention_int8_basic_plan(int R, int G, int S, int H,
                                               long long* fields) {
-  const Kernel kernel = kernel_for(R, G, S, H);
-  if (kernel != nullptr) {
-    aeqt::split::plan_fields(plan_of(kernel, G, S, H, R), R, fields);
-    return 0;
-  }
-  const size_t smem = aeqt::scores_smem_floats(G, S, H) * sizeof(float);
-  if (!aeqt::head_dim_fits(H) || !aeqt::smem_fits(smem))
-    return aeqt::kShapeRefused;
-  fields[0] = 0;
-  fields[1] = R;
-  fields[2] = S;
-  fields[3] = aeqt::kAttnThreads;
-  fields[4] = (long long)smem;
-  return 0;
+  return aeqt::lengths::plan_fields<aeqt::kF32>(R, G, S, H, fields);
 }

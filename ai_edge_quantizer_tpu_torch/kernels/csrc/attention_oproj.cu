@@ -23,115 +23,156 @@
 //   2 * 256 * 897 * 256 = 117.6 MB, 35 us at 3.35 TB/s, plus the 2 MiB of
 //   packed W_o and the residual in and out: about 0.037 ms. The f32
 //   attention (4 * G * L * H per row, 1.9 GFLOP) takes 28 us at the
-//   67 TFLOP/s f32 peak (bf16 rounds the operands of the same f32 SIMT
-//   work; int8 runs the score dot on __dp4a); the projection 2.1 GOP of
-//   int8.
+//   67 TFLOP/s f32 peak (its scores are f32 FMA chains; the bf16 and int8
+//   modes run on the tensor cores); the projection 2.1 GOP of int8.
 //
-// Design (simple first): three launches on the caller's stream. (1) the
-//   lengths attention (attention_lengths.cuh, the kernel of #7 in the
-//   mode: one block of 256 threads a batch row) writes ctx in T to a
-//   scratch [B, G*H]; (2) the packed projection of the ctx rows into an o
-//   scratch in T, by the port's packed-FC tiles: DRQ (qmatmul_int4_drq.cuh, bit for bit the
-//   plain version given ctx) or weight-only (qmatmul_int4_weight_only.cuh,
-//   mma.sync bf16 with f32 sums; the low and the high halves are summed
-//   apart and added, where the TPU kernel adds pair by pair: the f32 sums
-//   differ in order only); (3) y = T(x_res + o), one thread an element. The
-//   TPU kernel keeps ctx and o in VMEM; here they make a round trip through
-//   L2 (1 MiB each at the bench shape). Keeping ctx on chip and adding the
-//   residual in the projection's epilogue is later work.
+// Design: two launches on the caller's stream (three for DRQ), each the
+//   one its unfused part runs. (1) The lengths attention of #7 in the mode
+//   (attention_lengths.cuh aeqt::lengths::launch: the split core's lengths
+//   form, one CTA a row at B 256 and clusters at B 64, or the one-block
+//   body for the shapes the core refuses) writes ctx in T to a scratch
+//   [B, G*H] (1 MiB at the bench shape at bf16, read back from L2). (2)
+//   The packed projection of the ctx rows with the residual in its
+//   epilogue, y = T(T(o) + x_res):
+//   * DRQ: #1's launches (int8_tc_gemm.cuh, SplitNibblesRecipB): the row
+//     quantize of ctx into int8 codes and scales (scratch), a programmatic
+//     dependent launch on the attention, then the int8 wgmma contraction
+//     as its programmatic dependent launch, the residual added by its
+//     epilogue (kRes). Bit for bit the plain version given ctx: the int32
+//     sums are exact in any order.
+//   * weight-only, bf16: #12's core (int4_bf16_tc_gemm.cuh,
+//     ChannelScaleResidual: ChannelScale as a programmatic dependent launch
+//     on the attention, the residual in its epilogue). The low and the high
+//     halves sum apart and are added, where the TPU kernel adds head by
+//     head, pair by pair: the f32 sums differ in order only.
+//   * weight-only, f32: #12's SIMT f32 kernel (qmatmul_int4_simt.cuh) with
+//     its residual argument; the same order note.
+//   The TPU kernel keeps ctx and o in VMEM; here ctx makes a round trip
+//   through L2 and o none.
+#include <type_traits>
+
 #include "attention_lengths.cuh"
-#include "qmatmul_int4_drq.cuh"
-#include "qmatmul_int4_weight_only.cuh"
+#include "attention_split_tc.cuh"
+#include "int4_bf16_tc_gemm.cuh"
+#include "int8_tc_gemm.cuh"
+#include "qmatmul_int4_simt.cuh"
 
 namespace {
 
-constexpr int kAddThreads = 256;
+using aeqt::tc::SplitNibblesRecipB;
+using aeqt::w4::ChannelScaleResidual;
 
-template <typename T>
-__global__ void __launch_bounds__(kAddThreads)
-residual_add_kernel(const T* __restrict__ x, const T* __restrict__ o,
-                    T* __restrict__ y, size_t n) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    aeqt::store_f(y, i, aeqt::load_f(x, i) + aeqt::load_f(o, i));
+// The projection's shapes: DRQ (#1) K % 32 and N up to 65535 tiles of 128;
+// weight-only D % 64 and K % 128 (the bf16 core's and the SIMT kernel's).
+bool proj_takes(bool drq, int B, int D, int K) {
+  if (drq)
+    return K % 32 == 0 && (D + aeqt::tc::kBN - 1) / aeqt::tc::kBN <= 65535;
+  return aeqt::w4::takes(B, D, K, 0) && D % aeqt::kWpBN == 0;
 }
 
 template <typename T, int C>
 int run(const void* q, const void* k, const void* v, const void* lengths,
-        const void* x, const void* wo, const void* so, void* ctx, void* o,
-        void* out, bool drq, int B, int G, int S, int H, int D,
+        const void* x, const void* wo, const void* so, void* ctx, void* xq,
+        void* xs, void* out, bool drq, int B, int G, int S, int H, int D,
         float k_scale_eff, float v_scale, float zp_k, float zp_v,
         cudaStream_t stream) {
   const int K = G * H;
-  // The attention: H % 16, 1024 % H, the G x S scores in shared memory,
-  // int8's q codes in the partials' space (checked again by its launcher).
-  // The projection: DRQ K %
-  // 32 and 16 rows of K int8 in shared memory; weight-only D % 64 and
-  // K % 128. G even: the nibble pairing.
-  const bool proj_ok = drq ? K % 32 == 0 &&
-                                 aeqt::smem_fits(aeqt::qmatmul_smem_bytes(K))
-                           : aeqt::wo_shape_ok(B, D, K, K);
-  const size_t attn_smem = aeqt::scores_smem_floats(G, S, H) * sizeof(float);
-  if (B <= 0 || G % 2 || !proj_ok || !aeqt::head_dim_fits(H) ||
-      !aeqt::compute_fits(C, G, H) || !aeqt::smem_fits(attn_smem))
+  if (B <= 0 || G % 2 || !aeqt::lengths::takes<C>(B, G, S, H) ||
+      !proj_takes(drq, B, D, K))
     return aeqt::kShapeRefused;
-  int err = aeqt::launch_lengths_attention<T, C>(
-      q, k, v, lengths, ctx, B, 1, G, S, H, k_scale_eff, v_scale, zp_k, zp_v,
-      stream);
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  int err = aeqt::lengths::launch<C>(q, k, v, lengths, ctx, kBf16, B, 1, G, S,
+                                     H, k_scale_eff, v_scale, zp_k, zp_v,
+                                     stream);
   if (err != 0) return err;
-  err = drq ? aeqt::launch_qmatmul<T, T>(ctx, wo, so, nullptr, o, B, D, K,
-                                         stream)
-            : aeqt::launch_wo<T, T>(ctx, wo, so, nullptr, o, B, D, K, K,
-                                    nullptr, stream);
-  if (err != 0) return err;
-  const size_t n = (size_t)B * D;
-  const int blocks =
-      (int)std::min<size_t>((n + kAddThreads - 1) / kAddThreads, 65536);
-  residual_add_kernel<T><<<blocks, kAddThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(o), static_cast<T*>(out),
-      n);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int run_mode(int compute, const void* q, const void* k, const void* v,
-             const void* lengths, const void* x, const void* wo,
-             const void* so, void* ctx, void* o, void* out, bool drq, int B,
-             int G, int S, int H, int D, float k_scale_eff, float v_scale,
-             float zp_k, float zp_v, cudaStream_t stream) {
-  return aeqt::with_compute(compute, [&](auto mode) {
-    return run<T, decltype(mode)::value>(q, k, v, lengths, x, wo, so, ctx, o,
-                                         out, drq, B, G, S, H, D, k_scale_eff,
-                                         v_scale, zp_k, zp_v, stream);
-  });
+  if (drq) {
+    err = aeqt::tc::launch_quantize<SplitNibblesRecipB, T, true>(
+        ctx, xq, xs, B, K, stream);
+    if (err != 0) return err;
+    return aeqt::tc::launch_gemm<SplitNibblesRecipB, T, true>(
+        wo, so, nullptr, out, xq, xs, B, D, K,
+        aeqt::tc::make_plan<SplitNibblesRecipB>(B, D, K), stream, x);
+  }
+  if constexpr (kBf16) {
+    return aeqt::w4::run<ChannelScaleResidual>(ctx, wo, so, nullptr, out, B,
+                                               D, K, 0, stream, x);
+  } else {
+    const dim3 grid(D / aeqt::kWpBN, (B + aeqt::kWpBM - 1) / aeqt::kWpBM);
+    aeqt::qmatmul_int4_wo_kernel<float, float>
+        <<<grid, aeqt::kWpThreads, 0, stream>>>(
+            static_cast<const float*>(ctx), static_cast<const uint8_t*>(wo),
+            static_cast<const float*>(so), nullptr, static_cast<float*>(out),
+            B, D, K, K, static_cast<const float*>(x));
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
 
 // q f32 [B, G, H] (already rounded to x's dtype); k, v int8 [B, S, H];
-// lengths int32 [B]; x_res [B, D] bf16 (x_bf16) or f32; wo [D, G*H/2] uint8
-// split-half packed, rows 16-byte aligned; so [D] f32; ctx [B, G*H] and o
-// [B, D] scratch and out [B, D], all in x's dtype. drq: the int8 DRQ
-// projection, else weight-only; compute: the attention's aeqt::kF32, kBF16
-// or kInt8. Refuses with kShapeRefused, before launching anything, an odd
-// G and the shapes the attention (H % 16, 1024 % H, G x S scores in shared
+// lengths int32 [B]; x_res [B, D] bf16 (x_bf16) or f32, 16-byte aligned;
+// wo [D, G*H/2] uint8 split-half packed, rows 16-byte aligned; so [D] f32;
+// ctx [B, G*H] scratch in x's dtype (16-byte aligned); xq [B, G*H] int8 and
+// xs [B] f32 scratch (DRQ only; else unused); out [B, D] in x's dtype. drq:
+// the int8 DRQ projection, else weight-only; compute: the attention's
+// aeqt::kF32, kBF16 or kInt8. Refuses with kShapeRefused, before launching
+// anything, an odd G and the shapes the attention (#7's: the split core's,
+// else the one-block kernel's H % 16, 1024 % H, G x S scores in shared
 // memory, int8: G * H / 4 + G <= aeqt::kRedFloats) or the projection (DRQ:
-// G*H % 32 and 16 rows of G*H int8 in shared memory; weight-only: D % 64,
-// G*H % 128) does not take.
+// G*H % 32; weight-only: D % 64, G*H % 128) does not take.
 extern "C" int aeqt_attention_oproj(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     const void* x, const void* wo,
-                                    const void* so, void* ctx, void* o,
-                                    void* out, int x_bf16, int drq,
+                                    const void* so, void* ctx, void* xq,
+                                    void* xs, void* out, int x_bf16, int drq,
                                     int compute, int B, int G, int S, int H,
                                     int D, float k_scale_eff, float v_scale,
                                     float zp_k, float zp_v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return run_mode<__nv_bfloat16>(compute, q, k, v, lengths, x, wo, so, ctx,
-                                   o, out, drq != 0, B, G, S, H, D,
-                                   k_scale_eff, v_scale, zp_k, zp_v, s);
-  return run_mode<float>(compute, q, k, v, lengths, x, wo, so, ctx, o, out,
+  return aeqt::with_compute(compute, [&](auto mode) {
+    constexpr int C = decltype(mode)::value;
+    if (x_bf16)
+      return run<__nv_bfloat16, C>(q, k, v, lengths, x, wo, so, ctx, xq, xs,
+                                   out, drq != 0, B, G, S, H, D, k_scale_eff,
+                                   v_scale, zp_k, zp_v, s);
+    return run<float, C>(q, k, v, lengths, x, wo, so, ctx, xq, xs, out,
                          drq != 0, B, G, S, H, D, k_scale_eff, v_scale, zp_k,
                          zp_v, s);
+  });
+}
+
+// The launches of a shape (attention.OPROJ_PLAN_FIELDS): the attention's
+// (SPLIT_PLAN_FIELDS: cluster size, rows, cache rows a CTA, threads,
+// shared memory; cluster 0 the one-block body), then the projection's
+// grid x, y, z (split), threads, dynamic shared memory, ring stages and
+// tokens a tile: #1's plan_fields and 0 (DRQ), the bf16 core's (bf16
+// weight-only), the SIMT kernel's grid, 1, its threads, 0, 0 and its 32
+// rows (f32 weight-only); or kShapeRefused.
+extern "C" int aeqt_attention_oproj_plan(int B, int G, int S, int H, int D,
+                                         int compute, int drq, int x_bf16,
+                                         long long* fields) {
+  const int K = G * H;
+  if (B <= 0 || G % 2 || !proj_takes(drq != 0, B, D, K))
+    return aeqt::kShapeRefused;
+  const int err = aeqt::with_compute(compute, [&](auto mode) {
+    return aeqt::lengths::plan_fields<decltype(mode)::value>(B, G, S, H,
+                                                             fields);
+  });
+  if (err != 0) return err;
+  long long* f = fields + 5;
+  if (drq) {
+    aeqt::tc::plan_fields<SplitNibblesRecipB>(B, D, K, f);
+    f[6] = 0;
+  } else if (x_bf16) {
+    aeqt::w4::plan_fields<ChannelScaleResidual>(B, D, K, 0, f);
+  } else {
+    f[0] = D / aeqt::kWpBN;
+    f[1] = (B + aeqt::kWpBM - 1) / aeqt::kWpBM;
+    f[2] = 1;
+    f[3] = aeqt::kWpThreads;
+    f[4] = 0;
+    f[5] = 0;
+    f[6] = aeqt::kWpBM;
+  }
+  return 0;
 }

@@ -116,9 +116,10 @@
 // (bf16(q) . K over h, then sum_n qsum[g, n] * kmin[n, j] over n), K[j, h]
 // = bf16(kcode * kscale) formed two at a time in registers (0x4300 | code
 // is the bf16 128 + code, and one bf16x2 FMA with -128 * kscale leaves the
-// product rounded once): its check holds the context to 1e-3 of its
+// product rounded once): its check holds the context to 4e-3 of its
 // largest value with a bf16 rounding of p in between, which a one-ulp
-// difference of a score flips (PERF.md §6). Context: V[j, h] =
+// difference of a score flips, in the kernel or in the plain version
+// (chip_smoke.INT4G_CTX_RTOL; PERF.md §6). Context: V[j, h] =
 // bf16(vcode * vscale) (0x4300 | (code ^ 8), less 136, times vscale) is
 // A, bf16 p the N = 8 side, f32 sums (mma.sync m16n8k16 bf16). Warps
 // split H by nibble (the low nibbles hold columns [0, H / 2), the high

@@ -43,6 +43,12 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
+// v rounded to the type of p's elements (f32: v itself).
+__device__ __forceinline__ float round_to(const float*, float v) { return v; }
+__device__ __forceinline__ float round_to(const __nv_bfloat16*, float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

@@ -1,7 +1,9 @@
 // Bf16 tensor-core core of the weight-only packed int4 matmuls (#12
 // qmatmul_int4_weight_only.cu, #13 qmatmul_int4_blockwise.cu; the MLP's
 // weight-only branch #3, mlp_int4_bf16.cu, policies GateUpScale and
-// GroupSum) on Hopper:
+// GroupSum; the norm-fused FC #14, qmatmul_int4_rmsnorm.cu,
+// ChannelScaleAfterNorm; the attention epilogue's weight-only projection
+// #19, attention_oproj.cu, ChannelScaleResidual) on Hopper:
 //   y[M, N] = x[M, K] (bf16) . unpack(w[N, K/2])^T, f32 sums, one scale
 //   policy, y stored as bf16.
 // The weight is split-half packed: byte j of a row holds column j in its
@@ -229,6 +231,12 @@ struct ChannelScale {
   static constexpr bool kBlocks = false;
   static constexpr bool kGateUp = false;
   static constexpr bool kGrouped = false;
+  // A programmatic dependent launch on the launch before it: the first
+  // stages' weights load before griddepcontrol.wait, x after it.
+  static constexpr bool kDependent = false;
+  // y = bf16(bf16(acc * s) + res[m, n]): the residual added in the
+  // epilogue to the output rounded first.
+  static constexpr bool kResidual = false;
   static constexpr int kEpiTiles = 2;  // lo and hi sums staged
   // Tokens a tile at two warpgroups (prefill rows). Two accumulators of
   // 128 and the A fragments crowd the 168 registers a thread of a
@@ -242,6 +250,8 @@ struct BlockScale {
   static constexpr bool kBlocks = true;
   static constexpr bool kGateUp = false;
   static constexpr bool kGrouped = false;
+  static constexpr bool kDependent = false;
+  static constexpr bool kResidual = false;
   static constexpr int kEpiTiles = 1;
   // 64: three accumulators (y, lo, hi) of 128 tokens would not fit the 168
   // registers a thread of a 288-thread block may hold.
@@ -262,6 +272,20 @@ struct GateUpScale : ChannelScale {
   static constexpr bool kGateUp = true;
 };
 
+// #14 (qmatmul_int4_rmsnorm.cu): ChannelScale over the rows its norm
+// launch writes, a programmatic dependent launch on it.
+struct ChannelScaleAfterNorm : ChannelScale {
+  static constexpr bool kDependent = true;
+};
+
+// #19's weight-only out projection (attention_oproj.cu): ChannelScale over
+// the context rows its attention launch writes, a programmatic dependent
+// launch on it, with the residual stream added in the epilogue.
+struct ChannelScaleResidual : ChannelScale {
+  static constexpr bool kDependent = true;
+  static constexpr bool kResidual = true;
+};
+
 // #3's down (mlp_int4_bf16.cu): group-split packed weights (byte j of
 // group g, bs = bf/2 bytes a group, holds column g*bf + j in its low
 // nibble and g*bf + bf/2 + j in its high one): the x tiles of a step come
@@ -272,6 +296,8 @@ struct GroupSum {
   static constexpr bool kBlocks = true;
   static constexpr bool kGateUp = false;
   static constexpr bool kGrouped = true;
+  static constexpr bool kDependent = true;  // on the gate/up
+  static constexpr bool kResidual = false;
   static constexpr int kEpiTiles = 1;
   static constexpr int kNT2 = 64;
 };
@@ -304,6 +330,7 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __grid_constant__ CUtensorMap w_map,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
+                    const __nv_bfloat16* __restrict__ res,
                     __nv_bfloat16* __restrict__ out, int M, int N, int K,
                     int nb, int block_steps, int stages, int steps_per_split,
                     int steps) {
@@ -340,8 +367,8 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
     asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   if (warp == kConsumers / 32) {  // the producer warp: one thread loads
     if (lane == 0) {
-      int early = 0;  // GroupSum: stages whose weights are loaded already
-      if constexpr (P::kGrouped) {
+      int early = 0;  // kDependent: stages whose weights are loaded already
+      if constexpr (P::kDependent) {
         early = min(nk, stages);
         for (int i = 0; i < early; ++i) {
           uint8_t* st = ring + (size_t)i * G::kStage;
@@ -564,6 +591,18 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
         }
         if (bias != nullptr) v[e] = v[e] + bi[e];
       }
+      if constexpr (P::kResidual) {  // y = bf16(bf16(o) + res), 8-byte loads
+        const uint2 rr =
+            *reinterpret_cast<const uint2*>(res + (size_t)m * N + c);
+        const float2 r01 =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rr.x));
+        const float2 r23 =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rr.y));
+        const float r[4] = {r01.x, r01.y, r23.x, r23.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = __bfloat162float(__float2bfloat16_rn(v[e])) + r[e];
+      }
       const __nv_bfloat162 v01 = __floats2bfloat162_rn(v[0], v[1]);
       const __nv_bfloat162 v23 = __floats2bfloat162_rn(v[2], v[3]);
       uint2 pk;
@@ -668,8 +707,8 @@ inline bool encode_2d(CUtensorMap* map, const void* base, int elem,
 
 template <class P, int NT, int WGS>
 int launch(const void* x, const void* w, const void* scale, const void* bias,
-           void* out, int M, int N, int K, int nb, const Plan& p,
-           cudaStream_t stream) {
+           const void* res, void* out, int M, int N, int K, int nb,
+           const Plan& p, cudaStream_t stream) {
   using G = Geometry<P, NT, WGS>;
   CUtensorMap x_map, w_map;
   if (!encode_2d(&x_map, x, 2, (uint64_t)K, (uint64_t)M, 64, (uint32_t)NT,
@@ -686,8 +725,8 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
   config.blockDim = dim3(128 * WGS + 32);
   config.dynamicSmemBytes = p.smem;
   config.stream = stream;
-  // GroupSum (the MLP's down) is a programmatic dependent launch on the
-  // gate/up before it.
+  // kDependent (the MLP's down, #14's contraction, #19's projection): a
+  // programmatic dependent launch on the launch before it.
   cudaLaunchAttribute attrs[2];
   int n_attrs = 0;
   if (p.split > 1) {
@@ -697,7 +736,7 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
     attrs[n_attrs].val.clusterDim.z = p.split;
     ++n_attrs;
   }
-  if (P::kGrouped) {
+  if (P::kDependent) {
     attrs[n_attrs].id = cudaLaunchAttributeProgrammaticStreamSerialization;
     attrs[n_attrs].val.programmaticStreamSerializationAllowed = 1;
     ++n_attrs;
@@ -706,31 +745,36 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
   config.numAttrs = n_attrs;
   return (int)cudaLaunchKernelEx(
       &config, kernel, x_map, w_map, static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M,
-      N, K, nb, p.block_steps, p.stages, p.steps_per_split, p.steps);
+      static_cast<const float*>(bias),
+      static_cast<const __nv_bfloat16*>(res),
+      static_cast<__nv_bfloat16*>(out), M, N, K, nb, p.block_steps, p.stages,
+      p.steps_per_split, p.steps);
 }
 
 // One call: x [M, K] bf16 (16-byte aligned), w [N, K/2] uint8 split-half
 // packed (16-byte aligned), scale [N] (ChannelScale) or [N, K/bs]
-// (BlockScale, bs > 0) f32, bias [N] f32 or null, out [M, N] bf16. Shapes
-// are the caller's to check first (takes).
+// (BlockScale, bs > 0) f32, bias [N] f32 or null, out [M, N] bf16; res
+// [M, N] bf16 (8-byte aligned) under kResidual, else unused. Shapes are
+// the caller's to check first (takes).
 // run_nb passes `nb` to the kernel as it is (GateUpScale's activation).
 template <class P>
 int run_nb(const void* x, const void* w, const void* scale, const void* bias,
            void* out, int M, int N, int K, int bs, int nb,
-           cudaStream_t stream) {
+           cudaStream_t stream, const void* res = nullptr) {
   const Plan p = make_plan<P>(M, N, K, bs);
   if (p.wgs == 2)
-    return launch<P, P::kNT2, 2>(x, w, scale, bias, out, M, N, K, nb, p,
+    return launch<P, P::kNT2, 2>(x, w, scale, bias, res, out, M, N, K, nb, p,
                                  stream);
-  return launch<P, kNT1, 1>(x, w, scale, bias, out, M, N, K, nb, p, stream);
+  return launch<P, kNT1, 1>(x, w, scale, bias, res, out, M, N, K, nb, p,
+                            stream);
 }
 
 template <class P>
 int run(const void* x, const void* w, const void* scale, const void* bias,
-        void* out, int M, int N, int K, int bs, cudaStream_t stream) {
+        void* out, int M, int N, int K, int bs, cudaStream_t stream,
+        const void* res = nullptr) {
   return run_nb<P>(x, w, scale, bias, out, M, N, K, bs,
-                   bs > 0 ? K / bs : 1, stream);
+                   bs > 0 ? K / bs : 1, stream, res);
 }
 
 // The plan as the Python wrapper reads it: grid x (token tiles), y (weight

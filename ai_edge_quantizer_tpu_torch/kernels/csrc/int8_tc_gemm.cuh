@@ -1,6 +1,8 @@
 // Int8 tensor-core core of the DRQ matmuls (#15 qmatmul_int8_drq.cu, #6
-// qmatmul_int4_drq_kblock.cu, #1 qmatmul_int4_drq.cu; the DRQ MLP #3,
-// mlp_int4_drq.cu, builds its own kernels from its pieces) on Hopper:
+// qmatmul_int4_drq_kblock.cu, #1 qmatmul_int4_drq.cu and, with a residual
+// in the epilogue, #19's DRQ out projection, attention_oproj.cu; the DRQ
+// MLP #3, mlp_int4_drq.cu, builds its own kernels from its pieces) on
+// Hopper:
 //   y[M, N] = (f32(xq[M, K] . B[N, K]^T) * xs[M]) * s[N] (+ b[N])
 //
 // Two launches on the caller's stream:
@@ -138,8 +140,10 @@ constexpr int kKeep = 8;
 // (1/127), xq = rint(x / xs) (kDivide, #6) or rint(x * (1 / xs)) (#15, #1).
 // With vec (K a multiple of 16 bytes of x, x 16-byte aligned) a thread
 // reads 16 bytes at a time and keeps up to kKeep of them for the second
-// pass; the arithmetic is the same per element.
-template <typename T, bool kDivide>
+// pass; the arithmetic is the same per element. kAfterPrior: launched as a
+// programmatic dependent launch on the launch that writes x (#19's
+// attention), it waits for that grid before it reads x.
+template <typename T, bool kDivide, bool kAfterPrior = false>
 __global__ void __launch_bounds__(kQuantThreads)
 quantize_rows_kernel(const T* __restrict__ x, int K, int vec,
                      int8_t* __restrict__ xq, float* __restrict__ xs) {
@@ -147,6 +151,7 @@ quantize_rows_kernel(const T* __restrict__ x, int K, int vec,
   __shared__ float part[kQuantThreads / 32];
   // Launch 2 may start now: it waits for this grid before reading codes.
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if constexpr (kAfterPrior) griddep_wait();
   const size_t m = blockIdx.x;
   const T* src = x + m * K;
   const uint4* src4 = reinterpret_cast<const uint4*>(src);
@@ -393,13 +398,16 @@ using SplitNibblesRecipB = SplitNibbles<false, kMinSplitStepsInt4Drq>;
 
 // ------------------------------------------------------------ pass 2
 
-template <class B, typename TOut>
+// kRes (#19's out projection, attention_oproj.cu): y = TOut(TOut(o) +
+// res[m, n]), the residual res [M, N] added to the output rounded first.
+template <class B, typename TOut, bool kRes = false>
 __global__ void __launch_bounds__(2 * 128 + 32, 1)
 int8_tc_gemm_kernel(__grid_constant__ const CUtensorMap a_map,
                     __grid_constant__ const CUtensorMap b_map,
                     const float* __restrict__ xs,
                     const float* __restrict__ scale,
-                    const float* __restrict__ bias, TOut* __restrict__ out,
+                    const float* __restrict__ bias,
+                    const TOut* __restrict__ res, TOut* __restrict__ out,
                     int M, int N, int K, int wgs, int stages,
                     int steps_per_split, int steps) {
   extern __shared__ uint8_t smem_raw[];
@@ -534,6 +542,11 @@ int8_tc_gemm_kernel(__grid_constant__ const CUtensorMap a_map,
       if (bias != nullptr) y[e] = y[e] + bi[e];
     }
     const size_t at = (size_t)r * N + c;
+    if constexpr (kRes) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < N) y[e] = round_to(out, y[e]) + load_f(res, at + e);
+    }
     if (vec) {
       store4(out + at, y);
     } else {
@@ -607,30 +620,49 @@ inline bool encode_2d(CUtensorMap* map, const void* base, uint64_t cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Launch 1 of a call under plan p.
-template <class B, typename TIn>
+// Launch 1 of a call under plan p; kAfterPrior: a programmatic dependent
+// launch on the launch before it, which writes x.
+template <class B, typename TIn, bool kAfterPrior = false>
 int launch_quantize(const void* x, void* xq, void* xs, int M, int K,
                     cudaStream_t stream) {
   const int vec = K % (16 / (int)sizeof(TIn)) == 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  quantize_rows_kernel<TIn, B::kDivide><<<M, kQuantThreads, 0, stream>>>(
-      static_cast<const TIn*>(x), K, vec, static_cast<int8_t*>(xq),
-      static_cast<float*>(xs));
-  return (int)cudaGetLastError();
+  if constexpr (kAfterPrior) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(M);
+    config.blockDim = dim3(kQuantThreads);
+    config.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(
+        &config, quantize_rows_kernel<TIn, B::kDivide, true>,
+        static_cast<const TIn*>(x), K, vec, static_cast<int8_t*>(xq),
+        static_cast<float*>(xs));
+  } else {
+    quantize_rows_kernel<TIn, B::kDivide><<<M, kQuantThreads, 0, stream>>>(
+        static_cast<const TIn*>(x), K, vec, static_cast<int8_t*>(xq),
+        static_cast<float*>(xs));
+    return (int)cudaGetLastError();
+  }
 }
 
 // Launch 2 of a call under plan p: programmatic dependent launch on
-// launch 1, and a cluster of the splits of each tile.
-template <class B, typename TOut>
+// launch 1, and a cluster of the splits of each tile. res: kRes's
+// residual [M, N] in TOut, else unused.
+template <class B, typename TOut, bool kRes = false>
 int launch_gemm(const void* w, const void* scale, const void* bias,
                 void* out, const void* xq, const void* xs, int M, int N,
-                int K, const Plan& p, cudaStream_t stream) {
+                int K, const Plan& p, cudaStream_t stream,
+                const void* res = nullptr) {
   CUtensorMap a_map, b_map;
   if (!encode_2d(&a_map, xq, (uint64_t)K, (uint64_t)M,
                  (uint32_t)(kWgRows * p.wgs)) ||
       !encode_2d(&b_map, w, B::b_cols(K), (uint64_t)N, (uint32_t)kBN))
     return kTensorMapFailed;
-  auto* kernel = int8_tc_gemm_kernel<B, TOut>;
+  auto* kernel = int8_tc_gemm_kernel<B, TOut, kRes>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
@@ -651,8 +683,8 @@ int launch_gemm(const void* w, const void* scale, const void* bias,
   return (int)cudaLaunchKernelEx(
       &config, kernel, a_map, b_map, static_cast<const float*>(xs),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<TOut*>(out), M, N, K, p.wgs, p.stages, p.steps_per_split,
-      p.steps);
+      static_cast<const TOut*>(res), static_cast<TOut*>(out), M, N, K, p.wgs,
+      p.stages, p.steps_per_split, p.steps);
 }
 
 // The two launches of one call. Shapes are the caller's to check first.

@@ -88,7 +88,7 @@ int launch_f32(const void* x, const void* wgu, const void* sgu,
         <<<grid, aeqt::kWpThreads, 0, stream>>>(
             static_cast<const float*>(xin), static_cast<const uint8_t*>(w),
             static_cast<const float*>(s), nullptr, static_cast<float*>(y), M,
-            N, K, group);
+            N, K, group, nullptr);
     return (int)cudaGetLastError();
   };
   int err = simt(x, wgu, sgu, gu, 2 * F, D, D);

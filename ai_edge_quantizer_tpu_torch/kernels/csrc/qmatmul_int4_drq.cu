@@ -28,8 +28,8 @@
 //   unpacks it in shared memory into a lo and a hi s8 tile and runs wgmma
 //   m64n128k32 s8 against the codes at kb and at K/2 + kb. Decode's single
 //   row of tiles splits K over a cluster (make_plan). The SIMT tiles of
-//   qmatmul_int4_drq.cuh stay for the kernels that fuse them (#20
-//   qkv_rope.cu, #19 attention_oproj.cu).
+//   qmatmul_int4_drq.cuh stay for #20 (qkv_rope.cu), which fuses them;
+//   #19 (attention_oproj.cu) runs these launches.
 #include "int8_tc_gemm.cuh"
 
 static bool takes(int M, int N, int K) {

@@ -2,12 +2,11 @@
 // xs[M] * s[N] (+b), the arithmetic of pallas_qmatmul.py
 // qmatmul_pallas_int4_packed_drq (_int4_drq_kernel).
 //
-// Used by the kernels that fuse this matmul with other work: #20
-//   qkv_rope.cu (the QKV projection after the norm) and #19
-//   attention_oproj.cu (the out-projection after the attention). The
-//   stand-alone #1 (qmatmul_int4_drq.cu) and the MLP's gate/up (#3
-//   mlp_int4_drq.cu) run on the int8 tensor-core core (int8_tc_gemm.cuh)
-//   instead.
+// Used by #20 qkv_rope.cu (the QKV projection after the norm), the one
+//   kernel that still fuses this matmul with other work. The stand-alone
+//   #1 (qmatmul_int4_drq.cu), the MLP's gate/up (#3 mlp_int4_drq.cu) and
+//   #19's out projection (attention_oproj.cu) run on the int8 tensor-core
+//   core (int8_tc_gemm.cuh) instead.
 //
 // Bound on the H100: at decode shapes (M = batch = 64, K = 2048) the
 //   weight bytes dominate: N*K/2 + M*K*2 + M*N*2 bytes over 3.35 TB/s

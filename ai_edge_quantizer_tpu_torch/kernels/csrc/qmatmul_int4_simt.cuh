@@ -10,9 +10,13 @@
 // in shared memory. At the end of each group the two partials are added
 // into the accumulators.
 //
+// With res (non-null, [M, N] in TOut) the residual is added to the output
+// rounded to TOut first: y = TOut(TOut(o) + res), #19's epilogue.
+//
 // Used by: qmatmul_int4_weight_only.cuh (launch_wo, f32 x),
 //   qmatmul_int4_weight_only.cu and qmatmul_int4_blockwise.cu (its
-//   constants; f32 x of #12 and #13).
+//   constants; f32 x of #12 and #13), qmatmul_int4_rmsnorm.cu (#14) and
+//   attention_oproj.cu (#19, with the residual) at f32 x.
 #pragma once
 
 #include "drq_common.cuh"
@@ -31,7 +35,7 @@ qmatmul_int4_wo_kernel(const TIn* __restrict__ x,
                        const float* __restrict__ scale,
                        const float* __restrict__ bias,
                        TOut* __restrict__ out, int M, int N, int K,
-                       int group) {
+                       int group, const TOut* __restrict__ res) {
   __shared__ __align__(16) float xlo[kWpBK][kWpBM + 4];
   __shared__ __align__(16) float xhi[kWpBK][kWpBM + 4];
   __shared__ __align__(16) float wlo[kWpBK][kWpBN + 4];
@@ -114,9 +118,11 @@ qmatmul_int4_wo_kernel(const TIn* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tn * 4 + j;
+      const size_t at = (size_t)m * N + n;
       float v = y[i][j] * scale[n];
       if (bias != nullptr) v = v + bias[n];
-      store_f(out, (size_t)m * N + n, v);
+      if (res != nullptr) v = round_to(out, v) + load_f(res, at);
+      store_f(out, at, v);
     }
   }
 }

@@ -47,7 +47,7 @@ extern "C" int aeqt_qmatmul_int4_weight_only(const void* x, int x_bf16,
   aeqt::qmatmul_int4_wo_kernel<float, float><<<grid, aeqt::kWpThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<const uint8_t*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<float*>(out), M, N, K, K);
+      static_cast<float*>(out), M, N, K, K, nullptr);
   return (int)cudaGetLastError();
 }
 

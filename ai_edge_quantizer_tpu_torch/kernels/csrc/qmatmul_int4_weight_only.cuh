@@ -7,11 +7,12 @@
 // layout (pallas_qmatmul.pack_int4_split); group = bf is the MLP's down
 // weight (pallas_mlp.pack_int4_split_grouped).
 //
-// Used by the fused kernels: qmatmul_int4_rmsnorm.cu, qkv_rope.cu,
-//   attention_oproj.cu and head_argmax.cu. The unfused weight-only and
-//   blockwise matmuls (#12, #13) and the MLP's weight-only branch (#3,
-//   mlp_int4_bf16.cu) run bf16 x on int4_bf16_tc_gemm.cuh and f32 x on
-//   qmatmul_int4_simt.cuh.
+// Used by two fused kernels: qkv_rope.cu (#20) and head_argmax.cu (#4's
+//   weight-only branch). The unfused weight-only and blockwise matmuls
+//   (#12, #13), the MLP's weight-only branch (#3, mlp_int4_bf16.cu), the
+//   norm-fused FC (#14, qmatmul_int4_rmsnorm.cu) and #19's weight-only
+//   projection (attention_oproj.cu) run bf16 x on int4_bf16_tc_gemm.cuh
+//   and f32 x on qmatmul_int4_simt.cuh.
 //
 // Arithmetic (the Pallas kernels'): x in its compute dtype (bf16 or f32)
 //   and the sign-extended nibbles are f32 operands (a bf16 value times an
@@ -275,7 +276,7 @@ int launch_wo(const void* x, const void* w, const void* scale,
     qmatmul_int4_wo_kernel<TIn, TOut><<<grid, kWpThreads, 0, stream>>>(
         static_cast<const TIn*>(x), static_cast<const uint8_t*>(w),
         static_cast<const float*>(scale), static_cast<const float*>(bias),
-        static_cast<TOut*>(out), M, N, K, group);
+        static_cast<TOut*>(out), M, N, K, group, nullptr);
     return (int)cudaGetLastError();
   } else {
     const int splits = wo_splits(M, N, K, group);

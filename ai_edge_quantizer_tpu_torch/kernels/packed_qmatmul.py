@@ -42,6 +42,10 @@ _INV127 = 1.0 / 127.0  # rounded once to f32 where it meets an f32 tensor
 # The bf16 tensor-core core's launch (csrc/int4_bf16_tc_gemm.cuh
 # plan_fields): _build.plan's fields and the tokens of a tile.
 INT4_BF16_PLAN_FIELDS = _build.PLAN_FIELDS + ('tile_tokens',)
+# The norm-fused FC's two launches (csrc/qmatmul_int4_rmsnorm.cu
+# aeqt_qmatmul_int4_rmsnorm_plan): the norm's grid and threads, then the
+# contraction's INT4_BF16_PLAN_FIELDS (bf16 x; f32 x the SIMT kernel's).
+RMSNORM_PLAN_FIELDS = ('norm_grid', 'norm_threads') + INT4_BF16_PLAN_FIELDS
 
 
 def pack_int4_split(w_q: torch.Tensor) -> torch.Tensor:
@@ -427,3 +431,10 @@ def qmatmul_int4_packed_rmsnorm(
 
 qmatmul_int4_packed_rmsnorm.launches = 0
 qmatmul_int4_packed_rmsnorm.plain_calls = 0
+
+
+def rmsnorm_plan(m: int, n: int, k: int, x_bf16: bool = True) -> dict:
+  """The launches qmatmul_int4_packed_rmsnorm gives a shape (card only)."""
+  return _build.plan('qmatmul_int4_rmsnorm', 'aeqt_qmatmul_int4_rmsnorm_plan',
+                     'qmatmul_int4_packed_rmsnorm', m, n, k, int(x_bf16),
+                     fields=RMSNORM_PLAN_FIELDS)

@@ -25,7 +25,8 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      bound from bytes over 3.35 TB/s or operations over the peak rate; the
      int4-group attention at pos 0/31/32/896/1023 and the server's mixed
      lengths, with INT4G_ATTENTION_SCATTER's pools and sidecar equal to
-     its CPU run bit for bit; the int8 DRQ matmul (bit for bit) and the
+     its CPU run bit for bit, and its bench case over the draws of
+     INT4G_SWEEP_SEEDS (int4g_seed_sweep); the int8 DRQ matmul (bit for bit) and the
      weight-only matmul (blockwise 32 and channelwise, within
      int_qmatmul.int_weights_tolerance) at the quantized serving graph's
      shapes; the K-blocked int4 DRQ matmul bit for bit at the down
@@ -72,7 +73,9 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      bit and weight-only) and the attention + out-projection + residual
      epilogue (B 256 and 64, lengths 897, 0, 1 and S, bf16 and f32, DRQ bit
      for bit given the lengths kernel's context, weight-only), each timed
-     beside the unfused kernels it replaces; the attention compute modes
+     beside the unfused kernels it replaces (and the norm-fused matmul
+     beside #12 alone, the epilogue beside #7 + #1 alone) with its
+     launches' plans and ptxas report; the attention compute modes
      (compute_mode_kernels): the stale attention (B 64 and bench.py's
      decode), the lengths attention (the server's tick, and a zero length)
      and the decode block (bench.py's step) in bf16 and int8 beside their
@@ -443,6 +446,7 @@ def kernel_phase(torch, port, cfg, dev, timer):
                               gen))
   results.append(block_kernel(torch, port, cfg, dev, timer, gen))
   results.append(int4g_kernel(torch, port, cfg, dev, timer, gen))
+  results[-1]['seed_sweep'] = int4g_seed_sweep(torch, port, cfg, dev)
   results.extend(int_weight_kernels(torch, port, cfg, dev, timer, gen))
   results.append(kblock_kernel(torch, port, cfg, dev, timer, gen))
   results.extend(default_mode_kernels(torch, port, cfg, dev, timer, gen))
@@ -957,13 +961,18 @@ INT4G_GROUP = 16   # bench.py's kv_int4_group
 # The int4-group attention's context against its plain version, relative
 # to its largest magnitude: a probability whose f32 value differs in the
 # last place can round to the neighbouring bf16 value (2^-8 of it) before
-# the context sum; 3.5e-4 was read at 33 live rows on an H100 80GB HBM3.
-# Such flips touch few rows, so at most INT4G_FINE_SHARE of the elements
-# may differ by more than INT4G_FINE_RTOL of that magnitude (1.35 % was
-# read); a kernel that leaves out one bf16 rounding of q, of the K or V
-# operand or of the probabilities moves most elements (int4g_kernel holds
+# the context sum, in the kernel or in the plain version. Over 128 draws
+# of the bench case (int4g_seed_sweep, 64 seeds at pos 32 and 896, H100
+# 80GB HBM3) the plain version sat up to 1.99e-3 from its own function in
+# f64 and the kernel up to 1.37e-3, and 5 draws at 33 live rows put them
+# more than 1e-3 apart (at most 1.99e-3): the bound is their two largest
+# distances from the function, rounded up. Such flips touch few rows, so
+# at most INT4G_FINE_SHARE of the elements may differ by more than
+# INT4G_FINE_RTOL of that magnitude (0.6 % was read); a kernel that leaves
+# out one bf16 rounding of q, of the K or V operand or of the
+# probabilities moves most elements (70-81 % were read; int4g_kernel holds
 # that, see plain_without_rounding).
-INT4G_CTX_RTOL = 1e-3
+INT4G_CTX_RTOL = 4e-3
 INT4G_FINE_RTOL, INT4G_FINE_SHARE = 1e-5, 0.1
 
 
@@ -976,8 +985,8 @@ def int4g_ctx_diff(torch, got, want):
           float(torch.mean((d > INT4G_FINE_RTOL * ymax).double())))
 
 
-def int4g_ctx_ok(rel, share):
-  return rel <= INT4G_CTX_RTOL and share <= INT4G_FINE_SHARE
+def int4g_ctx_ok(rel, share, rtol=INT4G_CTX_RTOL):
+  return rel <= rtol and share <= INT4G_FINE_SHARE
 
 
 def plain_without_rounding(att, which, *args):
@@ -1183,6 +1192,65 @@ def int4g_kernel(torch, port, cfg, dev, timer, gen):
       'dropped_rounding_refused': dropped,
       'op_card_vs_cpu': {'values_differ': op_diff, 'ctx_max_abs_err': op_err,
                          'ctx_share_beyond_fine': op_share}}
+
+# #10's f32 check over draws of its bench case, each seed a generator of
+# its own (the kernel phase's shared generator is not touched).
+INT4G_SWEEP_SEEDS = tuple(range(16))
+INT4G_SWEEP_POS = (32, BENCH_START)
+
+
+def int4g_seed_sweep(torch, port, cfg, dev):
+  """#10 (the int4-group decode attention) at bench.py's int4g decode
+  (BENCH_B rows, every row pos + 1 long, pos in INT4G_SWEEP_POS), q and
+  pools drawn anew from each seed of INT4G_SWEEP_SEEDS: the f32 context
+  against the plain version by int4g_kernel's rule (int4g_ctx_ok), and
+  both against int4g_f64 (the plain version's function in f64, its four
+  bf16 roundings kept), which shows how far the plain version's own f32
+  order sits from its function. Returns the largest relative errors, the
+  largest share beyond INT4G_FINE_RTOL and each draw's figures; raises
+  where a draw fails the rule."""
+  att = port['attention']
+  NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+  G = cfg.num_query_heads // NK
+  kern = att.decode_attention_int4_group_lengths
+  plain = att.decode_attention_int4_group_lengths_plain
+  draws, failed = [], []
+  t0 = time.monotonic()
+  for seed in INT4G_SWEEP_SEEDS:
+    gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+    q = torch.randn((BENCH_B, NK, G, H), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kp, vp, sc = int4g_pools(torch, att, BENCH_B, NK, S, H, gen, dev)
+    for pos in INT4G_SWEEP_POS:
+      lengths = torch.full((BENCH_B,), pos + 1, dtype=torch.int32,
+                           device=dev)
+      args = (q, kp, vp, sc, lengths, INT4G_GROUP)
+      got, want = kern(*args), plain(*args)
+      exact = int4g_f64(torch, att, *args)
+      rel, share = int4g_ctx_diff(torch, got, want)
+      draw = {'seed': seed, 'pos': pos, 'rel_err': rel,
+              'share_beyond_fine': share,
+              'plain_rel_err_f64': int4g_ctx_diff(torch, want, exact)[0],
+              'kernel_rel_err_f64': int4g_ctx_diff(torch, got, exact)[0]}
+      draws.append(draw)
+      if not int4g_ctx_ok(rel, share):
+        failed.append(draw)
+    del kp, vp, sc
+  out = {'draws': len(draws),
+         'failed': failed,
+         'max_rel_err': max(d['rel_err'] for d in draws),
+         'max_share_beyond_fine': max(d['share_beyond_fine'] for d in draws),
+         'draws_beyond_1e-3': sum(d['rel_err'] > 1e-3 for d in draws),
+         'seconds': time.monotonic() - t0,
+         'max_plain_rel_err_f64': max(d['plain_rel_err_f64'] for d in draws),
+         'max_kernel_rel_err_f64': max(d['kernel_rel_err_f64']
+                                       for d in draws),
+         'by_draw': draws}
+  log(f'int4g seed sweep: {({k: v for k, v in out.items() if k != "by_draw"})}')
+  if failed:
+    raise AssertionError(f'int4g attention over seeds: {failed}')
+  return out
+
 
 QUANT_BLOCK = 32   # gemma_mixed48_b32's block size
 
@@ -2334,8 +2402,10 @@ def rmsnorm_kernel(torch, port, cfg, dev, timer, gen):
   within int_qmatmul.int_weights_tolerance of max |y| (the mma.sync and
   SIMT f32 sums run in another order), bf16 outputs within one bf16 ulp
   beyond it.
-  Timed at BENCH_B beside the unfused route it replaces: the RMS_NORM op's
-  torch arithmetic, then the weight-only matmul (#12)."""
+  Timed at BENCH_B and B beside the unfused route it replaces (the
+  RMS_NORM op's torch arithmetic, then the weight-only matmul #12) and
+  beside #12 alone on rows normalized beforehand; each row logs both
+  launches' plans (bf16 and f32 x) and the ptxas report."""
   pq, iq, ops_impl = port['packed_qmatmul'], port['int_qmatmul'], \
       port['ops_impl']
   D, F = cfg.embed_dim, cfg.ffn_dim
@@ -2376,6 +2446,7 @@ def rmsnorm_kernel(torch, port, cfg, dev, timer, gen):
                        'tolerance': tol, 'bf16_ulps_beyond': ulps})
       nbytes = m * D * 2 + D * 4 + n * D // 2 + n * 4 + m * n * 2
       b_ms, b_by = bound(nbytes, 2 * m * n * D, BF16_OPS_PER_S)
+      xn = rmsnorm_unfused(torch, ops_impl, x, gamma)
       rows.append({
           'phase': phase, 'shape': label, 'M': m, 'N': n, 'K': D,
           'max_abs_err': max(c['max_abs_err'] for c in checks),
@@ -2385,11 +2456,15 @@ def rmsnorm_kernel(torch, port, cfg, dev, timer, gen):
               x, gamma, w, s), reps=5),
           'composition_ms': timer(lambda: pq.qmatmul_int4_packed(
               rmsnorm_unfused(torch, ops_impl, x, gamma), w, s)),
-          'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
+          'matmul_alone_ms': timer(lambda: pq.qmatmul_int4_packed(xn, w, s)),
+          'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+          'plan': pq.rmsnorm_plan(m, n, D, True),
+          'plan_f32': pq.rmsnorm_plan(m, n, D, False)})
   log(f'kernel qmatmul_int4_packed_rmsnorm ok: '
       f'{[{k: v for k, v in r.items() if k != "checks"} for r in rows]}')
   bench = [r for r in rows if r['phase'] == 'bench']
-  timing = ('ms', 'plain_ms', 'composition_ms', 'bound_ms')
+  timing = ('ms', 'plain_ms', 'composition_ms', 'matmul_alone_ms',
+            'bound_ms')
   return {
       'name': 'qmatmul_int4_packed_rmsnorm', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/'
@@ -2404,6 +2479,9 @@ def rmsnorm_kernel(torch, port, cfg, dev, timer, gen):
       'bound_by': 'operations', 'library_ms': None,
       'composition': 'the RMS_NORM op (torch) + qmatmul_int4_packed (#12), '
                      'per layer: the QKV and the gate/up call summed',
+      'matmul_alone': 'qmatmul_int4_packed (#12) on rows normalized '
+                      'beforehand',
+      'ptxas': ptxas_report(port['_build'], 'qmatmul_int4_rmsnorm', ''),
       'by_shape': rows}
 
 
@@ -2514,9 +2592,10 @@ OPROJ_SCALES = (0.06, 0.06, 3.0, -2.0)   # k_scale, v_scale, zp_k, zp_v
 
 
 def oproj_context(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute):
-  """The context [B, G*H] that the epilogue's (#19) first launch forms (the
-  one-block body of #7, attention_lengths.cuh, which the epilogue keeps):
-  its C entry point called as its wrapper calls it, the ctx scratch kept."""
+  """The context [B, G*H] that the epilogue's (#19) first launch forms (#7's
+  launch, attention_lengths.cuh: the split core, or the one-block body
+  where the core refuses the shape): its C entry point called as its
+  wrapper calls it, the ctx scratch kept."""
   build = port['_build']
   b, _, g, h = q.shape
   s, d = kc.shape[2], wo.shape[0]
@@ -2526,14 +2605,17 @@ def oproj_context(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute):
   lens = lengths.to(torch.int32).reshape(-1).contiguous()
   x2 = xi.reshape(b, d).to(cast).contiguous()
   so32 = so.to(torch.float32).reshape(-1).contiguous()
-  ctx, o, out = (torch.empty((b, n), dtype=cast, device=q.device)
-                 for n in (g * h, d, d))
+  ctx, out = (torch.empty((b, n), dtype=cast, device=q.device)
+              for n in (g * h, d))
+  xq = torch.empty((b, g * h), dtype=torch.int8, device=q.device)
+  xs = torch.empty((b,), dtype=torch.float32, device=q.device)
   fn = build.entry('attention_oproj', 'aeqt_attention_oproj',
-                   [build.P] * 10 + [build.I] * 8 + [build.F] * 4 + [build.P])
+                   [build.P] * 11 + [build.I] * 8 + [build.F] * 4 + [build.P])
   build.check(fn(q2.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                  lens.data_ptr(), x2.data_ptr(), wo.data_ptr(),
-                 so32.data_ptr(), ctx.data_ptr(), o.data_ptr(),
-                 out.data_ptr(), int(cast == torch.bfloat16), int(drq),
+                 so32.data_ptr(), ctx.data_ptr(), xq.data_ptr(),
+                 xs.data_ptr(), out.data_ptr(), int(cast == torch.bfloat16),
+                 int(drq),
                  port['attention'].compute_code(compute), b, g, s, h, d,
                  port['attention'].score_scale(k_scale, h), float(v_scale),
                  float(zp_k), float(zp_v), build.stream_ptr(q.device)),
@@ -2544,8 +2626,7 @@ def oproj_context(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute):
 def oproj_case(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute,
                label):
   """One epilogue call (#19) against its plain version: given the context
-  of its first launch in `compute` (oproj_context: #7's one-block body,
-  which the epilogue keeps while #7 runs on the split core), the
+  of its first launch in `compute` (oproj_context: #7's launch), the
   projection and the residual are the plain version's bit for
   bit (DRQ) or within int_qmatmul.int_weights_tolerance over K = G*H and,
   at bf16, one bf16 ulp of the projection (rounded before the add) and
@@ -2613,14 +2694,34 @@ def oproj_case(torch, port, q, kc, vc, lengths, xi, wo, so, drq, compute,
   return check
 
 
+def oproj_unfused(torch, port, timer, args, drq, compute):
+  """The unfused kernels #19 replaces, timed on its inputs `args` (q, caches,
+  scales, lengths, x_res, wo, so, zero points): (#7 in `compute` + #1 or
+  #12 + the residual ADD, #7 + #1 or #12 alone) in ms."""
+  pq, att = port['packed_qmatmul'], port['attention']
+  q, kc, vc, k_scale, v_scale, lengths, x, wo, so, zp_k, zp_v = args
+  b, _, g, h = q.shape
+  proj = pq.qmatmul_int4_packed_drq if drq else pq.qmatmul_int4_packed
+
+  def kernels():
+    ctx = att.decode_attention_int8_lengths(
+        q, kc, vc, k_scale, v_scale, lengths, zp_k, zp_v, compute=compute,
+        out_dtype=x.dtype)
+    return proj(ctx.reshape(b, g * h), wo, so)
+
+  return timer(lambda: x + kernels()), timer(kernels)
+
+
 def oproj_kernel(torch, port, cfg, dev, timer, gen):
   """The attention + out projection + residual epilogue (#19) against its
   plain version at bench.py's decode shape (B BENCH_B, S 1024, one KV head,
   G 8, H 256, D 2048) and at B B, lengths BENCH_START + 1 = 897 (the bench
   step's), 0, 1 and S, bf16 and f32 x_res, DRQ on and off, by oproj_case's
-  rules. Timed at BENCH_B, lengths 897, DRQ, bf16, beside the unfused
-  route: #7, #1 and the residual ADD. NK 2 and odd G raise ValueError on
-  the card and launch nothing."""
+  rules. Timed at BENCH_B and B, lengths 897, DRQ, bf16, beside the
+  unfused route (#7, #1 and the residual ADD) and #7 + #1 alone; each row
+  logs the launches' plans (DRQ, weight-only at bf16 and f32 x), the
+  whole the ptxas report. NK 2 and odd G raise ValueError on the card and
+  launch nothing."""
   pq, att = port['packed_qmatmul'], port['attention']
   D, NK, H, S = cfg.embed_dim, cfg.num_kv_heads, cfg.head_dim, \
       cfg.max_seq_len
@@ -2646,12 +2747,8 @@ def oproj_kernel(torch, port, cfg, dev, timer, gen):
     lengths = torch.full((b,), BENCH_START + 1, dtype=torch.int32,
                          device=dev)
     args = (q, kc, vc, k_scale, v_scale, lengths, x, wo, so, zp_k, zp_v)
-
-    def composition(b=b, args=args):
-      ctx = att.decode_attention_int8_lengths(*args[:6], zp_k, zp_v,
-                                              out_dtype=bf16)
-      return x + pq.qmatmul_int4_packed_drq(ctx.reshape(b, G * H), wo, so)
-
+    composition_ms, alone_ms = oproj_unfused(torch, port, timer, args, True,
+                                             'f32')
     live = b * (BENCH_START + 1)
     nbytes = (b * G * H * 2 + 2 * live * H + b * 4 + b * D * 2
               + D * G * H // 2 + D * 4 + b * D * 2)
@@ -2666,8 +2763,13 @@ def oproj_kernel(torch, port, cfg, dev, timer, gen):
         'ms': timer(lambda: att.decode_attention_oproj(*args)),
         'plain_ms': timer(lambda: att.decode_attention_oproj_plain(*args),
                           reps=5),
-        'composition_ms': timer(composition),
-        'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
+        'composition_ms': composition_ms, 'kernels_alone_ms': alone_ms,
+        'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+        'plan': att.oproj_plan(b, G, S, H, D, 'f32', True, True),
+        'plan_weight_only': att.oproj_plan(b, G, S, H, D, 'f32', False,
+                                           True),
+        'plan_weight_only_f32': att.oproj_plan(b, G, S, H, D, 'f32', False,
+                                               False)})
     del kc, vc
   log(f'kernel decode_attention_oproj ok: '
       f'{[{k: v for k, v in r.items() if k != "checks"} for r in rows]}')
@@ -2693,7 +2795,8 @@ def oproj_kernel(torch, port, cfg, dev, timer, gen):
       log(f'refused on the card as expected: attention epilogue, {what}: {e}')
       continue
     raise AssertionError(f'attention epilogue took {what}')
-  timing = ('ms', 'plain_ms', 'composition_ms', 'bound_ms')
+  timing = ('ms', 'plain_ms', 'composition_ms', 'kernels_alone_ms',
+            'bound_ms')
   return {
       'name': 'decode_attention_oproj', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/attention_oproj.cu',
@@ -2707,7 +2810,9 @@ def oproj_kernel(torch, port, cfg, dev, timer, gen):
       'library_ms': None,
       'composition': 'decode_attention_int8_lengths (#7) + '
                      'qmatmul_int4_packed_drq (#1) + the residual ADD',
+      'kernels_alone': '#7 + #1 without the ADD',
       'decode': {key: rows[1][key] for key in timing}, 'refused': refused,
+      'ptxas': ptxas_report(port['_build'], 'attention_oproj', ''),
       'by_shape': rows}
 
 
@@ -3067,9 +3172,10 @@ def writeback_mode_rows(torch, att, cfg, dev, timer, by_name, randint, gen,
 def oproj_mode_rows(torch, port, cfg, dev, timer, by_name, randint, gen):
   """#19 in bf16 and int8 by oproj_case's rules: at bench.py's decode
   (B 256, DRQ, bf16 x) and at B 64 weight-only (bf16 x), lengths 897 and
-  0; timed at 897. The bound takes the attention's operations at the
-  mode's peak and the projection's at the int8 (DRQ) or bf16 (weight-only)
-  peak."""
+  0; timed at 897 beside the unfused kernels in the mode (#7 + #1 or #12 +
+  ADD, and without the ADD). The bound takes the attention's operations at
+  the mode's peak and the projection's at the int8 (DRQ) or bf16
+  (weight-only) peak."""
   pq, att = port['packed_qmatmul'], port['attention']
   D, NK, H, S = cfg.embed_dim, cfg.num_kv_heads, cfg.head_dim, \
       cfg.max_seq_len
@@ -3099,6 +3205,8 @@ def oproj_mode_rows(torch, port, cfg, dev, timer, by_name, randint, gen):
       b_ms, b_by = bound(nbytes, 4 * G * H * live, MODE_OPS_PER_S[mode],
                          2 * b * D * G * H,
                          INT8_OPS_PER_S if drq else BF16_OPS_PER_S)
+      composition_ms, alone_ms = oproj_unfused(torch, port, timer, args[:11],
+                                               drq, mode)
       r = row.setdefault('modes', {}).setdefault(mode, {})[label] = {
           'B': b, 'drq': drq, 'live_rows': live, 'checks': checks,
           'max_abs_err': max(c['max_abs_err'] for c in checks),
@@ -3106,10 +3214,14 @@ def oproj_mode_rows(torch, port, cfg, dev, timer, by_name, randint, gen):
           'ms': timer(lambda: att.decode_attention_oproj(*args)),
           'plain_ms': timer(lambda: att.decode_attention_oproj_plain(*args),
                             reps=5),
-          'bound_ms': b_ms, 'bound_by': b_by}
+          'composition_ms': composition_ms, 'kernels_alone_ms': alone_ms,
+          'bound_ms': b_ms, 'bound_by': b_by,
+          'plan': att.oproj_plan(b, G, S, H, D, mode, drq, True)}
       log(f'kernel decode_attention_oproj {label} {mode} ok: err '
           f'{r["max_abs_err"]:.3g}, ctx err {r["ctx_max_abs_err"]:.3g}; '
-          f'{r["ms"]:.4f} ms (plain {r["plain_ms"]:.4f}, bound {b_ms:.4f})')
+          f'{r["ms"]:.4f} ms (plain {r["plain_ms"]:.4f}, unfused '
+          f'{composition_ms:.4f}, without the ADD {alone_ms:.4f}, bound '
+          f'{b_ms:.4f}), plan {r["plan"]}')
 
 
 def int8_basic_kernel(torch, port, cfg, dev, timer, gen):
@@ -3193,17 +3305,19 @@ def int8_basic_kernel(torch, port, cfg, dev, timer, gen):
                  'the caches dequantized to bf16',
       'core': SPLIT_CORE, 'launch': dec['launch'],
       'ptxas': ptxas_report(build, 'attention_int8_basic',
-                            'int8_basic_split_kernel'),
+                            'lengths_attention_split_kernel'),
       'bench': rows[BENCH_B]}
 
 
 # #21 against its plain version: as the int4-group attention (a bf16
 # probability operand may round the other way, 2^-8 of it), so the same
-# INT4G_CTX_RTOL / INT4G_FINE_RTOL / INT4G_FINE_SHARE rule (int4g_ctx_ok).
+# rule (int4g_ctx_ok) with its own bound, INT4_ROW_CTX_RTOL (no sweep of
+# #21's draws has measured its own rounding's reach).
 # Against the f32 twin of decode_attention_int4_ref (q and the operands
 # not rounded to bf16): within INT4_ROW_REF_RTOL of max |ctx|, the bf16
 # roundings of q and of p * vscale (2^-9 relative each).
 INT4_ROW_REF_RTOL = 2e-2
+INT4_ROW_CTX_RTOL = 1e-3
 
 
 def int4_row_ref(torch, att, q, kp, vp, scales, lengths):
@@ -3225,8 +3339,9 @@ def int4_row_kernel(torch, port, cfg, dev, timer, gen):
   """#21, the per-row int4 KV attention, against its plain version at the
   A/B tool's shape (B 256, S 1024, lengths S - 2) and at B 64 with random
   lengths 0..S, operands made by the tool (its quantizer and scales);
-  held by int4g_ctx_ok at f32 and one bf16 ulp beyond INT4G_CTX_RTOL at
-  bf16, and against the f32 twin by INT4_ROW_REF_RTOL. Timed beside SDPA
+  held by int4g_ctx_ok at f32 (INT4_ROW_CTX_RTOL) and one bf16 ulp beyond
+  INT4_ROW_CTX_RTOL at bf16, and against the f32 twin by
+  INT4_ROW_REF_RTOL. Timed beside SDPA
   over the pools dequantized to bf16; each shape's launch (the split
   core's plan, cluster 0 for the one-block kernel) and the kernels' ptxas
   registers and spills logged."""
@@ -3252,10 +3367,10 @@ def int4_row_kernel(torch, port, cfg, dev, timer, gen):
     ymax = float(torch.max(torch.abs(want32)))
     err = float(torch.max(torch.abs(got32 - want32)))
     rel, share = int4g_ctx_diff(torch, got32, want32)
-    ulps = bf16_ulps(torch, got16, want16, atol=INT4G_CTX_RTOL * ymax)
+    ulps = bf16_ulps(torch, got16, want16, atol=INT4_ROW_CTX_RTOL * ymax)
     ref_rel = float(torch.max(torch.abs(want32 - ref))
                     / torch.max(torch.abs(ref)))
-    if not (int4g_ctx_ok(rel, share) and ulps <= 1.0
+    if not (int4g_ctx_ok(rel, share, INT4_ROW_CTX_RTOL) and ulps <= 1.0
             and ref_rel <= INT4_ROW_REF_RTOL):
       raise AssertionError(f'int4 row attention B {b}: f32 err {err} (max '
                            f'|ctx| {ymax}), share {share}, {ulps} bf16 ulps, '

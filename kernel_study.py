@@ -8,7 +8,7 @@ Each prints one JSON line per measurement.
 --root picks the checkout whose kernels (and chip_smoke.py) run (default:
 this file's), so two checkouts can be timed in turns on one card, one
 process each. --kernels picks the groups that `times` and `launches`
-cover (default: all four). Times are CUDA-event medians of --reps calls as
+cover (default: all five). Times are CUDA-event medians of --reps calls as
 chip_smoke.Timer takes them (L2 flushed before each).
 
 Kernel groups of `times`:
@@ -34,6 +34,15 @@ Kernel groups of `times`:
                bf16 x; #4 (head.head_argmax, DRQ) on the tied int8 head
                and a packed int4 one (N 256128, K 2048) at M 64 and 256,
                bf16 x.
+  fusion       #14 (packed_qmatmul.qmatmul_int4_packed_rmsnorm) at the norm
+               fusion's shapes (K 2048; the QKV, N 2560, and the gate/up,
+               N 32768) at M 256 (a bench step) and 64 (a decode tick),
+               bf16 x, beside the unfused RMS_NORM op + #12 and #12 alone on
+               rows normalized beforehand; #19 (attention.
+               decode_attention_oproj) at bench.py's decode (B 256, every
+               row 897 long) and at B 64, DRQ in every compute mode and
+               weight-only in f32, bf16 x_res, beside #7 + #1 (or #12) +
+               the residual ADD and #7 + #1 (or #12) alone.
   int_weights  #16 (int_qmatmul.qmatmul_int_weights) at chip_smoke.
                int_weight_kernels' rows: gemma_mixed48_b32's blockwise-32
                FCs at decode (M 64: gate/up N 32768 at K 2048, down N 2048
@@ -44,8 +53,9 @@ Kernel groups of `times`:
 
 Studies:
   times     the rows of the groups above.
-  launches  the device time of each launch of one call at the `mlp` and
-            `block` rows of --kernels (torch.profiler, the mean of 5
+  launches  the device time of each launch of one call at the `mlp`,
+            `block` and `fusion` rows of --kernels (`fusion` with the
+            unfused kernels each replaces; torch.profiler, the mean of 5
             calls each after an L2 flush: device_us a launch of each
             kernel, device_us_per_call its launches' sum in one call).
   host      the host time of one #3 call at decode (M 64, bf 2048 and
@@ -53,8 +63,9 @@ Studies:
             every launch it enqueues, with the card kept busy so that no
             call waits for it (the median over 5 rounds of 50 calls).
   steps     bench.py's decode through chip_smoke.bench_decode_phase under
-            the block on, the block off, the in-place writes and the norm
-            fusion (ms a step, host clock, median of chip_smoke's timed
+            the block on, the block off, the in-place writes, the norm
+            fusion and the attention block (ms a step, host clock, median
+            of chip_smoke's timed
             steps; the device's busy time and idle share by
             torch.profiler), one process a checkout.
   order     the share of the split core's plain versions' f32 matmul
@@ -99,7 +110,7 @@ B, S, H, G = 64, 1024, 256, 8
 BENCH_B, BENCH_ROWS = 256, 897
 K_SCALE, V_SCALE, ZP_K, ZP_V = 0.06, 0.06, 3.0, -2.0
 PREFILL_ROWS, PREFILL_BATCH, QUANT_BLOCK = 1024, 8, 32
-GROUPS = ('mlp', 'attention', 'block', 'int_weights')
+GROUPS = ('mlp', 'attention', 'block', 'fusion', 'int_weights')
 # The kernel libraries each group and study builds (steps: every one).
 SOURCES = {
     'mlp': ('mlp_int4_drq', 'mlp_int4_bf16', 'attention_int8_basic'),
@@ -107,9 +118,13 @@ SOURCES = {
                   'attention_writeback', 'attention_int4_group',
                   'attention_int4_row'),
     'block': ('fused_block', 'head_argmax'),
+    'fusion': ('qmatmul_int4_rmsnorm', 'attention_oproj',
+               'qmatmul_int4_weight_only', 'qmatmul_int4_drq',
+               'attention_lengths'),
     'int_weights': ('qmatmul_int_weights',)}
 STUDY_GROUP = {'host': 'mlp', 'order': 'attention', 'truth': 'attention'}
-STEP_SETTINGS = ('block on', 'block off', 'inplace', 'norm fusion')
+STEP_SETTINGS = ('block on', 'block off', 'inplace', 'norm fusion',
+                 'attn block')
 
 
 def emit(**row):
@@ -309,6 +324,75 @@ def block_cases(torch, mods):
 
 def block_times(torch, mods, timer):
   for key, call in block_cases(torch, mods):
+    call()
+    emit(study='times', **key, ms=timer(call))
+
+
+# ------------------------------------------------------------ #14, #19
+
+
+def fusion_cases(torch, mods, unfused=False):
+  """(key, call) of each #14 and #19 case (see the `fusion` group); with
+  `unfused` also the unfused kernels each replaces."""
+  cs, att, pq = mods['cs'], mods['att'], mods['pq']
+  from ai_edge_quantizer_tpu_torch.ops import impl
+  gen = torch.Generator(device='cuda').manual_seed(14)
+  bf16 = torch.bfloat16
+
+  def randint(lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device='cuda').to(
+        torch.int8)
+
+  def scales(n):
+    return torch.rand((n,), generator=gen, device='cuda') * 0.01 + 0.005
+
+  cases = []
+  gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device='cuda')
+  for label, n in (('qkv', (G + 2) * H), ('gate_up', 2 * F)):
+    w, s = pq.pack_int4_split(randint(-8, 8, n, D)), scales(n)
+    for m in (BENCH_B, B):
+      x = (torch.randn((m, D), generator=gen, device='cuda') * 3).to(bf16)
+      key = {'kernel': 'qmatmul_int4_packed_rmsnorm', 'shape': label, 'M': m}
+      cases.append((key, lambda x=x, w=w, s=s:
+                    pq.qmatmul_int4_packed_rmsnorm(x, gamma, w, s)))
+      if unfused:
+        xn = cs.rmsnorm_unfused(torch, impl, x, gamma)
+        cases.append((dict(key, kernel='RMS_NORM op + #12'),
+                      lambda x=x, w=w, s=s: pq.qmatmul_int4_packed(
+                          cs.rmsnorm_unfused(torch, impl, x, gamma), w, s)))
+        cases.append((dict(key, kernel='#12 on normalized rows'),
+                      lambda xn=xn, w=w, s=s: pq.qmatmul_int4_packed(
+                          xn, w, s)))
+  wo, so = pq.pack_int4_split(randint(-8, 8, D, G * H)), scales(D)
+  for b in (BENCH_B, B):
+    q = torch.randn((b, 1, G, H), generator=gen, device='cuda').to(bf16)
+    kc, vc = (randint(-127, 128, b, 1, S, H) for _ in range(2))
+    x = torch.randn((b, D), generator=gen, device='cuda').to(bf16)
+    lengths = torch.full((b,), BENCH_ROWS, dtype=torch.int32, device='cuda')
+    args = (q, kc, vc, K_SCALE, V_SCALE, lengths, x, wo, so, ZP_K, ZP_V)
+    for compute, drq in (('f32', True), ('bf16', True), ('int8', True),
+                         ('f32', False)):
+      key = {'kernel': 'decode_attention_oproj', 'B': b, 'compute': compute,
+             'drq': drq}
+      cases.append((key, lambda args=args, compute=compute, drq=drq:
+                    att.decode_attention_oproj(*args, compute=compute,
+                                               drq=drq)))
+      if unfused:
+        proj = pq.qmatmul_int4_packed_drq if drq else pq.qmatmul_int4_packed
+
+        def kernels(args=args, compute=compute, proj=proj, b=b):
+          ctx = att.decode_attention_int8_lengths(
+              *args[:6], ZP_K, ZP_V, compute=compute, out_dtype=bf16)
+          return proj(ctx.reshape(b, G * H), wo, so)
+
+        cases.append((dict(key, kernel='#7 + projection + ADD'),
+                      lambda x=x, kernels=kernels: x + kernels()))
+        cases.append((dict(key, kernel='#7 + projection'), kernels))
+  return cases
+
+
+def fusion_times(torch, mods, timer):
+  for key, call in fusion_cases(torch, mods, unfused=True):
     call()
     emit(study='times', **key, ms=timer(call))
 
@@ -666,8 +750,10 @@ def variants(torch, mods, timer, groups):
 # ------------------------------------------------------------------- main
 
 TIMES = {'mlp': mlp_times, 'attention': attention_times,
-         'block': block_times, 'int_weights': int_weights_times}
-LAUNCH_CASES = {'mlp': mlp_cases, 'block': block_cases}
+         'block': block_times, 'fusion': fusion_times,
+         'int_weights': int_weights_times}
+LAUNCH_CASES = {'mlp': mlp_cases, 'block': block_cases,
+                'fusion': functools.partial(fusion_cases, unfused=True)}
 STUDIES = {'launches': launches, 'host': host, 'steps': steps,
            'order': order, 'truth': truth}
 

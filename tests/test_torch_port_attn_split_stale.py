@@ -22,9 +22,12 @@ caches for every row. A twin that reads the old row p instead misses the
 bound where the old and new rows differ in every byte.
 
 Held, as chip_smoke.py holds the card, to 1e-5 absolute in f32 (1e-5 *
-max(|y|, 1) at the bench-like case; one p part fewer fails it), by the
-compute modes' rule in bf16 (test_torch_port_attn_compute._check_ctx) and
-bit for bit in int8, the pools bit for bit.
+max(|y|, 1) at the bench-like case; one p part fewer fails it; the
+mode-by-case tests hold the twin, the plain version and the TPU kernel
+each to 1e-5 * max(|y|, 1) of the function in f64, since the last two sum
+in the host's matmul order), by the compute modes' rule in bf16
+(test_torch_port_attn_compute._check_ctx) and bit for bit in int8, the
+pools bit for bit.
 """
 
 import jax.numpy as jnp
@@ -203,6 +206,48 @@ def _hold(got, want, compute, rel=False):
     assert err <= bound, (err, bound)
 
 
+def _f64_attention(q, kc, vc, live, k_new=None, v_new=None):
+  """The f32 mode's function evaluated in f64 (no host BLAS order in it):
+  cache rows j < live[b] of each row, and with k_new / v_new the new
+  token's column after them (#2's s_cur, e_cur and p_cur); a row with
+  nothing live and no new column weighs all S rows alike, as the plain
+  version's -1e30 scores do."""
+  b, nk, g, h = q.shape
+  s = kc.shape[2]
+  ks = attention.score_scale(K_SCALE, h)
+  v_scale = float(np.float32(V_SCALE))
+  q64 = q.to(torch.float64)
+  qsum = torch.sum(q64, dim=-1, keepdim=True)
+  scores = (torch.matmul(q64, kc.to(torch.float64).transpose(-1, -2))
+            - ZP_K * qsum) * ks
+  rows = torch.arange(s).reshape(1, 1, 1, s)
+  scores = torch.where(rows < live.reshape(b, 1, 1, 1), scores, -1e30)
+  m = torch.amax(scores, dim=-1, keepdim=True)
+  if k_new is not None:
+    s_cur = (torch.matmul(q64, k_new.to(torch.float64).transpose(-1, -2))
+             - ZP_K * qsum) * ks
+    m = torch.maximum(m, s_cur)
+  p = torch.exp(scores - m)
+  ctx = torch.matmul(p, vc.to(torch.float64))
+  denom = torch.sum(p, dim=-1, keepdim=True)
+  if k_new is not None:
+    p_cur = torch.exp(s_cur - m)
+    ctx = ctx + p_cur * v_new.to(torch.float64)
+    denom = denom + p_cur
+  return (ctx / denom - ZP_V) * v_scale
+
+
+def _hold_f32_exact(y64, **outputs):
+  """f32: each of `outputs` (the twin, the plain version, the TPU kernel)
+  within 1e-5 * max(|y|, 1) of the function evaluated in f64. The plain
+  version and the TPU kernel sum in the host's matmul order: against each
+  other at an absolute 1e-5 they part on some CPUs where |y| is near 8."""
+  bound = BOUND * max(float(torch.max(torch.abs(y64))), 1.0)
+  for name, y in outputs.items():
+    err = float(torch.max(torch.abs(y.to(torch.float64) - y64)))
+    assert err <= bound, (name, err, bound)
+
+
 # -- #2 ---------------------------------------------------------------------------
 
 # Lengths 0 and 1 (the new column alone), S (the new column after the last
@@ -222,15 +267,20 @@ def test_stale_twin_holds_the_rules(lengths, nk, g, s, h, compute):
                                     seed=sum(lengths) + h)
   got = stale_twin(q, kc, vc, lens, kn, vn, compute)
   assert torch.all(torch.isfinite(got))
-  _hold(got, _stale_plain(q, kc, vc, lens, kn, vn, compute), compute)
+  want = _stale_plain(q, kc, vc, lens, kn, vn, compute)
   tpu = torch.from_numpy(np.array(_exact(
       pallas_attention.decode_attention_int8_lengths_stale)(
           _j(q), _j(kc), _j(vc), K_SCALE, V_SCALE, _j(lens), _j(kn), _j(vn),
           k_zero_point=ZP_K, v_zero_point=ZP_V, compute=compute,
           batch_block=1, interpret=True)))
+  if compute == 'f32':
+    _hold_f32_exact(_f64_attention(q, kc, vc, lens - 1, kn, vn), twin=got,
+                    plain=want, tpu=tpu)
+  else:
+    _hold(got, want, compute)
   if compute == 'int8':  # the codes exact against the TPU kernel's too
     _check_ctx(got.numpy(), tpu.numpy(), 'int8', V_SCALE, ZP_V)
-  else:
+  elif compute == 'bf16':
     _hold(got, tpu, compute)
   # A row with no stale row: its context is v_new in every mode.
   v_scale = float(np.float32(V_SCALE))
@@ -304,7 +354,8 @@ def test_splice_twin_holds_the_rules(pos, lengths, nk, g, s, h, compute):
   assert torch.all(torch.isfinite(got))
   want, wk, wv = _splice_plain(q, kc, vc, lens, kn, vn, pos, compute)
   assert torch.equal(k_pool, wk) and torch.equal(v_pool, wv)
-  _hold(got, want, compute)
+  if compute != 'f32':
+    _hold(got, want, compute)
   ctx, tk, tv = _exact(
       pallas_attention.decode_attention_int8_lengths_writeback)(
           _j(q), _j(kc), _j(vc), K_SCALE, V_SCALE, _j(lens), _j(kn), _j(vn),
@@ -315,8 +366,11 @@ def test_splice_twin_holds_the_rules(pos, lengths, nk, g, s, h, compute):
   tpu = torch.from_numpy(np.array(ctx))
   if compute == 'int8':
     _check_ctx(got.numpy(), tpu.numpy(), 'int8', V_SCALE, ZP_V)
-  else:
+  elif compute == 'bf16':
     _hold(got, tpu, compute)
+  else:
+    _hold_f32_exact(_f64_attention(q, wk, wv, lens), twin=got, plain=want,
+                    tpu=tpu)
 
 
 @pytest.mark.parametrize('n_split', [1, 2, 3, 4, 8])

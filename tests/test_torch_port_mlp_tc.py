@@ -557,14 +557,22 @@ def test_bf16_route_runs_on_the_bf16_core():
 
 
 def test_int8_basic_launches_the_split_lengths_form():
+  """#22 is #7's launch (attention_lengths.cuh aeqt::lengths) at f32 with
+  zero points 0: the split core's lengths form, the one-block body only
+  where the core refuses the shape."""
   code = _strip_comments(BASIC_SRC)
-  assert '#include "attention_split_tc.cuh"' in code
-  assert 'attend<aeqt::split::kLengths, aeqt::kF32, H, NTS>' in code
-  assert 'aeqt::split::takes(aeqt::split::kLengths, aeqt::kF32' in code
+  header = _strip_comments((CSRC / 'attention_lengths.cuh').read_text())
+  assert '#include "attention_lengths.cuh"' in code
+  assert '#include "attention_split_tc.cuh"' in header
+  assert 'split::attend<split::kLengths, C, H, NTS>(a)' in header
+  assert 'split::takes(split::kLengths, C, R, G, S, H)' in header
   entry = code[code.index('extern "C" int aeqt_attention_int8_basic('):]
   entry = entry[:entry.index('\n}\n')]
+  assert 'aeqt::lengths::launch<aeqt::kF32>(' in entry
+  assert '0.0f,\n      0.0f' in entry  # both zero points
+  launch = header[header.index('int launch(const void* q'):]
+  launch = launch[:launch.index('\n}\n')]
   # The one-block body only where the core refuses the shape.
-  assert entry.count('launch_lengths_attention') == 1
-  assert entry.index('if (kernel == nullptr)') < entry.index(
+  assert launch.index('if (kernel == nullptr)') < launch.index(
       'launch_lengths_attention')
-  assert 'aeqt::split::launch(kernel' in entry
+  assert 'split::launch(kernel' in launch
