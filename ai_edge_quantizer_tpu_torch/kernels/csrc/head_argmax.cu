@@ -43,27 +43,57 @@
 //   AEQT_INT4_DRQ=0, for the packed int4 head; int8 weights by direct call):
 //   x is rounded to bf16 whatever its dtype (by the caller), the weights
 //   are taken as bf16 values (int4 and int8 values are exact there), and
-//   the products sum in f32: a packed row's low-nibble and high-nibble
-//   halves each in f32, then added (pallas_head.py:77-91). Each logit is
-//   acc * s, rounded to the activation dtype, and compared as above.
-//   Bound: the weight stream again (the packed head, 256128 x 1024 bytes =
-//   262 MB, about 78 us; the bf16 work of M = 64 rows, 2*M*N*K = 67 GFLOP,
-//   68 us at the bf16 tensor-core peak).
-//   Design: a warp takes 16 rows x 64 vocab columns on tensor cores, the
-//   weight-only matmul's tile (aeqt::wo_mma_tile, mma.sync with f32 sums,
-//   qmatmul_int4_weight_only.cuh), rounds its logits, and reduces each
-//   row's 64 to one (max, first index) pair by shuffles; then the
-//   reduction launch of the DRQ branch.
+//   the products sum in f32 (pallas_head.py:77-91: a packed row's
+//   low-nibble and high-nibble halves each in f32, then added). Each logit
+//   is acc * s, rounded to the activation dtype, and compared as above.
+//   Bound: the weight stream (the packed head, 256128 x 1024 bytes = 262 MB,
+//   about 78 us; int8 525 MB, 157 us) or, at M = 256, the bf16 work
+//   (2*M*N*K = 269 GFLOP, 272 us at the bf16 tensor-core peak).
+//   Design: head_wo_kernel, a persistent grid (one block an SM, block i
+//   taking the vocab tiles i, i + grid, ...) on the bf16 core's pieces
+//   (int4_bf16_tc_gemm.cuh): a producer warp keeps a TMA ring that runs on
+//   across tiles; a stage holds two 64-byte K steps of a weight tile, one
+//   [rows, 128 bytes] box (256 K columns packed, 128 int8), and the x
+//   tiles they meet, [tokens, 64 bf16] a step (packed at kb and K/2 + kb),
+//   128-byte swizzle; a stage past K loads zeros. The weight rows are
+//   wgmma's M side, widened from the stage's bytes in registers
+//   (w4::a_frags for nibbles, w4::a_frags_int8 for int8 bytes, both
+//   exact), the tokens its N side (m64n64k16 f32.bf16.bf16, x from shared
+//   memory): one commit group a stage (int8) or a step (packed, whose two
+//   steps' A fragments do not fit the registers together). Every token
+//   tile of a pass takes its wgmma from the same stage. At M <= 64 four
+//   consumer warpgroups of one 64-row tile each make a 256-row vocab tile
+//   (each x tile read from L2 serves 256 rows), one pass: the weights
+//   stream from HBM once. Above 64 rows two warpgroups (128 rows a tile)
+//   and passes of 128 tokens (two token tiles); a tile's later passes
+//   read its 128 KB of packed weights again from L2 (four token tiles in
+//   one pass spill their 128 accumulator registers and ptxas serializes
+//   the wgmma, C7512: slower, 'head_r4'). The lo and hi windows sum into
+//   one f32 accumulator (the registers do not hold two at two token
+//   tiles): the f32 sums differ from the plain version's in order only,
+//   and its ids are judged by the top-2 margin. The argmax epilogue in
+//   place of the tile store: each logit acc * s, rounded to the
+//   activation dtype, -3.4e38 past true_n; each token's column of the
+//   transposed tile reduces over the thread's rows and the 8 lanes of
+//   the row's quad by the rule of `better`, then over the block's warps
+//   as 64-bit (value, first index) keys in shared memory that order as
+//   `better` does (-0 taken as +0), the largest in warp order; one pair a
+//   (token, vocab tile) goes to pmax / pidx. Then the DRQ branch's
+//   reduction launch.
+//   What bounds it (kernel_study.py variants on the H100, packed, M 64):
+//   the ring's stream alone of weight and x tiles takes about 0.11 ms of
+//   the 0.19, and the consumers' wgmma and widening add to it rather than
+//   overlap it; halving x's bytes from L2 changed nothing (PERF.md §6-7).
 #include <limits.h>
 
+#include "int4_bf16_tc_gemm.cuh"
 #include "int8_tc_gemm.cuh"
-#include "qmatmul_int4_weight_only.cuh"
 
 namespace {
 
 namespace tc = aeqt::tc;
+namespace w4 = aeqt::w4;
 
-constexpr int kBN = aeqt::kMmaBN;   // vocab columns of a weight-only tile
 constexpr int kDrqBN = tc::kBN;     // vocab columns of a DRQ tile (n128)
 constexpr float kNegInf = -3.4e38f;  // pallas_head._NEG_INF
 
@@ -233,56 +263,237 @@ head_tc_kernel(__grid_constant__ const CUtensorMap a_map,
   }
 }
 
-// The weight-only branch's tiles: warp `tile` of the grid takes vocab
-// columns [64 * tile, +64) of rows [16 * blockIdx.x, +16) and writes each
-// row's best (logit, first index) to pmax/pidx [M, tiles].
-template <bool kPacked>
-__global__ void __launch_bounds__(aeqt::kMmaWarps * 32)
-head_tiles_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                       const uint8_t* __restrict__ w,
-                       const float* __restrict__ scale,
-                       float* __restrict__ pmax, int* __restrict__ pidx,
-                       int M, int N, int K, int true_n, int cast_bf16,
-                       int tiles) {
-  const int tile = blockIdx.y * aeqt::kMmaWarps + (threadIdx.x >> 5);
-  const int n0 = tile * aeqt::kMmaBN;
-  if (n0 >= N) return;  // warp-uniform; no block-wide barrier below
-  const int m0 = blockIdx.x * aeqt::kMmaBM;
-  float y[aeqt::kMmaNT][4];
-  aeqt::wo_mma_tile<kPacked>(x, w, M, N, K, K, m0, n0, 0,
-                             kPacked ? K / 2 : K, y);
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {  // rows gid and gid + 8
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-#pragma unroll
-    for (int nt = 0; nt < aeqt::kMmaNT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {  // columns rise with (nt, c)
-        const int n = n0 + 8 * nt + 2 * tig + c;
-        if (n >= N) continue;
-        float v = y[nt][2 * half + c] * scale[n];
-        if (cast_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-        if (n >= true_n) v = kNegInf;
-        if (better(v, n, bv, bi)) {
-          bv = v;
-          bi = n;
+// ------------------------------------------------ the weight-only branch
+
+constexpr int kWoRows = w4::kWgRows;  // weight rows of a row tile (m64)
+constexpr int kWoTok = 64;            // tokens of a token tile (n64)
+constexpr int kWoMaxStages = 8;
+constexpr size_t kWoXTile = (size_t)kWoTok * 128;  // [64 tokens, 64 bf16]
+// 64-byte K steps of the weight rows a ring stage holds: one 128-byte box
+// a row (an L2 line), half the stages' waits and releases (int8 M 64 0.264
+// ms against 0.288 at one step a stage, packed 1 % faster, on the H100:
+// kernel_study.py variants, 'head_sub1').
+constexpr int kWoSub = 2;
+
+// (v, i) as a key whose unsigned order is `better`'s: the value's bits
+// made monotonic (-0 taken as +0, as == takes them), then the index
+// reversed so that the smaller wins a tie.
+__device__ __forceinline__ unsigned long long pair_key(float v, int i) {
+  uint32_t u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (0xFFFFFFFFu - (uint32_t)i);
+}
+
+__device__ __forceinline__ void key_pair(unsigned long long key, float* v,
+                                         int* i) {
+  uint32_t u = (uint32_t)(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
+  *v = __uint_as_float(u);
+  *i = (int)(0xFFFFFFFFu - (uint32_t)key);
+}
+
+// The weight-only branch's pairs (see the header): WGS consumer
+// warpgroups of one 64-row tile each (kRows vocab rows a tile) and R token
+// tiles a pass, one accumulator each; a producer warp. Local step j of a
+// block is K step j % steps of pass (j / steps) % passes of its vocab
+// tile j / (steps * passes).
+template <bool kPacked, int WGS, int R>
+__global__ void __launch_bounds__(WGS * 128 + 32, 1)
+head_wo_kernel(const __grid_constant__ CUtensorMap x_map,
+               const __grid_constant__ CUtensorMap w_map,
+               const float* __restrict__ scale, float* __restrict__ pmax,
+               int* __restrict__ pidx, int M, int N, int K, int true_n,
+               int cast_bf16, int stages, int steps, int passes,
+               int n_tiles) {
+  constexpr int kConsumers = 128 * WGS;
+  constexpr int kRows = WGS * kWoRows;
+  constexpr int kTok = R * kWoTok;
+  constexpr int kXTiles = kPacked ? 2 : 1;  // x at kb (and K/2 + kb)
+  constexpr size_t kX = (size_t)R * kWoXTile;
+  constexpr int kWRow = kWoSub * w4::kStepBytes;  // a weight row's bytes
+  constexpr size_t kStage =
+      kWoSub * kXTiles * kX + (size_t)kRows * kWRow;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kWoMaxStages];
+  __shared__ __align__(8) uint64_t empty_bar[kWoMaxStages];
+  // A pass's best key of each warp for each token, the passes in turns
+  // (one barrier a pass: a buffer is written again two passes on).
+  __shared__ unsigned long long keys[2][kConsumers / 32][kTok];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  uint8_t* ring = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  // The warp index through a shuffle (no divergent path around a wgmma).
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+  const int tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x;  // vocab tiles of this block
+  const int total = tiles * passes * steps;
+  auto tile_of = [&](int t) { return (int)blockIdx.x + t * (int)gridDim.x; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      tc::mbar_init(&full_bar[s], 1);
+      tc::mbar_init(&empty_bar[s], kConsumers);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer warp: one thread loads
+    if (lane == 0) {
+      for (int j = 0; j < total; ++j) {
+        const int s = j % stages;
+        uint8_t* st = ring + (size_t)s * kStage;
+        if (j >= stages) tc::mbar_wait(&empty_bar[s], ((j / stages) - 1) & 1);
+        tc::mbar_expect_tx(&full_bar[s], (uint32_t)kStage);
+        const int i = j % steps, p = (j / steps) % passes;
+        for (int u = 0; u < kWoSub; ++u) {  // x tiles of sub-step u
+          const int k0 = (i * kWoSub + u) * w4::kStepBytes;  // low half
+          uint8_t* xt = st + (size_t)u * kXTiles * kX;
+          tc::tma_load_2d(xt, &x_map, k0, p * kTok, &full_bar[s]);
+          if constexpr (kPacked)
+            tc::tma_load_2d(xt + kX, &x_map, K / 2 + k0, p * kTok,
+                            &full_bar[s]);
         }
-      }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {  // the row's four lanes
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
+        tc::tma_load_2d(st + kWoSub * kXTiles * kX, &w_map, i * kWRow,
+                        tile_of(j / (steps * passes)) * kRows, &full_bar[s]);
       }
     }
-    const int m = m0 + gid + 8 * half;
-    if (tig == 0 && m < M) {
-      pmax[(size_t)m * tiles + tile] = bv;
-      pidx[(size_t)m * tiles + tile] = bi;
+    return;
+  }
+
+  const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
+  float d[R][32];
+  int j = 0;  // the local step
+  for (int t = 0; t < tiles; ++t) {
+    const int n0 = tile_of(t) * kRows;
+    // The thread's vocab rows n0 + row + 8 h.
+    const int row = wg * kWoRows + (warp & 3) * 16 + g;
+    float sc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sc[h] = __ldg(scale + min(n0 + row + 8 * h, N - 1));
+    for (int p = 0; p < passes; ++p) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) d[r][i] = 0.0f;
+      // A stage's K steps in kGroups wgmma commit groups (gr) of kPer steps
+      // each: the packed steps one a group (the A fragments of two do not
+      // fit the registers beside the accumulator), the int8 ones together.
+      constexpr int kGroups = kPacked ? kWoSub : 1;
+      constexpr int kPer = kWoSub / kGroups;
+      // The A fragments of group gr of a stage's weight tile, widened in
+      // registers.
+      using Lo = uint32_t[kPer][4][4];
+      using Hi = uint32_t[kPer][kPacked ? 4 : 1][4];
+      auto widen = [&](int jj, int gr, Lo& alo, Hi& ahi) {
+        const uint8_t* wt = ring + (size_t)(jj % stages) * kStage +
+                            kWoSub * kXTiles * kX;
+#pragma unroll
+        for (int u = 0; u < kPer; ++u)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const uint8_t* wu = wt + (gr * kPer + u) * w4::kStepBytes;
+            if constexpr (kPacked)
+              w4::a_frags(wu, row, c, q, alo[u][c], ahi[u][c], kWRow);
+            else
+              w4::a_frags_int8(wu, row, c, q, alo[u][c], kWRow);
+          }
+      };
+      // Group gr's wgmma, one commit group: every token tile against the
+      // warpgroup's rows, the k16 windows in order, lo then hi.
+      auto mma = [&](int jj, int gr, const Lo& alo, const Hi& ahi) {
+        const uint8_t* st = ring + (size_t)(jj % stages) * kStage;
+        tc::wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < kPer; ++u)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)  // + 32 bytes of K a window
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const uint8_t* xt =
+                  st + (size_t)(gr * kPer + u) * kXTiles * kX;
+              const uint64_t dlo = tc::sw128_desc(xt + r * kWoXTile) + 2 * c;
+              const uint64_t dhi =
+                  tc::sw128_desc(xt + kX + r * kWoXTile) + 2 * c;
+              w4::wgmma_rs<64>(d[r], alo[u][c], dlo);
+              if constexpr (kPacked) w4::wgmma_rs<64>(d[r], ahi[u][c], dhi);
+            }
+        tc::wgmma_commit();
+      };
+      // Every consumer thread arrives: no branch on the lane near a wgmma.
+      auto release = [&](int jj) { tc::mbar_arrive(&empty_bar[jj % stages]); };
+#pragma unroll
+      for (int r = 0; r < R; ++r) w4::fence_acc(d[r]);
+      for (int i = 0; i < steps; ++i, ++j) {
+        // Inside one asm block: no C++ spin loop near a wgmma.
+        tc::wait_parity(&full_bar[j % stages], (j / stages) & 1);
+#pragma unroll
+        for (int gr = 0; gr < kGroups; ++gr) {
+          Lo alo;
+          Hi ahi;
+          widen(j, gr, alo, ahi);
+          mma(j, gr, alo, ahi);
+          tc::wgmma_wait_all();
+        }
+        release(j);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) w4::fence_acc(d[r]);
+      // The argmax epilogue. Register d[r][4jj + 2h + e] holds vocab row
+      // n0 + row + 8h and token p * kTok + 64r + 8jj + 2q + e: the token's
+      // rows in this thread are h 0 and 1, and the 8 lanes of its
+      // quad q hold the warp's other rows.
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float bv = -INFINITY;
+            int bi = INT_MAX;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n = n0 + row + 8 * h;
+              if (n >= N) continue;
+              float v = d[r][4 * jj + 2 * h + e] * sc[h];
+              if (cast_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+              if (n >= true_n) v = kNegInf;
+              if (better(v, n, bv, bi)) {
+                bv = v;
+                bi = n;
+              }
+            }
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) {  // the quad's 8 lanes
+              const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+              const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+              if (better(ov, oi, bv, bi)) {
+                bv = ov;
+                bi = oi;
+              }
+            }
+            if (g == 0)  // 0: no row of this warp below N
+              keys[(t * passes + p) & 1][warp]
+                  [r * kWoTok + 8 * jj + 2 * q + e] =
+                      bi == INT_MAX ? 0ull : pair_key(bv, bi);
+          }
+      tc::bar_sync(1, kConsumers);  // every warp's keys are in
+      for (int tok = threadIdx.x; tok < kTok; tok += kConsumers) {
+        const int m = p * kTok + tok;
+        const auto& kb = keys[(t * passes + p) & 1];
+        unsigned long long key = kb[0][tok];
+#pragma unroll
+        for (int w = 1; w < kConsumers / 32; ++w)
+          key = max(key, kb[w][tok]);
+        if (m < M) {
+          float v;
+          int i;
+          key_pair(key, &v, &i);
+          pmax[(size_t)m * n_tiles + tile_of(t)] = v;
+          pidx[(size_t)m * n_tiles + tile_of(t)] = i;
+        }
+      }
     }
   }
 }
@@ -437,32 +648,118 @@ extern "C" int aeqt_head_argmax_plan(int M, int N, int K, int packed,
   return 0;
 }
 
+namespace {
+
+// The weight-only branch's launch: consumer warpgroups (64 vocab rows
+// each), token tiles a pass, vocab rows a tile, tokens a pass, passes,
+// vocab tiles, stages a pass, ring stages (as many as fit, at most
+// kWoMaxStages), blocks (one an SM, at most one a vocab tile) and dynamic
+// shared memory.
+struct WoPlan {
+  int wgs, r, rows, tok, passes, n_tiles, steps, stages, blocks;
+  size_t smem;
+};
+
+WoPlan wo_plan(int M, int N, int K, bool packed) {
+  WoPlan p;
+  p.wgs = M <= kWoTok ? 4 : 2;
+  p.r = M <= kWoTok ? 1 : 2;
+  p.rows = p.wgs * kWoRows;
+  p.tok = p.r * kWoTok;
+  p.passes = (M + p.tok - 1) / p.tok;
+  p.n_tiles = (N + p.rows - 1) / p.rows;
+  p.steps = ((packed ? K / 2 : K) / w4::kStepBytes + kWoSub - 1) / kWoSub;
+  const size_t stage = (size_t)kWoSub * (packed ? 2 : 1) * p.r * kWoXTile +
+                       (size_t)p.rows * kWoSub * w4::kStepBytes;
+  // The opt-in maximum less the static keys and barriers and the ring's
+  // 1024-byte alignment.
+  const size_t budget =
+      232448 - 1024 - 2 * (size_t)(4 * p.wgs) * p.tok * 8 - 256;
+  p.stages = (int)std::min((size_t)kWoMaxStages, budget / stage);
+  p.smem = 1024 + p.stages * stage;
+  p.blocks = std::max(1, std::min(p.n_tiles, w4::sm_count()));
+  return p;
+}
+
+bool wo_takes(int M, int N, int K, bool packed) {
+  return M > 0 && N > 0 && K > 0 &&
+         K % (packed ? 2 * w4::kStepBytes : w4::kStepBytes) == 0;
+}
+
+template <bool kPacked, int WGS, int R>
+int launch_wo_kernel(const WoPlan& p, const void* x, const void* w,
+                     const void* scale, void* pmax, void* pidx, int M, int N,
+                     int K, int true_n, int cast_bf16, cudaStream_t stream) {
+  CUtensorMap x_map, w_map;
+  if (!w4::encode_2d(&x_map, x, 2, (uint64_t)K, (uint64_t)M, 64,
+                     (uint32_t)p.tok, true) ||
+      !w4::encode_2d(&w_map, w, 1, (uint64_t)(kPacked ? K / 2 : K),
+                     (uint64_t)N, kWoSub * w4::kStepBytes, (uint32_t)p.rows,
+                     false))
+    return tc::kTensorMapFailed;
+  auto* kernel = head_wo_kernel<kPacked, WGS, R>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<p.blocks, WGS * 128 + 32, p.smem, stream>>>(
+      x_map, w_map, static_cast<const float*>(scale),
+      static_cast<float*>(pmax), static_cast<int*>(pidx), M, N, K, true_n,
+      cast_bf16, p.stages, p.steps, p.passes, p.n_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <bool kPacked>
+int launch_wo(const WoPlan& p, const void* x, const void* w,
+              const void* scale, void* pmax, void* pidx, int M, int N, int K,
+              int true_n, int cast_bf16, cudaStream_t s) {
+  if (p.wgs == 4)
+    return launch_wo_kernel<kPacked, 4, 1>(p, x, w, scale, pmax, pidx, M, N,
+                                           K, true_n, cast_bf16, s);
+  return launch_wo_kernel<kPacked, 2, 2>(p, x, w, scale, pmax, pidx, M, N, K,
+                                         true_n, cast_bf16, s);
+}
+
+}  // namespace
+
 // The weight-only branch (drq=False): x [M, K] bf16 (rounded by the
-// caller); w, scale, pmax, pidx, ids as above; cast_bf16 rounds each logit
-// to bf16. Takes K % 128 == 0 (packed) or K % 64 == 0 (int8), else
-// kShapeRefused (nothing launched).
+// caller; 16-byte aligned); w int8 [N, K] or packed uint8 [N, K/2]
+// (16-byte aligned rows); scale [N] f32; pmax f32 / pidx int32 [M,
+// ceil(N / 128)] at least (the pairs of M <= 64 take ceil(N / 256));
+// ids int32 [M]; cast_bf16 rounds each logit to bf16. Takes K % 128 == 0
+// (packed) or K % 64 == 0 (int8), else kShapeRefused (nothing launched).
 extern "C" int aeqt_head_argmax_bf16(const void* x, const void* w, int packed,
                                      const void* scale, void* pmax,
                                      void* pidx, void* ids, int M, int N,
                                      int K, int true_n, int cast_bf16,
                                      void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 ||
-      K % (packed ? 2 * aeqt::kMmaChunk : aeqt::kMmaChunk) != 0)
-    return aeqt::kShapeRefused;
+  if (!wo_takes(M, N, K, packed != 0)) return aeqt::kShapeRefused;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (N + kBN - 1) / kBN;  // kBN == aeqt::kMmaBN
-  const dim3 grid((M + aeqt::kMmaBM - 1) / aeqt::kMmaBM,
-                  (tiles + aeqt::kMmaWarps - 1) / aeqt::kMmaWarps);
-  auto* kernel = packed ? head_tiles_bf16_kernel<true>
-                        : head_tiles_bf16_kernel<false>;
-  kernel<<<grid, aeqt::kMmaWarps * 32, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scale), static_cast<float*>(pmax),
-      static_cast<int*>(pidx), M, N, K, true_n, cast_bf16, tiles);
-  int err = (int)cudaGetLastError();
+  const WoPlan p = wo_plan(M, N, K, packed != 0);
+  const int err = packed ? launch_wo<true>(p, x, w, scale, pmax, pidx, M, N,
+                                           K, true_n, cast_bf16, s)
+                         : launch_wo<false>(p, x, w, scale, pmax, pidx, M, N,
+                                            K, true_n, cast_bf16, s);
   if (err != 0) return err;
   head_reduce_kernel<<<M, 256, 0, s>>>(static_cast<const float*>(pmax),
-                                       static_cast<const int*>(pidx), tiles,
-                                       static_cast<int*>(ids));
+                                       static_cast<const int*>(pidx),
+                                       p.n_tiles, static_cast<int*>(ids));
   return (int)cudaGetLastError();
+}
+
+// The weight-only branch's pairs launch (kernels/head.py WO_PLAN_FIELDS):
+// blocks, vocab rows a tile, vocab tiles, tokens a pass, passes, threads,
+// dynamic shared memory, ring stages; or kShapeRefused.
+extern "C" int aeqt_head_argmax_bf16_plan(int M, int N, int K, int packed,
+                                          long long* fields) {
+  if (!wo_takes(M, N, K, packed != 0)) return aeqt::kShapeRefused;
+  const WoPlan p = wo_plan(M, N, K, packed != 0);
+  fields[0] = p.blocks;
+  fields[1] = p.rows;
+  fields[2] = p.n_tiles;
+  fields[3] = p.tok;
+  fields[4] = p.passes;
+  fields[5] = 128 * p.wgs + 32;
+  fields[6] = (long long)p.smem;
+  fields[7] = p.stages;
+  return 0;
 }

@@ -3,7 +3,8 @@
 // weight-only branch #3, mlp_int4_bf16.cu, policies GateUpScale and
 // GroupSum; the norm-fused FC #14, qmatmul_int4_rmsnorm.cu,
 // ChannelScaleAfterNorm; the attention epilogue's weight-only projection
-// #19, attention_oproj.cu, ChannelScaleResidual) on Hopper:
+// #19, attention_oproj.cu, ChannelScaleResidual; the attention prologue's
+// weight-only QKV #20, qkv_rope.cu, QkvRopePairs) on Hopper:
 //   y[M, N] = x[M, K] (bf16) . unpack(w[N, K/2])^T, f32 sums, one scale
 //   policy, y stored as bf16.
 // The weight is split-half packed: byte j of a row holds column j in its
@@ -208,16 +209,47 @@ __device__ __forceinline__ uint32_t window_bytes(const uint4& v, int q) {
 
 // The lo and hi A fragments of k16 window c of a stage, for the rows
 // r (a[0], a[2]) and r + 8 (a[1], a[3]) of the packed tile (plain rows of
-// kStepBytes bytes).
+// `stride` bytes, kStepBytes unless a stage holds more).
 __device__ __forceinline__ void a_frags(const uint8_t* packed, int r, int c,
                                         int q, uint32_t (&lo)[4],
-                                        uint32_t (&hi)[4]) {
-  const uint4 v0 = *reinterpret_cast<const uint4*>(packed + r * kStepBytes +
-                                                   16 * c);
-  const uint4 v1 = *reinterpret_cast<const uint4*>(
-      packed + (r + 8) * kStepBytes + 16 * c);
+                                        uint32_t (&hi)[4],
+                                        int stride = kStepBytes) {
+  const uint4 v0 =
+      *reinterpret_cast<const uint4*>(packed + r * stride + 16 * c);
+  const uint4 v1 =
+      *reinterpret_cast<const uint4*>(packed + (r + 8) * stride + 16 * c);
   widen_word(window_bytes(v0, q), lo[0], lo[2], hi[0], hi[2]);
   widen_word(window_bytes(v1, q), lo[1], lo[3], hi[1], hi[3]);
+}
+
+// Two int8 bytes (bits 0-7 and 16-23 of t) as a bf16 pair, exactly:
+// (0x4300 | low 7 bits) - (0x4300 | sign bit) is 128 + low7 - 128 (or 256).
+// For the int8-weight kernels (#16 qmatmul_int_weights.cu, #4's
+// weight-only head in head_argmax.cu).
+__device__ __forceinline__ uint32_t widen_pair(uint32_t t) {
+  const uint32_t a = (t & 0x007F007Fu) | 0x43004300u;
+  const uint32_t b = (t & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The A fragments of k16 window c of a stage of int8 weights for the rows
+// r (a[0], a[2]) and r + 8 (a[1], a[3]) of the weight tile (plain rows of
+// `stride` bytes, one K column a byte): bytes 2q, 2q + 1 (a[0]) and
+// 2q + 8, 2q + 9 (a[2]) of the window.
+__device__ __forceinline__ void a_frags_int8(const uint8_t* w, int r, int c,
+                                             int q, uint32_t (&a)[4],
+                                             int stride = kStepBytes) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        w + (r + 8 * u) * stride + 16 * c);
+    const uint32_t word = window_bytes(v, q);
+    a[u] = widen_pair(__byte_perm(word, 0, 0x4140));
+    a[2 + u] = widen_pair(__byte_perm(word, 0, 0x4342));
+  }
 }
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -237,6 +269,7 @@ struct ChannelScale {
   // y = bf16(bf16(acc * s) + res[m, n]): the residual added in the
   // epilogue to the output rounded first.
   static constexpr bool kResidual = false;
+  static constexpr bool kRope = false;  // QkvRopePairs' pair tile and RoPE
   static constexpr int kEpiTiles = 2;  // lo and hi sums staged
   // Tokens a tile at two warpgroups (prefill rows). Two accumulators of
   // 128 and the A fragments crowd the 168 registers a thread of a
@@ -252,6 +285,7 @@ struct BlockScale {
   static constexpr bool kGrouped = false;
   static constexpr bool kDependent = false;
   static constexpr bool kResidual = false;
+  static constexpr bool kRope = false;
   static constexpr int kEpiTiles = 1;
   // 64: three accumulators (y, lo, hi) of 128 tokens would not fit the 168
   // registers a thread of a 288-thread block may hold.
@@ -286,6 +320,36 @@ struct ChannelScaleResidual : ChannelScale {
   static constexpr bool kResidual = true;
 };
 
+// #20's weight-only QKV with bf16 x (qkv_rope.cu): ChannelScale over the
+// rows its norm launch writes (a programmatic dependent launch on it), in
+// GateUpScale's pair tiles: a block's first kRows/2 weight rows are rows
+// e0 .. of one head and its last kRows/2 rows e0 + H/2 .. (pair_rows, two
+// TMA boxes), so that one epilogue item holds both halves x1 = y[e] and
+// x2 = y[e + H/2] of a rotation. The epilogue: x = bf16((lo + hi) * s),
+// then for the query and key heads the half-split RoPE in f32 (x1 c - x2
+// s, x2 c + x1 s, each product and sum rounded on its own), q, k and v
+// stored as bf16 (RopeOut). H % 128 == 0 (the caller's to check). K
+// splits as ChannelScale's. Tokens a tile at two warpgroups: 64, where
+// ChannelScale keeps 128 (whose two accumulators of 128 ptxas serializes,
+// C7512): at #20's bench shape (M 256, N 2560) 0.023 ms against 0.038
+// (kernel_study.py variants, 'pairs_nt128'; PERF.md §6).
+struct QkvRopePairs : ChannelScale {
+  static constexpr int kNT2 = 64;
+  static constexpr bool kDependent = true;
+  static constexpr bool kRope = true;
+};
+
+// QkvRopePairs' operands: cos and sin [M, H/2] f32; the outputs q [M, NQ
+// H] (the kernel's `out`), k and v [M, NK H], bf16; NQ query and NK
+// key/value heads of H.
+struct RopeOut {
+  const float* cos;
+  const float* sin;
+  void* k;
+  void* v;
+  int H, NQ, NK;
+};
+
 // #3's down (mlp_int4_bf16.cu): group-split packed weights (byte j of
 // group g, bs = bf/2 bytes a group, holds column g*bf + j in its low
 // nibble and g*bf + bf/2 + j in its high one): the x tiles of a step come
@@ -298,6 +362,7 @@ struct GroupSum {
   static constexpr bool kGrouped = true;
   static constexpr bool kDependent = true;  // on the gate/up
   static constexpr bool kResidual = false;
+  static constexpr bool kRope = false;
   static constexpr int kEpiTiles = 1;
   static constexpr int kNT2 = 64;
 };
@@ -322,6 +387,20 @@ struct Geometry {
   static constexpr size_t kBudget = WGS == 1 ? kSmemHalf : kSmemBudget;
 };
 
+// The first weight rows of pair tile y's two halves (GateUpScale: gate
+// rows and up rows; QkvRopePairs: rows e0 .. and e0 + H/2 .. of a head).
+template <class P, int kRows>
+__device__ __forceinline__ int2 pair_rows(int y, int N, int H) {
+  constexpr int kHalf = kRows / 2;
+  if constexpr (P::kRope) {
+    const int per_head = H / kRows;
+    const int r0 = (y / per_head) * H + (y % per_head) * kHalf;
+    return make_int2(r0, r0 + H / 2);
+  } else {
+    return make_int2(y * kHalf, N / 2 + y * kHalf);
+  }
+}
+
 // ------------------------------------------------------------ the kernel
 
 template <class P, int NT, int WGS>
@@ -333,8 +412,9 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __nv_bfloat16* __restrict__ res,
                     __nv_bfloat16* __restrict__ out, int M, int N, int K,
                     int nb, int block_steps, int stages, int steps_per_split,
-                    int steps) {
+                    int steps, const RopeOut ro) {
   using G = Geometry<P, NT, WGS>;
+  constexpr bool kPairs = P::kGateUp || P::kRope;
   constexpr int kConsumers = G::kConsumers;
   constexpr int kAcc = NT / 2;  // accumulator registers a thread
   extern __shared__ uint8_t smem_raw[];
@@ -350,6 +430,9 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   const int splits = gridDim.z;  // one cluster of `splits` blocks a tile
   const int first = blockIdx.z * steps_per_split;
   const int nk = min(steps, first + steps_per_split) - first;
+  // kPairs: the first rows of the tile's two halves.
+  int2 pr = make_int2(n0, 0);
+  if constexpr (kPairs) pr = pair_rows<P, G::kRows>(blockIdx.y, N, ro.H);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -367,14 +450,25 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
     asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   if (warp == kConsumers / 32) {  // the producer warp: one thread loads
     if (lane == 0) {
+      // The stage's weight tile: kPairs, the halves' rows pr.x .. and pr.y
+      // .. into the tile's first and second kRows / 2 rows.
+      auto load_w = [&](uint8_t* st, int step, uint64_t* bar) {
+        const int j0 = step * kStepBytes;
+        if constexpr (kPairs) {
+          tma_load_2d(st + 2 * G::kX, &w_map, j0, pr.x, bar);
+          tma_load_2d(st + 2 * G::kX + (G::kRows / 2) * kStepBytes, &w_map,
+                      j0, pr.y, bar);
+        } else {
+          tma_load_2d(st + 2 * G::kX, &w_map, j0, n0, bar);
+        }
+      };
       int early = 0;  // kDependent: stages whose weights are loaded already
       if constexpr (P::kDependent) {
         early = min(nk, stages);
         for (int i = 0; i < early; ++i) {
           uint8_t* st = ring + (size_t)i * G::kStage;
           mbar_expect_tx(&full_bar[i], (uint32_t)G::kStage);
-          tma_load_2d(st + 2 * G::kX, &w_map, (first + i) * kStepBytes, n0,
-                      &full_bar[i]);
+          load_w(st, first + i, &full_bar[i]);
         }
         griddep_wait();
       }
@@ -391,13 +485,7 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
         }
         tma_load_2d(st, &x_map, x_lo, m0, &full_bar[s]);
         tma_load_2d(st + G::kX, &x_map, x_hi, m0, &full_bar[s]);
-        if constexpr (P::kGateUp) {  // gate rows f0 .., then up rows F + f0 ..
-          tma_load_2d(st + 2 * G::kX, &w_map, j0, n0 / 2, &full_bar[s]);
-          tma_load_2d(st + 2 * G::kX + (G::kRows / 2) * kStepBytes, &w_map,
-                      j0, N / 2 + n0 / 2, &full_bar[s]);
-        } else if (i >= early) {
-          tma_load_2d(st + 2 * G::kX, &w_map, j0, n0, &full_bar[s]);
-        }
+        if (i >= early) load_w(st, first + i, &full_bar[s]);
       }
     }
     __syncwarp();
@@ -425,16 +513,16 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   // loaded now so that their latency hides behind the main loop.
   constexpr int kGroups = G::kRows / 4;  // 4 weight rows an item
   const int c4 = (threadIdx.x % kGroups) * 4, c = n0 + c4;
-  // GateUpScale: sc the gate scales, bi the up scales of the thread's four
-  // h columns (kConsumers is a multiple of kGroups / 2).
+  // kPairs: sc the first half's scales (gate), bi the second's (up) of
+  // the thread's four pair columns (kConsumers is a multiple of kGroups /
+  // 2).
   float sc[4], bi[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    if constexpr (P::kGateUp) {
-      const int f = n0 / 2 + (threadIdx.x % (kGroups / 2)) * 4;
-      const int cc = min(f + e, N / 2 - 1);
-      sc[e] = __ldg(scale + cc);
-      bi[e] = __ldg(scale + N / 2 + cc);
+    if constexpr (kPairs) {
+      const int f = (threadIdx.x % (kGroups / 2)) * 4 + e;
+      sc[e] = __ldg(scale + min(pr.x + f, N - 1));
+      bi[e] = __ldg(scale + min(pr.y + f, N - 1));
     } else {
       const int cc = min(c + e, N - 1);  // clamped: loads need no guard
       sc[e] = P::kBlocks && !P::kGrouped ? 1.0f : __ldg(scale + cc);
@@ -552,6 +640,84 @@ int4_bf16_tc_kernel(const __grid_constant__ CUtensorMap x_map,
       *reinterpret_cast<uint2*>(out + (size_t)m * F + f) = pk;
     }
     return;
+  } else if constexpr (P::kRope) {
+    // Item: a token and four columns of the pair (rows pr.x + f4 .. of
+    // the first half, pr.y + f4 .. of the second).
+    constexpr int kHalf = G::kRows / 2, kItems = kHalf / 4;
+    const int f4 = (threadIdx.x % kItems) * 4;
+    const int H = ro.H, half = H / 2, head = pr.x / H, e0 = pr.x % H + f4;
+    __nv_bfloat16* dst = out;  // q, k or v and the head's index there
+    int heads = ro.NQ, at_head = head;
+    if (head >= ro.NQ + ro.NK) {
+      dst = static_cast<__nv_bfloat16*>(ro.v);
+      heads = ro.NK;
+      at_head = head - ro.NQ - ro.NK;
+    } else if (head >= ro.NQ) {
+      dst = static_cast<__nv_bfloat16*>(ro.k);
+      heads = ro.NK;
+      at_head = head - ro.NQ;
+    }
+    for (int it = threadIdx.x; it < (tok_end - tok_begin) * kItems;
+         it += kConsumers) {
+      const int tt = tok_begin + it / kItems;
+      float4 t[4];  // lo and hi of the first half's columns, of the second's
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* at = tile + (e & 1) * (G::kEpiTile / 4) + tt * S +
+                          (e >> 1) * kHalf + f4;
+        if (splits == 1) {
+          t[e] = *reinterpret_cast<const float4*>(at);
+          continue;
+        }
+        float4 part[kMaxSplit];  // every split's partial, added in order
+#pragma unroll
+        for (int z = 0; z < kMaxSplit; ++z)
+          if (z < splits)
+            part[z] = *reinterpret_cast<const float4*>(cluster_map(at, z));
+        t[e] = part[0];
+#pragma unroll
+        for (int z = 1; z < kMaxSplit; ++z)
+          if (z < splits) t[e] = add4(t[e], part[z]);
+      }
+      const int m = m0 + tt;
+      if (m >= M) continue;
+      const float* lo1 = reinterpret_cast<const float*>(&t[0]);
+      const float* hi1 = reinterpret_cast<const float*>(&t[1]);
+      const float* lo2 = reinterpret_cast<const float*>(&t[2]);
+      const float* hi2 = reinterpret_cast<const float*>(&t[3]);
+      float y1[4], y2[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // the projection, rounded to bf16
+        const float a1 = lo1[e] + hi1[e], a2 = lo2[e] + hi2[e];
+        y1[e] = __bfloat162float(__float2bfloat16_rn(a1 * sc[e]));
+        y2[e] = __bfloat162float(__float2bfloat16_rn(a2 * bi[e]));
+      }
+      if (head < ro.NQ + ro.NK) {  // a query or key head: rotated
+        const float4 cv =
+            *reinterpret_cast<const float4*>(ro.cos + (size_t)m * half + e0);
+        const float4 sv =
+            *reinterpret_cast<const float4*>(ro.sin + (size_t)m * half + e0);
+        const float cs[4] = {cv.x, cv.y, cv.z, cv.w};
+        const float sn[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x1 = y1[e], x2 = y2[e];
+          y1[e] = x1 * cs[e] - x2 * sn[e];
+          y2[e] = x2 * cs[e] + x1 * sn[e];
+        }
+      }
+      __nv_bfloat16* p = dst + ((size_t)m * heads + at_head) * H + e0;
+      const float* ys[2] = {y1, y2};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const __nv_bfloat162 v01 = __floats2bfloat162_rn(ys[u][0], ys[u][1]);
+        const __nv_bfloat162 v23 = __floats2bfloat162_rn(ys[u][2], ys[u][3]);
+        uint2 pk;
+        pk.x = *reinterpret_cast<const uint32_t*>(&v01);
+        pk.y = *reinterpret_cast<const uint32_t*>(&v23);
+        *reinterpret_cast<uint2*>(p + u * half) = pk;
+      }
+    }
   } else {
     for (int it = threadIdx.x; it < (tok_end - tok_begin) * kGroups;
          it += kConsumers) {
@@ -708,13 +874,14 @@ inline bool encode_2d(CUtensorMap* map, const void* base, int elem,
 template <class P, int NT, int WGS>
 int launch(const void* x, const void* w, const void* scale, const void* bias,
            const void* res, void* out, int M, int N, int K, int nb,
-           const Plan& p, cudaStream_t stream) {
+           const Plan& p, cudaStream_t stream, const RopeOut& ro) {
   using G = Geometry<P, NT, WGS>;
   CUtensorMap x_map, w_map;
   if (!encode_2d(&x_map, x, 2, (uint64_t)K, (uint64_t)M, 64, (uint32_t)NT,
                  true) ||
       !encode_2d(&w_map, w, 1, (uint64_t)(K / 2), (uint64_t)N, kStepBytes,
-                 (uint32_t)(P::kGateUp ? G::kRows / 2 : G::kRows), false))
+                 (uint32_t)(P::kGateUp || P::kRope ? G::kRows / 2 : G::kRows),
+                 false))
     return kTensorMapFailed;
   auto* kernel = int4_bf16_tc_kernel<P, NT, WGS>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -748,33 +915,35 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
       static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(res),
       static_cast<__nv_bfloat16*>(out), M, N, K, nb, p.block_steps, p.stages,
-      p.steps_per_split, p.steps);
+      p.steps_per_split, p.steps, ro);
 }
 
 // One call: x [M, K] bf16 (16-byte aligned), w [N, K/2] uint8 split-half
 // packed (16-byte aligned), scale [N] (ChannelScale) or [N, K/bs]
 // (BlockScale, bs > 0) f32, bias [N] f32 or null, out [M, N] bf16; res
-// [M, N] bf16 (8-byte aligned) under kResidual, else unused. Shapes are
-// the caller's to check first (takes).
+// [M, N] bf16 (8-byte aligned) under kResidual, else unused; ro
+// QkvRopePairs' operands (out its q), else unused. Shapes are the
+// caller's to check first (takes).
 // run_nb passes `nb` to the kernel as it is (GateUpScale's activation).
 template <class P>
 int run_nb(const void* x, const void* w, const void* scale, const void* bias,
            void* out, int M, int N, int K, int bs, int nb,
-           cudaStream_t stream, const void* res = nullptr) {
+           cudaStream_t stream, const void* res = nullptr,
+           const RopeOut& ro = RopeOut{}) {
   const Plan p = make_plan<P>(M, N, K, bs);
   if (p.wgs == 2)
     return launch<P, P::kNT2, 2>(x, w, scale, bias, res, out, M, N, K, nb, p,
-                                 stream);
+                                 stream, ro);
   return launch<P, kNT1, 1>(x, w, scale, bias, res, out, M, N, K, nb, p,
-                            stream);
+                            stream, ro);
 }
 
 template <class P>
 int run(const void* x, const void* w, const void* scale, const void* bias,
         void* out, int M, int N, int K, int bs, cudaStream_t stream,
-        const void* res = nullptr) {
+        const void* res = nullptr, const RopeOut& ro = RopeOut{}) {
   return run_nb<P>(x, w, scale, bias, out, M, N, K, bs,
-                   bs > 0 ? K / bs : 1, stream, res);
+                   bs > 0 ? K / bs : 1, stream, res, ro);
 }
 
 // The plan as the Python wrapper reads it: grid x (token tiles), y (weight

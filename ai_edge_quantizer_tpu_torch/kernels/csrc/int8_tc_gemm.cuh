@@ -9,7 +9,7 @@
 //   1. quantize_rows_kernel: one block per row of x, the row's DRQ codes
 //      into int8 scratch xq [M, K] and its scale into xs [M]. Two formulas,
 //      each the one its kernel's plain version uses: #15's and #1's
-//      reciprocal (drq_common.cuh quantize_rows: rint(x * (1 / xs))) and
+//      reciprocal (rint(x * (1 / xs)), drq_common.cuh's formula) and
 //      #6's division (rint(x / xs)); xs = max(absmax, 1e-9) * (1/127) in
 //      all three.
 //   2. int8_tc_gemm_kernel: a 64 x 128 (one consumer warpgroup, M <= 64)

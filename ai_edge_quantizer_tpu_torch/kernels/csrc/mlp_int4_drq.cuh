@@ -12,6 +12,14 @@
 //     product and the sum rounded on its own) and writes q f32 [M, NQ, H],
 //     or the new row's codes clip(rint(v * inv), -127, 127) of K (rotated,
 //     kq_inv) and V (vq_inv) into k_new, v_new int8 [M, H]. H % 128 == 0.
+// The attention prologue (#20, qkv_rope.cu) runs the pair tile with one
+// more epilogue:
+//   kQkvRope: kQkv's pair tile over NQ query and NK key/value heads. Its
+//     projection (f32(acc) * xs) * s is rounded to TOut first (the plain
+//     version's cast), then the query and key heads (head < NQ + NK) are
+//     rotated in f32 and q, k and v stored in TOut into [M, NQ * H],
+//     [M, NK * H] and [M, NK * H]. kQkv keeps its f32 q, which it does not
+//     round, and takes one KV head (head <= NQ); this kind takes any NK.
 #pragma once
 
 #include "int8_tc_gemm.cuh"
@@ -30,20 +38,24 @@ constexpr int kMaxChain = 8;         // blocks of a down tile's chain
 // buffer, so that two blocks share an SM (256 tiles at decode in one wave).
 constexpr int kGateUpStages1 = 2;
 
-// The contractions of mlp_tc_kernel: the gate/up, the down, and the fused
-// block's QKV projection (a pair tile like the gate/up's).
-enum Kind : int { kGateUp = 0, kDown = 1, kQkv = 2 };
+// The contractions of mlp_tc_kernel: the gate/up, the down, and the QKV
+// projection (a pair tile like the gate/up's) of the fused block and of
+// the attention prologue.
+enum Kind : int { kGateUp = 0, kDown = 1, kQkv = 2, kQkvRope = 3 };
 
-// The fused block's operands of the down's and the QKV's epilogues.
+// The operands of the down's and the QKV's epilogues (the fused block's;
+// kQkvRope's for the attention prologue).
 struct BlockEpilogue {
   const void* x;     // kDown: the residual [M, D] in TOut; nullptr: none
   float* xf;         // kDown: x + y in f32 [M, D]
-  const float* cos;  // kQkv: [M, H/2]
-  const float* sin;  // kQkv: [M, H/2]
+  const float* cos;  // kQkv, kQkvRope: [M, H/2]
+  const float* sin;  // kQkv, kQkvRope: [M, H/2]
   float* q;          // kQkv: the rotated query heads [M, NQ, H]
   int8_t* k_new;     // kQkv: [M, H]
   int8_t* v_new;     // kQkv: [M, H]
-  int H, NQ;
+  void* k;           // kQkvRope: the rotated key heads [M, NK * H] in TOut
+  void* v;           // kQkvRope: the value heads [M, NK * H] in TOut
+  int H, NQ, NK;     // NK: kQkvRope's key/value heads
   float kq_inv, vq_inv;
 };
 
@@ -150,7 +162,7 @@ __device__ __forceinline__ int2 pair_rows(int kind, int y, int F, int H) {
 //     round-robin over the gridDim.z blocks of its cluster (the chain).
 //   QKV: a_map xq [M, D], b_map wqkv [N, D/2] in boxes of 64 rows, row_s
 //     xs [M], col_s s_qkv [N], N = (NQ + 2) H; out unused (ep.q, k_new,
-//     v_new).
+//     v_new). kQkvRope: N = (NQ + 2 NK) H, out q [M, NQ H] (ep.k, ep.v).
 template <int kKind, typename TOut>
 __global__ void __launch_bounds__(2 * 128 + 32, 1)
 mlp_tc_kernel(__grid_constant__ const CUtensorMap a_map,
@@ -454,6 +466,51 @@ mlp_tc_kernel(__grid_constant__ const CUtensorMap a_map,
           hv[e] = a * x2[e];
         }
         tc::store4(out + (size_t)r * N + c, hv);
+      } else if constexpr (kKind == kQkvRope) {
+        // Head `head`, elements e0 .. e0 + 3 of its first half: the
+        // projection in TOut, then the rotation of a query or key head.
+        const int H = ep.H, half = H / 2, head = pr.x / H;
+        const int e0 = pr.x % H + 4 * l;
+        const TOut* tag = nullptr;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x1[e] = aeqt::round_to(tag, x1[e]);
+          x2[e] = aeqt::round_to(tag, x2[e]);
+        }
+        float y1[4], y2[4];
+        if (head < ep.NQ + ep.NK) {
+          const float4 cv = *reinterpret_cast<const float4*>(
+              ep.cos + (size_t)r * half + e0);
+          const float4 sv = *reinterpret_cast<const float4*>(
+              ep.sin + (size_t)r * half + e0);
+          const float cs[4] = {cv.x, cv.y, cv.z, cv.w};
+          const float sn[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            y1[e] = x1[e] * cs[e] - x2[e] * sn[e];
+            y2[e] = x2[e] * cs[e] + x1[e] * sn[e];
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            y1[e] = x1[e];
+            y2[e] = x2[e];
+          }
+        }
+        TOut* dst = out;  // q, k or v and the head's index there
+        int heads = ep.NQ, at = head;
+        if (head >= ep.NQ + ep.NK) {
+          dst = static_cast<TOut*>(ep.v);
+          heads = ep.NK;
+          at = head - ep.NQ - ep.NK;
+        } else if (head >= ep.NQ) {
+          dst = static_cast<TOut*>(ep.k);
+          heads = ep.NK;
+          at = head - ep.NQ;
+        }
+        TOut* p = dst + ((size_t)r * heads + at) * H + e0;
+        tc::store4(p, y1);
+        tc::store4(p + half, y2);
       } else {
         // The QKV: head `head`, elements e0 .. e0 + 3 of its first half.
         const int H = ep.H, half = H / 2, head = pr.x / H;

@@ -27,9 +27,9 @@
 //   packed [128 columns, 128 bytes] tile by TMA with the 128-byte swizzle,
 //   unpacks it in shared memory into a lo and a hi s8 tile and runs wgmma
 //   m64n128k32 s8 against the codes at kb and at K/2 + kb. Decode's single
-//   row of tiles splits K over a cluster (make_plan). The SIMT tiles of
-//   qmatmul_int4_drq.cuh stay for #20 (qkv_rope.cu), which fuses them;
-//   #19 (attention_oproj.cu) runs these launches.
+//   row of tiles splits K over a cluster (make_plan). #19
+//   (attention_oproj.cu) runs these launches, and #20 (qkv_rope.cu) the
+//   contraction at a head size its pair tile does not take.
 #include "int8_tc_gemm.cuh"
 
 static bool takes(int M, int N, int K) {

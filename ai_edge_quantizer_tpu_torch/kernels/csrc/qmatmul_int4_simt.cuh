@@ -1,6 +1,6 @@
 // Weight-only matmul over packed int4 weights with f32 x, on SIMT f32
-// (the f32-x kernel of qmatmul_int4_weight_only.cuh, whose header
-// comment states its arithmetic):
+// (#12's f32-x kernel; qmatmul_int4_weight_only.cu's header states its
+// arithmetic):
 //   y[M, N] = (sum over groups t of (x_lo_t . w_lo_t^T + x_hi_t . w_hi_t^T))
 //             * s[N] (+ bias)
 // A 128-thread block computes a 32 x 64 tile of y, 4 x 4 outputs a thread,
@@ -13,10 +13,9 @@
 // With res (non-null, [M, N] in TOut) the residual is added to the output
 // rounded to TOut first: y = TOut(TOut(o) + res), #19's epilogue.
 //
-// Used by: qmatmul_int4_weight_only.cuh (launch_wo, f32 x),
-//   qmatmul_int4_weight_only.cu and qmatmul_int4_blockwise.cu (its
-//   constants; f32 x of #12 and #13), qmatmul_int4_rmsnorm.cu (#14) and
-//   attention_oproj.cu (#19, with the residual) at f32 x.
+// Used by: qmatmul_int4_weight_only.cu and qmatmul_int4_blockwise.cu (f32
+//   x of #12 and #13), qmatmul_int4_rmsnorm.cu (#14), qkv_rope.cu (#20)
+//   and attention_oproj.cu (#19, with the residual) at f32 x.
 #pragma once
 
 #include "drq_common.cuh"

@@ -95,6 +95,7 @@ using w4::kMaxSplit;
 using w4::kWgRows;
 
 constexpr int kStepK = 64;          // K columns (weight bytes) a stage
+static_assert(kStepK == w4::kStepBytes, "w4::a_frags_int8 reads its rows");
 constexpr int kMaxStages = 4;       // ring stages at most
 constexpr int kMinSplitSteps = 4;   // stages a split takes at least
 constexpr int kNT1 = 64;            // tokens a tile at decode rows (M <= 64)
@@ -132,32 +133,6 @@ split_x_kernel(const float4* __restrict__ x, uint2* __restrict__ xp,
   for (int p = 0; p < 3; ++p)
     xp[(size_t)p * n4 + i] = make_uint2(part[p][0] | part[p][1] << 16,
                                         part[p][2] | part[p][3] << 16);
-}
-
-// Two int8 bytes (bits 0-7 and 16-23 of t) as a bf16 pair, exactly:
-// (0x4300 | low 7 bits) - (0x4300 | sign bit) is 128 + low7 - 128 (or 256).
-__device__ __forceinline__ uint32_t widen_pair(uint32_t t) {
-  const uint32_t a = (t & 0x007F007Fu) | 0x43004300u;
-  const uint32_t b = (t & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 r =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-              *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// The A fragments of k16 window c of a stage for the rows r (a[0], a[2])
-// and r + 8 (a[1], a[3]) of the weight tile (plain rows of kStepK bytes):
-// bytes 2q, 2q + 1 (a[0]) and 2q + 8, 2q + 9 (a[2]) of the window.
-__device__ __forceinline__ void a_frags(const uint8_t* w, int r, int c,
-                                        int q, uint32_t (&a)[4]) {
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const uint4 v =
-        *reinterpret_cast<const uint4*>(w + (r + 8 * u) * kStepK + 16 * c);
-    const uint32_t word = w4::window_bytes(v, q);
-    a[u] = widen_pair(__byte_perm(word, 0, 0x4140));
-    a[2 + u] = widen_pair(__byte_perm(word, 0, 0x4342));
-  }
 }
 
 __device__ __forceinline__ void wgmma_wait_1() {
@@ -307,7 +282,7 @@ int_weights_tc_kernel(const __grid_constant__ CUtensorMap x_map,
     uint32_t a[4][4];
 #pragma unroll
     for (int cw = 0; cw < 4; ++cw)
-      a_frags(st + XP * G::kX, row, cw, q, a[cw]);
+      w4::a_frags_int8(st + XP * G::kX, row, cw, q, a[cw]);
     uint64_t dx[XP];
 #pragma unroll
     for (int p = 0; p < XP; ++p) dx[p] = sw128_desc(st + p * G::kX);

@@ -7,7 +7,9 @@ weights, the tied Gemma embedding head, and split-half packed int4
 the int8 tensor-core core's row quantize, then its tiles with an argmax
 epilogue (one (max, first index) pair a row and 128-column tile) and a
 reduction of the pairs. The weight-only (bf16, drq=False) branches run
-there too, through their own entry point. `head_argmax` dispatches on
+there too, through their own entry point: a persistent grid of bf16
+tensor-core tiles whose weight stream serves every row of a pass, with the
+same argmax epilogue and reduction. `head_argmax` dispatches on
 `drq`; the weight-only branch is also `head_argmax_bf16`, which keeps its
 own launch and plain-run counts.
 In that branch x is rounded to bf16 whatever its dtype and the weights
@@ -32,17 +34,29 @@ from ai_edge_quantizer_tpu_torch.kernels.packed_qmatmul import (
 from ai_edge_quantizer_tpu_torch.kernels.qmatmul import int_matmul_exact
 
 _NEG_INF = -3.4e38  # pallas_head._NEG_INF
-_HEAD_BN = 64       # vocab columns per tile of the weight-only branch
+# Vocab columns of the weight-only branch's narrowest tile (two warpgroups
+# of 64 rows; 256 at M <= 64): its pairs' scratch holds N / 128 a row.
+_HEAD_BN = 128
 _HEAD_DRQ_BN = 128  # vocab columns per tile of the DRQ branch (wgmma n128)
 # The DRQ branch's tile launch (csrc/head_argmax.cu aeqt_head_argmax_plan).
 DRQ_PLAN_FIELDS = ('blocks', 'row_tiles', 'col_tiles', 'threads',
                    'smem_bytes', 'stages')
+# The weight-only branch's pairs launch (aeqt_head_argmax_bf16_plan).
+WO_PLAN_FIELDS = ('blocks', 'tile_rows', 'vocab_tiles', 'tokens_a_pass',
+                  'passes', 'threads', 'smem_bytes', 'stages')
 
 
 def drq_plan(m: int, n: int, k: int, packed: bool) -> dict:
   """The tile launch head_argmax's DRQ branch gives a shape (card only)."""
   return _build.plan('head_argmax', 'aeqt_head_argmax_plan', 'head_argmax',
                      m, n, k, int(packed), fields=DRQ_PLAN_FIELDS)
+
+
+def wo_plan(m: int, n: int, k: int, packed: bool) -> dict:
+  """The pairs launch head_argmax_bf16 gives a shape (card only)."""
+  return _build.plan('head_argmax', 'aeqt_head_argmax_bf16_plan',
+                     'head_argmax_bf16', m, n, k, int(packed),
+                     fields=WO_PLAN_FIELDS)
 
 
 def head_argmax_plain(x, w_q, scale, *, packed, true_n=None, drq=True):
@@ -132,7 +146,8 @@ def head_argmax_bf16(
 ) -> torch.Tensor:
   """The weight-only branch of head_argmax (drq=False), same arguments: x
   rounded to bf16 whatever its dtype, the logits on tensor cores with f32
-  sums, each rounded to x's dtype."""
+  sums (in another order than the plain version's), each rounded to x's
+  dtype."""
   if _build.device_kind(x) == 'cpu':
     head_argmax_bf16.plain_calls += 1
     return head_argmax_plain(x, w_q, scale, packed=packed, true_n=true_n,

@@ -6,8 +6,11 @@ Port of `ai_edge_quantizer_tpu/kernels/pallas_qkv.py`
 AEQT_ATTN_BLOCK prologue: the pre-attention RMS_NORM, the fused QKV
 projection over split-half packed int4 weights, the q/k/v head split and
 the half-split rotary embedding of q and k, in one call. On a CUDA tensor
-it launches `csrc/qkv_rope.cu` (or raises); on a CPU tensor it runs
-`qkv_rope_plain`, which repeats the kernel's arithmetic.
+it launches `csrc/qkv_rope.cu` (or raises): at bench.py's shapes the norm
+ending in the DRQ codes, then the int8 tensor-core core's pair tile with
+the RoPE in its epilogue (weight-only with bf16 x: the norm, then the bf16
+core's pair tile); on a CPU tensor it runs `qkv_rope_plain`, which repeats
+the kernel's arithmetic.
 
 Numerics (exactly `_qkv_rope_kernel`; cast is bf16 for bf16 x, else f32):
   xn   = ((x * rs.astype(cast)).astype(f32) * gamma).astype(cast), rs the
@@ -29,6 +32,25 @@ from ai_edge_quantizer_tpu_torch.kernels.packed_qmatmul import (
     qmatmul_int4_packed_plain,
 )
 from ai_edge_quantizer_tpu_torch.ops.impl import rms_inverse, rope_freqs
+
+
+# The launches of a shape (csrc/qkv_rope.cu aeqt_qkv_rope_plan): the route
+# (ROUTES), the launches, the norm's grid and threads, then the
+# contraction's grid, threads, shared memory, ring stages and rows a tile.
+PLAN_FIELDS = ('route', 'launches', 'norm_blocks', 'norm_threads', 'grid_x',
+               'grid_y', 'grid_z', 'threads', 'smem_bytes', 'stages',
+               'rows_a_tile')
+ROUTES = ('drq_pair_tile', 'drq_column_tile_rope_launch', 'bf16_pair_tile',
+          'bf16_column_tile_rope_launch', 'f32_simt_rope_launch')
+
+
+def plan(m: int, d: int, nq: int, nk: int, h: int, drq: bool,
+         x_bf16: bool) -> dict:
+  """The launches qkv_rope gives a shape (card only), with the route's
+  name."""
+  p = _build.plan('qkv_rope', 'aeqt_qkv_rope_plan', 'qkv_rope', m, d, nq, nk,
+                  h, int(drq), int(x_bf16), fields=PLAN_FIELDS)
+  return dict(p, route=ROUTES[p['route']])
 
 
 def rope_cos_sin(positions: torch.Tensor, h: int, base: float) -> tuple:
@@ -139,7 +161,7 @@ def qkv_rope(
     _build.require_cuda_tensor(t, name, nm, (torch.float32,))
   _build.require(g.numel() == d, name, 'gamma must have D entries')
   n = w_packed.shape[0]
-  xn = torch.empty_like(x2)
+  xn = torch.empty_like(x2)  # DRQ: the row codes and scales
   qkv = torch.empty((m, n), dtype=cast, device=x2.device)
   q = torch.empty((m, nq * h), dtype=cast, device=x2.device)
   k = torch.empty((m, nk * h), dtype=cast, device=x2.device)

@@ -239,16 +239,21 @@ def rms_inverse(xf: torch.Tensor, eps: float) -> torch.Tensor:
   very unlikely, though not impossible: the CUDA kernels that fuse the
   norm (kernels/csrc/fused_block.cu `norm_quant_kernel`) sum in another
   order and, in every check so far, get the same f32. 1 / sqrt is two IEEE
-  roundings on every device, which `torch.rsqrt` does not promise. The JAX
-  op takes an f32 mean and rsqrt; at D 2048 its var differs from this one
-  by an ulp in about half the rows, as an f32 mean in PyTorch does, and a
-  few DRQ codes in a million flip by one
+  roundings, as `sqrtf` and the division are on the card: the square root
+  is taken in f64 and rounded once to f32 (the correctly rounded f32 root,
+  since 53 >= 2 * 24 + 2), because the CPU's vectorized f32 `torch.sqrt`
+  is not correctly rounded on every host (on an AVX-512 one it was an ulp
+  off in about a fifth of random values), and `torch.rsqrt` promises
+  neither rounding. The JAX op takes an f32 mean and rsqrt; at D 2048 its
+  var differs from this one by an ulp in about half the rows, as an f32
+  mean in PyTorch does, and a few DRQ codes in a million flip by one
   (tests/test_torch_port_block.py, `test_norm_codes_match_jax_at_gemma_width`).
   """
   d = xf.shape[-1]
   var = (torch.sum(torch.square(xf.to(torch.float64)), dim=-1, keepdim=True)
          / d).to(torch.float32)
-  return torch.reciprocal(torch.sqrt(var + eps))
+  root = torch.sqrt((var + eps).to(torch.float64)).to(torch.float32)
+  return torch.reciprocal(root)
 
 
 @register('RMS_NORM')

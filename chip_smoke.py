@@ -1658,7 +1658,10 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
     it, an id may differ from the plain version's only where the plain
     top-2 logit margin is within the kernel's logit error
     (int_weights_tolerance of the largest |logit| plus one bf16 ulp of the
-    winner, the cast_dt rounding)."""
+    winner, the cast_dt rounding); timed beside the library composition
+    (torch.matmul against the weights dequantized to bf16, the scale, the
+    cast and torch.argmax), with each shape's launch plan and the
+    kernel's ptxas registers and spills."""
   pq, att, mlp, head = (port['packed_qmatmul'], port['attention'],
                         port['mlp'], port['head'])
   iq, build = port['int_qmatmul'], port['_build']
@@ -1919,6 +1922,7 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
   for packed in (True, False):
     w_q = randint(-8, 8, V, D) if packed else randint(-127, 128, V, D)
     w = pq.pack_int4_split(w_q) if packed else w_q
+    wdq = w_q.to(bf16)  # the library composition's weights
     del w_q
     top = 0x77 if packed else 127  # every value of a row 7 or 127
     for m in (B, BENCH_B):
@@ -1931,6 +1935,7 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
           x = torch.abs(x) + 0.1
           w[100] = w[V - 100] = top
           s[100] = s[V - 100] = 1.0
+          wdq[100] = wdq[V - 100] = 7 if packed else 127
         hkw = dict(packed=packed, true_n=V - 64)
         got = head.head_argmax_bf16(x, w, s, **hkw)
         want = head.head_argmax_plain(x, w, s, drq=False, **hkw)
@@ -1964,21 +1969,29 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
           kb = D // 2 if packed else D
           nbytes = m * D * 2 + V * kb + V * 4 + m * 4
           b_ms, b_by = bound(nbytes, 2 * m * V * D, BF16_OPS_PER_S)
+
+          def library(x=x, s=s, m=m):
+            y = (torch.matmul(x.reshape(m, D), wdq.T) * s).to(bf16)
+            y[:, V - 64:] = -3.4e38
+            return torch.argmax(y, dim=-1)
+
           row.update(
               ms=timer(lambda: head.head_argmax_bf16(x, w, s, **hkw)),
               plain_ms=timer(lambda: head.head_argmax_plain(
                   x, w, s, drq=False, **hkw), reps=5, warmup=1),
-              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+              bound_ms=b_ms, bound_by=b_by, library_ms=None,
+              library_composition_ms=timer(library),
+              plan=head.wo_plan(m, V, D, packed))
         head_rows.append(row)
         del logits, top2
-    del w
+    del w, wdq
     torch.cuda.empty_cache()
   log(f'kernel head_argmax_bf16 ok: {head_rows}')
 
   def head_at(packed, m):
     r = next(r for r in head_rows if r['packed'] == packed and r['M'] == m
              and r['planted'])
-    return {key: r[key] for key in timing}
+    return {key: r[key] for key in timing + ('library_composition_ms',)}
 
   results.append({
       'name': 'head_argmax_bf16', 'route': 'cuda',
@@ -1990,8 +2003,12 @@ def default_mode_kernels(torch, port, cfg, dev, timer, gen):
       'per_tick_default_mode': 1,
       'max_abs_err': max(r['winner_logit_gap'] for r in head_rows),
       **head_at(True, B), 'bound_by': head_rows[0]['bound_by'],
+      'library_composition': 'torch.matmul of x against the weights '
+                             'dequantized to bf16, * s, the cast to bf16, '
+                             'torch.argmax',
       'int8': head_at(False, B), 'bench': head_at(True, BENCH_B),
-      'by_shape': head_rows})
+      'int8_bench': head_at(False, BENCH_B), 'by_shape': head_rows,
+      'ptxas': ptxas_report(port['_build'], 'head_argmax', 'head_wo_kernel')})
   return results
 
 # The blockwise packed matmul's checks: (phase, M, label, N, K, block size).
@@ -2497,7 +2514,14 @@ def qkv_kernel(torch, port, cfg, dev, timer, gen):
   projections that were each rounded to bf16). Timed at BENCH_B (DRQ,
   bf16) beside
   the unfused route: the RMS_NORM op's torch arithmetic, the int4 DRQ
-  matmul (#1) and the RoPE of q and k in torch."""
+  matmul (#1) and the RoPE of q and k in torch; beside #1 alone on rows
+  normalized beforehand (the DRQ chain's second launch does its work and
+  the RoPE); and, weight-only, beside #14's QKV chain (the norm and #12's
+  core, qmatmul_int4_packed_rmsnorm at the QKV shape). Each row logs the
+  launch plan (bf16 x, DRQ and weight-only) and ptxas' registers and
+  spills. One more case, at M B, takes a head size the pair tiles do not
+  (h 64, 8 query and 2 KV heads: the core's column tile, then the RoPE
+  launch), both dtypes and branches by the same rules."""
   pq, iq, ops_impl = port['packed_qmatmul'], port['int_qmatmul'], \
       port['ops_impl']
   qkv, blk = port['qkv'], port['block']
@@ -2561,7 +2585,9 @@ def qkv_kernel(torch, port, cfg, dev, timer, gen):
     nbytes = (m * D * 2 + D * 4 + N * D // 2 + N * 4 + 2 * m * H // 2 * 4
               + m * N * 2)
     b_ms, b_by = bound(nbytes, 2 * m * N * D, INT8_OPS_PER_S)
+    wo_ms, wo_by = bound(nbytes, 2 * m * N * D, BF16_OPS_PER_S)
     args = (x, gamma, w, s, cos, sin)
+    xn = rmsnorm_unfused(torch, ops_impl, x, gamma)
     rows.append({
         'phase': phase, 'M': m, 'N': N, 'K': D,
         'max_abs_err': max(c['max_abs_err'] for c in checks),
@@ -2569,10 +2595,63 @@ def qkv_kernel(torch, port, cfg, dev, timer, gen):
         'ms': timer(lambda: qkv.qkv_rope(*args, **kw)),
         'plain_ms': timer(lambda: qkv.qkv_rope_plain(*args, **kw), reps=5),
         'composition_ms': timer(composition),
-        'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
+        'matmul_alone_ms': timer(lambda: pq.qmatmul_int4_packed_drq(
+            xn, w, s)),
+        'weight_only_ms': timer(lambda: qkv.qkv_rope(*args, drq=False,
+                                                     **kw)),
+        'norm_fused_chain_ms': timer(lambda: pq.qmatmul_int4_packed_rmsnorm(
+            x, gamma, w, s)),
+        'bound_ms': b_ms, 'bound_by': b_by,
+        'weight_only_bound_ms': wo_ms, 'weight_only_bound_by': wo_by,
+        'library_ms': None,
+        'plan': qkv.plan(m, D, NQ, NK, H, True, True),
+        'plan_weight_only': qkv.plan(m, D, NQ, NK, H, False, True)})
+  # A head size the pair tiles do not take: the column route.
+  nq2, nk2, h2 = 8, 2, 64
+  n2 = (nq2 + 2 * nk2) * h2
+  w2 = pq.pack_int4_split(torch.randint(-8, 8, (n2, D), generator=gen,
+                                        device=dev).to(torch.int8))
+  s2 = torch.rand((n2,), generator=gen, device=dev) * 0.01 + 0.005
+  pos = torch.randint(0, S, (B, 1), generator=gen, device=dev)
+  cos2, sin2 = qkv.rope_cos_sin(pos, h2, 10000.0)
+  x2 = torch.randn((B, D), generator=gen, device=dev) * 3
+  column = {'M': B, 'nq': nq2, 'nk': nk2, 'h': h2, 'checks': []}
+  for xi in (x2, x2.to(bf16)):
+    for drq in (True, False):
+      kw2 = dict(nq=nq2, nk=nk2, h=h2, drq=drq)
+      got = qkv.qkv_rope(xi, gamma, w2, s2, cos2, sin2, **kw2)
+      want = qkv.qkv_rope_plain(xi, gamma, w2, s2, cos2, sin2, **kw2)
+      sync()
+      for part, a, b in zip('qkv', got, want):
+        err = float(torch.max(torch.abs(a.float() - b.float())))
+        ymax = float(torch.max(torch.abs(b.float())))
+        tol = 0.0 if drq else iq.int_weights_tolerance(D, 0, ymax)
+        atol = tol
+        if part != 'v' and xi.dtype == bf16:  # as above
+          heads = b.float().reshape(b.shape[0], -1, h2)
+          hmax = torch.amax(torch.abs(heads), dim=-1, keepdim=True)
+          ulp = torch.exp2(torch.floor(torch.log2(
+              torch.clamp_min(hmax, 2.0**-126))) - 7)
+          atol = (2 * tol + 4 * ulp).expand_as(heads).reshape(b.shape)
+        ulps = bf16_ulps(torch, a, b, atol=atol) \
+            if xi.dtype == bf16 and not drq else None
+        ok = (err == 0.0) if drq else (
+            ulps <= 1.0 if ulps is not None else err <= tol)
+        if not ok:
+          raise AssertionError(
+              f'qkv_rope h {h2} {part} ({xi.dtype}, drq {drq}): err {err}, '
+              f'tolerance {tol}, bf16 ulps beyond it {ulps}')
+        column['checks'].append({'x': str(xi.dtype).split('.')[-1],
+                                 'drq': drq, 'out': part, 'max_abs_err': err,
+                                 'bf16_ulps_beyond': ulps})
+      column.setdefault('plans', []).append(
+          qkv.plan(B, D, nq2, nk2, h2, drq, xi.dtype == bf16))
   log(f'kernel qkv_rope ok: '
-      f'{[{k: v for k, v in r.items() if k != "checks"} for r in rows]}')
-  timing = ('ms', 'plain_ms', 'composition_ms', 'bound_ms')
+      f'{[{k: v for k, v in r.items() if k != "checks"} for r in rows]}, '
+      f'column route {column["plans"]}')
+  timing = ('ms', 'plain_ms', 'composition_ms', 'matmul_alone_ms',
+            'weight_only_ms', 'norm_fused_chain_ms', 'bound_ms',
+            'weight_only_bound_ms')
   return {
       'name': 'qkv_rope', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/qkv_rope.cu',
@@ -2585,7 +2664,13 @@ def qkv_kernel(torch, port, cfg, dev, timer, gen):
       'library_ms': None,
       'composition': 'the RMS_NORM op (torch) + qmatmul_int4_packed_drq (#1) '
                      '+ RoPE of q and k (torch)',
-      'decode': {key: rows[1][key] for key in timing}, 'by_shape': rows}
+      'matmul_alone': 'qmatmul_int4_packed_drq (#1) on rows normalized '
+                      'beforehand',
+      'norm_fused_chain': "qmatmul_int4_packed_rmsnorm (#14's QKV chain: "
+                          "the norm and #12's core)",
+      'decode': {key: rows[1][key] for key in timing}, 'by_shape': rows,
+      'column_route': column,
+      'ptxas': ptxas_report(port['_build'], 'qkv_rope', '')}
 
 
 OPROJ_SCALES = (0.06, 0.06, 3.0, -2.0)   # k_scale, v_scale, zp_k, zp_v

@@ -8,7 +8,7 @@ Each prints one JSON line per measurement.
 --root picks the checkout whose kernels (and chip_smoke.py) run (default:
 this file's), so two checkouts can be timed in turns on one card, one
 process each. --kernels picks the groups that `times` and `launches`
-cover (default: all five). Times are CUDA-event medians of --reps calls as
+cover (default: all six). Times are CUDA-event medians of --reps calls as
 chip_smoke.Timer takes them (L2 flushed before each).
 
 Kernel groups of `times`:
@@ -43,6 +43,17 @@ Kernel groups of `times`:
                row 897 long) and at B 64, DRQ in every compute mode and
                weight-only in f32, bf16 x_res, beside #7 + #1 (or #12) +
                the residual ADD and #7 + #1 (or #12) alone.
+  prologue     #20 (qkv.qkv_rope) at bench.py's attention-block shape (D
+               2048, 8 query heads and 1 KV head of 256, N 2560, bf16 x) at
+               M 256 (a bench step) and 64 (a decode tick), DRQ and
+               weight-only, beside #1 (packed_qmatmul.qmatmul_int4_packed_
+               drq) on rows normalized beforehand and #14's QKV chain (the
+               norm + #12's core, qmatmul_int4_packed_rmsnorm at N 2560);
+               #4's weight-only branch (head.head_argmax_bf16) on a packed
+               int4 and an int8 head (N 256128, K 2048, true_n N - 64) at M
+               64 and 256, bf16 x, beside the library composition
+               (torch.matmul of x against the bf16-dequantized weights,
+               * s, the cast, torch.argmax).
   int_weights  #16 (int_qmatmul.qmatmul_int_weights) at chip_smoke.
                int_weight_kernels' rows: gemma_mixed48_b32's blockwise-32
                FCs at decode (M 64: gate/up N 32768 at K 2048, down N 2048
@@ -54,14 +65,22 @@ Kernel groups of `times`:
 Studies:
   times     the rows of the groups above.
   launches  the device time of each launch of one call at the `mlp`,
-            `block` and `fusion` rows of --kernels (`fusion` with the
-            unfused kernels each replaces; torch.profiler, the mean of 5
+            `block`, `fusion` and `prologue` rows of --kernels (`fusion`
+            with the unfused kernels each replaces; torch.profiler, the
+            mean of 5
             calls each after an L2 flush: device_us a launch of each
             kernel, device_us_per_call its launches' sum in one call).
   host      the host time of one #3 call at decode (M 64, bf 2048 and
             512, both branches): the wrapper's Python, its allocations and
             every launch it enqueues, with the card kept busy so that no
             call waits for it (the median over 5 rounds of 50 calls).
+  server    chip_smoke.quantizer_phase for examples/serve_gemma.py's
+            default mode alone (serve_gemma's quantization at
+            chip_smoke.QUANT_LAYERS, served by DecodeServer with the JAX
+            executor's default options: #12, #3's and #4's weight-only
+            branches, #17): a chunk of 8 ticks' wall and device busy time
+            (torch.profiler) and the head's device time a chunk, one
+            process a checkout.
   steps     bench.py's decode through chip_smoke.bench_decode_phase under
             the block on, the block off, the in-place writes, the norm
             fusion and the attention block (ms a step, host clock, median
@@ -94,12 +113,29 @@ Studies:
             (__vsub4) in place of sign_extend_nibbles (the same bytes),
             at #3's DRQ rows (bf 2048), #1's QKV shape (N 2560, K 2048)
             and #6's down shape (N 2048, K 16384) at M 64 and 1024.
+            prologue: at #20's rows (bf16 x, M 256 and 64; DRQ, and
+            weight-only at 256) and #4's weight-only head (packed M 64 and
+            256, int8 M 64): 'norm_then_quantize' (#20's DRQ route as the
+            norm launch, then #1's row quantize as a dependent launch,
+            then the pair tile, in place of the norm that ends in the
+            codes), 'pairs_nt128' (#20's weight-only pair tile at
+            ChannelScale's 128 tokens for two warpgroups, in place of
+            64), 'head_sub1' (#4's weight-only ring stage at one 64-byte
+            K step of the weight rows, in place of two), 'head_r4' (four
+            token tiles a pass above 64 rows, in place of passes of two),
+            and, wrong ids for the time only, 'head_no_widen'
+            (constant A fragments), 'head_stream' (no widening, no wgmma)
+            and 'head_half_x' (the x tiles loaded at every other stage
+            only: half the x bytes from L2); each variant's ptxas
+            registers, spills and wgmma serialization notes are emitted
+            with its times.
 """
 
 import argparse
 import functools
 import json
 import pathlib
+import re
 import statistics
 import sys
 import time
@@ -110,7 +146,7 @@ B, S, H, G = 64, 1024, 256, 8
 BENCH_B, BENCH_ROWS = 256, 897
 K_SCALE, V_SCALE, ZP_K, ZP_V = 0.06, 0.06, 3.0, -2.0
 PREFILL_ROWS, PREFILL_BATCH, QUANT_BLOCK = 1024, 8, 32
-GROUPS = ('mlp', 'attention', 'block', 'fusion', 'int_weights')
+GROUPS = ('mlp', 'attention', 'block', 'fusion', 'prologue', 'int_weights')
 # The kernel libraries each group and study builds (steps: every one).
 SOURCES = {
     'mlp': ('mlp_int4_drq', 'mlp_int4_bf16', 'attention_int8_basic'),
@@ -121,6 +157,8 @@ SOURCES = {
     'fusion': ('qmatmul_int4_rmsnorm', 'attention_oproj',
                'qmatmul_int4_weight_only', 'qmatmul_int4_drq',
                'attention_lengths'),
+    'prologue': ('qkv_rope', 'head_argmax', 'qmatmul_int4_rmsnorm',
+                 'qmatmul_int4_drq'),
     'int_weights': ('qmatmul_int_weights',)}
 STUDY_GROUP = {'host': 'mlp', 'order': 'attention', 'truth': 'attention'}
 STEP_SETTINGS = ('block on', 'block off', 'inplace', 'norm fusion',
@@ -269,6 +307,40 @@ def steps(torch, mods, timer):
          device_idle_share=r['device_idle_share'])
 
 
+def server(torch, mods, timer):
+  """chip_smoke's quantizer phase for the default-mode server alone."""
+  cs = mods['cs']
+  from ai_edge_quantizer_tpu_torch import Quantizer
+  from ai_edge_quantizer_tpu_torch.execution import executor
+  from ai_edge_quantizer_tpu_torch.graph import ir, serialize
+  from ai_edge_quantizer_tpu_torch.kernels import head
+  from ai_edge_quantizer_tpu_torch.models import gemma
+  from ai_edge_quantizer_tpu_torch.parallel import batching
+  from ai_edge_quantizer_tpu_torch.utils import progress_utils
+  att, mlp, pq = mods['att'], mods['mlp'], mods['pq']
+  port = dict(executor=executor, gemma=gemma, batching=batching, ir=ir,
+              serialize=serialize, Quantizer=Quantizer,
+              progress_utils=progress_utils, head=head, _build=mods['build'])
+  wrappers = {
+      'qmatmul_int4_packed': pq.qmatmul_int4_packed,
+      'mlp_int4_packed_bf16': mlp.mlp_int4_packed_bf16,
+      'head_argmax_bf16': head.head_argmax_bf16,
+      'decode_attention_int8_masked': att.decode_attention_int8_masked,
+      'flash_attention_int8_masked': att.flash_attention_int8_masked}
+  kernels = [{'name': n, 'wrapper': w} for n, w in wrappers.items()]
+  cs.sync = torch.cuda.synchronize
+  cs.QUANT_RECIPES = (cs.DEFAULT_MODE,)
+  cs.default_mode_servers = lambda *args, **kw: {}
+  r = cs.quantizer_phase(torch, port, kernels, gemma.GEMMA_2B, 'cuda')[
+      cs.DEFAULT_MODE]
+  emit(study='server', recipe=cs.DEFAULT_MODE, layers=r['layers'],
+       chunk_ms=r['chunk_ms'], chunk_device_busy_ms=r['chunk_device_busy_ms'],
+       chunk_idle_share=r['chunk_idle_share'],
+       head_ms_a_chunk=sum(ms for name, ms in r['chunk_by_kernel'].items()
+                           if 'head_' in name),
+       tokens_per_s=r['tokens_per_s'])
+
+
 # ------------------------------------------------------------------- #5, #4
 
 
@@ -393,6 +465,68 @@ def fusion_cases(torch, mods, unfused=False):
 
 def fusion_times(torch, mods, timer):
   for key, call in fusion_cases(torch, mods, unfused=True):
+    call()
+    emit(study='times', **key, ms=timer(call))
+
+
+# ------------------------------------------------------------ #20, #4 bf16
+
+
+def prologue_cases(torch, mods, unfused=False):
+  """(key, call) of each #20 and #4 weight-only case (see the `prologue`
+  group); with `unfused` also what each is held against."""
+  cs, pq = mods['cs'], mods['pq']
+  from ai_edge_quantizer_tpu_torch.kernels import head, qkv
+  from ai_edge_quantizer_tpu_torch.ops import impl
+  gen = torch.Generator(device='cuda').manual_seed(20)
+  bf16 = torch.bfloat16
+  n = (G + 2) * H
+  w = pq.pack_int4_split(torch.randint(-8, 8, (n, D), generator=gen,
+                                       device='cuda').to(torch.int8))
+  s = torch.rand((n,), generator=gen, device='cuda') * 0.01 + 0.005
+  gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device='cuda')
+  cases = []
+  for m in (BENCH_B, B):
+    x = (torch.randn((m, D), generator=gen, device='cuda') * 3).to(bf16)
+    pos = torch.randint(BENCH_ROWS - 64, BENCH_ROWS + 64, (m, 1),
+                        generator=gen, device='cuda')
+    cos, sin = qkv.rope_cos_sin(pos, H, 10000.0)
+    for drq in (True, False):
+      key = {'kernel': 'qkv_rope', 'M': m, 'drq': drq}
+      cases.append((key, lambda x=x, cos=cos, sin=sin, drq=drq: qkv.qkv_rope(
+          x, gamma, w, s, cos, sin, nq=G, nk=1, h=H, drq=drq)))
+    if unfused:
+      xn = cs.rmsnorm_unfused(torch, impl, x, gamma)
+      cases.append(({'kernel': '#1 on normalized rows', 'M': m},
+                    lambda xn=xn: pq.qmatmul_int4_packed_drq(xn, w, s)))
+      cases.append(({'kernel': "#14's QKV chain", 'M': m},
+                    lambda x=x: pq.qmatmul_int4_packed_rmsnorm(
+                        x, gamma, w, s)))
+  for packed in (True, False):
+    lo, hi = (-8, 8) if packed else (-127, 128)
+    w_q = torch.randint(lo, hi, (V, D), generator=gen, device='cuda').to(
+        torch.int8)
+    wh = pq.pack_int4_split(w_q) if packed else w_q
+    sh = torch.rand((V,), generator=gen, device='cuda') * 0.01 + 0.005
+    wdq = w_q.to(bf16) if unfused else None
+    del w_q
+    for m in (B, BENCH_B):
+      x = torch.randn((m, D), generator=gen, device='cuda').to(bf16)
+      key = {'kernel': 'head_argmax_bf16', 'packed': packed, 'M': m}
+      cases.append((key, lambda x=x, wh=wh, sh=sh, packed=packed:
+                    head.head_argmax_bf16(x, wh, sh, packed=packed,
+                                          true_n=V - 64)))
+      if unfused:
+        def library(x=x, wdq=wdq, sh=sh):
+          y = (torch.matmul(x, wdq.T) * sh).to(bf16)
+          y[:, V - 64:] = -3.4e38
+          return torch.argmax(y, dim=-1)
+        cases.append((dict(key, kernel='library composition'), library))
+  return cases
+
+
+def prologue_times(torch, mods, timer):
+  for key, call in prologue_cases(torch, mods, unfused=True):
     call()
     emit(study='times', **key, ms=timer(call))
 
@@ -630,7 +764,7 @@ def int_weights_times(torch, mods, timer):
 _IW = 'qmatmul_int_weights.cu'
 _FLUSH = (_IW, """    const float scaled = p[r] * s[(r >> 1) & 1];
     y[r] = y[r] + scaled;""", """    if (r == 0) y[r] = y[r] + p[r];""")
-_WIDEN = (_IW, """      a_frags(st + XP * G::kX, row, cw, q, a[cw]);""",
+_WIDEN = (_IW, """      w4::a_frags_int8(st + XP * G::kX, row, cw, q, a[cw]);""",
           """      for (int e = 0; e < 4; ++e)
         a[cw][e] = 0x3F803F80u ^ (uint32_t)(i & 1);""")
 _STREAM = (_IW, """    } else if constexpr (kTwoSums) {""",
@@ -650,6 +784,54 @@ _VSUB4 = ('int8_tc_gemm.cuh', """      l[e] = sign_extend_nibbles(w[e] & 0x0F0F0
       h[e] = sign_extend_nibbles((w[e] >> 4) & 0x0F0F0F0Fu);""",
           """      l[e] = (uint32_t)nib_lo(w[e]);
       h[e] = (uint32_t)nib_hi(w[e]);""")
+# #20's DRQ route with the norm and #1's row quantize as two launches (the
+# norm's rows into the qkv scratch, which the bench shape's N >= D holds).
+_NORM_THEN_QUANT = ('qkv_rope.cu', """    err = aeqt::launch_rmsnorm_quant_rows<T>(x, gamma, xn, xs, M, D, eps,
+                                              stream);""", """    err = aeqt::launch_rmsnorm_rows<T, false>(x, gamma, qkv, M, D, eps,
+                                              stream);
+    if (err != 0) return err;
+    err = tc::launch_quantize<tc::SplitNibblesRecipB, T, true>(qkv, xn, xs,
+                                                               M, D, stream);""")
+# #4's weight-only head: four token tiles a pass above 64 rows (in place
+# of passes of two); one 64-byte K step of the weight rows a ring stage (in
+# place of two).
+_HA = 'head_argmax.cu'
+_HEAD_R4 = [(_HA, """  p.r = M <= kWoTok ? 1 : 2;""",
+             """  p.r = M <= kWoTok ? 1 : 4;"""),
+            (_HA, """  return launch_wo_kernel<kPacked, 2, 2>(""",
+             """  return launch_wo_kernel<kPacked, 2, 4>(""")]
+_HEAD_SUB1 = (_HA, """constexpr int kWoSub = 2;""", """constexpr int kWoSub = 1;""")
+# #4's weight-only loop with a part taken out (wrong ids, for the time
+# only): 'head_no_widen' (constant A fragments: no shared-memory read or
+# widening of the weights), 'head_stream' (no widening and no wgmma: the
+# consumers only wait for and release the stages, so the ring's stream of
+# weight and x tiles and the epilogue set the time), 'head_half_x' (the x
+# tiles of every other stage not loaded: half the x bytes from L2).
+_HEAD_NO_WIDEN = (_HA, """            if constexpr (kPacked)
+              w4::a_frags(wu, row, c, q, alo[u][c], ahi[u][c], kWRow);
+            else
+              w4::a_frags_int8(wu, row, c, q, alo[u][c], kWRow);""",
+                  """            for (int e = 0; e < 4; ++e) {
+              alo[u][c][e] = 0x3F803F80u ^ (uint32_t)(jj & 1);
+              ahi[u][kPacked ? c : 0][e] = alo[u][c][e] ^ (uint32_t)wu[0];
+            }""")
+_HEAD_NO_WGMMA = (_HA, """            for (int r = 0; r < R; ++r) {
+              const uint8_t* xt""", """            for (int r = 0; r < 0; ++r) {
+              const uint8_t* xt""")
+_HEAD_HALF_X = (_HA, """        tc::mbar_expect_tx(&full_bar[s], (uint32_t)kStage);
+        const int i = j % steps, p = (j / steps) % passes;
+        for (int u = 0; u < kWoSub; ++u) {  // x tiles of sub-step u""",
+                """        const bool xl = (j & 1) == 0;
+        tc::mbar_expect_tx(&full_bar[s],
+                           (uint32_t)(xl ? kStage
+                                         : kStage - kWoSub * kXTiles * kX));
+        const int i = j % steps, p = (j / steps) % passes;
+        for (int u = 0; u < (xl ? kWoSub : 0); ++u) {""")
+# #20's weight-only pair tile at 128 tokens a tile for two warpgroups
+# (ChannelScale's), in place of 64.
+_PAIRS_NT128 = ('int4_bf16_tc_gemm.cuh', """struct QkvRopePairs : ChannelScale {
+  static constexpr int kNT2 = 64;""", """struct QkvRopePairs : ChannelScale {
+  static constexpr int kNT2 = 128;""")
 # Each group's variants and the libraries they build.
 VARIANTS = {
     'int_weights': (('qmatmul_int_weights',),
@@ -657,7 +839,15 @@ VARIANTS = {
                      'no_scale_load': [_SCALES], 'no_widen': [_WIDEN],
                      'stream': [_WIDEN, _STREAM]}),
     'mlp': (('mlp_int4_drq', 'qmatmul_int4_drq', 'qmatmul_int4_drq_kblock'),
-            {'kernel': [], 'vsub4': [_VSUB4]})}
+            {'kernel': [], 'vsub4': [_VSUB4]}),
+    'prologue': (('qkv_rope', 'head_argmax'),
+                 {'kernel': [], 'norm_then_quantize': [_NORM_THEN_QUANT],
+                  'pairs_nt128': [_PAIRS_NT128],
+                  'head_half_x': [_HEAD_HALF_X],
+                  'head_sub1': [_HEAD_SUB1],
+                  'head_r4': _HEAD_R4,
+                  'head_no_widen': [_HEAD_NO_WIDEN],
+                  'head_stream': [_HEAD_NO_WIDEN, _HEAD_NO_WGMMA]})}
 
 
 def build_variants(build, group):
@@ -682,19 +872,48 @@ def build_variants(build, group):
     for name in names:
       lib = out / variant / f'lib{name}.so'
       libs[variant][name] = lib
-      procs[variant, name] = subprocess.Popen(
-          [build.nvcc_path(), *build.NVCC_FLAGS, '-I', str(csrc), '-o',
-           str(lib), str(csrc / f'{name}.cu')],
-          stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+      with open(out / variant / f'{name}.log', 'w') as log:
+        procs[variant, name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, '-I', str(csrc), '-o',
+             str(lib), str(csrc / f'{name}.cu')],
+            stdout=log, stderr=subprocess.STDOUT)
   for key, proc in procs.items():
     if proc.wait():
       raise RuntimeError(f'variant {key} did not build')
   return libs
 
 
+def variant_ptxas(lib):
+  """Registers, spills and wgmma serialization notes (ptxas C75xx) of each
+  kernel in a variant's build log."""
+  found, current = {}, None
+  for line in (lib.parent / f'{lib.name[3:-3]}.log').read_text().splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+      current = found.setdefault(m.group(1), {'notes': []})
+    m = re.search(r'\((C75\d\d)\).*function \'(\S+)\'', line)
+    if m:
+      found.setdefault(m.group(2), {'notes': []})['notes'].append(m.group(1))
+    m = re.search(r'(\d+) bytes spill stores', line)
+    if m and current is not None:
+      current['spill_stores'] = int(m.group(1))
+    m = re.search(r'Used (\d+) registers', line)
+    if m and current is not None:
+      current['registers'] = int(m.group(1))
+  return [dict(function=fn[:140], **r) for fn, r in found.items()]
+
+
 def variant_calls(torch, mods, group):
   """(label, call) of the rows each group's variants are timed at."""
   gen = torch.Generator(device='cuda').manual_seed(3)
+  if group == 'prologue':
+    return [(f"{key['kernel']}_{'packed_' if key.get('packed') else ''}"
+             f"{'drq_' if key.get('drq') else ''}M{key['M']}", call)
+            for key, call in prologue_cases(torch, mods)
+            if (key['kernel'] == 'qkv_rope'
+                and (key['drq'] or key['M'] == BENCH_B))
+            or (key['kernel'] == 'head_argmax_bf16'
+                and (key['packed'] or key['M'] == B))]
   if group == 'int_weights':
     iq, calls = mods['iq'], []
     for label, n, k in (('gate_up', 2 * F, D), ('down', D, F),
@@ -735,6 +954,13 @@ def variants(torch, mods, timer, groups):
     if group not in VARIANTS:
       continue
     libs = build_variants(build, group)
+    for variant, built in libs.items():
+      for name, lib in built.items():
+        emit(study='variants', group=group, variant=variant, library=name,
+             ptxas=[r for r in variant_ptxas(lib)
+                    if r['notes'] or r.get('spill_stores')
+                    or 'head_wo' in r['function']
+                    or 'mlp_tc_kernelILi3E' in r['function']])
     calls = variant_calls(torch, mods, group)
     turns = list(libs) + list(libs)[::-1]  # in turns
     for variant in turns:
@@ -751,11 +977,12 @@ def variants(torch, mods, timer, groups):
 
 TIMES = {'mlp': mlp_times, 'attention': attention_times,
          'block': block_times, 'fusion': fusion_times,
-         'int_weights': int_weights_times}
+         'prologue': prologue_times, 'int_weights': int_weights_times}
 LAUNCH_CASES = {'mlp': mlp_cases, 'block': block_cases,
-                'fusion': functools.partial(fusion_cases, unfused=True)}
+                'fusion': functools.partial(fusion_cases, unfused=True),
+                'prologue': prologue_cases}
 STUDIES = {'launches': launches, 'host': host, 'steps': steps,
-           'order': order, 'truth': truth}
+           'server': server, 'order': order, 'truth': truth}
 
 
 def main():
@@ -781,8 +1008,9 @@ def main():
   from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul as iq
   from ai_edge_quantizer_tpu_torch.kernels import mlp
   from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul as pq
-  # Only the studied kernels' libraries are built; the steps, every one.
-  if 'steps' not in args.studies:
+  # Only the studied kernels' libraries are built; the steps and the
+  # server, every one.
+  if not {'steps', 'server'} & set(args.studies):
     needed = set(groups if {'times', 'variants'} & set(args.studies)
                  else ())
     if 'launches' in args.studies:

@@ -102,12 +102,14 @@ def _block_inputs(b, d, f, nq, h, s, bf, pos, lengths, seed,
 
 def _norm_quant(x, gamma, eps):
   """Launches 1 and 5 (norm_quant_kernel): the sum of squares in
-  f64, r = 1 / sqrt(var + eps) in f32, xn = (x * r) * gamma, then the
-  reciprocal DRQ."""
+  f64, r = 1 / sqrt(var + eps) in f32 (sqrtf and the division IEEE, as on
+  the card: the root taken in f64 and rounded once, which the CPU's
+  vectorized f32 torch.sqrt is not on every host), xn = (x * r) * gamma,
+  then the reciprocal DRQ."""
   x = x.to(F32)
   var = (torch.sum(x.to(torch.float64) ** 2, -1, keepdim=True)
          / x.shape[1]).to(F32)
-  r = 1.0 / torch.sqrt(var + np.float32(eps))
+  r = 1.0 / torch.sqrt((var + np.float32(eps)).double()).to(F32)
   xn = (x * r) * gamma
   return pq.quantize_rows_drq(xn), xn
 
@@ -497,12 +499,15 @@ def test_head_drq_route_runs_on_the_int8_core():
   # One stage's B tile (or its unpacked lo and hi tiles) for every row
   # tile of the block.
   assert 'tc::wgmma_stage(d[r], a, bt);' in code
-  # The weight-only branch keeps its mma.sync tiles and shares only the
-  # reduction.
-  assert 'head_tiles_bf16_kernel' in code
+  # The weight-only branch runs its own persistent wgmma kernel on the
+  # bf16 core (no mma.sync tile) and shares only the reduction; its
+  # narrowest vocab tile (two warpgroups of 64 rows) sizes the pairs.
+  assert 'head_wo_kernel' in code and 'head_tiles_bf16_kernel' not in code
+  assert not (CSRC / 'qmatmul_int4_weight_only.cuh').exists()
   assert code.count('head_reduce_kernel<<<') == 2
-  assert head._HEAD_DRQ_BN == BN and head._HEAD_BN == 8 * _const(
-      (CSRC / 'qmatmul_int4_weight_only.cuh').read_text(), 'kMmaNT')
+  wgs = re.search(r'p\.wgs = M <= kWoTok \? (\d+) : (\d+);', HEAD_SRC)
+  assert head._HEAD_DRQ_BN == BN and head._HEAD_BN == min(
+      int(g) for g in wgs.groups()) * WG_ROWS
 
 
 def test_plan_fields_match_the_sources():

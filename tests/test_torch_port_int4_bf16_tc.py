@@ -458,6 +458,7 @@ def test_bf16_path_runs_on_the_tensor_core_core(source, policy):
                'wo_mma_tile', 'launch_wo', 'blocks_sum_kernel',
                'blockwise_mma_kernel', '_scratch(', 'void* part'):
     assert gone not in text, gone
+  assert not (CSRC / 'qmatmul_int4_weight_only.cuh').exists()
   assert 'wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16' in CORE
   assert 'tma_load_2d(' in CORE and 'mma.sync' not in CORE
   wrapper = pathlib.Path(packed_qmatmul.__file__).read_text()

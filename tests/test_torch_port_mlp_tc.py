@@ -518,6 +518,7 @@ def test_drq_route_runs_on_the_int8_core():
   code = _strip_comments(DRQ_SRC)
   assert '#include "int8_tc_gemm.cuh"' in code
   assert 'qmatmul_int4_drq.cuh' not in code  # no SIMT tile
+  assert not (CSRC / 'qmatmul_int4_drq.cuh').exists()  # nor its header
   assert '__dp4a' not in code and 'dot_packed' not in code
   assert 'tc::wgmma_stage(' in code and 'SplitNibblesRecipB' in code
   # One unpack: the core's, no copy of it here.
@@ -547,6 +548,7 @@ def test_bf16_route_runs_on_the_bf16_core():
   code = _strip_comments(BF16_SRC)
   assert '#include "int4_bf16_tc_gemm.cuh"' in code
   assert 'qmatmul_int4_weight_only.cuh' not in code  # no mma.sync tile
+  assert not (CSRC / 'qmatmul_int4_weight_only.cuh').exists()
   assert 'run_nb<aeqt::w4::GateUpScale>' in code
   assert 'run<aeqt::w4::GroupSum>' in code
   # f32 x keeps the SIMT tiles, and only f32 x reaches them.
