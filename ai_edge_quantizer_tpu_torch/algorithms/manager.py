@@ -7,9 +7,9 @@ functions re-export the registry API for the recipe/pipeline layers.
 Parity: reference `algorithm_manager.py` (import-time registration of the 8
 algorithm keys over their op sets).
 
-A copy of `ai_edge_quantizer_tpu/algorithms/manager.py` that registers every
-algorithm but GPTQ, whose Hessians need the calibrator, not ported yet
-(UNPORTED_ALGORITHMS): a recipe entry that names it raises
+A copy of `ai_edge_quantizer_tpu/algorithms/manager.py`: every algorithm is
+registered. UNPORTED_ALGORITHMS (now empty) names an algorithm whose
+module the port lacks: a recipe entry that names one raises
 NotImplementedError naming the module, at the config check or at
 materialization, and is never quantized with another algorithm.
 """
@@ -151,6 +151,27 @@ REGISTRY.register_config_check_policy(
     default_policy.DEFAULT_CONFIG_CHECK_POLICY,
 )
 
+# --- GPTQ: FULLY_CONNECTED only, Hessian calibration -----------------------
+from ai_edge_quantizer_tpu_torch.algorithms.uniform import gptq  # noqa: E402
+
+_fc_spec = op_library.OP_SPECS[qtyping.OpName.FULLY_CONNECTED]
+REGISTRY.register_op(
+    AlgorithmName.GPTQ,
+    qtyping.OpName.FULLY_CONNECTED,
+    init_qsv_fn=min_max.init_qsvs,
+    calibration_fn=gptq.calibrate,
+    materialize_fn=functools.partial(
+        op_library.materialize_with_spec, _fc_spec,
+        gptq.get_tensor_quant_params),
+    update_qsv_fn=qsv_utils.gptq_and_moving_average_update,
+)
+REGISTRY.register_config_check(
+    AlgorithmName.GPTQ, _min_max_family_config_check
+)
+REGISTRY.register_config_check_policy(
+    AlgorithmName.GPTQ, default_policy.DEFAULT_CONFIG_CHECK_POLICY
+)
+
 # --- HADAMARD_ROTATION (fused kernel) & DECOMPOSED variant -----------------
 from ai_edge_quantizer_tpu_torch.algorithms.uniform import hadamard  # noqa: E402
 
@@ -182,9 +203,7 @@ REGISTRY.register_config_check(
 
 
 # --- Algorithms whose modules are not ported yet ---------------------------
-UNPORTED_ALGORITHMS = {
-    AlgorithmName.GPTQ: 'algorithms/uniform/gptq.py',
-}
+UNPORTED_ALGORITHMS: dict = {}
 
 
 def _refuse_unported(algorithm_key) -> None:

@@ -6,7 +6,9 @@ calibrated min/max (EMA-merged by the calibrator) -> zp/scale.
 Parity: reference `algorithms/uniform_quantize/naive_min_max_quantize.py`.
 
 A copy of `ai_edge_quantizer_tpu/algorithms/uniform/min_max.py`: the port
-keeps its own so that it never imports the JAX package.
+keeps its own so that it never imports the JAX package. `min_max_calibrate`
+builds its valid-range mask only where a value falls outside the range (the
+same min and max; a capture of a full-size model is gigabytes).
 """
 
 from __future__ import annotations
@@ -184,11 +186,16 @@ def min_max_calibrate(
       return
     content = np.asarray(content)
     qsv_shape = (1,) * content.ndim
-    mask = (content > lo) & (content < hi)
-    vals = content[mask] if np.any(mask) else content
+    vmin, vmax = np.min(content), np.max(content)
+    if not (lo < vmin and vmax < hi):
+      # Some value is out of the valid range (or NaN): drop those, as the
+      # mask does; with every value valid the mask keeps them all.
+      mask = (content > lo) & (content < hi)
+      vals = content[mask] if np.any(mask) else content
+      vmin, vmax = np.min(vals), np.max(vals)
     op_qsvs[t.name] = {
-        'min': np.min(vals).reshape(qsv_shape),
-        'max': np.max(vals).reshape(qsv_shape),
+        'min': vmin.reshape(qsv_shape),
+        'max': vmax.reshape(qsv_shape),
     }
 
   inputs_to_ignore = list(inputs_to_ignore or [])

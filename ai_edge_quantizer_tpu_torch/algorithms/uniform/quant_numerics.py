@@ -1,12 +1,14 @@
 """Core affine-quantization numerics (host side, numpy).
 
 A copy of `ai_edge_quantizer_tpu/algorithms/uniform/quant_numerics.py`
-with two changes: blockwise scales round to the fp16 grid through torch's
+with three changes: blockwise scales round to the fp16 grid through torch's
 bfloat16 (`round_to_fp16_grid`), not through `ml_dtypes`, which the port
 does not depend on (both round half to even at each step, so the scales
-are the same bit for bit); and `pack_subbyte` / `unpack_subbyte` make the
+are the same bit for bit); `pack_subbyte` / `unpack_subbyte` make the
 same bytes in fewer passes (a table gather unpacks), which the JAX
-package's serializer gets from its optional C++ packer.
+package's serializer gets from its optional C++ packer; and
+`dequantize_array` multiplies 8- and 16-bit codes in float32, which gives
+its float64 path's values (see there).
 
 The single source of truth for how min/max turn into (zero_point, scale) and
 how tensors quantize/dequantize, shared by every uniform algorithm. Device
@@ -281,6 +283,14 @@ def dequantize_array(
                                params.scale)
     zp = expand_params_rank(qdata.ndim, params.quantized_dimension,
                             params.zero_point)
+  scale, zp = np.asarray(scale), np.asarray(zp)
+  if (qdata.dtype in (np.int8, np.uint8, np.int16)
+      and scale.dtype == np.float32 and zp.dtype.kind in 'iu'
+      and np.all(np.abs(zp) < 2**16)):
+    # q - zp is an integer below 2**17 and each product of it with an f32
+    # scale is exact in f64, so one f32 multiply rounds it as the f64 path
+    # does: the same values in a quarter of the memory traffic.
+    return (qdata.astype(np.float32) - zp.astype(np.float32)) * scale
   return ((qdata.astype(np.float64) - zp) * scale).astype(np.float32)
 
 

@@ -20,8 +20,15 @@ residual add as its epilogue). The int4-group KV cache needs no
 fusion: its INT4G_ATTENTION ops run through `_eval_op` (ops/impl.py),
 whose uint8 pools and bf16 sidecar pass `_run_signature` and
 `_store_outputs` uncast, as in the JAX executor; no attention or block
-unit matches such a graph. The MoE fusion, capture mode, the calibration
-runners and the SRQ integer paths are not ported yet.
+unit matches such a graph. The public runners are ported too:
+`signature_runner` (with capture mode, which keeps every tensor and runs
+each fused unit op by op unless `serving_fastpaths` keeps the fused
+kernels) and `stats_runner` (min, max and GPTQ Hessians reduced on the
+device), which the calibrator and the model validator drive, and the
+static-range (SRQ) integer paths: the FC's int8 x int8 product through
+`qmatmul.srq_matmul` (its scaled-accumulator fallback for other
+activations) and `_try_srq_int_bmm`. The MoE fusion, control flow and
+the SRQ convolution are not ported yet.
 
 Differences from the JAX executor:
   * Options are constructor arguments, not environment variables, with
@@ -35,7 +42,8 @@ Differences from the JAX executor:
     `attn_oproj` (AEQT_ATTN_QKV, AEQT_ATTN_OPROJ: the attention block's two
     halves, on by default as there), `attn_compute` (AEQT_ATTN_COMPUTE:
     'f32', 'bf16' or 'int8', the decode attentions' arithmetic; see
-    below). Defaults are the
+    below), `srq_int` (AEQT_SRQ_INT: the SRQ integer paths). Defaults are
+    the
     values bench.py sets (attn_dynlen, cache_write_inplace, norm_fusion and
     attn_block off, as bench.py leaves them);
     `JAX_DEFAULT_OPTIONS` holds the JAX executor's own defaults (every
@@ -50,6 +58,9 @@ Differences from the JAX executor:
     and every other cache write is functional).
   * PyTorch runs eagerly: there is no jit, and a step makes no host sync
     (scales that are IR constants stay Python floats).
+  * The runners return numpy arrays on the host, as the JAX runners'
+    `jax.device_get` does; a bfloat16 tensor comes back as float32 (numpy
+    has no bfloat16), which holds every bfloat16 value exactly.
   * Where the JAX executor asks "is the backend a TPU" before a Pallas
     kernel, the port asks nothing: every ported kernel's wrapper launches
     its CUDA kernel for a CUDA tensor and runs its plain version for a CPU
@@ -71,6 +82,7 @@ Differences from the JAX executor:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -150,6 +162,29 @@ def _to_device(value, device) -> torch.Tensor:
   return torch.as_tensor(arr, device=device)
 
 
+@contextlib.contextmanager
+def full_f32_matmul():
+  """Within it, float32 matmuls on a CUDA device run in full float32, not
+  TF32, whatever the process set (the JAX package's Precision.HIGHEST)."""
+  saved = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = False
+  try:
+    yield
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _to_host(tensors: dict) -> dict:
+  """{name: tensor} -> {name: numpy array} (bfloat16 as float32)."""
+  out = {}
+  for name, t in tensors.items():
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+      t = t.to(torch.float32)
+    out[name] = t.cpu().numpy()
+  return out
+
+
 class GraphExecutor:
   """Executes Graph signatures op by op on one torch device."""
 
@@ -169,7 +204,8 @@ class GraphExecutor:
                attn_block: bool = False,
                attn_qkv: bool = True,
                attn_oproj: bool = True,
-               attn_compute: str = 'f32'):
+               attn_compute: str = 'f32',
+               srq_int: bool = True):
     """activation_dtype: 'bfloat16' (serving mode, the bench's setting) or
     'float32' (bit-faithful to the offline pipeline). attn_writeback:
     'stale', 'splice' or None. decode_block: fuse each matched
@@ -183,7 +219,10 @@ class GraphExecutor:
     attn_block: the norm + QKV + RoPE prologue (with attn_qkv) and the
     attention + out-projection + residual epilogue (with attn_oproj) each
     run as one fused call where they match. attn_compute: 'f32', 'bf16' or
-    'int8', the decode attentions' compute mode."""
+    'int8', the decode attentions' compute mode. srq_int: static-range FCs
+    and batch matmuls over int8 activations contract in integers (off: the
+    FC dequantizes its activation first, the batch matmul runs as a float
+    op)."""
     self.device = torch.device(device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(
@@ -209,6 +248,7 @@ class GraphExecutor:
     self.attn_qkv = attn_qkv
     self.attn_oproj = attn_oproj
     self.attn_compute = attn_compute
+    self.srq_int = srq_int
     self._act_dtype = quant_arith.STORAGE_TORCH_DTYPES[activation_dtype]
     # Constant tensors, keyed (subgraph_idx, tensor_id), in storage dtype;
     # the tensors that alias one buffer (the signatures of a multi-
@@ -1193,6 +1233,27 @@ class GraphExecutor:
 
   # -- public API -----------------------------------------------------------
 
+  def signature_runner(self, signature_key: str = 'serving_default',
+                       capture_all: bool = False,
+                       serving_fastpaths: bool = False):
+    """A callable(inputs: dict) -> dict of outputs (or all tensors), as
+    numpy arrays on the host.
+
+    capture_all works with packed serving weights: packed int4 FC weights
+    are returned as their unpacked true-shape int8 view, so the dual-model
+    validator can assert per-tensor error bounds on the exact production
+    configuration. serving_fastpaths additionally keeps the fused kernels
+    engaged under capture (their internal intermediates are simply absent
+    from the capture dict)."""
+    sig = self.graph.signature_by_key(signature_key)
+
+    def runner(inputs: dict) -> dict:
+      return _to_host(self._run_signature(
+          sig.subgraph_index, signature_key, self._weights, inputs,
+          capture_all=capture_all, serving_fastpaths=serving_fastpaths))
+
+    return runner
+
   def __call__(self, inputs: dict,
                signature_key: str = 'serving_default') -> dict:
     """Run one signature: {user input name: array} -> {output name:
@@ -1201,16 +1262,102 @@ class GraphExecutor:
     return self._run_signature(sig.subgraph_index, signature_key,
                                self._weights, inputs)
 
+  def stats_runner(self, signature_key: str = 'serving_default',
+                   hessian_tensor_names=()):
+    """On-device calibration statistics: callable(inputs) -> {name: qsv}.
+
+    min/max (and, for names in `hessian_tensor_names`, the GPTQ Hessian
+    2/n * X^T X) are reduced on the device in the forward pass, so only
+    the statistics cross to the host instead of every intermediate
+    tensor."""
+    sig = self.graph.signature_by_key(signature_key)
+    hessians = tuple(sorted(hessian_tensor_names))
+
+    def runner(inputs: dict) -> dict:
+      return self._run_signature_stats(sig.subgraph_index, signature_key,
+                                       hessians, self._weights, inputs)
+
+    return runner
+
+  def _run_signature_stats(self, sg_idx: int, signature_key: str,
+                           hessian_names: tuple, weights: dict,
+                           inputs: dict) -> dict:
+    # Valid-range mask mirrors host-side calibration (min_max.py): values
+    # outside +-3e38 (inf/overflow) are excluded unless nothing survives.
+    lo, hi = -3e38, 3e38
+    all_tensors = self._run_signature(sg_idx, signature_key, weights, inputs,
+                                      capture_all=True)
+    sg = self.graph.subgraphs[sg_idx]
+    const_names = {
+        t.name for t in sg.tensors
+        if t.buffer >= 0 and self.graph.buffers[t.buffer].data is not None
+    }
+    names, ndims, extremes, hessian = [], [], [], {}
+    for name, v in all_tensors.items():
+      if name in const_names or not v.is_floating_point():
+        continue
+      v32 = v.to(torch.float32)
+      mask = (v32 > lo) & (v32 < hi)
+      any_valid = torch.any(mask)
+      inf = torch.full((), float('inf'), device=v32.device)
+      vmin = torch.where(any_valid, torch.amin(torch.where(mask, v32, inf)),
+                         torch.amin(v32))
+      vmax = torch.where(any_valid, torch.amax(torch.where(mask, v32, -inf)),
+                         torch.amax(v32))
+      names.append(name)
+      ndims.append(v.dim())
+      extremes.append(torch.stack([vmin, vmax]))
+      if name in hessian_names:
+        x = v32.reshape(-1, v32.shape[-1])
+        n = v.shape[0]  # leading dim = sample count (gptq.calibrate parity)
+        with full_f32_matmul():
+          hessian[name] = ((2.0 / n) * (x.T @ x), n)
+    stats = {}
+    if not names:
+      return stats
+    # One copy to the host for every tensor's min and max.
+    extremes = torch.stack(extremes).cpu().numpy()
+    for name, ndim, (vmin, vmax) in zip(names, ndims, extremes):
+      shape1 = (1,) * ndim
+      entry = {'min': vmin.reshape(shape1), 'max': vmax.reshape(shape1)}
+      if name in hessian:
+        h, n = hessian[name]
+        entry['hessian'] = h.cpu().numpy()
+        entry['num_samples'] = np.asarray(n, np.int32)
+      stats[name] = entry
+    return stats
+
   # -- evaluation -----------------------------------------------------------
 
   def _run_signature(self, sg_idx: int, signature_key: str, weights: dict,
-                     inputs: dict) -> dict:
+                     inputs: dict, capture_all: bool = False,
+                     serving_fastpaths: bool = False) -> dict:
     sig = self.graph.signature_by_key(signature_key)
     sg = self.graph.subgraphs[sg_idx]
     env: dict = {}
     for (w_sg, w_tid), arr in weights.items():
       if w_sg == sg_idx:
         env[w_tid] = arr
+    if capture_all:
+      # MLP-fused down weights live only in the grouped kernel layout;
+      # rebuild the canonical packed view so the unrolled chain and the
+      # validator's per-tensor capture still see the weight.
+      for (f_sg, _), info in self._mlp_fusions.items():
+        if f_sg != sg_idx:
+          continue
+        wd_tid = info['wd_key'][1]
+        if wd_tid not in env:
+          env[wd_tid] = packed_qmatmul.pack_int4_split(
+              mlp_lib.unpack_int4_split_grouped(
+                  env[info['wd_grouped_tid']], info['bf']))
+        split = info.get('wgu_split')
+        if split is not None:
+          g_tid, u_tid, f = split
+          synth = env[info['wgu_key'][1]]
+          if g_tid not in env:
+            env[g_tid] = synth[:f]
+          if u_tid not in env:
+            env[u_tid] = synth[f:]
     for user_name, tid in sig.inputs.items():
       if user_name not in inputs:
         raise ValueError(
@@ -1226,36 +1373,57 @@ class GraphExecutor:
         val = val.to(self._act_dtype)
       env[tid] = val
 
+    # capture_all keeps every intermediate visible (fusions unrolled)
+    # unless serving_fastpaths pins the fused kernels.
+    fused = not capture_all or serving_fastpaths
     for op_idx, op in enumerate(sg.ops):
       key = (sg_idx, op_idx)
-      block = self._block_fusions.get(key)
-      if block is not None:
-        self._eval_fused_block(sg, block, env)
-        continue
-      if key in self._block_skip:
-        continue  # folded into a decode-block unit
-      fusion = self._attn_fusions.get(key)
-      if fusion is not None:
-        self._eval_fused_attention(sg_idx, sg, fusion, env)
-        continue
-      mlp = self._mlp_fusions.get(key)
-      if mlp is not None:
-        self._eval_fused_mlp(sg_idx, sg, mlp, env)
-        continue
-      head = self._head_fusions.get(key)
-      if head is not None:
-        self._eval_fused_head(sg_idx, sg, head, env)
-        continue
-      # Keyed at its RMS_NORM, so it comes before the norm skip.
-      qkv = self._qkv_fusions.get(key)
-      if qkv is not None:
-        self._eval_fused_qkv(sg_idx, sg, qkv, env)
-        continue
-      if (key in self._attn_skip or key in self._mlp_skip
-          or key in self._head_skip or key in self._qkv_skip
-          or key in self._norm_skip):
-        continue  # folded into a fused call
+      if fused:
+        block = self._block_fusions.get(key)
+        if block is not None:
+          self._eval_fused_block(sg, block, env)
+          continue
+        if key in self._block_skip:
+          continue  # folded into a decode-block unit
+        fusion = self._attn_fusions.get(key)
+        if fusion is not None:
+          self._eval_fused_attention(sg_idx, sg, fusion, env)
+          continue
+        mlp = self._mlp_fusions.get(key)
+        if mlp is not None:
+          self._eval_fused_mlp(sg_idx, sg, mlp, env)
+          continue
+        head = self._head_fusions.get(key)
+        if head is not None:
+          self._eval_fused_head(sg_idx, sg, head, env)
+          continue
+        # Keyed at its RMS_NORM, so it comes before the norm skip.
+        qkv = self._qkv_fusions.get(key)
+        if qkv is not None:
+          self._eval_fused_qkv(sg_idx, sg, qkv, env)
+          continue
+        if (key in self._attn_skip or key in self._mlp_skip
+            or key in self._head_skip or key in self._qkv_skip
+            or key in self._norm_skip):
+          continue  # folded into a fused call
       self._eval_op(sg_idx, sg, op, env)
+
+    if capture_all:
+      out = {}
+      for tid, t in enumerate(sg.tensors):
+        if tid not in env:
+          continue
+        val = env[tid]
+        key = (sg_idx, tid)
+        if key in self._packed_int4_keys:
+          # Unpacked true-shape int8 view so packed serving weights stay
+          # validator-visible per tensor.
+          val = packed_qmatmul.unpack_int4_split(val)
+          true_n = self._packed_pad_n.get(key)
+          if true_n is not None:
+            val = val[:true_n]
+        out[t.name] = val
+      return out
     return {name: env[tid] for name, tid in sig.outputs.items()}
 
   def _dequant_view(self, sg: ir.Subgraph, tid: int, env: dict):
@@ -1352,6 +1520,14 @@ class GraphExecutor:
           operand, update, env[op.inputs[2]])
       return
 
+    if (
+        self.use_fused_kernels
+        and opcode == 'BATCH_MATMUL'
+        and self.srq_int
+        and self._try_srq_int_bmm(sg, op, env)
+    ):
+      return
+
     impl_fn = ops_impl.OPS.get(opcode)
     if impl_fn is None:
       raise NotImplementedError(f'No executor impl for op {opcode!r}.')
@@ -1371,6 +1547,52 @@ class GraphExecutor:
     if not isinstance(result, tuple):
       result = (result,)
     self._store_outputs(sg, op, result, env)
+
+  def _try_srq_int_bmm(self, sg: ir.Subgraph, op: ir.Op,
+                       env: dict) -> bool:
+    """Integer SRQ batched matmul (SRQ attention score/context matmuls).
+
+    Both operands are int8 activations with per-tensor params; the zero
+    points expand in closed form through runtime row/column sums:
+
+      (A - za)(B - zb) = AB - za*colsum(B) - zb*rowsum(A) + K*za*zb
+
+    so the contraction stays int8 x int8 -> int32 (exact, as
+    `qmatmul.int_bmm_exact` computes it)."""
+    a_tid, b_tid = op.inputs[0], op.inputs[1]
+    if a_tid < 0 or b_tid < 0:
+      return False
+    a_t, b_t = sg.tensors[a_tid], sg.tensors[b_tid]
+    aq, bq = a_t.quantization, b_t.quantization
+    a, b = env.get(a_tid), env.get(b_tid)
+    if (
+        aq is None or bq is None or a is None or b is None
+        or a.dtype != torch.int8 or b.dtype != torch.int8
+        or np.asarray(aq.scale).size != 1 or np.asarray(bq.scale).size != 1
+    ):
+      return False
+    if op.attrs.get('adj_x', False):
+      a = a.transpose(-1, -2)
+    if op.attrs.get('adj_y', False):
+      b = b.transpose(-1, -2)
+    k = a.shape[-1]
+    za = int(np.asarray(aq.zero_point).reshape(()))
+    zb = int(np.asarray(bq.zero_point).reshape(()))
+    acc = qmm.int_bmm_exact(a, b)
+    if zb:
+      acc = acc - zb * torch.sum(a.to(torch.int32), dim=-1, keepdim=True,
+                                 dtype=torch.int32)
+    if za:
+      acc = acc - za * torch.sum(b.to(torch.int32), dim=-2, keepdim=True,
+                                 dtype=torch.int32)
+    if za and zb:
+      acc = acc + k * za * zb
+    s_ab = (float(np.asarray(aq.scale).reshape(()))
+            * float(np.asarray(bq.scale).reshape(())))
+    y = acc.to(torch.float32) * torch.full((), s_ab, dtype=torch.float32,
+                                           device=acc.device)
+    self._store_outputs(sg, op, (y,), env)
+    return True
 
   def _fc_params(self, sg_idx: int, w_tid: int, q) -> tuple:
     """(scale, zero point or None if symmetric) of an FC weight as device
@@ -1739,21 +1961,37 @@ class GraphExecutor:
     x_val = env[op.inputs[0]]
     scale, zero_point = self._fc_params(sg_idx, op.inputs[1], q)
     symmetric = zero_point is None
-    if x_t.quantization is not None:
-      raise NotImplementedError(
-          'Static-range (integer activation) FULLY_CONNECTED is not ported '
-          'yet.')
-    if weight_only:
-      # Float math against the dequantized weights, never a kernel (the
-      # JAX executor's prefer_pallas=False).
-      y = qmm.qmatmul_ref(x_val, w_q, scale, zero_point=zero_point,
-                          bias=bias, block_size=q.block_size)
-    elif symmetric and q.block_size == 0:
-      # DRQ: the activation quantized per row on the device.
-      y = qmm.drq_matmul(x_val, w_q, scale, bias=bias)
+    if x_t.quantization is None:
+      if weight_only:
+        # Float math against the dequantized weights, never a kernel (the
+        # JAX executor's prefer_pallas=False).
+        y = qmm.qmatmul_ref(x_val, w_q, scale, zero_point=zero_point,
+                            bias=bias, block_size=q.block_size)
+      elif symmetric and q.block_size == 0:
+        # DRQ: the activation quantized per row on the device.
+        y = qmm.drq_matmul(x_val, w_q, scale, bias=bias)
+      else:
+        y = qmm.qmatmul(x_val, w_q, scale, zero_point=zero_point, bias=bias,
+                        block_size=q.block_size)
     else:
-      y = qmm.qmatmul(x_val, w_q, scale, zero_point=zero_point, bias=bias,
-                      block_size=q.block_size)
+      # SRQ: integer activation.
+      xq = x_t.quantization
+      if (
+          symmetric and q.block_size == 0
+          and x_val.dtype == torch.int8 and w_q.dtype == torch.int8
+          and np.asarray(xq.scale).size == 1
+          and self.srq_int
+      ):
+        # int8 x int8 -> int32, the zero point folded through the weight
+        # row sums (the reference's QS8 semantics).
+        y = qmm.srq_matmul(
+            x_val, np.asarray(xq.scale).reshape(()),
+            np.asarray(xq.zero_point).reshape(()), w_q, scale, bias=bias)
+      else:
+        # Scaled-accumulator fallback (int16 acts, blockwise, asym w).
+        x_f = quant_arith.dequantize(x_val, xq)
+        y = qmm.qmatmul(x_f, w_q, scale, zero_point=zero_point, bias=bias,
+                        block_size=q.block_size)
     y = ops_impl.fused_activation(
         y, op.attrs.get('fused_activation', 'NONE'))
     self._store_outputs(sg, op, (y,), env)

@@ -97,3 +97,26 @@ def dus_row_inplace(operand: torch.Tensor, update: torch.Tensor,
 
 dus_row_inplace.launches = 0
 dus_row_inplace.plain_calls = 0
+
+# aeqt_cache_row_write_plan's fields: the row write's grid and block.
+PLAN_FIELDS = ('blocks', 'threads')
+
+
+def plan(prefix: int, row_bytes: int) -> dict:
+  """The launch `dus_row_inplace` makes for `prefix` rows of `row_bytes`."""
+  return _build.plan('cache_row_write', 'aeqt_cache_row_write_plan',
+                     'dus_row_inplace', prefix, row_bytes,
+                     fields=PLAN_FIELDS)
+
+
+def launch_floor(operand: torch.Tensor) -> None:
+  """An empty kernel launched as `dus_row_inplace` launches its kernel for
+  `operand` (same grid, block and programmatic dependent launch): the
+  launch floor a study times beside it. Counts nothing."""
+  s = operand.shape[-2]
+  prefix = operand.numel() // (s * operand.shape[-1])
+  fn = _build.entry('cache_row_write', 'aeqt_cache_row_write_floor',
+                    [ctypes.c_longlong, _build.I, _build.P])
+  _build.check(fn(prefix, operand.shape[-1] * operand.element_size(),
+                  _build.stream_ptr(operand.device)),
+               'dus_row_inplace floor', f'{tuple(operand.shape)}')

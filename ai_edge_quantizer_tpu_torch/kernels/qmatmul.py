@@ -3,7 +3,8 @@
 Port of `ai_edge_quantizer_tpu/kernels/qmatmul.py`: the XLA references
 (`qmatmul_ref`, `dynamic_quantize_activation`, `drq_matmul_ref`), which the
 JAX package runs wherever no Pallas kernel applies, and the dispatchers
-`drq_matmul` and `qmatmul` with the JAX package's gates. Where a gate
+`drq_matmul` and `qmatmul` with the JAX package's gates, and the
+static-range `srq_matmul`. Where a gate
 passes, the dispatcher calls the port of the Pallas kernel
 (`kernels/int_qmatmul.py`), which launches its CUDA kernel for a CUDA
 tensor and runs its plain version for a CPU tensor; where it fails, the
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 _EXACT_CHUNK = 1024
@@ -36,6 +38,19 @@ def int_matmul_exact(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
   for k0 in range(0, k, _EXACT_CHUNK):
     part = torch.matmul(a[..., k0:k0 + _EXACT_CHUNK].to(torch.float32),
                         b_t[:, k0:k0 + _EXACT_CHUNK].to(torch.float32).T)
+    part = part.to(torch.int32)
+    acc = part if acc is None else acc + part
+  return acc
+
+
+def int_bmm_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Exact int32 result of the batched a [..., M, K] @ b [..., K, N] for
+  int8-range ints (batch dims broadcast, as torch.matmul's)."""
+  k = a.shape[-1]
+  acc = None
+  for k0 in range(0, k, _EXACT_CHUNK):
+    part = torch.matmul(a[..., k0:k0 + _EXACT_CHUNK].to(torch.float32),
+                        b[..., k0:k0 + _EXACT_CHUNK, :].to(torch.float32))
     part = part.to(torch.int32)
     acc = part if acc is None else acc + part
   return acc
@@ -135,6 +150,39 @@ def drq_matmul(
     return int_qmatmul.qmatmul_int8_drq(x, w_q, w_scale, bias=bias)
   return drq_matmul_ref(x, w_q, w_scale, bias=bias,
                         act_num_bits=act_num_bits)
+
+
+def srq_matmul(
+    x_q: torch.Tensor,
+    x_scale,
+    x_zero_point,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+  """Static-range integer matmul: int8 x int8 -> int32.
+
+  x_q [..., K] int8 with per-tensor (x_scale, x_zero_point); w_q [N, K]
+  int8 symmetric with per-channel (or scalar) w_scale. The activation
+  zero point enters in closed form through the per-channel weight row
+  sums:
+
+      y = (x_q . w_q^T  -  zp_x * rowsum(w_q)) * (s_x * s_w)  + bias
+
+  in the JAX function's order (the two scales multiplied first, in
+  float32). The int32 accumulator is exact (`int_matmul_exact`).
+  """
+  acc = int_matmul_exact(x_q, w_q)
+  zp = int(np.asarray(x_zero_point).reshape(()))
+  row_sums = torch.sum(w_q.to(torch.int32), dim=1, dtype=torch.int32)
+  acc = acc - zp * row_sums
+  s_x = torch.full((), float(np.asarray(x_scale, np.float32).reshape(())),
+                   dtype=torch.float32, device=acc.device)
+  y = acc.to(torch.float32) * (s_x * w_scale.to(torch.float32).reshape(-1))
+  if bias is not None:
+    y = y + bias.to(torch.float32)
+  return y.to(out_dtype)
 
 
 def qmatmul(

@@ -1,10 +1,11 @@
 """PyTorch implementations of the graph ops on the Gemma decode path.
 
 Port of `ai_edge_quantizer_tpu/ops/impl.py`, same `register` pattern. Only
-the opcodes that the Gemma decode and serving graphs use are here (with
-the int4-group KV cache's INT4G_ATTENTION and INT4G_ATTENTION_SCATTER,
-and the HADAMARD_ROTATION op that the `*_hadamard` recipes insert); the
-executor raises NotImplementedError for any other opcode.
+the opcodes that the Gemma decode and serving graphs and the encoder
+(`models/encoder.py`: GATHER, TANH) use are here (with the int4-group KV
+cache's INT4G_ATTENTION and INT4G_ATTENTION_SCATTER, and the
+HADAMARD_ROTATION op that the `*_hadamard` recipes insert); the executor
+raises NotImplementedError for any other opcode.
 
 Type promotion follows JAX, not torch: a binary op over two tensors
 promotes both to their common dtype even when one of them is 0-d (torch
@@ -139,6 +140,15 @@ def slice_op(ctx: OpContext, x, begin=None, size=None):
   return x[idx]
 
 
+@register('GATHER')
+def gather(ctx: OpContext, x, indices):
+  """jnp.take(x, indices, axis): out shape x[:axis] + indices + x[axis+1:]."""
+  ax = int(ctx.attrs.get('axis', 0)) % x.dim()
+  rows = torch.movedim(x, ax, 0)[indices.to(torch.int64)]
+  return torch.movedim(rows, tuple(range(indices.dim())),
+                       tuple(range(ax, ax + indices.dim())))
+
+
 @register('BROADCAST_TO')
 def broadcast_to(ctx: OpContext, x, shape=None):
   return x.expand(ctx.out_tensor(0).shape)
@@ -187,6 +197,15 @@ _register_binary('GREATER_EQUAL', torch.ge)
 @register('CAST')
 def cast(ctx: OpContext, x):
   return x.to(quant_arith.STORAGE_TORCH_DTYPES[ctx.out_tensor(0).dtype])
+
+
+def _register_unary(name: str, fn):
+  @register(name)
+  def _impl(ctx: OpContext, x, _fn=fn):
+    return _fn(x)
+
+
+_register_unary('TANH', torch.tanh)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,9 @@ Graph IR model. The sole class a typical user touches.
 Parity: reference `quantizer.py` (`Quantizer` / `QuantizationResult`).
 
 A copy of `ai_edge_quantizer_tpu/quantizer.py`, numpy only like the
-pipeline it drives. `calibrate` and `validate` need the calibrator and the
-model validator, which are not ported yet: they raise NotImplementedError
-(`need_calibration` still refuses static-range recipes in `quantize`).
+pipeline it drives, but for `calibrate` and `validate`, which run the
+models in the port's executor: on the card unless the caller passes
+`device='cpu'`.
 """
 
 from __future__ import annotations
@@ -21,8 +21,10 @@ from typing import Optional, Union
 from ai_edge_quantizer_tpu_torch import qtyping
 from ai_edge_quantizer_tpu_torch.algorithms import manager as algorithm_manager
 from ai_edge_quantizer_tpu_torch.algorithms.registry import AlgorithmName
+from ai_edge_quantizer_tpu_torch.execution import model_validator
 from ai_edge_quantizer_tpu_torch.graph import ir
 from ai_edge_quantizer_tpu_torch.graph import serialize as graph_serialize
+from ai_edge_quantizer_tpu_torch.pipeline import calibrator as calibrator_lib
 from ai_edge_quantizer_tpu_torch.pipeline import model_modifier
 from ai_edge_quantizer_tpu_torch.pipeline import params_generator
 from ai_edge_quantizer_tpu_torch.recipe import default_policy
@@ -134,17 +136,24 @@ class Quantizer:
       calibration_data: dict,
       previous_calibration_result: Optional[_CalibrationResult] = None,
       calibration_mode: str = 'capture',
+      device='cuda',
   ) -> _CalibrationResult:
     """calibration_data: {signature_key: iterable of {input_name: array}}.
 
     calibration_mode='device_stats' reduces min/max (and GPTQ Hessians) on
-    device inside the forward program — the profiler-based calibrator
-    analog (ref calibrator.py:590-686); use it for large calibration
-    batches where transferring every intermediate tensor is the bottleneck.
+    device in the forward pass — the profiler-based calibrator analog
+    (ref calibrator.py:590-686); use it for large calibration batches
+    where transferring every intermediate tensor is the bottleneck.
+    device: the torch device the float model runs on.
     """
     if not self.need_calibration:
       return {}
-    raise _unported('pipeline/calibrator.py')
+    calib = calibrator_lib.Calibrator(self.float_model, mode=calibration_mode,
+                                      device=device)
+    if previous_calibration_result is not None:
+      calib.load_model_qsvs(previous_calibration_result)
+    calib.calibrate(calibration_data, self._recipe_manager)
+    return calib.get_model_qsvs()
 
   def _check_qsv_sufficient(self, calibration_result: _CalibrationResult):
     empty = {k for k, v in calibration_result.items() if not v}
@@ -195,12 +204,26 @@ class Quantizer:
       num_samples: int = 4,
       target_executor=None,
       use_serving_paths: bool = False,
-  ):
+      device='cuda',
+  ) -> model_validator.ComparisonResult:
     """target_executor/use_serving_paths: validate a pre-configured
     serving executor (packed weights, fused kernels) per tensor instead
-    of a fresh plain executor."""
-    self._target_model_for_validation()
-    raise _unported('execution/model_validator.py')
+    of a fresh plain executor. device: where the models run."""
+    target = self._target_model_for_validation()
+    if test_data is None:
+      from ai_edge_quantizer_tpu_torch.utils import test_data as test_data_lib
+      test_data = test_data_lib.create_random_dataset(
+          self.float_model, num_samples=num_samples)
+    return model_validator.compare_model(
+        self.float_model,
+        target,
+        test_data,
+        error_metric=error_metrics,
+        compare_outputs_only=compare_outputs_only,
+        target_executor=target_executor,
+        use_serving_paths=use_serving_paths,
+        device=device,
+    )
 
   def _target_model_for_validation(self) -> ir.Graph:
     if self._result.quantized_model is not None:
@@ -210,8 +233,3 @@ class Quantizer:
     raise ValueError(
         'No quantized model available: run quantize() or construct with '
         'previous_quantized_model.')
-
-
-def _unported(module: str) -> NotImplementedError:
-  return NotImplementedError(
-      f'ai_edge_quantizer_tpu/{module} is not ported yet.')

@@ -139,7 +139,7 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      quantization (DEFAULT_MODE: add_dynamic_config with every FC int4,
      served with executor.JAX_DEFAULT_OPTIONS, the JAX executor's default
      mode), these four at 2 layers (QUANT_LAYERS), and the same in blocks
-     of 128 (BLOCKWISE_MODE, 18 layers, served with JAX_DEFAULT_OPTIONS
+     of 128 (BLOCKWISE_MODE, 9 layers, served with JAX_DEFAULT_OPTIONS
      and attn_dynlen):
      Quantizer(graph, recipe).quantize(), export_model
      to a temporary .aeqg, serialize.load_graph (every buffer and
@@ -157,6 +157,21 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      in the mode, as many launches as the f32 server's); the live-prefix
      attention's device time in the blockwise server's chunk of ticks and
      the masked attention's in the default-mode servers' (chunk_device_ms);
+  4c. static range (static_range_phase): bench.py's bench_encoder at full
+     width and depth (BERT_BASE_LITE: D 768, 12 heads, FFN 3072, T 512, 4
+     layers, vocab 30528; batch 32, weights from seed 0) through the
+     port's entry points: Quantizer.calibrate in device_stats mode (4
+     samples) and in capture mode (one; min and max equal to device_stats'
+     on it), default_a8w8 quantized and run (sequences/s, device busy),
+     then op by op against the CPU port at batch 2 (the static-range FC and
+     BATCH_MATMUL codes equal, other ops' one-step flips within
+     SRQ_FLIP_SHARE), default_a16w8 end to end, validate() of the a8w8
+     model (at batch 2), dynamic_wi4_afp32_gptq_octav calibrated,
+     quantized and run with its Newton-Schulz Hessian inverse on the card
+     against the host's, and compare_model(..., use_serving_paths=True)
+     of the quantizer phase's 2-layer gemma_mixed48 serving graph (the
+     int8 DRQ, MLP, head and lengths-attention kernels launched under
+     capture); host seconds of each step;
   5. card against CPU: the decode step at batch 8 with the decode block
      off (18 layers) and on (4 layers; the block is one op) and the int4g
      step (4 layers), and the server's first prefill pass and decode tick
@@ -2122,7 +2137,10 @@ def cache_row_kernel(torch, port, cfg, dev, timer, gen):
   bench.py's decode shape (a [256, 1, 1024, 256] int8 pool, one row): the
   pool bit for bit, written in its own storage, at rows 0, 31, 32, 896 and
   1023 and at starts that lax clips (5000 and -3 on the row axis, 7 on a
-  full-extent axis). Timed at row 896 beside one slice assignment."""
+  full-extent axis). Timed at row 896 beside one slice assignment and
+  beside its launch floor (cache.launch_floor: an empty kernel launched
+  with the same grid, block and programmatic dependent launch); its
+  launch plan logged."""
   cache = port['cache']
   NK, H, S = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
   pool = torch.randint(-127, 128, (BENCH_B, NK, S, H), generator=gen,
@@ -2152,7 +2170,9 @@ def cache_row_kernel(torch, port, cfg, dev, timer, gen):
 
   nbytes = 2 * upd.numel() + st.numel() * 4
   b_ms, b_by = bound(nbytes, 0, F32_OPS_PER_S)
-  log(f'kernel dus_row_inplace ok: bit for bit, in place, starts {cases}')
+  launch = cache.plan(BENCH_B * NK, H)
+  log(f'kernel dus_row_inplace ok: bit for bit, in place, starts {cases}; '
+      f'launch {launch}')
   return {
       'name': 'dus_row_inplace', 'route': 'cuda',
       'source': 'ai_edge_quantizer_tpu_torch/kernels/csrc/cache_row_write.cu',
@@ -2165,7 +2185,9 @@ def cache_row_kernel(torch, port, cfg, dev, timer, gen):
       'plain_ms': timer(lambda: cache.dus_row_inplace_plain(work, upd, st)),
       'bound_ms': b_ms, 'bound_by': b_by,
       'library_ms': timer(assign),
-      'library': 'one slice assignment pool[:, :, p:p+1] = update (host p)'}
+      'library': 'one slice assignment pool[:, :, p:p+1] = update (host p)',
+      'launch_floor_ms': timer(lambda: cache.launch_floor(work)),
+      'plan': launch}
 
 
 def attention_lengths_mask(torch, lengths, s, dtype):
@@ -4667,8 +4689,10 @@ QUANT_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32', 'gemma_mixed48_hr',
 # Depths cut to keep the script's time down (the model's widths never
 # are): quantizer_phase serves the four EARLIER_RECIPES' quantized paths
 # at 2 layers (their kernels are checked at full size by int_weight_kernels,
-# kblock_kernel and default_mode_kernels) and BLOCKWISE_MODE at the model's
-# depth; quantizer_cpu_phase holds each recipe's graph op by op at
+# kblock_kernel and default_mode_kernels) and BLOCKWISE_MODE at 9 (half the
+# model's depth since the static-range phase came in: its float graph,
+# quantization, 4.2 GB .aeqg and server took about 100 s at 18);
+# quantizer_cpu_phase holds each recipe's graph op by op at
 # QUANT_CPU_LAYERS layers, reusing the graph quantizer_phase made where
 # the depths agree. The host's quantization dominates both (the tied
 # head's 524M weights at any depth; for gemma_mixed48_hr a 512-wide
@@ -4676,7 +4700,7 @@ QUANT_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32', 'gemma_mixed48_hr',
 # machine to another.
 EARLIER_RECIPES = ('gemma_mixed48', 'gemma_mixed48_b32', 'gemma_mixed48_hr',
                    DEFAULT_MODE)
-QUANT_LAYERS = dict.fromkeys(EARLIER_RECIPES, 2)
+QUANT_LAYERS = {**dict.fromkeys(EARLIER_RECIPES, 2), BLOCKWISE_MODE: 9}
 QUANT_CPU_LAYERS = dict.fromkeys(QUANT_RECIPES, 2)
 
 
@@ -4789,7 +4813,8 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   quantized_launches has them. Host time and peak host memory (numpy
   allocations, tracemalloc) of the build and of each quantization. kept: a
   dict that takes each quantized graph made at its QUANT_CPU_LAYERS depth
-  with B slots, for quantizer_cpu_phase."""
+  with B slots, for quantizer_cpu_phase, and under 'float' gemma_mixed48's
+  float graph, for static_range_phase and quantizer_cpu_phase."""
   gemma, batching = port['gemma'], port['batching']
   serialize, progress = port['serialize'], port['progress_utils']
   results, graphs = {}, {}
@@ -4816,8 +4841,9 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
     graphs[layers] = graph
     return graph
 
-  # The recipes at the model's depth first: its float graph is built once.
-  order = sorted(QUANT_RECIPES, key=lambda r: r in QUANT_LAYERS)
+  # The recipes by depth: each depth's float graph is built once.
+  order = sorted(QUANT_RECIPES,
+                 key=lambda r: QUANT_LAYERS.get(r, cfg.num_layers))
   with tempfile.TemporaryDirectory() as tmp:
     for recipe in order:
       cfg_r = dataclasses.replace(
@@ -4850,6 +4876,8 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       if (kept is not None and slots == B
           and cfg_r.num_layers == QUANT_CPU_LAYERS[recipe]):
         kept[recipe] = result.quantized_model
+        if recipe == 'gemma_mixed48':
+          kept['float'] = graph
       del result
       gc.collect()
       t0 = time.monotonic()
@@ -4923,11 +4951,268 @@ def default_mode_servers(torch, port, kernels, cfg, dev, loaded, f32_served,
   return out
 
 
+# The static-range phase: bench.py's bench_encoder (BERT_BASE_LITE, batch
+# 32 of 512 tokens, 4 layers, weights from seed 0, calibration over
+# create_random_dataset's 4 samples in device_stats mode, 16 timed calls).
+ENC_BATCH, ENC_STEPS, ENC_CALIB_SAMPLES = 32, 16, 4
+# Batch of the static-range encoder's card-against-CPU run (full width).
+ENC_CPU_BATCH = 2
+# Op by op from the CPU's inputs, a static-range FC or BATCH_MATMUL is an
+# exact int32 product and one float32 multiply-add, the same on both
+# devices: its int8 codes must be equal. An op that reduces floats before
+# its output quantizes (SOFTMAX's sum, RMS_NORM's, GELU's and TANH's tanh,
+# an ulp apart on the card) may round a code the other way: such codes
+# differ by one step (OpByOp) in at most this share of an op kind's
+# elements.
+SRQ_FLIP_SHARE = 1e-3
+# The Newton-Schulz inverse of a Hessian on the card against the host's
+# LAPACK inverse: largest difference over the largest entry (the solve
+# stops at a residual max|HX - I| of 1e-5 in Jacobi-normalized f32).
+GPTQ_INVERSE_RTOL = 1e-3
+
+
+def encoder_outputs_ok(torch, quant_arith, graph, out, label):
+  """Dequantized `probs` rows sum to 1 within one code a class, `pooled`
+  in [-1, 1], every value finite; returns them as float32."""
+  sg = graph.subgraphs[graph.signatures[0].subgraph_index]
+  sig = graph.signatures[0]
+  vals = {}
+  for name, tid in sig.outputs.items():
+    t, v = sg.tensors[tid], out[name]
+    vals[name] = (quant_arith.dequantize(v, t.quantization)
+                  if t.quantization is not None and not v.is_floating_point()
+                  else v.float())
+  probs, pooled = vals['probs'], vals['pooled']
+  codes = 1.0
+  q = sg.tensors[sig.outputs['probs']].quantization
+  if q is not None:
+    codes = float(np.asarray(q.scale).reshape(-1)[0]) * probs.shape[-1]
+  row_err = float(torch.max(torch.abs(probs.sum(-1) - 1.0)))
+  if (not all(bool(torch.isfinite(v).all()) for v in vals.values())
+      or row_err > max(codes, 1e-5) or float(pooled.abs().max()) > 1.0):
+    raise AssertionError(f'{label}: outputs out of range (probs rows off by '
+                         f'{row_err}, |pooled| <= '
+                         f'{float(pooled.abs().max())})')
+  return vals
+
+
+def static_range_phase(torch, port, kernels, dev, kept, cfg=None,
+                       batch=ENC_BATCH, steps=ENC_STEPS,
+                       cpu_batch=ENC_CPU_BATCH):
+  """The static-range path through the port's entry points, on bench.py's
+  bench_encoder (BERT_BASE_LITE at full width and depth unless `cfg` says
+  otherwise): (a) `Quantizer(graph, 'default_a8w8').calibrate` in
+  device_stats mode over ENC_CALIB_SAMPLES samples of
+  create_random_dataset, and in capture mode over the first of them, whose
+  min and max must equal device_stats' over that sample exactly; (b) the
+  quantized int8 model on the card at `batch` (sequences/s over `steps`
+  calls, device busy and idle share of one call, outputs in range), then,
+  at `cpu_batch` (the same weights and QSVs), op by op against the CPU
+  port (OpByOp: static-range FC and BATCH_MATMUL codes equal, other ops'
+  one-step flips within SRQ_FLIP_SHARE); (c) default_a16w8 calibrated,
+  quantized and run once; (d) `validate()` of the a8w8 model at
+  `cpu_batch` on one random sample, each output's mse printed; (e) dynamic_wi4_afp32_gptq_octav
+  calibrated, quantized and run once, and the Newton-Schulz inverse of
+  one of its Hessians on the card held against the host's (within
+  GPTQ_INVERSE_RTOL); (f) `compare_model(..., use_serving_paths=True)` of
+  `kept`'s gemma_mixed48 serving graph (quantizer_phase's, QUANT_LAYERS
+  deep; target: an executor with the port's serving options and packed
+  weights) against its float graph on one random decode call, the main
+  path's kernels launched under capture. Every kernel's launches over
+  the phase go to 'launches'."""
+  enc, q_arith = port['encoder'], port['quant_arith']
+  executor, Quantizer = port['executor'], port['Quantizer']
+  test_data, gptq = port['test_data'], port['gptq']
+  cfg = cfg or enc.BERT_BASE_LITE
+  opts = dict(activation_dtype='float32', **executor.JAX_DEFAULT_OPTIONS)
+  out = {'batch': batch, 'seq_len': cfg.seq_len, 'layers': cfg.num_layers}
+  on_card = dev == 'cuda'
+  for k in kernels:
+    k['wrapper'].launches = 0
+    k['wrapper'].plain_calls = 0
+
+  def timed(key, fn):
+    t0 = time.monotonic()
+    r = fn()
+    sync()
+    out[key] = time.monotonic() - t0
+    return r
+
+  graph = timed('build_s', lambda: enc.build_encoder(cfg, batch=batch))
+  data = test_data.create_random_dataset(graph, num_samples=ENC_CALIB_SAMPLES)
+  first = {k: v[:1] for k, v in data.items()}
+  # (a) calibration in both modes.
+  qt = Quantizer(graph, 'default_a8w8')
+  qsv = timed('calibrate_device_stats_s', lambda: qt.calibrate(
+      data, calibration_mode='device_stats', device=dev))
+  cap = timed('calibrate_capture_s', lambda: Quantizer(
+      graph, 'default_a8w8').calibrate(first, calibration_mode='capture',
+                                       device=dev))
+  ds1 = Quantizer(graph, 'default_a8w8').calibrate(
+      first, calibration_mode='device_stats', device=dev)
+  # device_stats reduces the float tensors; capture measures the integer
+  # inputs too (tokens, positions), as in the JAX package.
+  measured = sorted(n for n, v in ds1.items() if 'min' in v)
+  differ = [n for n in measured if 'min' not in cap.get(n, {}) or not (
+      np.array_equal(cap[n]['min'], ds1[n]['min'])
+      and np.array_equal(cap[n]['max'], ds1[n]['max']))]
+  if differ or not measured:
+    raise AssertionError(f'static range: capture and device_stats QSVs '
+                         f'differ on one sample: {differ[:8]}')
+  out['qsv_tensors'] = len(measured)
+  log(f'static range (a): calibrated {len(qsv)} tensors: device_stats over '
+      f'{ENC_CALIB_SAMPLES} samples {out["calibrate_device_stats_s"]:.2f}s, '
+      f'capture over one {out["calibrate_capture_s"]:.2f}s; min and max of '
+      f'the two modes equal on it ({len(measured)} float tensors)')
+  # (b) the int8 model on the card, then op by op against the CPU.
+  qgraph = timed('quantize_a8w8_s', lambda: qt.quantize(qsv)).quantized_model
+  ex = executor.GraphExecutor(qgraph, device=dev, **opts)
+  inputs = enc.make_inputs(cfg, batch)
+  res = ex(inputs)
+  sync()
+  t0 = time.monotonic()
+  for _ in range(steps):
+    res = ex(inputs)
+  sync()
+  elapsed = time.monotonic() - t0
+  out['seqs_per_s'] = batch * steps / elapsed
+  out['ms_per_call'] = elapsed / steps * 1e3
+  encoder_outputs_ok(torch, q_arith, qgraph, res, 'a8w8 encoder')
+  if on_card:
+    wall, busy, ranked = device_busy(torch, lambda: ex(inputs))
+    out.update(call_wall_ms=wall, call_device_busy_ms=busy,
+               call_idle_share=1.0 - busy / wall,
+               call_by_kernel=dict(ranked[:12]))
+  del ex
+  log(f'static range (b): int8 encoder {out["seqs_per_s"]:.1f} seqs/s at '
+      f'batch {batch}, T {cfg.seq_len} ({out["ms_per_call"]:.3f} ms a call; '
+      f'device busy {out.get("call_device_busy_ms", 0.0):.3f} ms of '
+      f'{out.get("call_wall_ms", 0.0):.3f}); quantize '
+      f'{out["quantize_a8w8_s"]:.2f}s')
+  small = enc.build_encoder(cfg, batch=cpu_batch)
+  qt_small = Quantizer(small, 'default_a8w8')
+  q_small = qt_small.quantize(qsv).quantized_model
+  feed = enc.make_inputs(cfg, cpu_batch, seed=1)
+  watch = OpByOp(torch, executor.GraphExecutor(q_small, device='cpu', **opts))
+  watch.call(feed)
+  hold = OpByOp(torch, executor.GraphExecutor(q_small, device=dev, **opts),
+                want=watch.seen, int_qmatmul=port['int_qmatmul'])
+  hold.call(feed)
+  sg = q_small.subgraphs[0]
+  elements = {}
+  for op in sg.ops:
+    kind = f'serving_default/{op.opcode}'
+    elements[kind] = elements.get(kind, 0) + sum(
+        int(np.prod(sg.tensors[t].shape)) for t in op.outputs)
+  share = {kind: n / elements[kind] for kind, n in hold.flips.items()}
+  exact = [kind for kind in share if kind.endswith(('/FULLY_CONNECTED',
+                                                     '/BATCH_MATMUL'))]
+  if exact or any(v > SRQ_FLIP_SHARE for v in share.values()):
+    raise AssertionError(f'static range card-vs-cpu: code flips {hold.flips} '
+                         f'of {elements}')
+  out['card_vs_cpu'] = {'flips': hold.flips, 'flip_share': share,
+                        'worst_rel_err_by_opcode': hold.worst}
+  log(f'static range (b): card against CPU op by op at batch {cpu_batch}: '
+      f'code flips {hold.flips}, float ops worst rel err {hold.worst}')
+  del watch, hold
+  # (c) default_a16w8 end to end.
+  qt16 = Quantizer(graph, 'default_a16w8')
+  qsv16 = timed('calibrate_a16w8_s', lambda: qt16.calibrate(
+      data, calibration_mode='device_stats', device=dev))
+  q16 = timed('quantize_a16w8_s', lambda: qt16.quantize(qsv16)).quantized_model
+  ex16 = executor.GraphExecutor(q16, device=dev, **opts)
+  timed('run_a16w8_s', lambda: encoder_outputs_ok(
+      torch, q_arith, q16, ex16(inputs), 'a16w8 encoder'))
+  del ex16, q16
+  log(f'static range (c): default_a16w8 calibrated in '
+      f'{out["calibrate_a16w8_s"]:.2f}s, quantized in '
+      f'{out["quantize_a16w8_s"]:.2f}s, one call {out["run_a16w8_s"]:.2f}s')
+  # (d) the validator on the a8w8 model, at cpu_batch (the same weights and
+  # QSVs; at `batch` its host-side metrics over every tensor of both models
+  # took most of the phase).
+  cmp = timed('validate_s', lambda: qt_small.validate(
+      test_data=test_data.create_random_dataset(small, num_samples=1),
+      device=dev))
+  r = cmp.get_signature_comparison_result('serving_default')
+  out['validate_outputs_mse'] = dict(r.output_tensors)
+  out['validate_tensors'] = len(cmp.get_all_tensor_results())
+  if (set(r.output_tensors) != {'probs', 'pooled'}
+      or not all(np.isfinite(v) for v in r.output_tensors.values())
+      or r.output_tensors['probs'] > 1e-2):
+    raise AssertionError(f'static range validate: outputs {r.output_tensors}')
+  log(f'static range (d): validate() at batch {cpu_batch} '
+      f'{out["validate_s"]:.2f}s over {out["validate_tensors"]} tensors; '
+      f'output mse '
+      f'{out["validate_outputs_mse"]}')
+  # (e) GPTQ.
+  qg = Quantizer(graph, 'dynamic_wi4_afp32_gptq_octav')
+  qsvg = timed('calibrate_gptq_s', lambda: qg.calibrate(
+      data, calibration_mode='device_stats', device=dev))
+  gq = timed('quantize_gptq_s', lambda: qg.quantize(qsvg)).quantized_model
+  exg = executor.GraphExecutor(gq, device=dev, **opts)
+  timed('run_gptq_s', lambda: encoder_outputs_ok(
+      torch, q_arith, gq, exg(inputs), 'gptq encoder'))
+  del exg, gq
+  name = 'layer_0/mlp/gelu'  # the down projection's input, F wide
+  h = qsvg[name]['hessian']
+  host = gptq._inverse_via_cholesky_host(h, 0.01)
+  card = timed('gptq_device_inverse_s', lambda: gptq._inverse_via_cholesky_device(
+      h, 0.01, device=dev))
+  rel = float(np.max(np.abs(card - host)) / np.max(np.abs(host)))
+  out['gptq_inverse'] = {'tensor': name, 'dim': int(h.shape[0]),
+                         'rel_err': rel}
+  if not rel <= GPTQ_INVERSE_RTOL:
+    raise AssertionError(f'GPTQ device inverse of {name}: rel err {rel}')
+  log(f'static range (e): dynamic_wi4_afp32_gptq_octav calibrated in '
+      f'{out["calibrate_gptq_s"]:.2f}s, quantized in '
+      f'{out["quantize_gptq_s"]:.2f}s; Newton-Schulz inverse of {name} '
+      f'({h.shape[0]}) on the card in {out["gptq_device_inverse_s"]:.2f}s, '
+      f'rel err {rel:.3e} against the host LAPACK inverse')
+  del graph, small, qt, qt_small, qt16, qg
+  gc.collect()
+  # (f) the serving graph's validation with the fused kernels engaged.
+  float_graph, target = kept['float'], kept['gemma_mixed48']
+  tex = executor.GraphExecutor(target, device=dev, activation_dtype='float32')
+  tex.prepare_serving_weights()
+  before = {k['name']: getattr(k['wrapper'], 'launches' if on_card
+                               else 'plain_calls') for k in kernels}
+  cmp = timed('validate_serving_s', lambda: port['model_validator']
+              .compare_model(float_graph, target,
+                             test_data.create_random_dataset(
+                                 float_graph, num_samples=1,
+                                 signature_keys=['decode']),
+                             target_executor=tex, use_serving_paths=True,
+                             device=dev))
+  fused = {k['name']: getattr(k['wrapper'], 'launches' if on_card
+                              else 'plain_calls') - before[k['name']]
+           for k in kernels}
+  fused = {n: v for n, v in fused.items() if v}
+  r = cmp.get_signature_comparison_result('decode')
+  out['serving_validate'] = {'outputs_mse': dict(r.output_tensors),
+                             'tensors': len(cmp.get_all_tensor_results()),
+                             'launches': fused}
+  want = {'qmatmul_int8_drq', 'mlp_int4_packed', 'head_argmax'}
+  if not want <= set(fused) or not all(
+      np.isfinite(v) for v in r.output_tensors.values()):
+    raise AssertionError(f'static range (f): launches {fused}, outputs '
+                         f'{r.output_tensors}')
+  log(f'static range (f): compare_model of gemma_mixed48 with the serving '
+      f'paths {out["validate_serving_s"]:.2f}s over '
+      f'{out["serving_validate"]["tensors"]} tensors, launches {fused}; '
+      f'output mse {r.output_tensors}')
+  del tex, float_graph, target, cmp
+  gc.collect()
+  out['launches'] = {k['name']: getattr(k['wrapper'], 'launches' if on_card
+                                        else 'plain_calls')
+                     for k in kernels}
+  return out
+
+
 def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
   """The card against the port on the CPU, op by op, on graphs the
   Quantizer made: GEMMA_2B widths at QUANT_CPU_LAYERS layers (the graphs
   in `kept`, quantizer_phase's at that depth, else one float serving graph
-  at each depth quantized here), for each of QUANT_RECIPES
+  at each depth, `kept`'s 'float' where there is one, quantized here), for each of QUANT_RECIPES
   served on both devices (f32 activations) through the first prefill pass
   (8 requests of 128 tokens) and decode tick, as server_cpu_phase holds
   the server. The int8 DRQ FCs and the K-blocked packed FCs
@@ -4937,6 +5222,8 @@ def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
   t0 = time.monotonic()
   kept = {} if kept is None else kept
   graphs, out = {}, {}
+  if 'float' in kept:  # quantizer_phase's float graph at this depth
+    graphs[QUANT_CPU_LAYERS['gemma_mixed48']] = kept.pop('float')
   for recipe in sorted(QUANT_RECIPES, key=QUANT_CPU_LAYERS.get):
     layers = QUANT_CPU_LAYERS[recipe]
     cfg_l = dataclasses.replace(cfg, num_layers=layers)
@@ -4988,8 +5275,8 @@ def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
 # 2B's widths; 1e-3 leaves room for three such codes in one row.
 EPILOGUE_ROW_RTOL = 1e-3
 # Depth of the op-by-op runs of the attention-block and norm-fusion steps
-# and of the compute modes' steps.
-FUSION_CPU_LAYERS = 3
+# and of the compute modes' steps (3 until the static-range phase came in).
+FUSION_CPU_LAYERS = 2
 # A context row of an attention in a compute mode whose probability
 # operand rounded the other way on the card (OpByOp), relative to the
 # context's largest magnitude: one bf16 step of a probability moves a row
@@ -5511,18 +5798,21 @@ def main():
     return 2
   sys.path.insert(0, str(root))
   from ai_edge_quantizer_tpu_torch import Quantizer
+  from ai_edge_quantizer_tpu_torch.algorithms.uniform import gptq
   from ai_edge_quantizer_tpu_torch.execution import executor
+  from ai_edge_quantizer_tpu_torch.execution import model_validator
+  from ai_edge_quantizer_tpu_torch.execution import quant_arith
   from ai_edge_quantizer_tpu_torch.graph import ir, serialize
   from ai_edge_quantizer_tpu_torch.kernels import _build
   from ai_edge_quantizer_tpu_torch.kernels import attention, block, cache
   from ai_edge_quantizer_tpu_torch.kernels import head
   from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
   from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul, qkv
-  from ai_edge_quantizer_tpu_torch.models import gemma
+  from ai_edge_quantizer_tpu_torch.models import encoder, gemma
   from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
   from ai_edge_quantizer_tpu_torch.parallel import batching
   from ai_edge_quantizer_tpu_torch.tools import attn_int4_bench
-  from ai_edge_quantizer_tpu_torch.utils import progress_utils
+  from ai_edge_quantizer_tpu_torch.utils import progress_utils, test_data
   if any(m == 'jax' or m.startswith(('jax.', 'ai_edge_quantizer_tpu.'))
          or m == 'ai_edge_quantizer_tpu' for m in sys.modules):
     raise AssertionError('the port imported jax or the JAX package')
@@ -5532,7 +5822,9 @@ def main():
               batching=batching, ops_impl=ops_impl, ir=ir,
               int_qmatmul=int_qmatmul, serialize=serialize, qkv=qkv,
               Quantizer=Quantizer, progress_utils=progress_utils,
-              attn_int4_bench=attn_int4_bench, _build=_build)
+              attn_int4_bench=attn_int4_bench, _build=_build,
+              encoder=encoder, quant_arith=quant_arith, test_data=test_data,
+              gptq=gptq, model_validator=model_validator)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -5591,7 +5883,7 @@ def main():
     log(f'server attn {mode} on {smi}: {r["tokens_per_s"]:.1f} tokens/s, '
         f'TTFT p50 {r["ttft_p50_ms"]:.1f} ms p99 {r["ttft_p99_ms"]:.1f} ms')
   log(f'phase server done at {time.monotonic() - t_start:.1f}s')
-  kept = None if args.skip_cpu else {}
+  kept = {}
   quant = quantizer_phase(torch, port, kernels, cfg, 'cuda', kept=kept)
   for recipe in QUANT_RECIPES:
     r = quant[recipe]
@@ -5638,6 +5930,18 @@ def main():
       log(f'{name} in the {label} on {smi}: {ms:.3f} ms of device time a '
           f'chunk of {SERVE_CHUNK} ticks')
   log(f'phase quantizer done at {time.monotonic() - t_start:.1f}s')
+  srq = static_range_phase(torch, port, kernels, 'cuda', kept)
+  log(f'static range on {smi}: encoder {srq["layers"]} layers, batch '
+      f'{srq["batch"]}, T {srq["seq_len"]}: int8 {srq["seqs_per_s"]:.1f} '
+      f'seqs/s; calibrate {srq["calibrate_device_stats_s"]:.2f}s '
+      f'(device_stats, {ENC_CALIB_SAMPLES} samples) and '
+      f'{srq["calibrate_capture_s"]:.2f}s (capture, one); quantize a8w8 '
+      f'{srq["quantize_a8w8_s"]:.2f}s, a16w8 {srq["quantize_a16w8_s"]:.2f}s, '
+      f'gptq {srq["quantize_gptq_s"]:.2f}s; validate '
+      f'{srq["validate_s"]:.2f}s, serving graph {srq["validate_serving_s"]:.2f}s')
+  log(f'phase static range done at {time.monotonic() - t_start:.1f}s')
+  if args.skip_cpu:
+    kept.clear()
   if not args.skip_cpu:
     def done(label):
       log(f'card-vs-cpu {label} done at {time.monotonic() - t_start:.1f}s')
@@ -5692,6 +5996,7 @@ def main():
         'server_attn_int8': servers_mode['int8']['launches'][k['name']],
         'ab_tool': entry.pop('launches_ab_tool'),
         'bench_decode_int4g': bench_launches['int4g'],
+        'static_range': srq['launches'][k['name']],
         'server_int4g': server4['launches'][k['name']],
         **{f'server_{recipe}': quant[recipe]['launches'][k['name']]
            for recipe in QUANT_RECIPES},
@@ -5745,6 +6050,7 @@ def main():
                     'bench_decode_int4g': bench4, 'server': server,
                     'server_int4g': server4, 'quantizer': quant,
                     'server_attn_modes': servers_mode, 'ab_tool': ab,
+                    'static_range': srq,
                     'card': smi}), flush=True)
   print(smi, flush=True)
   print(json.dumps({'ok': True, 'device': {

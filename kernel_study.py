@@ -8,7 +8,7 @@ Each prints one JSON line per measurement.
 --root picks the checkout whose kernels (and chip_smoke.py) run (default:
 this file's), so two checkouts can be timed in turns on one card, one
 process each. --kernels picks the groups that `times` and `launches`
-cover (default: all six). Times are CUDA-event medians of --reps calls as
+cover (default: all seven). Times are CUDA-event medians of --reps calls as
 chip_smoke.Timer takes them (L2 flushed before each).
 
 Kernel groups of `times`:
@@ -54,6 +54,12 @@ Kernel groups of `times`:
                64 and 256, bf16 x, beside the library composition
                (torch.matmul of x against the bf16-dequantized weights,
                * s, the cast, torch.argmax).
+  cache        #11 (cache.dus_row_inplace) at bench.py's decode shape (a
+               [256, 1, 1024, 256] int8 pool, row 896) beside its launch
+               floor (cache.launch_floor, an empty kernel launched the same
+               way; a checkout without it times the kernel alone) and one
+               slice assignment; also 36 launches in a row, as an in-place
+               step makes them, timed together (chain_ms, a launch).
   int_weights  #16 (int_qmatmul.qmatmul_int_weights) at chip_smoke.
                int_weight_kernels' rows: gemma_mixed48_b32's blockwise-32
                FCs at decode (M 64: gate/up N 32768 at K 2048, down N 2048
@@ -82,8 +88,9 @@ Studies:
             (torch.profiler) and the head's device time a chunk, one
             process a checkout.
   steps     bench.py's decode through chip_smoke.bench_decode_phase under
-            the block on, the block off, the in-place writes, the norm
-            fusion and the attention block (ms a step, host clock, median
+            --settings (default: the block on, the block off, the in-place
+            writes, the norm fusion and the attention block; ms a step,
+            host clock, median
             of chip_smoke's timed
             steps; the device's busy time and idle share by
             torch.profiler), one process a checkout.
@@ -146,7 +153,8 @@ B, S, H, G = 64, 1024, 256, 8
 BENCH_B, BENCH_ROWS = 256, 897
 K_SCALE, V_SCALE, ZP_K, ZP_V = 0.06, 0.06, 3.0, -2.0
 PREFILL_ROWS, PREFILL_BATCH, QUANT_BLOCK = 1024, 8, 32
-GROUPS = ('mlp', 'attention', 'block', 'fusion', 'prologue', 'int_weights')
+GROUPS = ('mlp', 'attention', 'block', 'fusion', 'prologue', 'int_weights',
+          'cache')
 # The kernel libraries each group and study builds (steps: every one).
 SOURCES = {
     'mlp': ('mlp_int4_drq', 'mlp_int4_bf16', 'attention_int8_basic'),
@@ -159,7 +167,8 @@ SOURCES = {
                'attention_lengths'),
     'prologue': ('qkv_rope', 'head_argmax', 'qmatmul_int4_rmsnorm',
                  'qmatmul_int4_drq'),
-    'int_weights': ('qmatmul_int_weights',)}
+    'int_weights': ('qmatmul_int_weights',),
+    'cache': ('cache_row_write',)}
 STUDY_GROUP = {'host': 'mlp', 'order': 'attention', 'truth': 'attention'}
 STEP_SETTINGS = ('block on', 'block off', 'inplace', 'norm fusion',
                  'attn block')
@@ -294,12 +303,12 @@ def steps(torch, mods, timer):
       'dus_row_inplace': cache.dus_row_inplace, 'qkv_rope': qkv.qkv_rope}
   kernels = [{'name': n, 'wrapper': w} for n, w in wrappers.items()]
   cs.sync = torch.cuda.synchronize
-  cs.BENCH_SETTINGS = {k: cs.BENCH_SETTINGS[k] for k in STEP_SETTINGS}
+  cs.BENCH_SETTINGS = {k: cs.BENCH_SETTINGS[k] for k in mods['settings']}
   cs.MODE_SETTINGS = {}
   results = cs.bench_decode_phase(
       torch, {'gemma': gemma, 'executor': executor}, kernels,
       gemma.GEMMA_2B, 'cuda')
-  for label in STEP_SETTINGS:
+  for label in mods['settings']:
     r = results[label]
     emit(study='steps', setting=label, ms_per_step=r['ms_per_step'],
          step_ms=r['step_ms'],
@@ -973,11 +982,55 @@ def variants(torch, mods, timer, groups):
       emit(study='variants', **row)
 
 
+# ------------------------------------------------------------------- #11
+
+
+# Launches of #11 in a row, as an in-place bench step makes them (two a
+# layer of Gemma-2B).
+CHAIN = 36
+
+
+def cache_times(torch, mods, timer):
+  """#11 at bench.py's decode shape, its launch floor and one slice
+  assignment (chip_smoke.cache_row_kernel's inputs); and a chain of CHAIN
+  launches of each in a row, timed as one call (chain_ms: the time a
+  launch, where a programmatic dependent launch overlaps the one before
+  it)."""
+  from ai_edge_quantizer_tpu_torch.kernels import cache
+  gen = torch.Generator(device='cuda').manual_seed(0)
+  pool = torch.randint(-127, 128, (BENCH_B, 1, S, H), generator=gen,
+                       device='cuda').to(torch.int8)
+  upd = torch.randint(-127, 128, (BENCH_B, 1, 1, H), generator=gen,
+                      device='cuda').to(torch.int8)
+  pos = BENCH_ROWS - 1
+  st = torch.tensor((0, 0, pos, 0), dtype=torch.int32, device='cuda')
+
+  def assign():
+    pool[:, :, pos:pos + 1] = upd
+
+  def chain(fn):
+    def run():
+      for _ in range(CHAIN):
+        fn()
+    return timer(run) / CHAIN
+
+  row = dict(study='times', kernel='dus_row_inplace', shape=[BENCH_B, 1, S, H],
+             ms=timer(lambda: cache.dus_row_inplace(pool, upd, st)),
+             library_ms=timer(assign),
+             chain_ms=chain(lambda: cache.dus_row_inplace(pool, upd, st)))
+  if hasattr(cache, 'launch_floor'):
+    row.update(launch_floor_ms=timer(lambda: cache.launch_floor(pool)),
+               chain_floor_ms=chain(lambda: cache.launch_floor(pool)),
+               plan=cache.plan(BENCH_B, H))
+  emit(**row)
+
+
 # ------------------------------------------------------------------- main
 
 TIMES = {'mlp': mlp_times, 'attention': attention_times,
          'block': block_times, 'fusion': fusion_times,
-         'prologue': prologue_times, 'int_weights': int_weights_times}
+         'prologue': prologue_times, 'int_weights': int_weights_times,
+         'cache': cache_times}
 LAUNCH_CASES = {'mlp': mlp_cases, 'block': block_cases,
                 'fusion': functools.partial(fusion_cases, unfused=True),
                 'prologue': prologue_cases}
@@ -990,6 +1043,8 @@ def main():
   parser.add_argument('--root', default=str(pathlib.Path(__file__).parent))
   parser.add_argument('--kernels', default=','.join(GROUPS))
   parser.add_argument('--reps', type=int, default=25)
+  parser.add_argument('--settings', default=','.join(STEP_SETTINGS),
+                      help='the bench settings `steps` runs')
   parser.add_argument('studies', nargs='+',
                       choices=('times', 'variants') + tuple(STUDIES))
   args = parser.parse_args()
@@ -1021,8 +1076,11 @@ def main():
   _build.build(_build.SOURCES)
   torch.backends.cuda.matmul.allow_tf32 = False
   timer = functools.partial(cs.Timer(torch).__call__, reps=args.reps)
+  settings = tuple(x for x in args.settings.split(',') if x)
+  if any(x not in STEP_SETTINGS for x in settings):
+    parser.error(f'--settings takes {",".join(STEP_SETTINGS)}')
   mods = dict(cs=cs, build=_build, att=att, iq=iq, mlp=mlp, pq=pq,
-              groups=groups)
+              groups=groups, settings=settings)
   emit(card=cs.run_text(['nvidia-smi', '--query-gpu=name,power.limit',
                          '--format=csv,noheader']).splitlines()[0],
        root=str(root))

@@ -65,6 +65,11 @@ CASES = {
     # holds it at bf16 too).
     'HADAMARD_ROTATION': ([_f(2, 3, 32)], {'hadamard_size': 8}, (2, 3, 32),
                           'float32', False),
+    # The encoder's (models/encoder.py; tests/test_torch_port_static_range.py
+    # runs them in a graph too).
+    'GATHER': ([_f(6, 5, 4), _i(0, 5, 2, 3)], {'axis': 1}, (6, 2, 3, 4),
+               'float32', True),
+    'TANH': ([_f(3, 17) * 3], {}, (3, 17), 'float32', False),
 }
 
 

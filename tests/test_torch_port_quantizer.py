@@ -26,6 +26,7 @@ from ai_edge_quantizer_tpu.graph import serialize as jax_serialize
 from ai_edge_quantizer_tpu.models import gemma as jax_gemma
 from ai_edge_quantizer_tpu.recipe import recipe_utils as jax_recipe_utils
 from ai_edge_quantizer_tpu_torch import Quantizer
+from ai_edge_quantizer_tpu_torch.algorithms import manager as algorithm_manager
 from ai_edge_quantizer_tpu_torch.algorithms.uniform import quant_numerics
 from ai_edge_quantizer_tpu_torch.execution import executor
 from ai_edge_quantizer_tpu_torch.graph import ir
@@ -199,6 +200,10 @@ def test_named_recipes_resolve_as_in_jax():
 
 @pytest.mark.parametrize('recipe', ['default_a8w8', 'default_a16w8'])
 def test_static_recipe_needs_calibration(recipe):
+  """A static recipe refuses to quantize without QSVs, as in the JAX
+  package; `calibrate` (on the CPU here) gives the JAX package's QSVs:
+  the input's exactly, the FC output's within 1e-5 (XLA's CPU dot sums in
+  another order); from the same QSVs the quantized graphs are equal."""
   jgraph, tgraph = _float_pair('single_fc')
   jq, tq = JaxQuantizer(jgraph, recipe), Quantizer(tgraph, recipe)
   assert tq.need_calibration and jq.need_calibration
@@ -206,8 +211,20 @@ def test_static_recipe_needs_calibration(recipe):
     jq.quantize()
   with pytest.raises(RuntimeError, match='QSVs'):
     tq.quantize()
-  with pytest.raises(NotImplementedError, match='calibrator'):
-    tq.calibrate({'serving_default': [{'x': np.zeros((2, 64), np.float32)}]})
+  data = {'serving_default': [
+      {'x': np.random.default_rng(i).normal(size=(2, 64)).astype(np.float32)}
+      for i in range(2)]}
+  want, got = jq.calibrate(data), tq.calibrate(data, device='cpu')
+  assert set(got) == set(want)
+  for name, qsv in want.items():
+    assert set(got[name]) == set(qsv)
+    for field, v in qsv.items():
+      if name == 'x':
+        np.testing.assert_array_equal(got[name][field], v)
+      else:
+        np.testing.assert_allclose(got[name][field], v, rtol=1e-5)
+  assert graph_record(tq.quantize(want).quantized_model) == graph_record(
+      to_port_graph(jq.quantize(want).quantized_model))
   assert not Quantizer(tgraph, 'dynamic_wi8_afp32').need_calibration
   assert Quantizer(tgraph, 'dynamic_wi8_afp32').calibrate({}) == {}
 
@@ -215,21 +232,42 @@ def test_static_recipe_needs_calibration(recipe):
 @pytest.mark.parametrize('recipe,module', [
     ('dynamic_wi4_afp32_gptq_octav', 'gptq.py|octav.py')])
 def test_unported_algorithms_raise(recipe, module):
-  """A recipe naming an algorithm whose module is not ported raises
-  NotImplementedError naming it; it never quantizes with min-max."""
-  _, tgraph = _float_pair('single_fc')
-  with pytest.raises(NotImplementedError, match=module):
-    Quantizer(tgraph, recipe).quantize()
+  """No algorithm module is left unported: the GPTQ recipe, once refused
+  for want of `module`, now needs calibration as in the JAX package, and
+  from the same QSVs quantizes to the JAX package's graph."""
+  assert not any(re.search(module, m)
+                 for m in algorithm_manager.UNPORTED_ALGORITHMS.values())
+  jgraph, tgraph = _float_pair('single_fc')
+  jq, tq = JaxQuantizer(jgraph, recipe), Quantizer(tgraph, recipe)
+  with pytest.raises(RuntimeError, match='QSVs'):
+    tq.quantize()
+  data = {'serving_default': [
+      {'x': np.random.default_rng(3).normal(size=(2, 64)).astype(
+          np.float32)}]}
+  qsvs = jq.calibrate(data)
+  assert graph_record(tq.quantize(qsvs).quantized_model) == graph_record(
+      to_port_graph(jq.quantize(qsvs).quantized_model))
 
 
 def test_validate_is_not_ported():
-  _, tgraph = _float_pair('single_fc')
+  """validate() needs a quantized model, as in the JAX package, then
+  gives the JAX package's per-tensor metrics (on the CPU here; the float
+  sums' orders move an mse by far less than METRIC_RTOL)."""
+  jgraph, tgraph = _float_pair('single_fc')
+  jq = JaxQuantizer(jgraph, 'dynamic_wi8_afp32')
   qt = Quantizer(tgraph, 'dynamic_wi8_afp32')
   with pytest.raises(ValueError, match='No quantized model'):
-    qt.validate()
+    qt.validate(device='cpu')
+  jq.quantize()
   qt.quantize()
-  with pytest.raises(NotImplementedError, match='model_validator'):
-    qt.validate()
+  want = jq.validate(num_samples=2)
+  got = qt.validate(num_samples=2, device='cpu')
+  for key in want.available_signature_keys():
+    w = want.get_signature_comparison_result(key).all_tensors()
+    g = got.get_signature_comparison_result(key).all_tensors()
+    assert set(g) == set(w)
+    for name, v in w.items():
+      assert np.isclose(g[name], v, rtol=1e-2, atol=1e-12), name
 
 
 def test_load_config_policy_matches_jax():
