@@ -27,8 +27,12 @@ kernels) and `stats_runner` (min, max and GPTQ Hessians reduced on the
 device), which the calibrator and the model validator drive, and the
 static-range (SRQ) integer paths: the FC's int8 x int8 product through
 `qmatmul.srq_matmul` (its scaled-accumulator fallback for other
-activations) and `_try_srq_int_bmm`. The MoE fusion, control flow and
-the SRQ convolution are not ported yet.
+activations) and `_try_srq_int_bmm`, and the integer convolution
+`_try_srq_int_conv` (CONV_2D and DEPTHWISE_CONV_2D over int8 activations,
+its int32 product exact through `qmatmul.int_conv_exact`). The generic
+convolutions and the bilinear resize run in full float32 on the card
+(`full_f32_matmul`, cuDNN's TF32 off). The MoE fusion and control flow
+(STABLEHLO_COMPOSITE, WHILE, IF) are not ported yet.
 
 Differences from the JAX executor:
   * Options are constructor arguments, not environment variables, with
@@ -106,11 +110,25 @@ from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
 _STRUCTURAL_OPERANDS = {
     'RESHAPE': (1,),
     'TRANSPOSE': (1,),
+    'SPLIT': (0,),
     'SLICE': (1, 2),
+    'STRIDED_SLICE': (1, 2, 3),
+    'PAD': (1,),
+    'PADV2': (1,),
+    'MIRROR_PAD': (1,),
     'BROADCAST_TO': (1,),
+    'RESIZE_BILINEAR': (1,),
+    'RESIZE_NEAREST_NEIGHBOR': (1,),
+    'MEAN': (1,),
     'SUM': (1,),
     'REDUCE_MIN': (1,),
+    'CONV_2D_TRANSPOSE': (0,),
 }
+
+# Ops whose float products run in cuDNN or cuBLAS: full float32 on the
+# card (full_f32_matmul), as the JAX ops' float32 accumulation.
+_FULL_F32_OPS = frozenset({'CONV_2D', 'DEPTHWISE_CONV_2D', 'CONV_2D_TRANSPOSE',
+                           'RESIZE_BILINEAR'})
 
 
 def _prefix_lengths(mask: torch.Tensor) -> torch.Tensor:
@@ -164,14 +182,19 @@ def _to_device(value, device) -> torch.Tensor:
 
 @contextlib.contextmanager
 def full_f32_matmul():
-  """Within it, float32 matmuls on a CUDA device run in full float32, not
-  TF32, whatever the process set (the JAX package's Precision.HIGHEST)."""
-  saved = torch.backends.cuda.matmul.allow_tf32
+  """Within it, float32 matmuls and convolutions on a CUDA device run in
+  full float32, not TF32, whatever the process set (the JAX package's
+  Precision.HIGHEST): cuBLAS's flag and cuDNN's, which allows TF32 by
+  default."""
+  saved = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
   try:
     yield
   finally:
-    torch.backends.cuda.matmul.allow_tf32 = saved
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
 
 
 def _to_host(tensors: dict) -> dict:
@@ -219,10 +242,10 @@ class GraphExecutor:
     attn_block: the norm + QKV + RoPE prologue (with attn_qkv) and the
     attention + out-projection + residual epilogue (with attn_oproj) each
     run as one fused call where they match. attn_compute: 'f32', 'bf16' or
-    'int8', the decode attentions' compute mode. srq_int: static-range FCs
-    and batch matmuls over int8 activations contract in integers (off: the
-    FC dequantizes its activation first, the batch matmul runs as a float
-    op)."""
+    'int8', the decode attentions' compute mode. srq_int: static-range FCs,
+    batch matmuls and convolutions over int8 activations contract in
+    integers (off: the FC dequantizes its activation first, the batch
+    matmul and the convolutions run as float ops)."""
     self.device = torch.device(device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(
@@ -1522,6 +1545,14 @@ class GraphExecutor:
 
     if (
         self.use_fused_kernels
+        and opcode in ('CONV_2D', 'DEPTHWISE_CONV_2D')
+        and self.srq_int
+        and self._try_srq_int_conv(sg_idx, sg, op, env)
+    ):
+      return
+
+    if (
+        self.use_fused_kernels
         and opcode == 'BATCH_MATMUL'
         and self.srq_int
         and self._try_srq_int_bmm(sg, op, env)
@@ -1543,10 +1574,77 @@ class GraphExecutor:
             self.graph.buffers[t.buffer].data).reshape(t.shape))
       else:
         args.append(self._dequant_view(sg, tid, env))
-    result = impl_fn(ctx, *args)
+    if opcode in _FULL_F32_OPS:
+      with full_f32_matmul():
+        result = impl_fn(ctx, *args)
+    else:
+      result = impl_fn(ctx, *args)
     if not isinstance(result, tuple):
       result = (result,)
     self._store_outputs(sg, op, result, env)
+
+  def _try_srq_int_conv(self, sg_idx: int, sg: ir.Subgraph, op: ir.Op,
+                        env: dict) -> bool:
+    """Integer SRQ convolution: int8 x int8 -> int32, exact
+    (`qmatmul.int_conv_exact`).
+
+    SAME padding pads with the activation zero point (TFLite's integer
+    convolution: a padded pixel dequantizes to 0.0, the float model's zero
+    padding), so every output window sums the whole weight stencil and the
+    zero point's term is the constant zp_x * sum(w) a channel:
+    y = (acc - zp * wsum) * (s_x * s_w), the scales multiplied first in
+    float32, then the bias, the fused activation and the output's
+    quantize, in the JAX executor's order. Returns False where the op does
+    not fit (the generic dequantize-first path then runs): a channel
+    multiplier > 1, a weight zero point, a block size, a padding that is
+    not a string, activations that are not int8 (a16w8's int16)."""
+    x_tid, w_tid = op.inputs[0], op.inputs[1]
+    if x_tid < 0 or w_tid < 0:
+      return False
+    x_t, w_t = sg.tensors[x_tid], sg.tensors[w_tid]
+    xq, wq_info = x_t.quantization, w_t.quantization
+    x_val, w_val = env.get(x_tid), env.get(w_tid)
+    if (
+        xq is None or wq_info is None
+        or x_val is None or w_val is None
+        or x_val.dtype != torch.int8 or w_val.dtype != torch.int8
+        or np.asarray(xq.scale).size != 1
+        or not np.all(np.asarray(wq_info.zero_point) == 0)
+        or wq_info.block_size
+    ):
+      return False
+    s = int(op.attrs.get('stride', 1))
+    padding = op.attrs.get('padding', 'SAME')
+    if not isinstance(padding, str):
+      return False
+    depthwise = op.opcode == 'DEPTHWISE_CONV_2D'
+    if depthwise and (w_val.shape[0] != 1
+                      or w_val.shape[-1] != x_val.shape[-1]):
+      return False  # channel multiplier > 1: generic path
+    zp = int(np.asarray(xq.zero_point).reshape(()))
+    pads = ops_impl.window_pads(padding, x_val.shape[1:3],
+                                w_val.shape[1:3], (s, s))
+    acc = qmm.int_conv_exact(x_val, w_val, s, pads, zp, depthwise)
+    key = ('conv_epilogue', sg_idx, w_tid, float(np.asarray(xq.scale)))
+    if key not in self._const_cache:
+      # Weight sums a channel, and f32(s_x) * s_w in float32 (the JAX
+      # executor multiplies the Python scale into an f32 array).
+      w_sums = torch.sum(w_val.to(torch.int32),
+                         dim=(0, 1, 2) if depthwise else (1, 2, 3),
+                         dtype=torch.int32)
+      scale = (np.float32(np.asarray(xq.scale).reshape(()))
+               * np.asarray(wq_info.scale, np.float32).reshape(-1))
+      self._const_cache[key] = (
+          w_sums, torch.as_tensor(scale, device=self.device))
+    w_sums, scale = self._const_cache[key]
+    acc = acc - zp * w_sums
+    y = acc.to(torch.float32) * scale
+    b_tid = op.inputs[2] if len(op.inputs) > 2 else -1
+    if b_tid >= 0:
+      y = y + self._dequant_view(sg, b_tid, env)
+    y = ops_impl.fused_activation(y, op.attrs.get('fused_activation', 'NONE'))
+    self._store_outputs(sg, op, (y,), env)
+    return True
 
   def _try_srq_int_bmm(self, sg: ir.Subgraph, op: ir.Op,
                        env: dict) -> bool:

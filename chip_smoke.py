@@ -172,6 +172,20 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      of the quantizer phase's 2-layer gemma_mixed48 serving graph (the
      int8 DRQ, MLP, head and lengths-attention kernels launched under
      capture); host seconds of each step;
+  4d. MobileNetV2 (mobilenet_phase): bench.py's bench_mobilenet preset
+     (batch 64, 224 x 224, weights from seed 0) through the port's entry
+     points: default_a8w8 calibrated in device_stats mode over 8 samples
+     (and at batch 2 in capture and device_stats mode over one sample, min
+     and max equal), quantized and run (images/s over 16 calls, device busy
+     and idle share of one call, its busiest kernels, GFLOP a call and MFU
+     against the dense int8 peak; every call runs all 52 convolutions on
+     the integer SRQ path, `qmatmul.int_conv_exact`), then op by op against
+     the CPU port at batch 2 (convolution and FC codes equal, other ops'
+     flips within SRQ_FLIP_SHARE), default_a16w8 calibrated, quantized, run
+     once and held op by op (int16 codes within one step in
+     A16W8_FLIP_SHARE), and validate() of the a8w8 model at batch 2
+     (`probs` mse below MB_PROBS_MSE); no kernel of the port's is on this
+     path;
   5. card against CPU: the decode step at batch 8 with the decode block
      off (18 layers) and on (4 layers; the block is one op) and the int4g
      step (4 layers), and the server's first prefill pass and decode tick
@@ -5208,6 +5222,248 @@ def static_range_phase(torch, port, kernels, dev, kept, cfg=None,
   return out
 
 
+# bench.py's mobilenet preset (bench.py:55-107): MobileNetV2 at batch 64,
+# 224 x 224, default_a8w8 calibrated in device_stats mode over 8 samples of
+# create_random_dataset, 16 timed calls.
+MB_BATCH, MB_IMAGE, MB_STEPS, MB_CALIB_SAMPLES = 64, 224, 16, 8
+# Batch of its capture calibration, card-against-CPU runs and validate().
+MB_CPU_BATCH = 2
+# CONV_2D and DEPTHWISE_CONV_2D ops of MobileNetV2 (35 + 17): every one
+# must take the integer SRQ path in every a8w8 call.
+MB_CONVS = 52
+# a16w8 op by op: the generic float32 convolutions and FC sum in another
+# order on the card, about 1e-7 of an output's magnitude, at most 3e-3 of
+# an int16 code at the top of its range: a code rounds the other way in
+# at most that share of an op kind's elements; 1e-2 leaves a margin of 3.
+A16W8_FLIP_SHARE = 1e-2
+# The a8w8 model's validate() bar for `probs` (tests/test_mobilenet.py's).
+MB_PROBS_MSE = 1e-3
+
+
+def mobilenet_outputs_ok(torch, quant_arith, graph, out, label):
+  """`probs` dequantized: finite, rows summing to 1 within one code a
+  class, and not degenerate by bench.py's test (the sum of |probs| as
+  stored, the int8 codes of an a8w8 model, finite and non-zero: near-
+  uniform probabilities over 1000 classes are below one code of 1/256
+  and dequantize to 0); returns it as float32."""
+  sg = graph.subgraphs[graph.signatures[0].subgraph_index]
+  t = sg.tensors[graph.signatures[0].outputs['probs']]
+  v = out['probs']
+  probs = (quant_arith.dequantize(v, t.quantization)
+           if t.quantization is not None and not v.is_floating_point()
+           else v.float())
+  code = 1.0
+  if t.quantization is not None:
+    code = float(np.asarray(t.quantization.scale).reshape(-1)[0])
+  checksum = float(torch.sum(torch.abs(v.float())))
+  row_err = float(torch.max(torch.abs(probs.sum(-1) - 1.0)))
+  if (not bool(torch.isfinite(probs).all()) or not np.isfinite(checksum)
+      or checksum == 0.0 or row_err > max(code * probs.shape[-1], 1e-5)):
+    raise AssertionError(f'{label}: degenerate probs (checksum {checksum}, '
+                         f'rows off by {row_err})')
+  return probs
+
+
+def mobilenet_phase(torch, port, dev, batch=MB_BATCH, image=MB_IMAGE,
+                    steps=MB_STEPS, cpu_batch=MB_CPU_BATCH,
+                    calib_samples=MB_CALIB_SAMPLES):
+  """MobileNetV2's static-range path through the port's entry points, at
+  bench.py's mobilenet preset unless the arguments say otherwise: (a)
+  `Quantizer(graph, 'default_a8w8').calibrate` in device_stats mode over
+  `calib_samples` samples of create_random_dataset at `batch`, and at
+  `cpu_batch` (the same weights) in capture and device_stats mode over one
+  sample, whose min and max must be equal; (b) the quantized model on the
+  card at `batch`: images/s over `steps` calls, device busy and idle share
+  and the busiest kernels of one call, model GFLOP and MFU against the
+  card's dense int8 peak; every call must take the integer path for all
+  MB_CONVS convolutions (`_try_srq_int_conv` counted) and give finite,
+  non-degenerate probs; (c) at `cpu_batch`, the same weights and QSVs, op
+  by op against the CPU port (OpByOp): convolution and FC codes equal,
+  other ops' one-step flips within SRQ_FLIP_SHARE; (d) default_a16w8
+  calibrated, quantized and run once at `batch` (the generic float32
+  convolutions, TF32 off), then op by op against the CPU at `cpu_batch`
+  (int16 codes one step apart in at most A16W8_FLIP_SHARE of an op kind's
+  elements); (e) `validate()` of the a8w8 model at `cpu_batch`, each
+  output's mse, `probs` below MB_PROBS_MSE. No kernel of the port's is on
+  this path (the JAX package computes it with XLA: no Pallas site)."""
+  mb, q_arith = port['mobilenet'], port['quant_arith']
+  executor, Quantizer = port['executor'], port['Quantizer']
+  test_data = port['test_data']
+  opts = dict(activation_dtype='float32', **executor.JAX_DEFAULT_OPTIONS)
+  out = {'batch': batch, 'image': image, 'steps': steps}
+  on_card = dev == 'cuda'
+
+  def timed(key, fn):
+    t0 = time.monotonic()
+    r = fn()
+    sync()
+    out[key] = time.monotonic() - t0
+    return r
+
+  t_phase = time.monotonic()
+  graph = timed('build_s', lambda: mb.build_mobilenet_v2(
+      batch=batch, image_size=image))
+  data = test_data.create_random_dataset(graph, num_samples=calib_samples)
+  # (a) calibration: device_stats at the bench's batch; both modes at
+  # cpu_batch (capture at `batch` would bring every tensor to the host).
+  qt = Quantizer(graph, 'default_a8w8')
+  qsv = timed('calibrate_device_stats_s', lambda: qt.calibrate(
+      data, calibration_mode='device_stats', device=dev))
+  small = mb.build_mobilenet_v2(batch=cpu_batch, image_size=image)
+  one = test_data.create_random_dataset(small, num_samples=1)
+  cap = timed('calibrate_capture_s', lambda: Quantizer(
+      small, 'default_a8w8').calibrate(one, calibration_mode='capture',
+                                       device=dev))
+  ds1 = Quantizer(small, 'default_a8w8').calibrate(
+      one, calibration_mode='device_stats', device=dev)
+  measured = sorted(n for n, v in ds1.items() if 'min' in v)
+  differ = [n for n in measured if 'min' not in cap.get(n, {}) or not (
+      np.array_equal(cap[n]['min'], ds1[n]['min'])
+      and np.array_equal(cap[n]['max'], ds1[n]['max']))]
+  if differ or not measured:
+    raise AssertionError(f'mobilenet: capture and device_stats QSVs differ '
+                         f'on one sample: {differ[:8]}')
+  out['qsv_tensors'] = len(measured)
+  log(f'mobilenet (a): calibrated {len(qsv)} tensors: device_stats over '
+      f'{calib_samples} samples at batch {batch} '
+      f'{out["calibrate_device_stats_s"]:.2f}s; capture at batch '
+      f'{cpu_batch} {out["calibrate_capture_s"]:.2f}s, min and max equal '
+      f'to device_stats\' ({len(measured)} float tensors)')
+  # (b) the int8 model at `batch`.
+  qgraph = timed('quantize_a8w8_s', lambda: qt.quantize(qsv)).quantized_model
+  ex = executor.GraphExecutor(qgraph, device=dev, **opts)
+  int_convs = []
+  try_conv = ex._try_srq_int_conv
+
+  def counted(*args):
+    taken = try_conv(*args)
+    int_convs[-1] += bool(taken)
+    return taken
+
+  ex._try_srq_int_conv = counted
+
+  def call(feed):
+    int_convs.append(0)
+    return ex(feed)
+
+  feed = {'image': np.random.default_rng(0).standard_normal(
+      (batch, image, image, 3), dtype=np.float32)}
+  feed = {'image': torch.as_tensor(feed['image'], device=dev)}
+  res = timed('first_call_s', lambda: call(feed))
+  mobilenet_outputs_ok(torch, q_arith, qgraph, res, 'a8w8 mobilenet')
+  sync()
+  t0 = time.monotonic()
+  for _ in range(steps):
+    res = call(feed)
+  sync()
+  elapsed = time.monotonic() - t0
+  probs = mobilenet_outputs_ok(torch, q_arith, qgraph, res, 'a8w8 mobilenet')
+  gflop = port['flops'].graph_flops(graph) / 1e9
+  out.update(imgs_per_s=batch * steps / elapsed,
+             ms_per_call=elapsed / steps * 1e3, model_gflops=gflop,
+             mfu_int8_peak=gflop * 1e9 / (elapsed / steps) / INT8_OPS_PER_S,
+             probs_checksum=float(torch.sum(torch.abs(
+                 res['probs'].float()))),
+             probs_max=float(probs.max()))
+  if on_card:
+    wall, busy, ranked = device_busy(torch, lambda: call(feed))
+    out.update(call_wall_ms=wall, call_device_busy_ms=busy,
+               call_idle_share=1.0 - busy / wall,
+               call_by_kernel=dict(ranked[:12]))
+  out['int_convs_per_call'] = sorted(set(int_convs))
+  if set(int_convs) != {MB_CONVS}:
+    raise AssertionError(f'mobilenet: integer convolutions per call '
+                         f'{int_convs}, want {MB_CONVS} in each')
+  del ex, res, probs, feed
+  log(f'mobilenet (b): int8 {out["imgs_per_s"]:.1f} images/s at batch '
+      f'{batch}, {image}x{image} ({out["ms_per_call"]:.3f} ms a call over '
+      f'{steps}; device busy {out.get("call_device_busy_ms", 0.0):.3f} ms of '
+      f'{out.get("call_wall_ms", 0.0):.3f}, idle share '
+      f'{out.get("call_idle_share", 0.0):.3f}); {gflop:.2f} GFLOP a call, '
+      f'MFU {out["mfu_int8_peak"]:.4f} of the int8 peak; {MB_CONVS} integer '
+      f'convolutions in each of {len(int_convs)} calls; quantize '
+      f'{out["quantize_a8w8_s"]:.2f}s; busiest kernels '
+      f'{list(out.get("call_by_kernel", {}).items())[:5]}')
+  # (c) card against CPU, op by op, at cpu_batch.
+  q_small = Quantizer(small, 'default_a8w8').quantize(qsv).quantized_model
+  feed_small = test_data.create_random_dataset(small, num_samples=1,
+                                               seed=1)['serving_default'][0]
+
+  def op_by_op(qg, int16_step=False):
+    watch = OpByOp(torch, executor.GraphExecutor(qg, device='cpu', **opts))
+    watch.call(feed_small)
+    hold = OpByOp(torch, executor.GraphExecutor(qg, device=dev, **opts),
+                  want=watch.seen, int_qmatmul=port['int_qmatmul'],
+                  int16_step=int16_step)
+    hold.call(feed_small)
+    sg = qg.subgraphs[0]
+    elements = {}
+    for op in sg.ops:
+      kind = f'serving_default/{op.opcode}'
+      elements[kind] = elements.get(kind, 0) + sum(
+          int(np.prod(sg.tensors[t].shape)) for t in op.outputs)
+    share = {kind: n / elements[kind] for kind, n in hold.flips.items()}
+    return hold, share
+
+  hold, share = op_by_op(q_small)
+  exact = [k for k in share if k.endswith(
+      ('/CONV_2D', '/DEPTHWISE_CONV_2D', '/FULLY_CONNECTED'))]
+  if exact or any(v > SRQ_FLIP_SHARE for v in share.values()):
+    raise AssertionError(f'mobilenet card-vs-cpu: code flips {hold.flips}')
+  out['card_vs_cpu'] = {'flips': hold.flips, 'flip_share': share,
+                        'worst_rel_err_by_opcode': hold.worst}
+  log(f'mobilenet (c): card against CPU op by op at batch {cpu_batch}: '
+      f'code flips {hold.flips} (convolutions and FC equal)')
+  del hold
+  # (d) default_a16w8.
+  qt16 = Quantizer(graph, 'default_a16w8')
+  qsv16 = timed('calibrate_a16w8_s', lambda: qt16.calibrate(
+      data, calibration_mode='device_stats', device=dev))
+  q16 = timed('quantize_a16w8_s',
+              lambda: qt16.quantize(qsv16)).quantized_model
+  ex16 = executor.GraphExecutor(q16, device=dev, **opts)
+  feed = {'image': torch.as_tensor(data['serving_default'][0]['image'],
+                                   device=dev)}
+  timed('run_a16w8_s', lambda: mobilenet_outputs_ok(
+      torch, q_arith, q16, ex16(feed), 'a16w8 mobilenet'))
+  del ex16, q16, feed
+  q16_small = Quantizer(small, 'default_a16w8').quantize(
+      qsv16).quantized_model
+  hold, share = op_by_op(q16_small, int16_step=True)
+  if any(v > A16W8_FLIP_SHARE for v in share.values()):
+    raise AssertionError(f'mobilenet a16w8 card-vs-cpu: code flips '
+                         f'{hold.flips}')
+  out['a16w8_card_vs_cpu'] = {'flips': hold.flips, 'flip_share': share}
+  del hold
+  log(f'mobilenet (d): default_a16w8 calibrated in '
+      f'{out["calibrate_a16w8_s"]:.2f}s, quantized in '
+      f'{out["quantize_a16w8_s"]:.2f}s, one call at batch {batch} '
+      f'{out["run_a16w8_s"]:.2f}s; card against CPU op by op at batch '
+      f'{cpu_batch}: int16 code flips {share}')
+  # (e) validate() of the a8w8 model at cpu_batch.
+  qt_small = Quantizer(small, 'default_a8w8')
+  qt_small.quantize(qsv)
+  cmp = timed('validate_s', lambda: qt_small.validate(
+      test_data=test_data.create_random_dataset(small, num_samples=1),
+      device=dev))
+  r = cmp.get_signature_comparison_result('serving_default')
+  out['validate_outputs_mse'] = dict(r.output_tensors)
+  out['validate_tensors'] = len(cmp.get_all_tensor_results())
+  _, out['size_reduction'] = cmp.get_model_size_reduction()
+  if (set(r.output_tensors) != {'probs'}
+      or not np.isfinite(r.output_tensors['probs'])
+      or not r.output_tensors['probs'] < MB_PROBS_MSE):
+    raise AssertionError(f'mobilenet validate: outputs {r.output_tensors}')
+  log(f'mobilenet (e): validate() at batch {cpu_batch} '
+      f'{out["validate_s"]:.2f}s over {out["validate_tensors"]} tensors; '
+      f'output mse {out["validate_outputs_mse"]}, size reduction '
+      f'{out["size_reduction"]:.4f}')
+  del graph, small, qt, qt16, qt_small, data
+  gc.collect()
+  out['phase_s'] = time.monotonic() - t_phase
+  return out
+
+
 def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
   """The card against the port on the CPU, op by op, on graphs the
   Quantizer made: GEMMA_2B widths at QUANT_CPU_LAYERS layers (the graphs
@@ -5306,7 +5562,9 @@ class OpByOp:
   elements beyond INT4G_FINE_RTOL). `worst` keeps the largest relative
   error by signature and opcode ('MLP' for the fused MLP, FUSED_BLOCK for
   a decode block unit, one op with four outputs), `flips` the int8 codes
-  that differ by one step. An unpacked integer FULLY_CONNECTED (a
+  that differ by one step (int16 codes too with `int16_step`, for a16w8
+  graphs, whose float convolutions and FC sum in another order on the
+  card). An unpacked integer FULLY_CONNECTED (a
   quantized graph's) is held by its kernel's rule: a DRQ one ('FC int8
   DRQ') bit for bit, a blockwise one ('FC blockwise') to
   int_qmatmul.int_weights_tolerance of its largest magnitude; so is a
@@ -5331,9 +5589,11 @@ class OpByOp:
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None,
-               int_qmatmul=None):
+               int_qmatmul=None, int16_step=False):
     self.torch, self.ex, self.want = torch, ex, want
     self.int_qmatmul = int_qmatmul
+    self.step_dtypes = ((torch.int8, torch.int16) if int16_step
+                        else (torch.int8,))
     self.mlp_rtol = dict(mlp_rtol or {})
     self.mlp_outs = {f['out'] for f in ex._mlp_fusions.values()}
     self.epilogue_outs = {f['epilogue']['y'] for f in
@@ -5467,7 +5727,7 @@ class OpByOp:
       else:
         diff = torch.abs(got.long() - want.long())
         err = int(torch.max(diff))
-        if err > (1 if got.dtype == torch.int8 else 0):
+        if err > (1 if got.dtype in self.step_dtypes else 0):
           raise AssertionError(f'{sg.tensors[tid].name}: int err {err}')
         if err:
           kind = f'{self.seen[i]["sig"]}/{op.opcode}'
@@ -5808,11 +6068,12 @@ def main():
   from ai_edge_quantizer_tpu_torch.kernels import head
   from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
   from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul, qkv
-  from ai_edge_quantizer_tpu_torch.models import encoder, gemma
+  from ai_edge_quantizer_tpu_torch.models import encoder, gemma, mobilenet
   from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
   from ai_edge_quantizer_tpu_torch.parallel import batching
   from ai_edge_quantizer_tpu_torch.tools import attn_int4_bench
-  from ai_edge_quantizer_tpu_torch.utils import progress_utils, test_data
+  from ai_edge_quantizer_tpu_torch.utils import flops, progress_utils
+  from ai_edge_quantizer_tpu_torch.utils import test_data
   if any(m == 'jax' or m.startswith(('jax.', 'ai_edge_quantizer_tpu.'))
          or m == 'ai_edge_quantizer_tpu' for m in sys.modules):
     raise AssertionError('the port imported jax or the JAX package')
@@ -5824,7 +6085,8 @@ def main():
               Quantizer=Quantizer, progress_utils=progress_utils,
               attn_int4_bench=attn_int4_bench, _build=_build,
               encoder=encoder, quant_arith=quant_arith, test_data=test_data,
-              gptq=gptq, model_validator=model_validator)
+              gptq=gptq, model_validator=model_validator,
+              mobilenet=mobilenet, flops=flops)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -5940,6 +6202,16 @@ def main():
       f'gptq {srq["quantize_gptq_s"]:.2f}s; validate '
       f'{srq["validate_s"]:.2f}s, serving graph {srq["validate_serving_s"]:.2f}s')
   log(f'phase static range done at {time.monotonic() - t_start:.1f}s')
+  mbn = mobilenet_phase(torch, port, 'cuda')
+  log(f'mobilenet on {smi}: batch {mbn["batch"]}, {mbn["image"]}x'
+      f'{mbn["image"]}: int8 {mbn["imgs_per_s"]:.1f} images/s '
+      f'({mbn["ms_per_call"]:.3f} ms a call), device busy '
+      f'{mbn["call_device_busy_ms"]:.3f} ms of {mbn["call_wall_ms"]:.3f} '
+      f'(idle share {mbn["call_idle_share"]:.3f}), '
+      f'{mbn["model_gflops"]:.2f} GFLOP a call, MFU '
+      f'{mbn["mfu_int8_peak"]:.4f} of the dense int8 peak; validate mse '
+      f'{mbn["validate_outputs_mse"]}; phase {mbn["phase_s"]:.1f}s')
+  log(f'phase mobilenet done at {time.monotonic() - t_start:.1f}s')
   if args.skip_cpu:
     kept.clear()
   if not args.skip_cpu:
@@ -6050,7 +6322,7 @@ def main():
                     'bench_decode_int4g': bench4, 'server': server,
                     'server_int4g': server4, 'quantizer': quant,
                     'server_attn_modes': servers_mode, 'ab_tool': ab,
-                    'static_range': srq,
+                    'static_range': srq, 'mobilenet': mbn,
                     'card': smi}), flush=True)
   print(smi, flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -42,7 +42,9 @@ def test_port_imports_no_jax():
                'algorithms.uniform.octav', 'algorithms.uniform.hadamard',
                'algorithms.nonlinear.float_casting', 'recipe.recipe_utils',
                'pipeline.params_generator', 'pipeline.model_modifier',
-               'utils.progress_utils', 'tools', 'tools.attn_int4_bench'):
+               'utils.progress_utils', 'tools', 'tools.attn_int4_bench',
+               'models.mobilenet', 'utils.flops',
+               'utils.constrained_ops_utils', 'utils.test_utils'):
     assert f'ai_edge_quantizer_tpu_torch.{name}' in modules
   code = (
       'import importlib, sys\n'
