@@ -1624,7 +1624,10 @@ class GraphExecutor:
     zp = int(np.asarray(xq.zero_point).reshape(()))
     pads = ops_impl.window_pads(padding, x_val.shape[1:3],
                                 w_val.shape[1:3], (s, s))
-    acc = qmm.int_conv_exact(x_val, w_val, s, pads, zp, depthwise)
+    # Padded with the zero point; the windows in the weight's (kh, kw) order.
+    taps = ops_impl.windows(ops_impl.pad_hw(x_val, pads, value=zp),
+                            w_val.shape[1], w_val.shape[2], s)
+    acc = qmm.int_conv_exact(taps, w_val, depthwise)
     key = ('conv_epilogue', sg_idx, w_tid, float(np.asarray(xq.scale)))
     if key not in self._const_cache:
       # Weight sums a channel, and f32(s_x) * s_w in float32 (the JAX

@@ -56,24 +56,20 @@ def int_bmm_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return acc
 
 
-def int_conv_exact(x_q: torch.Tensor, w_q: torch.Tensor, stride: int,
-                   pads, pad_value: int, depthwise: bool) -> torch.Tensor:
-  """Exact int32 accumulator of a VALID convolution of NHWC int8 x_q,
-  padded on H and W by pads [(lo, hi), (lo, hi)] with pad_value (the
-  activation zero point), with the int8 weight w_q: [O, kh, kw, C]
-  (dense) or [1, kh, kw, C] (depthwise, one channel a group), at one
-  stride on both axes. Out [N, Ho, Wo, O or C] int32.
+def int_conv_exact(taps: list, w_q: torch.Tensor,
+                   depthwise: bool) -> torch.Tensor:
+  """Exact int32 accumulator of a convolution with the int8 weight w_q:
+  [O, kh, kw, C] (dense) or [1, kh, kw, C] (depthwise, one channel a
+  group). taps are the padded NHWC int8 input's kh * kw windows
+  [N, Ho, Wo, C], in the weight's row-major (kh, kw) order
+  (`ops.impl.windows`). Out [N, Ho, Wo, O or C] int32.
 
   A dense convolution is `int_matmul_exact` on [N * Ho * Wo, kh * kw * C]
-  (the padded input's windows gathered in the weight's (kh, kw, C) order;
-  a 1 x 1 convolution's are its pixels); a depthwise one is kh * kw
-  multiply-adds of shifted, strided int32 slices. Both are the integer
-  product, whatever the order of its sums."""
-  # ops.impl imports this package's kernels: imported here, not above.
-  from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
+  (the taps stacked in the weight's (kh, kw, C) order; a 1 x 1
+  convolution's one tap is its pixels); a depthwise one is kh * kw
+  multiply-adds of the int32 taps. Both are the integer product, whatever
+  the order of its sums."""
   kh, kw = w_q.shape[1], w_q.shape[2]
-  taps = ops_impl.windows(ops_impl.pad_hw(x_q, pads, value=pad_value),
-                          kh, kw, stride)
   n, ho, wo, c = taps[0].shape
   if depthwise:
     w32 = w_q[0].to(torch.int32).reshape(kh * kw, c)

@@ -6,8 +6,8 @@ end-to-end test tier and available to downstream users for their own op
 coverage tests.
 
 A copy of `ai_edge_quantizer_tpu/utils/test_utils.py` over the port's
-`Quantizer`. Calibration and validation run on `device`, the CPU unless
-the caller asks for the card: the helpers serve tests of small graphs.
+`Quantizer`. Calibration and validation run on `device`, the card unless
+the caller asks for the CPU (`device='cpu'`), as the `Quantizer`'s own.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ class BaseOpTestCase:
       num_calibration_samples: int = 16,
       num_validation_samples: int = 4,
       error_metric: str = 'mse',
-      device: str = 'cpu',
+      device: str = 'cuda',
   ):
     """Run the full pipeline; returns (quantizer, comparison_result)."""
     qt = quantizer_lib.Quantizer(model, recipe)
@@ -76,7 +76,7 @@ class BaseOpTestCase:
       min_size_reduction: float,
       weight_tolerance: float = 1e-2,
       output_tolerance: float = 1e-2,
-      device: str = 'cpu',
+      device: str = 'cuda',
   ) -> None:
     """One-call variant used by the per-op e2e tests."""
     _, comparison = BaseOpTestCase.quantize_and_validate(model, recipe,

@@ -4985,9 +4985,11 @@ SRQ_FLIP_SHARE = 1e-3
 GPTQ_INVERSE_RTOL = 1e-3
 
 
-def encoder_outputs_ok(torch, quant_arith, graph, out, label):
-  """Dequantized `probs` rows sum to 1 within one code a class, `pooled`
-  in [-1, 1], every value finite; returns them as float32."""
+def softmax_outputs_ok(torch, quant_arith, graph, out, label):
+  """Every output dequantized and finite, and `probs`' rows summing to 1
+  within what its codes can hold: each probability rounds to within half
+  a code, and the clamp at the top of the range takes one code more
+  (1e-5 for float32 probs); returns the outputs as float32."""
   sg = graph.subgraphs[graph.signatures[0].subgraph_index]
   sig = graph.signatures[0]
   vals = {}
@@ -4996,17 +4998,26 @@ def encoder_outputs_ok(torch, quant_arith, graph, out, label):
     vals[name] = (quant_arith.dequantize(v, t.quantization)
                   if t.quantization is not None and not v.is_floating_point()
                   else v.float())
-  probs, pooled = vals['probs'], vals['pooled']
-  codes = 1.0
+  probs = vals['probs']
+  bound = 1e-5
   q = sg.tensors[sig.outputs['probs']].quantization
   if q is not None:
-    codes = float(np.asarray(q.scale).reshape(-1)[0]) * probs.shape[-1]
+    code = float(np.asarray(q.scale).reshape(-1)[0])
+    bound = code * (probs.shape[-1] / 2 + 1)
   row_err = float(torch.max(torch.abs(probs.sum(-1) - 1.0)))
   if (not all(bool(torch.isfinite(v).all()) for v in vals.values())
-      or row_err > max(codes, 1e-5) or float(pooled.abs().max()) > 1.0):
-    raise AssertionError(f'{label}: outputs out of range (probs rows off by '
-                         f'{row_err}, |pooled| <= '
-                         f'{float(pooled.abs().max())})')
+      or row_err > bound):
+    raise AssertionError(f'{label}: outputs not finite or probs rows off by '
+                         f'{row_err} (bound {bound})')
+  return vals
+
+
+def encoder_outputs_ok(torch, quant_arith, graph, out, label):
+  """softmax_outputs_ok, and `pooled` in [-1, 1]."""
+  vals = softmax_outputs_ok(torch, quant_arith, graph, out, label)
+  if float(vals['pooled'].abs().max()) > 1.0:
+    raise AssertionError(f'{label}: |pooled| <= '
+                         f'{float(vals["pooled"].abs().max())}')
   return vals
 
 
@@ -5240,30 +5251,6 @@ A16W8_FLIP_SHARE = 1e-2
 MB_PROBS_MSE = 1e-3
 
 
-def mobilenet_outputs_ok(torch, quant_arith, graph, out, label):
-  """`probs` dequantized: finite, rows summing to 1 within one code a
-  class, and not degenerate by bench.py's test (the sum of |probs| as
-  stored, the int8 codes of an a8w8 model, finite and non-zero: near-
-  uniform probabilities over 1000 classes are below one code of 1/256
-  and dequantize to 0); returns it as float32."""
-  sg = graph.subgraphs[graph.signatures[0].subgraph_index]
-  t = sg.tensors[graph.signatures[0].outputs['probs']]
-  v = out['probs']
-  probs = (quant_arith.dequantize(v, t.quantization)
-           if t.quantization is not None and not v.is_floating_point()
-           else v.float())
-  code = 1.0
-  if t.quantization is not None:
-    code = float(np.asarray(t.quantization.scale).reshape(-1)[0])
-  checksum = float(torch.sum(torch.abs(v.float())))
-  row_err = float(torch.max(torch.abs(probs.sum(-1) - 1.0)))
-  if (not bool(torch.isfinite(probs).all()) or not np.isfinite(checksum)
-      or checksum == 0.0 or row_err > max(code * probs.shape[-1], 1e-5)):
-    raise AssertionError(f'{label}: degenerate probs (checksum {checksum}, '
-                         f'rows off by {row_err})')
-  return probs
-
-
 def mobilenet_phase(torch, port, dev, batch=MB_BATCH, image=MB_IMAGE,
                     steps=MB_STEPS, cpu_batch=MB_CPU_BATCH,
                     calib_samples=MB_CALIB_SAMPLES):
@@ -5276,10 +5263,15 @@ def mobilenet_phase(torch, port, dev, batch=MB_BATCH, image=MB_IMAGE,
   card at `batch`: images/s over `steps` calls, device busy and idle share
   and the busiest kernels of one call, model GFLOP and MFU against the
   card's dense int8 peak; every call must take the integer path for all
-  MB_CONVS convolutions (`_try_srq_int_conv` counted) and give finite,
-  non-degenerate probs; (c) at `cpu_batch`, the same weights and QSVs, op
-  by op against the CPU port (OpByOp): convolution and FC codes equal,
-  other ops' one-step flips within SRQ_FLIP_SHARE; (d) default_a16w8
+  MB_CONVS convolutions (`_try_srq_int_conv` counted) and give finite
+  outputs (softmax_outputs_ok); one more call keeps every tensor, and its
+  first `cpu_batch` images' pooled features and logits must be the codes
+  of a CPU run of the same weights and QSVs on those images (one step
+  apart in at most SRQ_FLIP_SHARE of them). The probabilities themselves
+  say little: with random weights every one is near 1/1000, below half a
+  code of 1/256, and all are stored as 0. (c) at `cpu_batch`, the same
+  images, op by op against the CPU port (OpByOp): convolution and FC codes
+  equal, other ops' one-step flips within SRQ_FLIP_SHARE; (d) default_a16w8
   calibrated, quantized and run once at `batch` (the generic float32
   convolutions, TF32 off), then op by op against the CPU at `cpu_batch`
   (int16 codes one step apart in at most A16W8_FLIP_SHARE of an op kind's
@@ -5342,34 +5334,54 @@ def mobilenet_phase(torch, port, dev, batch=MB_BATCH, image=MB_IMAGE,
 
   ex._try_srq_int_conv = counted
 
-  def call(feed):
+  def call(feed, run=ex):
     int_convs.append(0)
-    return ex(feed)
+    return run(feed)
 
   feed = {'image': np.random.default_rng(0).standard_normal(
       (batch, image, image, 3), dtype=np.float32)}
   feed = {'image': torch.as_tensor(feed['image'], device=dev)}
   res = timed('first_call_s', lambda: call(feed))
-  mobilenet_outputs_ok(torch, q_arith, qgraph, res, 'a8w8 mobilenet')
+  softmax_outputs_ok(torch, q_arith, qgraph, res, 'a8w8 mobilenet')
   sync()
   t0 = time.monotonic()
   for _ in range(steps):
     res = call(feed)
   sync()
   elapsed = time.monotonic() - t0
-  probs = mobilenet_outputs_ok(torch, q_arith, qgraph, res, 'a8w8 mobilenet')
+  probs = softmax_outputs_ok(torch, q_arith, qgraph, res,
+                             'a8w8 mobilenet')['probs']
   gflop = port['flops'].graph_flops(graph) / 1e9
   out.update(imgs_per_s=batch * steps / elapsed,
              ms_per_call=elapsed / steps * 1e3, model_gflops=gflop,
              mfu_int8_peak=gflop * 1e9 / (elapsed / steps) / INT8_OPS_PER_S,
-             probs_checksum=float(torch.sum(torch.abs(
-                 res['probs'].float()))),
              probs_max=float(probs.max()))
   if on_card:
     wall, busy, ranked = device_busy(torch, lambda: call(feed))
     out.update(call_wall_ms=wall, call_device_busy_ms=busy,
                call_idle_share=1.0 - busy / wall,
                call_by_kernel=dict(ranked[:12]))
+  # The first cpu_batch images of one more call, held against the CPU.
+  kept = timed('kept_call_s', lambda: call(
+      feed, ex.signature_runner(capture_all=True)))
+  q_small = Quantizer(small, 'default_a8w8').quantize(qsv).quantized_model
+  feed_small = {'image': feed['image'][:cpu_batch].cpu()}
+  cpu_kept = executor.GraphExecutor(q_small, device='cpu', **opts
+                                    ).signature_runner(capture_all=True)(
+                                        feed_small)
+  e2e = {}
+  for name in ('head/pooled', 'classifier/out'):
+    got = torch.from_numpy(kept[name][:cpu_batch]).long()
+    want = torch.from_numpy(cpu_kept[name]).long()
+    diff = torch.abs(got - want)
+    e2e[name] = int(torch.count_nonzero(diff))
+    if (got.shape != want.shape or int(diff.max()) > 1
+        or e2e[name] > SRQ_FLIP_SHARE * diff.numel()):
+      raise AssertionError(f'mobilenet: {name} of the batch-{batch} call '
+                           f'against the CPU: {e2e[name]} codes differ, by '
+                           f'up to {int(diff.max())}')
+  out['e2e_code_flips_vs_cpu'] = e2e
+  del kept, cpu_kept
   out['int_convs_per_call'] = sorted(set(int_convs))
   if set(int_convs) != {MB_CONVS}:
     raise AssertionError(f'mobilenet: integer convolutions per call '
@@ -5383,18 +5395,16 @@ def mobilenet_phase(torch, port, dev, batch=MB_BATCH, image=MB_IMAGE,
       f'MFU {out["mfu_int8_peak"]:.4f} of the int8 peak; {MB_CONVS} integer '
       f'convolutions in each of {len(int_convs)} calls; quantize '
       f'{out["quantize_a8w8_s"]:.2f}s; busiest kernels '
-      f'{list(out.get("call_by_kernel", {}).items())[:5]}')
+      f'{list(out.get("call_by_kernel", {}).items())[:5]}; first '
+      f'{cpu_batch} images\' pooled features and logits against the CPU: '
+      f'{e2e} codes differ')
   # (c) card against CPU, op by op, at cpu_batch.
-  q_small = Quantizer(small, 'default_a8w8').quantize(qsv).quantized_model
-  feed_small = test_data.create_random_dataset(small, num_samples=1,
-                                               seed=1)['serving_default'][0]
 
-  def op_by_op(qg, int16_step=False):
+  def op_by_op(qg):
     watch = OpByOp(torch, executor.GraphExecutor(qg, device='cpu', **opts))
     watch.call(feed_small)
     hold = OpByOp(torch, executor.GraphExecutor(qg, device=dev, **opts),
-                  want=watch.seen, int_qmatmul=port['int_qmatmul'],
-                  int16_step=int16_step)
+                  want=watch.seen, int_qmatmul=port['int_qmatmul'])
     hold.call(feed_small)
     sg = qg.subgraphs[0]
     elements = {}
@@ -5424,12 +5434,12 @@ def mobilenet_phase(torch, port, dev, batch=MB_BATCH, image=MB_IMAGE,
   ex16 = executor.GraphExecutor(q16, device=dev, **opts)
   feed = {'image': torch.as_tensor(data['serving_default'][0]['image'],
                                    device=dev)}
-  timed('run_a16w8_s', lambda: mobilenet_outputs_ok(
+  timed('run_a16w8_s', lambda: softmax_outputs_ok(
       torch, q_arith, q16, ex16(feed), 'a16w8 mobilenet'))
   del ex16, q16, feed
   q16_small = Quantizer(small, 'default_a16w8').quantize(
       qsv16).quantized_model
-  hold, share = op_by_op(q16_small, int16_step=True)
+  hold, share = op_by_op(q16_small)
   if any(v > A16W8_FLIP_SHARE for v in share.values()):
     raise AssertionError(f'mobilenet a16w8 card-vs-cpu: code flips '
                          f'{hold.flips}')
@@ -5552,7 +5562,8 @@ class OpByOp:
   Recording (want None): `seen[i]` keeps every output of the i-th
   signature call. Holding (want from a recording): each output of the
   i-th call is held against want[i] (float outputs to 1e-5 of their
-  largest magnitude, int8 codes to one step, other integers exactly) and
+  largest magnitude, int8 and int16 codes to one step, other integers
+  exactly) and
   the run goes on from the wanted value; ARG_MAX ids that differ are kept
   in `id_diffs` for the caller to judge by the logit margin. The fused
   MLP's output in a call of a signature listed in `mlp_rtol` is held to
@@ -5562,8 +5573,8 @@ class OpByOp:
   elements beyond INT4G_FINE_RTOL). `worst` keeps the largest relative
   error by signature and opcode ('MLP' for the fused MLP, FUSED_BLOCK for
   a decode block unit, one op with four outputs), `flips` the int8 codes
-  that differ by one step (int16 codes too with `int16_step`, for a16w8
-  graphs, whose float convolutions and FC sum in another order on the
+  that differ by one step (int16 codes too: only a16w8 graphs hold them,
+  whose float convolutions and FC sum in another order on the
   card). An unpacked integer FULLY_CONNECTED (a
   quantized graph's) is held by its kernel's rule: a DRQ one ('FC int8
   DRQ') bit for bit, a blockwise one ('FC blockwise') to
@@ -5589,11 +5600,9 @@ class OpByOp:
   """
 
   def __init__(self, torch, ex, want=None, mlp_rtol=None,
-               int_qmatmul=None, int16_step=False):
+               int_qmatmul=None):
     self.torch, self.ex, self.want = torch, ex, want
     self.int_qmatmul = int_qmatmul
-    self.step_dtypes = ((torch.int8, torch.int16) if int16_step
-                        else (torch.int8,))
     self.mlp_rtol = dict(mlp_rtol or {})
     self.mlp_outs = {f['out'] for f in ex._mlp_fusions.values()}
     self.epilogue_outs = {f['epilogue']['y'] for f in
@@ -5727,7 +5736,7 @@ class OpByOp:
       else:
         diff = torch.abs(got.long() - want.long())
         err = int(torch.max(diff))
-        if err > (1 if got.dtype in self.step_dtypes else 0):
+        if err > (1 if got.dtype in (torch.int8, torch.int16) else 0):
           raise AssertionError(f'{sg.tensors[tid].name}: int err {err}')
         if err:
           kind = f'{self.seen[i]["sig"]}/{op.opcode}'

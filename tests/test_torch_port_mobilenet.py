@@ -29,6 +29,7 @@ from ai_edge_quantizer_tpu_torch.execution import executor
 from ai_edge_quantizer_tpu_torch.kernels import qmatmul
 from ai_edge_quantizer_tpu_torch.models import encoder
 from ai_edge_quantizer_tpu_torch.models import mobilenet
+from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
 from ai_edge_quantizer_tpu_torch.utils import flops
 from ai_edge_quantizer_tpu_torch.utils import test_data
 
@@ -43,6 +44,17 @@ FLOAT_RTOL = 1e-5
 # the ops that are not integer products (ADD, MEAN, SOFTMAX).
 CODE_FLIP_SHARE = 1e-3
 IMAGE = 96  # tests/test_mobilenet.py's
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores, and its CPU
+  convolutions then run several times slower than on one thread."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
 
 
 def test_builder_matches_jax_and_ignores_the_input_shape():
@@ -225,8 +237,10 @@ def test_int_conv_exact_is_the_integer_product(case):
   else:
     x = rng.integers(-128, 128, x_shape).astype(np.int8)
     w = rng.integers(-127, 128, w_shape).astype(np.int8)
-  got = qmatmul.int_conv_exact(torch.from_numpy(x), torch.from_numpy(w),
-                               stride, pads, zp, depthwise)
+  taps = ops_impl.windows(
+      ops_impl.pad_hw(torch.from_numpy(x), pads, value=zp),
+      w_shape[1], w_shape[2], stride)
+  got = qmatmul.int_conv_exact(taps, torch.from_numpy(w), depthwise)
   assert got.dtype == torch.int32
   want = _conv_ref(x, w, stride, pads, zp, depthwise)
   assert np.max(np.abs(want)) < 2**31

@@ -25,10 +25,12 @@ constrained-op lists of every constraint.
 """
 
 import dataclasses
+import inspect
 import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from ai_edge_quantizer_tpu import Quantizer as JaxQuantizer
 from ai_edge_quantizer_tpu.execution import executor as jax_executor
@@ -41,6 +43,7 @@ from ai_edge_quantizer_tpu_torch.algorithms.uniform import engine
 from ai_edge_quantizer_tpu_torch.execution import executor
 from ai_edge_quantizer_tpu_torch.ops import impl
 from ai_edge_quantizer_tpu_torch.utils import constrained_ops_utils
+from ai_edge_quantizer_tpu_torch.utils import test_utils
 
 import test_e2e_per_op
 from test_torch_port_quantizer import graph_record, to_port_graph
@@ -71,6 +74,17 @@ TIE_OPS = ('AVERAGE_POOL_2D', 'RESIZE_BILINEAR')
 CALIBRATION_SAMPLES = 4
 
 EXACT = ('exact', 0)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores, and its CPU
+  convolutions then run several times slower than on one thread."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
 
 
 def _ulps(tol):
@@ -504,6 +518,28 @@ def test_conv2d_transpose_quantized_matches_jax(recipe, stride):
   assert sg.tensor_by_name('tconv/w').dtype == 'int8'
   feed = {'x': _f(_rng(f'tconv feed{stride}'), 1, 8, 8, 4)}
   assert_quantized_runs_agree(want_g, got_g, feed)
+
+
+@pytest.mark.parametrize('op_name', [
+    'BATCH_MATMUL', 'EMBEDDING_LOOKUP', 'CONV_2D', 'DEPTHWISE_CONV_2D'])
+def test_base_op_test_case_weight_only_on_the_cpu(op_name, monkeypatch):
+  """The port's `BaseOpTestCase` helper on tests/test_e2e_per_op.py's
+  weight-only fixtures, with its bounds (size down by half, weight and
+  output mse <= 1e-2), the CPU asked for."""
+  monkeypatch.setattr(test_e2e_per_op, 'RNG', _rng(op_name))
+  graph = to_port_graph(test_e2e_per_op._BUILDERS[op_name]())
+  test_utils.BaseOpTestCase.assert_quantization_accuracy_and_size(
+      graph, 'default_af32w8float', min_size_reduction=0.5,
+      weight_tolerance=1e-2, output_tolerance=1e-2, device='cpu')
+
+
+def test_base_op_test_case_runs_on_the_card_by_default():
+  """The helpers' device is the `Quantizer`'s: the card, unless asked."""
+  want = inspect.signature(Quantizer.calibrate).parameters['device'].default
+  assert want == 'cuda'
+  for fn in (test_utils.BaseOpTestCase.quantize_and_validate,
+             test_utils.BaseOpTestCase.assert_quantization_accuracy_and_size):
+    assert inspect.signature(fn).parameters['device'].default == want
 
 
 @pytest.mark.parametrize('constraint', list(engine.OpQuantConstraint),
