@@ -31,8 +31,15 @@ activations) and `_try_srq_int_bmm`, and the integer convolution
 `_try_srq_int_conv` (CONV_2D and DEPTHWISE_CONV_2D over int8 activations,
 its int32 product exact through `qmatmul.int_conv_exact`). The generic
 convolutions and the bilinear resize run in full float32 on the card
-(`full_f32_matmul`, cuDNN's TF32 off). The MoE fusion and control flow
-(STABLEHLO_COMPOSITE, WHILE, IF) are not ported yet.
+(`full_f32_matmul`, cuDNN's TF32 off). Control flow runs as in the JAX
+executor, each op's subgraphs op by op through `_eval_op` with their own
+constants: a STABLEHLO_COMPOSITE's body inline, a WHILE as a host loop
+that reads its condition's scalar before each pass (the JAX executor's
+`lax.while_loop`, the carry held to its input dtypes), an IF as the
+branch its predicate picks on the host (`lax.cond`). A body's tensors
+stay local to its run, so capture mode keeps the outer subgraph's tensors
+only, as the traced JAX loop and branch do. The MoE fusion is not ported
+yet.
 
 Differences from the JAX executor:
   * Options are constructor arguments, not environment variables, with
@@ -197,15 +204,17 @@ def full_f32_matmul():
      torch.backends.cudnn.allow_tf32) = saved
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+  """A tensor as a numpy array on the host (bfloat16 as float32)."""
+  t = t.detach()
+  if t.dtype == torch.bfloat16:
+    t = t.to(torch.float32)
+  return t.cpu().numpy()
+
+
 def _to_host(tensors: dict) -> dict:
   """{name: tensor} -> {name: numpy array} (bfloat16 as float32)."""
-  out = {}
-  for name, t in tensors.items():
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-      t = t.to(torch.float32)
-    out[name] = t.cpu().numpy()
-  return out
+  return {name: to_host(t) for name, t in tensors.items()}
 
 
 class GraphExecutor:
@@ -1258,9 +1267,11 @@ class GraphExecutor:
 
   def signature_runner(self, signature_key: str = 'serving_default',
                        capture_all: bool = False,
-                       serving_fastpaths: bool = False):
+                       serving_fastpaths: bool = False,
+                       on_host: bool = True):
     """A callable(inputs: dict) -> dict of outputs (or all tensors), as
-    numpy arrays on the host.
+    numpy arrays on the host (on_host=False: as tensors on this device,
+    for a caller that copies only what it needs, `to_host`).
 
     capture_all works with packed serving weights: packed int4 FC weights
     are returned as their unpacked true-shape int8 view, so the dual-model
@@ -1271,9 +1282,10 @@ class GraphExecutor:
     sig = self.graph.signature_by_key(signature_key)
 
     def runner(inputs: dict) -> dict:
-      return _to_host(self._run_signature(
+      out = self._run_signature(
           sig.subgraph_index, signature_key, self._weights, inputs,
-          capture_all=capture_all, serving_fastpaths=serving_fastpaths))
+          capture_all=capture_all, serving_fastpaths=serving_fastpaths)
+      return _to_host(out) if on_host else out
 
     return runner
 
@@ -1516,6 +1528,38 @@ class GraphExecutor:
       self._store_outputs(sg, op, (out,), env)
       return
 
+    if opcode == 'STABLEHLO_COMPOSITE':
+      # The composite's body inline: op inputs map to the body's inputs by
+      # position, its outputs to the op's outputs.
+      if not op.side_effect_subgraphs:
+        raise NotImplementedError(
+            'STABLEHLO_COMPOSITE without a body subgraph.')
+      results = self._run_subgraph(op.side_effect_subgraphs[0],
+                                   [env[t] for t in op.inputs])
+      self._store_outputs(sg, op, results, env)
+      return
+
+    if opcode == 'WHILE':
+      # TFLite WHILE: loop-carried op inputs; the cond subgraph gives a
+      # scalar bool, the body a carry of the same arity. The carry keeps
+      # its input dtypes, as lax.while_loop's does.
+      cond_idx, body_idx = op.side_effect_subgraphs
+      carry = tuple(env[t] for t in op.inputs)
+      dtypes = tuple(v.dtype for v in carry)
+      while bool(self._run_subgraph(cond_idx, carry)[0].reshape(())):
+        carry = tuple(v.to(d) for v, d in zip(
+            self._run_subgraph(body_idx, carry), dtypes))
+      self._store_outputs(sg, op, carry, env)
+      return
+
+    if opcode == 'IF':
+      then_idx, else_idx = op.side_effect_subgraphs
+      pred = bool(env[op.inputs[0]].reshape(()))
+      results = self._run_subgraph(then_idx if pred else else_idx,
+                                   [env[t] for t in op.inputs[1:]])
+      self._store_outputs(sg, op, results, env)
+      return
+
     if (
         self.use_fused_kernels
         and opcode == 'DYNAMIC_UPDATE_SLICE'
@@ -1582,6 +1626,18 @@ class GraphExecutor:
     if not isinstance(result, tuple):
       result = (result,)
     self._store_outputs(sg, op, result, env)
+
+  def _run_subgraph(self, sub_idx: int, args) -> tuple:
+    """Runs subgraph `sub_idx` op by op in an environment of its own (its
+    constants, then `args` on its inputs by position); its outputs."""
+    sub = self.graph.subgraphs[sub_idx]
+    sub_env = {w_tid: arr for (w_sg, w_tid), arr in self._weights.items()
+               if w_sg == sub_idx}
+    for sub_tid, val in zip(sub.inputs, args):
+      sub_env[sub_tid] = val
+    for sub_op in sub.ops:
+      self._eval_op(sub_idx, sub, sub_op, sub_env)
+    return tuple(sub_env[t] for t in sub.outputs)
 
   def _try_srq_int_conv(self, sg_idx: int, sg: ir.Subgraph, op: ir.Op,
                         env: dict) -> bool:

@@ -13,12 +13,20 @@ run in the port's `GraphExecutor` on one torch device (`device`, the card
 unless the caller asks for 'cpu'), each fresh executor with float32
 activations and the JAX executor's default options, as the JAX
 validator's run; the metrics are the same numpy functions
-(`validation_utils`) over the captured tensors on the host.
+(`validation_utils`) over the captured tensors on the host. A constant
+tensor's metric is the same in every sample, so it is computed once and
+added again for the later samples (and, with fresh executors, once for
+the signatures whose tensor of that name reads the same buffers with the
+same quantization), and the runners keep their captures on the device,
+so a constant is copied to the host only the time its metric is made:
+the same values as the JAX validator's, without copying, dequantizing
+and comparing gigabytes of weights for each sample.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 from typing import Callable, Optional
 
@@ -184,6 +192,24 @@ def _dequantized_view(graph: ir.Graph, sg: ir.Subgraph, name_to_tid: dict,
   return qn.dequantize_array(np.asarray(value), params)
 
 
+def _constant_key(graph: ir.Graph, t: ir.Tensor):
+  """(buffer, shape, dtype, quantization digest) of a constant tensor,
+  None for an activation: two tensors with one key hold the same values
+  and dequantize alike."""
+  if t.buffer < 0 or graph.buffers[t.buffer].data is None:
+    return None
+  q = t.quantization
+  digest = None
+  if q is not None:
+    h = hashlib.sha1()
+    for arr in (q.scale, q.zero_point):
+      arr = np.ascontiguousarray(arr)
+      h.update(str(arr.dtype).encode() + str(arr.shape).encode())
+      h.update(arr.tobytes())
+    digest = (q.num_bits, q.quantized_dimension, q.block_size, h.digest())
+  return t.buffer, tuple(t.shape), t.dtype, digest
+
+
 def compare_model(
     reference_graph: ir.Graph,
     target_graph: ir.Graph,
@@ -216,13 +242,17 @@ def compare_model(
   ref_exec = fresh(reference_graph)
   tgt_exec = target_executor or fresh(target_graph)
   result = ComparisonResult(reference_graph, target_graph)
+  # Metrics of constant tensors, by signature and name, or across
+  # signatures by name and _constant_key where both executors are fresh
+  # (a target_executor's weights may have been loaded per tensor).
+  const_metrics: dict = {}
 
   for signature_key, samples in signature_test_data.items():
     ref_runner = ref_exec.signature_runner(
-        signature_key, capture_all=not compare_outputs_only)
+        signature_key, capture_all=not compare_outputs_only, on_host=False)
     tgt_runner = tgt_exec.signature_runner(
         signature_key, capture_all=not compare_outputs_only,
-        serving_fastpaths=use_serving_paths)
+        serving_fastpaths=use_serving_paths, on_host=False)
     ref_sig = reference_graph.signature_by_key(signature_key)
     tgt_sig = target_graph.signature_by_key(signature_key)
     ref_sg = reference_graph.subgraphs[ref_sig.subgraph_index]
@@ -231,6 +261,7 @@ def compare_model(
     tgt_ids = {t.name: i for i, t in enumerate(tgt_sg.tensors)}
 
     accumulated: dict = {}
+    const_keys: dict = {}  # name -> its const_metrics key, None if no constant
     count = 0
     for sample in samples:
       ref_out = ref_runner(sample)
@@ -247,14 +278,30 @@ def compare_model(
         }
       shared = set(ref_out) & set(tgt_out)
       for name in shared:
-        ref_val = _dequantized_view(reference_graph, ref_sg, ref_ids, name,
-                                    ref_out[name])
-        tgt_val = _dequantized_view(target_graph, tgt_sg, tgt_ids, name,
-                                    tgt_out[name])
-        if ref_val.size != tgt_val.size:
-          continue
-        accumulated[name] = accumulated.get(name, 0.0) + float(
-            compare_fn(tgt_val, ref_val))
+        if name not in const_keys:
+          const_keys[name] = None
+          if name in ref_ids and name in tgt_ids:
+            ref_key = _constant_key(reference_graph,
+                                    ref_sg.tensors[ref_ids[name]])
+            tgt_key = _constant_key(target_graph,
+                                    tgt_sg.tensors[tgt_ids[name]])
+            if ref_key is not None and tgt_key is not None:
+              const_keys[name] = ((name, ref_key, tgt_key)
+                                  if target_executor is None
+                                  else (signature_key, name))
+        key = const_keys[name]
+        value = const_metrics.get(key)
+        if value is None:
+          ref_val = _dequantized_view(reference_graph, ref_sg, ref_ids, name,
+                                      executor_lib.to_host(ref_out[name]))
+          tgt_val = _dequantized_view(target_graph, tgt_sg, tgt_ids, name,
+                                      executor_lib.to_host(tgt_out[name]))
+          if ref_val.size != tgt_val.size:
+            continue
+          value = float(compare_fn(tgt_val, ref_val))
+          if key is not None:
+            const_metrics[key] = value
+        accumulated[name] = accumulated.get(name, 0.0) + value
       count += 1
     averaged = {k: v / max(count, 1) for k, v in accumulated.items()}
     result.add_new_signature_results(error_metric, averaged, signature_key)

@@ -11,9 +11,10 @@ flatbuffers + mmap_utils), re-designed: JSON-structural header instead of a
 FlatBuffer schema, checkpoint-style aligned payload.
 
 A copy of `ai_edge_quantizer_tpu/graph/serialize.py`: the files are the
-same byte for byte. Sub-byte tensors pack with numpy (the JAX package's
-optional C++ packer writes the same bytes), and `.tflite` input is not
-ported (`load_model` raises NotImplementedError for it).
+same byte for byte. Sub-byte tensors pack with the C++ packer
+(`utils/native_packing.py`, built at first use) where it builds, else with
+numpy: the same bytes either way. `.tflite` models load through
+`graph/tflite_import.py`, which needs tensorflow for the schema.
 """
 
 from __future__ import annotations
@@ -28,6 +29,14 @@ from ai_edge_quantizer_tpu_torch.algorithms.uniform import quant_numerics as qn
 from ai_edge_quantizer_tpu_torch.graph import ir
 
 _MAGIC = b'AEQG'
+
+
+def _native():
+  """The C++ packer module, or None where it cannot be built (the first
+  call decides, and logs which packer runs)."""
+  from ai_edge_quantizer_tpu_torch.utils import native_packing
+  return native_packing if native_packing.packer() == 'native' else None
+
 _VERSION = 1
 _ALIGN = 64
 
@@ -69,7 +78,11 @@ class _PayloadWriter:
     arr = np.ascontiguousarray(arr)
     shape = list(arr.shape)
     if packed_bits in (2, 4):
-      arr = qn.pack_subbyte(arr, packed_bits)
+      native = _native()
+      arr = (
+          native.pack_subbyte(arr, packed_bits)
+          if native is not None else qn.pack_subbyte(arr, packed_bits)
+      )
       dtype = 'uint8'
     else:
       dtype = str(arr.dtype)
@@ -200,7 +213,12 @@ def _read_array(mm, payload_base: int, entry: Optional[dict],
     raw = mm[start:start + entry['nbytes']]
     packed = np.frombuffer(raw, dtype=np.uint8)
     n = int(np.prod(entry['shape'])) if entry['shape'] else 1
-    arr = qn.unpack_subbyte(packed, entry['packed_bits'], n)
+    native = _native()
+    arr = (
+        native.unpack_subbyte(packed, entry['packed_bits'], n)
+        if native is not None
+        else qn.unpack_subbyte(packed, entry['packed_bits'], n)
+    )
   elif zero_copy and isinstance(mm, mmap.mmap):
     # Read-only view straight into the mapping: pages fault in lazily.
     arr = np.frombuffer(mm, dtype=np.dtype(entry['dtype']),
@@ -295,17 +313,13 @@ def load_model(model) -> ir.Graph:
         import os
         os.unlink(tmp)
     if data[4:8] == b'TFL3':
-      raise _tflite_unported()
+      from ai_edge_quantizer_tpu_torch.graph import tflite_import
+      return tflite_import.load_tflite(data)
     raise ValueError('Unrecognized model bytes (neither .aeqg nor .tflite).')
   if model.endswith('.tflite'):
-    raise _tflite_unported()
+    from ai_edge_quantizer_tpu_torch.graph import tflite_import
+    return tflite_import.load_tflite(model)
   return load_graph(model)
-
-
-def _tflite_unported() -> NotImplementedError:
-  return NotImplementedError(
-      'TFLite import (ai_edge_quantizer_tpu/graph/tflite_import.py) is not '
-      'ported yet; convert the model to .aeqg first.')
 
 
 def model_size_bytes(graph: ir.Graph) -> int:

@@ -1,11 +1,12 @@
 """PyTorch implementations of every graph op.
 
 Port of `ai_edge_quantizer_tpu/ops/impl.py`, same `register` pattern: the
-JAX package's whole op vocabulary but STABLEHLO_COMPOSITE (whose impl
-there only raises: the JAX executor runs a composite through its body
-subgraph, which the port does not yet), with the int4-group KV cache's
+JAX package's whole op vocabulary, with the int4-group KV cache's
 INT4G_ATTENTION and INT4G_ATTENTION_SCATTER; the executor raises
-NotImplementedError for any other opcode.
+NotImplementedError for any other opcode. STABLEHLO_COMPOSITE is
+registered as there, with an impl that only raises: the executor runs a
+composite through its body subgraph (as it runs WHILE and IF through
+theirs).
 
 Type promotion follows JAX, not torch: a binary op over two tensors
 promotes both to their common dtype even when one of them is 0-d (torch
@@ -777,6 +778,13 @@ def hadamard_rotation(ctx: OpContext, x):
   shape = x.shape
   xr = x.reshape(shape[:-1] + (shape[-1] // hsize, hsize))
   return torch.matmul(xr.to(torch.float32), h).to(x.dtype).reshape(shape)
+
+
+@register('STABLEHLO_COMPOSITE')
+def stablehlo_composite(ctx: OpContext, *xs):
+  raise NotImplementedError(
+      'Composite ops are executed via their side-effect subgraphs by the '
+      'executor, not via a direct impl.')
 
 
 # -- int4-per-group KV cache (serving custom ops) ---------------------------

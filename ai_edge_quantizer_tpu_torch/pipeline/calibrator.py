@@ -14,9 +14,10 @@ executor's default options (`executor.JAX_DEFAULT_OPTIONS`), as the JAX
 calibrator's executor runs. In 'capture' mode every tensor comes back to
 the host; 'device_stats' reduces min, max and GPTQ Hessians on the device
 (`GraphExecutor.stats_runner`) and brings back only those. A signature
-whose plan reaches a composite's side-effect subgraph falls back to
-capture in the JAX package; the port runs no composite yet (the executor
-raises for STABLEHLO_COMPOSITE), so such a model does not calibrate.
+whose plan reaches a composite's body subgraph calibrates by capture
+even in 'device_stats' mode, as in the JAX package: the statistics cover
+the signature's own subgraph only. (WHILE and IF are no `OpName`, so a
+plan never reaches their subgraphs, in either package.)
 """
 
 from __future__ import annotations

@@ -143,7 +143,8 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      and attn_dynlen):
      Quantizer(graph, recipe).quantize(), export_model
      to a temporary .aeqg, serialize.load_graph (every buffer and
-     parameter equal), DecodeServer(loaded, pack_weights=True) serving the
+     parameter equal; gemma_mixed48 through the port's CLI instead, see
+     4b'), DecodeServer(loaded, pack_weights=True) serving the
      server's 128 requests; build, quantize, export and load times, file
      size, peak host memory, tokens/s, TTFT and the launches by kernel
      per layer L (gemma_mixed48: int8 DRQ 2L a tick or pass, MLP L, head
@@ -157,6 +158,21 @@ builds the port's CUDA kernels from kernels/csrc at first use, then:
      in the mode, as many launches as the f32 server's); the live-prefix
      attention's device time in the blockwise server's chunk of ticks and
      the masked attention's in the default-mode servers' (chunk_device_ms);
+  4b'. the quantizer's front door (io_phase): (a) gemma_mixed48's 2-layer
+     float serving graph saved as a .aeqg and quantized, saved and
+     validated by `cli.main([... '--validate'])` (cli_quantize, inside
+     4b: its output is the graph 4b serves and the later phases keep),
+     equal to the Quantizer's graph inside the call, with the comparison
+     JSON's size reduction and output mse, host seconds of each step and
+     the kernels launched in the call; (b) a .aeqb of BERT-base-lite and
+     MobileNetV2 through the CLI with a recipe-mapping JSON, each section
+     equal to the Quantizer's and run once at bench.py's shapes (#15 in
+     the encoder); (c) gemma_mixed48's packed serving weights through
+     save_serving_weights / load_serving_weights onto the card, bit for
+     bit; (d) a composite, a WHILE and an IF at D 2048 (control_flow_graphs)
+     quantized with dynamic_wi8_afp32, card against CPU (the same captured
+     tensors, within CF_RTOL), #15 four times in the loop, and the
+     composite model's device_stats calibration equal to capture's;
   4c. static range (static_range_phase): bench.py's bench_encoder at full
      width and depth (BERT_BASE_LITE: D 768, 12 heads, FFN 3072, T 512, 4
      layers, vocab 30528; batch 32, weights from seed 0) through the
@@ -4821,7 +4837,9 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
   QUANT_LAYERS asks for; then for each of
   QUANT_RECIPES: `Quantizer(graph, recipe).quantize()`, `export_model` to
   a temporary .aeqg, `serialize.load_graph` (mmap) with every buffer,
-  tensor and quantization parameter equal to the quantized graph's, and
+  tensor and quantization parameter equal to the quantized graph's (for
+  gemma_mixed48 the port's CLI quantizes, saves and validates instead:
+  cli_quantize, io_phase's (a), its report under 'cli'), and
   `DecodeServer(loaded, cfg, slots, pack_weights=True)` serving
   serve_load's requests, with each kernel's launches as
   quantized_launches has them. Host time and peak host memory (numpy
@@ -4865,22 +4883,36 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
       graph = float_graph(cfg_r.num_layers)
       report = progress.ProgressReport()
       report.start(graph)
-      t0 = time.monotonic()
-      result = quantize(port, graph, recipe)
-      quantize_s = time.monotonic() - t0
-      stats = report.finish(result.quantized_model)
-      path = os.path.join(tmp, f'{recipe}.aeqg')
-      t0 = time.monotonic()
-      result.export_model(path)
-      export_s = time.monotonic() - t0
-      t0 = time.monotonic()
-      loaded = serialize.load_graph(path)
-      load_s = time.monotonic() - t0
-      bad = same_graph_data(result.quantized_model, loaded)
-      if bad:
-        raise AssertionError(f'quantizer {recipe}: the .aeqg load differs '
-                             f'from the quantized graph: {bad[:8]}')
-      size = os.path.getsize(path)
+      if recipe == 'gemma_mixed48':
+        # io_phase (a): the CLI quantizes, saves and validates this graph.
+        loaded, quantized, cli_report = cli_quantize(
+            torch, port, kernels, graph, recipe, tmp, dev)
+        results['cli'] = cli_report
+        quantize_s = cli_report['quantize_s']
+        export_s = cli_report['save_s']
+        load_s = cli_report['load_s']
+        size = cli_report['aeqg_bytes']
+        stats = report.finish(quantized)
+      else:
+        t0 = time.monotonic()
+        result = quantize(port, graph, recipe)
+        quantize_s = time.monotonic() - t0
+        quantized = result.quantized_model
+        stats = report.finish(quantized)
+        path = os.path.join(tmp, f'{recipe}.aeqg')
+        t0 = time.monotonic()
+        result.export_model(path)
+        export_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        loaded = serialize.load_graph(path)
+        load_s = time.monotonic() - t0
+        bad = same_graph_data(quantized, loaded)
+        if bad:
+          raise AssertionError(f'quantizer {recipe}: the .aeqg load differs '
+                               f'from the quantized graph: {bad[:8]}')
+        size = os.path.getsize(path)
+        del result
+        os.remove(path)  # one full-depth .aeqg at a time on the disk
       log(f'quantizer {recipe}: quantize {quantize_s:.1f}s (peak host '
           f'memory {stats["peak_host_memory_bytes"] / 2**30:.2f} GiB, '
           f'constants {stats["model_size_before_bytes"] / 2**30:.2f} -> '
@@ -4889,10 +4921,10 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
           f'{len(loaded.buffers)} buffers equal')
       if (kept is not None and slots == B
           and cfg_r.num_layers == QUANT_CPU_LAYERS[recipe]):
-        kept[recipe] = result.quantized_model
+        kept[recipe] = quantized
         if recipe == 'gemma_mixed48':
           kept['float'] = graph
-      del result
+      del quantized
       gc.collect()
       t0 = time.monotonic()
       server = batching.DecodeServer(loaded, cfg_r, slots, pack_weights=True,
@@ -4924,7 +4956,6 @@ def quantizer_phase(torch, port, kernels, cfg, dev, n_requests=SERVE_REQUESTS,
             slots))
       del loaded
       gc.collect()
-      os.remove(path)  # one full-depth .aeqg at a time on the disk
       torch.cuda.empty_cache()
   return results
 
@@ -5052,9 +5083,7 @@ def static_range_phase(torch, port, kernels, dev, kept, cfg=None,
   opts = dict(activation_dtype='float32', **executor.JAX_DEFAULT_OPTIONS)
   out = {'batch': batch, 'seq_len': cfg.seq_len, 'layers': cfg.num_layers}
   on_card = dev == 'cuda'
-  for k in kernels:
-    k['wrapper'].launches = 0
-    k['wrapper'].plain_calls = 0
+  zero_counts(kernels)
 
   def timed(key, fn):
     t0 = time.monotonic()
@@ -5199,8 +5228,7 @@ def static_range_phase(torch, port, kernels, dev, kept, cfg=None,
   float_graph, target = kept['float'], kept['gemma_mixed48']
   tex = executor.GraphExecutor(target, device=dev, activation_dtype='float32')
   tex.prepare_serving_weights()
-  before = {k['name']: getattr(k['wrapper'], 'launches' if on_card
-                               else 'plain_calls') for k in kernels}
+  before = launches_of(kernels, on_card)
   cmp = timed('validate_serving_s', lambda: port['model_validator']
               .compare_model(float_graph, target,
                              test_data.create_random_dataset(
@@ -5208,10 +5236,8 @@ def static_range_phase(torch, port, kernels, dev, kept, cfg=None,
                                  signature_keys=['decode']),
                              target_executor=tex, use_serving_paths=True,
                              device=dev))
-  fused = {k['name']: getattr(k['wrapper'], 'launches' if on_card
-                              else 'plain_calls') - before[k['name']]
-           for k in kernels}
-  fused = {n: v for n, v in fused.items() if v}
+  fused = {n: v - before[n] for n, v in launches_of(kernels, on_card).items()
+           if v - before[n]}
   r = cmp.get_signature_comparison_result('decode')
   out['serving_validate'] = {'outputs_mse': dict(r.output_tensors),
                              'tensors': len(cmp.get_all_tensor_results()),
@@ -5227,9 +5253,7 @@ def static_range_phase(torch, port, kernels, dev, kept, cfg=None,
       f'output mse {r.output_tensors}')
   del tex, float_graph, target, cmp
   gc.collect()
-  out['launches'] = {k['name']: getattr(k['wrapper'], 'launches' if on_card
-                                        else 'plain_calls')
-                     for k in kernels}
+  out['launches'] = launches_of(kernels, on_card)
   return out
 
 
@@ -5472,6 +5496,434 @@ def mobilenet_phase(torch, port, dev, batch=MB_BATCH, image=MB_IMAGE,
   gc.collect()
   out['phase_s'] = time.monotonic() - t_phase
   return out
+
+
+# The quantizer's front door (io_phase): (a) the CLI over a .aeqg runs in
+# quantizer_phase, where it makes gemma_mixed48's graph; (b) a two-section
+# .aeqb through the CLI with presets that need no calibration, each section
+# then run once at bench.py's shapes; (c) the serving weights' checkpoint;
+# (d) control flow at GEMMA_2B's model width.
+IO_BUNDLE_RECIPES = {'encoder': 'dynamic_wi8_afp32',
+                     'default': 'dynamic_wi8_afp32'}
+CF_D, CF_ROWS, CF_STEPS = 2048, 256, 4
+CF_RECIPE = 'dynamic_wi8_afp32'
+# Card against CPU in (d): a float tensor to 1e-5 of its largest magnitude
+# (OpByOp's rule; the DRQ FCs' outputs are the same bit for bit given the
+# same inputs), integers exactly.
+CF_RTOL = 1e-5
+
+
+def control_flow_graphs(ir, builder, d=CF_D, rows=CF_ROWS, steps=CF_STEPS,
+                        float_fc=False, seed=0):
+  """{'composite', 'while', 'if'} graphs made with the IR builder; `ir` and
+  `builder` are the port's modules or the JAX package's (the CPU tests
+  build the JAX graphs here). 'composite': FC, an `odml.rms_norm`
+  STABLEHLO_COMPOSITE whose body is an RMS_NORM, FC. 'while': a WHILE
+  whose body applies a d x d FC to `rows` rows `steps` times, an int32
+  counter carried beside it (outputs 'y' and 'count'). 'if': an IF on a
+  bool input 'pred' with an FC in each branch. The FCs' outputs are named
+  '.../q_fc/out', their weights N(0, 1/d); float_fc puts an FC named
+  '.../f_fc/out' before each body's, for a recipe that leaves it float:
+  its weight a signed permutation, whose products sum exactly in any
+  order, so that two executors give the FC after it the same input."""
+  rng = np.random.default_rng(seed)
+
+  def fc(b, x, name):
+    w = (rng.standard_normal((d, d)) / np.sqrt(d)).astype(np.float32)
+    return b.fully_connected(x, w, name=name)
+
+  def body_fcs(b, x, scope):
+    if float_fc:
+      w = np.zeros((d, d), np.float32)
+      w[np.arange(d), rng.permutation(d)] = rng.choice([-1.0, 1.0], d)
+      x = b.fully_connected(x, w, name=f'{scope}/f_fc')
+    return fc(b, x, f'{scope}/q_fc')
+
+  graphs = {}
+  g = ir.Graph()
+  body = builder.GraphBuilder('norm_body', graph=g)
+  bx = body.input('norm_body/x', (rows, d))
+  gamma = body.constant('norm_body/gamma', (
+      1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32))
+  body.subgraph.outputs.append(body.op(
+      'RMS_NORM', [bx, gamma], [(rows, d)], output_names=['norm_body/out'],
+      attrs={'epsilon': 1e-6}))
+  main = builder.GraphBuilder('main', graph=g)
+  x = main.input('x', (rows, d))
+  h = fc(main, x, 'pre/q_fc')
+  normed = main.activation('composite/out', (rows, d))
+  main.subgraph.ops.append(ir.Op(
+      opcode='STABLEHLO_COMPOSITE', inputs=[h], outputs=[normed],
+      attrs={'composite_name': 'odml.rms_norm'},
+      side_effect_subgraphs=[body.subgraph_index]))
+  main.output(fc(main, normed, 'post/q_fc'), 'y')
+  graphs['composite'] = main.finalize()
+
+  g = ir.Graph()
+  cond = builder.GraphBuilder('cond', graph=g)
+  ci = cond.input('cond/i', (), 'int32')
+  cond.input('cond/x', (rows, d))
+  n = cond.constant('cond/n', np.asarray(steps, np.int32))
+  cond.subgraph.outputs.append(cond.op(
+      'LESS', [ci, n], [()], output_names=['cond/lt'],
+      output_dtypes=['bool']))
+  body = builder.GraphBuilder('loop_body', graph=g)
+  bi = body.input('loop_body/i', (), 'int32')
+  bx = body.input('loop_body/x', (rows, d))
+  one = body.constant('loop_body/one', np.asarray(1, np.int32))
+  bi_next = body.op('ADD', [bi, one], [()], output_names=['loop_body/i_next'],
+                    output_dtypes=['int32'])
+  body.subgraph.outputs += [bi_next, body_fcs(body, bx, 'loop_body')]
+  main = builder.GraphBuilder('main', graph=g)
+  x = main.input('x', (rows, d))
+  i0 = main.constant('loop/i0', np.asarray(0, np.int32))
+  count = main.activation('loop/count', (), 'int32')
+  y = main.activation('loop/y', (rows, d))
+  main.subgraph.ops.append(ir.Op(
+      opcode='WHILE', inputs=[i0, x], outputs=[count, y],
+      side_effect_subgraphs=[cond.subgraph_index, body.subgraph_index]))
+  main.output(y, 'y')
+  main.output(count, 'count')
+  graphs['while'] = main.finalize()
+
+  g = ir.Graph()
+  branches = []
+  for name in ('then', 'else'):
+    br = builder.GraphBuilder(name, graph=g)
+    bx = br.input(f'{name}/x', (rows, d))
+    br.subgraph.outputs.append(body_fcs(br, bx, name))
+    branches.append(br.subgraph_index)
+  main = builder.GraphBuilder('main', graph=g)
+  pred = main.input('pred', (), 'bool')
+  x = main.input('x', (rows, d))
+  y = main.activation('branch/y', (rows, d))
+  main.subgraph.ops.append(ir.Op(
+      opcode='IF', inputs=[pred, x], outputs=[y],
+      side_effect_subgraphs=branches))
+  main.output(y, 'y')
+  graphs['if'] = main.finalize()
+  return graphs
+
+
+def control_flow_feeds(name, rows=CF_ROWS, d=CF_D, seed=1):
+  """The inputs io_phase and the tests give control_flow_graphs' `name`
+  graph: one feed, two for 'if' (pred true, then false)."""
+  x = np.random.default_rng(seed).standard_normal((rows, d)).astype(
+      np.float32)
+  if name == 'if':
+    return [{'pred': np.asarray(flag), 'x': x} for flag in (True, False)]
+  return [{'x': x}]
+
+
+class _Recorded:
+  """Wraps methods of the port's Quantizer and QuantizationResult for the
+  length of a CLI call: each call's host seconds by name, and the
+  QuantizationResult that `quantize` returned."""
+
+  def __init__(self, port):
+    import ai_edge_quantizer_tpu_torch.quantizer as quantizer_lib
+    self.targets = [(quantizer_lib.Quantizer, 'quantize'),
+                    (quantizer_lib.Quantizer, 'validate'),
+                    (quantizer_lib.QuantizationResult, 'save')]
+    self.seconds, self.result = {}, None
+
+  def __enter__(self):
+    self.saved = [(cls, name, getattr(cls, name))
+                  for cls, name in self.targets]
+    for cls, name, fn in self.saved:
+      def timed(*args, _fn=fn, _name=name, **kwargs):
+        t0 = time.monotonic()
+        r = _fn(*args, **kwargs)
+        sync()
+        self.seconds[_name] = time.monotonic() - t0
+        if _name == 'quantize':
+          self.result = r
+        return r
+      setattr(cls, name, timed)
+    return self
+
+  def __exit__(self, *exc):
+    for cls, name, fn in self.saved:
+      setattr(cls, name, fn)
+
+
+def launches_of(kernels, on_card):
+  """Each kernel wrapper's count: launches on the card, plain runs on the
+  CPU (a CPU rehearsal)."""
+  return {k['name']: getattr(k['wrapper'], 'launches' if on_card
+                             else 'plain_calls') for k in kernels}
+
+
+def zero_counts(kernels):
+  for k in kernels:
+    k['wrapper'].launches = 0
+    k['wrapper'].plain_calls = 0
+
+
+def cli_quantize(torch, port, kernels, graph, recipe, tmp, dev):
+  """io_phase (a): `graph` saved as a .aeqg, then the port's CLI
+  (`cli.main([--model_file, --recipe, --output_dir, --validate, --device])`)
+  quantizes, saves and validates it. Returns (the CLI's output loaded,
+  the Quantizer's graph inside the CLI call, report): the two must be equal
+  (same_graph_data); the report has the host seconds of the float save,
+  quantize, save and validate, the comparison JSON's size reduction and
+  output mse, and every kernel's launches during the call (at least one
+  must have launched)."""
+  cli, serialize = port['cli'], port['serialize']
+  on_card = dev == 'cuda'
+  src_dir = os.path.join(tmp, 'float')
+  out_dir = os.path.join(tmp, 'cli')
+  os.makedirs(src_dir, exist_ok=True)
+  src = os.path.join(src_dir, f'{recipe}.aeqg')
+  t0 = time.monotonic()
+  serialize.save_graph(graph, src)
+  report = {'float_save_s': time.monotonic() - t0,
+            'float_aeqg_bytes': os.path.getsize(src)}
+  zero_counts(kernels)
+  t0 = time.monotonic()
+  with _Recorded(port) as rec:
+    rc = cli.main(['--model_file', src, '--recipe', recipe, '--output_dir',
+                   out_dir, '--validate', '--device', dev])
+  report['cli_s'] = time.monotonic() - t0
+  launched = {n: v for n, v in launches_of(kernels, on_card).items() if v}
+  os.remove(src)
+  if rc != 0 or rec.result is None or not launched:
+    raise AssertionError(f'cli {recipe}: rc {rc}, launches {launched}')
+  report.update(quantize_s=rec.seconds['quantize'],
+                save_s=rec.seconds['save'],
+                validate_s=rec.seconds['validate'], launches=launched)
+  path = os.path.join(out_dir, f'{recipe}.aeqg')
+  with open(os.path.join(out_dir, f'{recipe}_comparison_result.json')) as f:
+    cmp = json.load(f)
+  outputs = {f'{sig}/{name}': v for sig, r in cmp.items()
+             if isinstance(r, dict)
+             for name, v in r['output_tensors'].items()}
+  if not outputs or not all(np.isfinite(v) for v in outputs.values()):
+    raise AssertionError(f'cli {recipe}: comparison outputs {outputs}')
+  report.update(reduced_size_percentage=cmp['reduced_size_percentage'],
+                outputs_mse=outputs, aeqg_bytes=os.path.getsize(path))
+  t0 = time.monotonic()
+  loaded = serialize.load_graph(path)
+  report['load_s'] = time.monotonic() - t0
+  quantized = rec.result.quantized_model
+  bad = same_graph_data(quantized, loaded)
+  if bad:
+    raise AssertionError(f'cli {recipe}: its .aeqg differs from the '
+                         f'Quantizer\'s graph: {bad[:8]}')
+  for name in os.listdir(out_dir):
+    os.remove(os.path.join(out_dir, name))
+  log(f'io (a) cli {recipe}: float .aeqg {report["float_aeqg_bytes"]} bytes '
+      f'saved {report["float_save_s"]:.1f}s; quantize '
+      f'{report["quantize_s"]:.1f}s, save {report["save_s"]:.1f}s, validate '
+      f'{report["validate_s"]:.1f}s (the call {report["cli_s"]:.1f}s); size '
+      f'reduction {report["reduced_size_percentage"]:.2f}%, output mse '
+      f'{outputs}; output equal to the Quantizer\'s graph '
+      f'({len(loaded.buffers)} buffers); kernel launches in the call '
+      f'{launched}')
+  return loaded, quantized, report
+
+
+def io_phase(torch, port, kernels, dev, kept, enc_cfg=None,
+             enc_batch=ENC_BATCH, mb_batch=MB_BATCH, mb_image=MB_IMAGE,
+             cf_shape=(CF_D, CF_ROWS, CF_STEPS)):
+  """The quantizer's front door through the port's entry points, after
+  quantizer_phase (whose gemma_mixed48 graph the CLI made, (a)). (b) a
+  `.aeqb` of BERT-base-lite (model type 'encoder', bench.py's encoder at
+  batch `enc_batch`) and MobileNetV2 (model type 'vision', quantized by the
+  mapping's 'default', batch `mb_batch`) through `cli.main` with a
+  recipe-mapping JSON (IO_BUNDLE_RECIPES); each section of the CLI's
+  bundle equal to `Quantizer(section, recipe).quantize()` and run once on
+  `dev`: finite outputs, the encoder's DRQ FCs through #15. (c) an
+  executor of `kept`'s gemma_mixed48 graph with its serving weights
+  prepared: `save_serving_weights`, then `load_serving_weights` onto
+  `dev`, every tensor equal. (d) control_flow_graphs at `cf_shape`,
+  quantized with CF_RECIPE and run on `dev` and on the CPU (every tensor
+  captured: the same names, integers equal, floats within CF_RTOL), #15
+  launched once an iteration of the WHILE; the composite model calibrated
+  in device_stats mode (which falls back to capture) with QSVs equal to
+  capture's. `.tflite` and the TFLite sections of a `.litertlm` need
+  tensorflow's schema and are held on the CPU only (tests). Every
+  kernel's launches over the phase go to 'launches'."""
+  executor, Quantizer = port['executor'], port['Quantizer']
+  enc, mb, bundles = port['encoder'], port['mobilenet'], port['bundles']
+  test_data, checkpoint = port['test_data'], port['checkpoint']
+  enc_cfg = enc_cfg or enc.BERT_BASE_LITE
+  opts = dict(activation_dtype='float32', **executor.JAX_DEFAULT_OPTIONS)
+  on_card = dev == 'cuda'
+  out = {'packer': port['native_packing'].packer()}
+  t_phase = time.monotonic()
+  log('io: .tflite and the TFLite sections of a .litertlm need '
+      'tensorflow\'s schema, which this host may lack: they are held on the '
+      'CPU only (tests/test_torch_port_tflite.py)')
+  zero_counts(kernels)
+
+  def timed(key, fn):
+    t0 = time.monotonic()
+    r = fn()
+    sync()
+    out[key] = time.monotonic() - t0
+    return r
+
+  with tempfile.TemporaryDirectory() as tmp:
+    # (b) the bundle.
+    sections = {
+        'encoder': ('encoder', enc.build_encoder(enc_cfg, batch=enc_batch)),
+        'mobilenet': ('vision', mb.build_mobilenet_v2(batch=mb_batch,
+                                                      image_size=mb_image))}
+    bundle = bundles.Bundle(sections=[
+        bundles.BundleSection(name=name, model_type=kind, graph=graph)
+        for name, (kind, graph) in sections.items()],
+        metadata={'source': 'chip_smoke io_phase'})
+    path = os.path.join(tmp, 'models.aeqb')
+    timed('bundle_save_s', lambda: bundle.save(path))
+    mapping = os.path.join(tmp, 'mapping.json')
+    with open(mapping, 'w') as f:
+      json.dump(IO_BUNDLE_RECIPES, f)
+    rc = timed('bundle_cli_s', lambda: port['cli'].main([
+        '--model_file', path, '--recipe', mapping, '--output_dir',
+        os.path.join(tmp, 'out'), '--device', dev]))
+    got = timed('bundle_load_s', lambda: bundles.Bundle.load(
+        os.path.join(tmp, 'out', 'models.aeqb')))
+    if rc != 0 or [s.name for s in got.sections] != list(sections):
+      raise AssertionError(f'io (b): rc {rc}, sections '
+                           f'{[s.name for s in got.sections]}')
+    out['bundle_aeqb_bytes'] = os.path.getsize(path)
+    out['bundle_quantized_bytes'] = os.path.getsize(
+        os.path.join(tmp, 'out', 'models.aeqb'))
+    runs = {}
+    for sec in got.sections:
+      kind, graph = sections[sec.name]
+      recipe = IO_BUNDLE_RECIPES.get(kind, IO_BUNDLE_RECIPES['default'])
+      want = Quantizer(graph, recipe).quantize().quantized_model
+      bad = same_graph_data(want, sec.graph)
+      if bad:
+        raise AssertionError(f'io (b) {sec.name}: the bundle\'s section '
+                             f'differs from the Quantizer\'s: {bad[:8]}')
+      ex = executor.GraphExecutor(sec.graph, device=dev, **opts)
+      feed = (enc.make_inputs(enc_cfg, enc_batch) if sec.name == 'encoder'
+              else test_data.create_random_dataset(
+                  graph, num_samples=1)['serving_default'][0])
+      ex(feed)  # first call: weights and kernels warm
+      sync()
+      before = launches_of(kernels, on_card)
+      t0 = time.monotonic()
+      res = ex(feed)
+      sync()
+      ms = (time.monotonic() - t0) * 1e3
+      launched = {n: v - before[n] for n, v in
+                  launches_of(kernels, on_card).items() if v - before[n]}
+      finite = all(bool(torch.isfinite(v.float()).all()) for v in res.values())
+      runs[sec.name] = {'ms': ms, 'launches': launched,
+                        'outputs': {k: list(v.shape) for k, v in res.items()}}
+      if not finite:
+        raise AssertionError(f'io (b) {sec.name}: outputs not finite')
+      if sec.name == 'encoder' and not launched.get('qmatmul_int8_drq'):
+        raise AssertionError(f'io (b) encoder: no #15 launch: {launched}')
+      log(f'io (b) {sec.name} ({kind}, {recipe}): equal to the Quantizer\'s '
+          f'graph; one call {ms:.3f} ms, outputs '
+          f'{runs[sec.name]["outputs"]} finite, launches {launched}')
+      del ex, res
+    out['bundle_runs'] = runs
+    log(f'io (b) bundle: saved {out["bundle_save_s"]:.2f}s '
+        f'({out["bundle_aeqb_bytes"]} bytes), cli {out["bundle_cli_s"]:.2f}s '
+        f'({out["bundle_quantized_bytes"]} bytes), load '
+        f'{out["bundle_load_s"]:.2f}s')
+    del bundle, got, sections
+    gc.collect()
+
+    # (c) the serving weights' checkpoint.
+    ex = executor.GraphExecutor(kept['gemma_mixed48'], device=dev)
+    ex.prepare_serving_weights()
+    sync()
+    ckpt = os.path.join(tmp, 'ckpt')
+    timed('checkpoint_save_s', lambda: checkpoint.save_serving_weights(
+        ex._weights, ckpt))
+    restored = timed('checkpoint_load_s', lambda: checkpoint
+                     .load_serving_weights(ckpt, device=dev))
+    differ = [k for k, v in ex._weights.items() if k not in restored
+              or restored[k].device != v.device
+              or restored[k].dtype != v.dtype
+              or not torch.equal(restored[k], v)]
+    if differ or set(restored) != set(ex._weights):
+      raise AssertionError(f'io (c): restored tensors differ: {differ[:8]}')
+    out['checkpoint_bytes'] = sum(
+        os.path.getsize(os.path.join(ckpt, n)) for n in os.listdir(ckpt))
+    out['checkpoint_tensors'] = len(restored)
+    log(f'io (c) checkpoint of gemma_mixed48\'s serving weights '
+        f'({len(restored)} tensors, packed): {out["checkpoint_bytes"]} '
+        f'bytes saved {out["checkpoint_save_s"]:.2f}s, loaded onto {dev} '
+        f'{out["checkpoint_load_s"]:.2f}s, every tensor equal')
+    del ex, restored
+    gc.collect()
+
+  # (d) control flow.
+  d, rows, steps = cf_shape
+  graphs = control_flow_graphs(port['ir'], port['builder'], d, rows, steps)
+  flows = {}
+  for name, graph in graphs.items():
+    quantized = Quantizer(graph, CF_RECIPE).quantize().quantized_model
+    card = executor.GraphExecutor(quantized, device=dev, **opts)
+    cpu = executor.GraphExecutor(quantized, device='cpu', **opts)
+    worst, counts = 0.0, []
+    for feed in control_flow_feeds(name, rows, d):
+      before = launches_of(kernels, on_card)
+      card(feed)
+      sync()
+      counts.append(launches_of(kernels, on_card)['qmatmul_int8_drq']
+                    - before['qmatmul_int8_drq'])
+      a = card.signature_runner(capture_all=True)(feed)
+      b = cpu.signature_runner(capture_all=True)(feed)
+      if set(a) != set(b):
+        raise AssertionError(f'io (d) {name}: captured {sorted(a)} on the '
+                             f'card, {sorted(b)} on the CPU')
+      for tname in a:
+        x, y = a[tname], b[tname]
+        if x.dtype != y.dtype or x.shape != y.shape:
+          raise AssertionError(f'io (d) {name} {tname}: {x.dtype} '
+                               f'{x.shape} against {y.dtype} {y.shape}')
+        if np.issubdtype(y.dtype, np.floating):
+          rel = float(np.max(np.abs(x.astype(np.float64) - y))
+                      / max(float(np.max(np.abs(y))), 1e-30)) if y.size else 0
+          worst = max(worst, rel)
+          if rel > CF_RTOL:
+            raise AssertionError(f'io (d) {name} {tname}: rel err {rel}')
+        elif not np.array_equal(x, y):
+          raise AssertionError(f'io (d) {name} {tname}: integers differ')
+    want = [steps] if name == 'while' else [2] if name == 'composite' else [
+        1, 1]
+    if counts != want:
+      raise AssertionError(f'io (d) {name}: #15 launched {counts} times a '
+                           f'call, want {want}')
+    flows[name] = {'worst_rel_err': worst, 'drq_launches': counts,
+                   'captured': sorted(a)}
+    log(f'io (d) {name}: card against CPU, {len(a)} captured tensors the '
+        f'same, worst float rel err {worst:.3e}, #15 launches {counts}')
+    del card, cpu
+  cgraph = graphs['composite']
+  data = test_data.create_random_dataset(cgraph, num_samples=2)
+  qsvs = {mode: Quantizer(cgraph, 'default_a8w8').calibrate(
+      data, calibration_mode=mode, device=dev)
+          for mode in ('capture', 'device_stats')}
+  if not qsvs['capture'] or _qsv_differ(qsvs['capture'],
+                                        qsvs['device_stats']):
+    raise AssertionError('io (d): device_stats QSVs of the composite model '
+                         'differ from capture\'s')
+  flows['composite_calibration_tensors'] = len(qsvs['capture'])
+  log(f'io (d) composite calibration: device_stats fell back to capture, '
+      f'{len(qsvs["capture"])} QSVs equal')
+  out['control_flow'] = flows
+  out['phase_s'] = time.monotonic() - t_phase
+  out['launches'] = launches_of(kernels, on_card)
+  return out
+
+
+def _qsv_differ(a, b):
+  """True unless two QSV dicts hold the same names and equal arrays."""
+  if set(a) != set(b):
+    return True
+  return any(set(a[n]) != set(b[n]) or not all(
+      np.array_equal(np.asarray(a[n][k]), np.asarray(b[n][k])) for k in a[n])
+             for n in a)
 
 
 def quantizer_cpu_phase(torch, port, cfg, dev, kept=None):
@@ -6052,6 +6504,47 @@ MODE_PATHS = {
     'decode_attention_oproj': 'bench_decode_attn_block_{}'}
 
 
+def load_port(root):
+  """The port's modules that the phases use, by name, imported from the
+  checkout at `root`; raises if jax or the JAX package came with them."""
+  sys.path.insert(0, str(root))
+  from ai_edge_quantizer_tpu_torch import Quantizer, cli
+  from ai_edge_quantizer_tpu_torch.algorithms.uniform import gptq
+  from ai_edge_quantizer_tpu_torch.execution import executor
+  from ai_edge_quantizer_tpu_torch.execution import model_validator
+  from ai_edge_quantizer_tpu_torch.execution import quant_arith
+  from ai_edge_quantizer_tpu_torch.graph import builder, checkpoint, ir
+  from ai_edge_quantizer_tpu_torch.graph import serialize
+  from ai_edge_quantizer_tpu_torch.kernels import _build
+  from ai_edge_quantizer_tpu_torch.kernels import attention, block, cache
+  from ai_edge_quantizer_tpu_torch.kernels import head
+  from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
+  from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul, qkv
+  from ai_edge_quantizer_tpu_torch.models import bundles, encoder, gemma
+  from ai_edge_quantizer_tpu_torch.models import mobilenet
+  from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
+  from ai_edge_quantizer_tpu_torch.parallel import batching
+  from ai_edge_quantizer_tpu_torch.tools import attn_int4_bench
+  from ai_edge_quantizer_tpu_torch.utils import flops, native_packing
+  from ai_edge_quantizer_tpu_torch.utils import progress_utils
+  from ai_edge_quantizer_tpu_torch.utils import test_data
+  if any(m == 'jax' or m.startswith(('jax.', 'ai_edge_quantizer_tpu.'))
+         or m == 'ai_edge_quantizer_tpu' for m in sys.modules):
+    raise AssertionError('the port imported jax or the JAX package')
+  return dict(executor=executor, attention=attention, block=block,
+              cache=cache, head=head,
+              mlp=mlp, packed_qmatmul=packed_qmatmul, gemma=gemma,
+              batching=batching, ops_impl=ops_impl, ir=ir,
+              int_qmatmul=int_qmatmul, serialize=serialize, qkv=qkv,
+              Quantizer=Quantizer, progress_utils=progress_utils,
+              attn_int4_bench=attn_int4_bench, _build=_build,
+              encoder=encoder, quant_arith=quant_arith, test_data=test_data,
+              gptq=gptq, model_validator=model_validator,
+              mobilenet=mobilenet, flops=flops, cli=cli, bundles=bundles,
+              checkpoint=checkpoint, builder=builder,
+              native_packing=native_packing)
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--skip-cpu', action='store_true')
@@ -6065,37 +6558,8 @@ def main():
     print('chip_smoke: run it from a checkout of the repository.',
           file=sys.stderr)
     return 2
-  sys.path.insert(0, str(root))
-  from ai_edge_quantizer_tpu_torch import Quantizer
-  from ai_edge_quantizer_tpu_torch.algorithms.uniform import gptq
-  from ai_edge_quantizer_tpu_torch.execution import executor
-  from ai_edge_quantizer_tpu_torch.execution import model_validator
-  from ai_edge_quantizer_tpu_torch.execution import quant_arith
-  from ai_edge_quantizer_tpu_torch.graph import ir, serialize
-  from ai_edge_quantizer_tpu_torch.kernels import _build
-  from ai_edge_quantizer_tpu_torch.kernels import attention, block, cache
-  from ai_edge_quantizer_tpu_torch.kernels import head
-  from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul
-  from ai_edge_quantizer_tpu_torch.kernels import mlp, packed_qmatmul, qkv
-  from ai_edge_quantizer_tpu_torch.models import encoder, gemma, mobilenet
-  from ai_edge_quantizer_tpu_torch.ops import impl as ops_impl
-  from ai_edge_quantizer_tpu_torch.parallel import batching
-  from ai_edge_quantizer_tpu_torch.tools import attn_int4_bench
-  from ai_edge_quantizer_tpu_torch.utils import flops, progress_utils
-  from ai_edge_quantizer_tpu_torch.utils import test_data
-  if any(m == 'jax' or m.startswith(('jax.', 'ai_edge_quantizer_tpu.'))
-         or m == 'ai_edge_quantizer_tpu' for m in sys.modules):
-    raise AssertionError('the port imported jax or the JAX package')
-  port = dict(executor=executor, attention=attention, block=block,
-              cache=cache, head=head,
-              mlp=mlp, packed_qmatmul=packed_qmatmul, gemma=gemma,
-              batching=batching, ops_impl=ops_impl, ir=ir,
-              int_qmatmul=int_qmatmul, serialize=serialize, qkv=qkv,
-              Quantizer=Quantizer, progress_utils=progress_utils,
-              attn_int4_bench=attn_int4_bench, _build=_build,
-              encoder=encoder, quant_arith=quant_arith, test_data=test_data,
-              gptq=gptq, model_validator=model_validator,
-              mobilenet=mobilenet, flops=flops)
+  port = load_port(root)
+  _build, gemma = port['_build'], port['gemma']
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -6201,6 +6665,17 @@ def main():
       log(f'{name} in the {label} on {smi}: {ms:.3f} ms of device time a '
           f'chunk of {SERVE_CHUNK} ticks')
   log(f'phase quantizer done at {time.monotonic() - t_start:.1f}s')
+  io = io_phase(torch, port, kernels, 'cuda', kept)
+  io['cli'] = quant.pop('cli')
+  log(f'io on {smi}: (a) cli gemma_mixed48 ({QUANT_LAYERS["gemma_mixed48"]} '
+      f'layers) quantize {io["cli"]["quantize_s"]:.1f}s, save '
+      f'{io["cli"]["save_s"]:.1f}s, validate {io["cli"]["validate_s"]:.1f}s, '
+      f'size reduction {io["cli"]["reduced_size_percentage"]:.2f}%; (b) '
+      f'bundle cli {io["bundle_cli_s"]:.1f}s; (c) checkpoint '
+      f'{io["checkpoint_bytes"]} bytes, save {io["checkpoint_save_s"]:.2f}s, '
+      f'load {io["checkpoint_load_s"]:.2f}s; (d) control flow; packer '
+      f'{io["packer"]}; phase {io["phase_s"]:.1f}s')
+  log(f'phase io done at {time.monotonic() - t_start:.1f}s')
   srq = static_range_phase(torch, port, kernels, 'cuda', kept)
   log(f'static range on {smi}: encoder {srq["layers"]} layers, batch '
       f'{srq["batch"]}, T {srq["seq_len"]}: int8 {srq["seqs_per_s"]:.1f} '
@@ -6278,6 +6753,7 @@ def main():
         'ab_tool': entry.pop('launches_ab_tool'),
         'bench_decode_int4g': bench_launches['int4g'],
         'static_range': srq['launches'][k['name']],
+        'io': io['launches'][k['name']],
         'server_int4g': server4['launches'][k['name']],
         **{f'server_{recipe}': quant[recipe]['launches'][k['name']]
            for recipe in QUANT_RECIPES},
@@ -6331,7 +6807,7 @@ def main():
                     'bench_decode_int4g': bench4, 'server': server,
                     'server_int4g': server4, 'quantizer': quant,
                     'server_attn_modes': servers_mode, 'ab_tool': ab,
-                    'static_range': srq, 'mobilenet': mbn,
+                    'static_range': srq, 'mobilenet': mbn, 'io': io,
                     'card': smi}), flush=True)
   print(smi, flush=True)
   print(json.dumps({'ok': True, 'device': {

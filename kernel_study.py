@@ -87,6 +87,10 @@ Studies:
             branches, #17): a chunk of 8 ticks' wall and device busy time
             (torch.profiler) and the head's device time a chunk, one
             process a checkout.
+  io        chip_smoke's io_phase alone: (a) cli_quantize (the port's CLI
+            with --validate) on gemma_mixed48's float serving graph at
+            chip_smoke.QUANT_LAYERS, then (b)-(d) on the graph it made;
+            the host seconds of each step, one process a checkout.
   steps     bench.py's decode through chip_smoke.bench_decode_phase under
             --settings (default: the block on, the block off, the in-place
             writes, the norm fusion and the attention block; ms a step,
@@ -348,6 +352,31 @@ def server(torch, mods, timer):
        head_ms_a_chunk=sum(ms for name, ms in r['chunk_by_kernel'].items()
                            if 'head_' in name),
        tokens_per_s=r['tokens_per_s'])
+
+
+def io(torch, mods, timer):
+  """chip_smoke's io_phase alone, its (a) on a fresh float graph."""
+  import dataclasses
+  import tempfile
+  cs = mods['cs']
+  port = cs.load_port(pathlib.Path(cs.__file__).resolve().parent)
+  kernels = [{'name': n, 'wrapper': w} for n, w in (
+      ('qmatmul_int8_drq', mods['iq'].qmatmul_int8_drq),
+      ('qmatmul_int_weights', mods['iq'].qmatmul_int_weights),
+      ('qmatmul_int4_packed_drq', mods['pq'].qmatmul_int4_packed_drq),
+      ('mlp_int4_packed', mods['mlp'].mlp_int4_packed))]
+  cs.sync = torch.cuda.synchronize
+  cfg = dataclasses.replace(port['gemma'].GEMMA_2B,
+                            num_layers=cs.QUANT_LAYERS['gemma_mixed48'])
+  graph = cs.serving_graph(port['gemma'], cfg, cs.B, materialize=True)
+  with tempfile.TemporaryDirectory() as tmp:
+    _, quantized, cli = cs.cli_quantize(torch, port, kernels, graph,
+                                        'gemma_mixed48', tmp, 'cuda')
+  r = cs.io_phase(torch, port, kernels, 'cuda',
+                  {'gemma_mixed48': quantized, 'float': graph})
+  emit(study='io', layers=cfg.num_layers,
+       **{f'cli_{k}': v for k, v in cli.items() if k != 'outputs_mse'},
+       **{k: v for k, v in r.items() if k.endswith(('_s', '_bytes'))})
 
 
 # ------------------------------------------------------------------- #5, #4
@@ -1035,7 +1064,7 @@ LAUNCH_CASES = {'mlp': mlp_cases, 'block': block_cases,
                 'fusion': functools.partial(fusion_cases, unfused=True),
                 'prologue': prologue_cases}
 STUDIES = {'launches': launches, 'host': host, 'steps': steps,
-           'server': server, 'order': order, 'truth': truth}
+           'server': server, 'io': io, 'order': order, 'truth': truth}
 
 
 def main():
@@ -1063,9 +1092,9 @@ def main():
   from ai_edge_quantizer_tpu_torch.kernels import int_qmatmul as iq
   from ai_edge_quantizer_tpu_torch.kernels import mlp
   from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul as pq
-  # Only the studied kernels' libraries are built; the steps and the
-  # server, every one.
-  if not {'steps', 'server'} & set(args.studies):
+  # Only the studied kernels' libraries are built; the steps, the server
+  # and the I/O phase, every one.
+  if not {'steps', 'server', 'io'} & set(args.studies):
     needed = set(groups if {'times', 'variants'} & set(args.studies)
                  else ())
     if 'launches' in args.studies:

@@ -67,6 +67,16 @@ from ai_edge_quantizer_tpu_torch.models import gemma
 from test_torch_port_serving import SERVE_CFG
 from test_torch_port_slice import JAX_SERVING_ENV, MQA, shared_weights
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
 RMSNORM = pq.qmatmul_int4_packed_rmsnorm
 QKV = qkv.qkv_rope
 OPROJ = attention.decode_attention_oproj

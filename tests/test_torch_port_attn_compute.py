@@ -36,7 +36,7 @@ differences of the JAX executor off a TPU are named there, not hidden:
     f32 on the same inputs by at most MODE_VS_F32 of the largest
     magnitude, and by more than nothing.
 The splice, masked and epilogue attentions in the modes are held in
-tests/test_torch_port_attn_modes.py.
+tests/test_torch_port_attn_modes_{kernels,servers,decode}.py.
 """
 
 import numpy as np

@@ -22,6 +22,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -40,6 +41,16 @@ from test_torch_port_block import BLOCK_ENV, SMALL, _inputs as block_inputs
 from test_torch_port_serving import BENCH_KW, SERVE_CFG, SLOTS, _serve
 from test_torch_port_serving import _finished, _trace, _track
 from test_torch_port_slice import JAX_SERVING_ENV, shared_weights
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
 
 
 def _stale_recorder(monkeypatch, as_jax):

@@ -1,10 +1,13 @@
 """The bf16 and int8 compute modes of the masked (#17), splice (#8) and
-out-projection-epilogue (#19) attentions of the port, on the CPU.
+out-projection-epilogue (#19) attention kernels of the port, on the CPU
+(split from the former test_torch_port_attn_modes.py with
+test_torch_port_attn_modes_servers.py and _decode.py, so that the suite's
+workers share them).
 
-Kernels: inputs made with numpy from a seed go through the Pallas kernels
-in interpret mode, compiled with XLA's excess precision off (`_exact`),
-with `compute` set, and through the port's wrappers on CPU tensors, which
-run the plain versions. The contexts are held by the rule of
+Inputs made with numpy from a seed go through the Pallas kernels in
+interpret mode, compiled with XLA's excess precision off (`_exact`), with
+`compute` set, and through the port's wrappers on CPU tensors, which run
+the plain versions. The contexts are held by the rule of
 tests/test_torch_port_attn_compute.py (`_check_ctx`: a row within
 MODE_FINE of max(max |ctx|, 1), but at most MODE_ROWS_OFF rows within
 MODE_FLIP_STEPS steps of a flipped probability operand):
@@ -20,21 +23,8 @@ MODE_FLIP_STEPS steps of a flipped probability operand):
   * #19 `decode_attention_oproj`: DRQ and weight-only, f32 and bf16 x, by
     the rule of test_attention_oproj_matches_pallas with the context in
     the mode.
-
-Slice, against the JAX executor, whose dispatch off a TPU differs by mode
-(named here, not hidden):
-  * it runs #17 on its f32 XLA twin whatever the mode (executor.py:2047)
-    and #8 not at all (it writes by DUS and attends with the twin,
-    executor.py:1686-1692): the port's default-mode DecodeServer in each
-    mode gives the JAX server's tokens with #17 held to f32, and the
-    splice decode step the JAX executor's logits and caches with #8 held
-    to f32; run in the mode, their contexts differ from f32 on the same
-    inputs by more than nothing and at most MODE_VS_F32;
-  * it runs #19 in interpret mode in the mode (executor.py:2032-2036): the
-    attention-block decode step in each mode is held to it directly.
+The int8 mode's softmax sum does not hang on the order of its terms.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -42,27 +32,24 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from ai_edge_quantizer_tpu import Quantizer as JaxQuantizer
 from ai_edge_quantizer_tpu.kernels import pallas_attention
-from ai_edge_quantizer_tpu.models import gemma as jax_gemma
-from ai_edge_quantizer_tpu.parallel import batching as jax_batching
-from ai_edge_quantizer_tpu_torch import Quantizer
-from ai_edge_quantizer_tpu_torch.execution import executor
 from ai_edge_quantizer_tpu_torch.kernels import attention
 from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul as pq
-from ai_edge_quantizer_tpu_torch.models import gemma
-from ai_edge_quantizer_tpu_torch.parallel import batching
 
 import test_torch_port_attn_block as attn_block
 from test_torch_port_attn_compute import MODE_FINE, MODE_FLIP_STEPS
-from test_torch_port_attn_compute import MODE_VS_F32, MODES
+from test_torch_port_attn_compute import MODES
 from test_torch_port_attn_compute import _Recorder, _check_ctx, _flip_step
-from test_torch_port_cache_modes import STEPS, _assert_step_matches
-from test_torch_port_cache_modes import _decode_pair, _inputs
-from test_torch_port_cache_modes import _random_caches, _steps
-from test_torch_port_default_mode import DEFAULT_CFG, _quantized
-from test_torch_port_serving import SLOTS, _finished, _serve, _trace
-from test_torch_port_serving import _track
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
 
 _exact = attn_block._exact
 MASKED = attention.decode_attention_int8_masked
@@ -293,170 +280,12 @@ def test_attention_oproj_refuses_an_unknown_mode():
       OPROJ(_t(q[:, :, :3]), *args[1:], compute=mode)
 
 
-# -- the slice --------------------------------------------------------------------
-
-
+# Shared with test_torch_port_attn_modes_servers.py and _decode.py.
 def _record(monkeypatch, name, as_jax):
   rec = _Recorder(getattr(attention, name),
                   getattr(attention, f'{name}_plain'), as_jax)
   monkeypatch.setattr(attention, name, rec)
   return rec
-
-
-@pytest.fixture(scope='module')
-def default_jax_server():
-  """The JAX DecodeServer with no AEQT_* variable set over serve_gemma's
-  quantization of the toy serving graph (F 1024, so the MLP fuses), and
-  the port's quantization of the same graph; one JAX server for both
-  modes (it runs #17 at f32 off a TPU whatever AEQT_ATTN_COMPUTE says)."""
-  with pytest.MonkeyPatch.context() as mp:
-    for var in [v for v in os.environ if v.startswith('AEQT_')]:
-      mp.delenv(var)
-    jcfg = jax_gemma.DecoderConfig(**DEFAULT_CFG)
-    tcfg = gemma.DecoderConfig(**DEFAULT_CFG)
-    jserver = jax_batching.DecodeServer(
-        _quantized(jax_gemma, JaxQuantizer, jcfg), jcfg, SLOTS,
-        pack_weights=True, activation_dtype='float32', starvation_age_s=None)
-    jserver._executor.prepare_serving_weights(min_weight_params=0)
-    _track(jserver)
-    yield jserver, _quantized(gemma, Quantizer, tcfg), tcfg
-
-
-def _default_port_server(graph, cfg, mode):
-  server = batching.DecodeServer(
-      graph, cfg, SLOTS, pack_weights=True, activation_dtype='float32',
-      device='cpu', starvation_age_s=None,
-      executor_options={**executor.JAX_DEFAULT_OPTIONS, 'attn_compute': mode})
-  server._executor.prepare_serving_weights(min_weight_params=0)
-  _track(server)
-  return server
-
-
-@pytest.mark.parametrize('mode', MODES)
-def test_default_mode_server_matches_jax_with_masked_at_f32(
-    mode, default_jax_server, monkeypatch):
-  """The port's default-mode server in the mode, its ticks' masked
-  attention held to f32 (the JAX executor's twin off a TPU): the JAX
-  server's tokens. The executor asked for the mode at every call."""
-  jserver, graph, cfg = default_jax_server
-  tserver = _default_port_server(graph, cfg, mode)
-  assert tserver._executor.attn_compute == mode
-  rec = _record(monkeypatch, 'decode_attention_int8_masked', as_jax=True)
-  trace = _trace(cfg, seed=len(mode))
-  jids = _serve(jserver, trace, 0)
-  tids = _serve(tserver, trace, 0)
-  assert rec.modes and set(rec.modes) == {mode}
-  got, want = _finished(tserver, tids), _finished(jserver, jids)
-  assert [got[r] for r in tids] == [want[r] for r in jids]
-  for rid, (_, n) in zip(tids, trace):
-    assert got[rid][0] == 'done' and len(got[rid][1]) == n
-
-
-@pytest.mark.parametrize('mode', MODES)
-def test_default_mode_server_ticks_differ_from_f32_within_bound(
-    mode, default_jax_server, monkeypatch):
-  """The named difference: the ticks' masked attention runs in the mode,
-  one call a layer a tick; on its inputs its context differs from f32 by
-  more than nothing and at most MODE_VS_F32. Every request ends done with
-  its tokens in range."""
-  _, graph, cfg = default_jax_server
-  tserver = _default_port_server(graph, cfg, mode)
-  rec = _record(monkeypatch, 'decode_attention_int8_masked', as_jax=False)
-  trace = _trace(cfg, seed=5)
-  tids = _serve(tserver, trace, 4)
-  got = _finished(tserver, tids)
-  for rid, (_, n) in zip(tids, trace):
-    status, tokens = got[rid]
-    assert status == 'done' and len(tokens) == n
-    assert min(tokens) >= 0 and max(tokens) < cfg.vocab_size
-  assert len(rec.pairs) == cfg.num_layers * tserver.metrics['decode_ticks']
-  diff = rec.largest_rel_diff()
-  assert 0 < diff <= MODE_VS_F32[mode], diff
-
-
-SPLICE_ENV = {'AEQT_ATTN_WRITEBACK': '1',
-              'AEQT_ATTN_WRITEBACK_MODE': 'splice'}
-
-
-@pytest.mark.parametrize('mode', MODES)
-def test_splice_decode_mode_matches_jax_with_splice_at_f32(mode,
-                                                           monkeypatch):
-  """bench.py's decode graph with attn_writeback='splice' in the mode
-  against AEQT_ATTN_WRITEBACK_MODE=splice with AEQT_ATTN_COMPUTE set: with
-  the splice held to f32 (the JAX executor writes by DUS and attends with
-  its f32 twin off a TPU) the logits and caches of STEPS steps, one splice
-  call a layer a step, into the step's input pools. Then the splice in
-  the mode on a step of random caches (lengths 51, 20, 1 and 0): its
-  context differs from f32 on the same inputs by more than nothing and
-  at most MODE_VS_F32."""
-  cfg, jgraph, jex, tex = _decode_pair(
-      monkeypatch, dict(SPLICE_ENV, AEQT_ATTN_COMPUTE=mode),
-      {'attn_writeback': 'splice', 'attn_compute': mode})
-  rec = _record(monkeypatch, 'decode_attention_int8_lengths_writeback',
-                as_jax=True)
-  for step, jout, tout, tin in _steps(cfg, jgraph, jex, tex):
-    _assert_step_matches(jout, tout, step)
-    for li in range(cfg.num_layers):
-      key = f'layer_{li}_k_cache'
-      assert tout[key] is tin[f'{key}_in']
-  assert rec.modes == [mode] * (STEPS * cfg.num_layers)
-  rec.as_jax = False
-  feed = dict(_random_caches(cfg, 7), **_inputs(cfg, 50, [51, 20, 1, 0], 7))
-  tex({k: _t(v) for k, v in feed.items()}, 'decode')
-  assert len(rec.pairs) == cfg.num_layers
-  diff = rec.largest_rel_diff()
-  assert 0 < diff <= MODE_VS_F32[mode], diff
-
-
-@pytest.mark.parametrize('dtype,drq', [('float32', True),
-                                       ('bfloat16', False)])
-@pytest.mark.parametrize('mode', MODES)
-def test_attn_block_decode_mode_matches_jax(mode, dtype, drq, monkeypatch):
-  """bench.py's decode graph with the attention block (SERVE_CFG: every
-  layer's prologue and epilogue) in the mode against AEQT_ATTN_BLOCK=1
-  with AEQT_ATTN_COMPUTE set, the JAX executor running #19 in interpret
-  mode in the mode (compiled with excess precision off): two decode steps
-  from position 37 over random caches, logits within STEP_TOL, ids where
-  the JAX top-2 margin is clear, cache codes within one step; each
-  epilogue ran its plain version once a step, in the mode."""
-  setting = f'attn_block_{mode}'
-  monkeypatch.setitem(attn_block.SETTINGS, setting, (
-      {'AEQT_ATTN_BLOCK': '1', 'AEQT_ATTN_COMPUTE': mode},
-      {'attn_block': True, 'attn_compute': mode}))
-  attn_block._patch_exact(monkeypatch)
-  cfg, jgraph, jex, tex = attn_block._pair(monkeypatch, 'mqa128', setting,
-                                           drq=drq, dtype=dtype)
-  assert tex.attn_compute == mode
-  sig = jgraph.signature_by_key('decode')
-  caches = attn_block._random_caches(cfg, 1)
-  before = OPROJ.plain_calls
-  rtol, codes = attn_block.STEP_TOL[dtype]
-  for step in range(attn_block.STEPS):
-    feed = dict(caches, **attn_block._inputs(cfg, 37 + step, step))
-    jout = jex._run_signature(sig.subgraph_index, 'decode', False,
-                              jex._weights,
-                              {k: jnp.asarray(v) for k, v in feed.items()})
-    tout = tex({k: _t(v) for k, v in feed.items()}, 'decode')
-    want = _as_f32(jout['logits'])
-    got = tout['logits'].float().numpy()
-    atol = rtol * float(np.abs(want).max())
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
-                               err_msg=f'step {step}')
-    top2 = np.sort(want.reshape(attn_block.BATCH, -1), axis=-1)[:, -2:]
-    clear = top2[:, 1] - top2[:, 0] > 2 * (atol + rtol * top2[:, 1])
-    ids = (got.reshape(attn_block.BATCH, -1).argmax(-1),
-           want.reshape(attn_block.BATCH, -1).argmax(-1))
-    assert np.array_equal(ids[0][clear], ids[1][clear]), step
-    for key, val in tout.items():
-      if key.endswith('_cache'):
-        diff = np.abs(val.numpy().astype(np.int32)
-                      - np.asarray(jout[key]).astype(np.int32))
-        assert diff.max() <= codes, (key, step)
-    caches = {f'{k}_in': np.asarray(jout[k]) for k in jout
-              if k.endswith('_cache')}
-  epilogues = len(attn_block._units(tex)['epilogue'])
-  assert epilogues == cfg.num_layers
-  assert OPROJ.plain_calls - before == attn_block.STEPS * epilogues
 
 
 @pytest.mark.parametrize('seed', [0, 1, 2])

@@ -53,6 +53,16 @@ from test_torch_port_serving import BENCH_KW, SERVE_CFG, SLOTS
 from test_torch_port_serving import _finished, _metrics, _serve, _trace
 from test_torch_port_serving import _track
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
 MASKED = attention.decode_attention_int8_masked
 
 

@@ -73,6 +73,16 @@ from test_torch_port_serving import _finished, _metrics, _serve, _trace
 from test_torch_port_serving import _track
 from test_torch_port_slice import JAX_SERVING_ENV
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
 KBLOCK = pq.qmatmul_int4_packed_drq_kblock
 WO = pq.qmatmul_int4_packed
 BLOCKWISE = pq.qmatmul_int4_packed_blockwise

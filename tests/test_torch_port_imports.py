@@ -44,21 +44,53 @@ def test_port_imports_no_jax():
                'pipeline.params_generator', 'pipeline.model_modifier',
                'utils.progress_utils', 'tools', 'tools.attn_int4_bench',
                'models.mobilenet', 'utils.flops',
-               'utils.constrained_ops_utils', 'utils.test_utils'):
+               'utils.constrained_ops_utils', 'utils.test_utils', 'cli',
+               'graph.tflite_import', 'graph.litertlm', 'graph.checkpoint',
+               'graph.torch_import', 'models.bundles',
+               'utils.native_packing'):
     assert f'ai_edge_quantizer_tpu_torch.{name}' in modules
   code = (
       'import importlib, sys\n'
       f'for m in {modules!r}:\n'
       '  importlib.import_module(m)\n'
       'bad = sorted(m for m in sys.modules if m in ("jax", "ml_dtypes", '
-      '"ai_edge_quantizer_tpu") or m.startswith(("jax.", "ml_dtypes.", '
-      '"ai_edge_quantizer_tpu.")))\n'
+      '"ai_edge_quantizer_tpu", "orbax", "tensorflow") or m.startswith(('
+      '"jax.", "ml_dtypes.", "ai_edge_quantizer_tpu.", "orbax.", '
+      '"tensorflow.")))\n'
       'print(bad)\n'
       'assert not bad, bad\n')
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        env=_clean_env(), capture_output=True, text=True,
                        timeout=300)
   assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_tflite_import_loads_tensorflow_only_when_called(monkeypatch):
+  """Importing graph.tflite_import loads neither tensorflow nor ml_dtypes
+  (a clean process); a call without tensorflow's schema raises the JAX
+  package's ImportError."""
+  code = (
+      'import sys\n'
+      'from ai_edge_quantizer_tpu_torch.graph import tflite_import\n'
+      'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+      '("tensorflow", "ml_dtypes"))\n'
+      'assert not bad, bad\n')
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=300)
+  assert out.returncode == 0, out.stderr + out.stdout
+  from ai_edge_quantizer_tpu_torch.graph import tflite_import
+  # As if tensorflow were absent, whether or not this process loaded it.
+  monkeypatch.setitem(sys.modules, 'tensorflow.lite.python', None)
+  with pytest.raises(ImportError, match='requires tensorflow'):
+    tflite_import.load_tflite(b'\0\0\0\0TFL3')
+
+
+def test_cli_defaults_to_cuda():
+  from ai_edge_quantizer_tpu_torch import cli
+  args = cli.build_arg_parser().parse_args(['--model_file', 'm.aeqg',
+                                            '--recipe', 'r'])
+  assert args.device == cli.DEFAULT_DEVICE == 'cuda'
 
 
 def test_ab_tool_runs_without_jax():

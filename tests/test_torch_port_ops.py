@@ -109,7 +109,8 @@ INT4G_OPCODES = {'INT4G_ATTENTION', 'INT4G_ATTENTION_SCATTER'}
 
 
 def test_registry_covers_the_decode_graph():
-  # The rest of the vocabulary is held in tests/test_torch_port_opset.py.
-  from test_torch_port_opset import OPCODES
+  # The rest of the vocabulary is held in tests/test_torch_port_opset.py,
+  # the composite in tests/test_torch_port_control_flow.py.
+  from test_torch_port_opset import COMPOSITE, OPCODES
   assert set(CASES) | INT4G_OPCODES <= set(impl.OPS)
-  assert set(impl.OPS) == set(CASES) | INT4G_OPCODES | OPCODES
+  assert set(impl.OPS) == set(CASES) | INT4G_OPCODES | OPCODES | COMPOSITE

@@ -338,9 +338,10 @@ def _build_cases():
 
 
 CASES = _build_cases()
-# STABLEHLO_COMPOSITE's impl only raises in the JAX package: the executor
-# runs a composite through its body subgraph (not ported yet).
-NOT_PORTED = {'STABLEHLO_COMPOSITE'}
+# STABLEHLO_COMPOSITE's impl only raises in both packages: the executors
+# run a composite through its body subgraph
+# (tests/test_torch_port_control_flow.py).
+COMPOSITE = {'STABLEHLO_COMPOSITE'}
 # The opcodes this file holds (the rest of the vocabulary is in
 # tests/test_torch_port_ops.py).
 OPCODES = {case.opcode for case in CASES.values()}
@@ -408,9 +409,11 @@ def test_op_matches_jax_executor(key):
 
 
 def test_vocabulary_is_the_jax_packages():
-  """Every JAX opcode but the composite is registered in the port, and
-  this file holds the 51 that the decode and encoder paths do not use."""
-  assert set(impl.OPS) == set(jax_impl.OPS) - NOT_PORTED
+  """Every JAX opcode is registered in the port, and this file holds the
+  51 that the decode and encoder paths do not use (the composite is held
+  through its body subgraph elsewhere)."""
+  assert set(impl.OPS) == set(jax_impl.OPS)
+  assert not OPCODES & COMPOSITE
   assert len(OPCODES) == 51
   assert OPCODES <= set(impl.OPS)
 

@@ -31,6 +31,7 @@ from ai_edge_quantizer_tpu_torch.algorithms.uniform import quant_numerics
 from ai_edge_quantizer_tpu_torch.execution import executor
 from ai_edge_quantizer_tpu_torch.graph import ir
 from ai_edge_quantizer_tpu_torch.graph import serialize
+from ai_edge_quantizer_tpu_torch.graph import tflite_import
 from ai_edge_quantizer_tpu_torch.models import gemma
 from ai_edge_quantizer_tpu_torch.recipe import recipe_utils
 from ai_edge_quantizer_tpu_torch.utils import progress_utils
@@ -162,7 +163,7 @@ def test_quantized_graph_and_aeqg_match_jax(recipe, model, aeqg_dir):
   assert graph_record(jax_serialize.load_graph(tpath)) == loaded
 
 
-def test_save_writes_model_and_recipe(tmp_path):
+def test_save_writes_model_and_recipe(tmp_path, monkeypatch):
   jgraph, tgraph = _float_pair('two_layer_mlp')
   JaxQuantizer(jgraph, 'gemma_mixed48').quantize().save(
       str(tmp_path / 'jax'), 'm')
@@ -181,8 +182,14 @@ def test_save_writes_model_and_recipe(tmp_path):
   for source in (path, data):
     assert graph_record(Quantizer(source).float_model) == graph_record(
         result.quantized_model)
-  with pytest.raises(NotImplementedError, match='tflite_import'):
-    serialize.load_model('model.tflite')
+  # A .tflite path and TFLite bytes go to the port's TFLite importer
+  # (held against the JAX package's in tests/test_torch_port_tflite.py).
+  seen = []
+  monkeypatch.setattr(tflite_import, 'load_tflite',
+                      lambda model: seen.append(model) or 'imported')
+  assert serialize.load_model('model.tflite') == 'imported'
+  assert serialize.load_model(b'\0\0\0\0TFL3') == 'imported'
+  assert seen == ['model.tflite', b'\0\0\0\0TFL3']
 
 
 def test_named_recipes_resolve_as_in_jax():

@@ -36,6 +36,16 @@ from ai_edge_quantizer_tpu_torch.parallel import batching
 from test_torch_port_slice import JAX_SERVING_ENV, MQA, _graph_signature
 from test_torch_port_slice import shared_weights
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
 SLOTS = 4
 # test_torch_port_slice's MQA config with head dim and cache length 128:
 # the JAX executor's gate (H and S multiples of 128) then sends attention to

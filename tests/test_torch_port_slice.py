@@ -32,6 +32,16 @@ from ai_edge_quantizer_tpu_torch.kernels import attention, head, mlp
 from ai_edge_quantizer_tpu_torch.kernels import packed_qmatmul
 from ai_edge_quantizer_tpu_torch.models import gemma
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+  """One torch thread for this file: under parallel test workers, torch's
+  default of a thread a core oversubscribes the cores."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
 STEPS = 8
 BATCH = 4
 # MQA like Gemma (one KV head); every FC packs (N % 128 == 0) and the MLP
